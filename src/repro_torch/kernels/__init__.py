@@ -1,0 +1,31 @@
+"""The port's hand-written Hopper kernels, one module each, beside their
+plain PyTorch versions.
+
+Each public wrapper counts its launches in an integer attribute
+``launches`` that it increments only where it launches its kernel; a run
+reads :func:`launch_counts` to show that the main path went through the
+kernels.
+"""
+
+from repro_torch.kernels import flash_attention, gelu_lut, moe_gemm, \
+    unified_linear
+
+#: kernel name -> public wrapper
+KERNELS = {
+    "unified_linear": unified_linear.unified_linear,
+    "flash_attention": flash_attention.flash_attention,
+    "gelu_lut": gelu_lut.lut_activation,
+    "moe_gemm": moe_gemm.moe_gemm,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
