@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of M³ViT on one NVIDIA Hopper card (H100).
+"""Drive the PyTorch/CUDA port on one NVIDIA Hopper card (H100): M³ViT
+serving through the kernels and through the fused MoE kernel, and
+Llama-3.2-1B prefill + decode serving.
 
     python3 chip_smoke.py
 
@@ -9,17 +11,14 @@ Phases, each printing its lines:
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
    with ``nvcc`` for ``sm_90a`` (into ``build/``), with ptxas' register and
    spill report.
-2. Each of the four kernels against its plain PyTorch version on the card:
-   at the main path's shapes (B = 8 images) in bf16 and in float32, and at
-   one ragged case; the max error beside the stated tolerance
-   (``repro_torch.kernels.compare``), then the kernel's, the plain
-   version's and one library call's device time (CUDA events around
-   replays of a CUDA graph of 10 calls, median of 20 after warm-up; the
-   library calls ``torch.matmul``, SDPA and ``torch.bmm`` are yardsticks
-   only), then the least time the card could take: the larger of the
-   bytes moved (each input read once, each output written once) at
-   3.35 TB/s and the operations at the peak rate for the type (989 TFLOP/s
-   bf16, 67 TFLOP/s float32).
+2. Each of the six kernels against its plain PyTorch version on the card,
+   on made-up inputs: at the main paths' shapes (M³ViT at B = 8; the
+   Llama-3.2-1B projections at M = 8 and M = 1024 and its causal GQA
+   prefill attention; decode at B = 8, Smax 512, lengths spread over
+   [0, 512], window unset and set) in bf16 and in float32, and at ragged
+   cases (odd sizes, empty queues, dropped slots, a zero cache length);
+   the max error beside the stated tolerance
+   (``repro_torch.kernels.compare``).
 3. The main path: an ``M3ViTServer`` at the full 12-layer ``CONFIG`` in
    bf16 under the ``cuda`` policy, with seeded random weights, answers 16
    requests (8 semseg, 8 depth) in batches of 8.  Output shapes and
@@ -28,7 +27,46 @@ Phases, each printing its lines:
    policy on the card.  Every kernel's launch count over the 16 requests
    must be > 0 and the dispatch report must show the kernels hit on the
    card.  Then each task's batch is timed: the median host wall time of 5
-   calls (``repro_torch.serve.profile.wall_per_batch``).
+   calls (``repro_torch.serve.profile.wall_per_batch``).  The same 16
+   requests are then served under ``cuda`` with ``moe_ffn="cuda_fused"``:
+   cosine >= 0.999 against the plain policy, ``moe_fused`` launched 6 times
+   per forward, ``moe_gemm`` and ``gelu_lut`` not at all; timed the same
+   way.
+4. The LM path: a ``ServingEngine`` at the full Llama-3.2-1B ``CONFIG``
+   (16 layers, bf16, seeded random weights, ``max_len`` 512) under ``cuda``
+   with ``attention_decode="cuda_fused"`` generates 32 greedy tokens for
+   8 prompts of 128 tokens.  ``unified_linear`` and ``flash_attention``
+   must launch and ``decode_fused`` 16 times per decode step, all hits on
+   the card; then the prefill and every decode step are replayed,
+   teacher-forced on the generated tokens, under the kernel policy (whose
+   argmax must give back the generated tokens) and under the plain
+   ``eager`` policy on the card, with cosine >= 0.999 between the two
+   logits at every step.  Prefill ms, ms per decode step and tokens/s.
+5. The kernels at the main paths' own inputs.  Beside each counted run of
+   phases 3 and 4 an uncounted twin (one more forward of each task; the
+   teacher-forced replay of the prefill and the 32 decode steps) records
+   the arguments of every kernel launch.  Each distinct recorded launch
+   (by shape and data) is held against its plain version and timed alone
+   (a CUDA graph of 10 calls on the same operands, which stay warm in L2;
+   CUDA events, median of 20 replays after warm-up).  Then each recorded
+   run's launches are replayed in their recorded order, as one CUDA graph,
+   so every launch meets its own operands as in the path: the kernels,
+   the plain versions, and one library call for each (``torch.matmul``,
+   SDPA, ``torch.bmm``; yardsticks only) — ``moe_fused`` has no single
+   library call, and beside it the staged ``cuda`` path (dispatch, 2 ×
+   ``moe_gemm``, ``gelu_lut``, combine) is replayed on the same routing.
+   The least time the card could take is the larger of the bytes moved
+   (each input read once, each output written once) at 3.35 TB/s and the
+   operations at the peak rate for the type (989 TFLOP/s bf16, 67 TFLOP/s
+   float32), counting the work this run's data needs (live queue rows,
+   visible keys), summed over the launches.
+
+Each main-path run sets every launch count to 0 just before it and reads
+them just after; a kernel's ``launches`` in the JSON line is the sum over
+those runs.  The recorded launches must match the counted ones kernel by
+kernel, and a kernel's times and bound in the JSON line cover exactly
+those launches (in-order replays; ``alone_ms`` sums the launches timed
+alone), with a breakdown (``units``) per recorded twin.
 
 The plain versions run in full float32: TF32 is switched off for matmuls
 and for cuDNN before anything runs.  Any failed check raises; the last two
@@ -37,16 +75,19 @@ lines are the kernels' JSON record and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
 import subprocess
 import sys
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -62,7 +103,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:40",
     "gelu_lut": "src/repro/kernels/gelu_lut.py:28",
     "moe_gemm": "src/repro/kernels/moe_gemm.py:33",
+    "moe_fused": "src/repro/kernels/moe_fused.py:60",
+    "decode_fused": "src/repro/kernels/decode_fused.py:43",
 }
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+CUDA_PATH_KERNELS = ("unified_linear", "flash_attention", "gelu_lut",
+                     "moe_gemm")
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 128, 32, 512
 
 
 def time_ms(fn, reps: int = 20, calls: int = 10) -> float:
@@ -107,176 +154,130 @@ def randn(shape, dtype, scale=1.0, seed=0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-class KernelCheck:
-    """One kernel's checks and timings; ``record`` is its JSON entry,
-    summed over the launches of one semseg forward at B = 8."""
+def _dt(t) -> str:
+    return str(t.dtype)[6:]
 
-    def __init__(self, name: str, source: str):
-        self.name, self.source = name, source
-        self.max_err = 0.0
-        self.ms = self.plain_ms = self.bound = 0.0
-        self.library_ms: float | None = None
-        self.bytes_ms = self.ops_ms = 0.0
 
-    def check(self, label, got, want, dtype, **kw):
-        from repro_torch.kernels.compare import (max_abs_err,
-                                                 within_tolerance)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        ok = within_tolerance(got, want, dtype, **kw)
-        rule = ("float32 1e-5+1e-5|ref|" if dtype == torch.float32
-                else "1 bf16 ulp + float32 tol")
-        if kw.get("lut_pre") is not None:
-            rule += " (+1 table step at LUT index ties)"
-        print(f"  {self.name} {label}: max_abs_err {err:.3e} "
-              f"tolerance {rule}: {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{self.name} {label}: kernel disagrees "
-                                 f"with its plain version (max err {err})")
-        return err
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    def timed(self, label, kernel, plain, library, nbytes, flops, dtype,
-              per_forward: int, main: bool):
-        ms, pms = time_ms(kernel), time_ms(plain)
-        lms = time_ms(library) if library is not None else None
-        t_bytes, t_ops = bound_ms(nbytes, flops, dtype)
-        b, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                      else "operations")
-        print(f"  {self.name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} "
-              f"ms, library {'%.4f ms' % lms if lms is not None else 'n/a'},"
-              f" bound {b:.4f} ms ({by}); {per_forward} launch(es) per "
-              f"semseg forward")
-        if main:
-            self.ms += per_forward * ms
-            self.plain_ms += per_forward * pms
-            self.bound += per_forward * b
-            if lms is not None:
-                self.library_ms = (self.library_ms or 0.0) + per_forward * lms
-            self.bytes_ms += per_forward * t_bytes
-            self.ops_ms += per_forward * t_ops
 
-    def record(self, launches: int) -> dict:
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": REPLACES[self.name], "launches": launches,
-                "max_abs_err": self.max_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound,
-                "bound_by": ("bytes" if self.bytes_ms >= self.ops_ms
-                             else "operations"),
-                "library_ms": self.library_ms,
-                "per": f"one semseg forward at B={BATCH} (bf16)"}
+def check(name, label, got, want, dtype, **kw) -> float:
+    """Hold a kernel's output against its plain version's under the stated
+    tolerance; raises on disagreement, returns the max abs error."""
+    from repro_torch.kernels.compare import max_abs_err, within_tolerance
+
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    ok = within_tolerance(got, want, dtype, **kw)
+    rule = ("float32 1e-5+1e-5|ref|" if dtype == torch.float32
+            else "1 bf16 ulp + float32 tol")
+    if kw.get("lut_pre") is not None:
+        rule += " (+1 table step at LUT index ties)"
+    if kw.get("extra") is not None:
+        rule += " (+ LUT index ties carried through w2)"
+    print(f"  {name} {label}: max_abs_err {err:.3e} tolerance {rule}: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label}: kernel disagrees with its "
+                             f"plain version (max err {err})")
+    return err
+
+
+def check_exact(name, label, got, want) -> float:
+    torch.cuda.synchronize()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same.all()):
+        raise AssertionError(f"{name} {label}: not bit-exact")
+    print(f"  {name} {label}: max_abs_err 0.000e+00 tolerance bit-exact: ok")
+    return 0.0
 
 
 # ------------------------------------------------------------ phase 2
 
 
-def check_unified_linear() -> KernelCheck:
+def check_unified_linear() -> None:
     from repro_torch.kernels import unified_linear as kul
 
-    kc = KernelCheck("unified_linear", "src/repro_torch/csrc/unified_linear.cu")
-    # (label, K, N, bias, activation, use_lut, launches per semseg forward)
-    shapes = [("patch_embed", 768, 192, True, None, False, 1),
-              ("qkvo", 192, 192, False, None, False, 48),
-              ("mlp_up_gelu_lut", 192, 768, True, "gelu", True, 6),
-              ("mlp_down", 768, 192, True, None, False, 6),
-              ("semseg_head", 192, 4864, True, None, False, 1),
-              ("depth_head", 192, 256, True, None, False, 0)]
+    # (label, M, K, N, bias, activation, LUT): M3ViT at B = 8, then the
+    # Llama-3.2-1B projections at decode (M = 8) and prefill (M = 1024)
+    shapes = [("patch_embed", TOKENS, 768, 192, True, None, False),
+              ("qkvo", TOKENS, 192, 192, False, None, False),
+              ("mlp_up_gelu_lut", TOKENS, 192, 768, True, "gelu", True),
+              ("mlp_down", TOKENS, 768, 192, True, None, False),
+              ("semseg_head", TOKENS, 192, 4864, True, None, False),
+              ("depth_head", TOKENS, 192, 256, True, None, False)]
+    for m in (LM_BATCH, LM_BATCH * LM_PROMPT):
+        shapes += [("lm_q_o", m, 2048, 2048, False, None, False),
+                   ("lm_k_v", m, 2048, 512, False, None, False),
+                   ("lm_gate_silu_lut", m, 2048, 8192, False, "silu", True),
+                   ("lm_up", m, 2048, 8192, False, None, False),
+                   ("lm_down", m, 8192, 2048, False, None, False)]
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (label, k, n, has_b, act, lut, per) in enumerate(shapes):
-            x = randn((TOKENS, k), dtype, seed=10 + i)
-            w = randn((k, n), dtype, 1.0 / math.sqrt(k), seed=20 + i)
-            b = randn((n,), torch.float32, 0.1, seed=30 + i) if has_b else None
+        for i, (label, m, k, n, has_b, act, lut) in enumerate(shapes):
+            x = randn((m, k), dtype, seed=100 + i)
+            w = randn((k, n), dtype, 1.0 / math.sqrt(k), seed=200 + i)
+            b = randn((n,), torch.float32, 0.1, seed=300 + i) if has_b \
+                else None
             got = kul.unified_linear(x, w, b, activation=act, use_lut=lut)
             want = kul.unified_linear_plain(x, w, b, activation=act,
                                             use_lut=lut)
             pre = kul.unified_linear_plain(x, w, b) if lut else None
-            tag = f"{label} M={TOKENS} K={k} N={n} {str(dtype)[6:]}"
-            err = kc.check(tag, got, want, dtype, lut_pre=pre)
-            s = x.element_size()
-            nbytes = (TOKENS * k + k * n + TOKENS * n) * s \
-                + (4 * n if has_b else 0) + (8192 if lut else 0)
-            kc.timed(tag,
-                     lambda: kul.unified_linear(x, w, b, activation=act,
-                                                use_lut=lut),
-                     lambda: kul.unified_linear_plain(x, w, b,
-                                                      activation=act,
-                                                      use_lut=lut),
-                     lambda: torch.matmul(x, w), nbytes,
-                     2.0 * TOKENS * n * k, dtype, per,
-                     main=dtype == torch.bfloat16)
-            if dtype == torch.bfloat16:
-                kc.max_err = max(kc.max_err, err)
+            check("unified_linear", f"{label} M={m} K={k} N={n} "
+                  f"{_dt(x)}", got, want, dtype, lut_pre=pre,
+                  kind=act or "gelu")
     # ragged: odd M, K, N; SiLU through the LUT epilogue; float32
     x = randn((1000, 190), torch.float32, seed=40)
     w = randn((190, 770), torch.float32, 0.07, seed=41)
     b = randn((770,), torch.float32, 0.1, seed=42)
     got = kul.unified_linear(x, w, b, activation="silu", use_lut=True)
     want = kul.unified_linear_plain(x, w, b, activation="silu", use_lut=True)
-    kc.check("ragged M=1000 K=190 N=770 silu-lut float32", got, want,
-             torch.float32, lut_pre=kul.unified_linear_plain(x, w, b),
-             kind="silu")
+    check("unified_linear", "ragged M=1000 K=190 N=770 silu-lut float32",
+          got, want, torch.float32, lut_pre=kul.unified_linear_plain(x, w, b),
+          kind="silu")
     x16 = randn((77, 33), torch.bfloat16, seed=43)
     w16 = randn((33, 129), torch.bfloat16, 0.2, seed=44)
-    kc.check("ragged M=77 K=33 N=129 erf-gelu bf16",
-             kul.unified_linear(x16, w16, b[:129], activation="gelu"),
-             kul.unified_linear_plain(x16, w16, b[:129], activation="gelu"),
-             torch.bfloat16)
-    return kc
+    check("unified_linear", "ragged M=77 K=33 N=129 erf-gelu bf16",
+          kul.unified_linear(x16, w16, b[:129], activation="gelu"),
+          kul.unified_linear_plain(x16, w16, b[:129], activation="gelu"),
+          torch.bfloat16)
 
 
-def check_flash_attention() -> KernelCheck:
+def check_flash_attention() -> None:
     from repro_torch.kernels import flash_attention as kfa
 
-    kc = KernelCheck("flash_attention",
-                     "src/repro_torch/csrc/flash_attention.cu")
-    shape = (BATCH, 3, 128, 64)
+    # (label, q shape, k/v shape, masking): M3ViT self-attention, then the
+    # Llama-3.2-1B prefill — causal GQA 32/8 against the whole cache
+    cases = [("M3ViT", (BATCH, 3, 128, 64), (BATCH, 3, 128, 64),
+              dict(causal=False)),
+             ("Llama-3.2-1B prefill", (LM_BATCH, 32, LM_PROMPT, 64),
+              (LM_BATCH, 8, LM_MAX_LEN, 64), dict(causal=True, q_offset=0))]
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (randn(shape, dtype, seed=s) for s in (1, 2, 3))
-        tag = f"main B={BATCH} H=3 S=128 D=64 non-causal {str(dtype)[6:]}"
-        err = kc.check(tag, kfa.flash_attention(q, k, v, causal=False),
-                       kfa.flash_attention_plain(q, k, v, causal=False),
-                       dtype)
-        b_, h, s, d = shape
-        kc.timed(tag,
-                 lambda: kfa.flash_attention(q, k, v, causal=False),
-                 lambda: kfa.flash_attention_plain(q, k, v, causal=False),
-                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                     q, k, v, scale=1.0 / math.sqrt(d)),
-                 4 * b_ * h * s * d * q.element_size(),
-                 4.0 * b_ * h * s * s * d, dtype, 12,
-                 main=dtype == torch.bfloat16)
-        if dtype == torch.bfloat16:
-            kc.max_err = max(kc.max_err, err)
+        for label, qs, ks, kw in cases:
+            q = randn(qs, dtype, seed=1)
+            k, v = randn(ks, dtype, seed=2), randn(ks, dtype, seed=3)
+            check("flash_attention", f"{label} q {qs} k/v {ks} {kw} "
+                  f"{_dt(q)}", kfa.flash_attention(q, k, v, **kw),
+                  kfa.flash_attention_plain(q, k, v, **kw), dtype)
     # ragged: GQA 6/2, Sq 77 vs Skv 100, head_dim 48, causal + window +
     # q_offset
     q = randn((2, 6, 77, 48), torch.bfloat16, seed=4)
     k = randn((2, 2, 100, 48), torch.bfloat16, seed=5)
     v = randn((2, 2, 100, 48), torch.bfloat16, seed=6)
     kw = dict(causal=True, window=24, q_offset=23)
-    kc.check("ragged GQA 6/2 Sq=77 Skv=100 D=48 causal window=24 "
-             "q_offset=23 bf16", kfa.flash_attention(q, k, v, **kw),
-             kfa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
-    return kc
+    check("flash_attention", "ragged GQA 6/2 Sq=77 Skv=100 D=48 causal "
+          "window=24 q_offset=23 bf16", kfa.flash_attention(q, k, v, **kw),
+          kfa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
 
 
-def check_gelu_lut() -> KernelCheck:
+def check_gelu_lut() -> None:
     from repro_torch.kernels import gelu_lut as kgl
 
-    kc = KernelCheck("gelu_lut", "src/repro_torch/csrc/gelu_lut.cu")
-    shape = (BATCH, 16, 68, 768)     # MoE hidden after + b1, float32
+    shape = (BATCH, 16, 68, 768)     # MoE hidden after + b1
     for dtype in (torch.float32, torch.bfloat16):
         x = randn(shape, dtype, 3.0, seed=7)
-        tag = f"main G={BATCH} E=16 C=68 F=768 {str(dtype)[6:]} (bit-exact)"
-        got, want = kgl.lut_activation(x), kgl.lut_activation_plain(x)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"gelu_lut {tag}: not bit-exact")
-        print(f"  gelu_lut {tag}: max_abs_err 0.000e+00 tolerance "
-              "bit-exact: ok")
-        n = x.numel()
-        kc.timed(tag, lambda: kgl.lut_activation(x),
-                 lambda: kgl.lut_activation_plain(x), None,
-                 2 * n * x.element_size() + 8192, 10.0 * n, torch.float32,
-                 6, main=dtype == torch.float32)
+        check_exact("gelu_lut", f"G={BATCH} E=16 C=68 F=768 {_dt(x)}",
+                    kgl.lut_activation(x), kgl.lut_activation_plain(x))
     # ragged: odd length with ±inf, NaN, values past the table, exact
     # index half-steps (half-to-even rounding)
     x = randn((1_000_003,), torch.float32, 4.0, seed=8)
@@ -284,52 +285,35 @@ def check_gelu_lut() -> KernelCheck:
         [math.inf, -math.inf, math.nan, 0.0, -0.0, 8.0, -8.0, 9.5, 1e30,
          -1e30] + [(i + 0.5) / 256 for i in range(64)], device="cuda")
     x[:special.numel()] = special
-    got, want = kgl.lut_activation(x, "silu"), kgl.lut_activation_plain(
-        x, "silu")
-    torch.cuda.synchronize()
-    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    if not bool(same.all()):
-        raise AssertionError("gelu_lut ragged: not bit-exact")
-    print("  gelu_lut ragged n=1000003 silu float32 with inf/nan/past-table/"
-          "half-steps: max_abs_err 0.000e+00 tolerance bit-exact: ok")
-    return kc
+    check_exact("gelu_lut", "ragged n=1000003 silu float32 with inf/nan/"
+                "past-table/half-steps", kgl.lut_activation(x, "silu"),
+                kgl.lut_activation_plain(x, "silu"))
 
 
-def check_moe_gemm() -> KernelCheck:
+def _zero_tails(name, got, sizes):
+    keep = torch.arange(got.shape[-2], device=got.device)[None, None, :,
+                                                          None] \
+        < sizes[:, :, None, None]
+    if bool((got.masked_select(~keep) != 0).any()):
+        raise AssertionError(f"{name}: rows past a queue not zero")
+
+
+def check_moe_gemm() -> None:
     from repro_torch.core import routing as R
     from repro_torch.kernels import moe_gemm as kmg
 
-    kc = KernelCheck("moe_gemm", "src/repro_torch/csrc/moe_gemm.cu")
-    # queue lengths from real top-4 routing of 8 groups x 128 tokens
+    # queue lengths from top-4 routing of random logits, 8 groups x 128
     logits = randn((BATCH, 128, 16), torch.float32, seed=9)
     sizes = R.dispatch_counts(R.route(logits, 4, 68), 16)
-    live = int(sizes.sum())
-    active = int((sizes > 0).any(dim=0).sum())
-    print(f"  moe_gemm queues: {live} of {BATCH * 16 * 68} slots live, "
-          f"{active} of 16 experts used")
     for dtype in (torch.bfloat16, torch.float32):
         for label, d, f in (("w1", 192, 768), ("w2", 768, 192)):
             buf = randn((BATCH, 16, 68, d), dtype, seed=11)
             w = randn((16, d, f), dtype, 1.0 / math.sqrt(d), seed=12)
-            tag = f"main {label} G={BATCH} E=16 C=68 D={d} F={f} " \
-                  f"{str(dtype)[6:]}"
             got = kmg.moe_gemm(buf, w, sizes)
-            err = kc.check(tag, got, kmg.moe_gemm_plain(buf, w, sizes),
-                           dtype)
-            keep = torch.arange(68, device="cuda")[None, None, :, None] \
-                < sizes[:, :, None, None]
-            if bool((got.masked_select(~keep) != 0).any()):
-                raise AssertionError("moe_gemm: rows past a queue not zero")
-            xb = buf.transpose(0, 1).reshape(16, BATCH * 68, d).contiguous()
-            s = buf.element_size()
-            nbytes = live * d * s + active * d * f * s \
-                + BATCH * 16 * 68 * f * s + 4 * BATCH * 16
-            kc.timed(tag, lambda: kmg.moe_gemm(buf, w, sizes),
-                     lambda: kmg.moe_gemm_plain(buf, w, sizes),
-                     lambda: torch.bmm(xb, w), nbytes, 2.0 * live * d * f,
-                     dtype, 6, main=dtype == torch.bfloat16)
-            if dtype == torch.bfloat16:
-                kc.max_err = max(kc.max_err, err)
+            check("moe_gemm", f"{label} G={BATCH} E=16 C=68 D={d} F={f} "
+                  f"{_dt(buf)} ({int(sizes.sum())} rows live)", got,
+                  kmg.moe_gemm_plain(buf, w, sizes), dtype)
+            _zero_tails("moe_gemm", got, sizes)
     # ragged: 3 groups x 5 experts, C=13, D=37, F=29, empty and partial
     # queues, garbage in the queue tails
     buf = randn((3, 5, 13, 37), torch.float32, seed=13)
@@ -337,25 +321,145 @@ def check_moe_gemm() -> KernelCheck:
     rs = torch.tensor([[0, 13, 7, 0, 1], [5, 0, 0, 13, 2], [0, 0, 0, 0, 0]],
                       dtype=torch.int32, device="cuda")
     got = kmg.moe_gemm(buf, w, rs)
-    kc.check("ragged G=3 E=5 C=13 D=37 F=29 float32", got,
-             kmg.moe_gemm_plain(buf, w, rs), torch.float32)
-    keep = torch.arange(13, device="cuda")[None, None, :, None] \
-        < rs[:, :, None, None]
-    if bool((got.masked_select(~keep) != 0).any()):
-        raise AssertionError("moe_gemm ragged: rows past a queue not zero")
-    return kc
+    check("moe_gemm", "ragged G=3 E=5 C=13 D=37 F=29 float32", got,
+          kmg.moe_gemm_plain(buf, w, rs), torch.float32)
+    _zero_tails("moe_gemm ragged", got, rs)
+
+
+def check_moe_fused() -> None:
+    from repro_torch.core import routing as R
+    from repro_torch.core.moe import MoEConfig
+    from repro_torch.kernels import moe_fused as kmf
+    from repro_torch.kernels.compare import moe_lut_allowance
+
+    g, t, e, k, d, f = BATCH, 128, 16, 4, 192, 768
+    mcfg = MoEConfig(d_model=d, d_ff=f, num_experts=e, top_k=k,
+                     expert_kind="gelu", capacity_factor=2.0, group_size=t)
+    c = mcfg.capacity(t)
+    r = R.route(randn((g, t, e), torch.float32, seed=50), k, c)
+    sizes = R.dispatch_counts(r, e)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn((g, t, d), dtype, seed=51)
+        p = {"w1": randn((e, d, f), dtype, d ** -0.5, seed=52),
+             "b1": randn((e, f), torch.float32, 0.1, seed=53),
+             "w2": randn((e, f, d), dtype, f ** -0.5, seed=54),
+             "b2": randn((e, d), torch.float32, 0.1, seed=55)}
+        args = (x, p, r.expert, r.gate, r.position, r.valid, sizes)
+        kw = dict(kind="gelu", capacity=c, use_lut=True)
+        check("moe_fused", f"G={g} T={t} E={e} top-{k} C={c} d={d} f={f} "
+              f"gelu-lut {_dt(x)} (random logits, {int(sizes.sum())} of "
+              f"{g * t * k} slots live)", kmf.fused_moe_ffn(*args, **kw),
+              kmf.fused_moe_ffn_plain(*args, **kw), dtype,
+              extra=moe_lut_allowance(x, p, r.expert, r.gate, r.valid,
+                                      kind="gelu"))
+    # ragged: 3 groups of 37 tokens, 5 SwiGLU experts with one never
+    # chosen, top-2 at a capacity that drops slots, exact SiLU, float32
+    x = randn((3, 37, 24), torch.float32, seed=56)
+    p = {"wg": randn((5, 24, 40), torch.float32, 0.2, seed=57),
+         "wu": randn((5, 24, 40), torch.float32, 0.2, seed=58),
+         "wd": randn((5, 40, 24), torch.float32, 0.15, seed=59)}
+    logits = randn((3, 37, 5), torch.float32, seed=60)
+    logits[..., 3] = -30.0
+    r = R.route(logits, 2, 12)
+    sizes = R.dispatch_counts(r, 5)
+    args = (x, p, r.expert, r.gate, r.position, r.valid, sizes)
+    kw = dict(kind="swiglu", capacity=12, use_lut=False)
+    got = kmf.fused_moe_ffn(*args, **kw)
+    check("moe_fused", "ragged G=3 T=37 E=5 (one empty) top-2 C=12 swiglu "
+          "exact float32", got, kmf.fused_moe_ffn_plain(*args, **kw),
+          torch.float32)
+    dropped = ~r.valid.any(dim=-1)
+    if not bool(dropped.any()) or bool((got[dropped] != 0).any()) \
+            or bool((sizes[:, 3] != 0).any()):
+        raise AssertionError("moe_fused ragged: expected an empty expert "
+                             "and dropped tokens with exact zeros")
+
+
+def check_decode_fused() -> None:
+    from repro_torch.kernels import decode_fused as kdf
+
+    b, hq, hkv, smax, d = LM_BATCH, 32, 8, LM_MAX_LEN, 64
+    cl = torch.tensor([0, 512, 1, 77, 300, 511, 128, 33], dtype=torch.int32,
+                      device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (None, 100):
+            q = randn((b, hq, 1, d), dtype, seed=61)
+            k = randn((b, hkv, smax, d), dtype, seed=62)
+            v = randn((b, hkv, smax, d), dtype, seed=63)
+            got = kdf.fused_decode_attention(q, k, v, cl, window=window)
+            check("decode_fused", f"B={b} Hq={hq} Hkv={hkv} Smax={smax} "
+                  f"D={d} cache_len {cl.tolist()} window={window} "
+                  f"{_dt(q)}", got,
+                  kdf.fused_decode_attention_plain(q, k, v, cl,
+                                                   window=window), dtype)
+            if bool((got[0] != 0).any()):
+                raise AssertionError("decode_fused: cache_len 0 not zero")
+    # ragged: GQA 6/2 (group 3), head_dim 128, odd Smax, a zero length
+    q = randn((3, 6, 1, 128), torch.float32, seed=64)
+    k = randn((3, 2, 70, 128), torch.float32, seed=65)
+    v = randn((3, 2, 70, 128), torch.float32, seed=66)
+    cl3 = torch.tensor([70, 0, 9], dtype=torch.int32, device="cuda")
+    check("decode_fused", "ragged B=3 Hq=6 Hkv=2 Smax=70 D=128 cache_len "
+          "[70, 0, 9] window=5 float32",
+          kdf.fused_decode_attention(q, k, v, cl3, window=5),
+          kdf.fused_decode_attention_plain(q, k, v, cl3, window=5),
+          torch.float32)
+
+
+# ------------------------------------------------------- launch records
+
+
+class Unit(NamedTuple):
+    """The kernel launches of one uncounted twin of a counted run."""
+
+    label: str      # what one run is
+    runs: int       # forwards or decode steps recorded
+    calls: dict     # kernel name -> [launch arguments, in launch order]
+
+
+@contextlib.contextmanager
+def recorded_launches(calls: dict):
+    """Record the arguments of every kernel launch made inside the block
+    into ``calls`` (kernel name -> list), at each kernel module's
+    ``_launch`` — the one place its wrapper launches and counts.  The
+    launches run and count as they would."""
+    from repro_torch import kernels
+
+    saved = []
+    for name, wrapper in kernels.KERNELS.items():
+        mod = sys.modules[wrapper.__module__]
+
+        def record(*args, _launch=mod._launch, _name=name):
+            calls.setdefault(_name, []).append(args)
+            return _launch(*args)
+
+        saved.append((mod, mod._launch))
+        mod._launch = record
+    try:
+        yield calls
+    finally:
+        for mod, launch in saved:
+            mod._launch = launch
 
 
 # ------------------------------------------------------------ phase 3
 
 
-def main_path():
+def _m3vit_twins(server, batches, policy_label, units):
+    """One more (uncounted) forward of each task, its launches recorded."""
+    for task, imgs in batches:
+        with recorded_launches({}) as calls:
+            server.infer(imgs, task)
+        units.append(Unit(f"M3ViT {task} forward, B={BATCH}, "
+                          f"{policy_label}", 1, calls))
+
+
+def main_path(units):
     from repro_torch import ops
     from repro_torch.configs import m3vit as MV
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.compare import cosine
     from repro_torch.models.vit import init_params
-    from repro_torch.serve.profile import wall_per_batch
     from repro_torch.serve.vision import M3ViTServer
 
     cfg = replace(MV.CONFIG, policy=ops.policy_named("cuda"))
@@ -374,6 +478,7 @@ def main_path():
           f"{cfg.dtype}: 16 requests (8 semseg, 8 depth) in batches of 8")
     for task, imgs in batches * 3:          # warm-up, not counted
         server.infer(imgs, task)
+    _m3vit_twins(server, batches, "policy cuda", units)
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -399,7 +504,7 @@ def main_path():
         if cos < 0.999:
             raise AssertionError(f"{task}: cosine {cos} < 0.999")
     print(f"  launches over the 16 requests: {json.dumps(counts)}")
-    if not all(n > 0 for n in counts.values()):
+    if not all(counts[n] > 0 for n in CUDA_PATH_KERNELS):
         raise AssertionError(f"a kernel of the main path never launched: "
                              f"{counts}")
     for op in ("linear", "attention", "moe_grouped_gemm", "activation"):
@@ -408,13 +513,509 @@ def main_path():
                 != {"cuda": entry.get("hits", {}).get("cuda", -1)}:
             raise AssertionError(f"dispatch report for {op}: {entry}")
     print(f"  dispatch report: {json.dumps(report)}")
+    _time_batches(server, batches)
+    return counts, {"params": params, "batches": batches, "plain": plain}
+
+
+def _time_batches(server, batches):
+    from repro_torch.serve.profile import wall_per_batch
+
     for task, imgs in batches:
         wall = statistics.median(wall_per_batch(server, imgs, task, reps=5,
                                                 warmup=0))
         print(f"  {task}: {wall * 1e3:.3f} ms per batch of {BATCH} (median "
               f"of 5, host wall to the result on the host), "
               f"{BATCH / wall:.1f} img/s")
+
+
+def fused_path(ctx, units):
+    """The 16 requests again, the routed expert layers through moe_fused."""
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.serve.vision import M3ViTServer
+
+    policy = ops.policy_named("cuda").with_impls(moe_ffn="cuda_fused")
+    server = M3ViTServer(replace(MV.CONFIG, policy=policy), ctx["params"])
+    batches = ctx["batches"]
+    print("  policy cuda with moe_ffn=cuda_fused: the same 16 requests")
+    for task, imgs in batches * 3:          # warm-up, not counted
+        server.infer(imgs, task)
+    _m3vit_twins(server, batches, "policy cuda + moe_ffn=cuda_fused", units)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    outs = {task: server.infer(imgs, task) for task, imgs in batches}
+    counts = launch_counts()
+    report = ops.dispatch_report()
+
+    for task, imgs in batches:
+        y = outs[task]
+        if not np.isfinite(y).all():
+            raise AssertionError(f"{task}: fused output not finite")
+        cos = cosine(torch.from_numpy(y),
+                     torch.from_numpy(ctx["plain"].infer(imgs, task)))
+        print(f"  {task}: cosine vs plain eager/blocked/lut policy on the "
+              f"card {cos:.6f} (>= 0.999: {'ok' if cos >= 0.999 else 'FAIL'})")
+        if cos < 0.999:
+            raise AssertionError(f"{task}: fused cosine {cos} < 0.999")
+    print(f"  launches over the 16 requests: {json.dumps(counts)}")
+    n_moe = 2 * (MV.CONFIG.num_layers // 2)        # two forwards
+    if counts["moe_fused"] != n_moe or counts["moe_gemm"] \
+            or counts["gelu_lut"] or not counts["unified_linear"] \
+            or not counts["flash_attention"]:
+        raise AssertionError(f"fused path launches: {counts} (moe_fused "
+                             f"must be {n_moe}, moe_gemm and gelu_lut 0)")
+    entry = report.get("moe_ffn", {})
+    if entry.get("hits") != {"cuda_fused": n_moe} or entry.get("fallbacks") \
+            or entry.get("modes") != {"cuda_fused": {"cuda": n_moe}}:
+        raise AssertionError(f"dispatch report for moe_ffn: {entry}")
+    print(f"  dispatch report moe_ffn: {json.dumps(entry)}")
+    _time_batches(server, batches)
     return counts
+
+
+# ------------------------------------------------------------ phase 4
+
+
+def lm_path(units):
+    """Llama-3.2-1B at full width and depth: prefill + 32 decode steps."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train.step import make_serve_step
+
+    policy = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
+    cfg = LL.CONFIG
+    t0 = time.perf_counter()
+    params = LM.init_params(0, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    print(f"  Llama-3.2-1B {cfg.num_layers} layers d={cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B parameters from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=LM_MAX_LEN,
+                                                    policy=policy))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    engine.generate(prompts, 2)               # warm-up, not counted
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = ops.dispatch_report()
+    print(f"  {LM_BATCH} prompts of {LM_PROMPT} tokens, {LM_NEW} greedy "
+          f"tokens each: {wall * 1e3:.1f} ms host wall, "
+          f"{LM_BATCH * LM_NEW / wall:.1f} tokens/s")
+    print(f"  launches over the generate call: {json.dumps(counts)}")
+    if tokens.shape != (LM_BATCH, LM_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"generated tokens {tokens.shape} out of range")
+    if counts["decode_fused"] != cfg.num_layers * LM_NEW \
+            or not counts["unified_linear"] or not counts["flash_attention"]:
+        raise AssertionError(f"LM path launches: {counts} (decode_fused must "
+                             f"be {cfg.num_layers * LM_NEW})")
+    hits = {"linear": "cuda", "attention": "cuda",
+            "attention_decode": "cuda_fused"}
+    for op, impl in hits.items():
+        entry = report.get(op, {})
+        n = entry.get("hits", {}).get(impl, -1)
+        if entry.get("fallbacks") or entry.get("modes") != {impl: {"cuda": n}}:
+            raise AssertionError(f"dispatch report for {op}: {entry}")
+    print(f"  dispatch report: {json.dumps(report)}")
+
+    # the prefill and every decode step again, teacher-forced on the
+    # generated tokens, under the kernel policy and the plain one; the
+    # first prefill and the kernel policy's decode steps are the counted
+    # generate call's uncounted twin, their launches recorded
+    plain_prefill, plain_decode = make_serve_step(
+        replace(cfg, policy=ops.policy_named("eager")))
+    prefill, decode = engine.steps()
+    toks = torch.from_numpy(tokens).long().cuda()
+    prefill_calls, decode_calls = {}, {}
+    cosines, step_ms, prefill_ms = [], [], []
+    with torch.inference_mode():
+        for rep in range(3):
+            state = LM.init_state(cfg, LM_BATCH, LM_MAX_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_launches(prefill_calls if rep == 0 else {}):
+                logits, state = prefill(engine.params, prompts, state)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        pstate = LM.init_state(cfg, LM_BATCH, LM_MAX_LEN)
+        plain, pstate = plain_prefill(engine.params, prompts, pstate)
+        for i in range(LM_NEW):
+            if not torch.equal(torch.argmax(logits, -1), toks[:, i]):
+                raise AssertionError(f"step {i}: the replayed logits do not "
+                                     "give back the generated tokens")
+            cosines.append(cosine(logits, plain))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_launches(decode_calls):
+                logits, state = decode(engine.params, toks[:, i:i + 1],
+                                       state, LM_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            plain, pstate = plain_decode(engine.params, toks[:, i:i + 1],
+                                         pstate, LM_PROMPT + i)
+        cosines.append(cosine(logits, plain))
+    print(f"  logits vs the plain eager policy on the card, teacher-forced: "
+          f"prefill cosine {cosines[0]:.6f}, decode steps min "
+          f"{min(cosines[1:]):.6f} (>= 0.999: "
+          f"{'ok' if min(cosines) >= 0.999 else 'FAIL'})")
+    if min(cosines) < 0.999:
+        raise AssertionError(f"LM logits cosine {min(cosines)} < 0.999")
+    print(f"  prefill {statistics.median(prefill_ms):.3f} ms (median of 3, "
+          f"B={LM_BATCH} x {LM_PROMPT} tokens); decode "
+          f"{statistics.median(step_ms):.3f} ms per step (median of "
+          f"{LM_NEW}, B={LM_BATCH}, host wall to a synchronized card)")
+    units.append(Unit(f"Llama-3.2-1B prefill, B={LM_BATCH} x {LM_PROMPT} "
+                      f"tokens", 1, prefill_calls))
+    units.append(Unit(f"Llama-3.2-1B decode step, B={LM_BATCH}, cache "
+                      f"{LM_PROMPT + 1}-{LM_PROMPT + LM_NEW} keys", LM_NEW,
+                      decode_calls))
+    return counts
+
+
+# ------------------------------------------------------------ phase 5
+
+
+@dataclass
+class Case:
+    """One recorded launch, ready to check and time."""
+
+    key: object                 # launches with equal keys share one reading
+    label: str
+    kernel: Callable
+    plain: Callable
+    library: Optional[Callable]
+    nbytes: float
+    flops: float
+    peak: torch.dtype           # the type whose peak rate bounds the flops
+    tol: Optional[Callable] = dict    # -> tolerance keywords; None: exact
+    after: Optional[Callable] = None  # further check of the kernel's output
+    staged: Optional[Callable] = None  # moe_fused: the staged cuda path
+
+
+def _linear_case(args) -> Case:
+    from repro_torch.core.gelu import device_table
+    from repro_torch.kernels import unified_linear as kul
+
+    x, w, b, act, use_lut, step, rng = args
+    m, k = x.shape
+    n = w.shape[1]
+    kw = dict(activation=act, use_lut=use_lut, step_log2=step, lut_range=rng)
+    lut = bool(use_lut and act in ("gelu", "silu"))
+    moved = (m * k + k * n + m * n) * x.element_size() \
+        + (_nbytes(b) if b is not None else 0) \
+        + (_nbytes(device_table(act, step, rng, x.device)) if lut else 0)
+    return Case(
+        key=("linear", m, k, n, x.dtype, act, lut, b is not None),
+        label=f"M={m} K={k} N={n} {act or 'none'}{'-lut' if lut else ''}"
+              f"{' +bias' if b is not None else ''} {_dt(x)}",
+        kernel=lambda: kul.unified_linear(x, w, b, **kw),
+        plain=lambda: kul.unified_linear_plain(x, w, b, **kw),
+        library=lambda: torch.matmul(x, w), nbytes=moved,
+        flops=2.0 * m * n * k, peak=x.dtype,
+        tol=lambda: dict(
+            lut_pre=kul.unified_linear_plain(x, w, b) if lut else None,
+            kind=act if lut else "gelu", step_log2=step, lut_range=rng))
+
+
+def _attention_case(args) -> Case:
+    from repro_torch.core.attention import allowed_keys
+    from repro_torch.kernels import flash_attention as kfa
+
+    q, k, v, causal, window, q_offset, scale = args
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    ok = allowed_keys(torch.arange(sq, device=q.device) + q_offset,
+                      torch.arange(skv, device=q.device), causal, window)
+    pairs, keys = int(ok.sum()), int(ok.any(dim=0).sum())
+    mask = ok if causal or window is not None else None
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    return Case(
+        key=("attention", tuple(q.shape), tuple(k.shape), q.dtype, causal,
+             window, q_offset),
+        label=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
+              f"{'causal' if causal else 'non-causal'} q_offset={q_offset} "
+              f"window={window} {_dt(q)} ({keys} keys visible)",
+        kernel=lambda: kfa.flash_attention(q, k, v, **kw),
+        plain=lambda: kfa.flash_attention_plain(q, k, v, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=hq != hkv),
+        nbytes=(2 * q.numel() + 2 * b * hkv * keys * d) * q.element_size(),
+        flops=4.0 * b * hq * pairs * d, peak=q.dtype)
+
+
+def _activation_case(args) -> Case:
+    from repro_torch.core.gelu import device_table
+    from repro_torch.kernels import gelu_lut as kgl
+
+    x, kind, step, rng = args
+    return Case(
+        key=("lut", tuple(x.shape), x.dtype, kind),
+        label=f"{tuple(x.shape)} {kind} {_dt(x)}",
+        kernel=lambda: kgl.lut_activation(x, kind, step_log2=step,
+                                          lut_range=rng),
+        plain=lambda: kgl.lut_activation_plain(x, kind, step_log2=step,
+                                               rng=rng),
+        library=None,
+        nbytes=2 * _nbytes(x) + _nbytes(device_table(kind, step, rng,
+                                                     x.device)),
+        flops=10.0 * x.numel(), peak=torch.float32, tol=None)
+
+
+def _moe_gemm_case(args) -> Case:
+    from repro_torch.kernels import moe_gemm as kmg
+
+    buf, w, sizes = args
+    g, e, c, d = buf.shape
+    f = w.shape[2]
+    live = int(sizes.sum())
+    active = int((sizes > 0).any(dim=0).sum())
+    xb = buf.transpose(0, 1).reshape(e, g * c, d).contiguous()
+    s = buf.element_size()
+    return Case(
+        key=("moe_gemm", tuple(buf.shape), tuple(w.shape), buf.dtype,
+             tuple(sizes.flatten().tolist())),
+        label=f"G={g} E={e} C={c} D={d} F={f} {_dt(buf)}: {live} of "
+              f"{g * e * c} rows live, {active} experts used",
+        kernel=lambda: kmg.moe_gemm(buf, w, sizes),
+        plain=lambda: kmg.moe_gemm_plain(buf, w, sizes),
+        library=lambda: torch.bmm(xb, w),
+        nbytes=live * d * s + active * d * f * s + g * e * c * f * s
+        + _nbytes(sizes),
+        flops=2.0 * live * d * f, peak=buf.dtype,
+        after=lambda got: _zero_tails("moe_gemm", got, sizes))
+
+
+_EXPERT_WEIGHTS = {"gelu": ("w1", "b1", "w2", "b2"),
+                   "swiglu": ("wg", "wu", "wd")}
+
+
+def _moe_fused_case(args) -> Case:
+    from repro_torch import ops
+    from repro_torch.core import routing as R
+    from repro_torch.core.moe import MoEConfig
+    from repro_torch.kernels import moe_fused as kmf
+    from repro_torch.kernels.compare import moe_lut_allowance
+
+    (x, params, expert, gate, position, valid, sizes, kind, capacity,
+     use_lut, step, rng) = args
+    g, t, d = x.shape
+    k, e = expert.shape[-1], sizes.shape[-1]
+    weights = [params[n] for n in _EXPERT_WEIGHTS[kind]]
+    f = weights[0].shape[-1]
+    live, dropped = int(sizes.sum()), int((~valid).sum())
+    active = int((sizes > 0).any(dim=0).sum())
+    blocks = int(((sizes + 31) // 32).sum())     # 32 queue rows a block
+    call = (x, params, expert, gate, position, valid, sizes)
+    kw = dict(kind=kind, capacity=capacity, use_lut=use_lut, step_log2=step,
+              lut_range=rng)
+    mcfg = MoEConfig(d_model=d, d_ff=f, num_experts=e, top_k=k,
+                     expert_kind=kind)
+    routing = R.Routing(expert=expert, gate=gate, position=position,
+                        valid=valid, probs=None)
+    staged_policy = ops.policy_named("cuda")
+
+    def staged():
+        with ops.use_policy(staged_policy):
+            return ops.dispatch("moe_ffn", x, params, routing, sizes,
+                                cfg=mcfg, capacity=capacity)
+
+    per_expert = sum(w[0].numel() * w.element_size() for w in weights)
+    return Case(
+        key=None,               # every layer's routing is its own
+        label=f"G={g} T={t} E={e} top-{k} C={capacity} d={d} f={f} "
+              f"{kind}{'-lut' if use_lut else ''} {_dt(x)}: {live} slots "
+              f"live, {dropped} dropped, {active} experts used, longest "
+              f"queue {int(sizes.max())}, {blocks} blocks of 32 rows",
+        kernel=lambda: kmf.fused_moe_ffn(*call, **kw),
+        plain=lambda: kmf.fused_moe_ffn_plain(*call, **kw),
+        library=None, staged=staged,
+        nbytes=2 * _nbytes(x) + active * per_expert
+        + _nbytes(expert, gate, position, valid, sizes),
+        flops=(4.0 if kind == "gelu" else 6.0) * live * d * f, peak=x.dtype,
+        tol=lambda: dict(extra=moe_lut_allowance(
+            x, params, expert, gate, valid, kind=kind, step_log2=step,
+            lut_range=rng) if use_lut else None))
+
+
+def _decode_case(args) -> Case:
+    from repro_torch.kernels import decode_fused as kdf
+
+    q, k, v, cl, window, scale = args
+    b, hq, _, d = q.shape
+    hkv, smax = k.shape[1], k.shape[2]
+    kpos = torch.arange(smax, device=q.device)[None, :]
+    ok = kpos < cl[:, None]
+    if window is not None:
+        ok = ok & (kpos > cl[:, None] - 1 - window)
+    n_keys = int(ok.sum())
+    lengths = cl.tolist()
+    kw = dict(window=window, scale=scale)
+    return Case(
+        key=("decode", tuple(q.shape), tuple(k.shape), q.dtype, window,
+             tuple(lengths)),
+        label=f"B={b} Hq={hq} Hkv={hkv} Smax={smax} D={d} cache_len "
+              f"{min(lengths)}..{max(lengths)} window={window} {_dt(q)}",
+        kernel=lambda: kdf.fused_decode_attention(q, k, v, cl, **kw),
+        plain=lambda: kdf.fused_decode_attention_plain(q, k, v, cl, **kw),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=ok[:, None, None, :], scale=scale,
+            enable_gqa=hq != hkv),
+        nbytes=2 * _nbytes(q) + 2 * n_keys * hkv * d * q.element_size()
+        + _nbytes(cl),
+        flops=4.0 * n_keys * hq * d, peak=q.dtype)
+
+
+CASES = {"unified_linear": _linear_case, "flash_attention": _attention_case,
+         "gelu_lut": _activation_case, "moe_gemm": _moe_gemm_case,
+         "moe_fused": _moe_fused_case, "decode_fused": _decode_case}
+
+
+def _check_case(name, case) -> tuple[float, float, float]:
+    """Hold one recorded launch against its plain version, and time the
+    launch alone (replayed on the same operands, which stay warm in L2);
+    (max error, ms alone, bound ms)."""
+    got, want = case.kernel(), case.plain()
+    if case.tol is None:
+        err = check_exact(name, case.label, got, want)
+    else:
+        err = check(name, case.label, got, want, want.dtype, **case.tol())
+    if case.after is not None:
+        case.after(got)
+    del got, want
+    alone = time_ms(case.kernel)
+    t_bytes, t_ops = bound_ms(case.nbytes, case.flops, case.peak)
+    print(f"    alone {alone:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    return err, alone, (t_bytes, t_ops)
+
+
+def _in_order(fns):
+    def run():
+        for fn in fns:
+            fn()
+    return run
+
+
+def _run_reading(run) -> dict:
+    """One run's recorded launches replayed in their order: the kernels,
+    the plain versions, the library calls (and the staged path) each as one
+    CUDA graph, so every launch meets its own operands as in the path."""
+    t = {"ms": time_ms(_in_order([c.kernel for c in run]), calls=1),
+         "plain_ms": time_ms(_in_order([c.plain for c in run]), calls=1),
+         "library_ms": None}
+    if all(c.library is not None for c in run):
+        t["library_ms"] = time_ms(_in_order([c.library for c in run]),
+                                  calls=1)
+    if all(c.staged is not None for c in run):
+        t["staged_cuda_ms"] = time_ms(_in_order([c.staged for c in run]),
+                                      calls=1)
+    return t
+
+
+def _add(total: dict, t: dict) -> None:
+    for k, v in t.items():
+        total[k] = None if v is None else (total.get(k) or 0.0) + v
+
+
+def _entry(total: dict) -> dict:
+    out = {k: total[k] for k in ("ms", "plain_ms", "bound_ms")}
+    out["bound_by"] = ("bytes" if total["bytes_ms"] >= total["ops_ms"]
+                       else "operations")
+    out["library_ms"] = total["library_ms"]
+    for k in ("staged_cuda_ms", "alone_ms"):
+        if k in total:
+            out[k] = total[k]
+    return out
+
+
+def path_records(units, counted) -> list[dict]:
+    """Each kernel's JSON entry from the recorded launches of the main
+    paths, whose number must equal the counted launches.  Every distinct
+    launch (by shape and data) is checked and timed alone once; every
+    distinct run is timed in order once."""
+    from repro_torch.kernels import KERNELS
+
+    checked: dict = {}      # case key -> (err, alone ms, bound parts)
+    timed: dict = {}        # run's case keys -> in-order reading
+    records = []
+    for name in KERNELS:
+        recorded = sum(len(u.calls.get(name, ())) for u in units)
+        if recorded != counted[name]:
+            raise AssertionError(f"{name}: {recorded} launches recorded in "
+                                 f"the twins, {counted[name]} counted")
+        rows, total, max_err = [], {}, 0.0
+        for u in units:
+            cases = [CASES[name](args) for args in u.calls.get(name, ())]
+            if not cases:
+                continue
+            if len(cases) % u.runs:
+                raise AssertionError(f"{name}: {len(cases)} launches over "
+                                     f"{u.runs} runs of {u.label}")
+            unit_total = {"alone_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                          "bound_ms": 0.0}
+            for case in cases:
+                if case.key is None or case.key not in checked:
+                    reading = _check_case(name, case)
+                    if case.key is not None:
+                        checked[case.key] = reading
+                else:
+                    reading = checked[case.key]
+                err, alone, (t_bytes, t_ops) = reading
+                max_err = max(max_err, err)
+                _add(unit_total, {"alone_ms": alone, "bytes_ms": t_bytes,
+                                  "ops_ms": t_ops,
+                                  "bound_ms": max(t_bytes, t_ops)})
+            per = len(cases) // u.runs
+            for i in range(u.runs):
+                run = cases[i * per:(i + 1) * per]
+                keys = tuple(c.key for c in run)
+                if None in keys or keys not in timed:
+                    reading = _run_reading(run)
+                    if None not in keys:
+                        timed[keys] = reading
+                else:
+                    reading = timed[keys]
+                _add(unit_total, reading)
+            _add(total, unit_total)
+            row = {"per": u.label, "runs": u.runs, "launches": len(cases),
+                   **_entry(unit_total)}
+            rows.append(row)
+            n = u.runs
+            lib = row["library_ms"]
+            print(f"  {name} per {u.label}: {per} launches, in order: kernel "
+                  f"{row['ms'] / n:.4f} ms, plain {row['plain_ms'] / n:.4f} "
+                  f"ms, library "
+                  f"{'%.4f ms' % (lib / n) if lib is not None else 'n/a'}"
+                  + (f", staged cuda path {row['staged_cuda_ms'] / n:.4f} ms"
+                     if "staged_cuda_ms" in row else "")
+                  + f"; alone {row['alone_ms'] / n:.4f} ms; bound "
+                  f"{row['bound_ms'] / n:.4f} ms ({row['bound_by']})")
+        records.append({"name": name, "route": "cuda",
+                        "source": SOURCES[name], "replaces": REPLACES[name],
+                        "launches": counted[name], "max_abs_err": max_err,
+                        **_entry(total),
+                        "per": "every launch of the counted main-path runs",
+                        "units": rows})
+    return records
 
 
 def main() -> None:
@@ -441,16 +1042,26 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("   " + line.strip())
 
-    print("phase 2: kernels against their plain versions")
-    checks = [check_unified_linear(), check_flash_attention(),
-              check_gelu_lut(), check_moe_gemm()]
+    print("phase 2: kernels against their plain versions, made-up inputs")
+    for run_checks in (check_unified_linear, check_flash_attention,
+                       check_gelu_lut, check_moe_gemm, check_moe_fused,
+                       check_decode_fused):
+        run_checks()
 
-    print("phase 3: main path")
-    counts = main_path()
+    units: list[Unit] = []
+    print("phase 3: main path, M3ViT serving")
+    counts, ctx = main_path(units)
+    fused_counts = fused_path(ctx, units)
+
+    print("phase 4: LM path, Llama-3.2-1B serving")
+    lm_counts = lm_path(units)
+    counted = {n: counts[n] + fused_counts[n] + lm_counts[n] for n in counts}
+
+    print("phase 5: the kernels at the main paths' own inputs")
+    records = path_records(units, counted)
 
     print(smi)
-    print(json.dumps({"kernels": [kc.record(counts[kc.name])
-                                  for kc in checks]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

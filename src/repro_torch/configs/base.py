@@ -2,11 +2,10 @@
 
 The frozen dataclasses of ``repro.configs.base`` with the fields the ported
 families read (the same names, defaults and ``reduced`` smoke shrink; the
-recurrent, KV-cache and LM-head fields come with the slices that use
-them).
+recurrent fields come with the slice that ports those blocks).
 ``activation_dtype`` maps the ``dtype`` string to a ``torch.dtype``.  Only
-the configs this port serves are present as modules (``m3vit``); ``get``
-raises for the others.
+the configs this port serves are present as modules (``m3vit``,
+``llama3_2_1b``); ``get`` raises for the others.
 """
 
 from __future__ import annotations
@@ -51,14 +50,21 @@ class ArchConfig:
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     qkv_bias: bool = False
     rope: str = "rope"             # rope | mrope | sincos | none
-    window: Optional[int] = None
+    rope_theta: float = 10000.0
+    window: Optional[int] = None   # sliding window for attn_local blocks
     embed_input: str = "tokens"    # tokens | embeddings
+    tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
     # None = the ambient repro_torch.ops policy; a ComputePolicy here is
     # scoped around the model's forward pass
     dtype: str = "bfloat16"
     policy: Optional[ComputePolicy] = None
+    # KV-cache storage: "none" keeps activation-dtype caches; "int8" comes
+    # with the packed-formats slice of the port and raises until then
+    kv_quant: str = "none"
+    remat: bool = True             # kept for parity; inference ignores it
     num_tasks: int = 1
+    sub_quadratic: bool = False    # True => long_500k cell is runnable
 
     @property
     def hd(self) -> int:
@@ -85,7 +91,7 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
         mod = importlib.import_module(f"repro_torch.configs.{name}")
     except ModuleNotFoundError as e:
         raise ValueError(f"config {name!r} is not ported yet "
-                         "(the port serves m3vit)") from e
+                         "(the port serves m3vit, llama3_2_1b)") from e
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
@@ -101,6 +107,7 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         d_ff=128,
         vocab_size=128,
         window=min(cfg.window, 16) if cfg.window else None,
+        remat=False,
     )
     if cfg.moe is not None:
         base["moe"] = replace(cfg.moe, num_experts=min(cfg.moe.num_experts, 8),

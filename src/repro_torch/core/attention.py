@@ -6,10 +6,13 @@
   * ``blocked_attention`` — streams K/V in blocks with (m, l, acc) carries.
   * ``attention``         — the policy-dispatched op (``eager`` naive /
                             ``blocked`` / ``cuda`` kernel / ``ref``).
+  * ``decode_attention_xla`` — one-token decode against a KV cache, the
+                            ``eager`` impl of ``attention_decode``.
+  * ``decode_attention``  — the policy-dispatched decode op (``eager`` /
+                            ``cuda`` / ``cuda_fused`` / ``ref``).
 
 GQA (kv heads broadcast over query-head groups), causal masking, sliding
-windows and ``q_offset`` as in the reference.  Decode attention follows
-with the LM slice.
+windows and ``q_offset`` as in the reference.
 """
 
 from __future__ import annotations
@@ -19,9 +22,18 @@ import math
 import torch
 
 __all__ = ["naive_attention", "blocked_attention", "attention",
-           "allowed_keys", "NEG_INF"]
+           "decode_attention_xla", "decode_attention", "allowed_keys",
+           "scale_in_dtype", "NEG_INF"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked rows NaN-free
+
+
+def scale_in_dtype(q, scale):
+    """``q * scale`` in q's dtype with the scale rounded to that dtype first
+    (JAX's weakly typed scalar): the exact product of two bf16 values,
+    rounded once.  The rounding of the scale happens on the host, so no
+    tensor is copied to the card."""
+    return q * float(torch.tensor(scale, dtype=q.dtype))
 
 
 def allowed_keys(qpos, kpos, causal, window):
@@ -118,3 +130,45 @@ def attention(q, k, v, *, causal=True, window=None, q_offset=0, scale=None):
 
     return dispatch("attention", q, k, v, causal=causal, window=window,
                     q_offset=q_offset, scale=scale)
+
+
+def decode_attention_xla(q, k_cache, v_cache, cache_len, *, window=None,
+                         scale=None):
+    """One-token decode: q (B, Hq, 1, D) vs cache (B, Hkv, Smax, D).
+
+    ``cache_len`` (B,) int32 — the number of valid entries per sequence;
+    the new token's own K/V are already written at ``cache_len − 1``.  GQA
+    as a grouped contraction over the native kv heads (no repeat of the
+    cache), q scaled in its dtype, float32 scores masked to −1e30, the
+    probabilities rounded to the cache's dtype before the PV product — the
+    reference's arithmetic."""
+    b, hq, one, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    # the reference multiplies by a weakly typed scalar: in q's dtype
+    qg = scale_in_dtype(q, scale).reshape(b, hkv, g * one, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float())
+    cl = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+    cl = cl.expand(b)[:, None, None, None]
+    kpos = torch.arange(smax, device=q.device)[None, None, None, :]
+    ok = kpos < cl
+    if window is not None:
+        ok = ok & (kpos > cl - 1 - window)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, hq, one, d).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
+                     scale=None):
+    """Policy-dispatched single-token decode (op ``"attention_decode"``).
+    ``cuda`` runs the flash kernel over the live prefix and needs one
+    length for every sequence; ``cuda_fused`` reads per-slot lengths on
+    the card."""
+    from repro_torch.ops.registry import dispatch
+
+    return dispatch("attention_decode", q, k_cache, v_cache, cache_len,
+                    window=window, scale=scale)

@@ -7,8 +7,8 @@ reads :func:`launch_counts` to show that the main path went through the
 kernels.
 """
 
-from repro_torch.kernels import flash_attention, gelu_lut, moe_gemm, \
-    unified_linear
+from repro_torch.kernels import decode_fused, flash_attention, gelu_lut, \
+    moe_fused, moe_gemm, unified_linear
 
 #: kernel name -> public wrapper
 KERNELS = {
@@ -16,6 +16,8 @@ KERNELS = {
     "flash_attention": flash_attention.flash_attention,
     "gelu_lut": gelu_lut.lut_activation,
     "moe_gemm": moe_gemm.moe_gemm,
+    "moe_fused": moe_fused.fused_moe_ffn,
+    "decode_fused": decode_fused.fused_decode_attention,
 }
 
 

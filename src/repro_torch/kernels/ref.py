@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.gelu import exact_gelu, exact_silu
+from repro_torch.kernels.decode_fused import \
+    fused_decode_attention_plain as ref_decode_attention
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain as ref_attention
 from repro_torch.kernels.gelu_lut import \
@@ -21,6 +23,7 @@ from repro_torch.kernels.unified_linear import \
 
 __all__ = [
     "ref_attention",
+    "ref_decode_attention",
     "ref_linear",
     "ref_lut_activation",
     "ref_moe_gemm",

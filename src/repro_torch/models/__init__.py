@@ -1,2 +1,2 @@
-"""Model building blocks and the M³ViT model (the port of ``repro.models``
-for the vit-moe family)."""
+"""Model building blocks, the M³ViT model and the decoder-LM facade (the
+port of ``repro.models`` for the vit-moe family and the attention LMs)."""

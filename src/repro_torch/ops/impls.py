@@ -4,10 +4,10 @@ the corresponding part of ``repro.ops.impls``.
 Imported lazily by ``registry.dispatch``.  Each impl follows the registry
 contract ``fn(policy, *args, **kwargs)``.  Impl names: ``eager`` (plain
 PyTorch, the reference's ``xla``), ``blocked``, ``lut``, ``cuda`` (the
-Hopper kernels, the reference's ``pallas``), ``ref``.  Capability
+Hopper kernels, the reference's ``pallas``), ``cuda_fused`` (the fused
+kernels, the reference's ``pallas_fused``), ``ref``.  Capability
 predicates return the reference's reason strings.  The packed-weight
-(QTensor / FactoredTensor), decode and ``pallas_fused`` impls follow with
-the slices that port them.
+(QTensor / FactoredTensor) impls follow with the slice that ports them.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import gelu as gelu_lib
+from repro_torch.kernels import decode_fused as kdf
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import gelu_lut as kgl
+from repro_torch.kernels import moe_fused as kmf
 from repro_torch.kernels import moe_gemm as kmg
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import unified_linear as kul
@@ -134,6 +136,88 @@ register("attention", "cuda", _attn_cuda, requires=_attn_cuda_requires,
          kernel=True)
 # oracle: the kernel's plain version (f32 softmax, −1e30 masking)
 register("attention", "ref", _attn_ref)
+
+
+# ========================================================== attention_decode
+
+
+def _decode_eager(policy, q, k_cache, v_cache, cache_len, *, window=None,
+                  scale=None):
+    from repro_torch.core import attention as A
+
+    return A.decode_attention_xla(q, k_cache, v_cache, cache_len,
+                                  window=window, scale=scale)
+
+
+def _decode_kernel_requires(policy, q, k_cache, v_cache, cache_len, *,
+                            window=None, scale=None):
+    if not _floating(q, k_cache, v_cache):
+        return f"non-float dtypes {q.dtype}/{k_cache.dtype}"
+    if q.shape[1] % k_cache.shape[1] != 0:
+        return f"Hq={q.shape[1]} not a multiple of Hkv={k_cache.shape[1]}"
+    if q.shape[-1] > kdf.MAX_D:
+        return f"head_dim {q.shape[-1]} > {kdf.MAX_D}"
+    if q.dtype != k_cache.dtype or q.dtype != v_cache.dtype:
+        return f"mixed dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype}"
+    return _kernel_dtype(q)
+
+
+def _decode_cuda_requires(policy, q, k_cache, v_cache, cache_len, *,
+                          window=None, scale=None):
+    why = _decode_kernel_requires(policy, q, k_cache, v_cache, cache_len)
+    if why:
+        return why
+    # a host read of the (B,) lengths; the reference's other reason,
+    # "cache_len is traced", has no counterpart in eager PyTorch
+    lengths = torch.as_tensor(cache_len).reshape(-1)
+    if lengths.numel() > 1 and not bool((lengths == lengths[0]).all()):
+        return "per-sequence cache lengths differ (continuous batching " \
+               "mixes decode positions)"
+    return None
+
+
+def _decode_cuda(policy, q, k_cache, v_cache, cache_len, *, window=None,
+                 scale=None):
+    # uniform length L: the decode step is the flash kernel over the first
+    # L cache rows with the causal frontier at L − 1 (the new token's K/V
+    # are already written at L − 1).  Non-uniform lengths are rejected,
+    # and with operands on the card a rejected kernel impl raises: under
+    # policy_named("cuda") continuous batching on the card raises here —
+    # it asks for attention_decode="cuda_fused", which reads per-slot
+    # lengths at run time.
+    length = int(torch.as_tensor(cache_len).reshape(-1)[0])
+    return kfa.flash_attention(q, k_cache[:, :, :length],
+                               v_cache[:, :, :length], causal=True,
+                               window=window, q_offset=length - 1,
+                               scale=scale)
+
+
+def _decode_fused(policy, q, k_cache, v_cache, cache_len, *, window=None,
+                  scale=None):
+    # single-pass kernel: per-slot cache lengths are read on the card at
+    # run time, so non-uniform decode positions (continuous batching) stay
+    # on the kernel
+    return kdf.fused_decode_attention(q, k_cache, v_cache, cache_len,
+                                      window=window, scale=scale)
+
+
+def _decode_ref(policy, q, k_cache, v_cache, cache_len, *, window=None,
+                scale=None):
+    return kref.ref_decode_attention(q, k_cache, v_cache, cache_len,
+                                     window=window, scale=scale)
+
+
+# grouped GQA einsum over the whole cache, masked past cache_len
+register("attention_decode", "eager", _decode_eager, default=True)
+# the flash kernel over the live prefix; uniform cache_len only
+register("attention_decode", "cuda", _decode_cuda,
+         requires=_decode_cuda_requires, kernel=True)
+# single-pass decode kernel, per-slot cache_len read at run time; f32/bf16,
+# GQA-divisible heads, head_dim <= 128
+register("attention_decode", "cuda_fused", _decode_fused,
+         requires=_decode_kernel_requires, kernel=True)
+# oracle: the fused kernel's plain version
+register("attention_decode", "ref", _decode_ref)
 
 
 # ==================================================================== linear
@@ -267,9 +351,44 @@ def _moe_ffn_ref(policy, x, params, routing, group_sizes, *, cfg,
     return kref.ref_moe_ffn(x, params, routing, cfg=cfg)
 
 
+def _moe_ffn_fused_requires(policy, x, params, routing, group_sizes, *,
+                            cfg, capacity):
+    # the reference's reasons for what the port has (its packed-weight and
+    # mesh reasons have no operands here yet), then the kernel's limits
+    if cfg.impl == "onehot":
+        return "onehot (GSPMD) dispatch requested — the fused kernel " \
+               "replaces the gather path only"
+    if not _floating(x):
+        return f"non-float activation dtype {x.dtype}"
+    why = _kernel_dtype(x)
+    if why:
+        return why
+    mats = [params[k] for k in ("wg", "wu", "wd", "w1", "w2") if k in params]
+    if any(w.dtype != x.dtype for w in mats):
+        return f"mixed dtypes {x.dtype}/{mats[0].dtype}"
+    if x.shape[-1] > kmf.MAX_D:
+        return f"d_model {x.shape[-1]} > {kmf.MAX_D}"
+    if cfg.top_k > kmf.MAX_K:
+        return f"top_k {cfg.top_k} > {kmf.MAX_K}"
+    return None
+
+
+def _moe_ffn_fused(policy, x, params, routing, group_sizes, *, cfg,
+                   capacity):
+    return kmf.fused_moe_ffn(
+        x, params, routing.expert, routing.gate, routing.position,
+        routing.valid, group_sizes, kind=cfg.expert_kind, capacity=capacity,
+        use_lut=policy.lut_activations, step_log2=policy.lut_step_log2,
+        lut_range=policy.lut_range)
+
+
 # staged dispatch → grouped GEMMs → combine (materializes the (G, E, C, d)
 # buffer; inner GEMMs re-dispatch moe_grouped_gemm)
 register("moe_ffn", "eager", _moe_ffn_eager, default=True)
+# megakernel: gather by token index + expert MLP + ordered combine in one
+# pass over every routing group, metaqueue skip, no dispatch buffer
+register("moe_ffn", "cuda_fused", _moe_ffn_fused,
+         requires=_moe_ffn_fused_requires, kernel=True)
 # token-level dense oracle: every expert on every token, exact activations,
 # gate-weighted sum
 register("moe_ffn", "ref", _moe_ffn_ref)

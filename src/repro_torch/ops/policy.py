@@ -13,6 +13,8 @@ Implementation names in the port:
   * ``"cuda"``    — the hand-written Hopper kernels (the reference's
                     ``"pallas"``); on a CPU tensor the kernel module runs its
                     plain version instead.
+  * ``"cuda_fused"`` — the fused Hopper kernels of ``moe_ffn`` and
+                    ``attention_decode`` (the reference's ``"pallas_fused"``).
   * ``"ref"``     — the ``kernels/ref.py`` oracles.
 
 Tile overrides and the Pallas ``interpret`` switch have no counterpart yet:
@@ -94,6 +96,10 @@ def policy_named(name: str) -> ComputePolicy:
     ``"cuda"``    — the Hopper kernels for every op that has one, LUT
                     activations in the fused epilogue (the reference's
                     ``"pallas"`` preset).
+    ``"cuda_fused"`` — the fused kernels: the routed expert layer as one
+                    ``moe_ffn`` pass and single-pass decode attention, with
+                    blocked attention and LUT activations around them (the
+                    reference's ``"pallas_fused"`` preset).
     ``"ref"``     — the oracle impls.
     """
     if name == "eager":
@@ -105,10 +111,15 @@ def policy_named(name: str) -> ComputePolicy:
                                     ("attention", "blocked")))
     if name == "cuda":
         return ComputePolicy(default_impl="cuda")
+    if name == "cuda_fused":
+        return ComputePolicy(impls=(("activation", "lut"),
+                                    ("attention", "blocked"),
+                                    ("moe_ffn", "cuda_fused"),
+                                    ("attention_decode", "cuda_fused")))
     if name == "ref":
         return ComputePolicy(default_impl="ref")
     raise ValueError(f"unknown policy preset: {name!r} "
-                     "(expected eager | blocked | cuda | ref)")
+                     "(expected eager | blocked | cuda | cuda_fused | ref)")
 
 
 _POLICY: contextvars.ContextVar[Optional[ComputePolicy]] = \

@@ -78,13 +78,15 @@ class M3ViTServer:
 
     def _dense_block(self, bp, x):
         h = L.apply_norm(bp["ln1"], x, self.cfg)
-        x = x + L.apply_attention(bp["attn"], h, self.cfg, causal=False)
+        a, _ = L.apply_attention(bp["attn"], h, self.cfg, causal=False)
+        x = x + a
         h = L.apply_norm(bp["ln2"], x, self.cfg)
         return x + L.apply_mlp(bp["mlp"], h, self.cfg)
 
     def _moe_block(self, bp, x, task_id):
         h = L.apply_norm(bp["ln1"], x, self.cfg)
-        x = x + L.apply_attention(bp["attn"], h, self.cfg, causal=False)
+        a, _ = L.apply_attention(bp["attn"], h, self.cfg, causal=False)
+        x = x + a
         h = L.apply_norm(bp["ln2"], x, self.cfg)
         y, _ = moe_lib.apply_moe(bp["moe"], self.mcfg, h, task_id=task_id)
         return x + y

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import m3vit as TM
-from repro_torch.models import vit
+from repro_torch.models import model, vit
+from repro_torch.serve.engine import ServingEngine
 from repro_torch.serve.vision import M3ViTServer
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,7 +52,8 @@ def test_port_never_falls_back_to_the_cpu_by_itself(path):
 
 
 @pytest.mark.parametrize("entry", [M3ViTServer, vit.M3ViT, vit.init_params,
-                                   params_from_jax])
+                                   params_from_jax, ServingEngine,
+                                   model.init_params, model.init_state])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -80,6 +82,9 @@ REJECTED = {
                    "no LUT correction table for 'relu'", "eager"),
     "moe_grouped_gemm": (("moe_grouped_gemm", _T(2, 3, 4), _T(2, 4, 5),
                           None), {}, "group_sizes unavailable", "eager"),
+    "attention_decode": (("attention_decode", _T(2, 2, 1, 8), _T(2, 2, 6, 8),
+                          _T(2, 2, 6, 8), torch.tensor([3, 5])), {},
+                         "per-sequence cache lengths differ", "eager"),
 }
 
 

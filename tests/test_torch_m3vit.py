@@ -168,7 +168,7 @@ def test_dispatch_report_hits_the_kernel_impls(smoke_port):
     assert fb["requested"] == "cuda" and fb["used"] == "eager"
     assert fb["count"] == n_moe
     assert fb["reasons"] == ["cuda: not a registered impl for 'moe_ffn' "
-                             "(registered: ['eager', 'ref'])"]
+                             "(registered: ['cuda_fused', 'eager', 'ref'])"]
 
 
 def test_bridge_bf16_round_trip():
