@@ -10,7 +10,8 @@ Phases, each printing its lines:
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
    with ``nvcc`` for ``sm_90a`` (into ``build/``), with ptxas' register and
-   spill report.
+   spill report per entry function, and a ``cuobjdump -sass`` count of
+   ``HGMMA`` in each instance of the two tensor-core GEMM kernels.
 2. Each of the six kernels against its plain PyTorch version on the card,
    on made-up inputs: at the main paths' shapes (M³ViT at B = 8; the
    Llama-3.2-1B projections at M = 8 and M = 1024 and its causal GQA
@@ -18,7 +19,12 @@ Phases, each printing its lines:
    [0, 512], window unset and set) in bf16 and in float32, and at ragged
    cases (odd sizes, empty queues, dropped slots, a zero cache length);
    the max error beside the stated tolerance
-   (``repro_torch.kernels.compare``).
+   (``repro_torch.kernels.compare``).  The GEMMs add ``unified_linear`` at
+   M = 1, 16, 72 against the LM widths, K off the 64-wide k-tile, two
+   split-K launches that must be bit-identical, and ``moe_gemm`` with NaN
+   in every queue tail, a whole group and an expert empty; every GEMM
+   launch must move exactly the variant counter its planner names
+   (``repro_torch.kernels.gemm_plan``).
 3. The main path: an ``M3ViTServer`` at the full 12-layer ``CONFIG`` in
    bf16 under the ``cuda`` policy, with seeded random weights, answers 16
    requests (8 semseg, 8 depth) in batches of 8.  Output shapes and
@@ -63,7 +69,10 @@ Phases, each printing its lines:
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs.  The recorded launches must match the counted ones kernel by
+those runs.  The GEMMs' variant counters are read with them: no main path
+may take the SIMT route, and the variants the recorded launches were
+planned on must equal the counted ones (``variants`` in the JSON line and
+per unit).  The recorded launches must match the counted ones kernel by
 kernel, and a kernel's times and bound in the JSON line cover exactly
 those launches (in-order replays; ``alone_ms`` sums the launches timed
 alone), with a breakdown (``units``) per recorded twin.
@@ -196,8 +205,44 @@ def check_exact(name, label, got, want) -> float:
 # ------------------------------------------------------------ phase 2
 
 
+def planned(name, wrapper, plan, call):
+    """Run ``call`` (one launch of a GEMM wrapper) and check that exactly
+    the variant its planner chose counted it; returns the output."""
+    before = dict(wrapper.variants)
+    out = call()
+    moved = {v: wrapper.variants[v] - before[v] for v in before}
+    want = {v: int(v == plan.variant) for v in before}
+    if moved != want:
+        raise AssertionError(f"{name}: planned {plan.variant} "
+                             f"({plan.reason}), counters moved {moved}")
+    return out
+
+
+def _plan_label(plan) -> str:
+    if plan.variant == "simt":
+        return "simt"
+    return (f"{plan.variant} {64 * plan.nwg}x{plan.bt} tiles, "
+            f"{plan.splits} split(s), {plan.stages} stages, "
+            f"{plan.blocks} blocks")
+
+
 def check_unified_linear() -> None:
     from repro_torch.kernels import unified_linear as kul
+
+    def one(label, x, w, b=None, act=None, lut=False):
+        plan = kul.plan_for(x, w)
+        got = planned("unified_linear", kul.unified_linear, plan,
+                      lambda: kul.unified_linear(x, w, b, activation=act,
+                                                 use_lut=lut))
+        want = kul.unified_linear_plain(x, w, b, activation=act, use_lut=lut)
+        # the LUT rule reads the float32 pre-activation (compare.py)
+        pre = kul.unified_linear_plain(x.float(), w.float(), b) if lut \
+            else None
+        m, k = x.shape
+        check("unified_linear", f"{label} M={m} K={k} N={w.shape[1]} "
+              f"{_dt(x)} [{_plan_label(plan)}]", got, want, x.dtype,
+              lut_pre=pre, kind=act or "gelu")
+        return got
 
     # (label, M, K, N, bias, activation, LUT): M3ViT at B = 8, then the
     # Llama-3.2-1B projections at decode (M = 8) and prefill (M = 1024)
@@ -207,40 +252,68 @@ def check_unified_linear() -> None:
               ("mlp_down", TOKENS, 768, 192, True, None, False),
               ("semseg_head", TOKENS, 192, 4864, True, None, False),
               ("depth_head", TOKENS, 192, 256, True, None, False)]
+    lm = [("lm_q_o", 2048, 2048, False, None, False),
+          ("lm_k_v", 2048, 512, False, None, False),
+          ("lm_gate_silu_lut", 2048, 8192, False, "silu", True),
+          ("lm_up", 2048, 8192, False, None, False),
+          ("lm_down", 8192, 2048, False, None, False)]
     for m in (LM_BATCH, LM_BATCH * LM_PROMPT):
-        shapes += [("lm_q_o", m, 2048, 2048, False, None, False),
-                   ("lm_k_v", m, 2048, 512, False, None, False),
-                   ("lm_gate_silu_lut", m, 2048, 8192, False, "silu", True),
-                   ("lm_up", m, 2048, 8192, False, None, False),
-                   ("lm_down", m, 8192, 2048, False, None, False)]
+        shapes += [(label, m, k, n, b, act, lut)
+                   for label, k, n, b, act, lut in lm]
     for dtype in (torch.bfloat16, torch.float32):
         for i, (label, m, k, n, has_b, act, lut) in enumerate(shapes):
             x = randn((m, k), dtype, seed=100 + i)
             w = randn((k, n), dtype, 1.0 / math.sqrt(k), seed=200 + i)
             b = randn((n,), torch.float32, 0.1, seed=300 + i) if has_b \
                 else None
-            got = kul.unified_linear(x, w, b, activation=act, use_lut=lut)
-            want = kul.unified_linear_plain(x, w, b, activation=act,
-                                            use_lut=lut)
-            pre = kul.unified_linear_plain(x, w, b) if lut else None
-            check("unified_linear", f"{label} M={m} K={k} N={n} "
-                  f"{_dt(x)}", got, want, dtype, lut_pre=pre,
-                  kind=act or "gelu")
+            one(label, x, w, b, act, lut)
+    # the tensor-core path at the other small M against the LM widths
+    for m in (1, 16, 72):
+        for i, (label, k, n, has_b, act, lut) in enumerate(lm):
+            x = randn((m, k), torch.bfloat16, seed=110 + i)
+            w = randn((k, n), torch.bfloat16, 1.0 / math.sqrt(k),
+                      seed=210 + i)
+            one(label, x, w, None, act, lut)
+    # K not a multiple of the 64-wide k-tile (the map zero-fills past K)
+    for m, k, n in ((LM_BATCH, 2056, 512), (TOKENS, 200, 192),
+                    (72, 1000, 264)):
+        x = randn((m, k), torch.bfloat16, seed=45)
+        w = randn((k, n), torch.bfloat16, 1.0 / math.sqrt(k), seed=46)
+        b = randn((n,), torch.float32, 0.1, seed=47)
+        one("K off the k-tile", x, w, b, "gelu")
+    # split-K is deterministic: two launches on the same inputs, bit-equal
+    x = randn((LM_BATCH, 8192), torch.bfloat16, seed=48)
+    w = randn((8192, 2048), torch.bfloat16, 8192 ** -0.5, seed=49)
+    first = one("split-K run 1", x, w)
+    check_exact("unified_linear", f"split-K run 2 against run 1 "
+                f"[{_plan_label(kul.plan_for(x, w))}]",
+                kul.unified_linear(x, w), first)
+    # why the kernel promotes its wgmma sums into a float32 register tile
+    # every few k-tiles: one library bf16 product, which accumulates on the
+    # tensor cores throughout, at the longest K of the main paths (a
+    # reading, not a check)
+    from repro_torch.kernels.compare import kernel_tolerance
+
+    x = randn((TOKENS, 8192), torch.bfloat16, seed=50)
+    w = randn((8192, 2048), torch.bfloat16, 8192 ** -0.5, seed=51)
+    want = kul.unified_linear_plain(x, w)
+    for label, got in (("torch.matmul", torch.matmul(x, w)),
+                       ("unified_linear", kul.unified_linear(x, w))):
+        out = int(((got.float() - want.float()).abs()
+                   > kernel_tolerance(got, want, torch.bfloat16)).sum())
+        print(f"  {label} bf16 M={TOKENS} K=8192 N=2048: {out} of "
+              f"{want.numel()} outputs outside the bf16 tolerance")
     # ragged: odd M, K, N; SiLU through the LUT epilogue; float32
     x = randn((1000, 190), torch.float32, seed=40)
     w = randn((190, 770), torch.float32, 0.07, seed=41)
     b = randn((770,), torch.float32, 0.1, seed=42)
-    got = kul.unified_linear(x, w, b, activation="silu", use_lut=True)
-    want = kul.unified_linear_plain(x, w, b, activation="silu", use_lut=True)
-    check("unified_linear", "ragged M=1000 K=190 N=770 silu-lut float32",
-          got, want, torch.float32, lut_pre=kul.unified_linear_plain(x, w, b),
-          kind="silu")
+    one("ragged silu-lut", x, w, b, "silu", True)
+    # bf16 rows of 66 bytes: TMA cannot address them, the SIMT route does
     x16 = randn((77, 33), torch.bfloat16, seed=43)
     w16 = randn((33, 129), torch.bfloat16, 0.2, seed=44)
-    check("unified_linear", "ragged M=77 K=33 N=129 erf-gelu bf16",
-          kul.unified_linear(x16, w16, b[:129], activation="gelu"),
-          kul.unified_linear_plain(x16, w16, b[:129], activation="gelu"),
-          torch.bfloat16)
+    if kul.plan_for(x16, w16).variant != "simt":
+        raise AssertionError("K=33 bf16 must be planned on the SIMT route")
+    one("ragged erf-gelu", x16, w16, b[:129], "gelu")
 
 
 def check_flash_attention() -> None:
@@ -302,6 +375,17 @@ def check_moe_gemm() -> None:
     from repro_torch.core import routing as R
     from repro_torch.kernels import moe_gemm as kmg
 
+    def one(label, buf, w, sizes):
+        plan = kmg.plan_for(buf, w)
+        got = planned("moe_gemm", kmg.moe_gemm, plan,
+                      lambda: kmg.moe_gemm(buf, w, sizes))
+        g, e, c, d = buf.shape
+        check("moe_gemm", f"{label} G={g} E={e} C={c} D={d} "
+              f"F={w.shape[2]} {_dt(buf)} ({int(sizes.sum())} rows live) "
+              f"[{_plan_label(plan)}]", got,
+              kmg.moe_gemm_plain(buf, w, sizes), buf.dtype)
+        _zero_tails(f"moe_gemm {label}", got, sizes)
+
     # queue lengths from top-4 routing of random logits, 8 groups x 128
     logits = randn((BATCH, 128, 16), torch.float32, seed=9)
     sizes = R.dispatch_counts(R.route(logits, 4, 68), 16)
@@ -309,21 +393,31 @@ def check_moe_gemm() -> None:
         for label, d, f in (("w1", 192, 768), ("w2", 768, 192)):
             buf = randn((BATCH, 16, 68, d), dtype, seed=11)
             w = randn((16, d, f), dtype, 1.0 / math.sqrt(d), seed=12)
-            got = kmg.moe_gemm(buf, w, sizes)
-            check("moe_gemm", f"{label} G={BATCH} E=16 C=68 D={d} F={f} "
-                  f"{_dt(buf)} ({int(sizes.sum())} rows live)", got,
-                  kmg.moe_gemm_plain(buf, w, sizes), dtype)
-            _zero_tails("moe_gemm", got, sizes)
+            one(label, buf, w, sizes)
+    # NaN in every queue tail, a whole group empty, one expert empty in
+    # every group, one queue full
+    tails = sizes.clone()
+    tails[0] = 0
+    tails[:, 5] = 0
+    tails[1, 3] = 68
+    for label, d, f in (("w1", 192, 768), ("w2", 768, 192)):
+        buf = randn((BATCH, 16, 68, d), torch.bfloat16, seed=15)
+        rows = torch.arange(68, device="cuda")[None, None, :, None]
+        buf = torch.where(rows < tails[:, :, None, None], buf,
+                          torch.full((), math.nan, dtype=torch.bfloat16,
+                                     device="cuda"))
+        w = randn((16, d, f), torch.bfloat16, 1.0 / math.sqrt(d), seed=16)
+        one(f"{label} NaN tails, group 0 and expert 5 empty", buf, w, tails)
     # ragged: 3 groups x 5 experts, C=13, D=37, F=29, empty and partial
     # queues, garbage in the queue tails
-    buf = randn((3, 5, 13, 37), torch.float32, seed=13)
-    w = randn((5, 37, 29), torch.float32, 0.2, seed=14)
     rs = torch.tensor([[0, 13, 7, 0, 1], [5, 0, 0, 13, 2], [0, 0, 0, 0, 0]],
                       dtype=torch.int32, device="cuda")
-    got = kmg.moe_gemm(buf, w, rs)
-    check("moe_gemm", "ragged G=3 E=5 C=13 D=37 F=29 float32", got,
-          kmg.moe_gemm_plain(buf, w, rs), torch.float32)
-    _zero_tails("moe_gemm ragged", got, rs)
+    one("ragged", randn((3, 5, 13, 37), torch.float32, seed=13),
+        randn((5, 37, 29), torch.float32, 0.2, seed=14), rs)
+    # ragged on the tensor cores: C=13 (a 16-row tile), D=40 (one partial
+    # k-tile), F=72 (a partial 64-column tile)
+    one("ragged", randn((3, 5, 13, 40), torch.bfloat16, seed=17),
+        randn((5, 40, 72), torch.bfloat16, 0.2, seed=18), rs)
 
 
 def check_moe_fused() -> None:
@@ -442,6 +536,29 @@ def recorded_launches(calls: dict):
             mod._launch = launch
 
 
+#: GEMM kernel -> variant -> launches, summed over the counted main-path
+#: runs (the variant counters of the wrappers)
+COUNTED_VARIANTS: dict = {}
+
+
+def read_variants(label) -> dict:
+    """The GEMM wrappers' variant counters after a counted run: printed,
+    added to COUNTED_VARIANTS, and none may be the SIMT route (every main
+    path runs bf16 at 16-byte aligned shapes)."""
+    from repro_torch.kernels import variant_counts
+
+    counts = variant_counts()
+    print(f"  kernel variants over {label}: {json.dumps(counts)}")
+    for name, by in counts.items():
+        if by.get("simt"):
+            raise AssertionError(f"{name}: {by['simt']} SIMT launches on a "
+                                 f"main path")
+        total = COUNTED_VARIANTS.setdefault(name, {})
+        for v, k in by.items():
+            total[v] = total.get(v, 0) + k
+    return counts
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -487,6 +604,7 @@ def main_path(units):
             for task, imgs in batches}
     counts = launch_counts()
     report = ops.dispatch_report()
+    read_variants("the 16 requests")
 
     expected = {"semseg": (BATCH, MV.IMAGE_H, MV.IMAGE_W,
                            MV.NUM_SEG_CLASSES),
@@ -550,6 +668,7 @@ def fused_path(ctx, units):
     outs = {task: server.infer(imgs, task) for task, imgs in batches}
     counts = launch_counts()
     report = ops.dispatch_report()
+    read_variants("the 16 requests (fused)")
 
     for task, imgs in batches:
         y = outs[task]
@@ -617,6 +736,7 @@ def lm_path(units):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     report = ops.dispatch_report()
+    read_variants("the generate call")
     print(f"  {LM_BATCH} prompts of {LM_PROMPT} tokens, {LM_NEW} greedy "
           f"tokens each: {wall * 1e3:.1f} ms host wall, "
           f"{LM_BATCH * LM_NEW / wall:.1f} tokens/s")
@@ -709,6 +829,7 @@ class Case:
     tol: Optional[Callable] = dict    # -> tolerance keywords; None: exact
     after: Optional[Callable] = None  # further check of the kernel's output
     staged: Optional[Callable] = None  # moe_fused: the staged cuda path
+    variant: Optional[str] = None     # GEMMs: the planned kernel variant
 
 
 def _linear_case(args) -> Case:
@@ -723,16 +844,19 @@ def _linear_case(args) -> Case:
     moved = (m * k + k * n + m * n) * x.element_size() \
         + (_nbytes(b) if b is not None else 0) \
         + (_nbytes(device_table(act, step, rng, x.device)) if lut else 0)
+    plan = kul.plan_for(x, w)
     return Case(
         key=("linear", m, k, n, x.dtype, act, lut, b is not None),
         label=f"M={m} K={k} N={n} {act or 'none'}{'-lut' if lut else ''}"
-              f"{' +bias' if b is not None else ''} {_dt(x)}",
+              f"{' +bias' if b is not None else ''} {_dt(x)} "
+              f"[{_plan_label(plan)}]", variant=plan.variant,
         kernel=lambda: kul.unified_linear(x, w, b, **kw),
         plain=lambda: kul.unified_linear_plain(x, w, b, **kw),
         library=lambda: torch.matmul(x, w), nbytes=moved,
         flops=2.0 * m * n * k, peak=x.dtype,
         tol=lambda: dict(
-            lut_pre=kul.unified_linear_plain(x, w, b) if lut else None,
+            lut_pre=kul.unified_linear_plain(x.float(), w.float(), b)
+            if lut else None,
             kind=act if lut else "gelu", step_log2=step, lut_range=rng))
 
 
@@ -790,11 +914,13 @@ def _moe_gemm_case(args) -> Case:
     active = int((sizes > 0).any(dim=0).sum())
     xb = buf.transpose(0, 1).reshape(e, g * c, d).contiguous()
     s = buf.element_size()
+    plan = kmg.plan_for(buf, w)
     return Case(
         key=("moe_gemm", tuple(buf.shape), tuple(w.shape), buf.dtype,
              tuple(sizes.flatten().tolist())),
         label=f"G={g} E={e} C={c} D={d} F={f} {_dt(buf)}: {live} of "
-              f"{g * e * c} rows live, {active} experts used",
+              f"{g * e * c} rows live, {active} experts used "
+              f"[{_plan_label(plan)}]", variant=plan.variant,
         kernel=lambda: kmg.moe_gemm(buf, w, sizes),
         plain=lambda: kmg.moe_gemm_plain(buf, w, sizes),
         library=lambda: torch.bmm(xb, w),
@@ -962,7 +1088,7 @@ def path_records(units, counted) -> list[dict]:
         if recorded != counted[name]:
             raise AssertionError(f"{name}: {recorded} launches recorded in "
                                  f"the twins, {counted[name]} counted")
-        rows, total, max_err = [], {}, 0.0
+        rows, total, max_err, variants = [], {}, 0.0, {}
         for u in units:
             cases = [CASES[name](args) for args in u.calls.get(name, ())]
             if not cases:
@@ -998,6 +1124,13 @@ def path_records(units, counted) -> list[dict]:
             _add(total, unit_total)
             row = {"per": u.label, "runs": u.runs, "launches": len(cases),
                    **_entry(unit_total)}
+            if cases[0].variant is not None:
+                row["variants"] = {}
+                for c in cases:
+                    row["variants"][c.variant] = \
+                        row["variants"].get(c.variant, 0) + 1
+                for v, k in row["variants"].items():
+                    variants[v] = variants.get(v, 0) + k
             rows.append(row)
             n = u.runs
             lib = row["library_ms"]
@@ -1008,11 +1141,20 @@ def path_records(units, counted) -> list[dict]:
                   + (f", staged cuda path {row['staged_cuda_ms'] / n:.4f} ms"
                      if "staged_cuda_ms" in row else "")
                   + f"; alone {row['alone_ms'] / n:.4f} ms; bound "
-                  f"{row['bound_ms'] / n:.4f} ms ({row['bound_by']})")
+                  f"{row['bound_ms'] / n:.4f} ms ({row['bound_by']})"
+                  + (f"; variants {row['variants']}" if "variants" in row
+                     else ""))
+        extra = {}
+        if name in COUNTED_VARIANTS:
+            counted_v = {v: k for v, k in COUNTED_VARIANTS[name].items() if k}
+            if variants != counted_v:
+                raise AssertionError(f"{name}: recorded launches planned "
+                                     f"{variants}, counters {counted_v}")
+            extra["variants"] = variants
         records.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": counted[name], "max_abs_err": max_err,
-                        **_entry(total),
+                        **_entry(total), **extra,
                         "per": "every launch of the counted main-path runs",
                         "units": rows})
     return records
@@ -1039,8 +1181,17 @@ def main() -> None:
     print(f"  kernels built and loaded in {secs:.1f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) \
+                or line.startswith("=="):
             print("   " + line.strip())
+    hgmma = build.sass_counts("HGMMA")
+    for kernel in ("unified_linear_tc_kernel", "moe_gemm_tc_kernel"):
+        found = {k: v for k, v in hgmma.items() if kernel in k}
+        if len(found) != 12:
+            raise AssertionError(f"{kernel}: {len(found)} of 12 instances "
+                                 f"issue HGMMA in their SASS")
+        print(f"  {kernel}: HGMMA in the SASS of all 12 instances "
+              f"({min(found.values())}..{max(found.values())} each)")
 
     print("phase 2: kernels against their plain versions, made-up inputs")
     for run_checks in (check_unified_linear, check_flash_attention,

@@ -25,9 +25,17 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def variant_counts() -> dict[str, dict[str, int]]:
+    return {name: dict(fn.variants) for name, fn in KERNELS.items()
+            if hasattr(fn, "variants")}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        for v in getattr(fn, "variants", {}):
+            fn.variants[v] = 0
 
 
-__all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "launch_counts", "reset_launch_counts",
+           "variant_counts"]

@@ -28,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "function", "check", "build_seconds", "build_log",
-           "DTYPE_CODES", "NVCC_FLAGS"]
+           "sass_counts", "DTYPE_CODES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -139,6 +139,24 @@ def build_log() -> str:
     library()
     log = _STATE["path"].with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def sass_counts(opcode: str) -> dict[str, int]:
+    """How many times each kernel of the loaded library issues ``opcode``
+    in its SASS (``cuobjdump -sass``, from the toolkit beside ``nvcc``):
+    mangled kernel name -> count, kernels without it left out."""
+    library()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_STATE["path"])],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name is not None and opcode in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -1,0 +1,166 @@
+"""Tile plans for the two GEMM kernels, ``unified_linear`` and ``moe_gemm``.
+
+Both run one bf16 tensor-core mainloop (``csrc/gemm_sm90.cuh``) that
+computes ``yᵀ = wᵀ·xᵀ``: a block owns ``64·nwg`` rows of the weights' N
+(``nwg`` consumer warpgroups, wgmma's 64-row M side each) against ``bt``
+tokens (wgmma's n side), over a contiguous range of 64-wide k-tiles fed by
+TMA through a ring of ``stages`` shared-memory stages.  This module picks
+that shape from (M, N, K) and the card's SM count, in plain Python, so the
+CPU tests reach every decision the wrappers make on the card.
+
+Routing (a dispatch on dtype and shape, never a fallback on failure):
+
+* ``"tc"`` — bf16 on the tensor cores, one block per output tile;
+* ``"tc_splitk"`` — the same with K split over ``splits`` blocks per tile,
+  whose float32 partials the tile's last block sums in ascending split
+  order (``unified_linear`` only);
+* ``"simt"`` — the float32 FMA kernel (``common.cuh:gemm_tile``) for
+  float32 operands (wgmma would take them only as TF32) and for bf16 rows
+  whose pitch or base is not a multiple of 16 bytes (TMA cannot address
+  them), e.g. K = 33.
+
+Tile choice:
+
+* M <= 72 (decode; M3ViT never gets here): ``bt`` is the least of
+  8, 16, 32, 64, 72 that holds M, one warpgroup, and K is split until about
+  two blocks per SM stream weights (at least one per SM, and no split
+  shorter than four k-tiles beyond that) — a decode step's GEMMs are bound
+  by their weight bytes, and a grid of N/64 blocks leaves most SMs idle.
+* M > 72: the largest of 128×128, 128×64, 64×128, 64×64, 64×32, 64×16
+  (rows of N × tokens; 128 rows only where N is a multiple of 128) whose
+  grid reaches two waves of the SMs when K is at most four k-tiles, else
+  7/8 of a wave; K is split only when even 64×16 tiles leave SMs idle.
+  Split-K costs a float32 partial round trip per split, and on the chip it
+  lost to smaller tiles at every M = 1024 shape of the main paths.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+
+import torch
+
+__all__ = ["GemmPlan", "plan_linear", "plan_moe", "k_ranges", "TILE_K",
+           "WGMMA_K", "TOKEN_TILES", "SMEM_BUDGET"]
+
+TILE_K = 64            # k-tile: one 128-byte swizzle row of bf16
+WGMMA_K = 16           # wgmma's k per instruction
+WG_ROWS = 64           # wgmma's M side
+TOKEN_TILES = (8, 16, 32, 64, 72, 128)   # the n sides the library holds
+SMALL_M = 72           # M at or below this: one token tile, split-K
+MAX_STAGES = 6
+SMEM_BUDGET = 196 * 1024   # ring bytes a block may take (of 227 KB)
+SPLITK_BLOCKS_PER_SM = 2   # small-M split target
+MIN_SPLIT_KT = 4           # small M: k-tiles a split keeps, where it can
+SHORT_K_TILES = 4          # large M: K this short aims at two waves
+# large M: (tokens, warpgroups) tiles, largest first
+LARGE_M_TILES = ((128, 2), (64, 2), (128, 1), (64, 1), (32, 1), (16, 1))
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    variant: str            # "tc", "tc_splitk" or "simt"
+    reason: str             # why this variant (the routing rule that chose it)
+    bt: int = 0             # tokens per tile (wgmma n)
+    nwg: int = 0            # consumer warpgroups: 64·nwg rows of N a tile
+    splits: int = 1         # K splits per tile
+    stages: int = 0         # shared-memory ring depth
+    grid: tuple = ()        # (N tiles, token tiles, splits or queues)
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid) if self.grid else 0
+
+    @property
+    def tiles(self) -> int:
+        return self.grid[0] * self.grid[1] if self.grid else 0
+
+
+def k_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+    """The K range of each split, in split order: contiguous whole k-tiles
+    (``csrc/gemm_sm90.cuh:split_range``), the last ending at K."""
+    kt = -(-k // TILE_K)
+    bounds = [s * kt // splits for s in range(splits + 1)]
+    return [(bounds[s] * TILE_K, min(bounds[s + 1] * TILE_K, k))
+            for s in range(splits)]
+
+
+def _stage_bytes(bt: int, nwg: int) -> int:
+    return nwg * WG_ROWS * TILE_K * 2 + bt * TILE_K * 2
+
+
+def _stages(bt: int, nwg: int, kt_per_block: int) -> int:
+    """Ring depth: up to MAX_STAGES within the budget, no deeper than the
+    block's k-tiles."""
+    return max(1, min(MAX_STAGES, kt_per_block,
+                      SMEM_BUDGET // _stage_bytes(bt, nwg)))
+
+
+def _aligned(*sizes_and_ptrs: int) -> bool:
+    return all(v % 16 == 0 for v in sizes_and_ptrs)
+
+
+def _simt(reason: str) -> GemmPlan:
+    return GemmPlan("simt", reason)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_linear(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
+                aligned: bool = True) -> GemmPlan:
+    """The plan for ``y (m, n) = x (m, k) @ w (k, n)``; ``aligned``: x, w
+    and y start on 16-byte boundaries."""
+    if dtype != torch.bfloat16:
+        return _simt(f"{dtype} operands: wgmma takes float32 only as TF32")
+    if not (aligned and _aligned(2 * k, 2 * n)):
+        return _simt("a bf16 row pitch or base not a multiple of 16 bytes "
+                     "(TMA cannot address it)")
+    kt = -(-k // TILE_K)
+    if m <= SMALL_M:
+        bt, nwg = min(t for t in TOKEN_TILES if t >= m), 1
+        tiles = -(-n // WG_ROWS)
+        # about two blocks per SM, but no split under MIN_SPLIT_KT k-tiles
+        # unless the card would otherwise have fewer blocks than SMs
+        splits = min(kt, max(-(-sms // tiles),
+                             min(-(-SPLITK_BLOCKS_PER_SM * sms // tiles),
+                                 kt // MIN_SPLIT_KT)))
+        reason = (f"M={m} <= {SMALL_M}: one {bt}-token tile, K split to "
+                  f"about {SPLITK_BLOCKS_PER_SM} blocks per SM")
+    else:
+        # the largest tile whose grid reaches the target without a split:
+        # two waves where K is short (a block's mainloop is a few k-tiles,
+        # so more blocks hide the fill and the epilogue), else 7/8 of a wave
+        target = sms * 2 if kt <= SHORT_K_TILES else sms * 7 / 8
+        shapes = [s for s in LARGE_M_TILES
+                  if s[1] == 1 or n % (WG_ROWS * 2) == 0]
+        for bt, nwg in shapes:
+            tiles = -(-n // (WG_ROWS * nwg)) * -(-m // bt)
+            if tiles >= target:
+                break
+        splits = 1 if tiles >= sms * 7 / 8 else min(kt, -(-sms // tiles))
+        reason = (f"M={m} > {SMALL_M}: {WG_ROWS * nwg} x {bt} tiles, "
+                  f"{splits} K split(s), for {sms} SMs")
+    grid = (-(-n // (WG_ROWS * nwg)), -(-m // bt), splits)
+    stages = _stages(bt, nwg, -(-kt // splits))
+    return GemmPlan("tc_splitk" if splits > 1 else "tc", reason, bt, nwg,
+                    splits, stages, grid)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_moe(queues: int, c: int, d: int, f: int, dtype: torch.dtype,
+             aligned: bool = True) -> GemmPlan:
+    """The plan for ``queues`` GEMMs ``(c, d) @ (d, f)`` (``moe_gemm``):
+    one token tile covers a whole queue where c <= 72, no split (the
+    queues give the grid its width)."""
+    if dtype != torch.bfloat16:
+        return _simt(f"{dtype} operands: wgmma takes float32 only as TF32")
+    if not (aligned and _aligned(2 * d, 2 * f)):
+        return _simt("a bf16 row pitch or base not a multiple of 16 bytes "
+                     "(TMA cannot address it)")
+    bt = min((t for t in TOKEN_TILES if t >= c), default=TOKEN_TILES[-1])
+    nwg = 2 if f % (WG_ROWS * 2) == 0 else 1
+    grid = (-(-f // (WG_ROWS * nwg)), -(-c // bt), queues)
+    stages = _stages(bt, nwg, -(-d // TILE_K))
+    return GemmPlan("tc", f"{bt}-row queue tiles against {WG_ROWS * nwg} "
+                    f"columns of F", bt, nwg, 1, stages, grid)

@@ -3,23 +3,29 @@
 
 Replaces the Pallas kernel ``src/repro/kernels/moe_gemm.py``
 (``moe_gemm_kernel`` / ``moe_gemm_call``, reached through
-``kernels/ops.py:moe_gemm``).  CUDA source: ``csrc/moe_gemm.cu``.
+``kernels/ops.py:moe_gemm``).  CUDA source: ``csrc/moe_gemm.cu`` on the
+mainloop of ``csrc/gemm_sm90.cuh``.
 
 What bounds it on the H100: a MoE layer at B = 8 is 8 routing groups × 16
-experts × ≤ 68 queued tokens against 192×768 weights — small GEMMs whose
-work depends on the queue lengths; the bytes (queues, weights read once,
-the whole output written) set the least time, and this first kernel, on
-the float32 FMA pipes, is limited by operation issue and load latency far
-above it.  Its design: the routing groups that the reference ``vmap``s over
-are the grid's z axis (one launch per projection per layer, not one per
-group); a block reads its queue length first and, for an empty expert or a
-tile past the queue, writes zeros and returns without reading the expert's
-weights (the paper's metaqueue skip); rows at or past the queue length are
-stored as exact zeros; the output is stored in ``buf.dtype``, as the Pallas
-kernel does.
+experts × ≤ 68 queued tokens against 192×768 weights — 128 small GEMMs
+whose work depends on the queue lengths; the bytes (live rows, each used
+expert's weights once, the whole output written) set the least time.  The
+design: one launch covers every (group, expert) queue; for bf16 each block
+runs the tensor-core mainloop with 64 or 128 columns of the expert's F as
+wgmma's M side and the queue (n = 72 covers C = 68) as its n side, fed by
+TMA from a 3-D map over (G·E, C, D) that zero-fills past C; blocks walk
+the experts slowest, so one expert's blocks across the groups run together
+and find its weights in L2.  A block reads its queue length first and, for
+an empty expert or a tile past the queue, writes zeros and returns without
+reading the expert's weights (the paper's metaqueue skip); rows at or past
+the queue length are stored as exact zeros, whatever the queue tails hold;
+the output is stored in ``buf.dtype``, as the Pallas kernel does.  float32
+operands and bf16 rows not 16-byte aligned take the first SIMT kernel (a
+dispatch on dtype and shape, :func:`repro_torch.kernels.gemm_plan.plan_moe`,
+counted apart in ``moe_gemm.variants["simt"]``).
 
 The public :func:`moe_gemm` runs :func:`moe_gemm_plain` for CPU tensors and
-launches the kernel for CUDA tensors, or raises.  It takes ``buf`` as
+launches a kernel for CUDA tensors, or raises.  It takes ``buf`` as
 (G, E, C, D) with sizes (G, E), or (E, C, D) with sizes (E,).
 """
 
@@ -29,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 
 __all__ = ["moe_gemm", "moe_gemm_plain"]
 
@@ -44,6 +50,16 @@ def moe_gemm_plain(buf, w, group_sizes=None):
             < group_sizes[..., None, None]
         out = torch.where(keep, out, 0.0)
     return out.to(buf.dtype)
+
+
+def plan_for(buf, w, out=None) -> gemm_plan.GemmPlan:
+    """The plan the wrapper follows for a CUDA launch on these operands
+    (buf (G, E, C, D), w (E, D, F))."""
+    g, e, c, d = buf.shape
+    ptrs = [buf.data_ptr(), w.data_ptr()] + ([out.data_ptr()]
+                                             if out is not None else [])
+    return gemm_plan.plan_moe(g * e, c, d, w.shape[2], buf.dtype,
+                              all(p % 16 == 0 for p in ptrs))
 
 
 def _launch(buf, w, group_sizes):
@@ -72,14 +88,24 @@ def _launch(buf, w, group_sizes):
         return out
     if d == 0:
         raise ValueError("moe_gemm kernel needs D > 0")
-    fn = build.function("moe_gemm_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
-    err = fn(buf.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
-             out.data_ptr(), g * e, e, c, d, f, build.DTYPE_CODES[buf.dtype],
-             torch.cuda.current_stream(buf.device).cuda_stream)
-    build.check("moe_gemm", err)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    plan = plan_for(buf, w, out)
+    if plan.variant == "simt":
+        fn = build.function("moe_gemm_launch", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        err = fn(buf.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
+                 out.data_ptr(), g * e, e, c, d, f,
+                 build.DTYPE_CODES[buf.dtype], stream)
+    else:
+        fn = build.function("moe_gemm_tc_launch", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        err = fn(buf.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
+                 out.data_ptr(), g, e, c, d, f, plan.bt, plan.nwg,
+                 plan.stages, stream)
+    build.check(f"moe_gemm ({plan.variant})", err)
+    moe_gemm.variants[plan.variant] += 1
     moe_gemm.launches += 1
     return out
 
@@ -101,3 +127,4 @@ def moe_gemm(buf, w, group_sizes):
 
 
 moe_gemm.launches = 0
+moe_gemm.variants = {"tc": 0, "simt": 0}
