@@ -11,7 +11,8 @@ Phases, each printing its lines:
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
    with ``nvcc`` for ``sm_90a`` (into ``build/``), with ptxas' register and
    spill report per entry function, and a ``cuobjdump -sass`` count of
-   ``HGMMA`` in each instance of the two tensor-core GEMM kernels.
+   ``HGMMA`` in each instance of the two tensor-core GEMM kernels and of
+   the tensor-core (``tc``) attention kernel.
 2. Each of the six kernels against its plain PyTorch version on the card,
    on made-up inputs: at the main paths' shapes (M³ViT at B = 8; the
    Llama-3.2-1B projections at M = 8 and M = 1024 and its causal GQA
@@ -24,7 +25,15 @@ Phases, each printing its lines:
    split-K launches that must be bit-identical, and ``moe_gemm`` with NaN
    in every queue tail, a whole group and an expert empty; every GEMM
    launch must move exactly the variant counter its planner names
-   (``repro_torch.kernels.gemm_plan``).
+   (``repro_torch.kernels.gemm_plan``).  ``flash_attention`` adds the
+   transposed views the models hand over, Sq = 1 over a live cache prefix
+   (the ``attention_decode``/``cuda`` route), head_dim 48 (``tc``), 40
+   (``simt``) and 128, fully masked rows, float32 on ``simt``, and every
+   launch must move exactly the variant counter its planner names
+   (``repro_torch.kernels.attn_plan``); ``decode_fused`` adds cache lengths
+   on and around its 64-key split boundaries (63, 64, 65, Smax), windows
+   that leave whole splits unread, and a second launch that must be
+   bit-identical.
 3. The main path: an ``M3ViTServer`` at the full 12-layer ``CONFIG`` in
    bf16 under the ``cuda`` policy, with seeded random weights, answers 16
    requests (8 semseg, 8 depth) in batches of 8.  Output shapes and
@@ -69,9 +78,9 @@ Phases, each printing its lines:
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs.  The GEMMs' variant counters are read with them: no main path
-may take the SIMT route, and the variants the recorded launches were
-planned on must equal the counted ones (``variants`` in the JSON line and
+those runs.  The variant counters (the GEMMs', ``flash_attention``'s) are
+read with them: no main path may take the SIMT route, and the variants
+the recorded launches were planned on must equal the counted ones (``variants`` in the JSON line and
 per unit).  The recorded launches must match the counted ones kernel by
 kernel, and a kernel's times and bound in the JSON line cover exactly
 those launches (in-order replays; ``alone_ms`` sums the launches timed
@@ -316,31 +325,78 @@ def check_unified_linear() -> None:
     one("ragged erf-gelu", x16, w16, b[:129], "gelu")
 
 
+def _attn_label(plan) -> str:
+    if plan.variant == "simt":
+        return f"simt, {plan.blocks} blocks of {plan.rows} rows"
+    return (f"tc, {plan.blocks} blocks of {plan.rows} rows, {plan.atoms} "
+            f"head-dim atom(s)")
+
+
+def _split_heads_view(b, s, h, d, dtype, seed):
+    """(B, H, S, D) as ``models/layers.py:_split_heads`` hands it over: a
+    transposed view of (B, S, H, D)."""
+    return randn((b, s, h, d), dtype, seed=seed).transpose(1, 2)
+
+
 def check_flash_attention() -> None:
     from repro_torch.kernels import flash_attention as kfa
 
-    # (label, q shape, k/v shape, masking): M3ViT self-attention, then the
-    # Llama-3.2-1B prefill — causal GQA 32/8 against the whole cache
-    cases = [("M3ViT", (BATCH, 3, 128, 64), (BATCH, 3, 128, 64),
-              dict(causal=False)),
-             ("Llama-3.2-1B prefill", (LM_BATCH, 32, LM_PROMPT, 64),
-              (LM_BATCH, 8, LM_MAX_LEN, 64), dict(causal=True, q_offset=0))]
+    def one(label, q, k, v, **kw):
+        plan = kfa.plan_for(q)
+        got = planned("flash_attention", kfa.flash_attention, plan,
+                      lambda: kfa.flash_attention(q, k, v, **kw))
+        check("flash_attention", f"{label} q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} {kw} {_dt(q)} [{_attn_label(plan)}]", got,
+              kfa.flash_attention_plain(q, k, v, **kw), q.dtype)
+        return got
+
+    # M3ViT self-attention, then the Llama-3.2-1B prefill — causal GQA
+    # 32/8 against the whole cache; q (and M3ViT's k, v) as the transposed
+    # views the model hands over, which the tc kernel reads as they lie
     for dtype in (torch.bfloat16, torch.float32):
-        for label, qs, ks, kw in cases:
-            q = randn(qs, dtype, seed=1)
-            k, v = randn(ks, dtype, seed=2), randn(ks, dtype, seed=3)
-            check("flash_attention", f"{label} q {qs} k/v {ks} {kw} "
-                  f"{_dt(q)}", kfa.flash_attention(q, k, v, **kw),
-                  kfa.flash_attention_plain(q, k, v, **kw), dtype)
-    # ragged: GQA 6/2, Sq 77 vs Skv 100, head_dim 48, causal + window +
-    # q_offset
-    q = randn((2, 6, 77, 48), torch.bfloat16, seed=4)
-    k = randn((2, 2, 100, 48), torch.bfloat16, seed=5)
-    v = randn((2, 2, 100, 48), torch.bfloat16, seed=6)
-    kw = dict(causal=True, window=24, q_offset=23)
-    check("flash_attention", "ragged GQA 6/2 Sq=77 Skv=100 D=48 causal "
-          "window=24 q_offset=23 bf16", kfa.flash_attention(q, k, v, **kw),
-          kfa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+        one("M3ViT", *(_split_heads_view(BATCH, 128, 3, 64, dtype, seed)
+                       for seed in (1, 2, 3)), causal=False)
+        one("Llama-3.2-1B prefill",
+            _split_heads_view(LM_BATCH, LM_PROMPT, 32, 64, dtype, 1),
+            randn((LM_BATCH, 8, LM_MAX_LEN, 64), dtype, seed=2),
+            randn((LM_BATCH, 8, LM_MAX_LEN, 64), dtype, seed=3),
+            causal=True, q_offset=0)
+    # the same inputs contiguous
+    one("M3ViT contiguous", *(randn((BATCH, 3, 128, 64), torch.bfloat16,
+                                    seed=seed) for seed in (1, 2, 3)),
+        causal=False)
+    # Sq = 1 over a live prefix of the cache: the attention_decode/cuda
+    # route (ops/impls.py:_decode_cuda)
+    kc = randn((LM_BATCH, 8, LM_MAX_LEN, 64), torch.bfloat16, seed=7)
+    vc = randn((LM_BATCH, 8, LM_MAX_LEN, 64), torch.bfloat16, seed=8)
+    for length in (1, 150, LM_MAX_LEN):
+        one(f"Sq=1 over the live prefix {length}",
+            randn((LM_BATCH, 32, 1, 64), torch.bfloat16, seed=9),
+            kc[:, :, :length], vc[:, :, :length], causal=True,
+            q_offset=length - 1)
+    # ragged: GQA 6/2, Sq 77 vs Skv 100, causal + window + q_offset, at
+    # head_dim 48 (tc: one atom, 16 zero columns) and 40 (simt)
+    for d in (48, 40):
+        one(f"ragged GQA 6/2 D={d}",
+            randn((2, 6, 77, d), torch.bfloat16, seed=4),
+            randn((2, 2, 100, d), torch.bfloat16, seed=5),
+            randn((2, 2, 100, d), torch.bfloat16, seed=6),
+            causal=True, window=24, q_offset=23)
+    # head_dim 128 (two atoms), K tail off the 64-key tile
+    one("D=128", randn((2, 4, 130, 128), torch.bfloat16, seed=10),
+        randn((2, 2, 200, 128), torch.bfloat16, seed=11),
+        randn((2, 2, 200, 128), torch.bfloat16, seed=12), causal=True,
+        q_offset=70)
+    # fully masked rows: queries at positions -4.. see no key (causal),
+    # the window leaves each later one two
+    for dtype in (torch.bfloat16, torch.float32):
+        got = one("fully masked rows", randn((1, 2, 70, 64), dtype, seed=13),
+                  randn((1, 2, 20, 64), dtype, seed=14),
+                  randn((1, 2, 20, 64), dtype, seed=15), causal=True,
+                  window=2, q_offset=-4)
+        if bool((got[:, :, :4] != 0).any()):
+            raise AssertionError("flash_attention: a fully masked row is "
+                                 "not exactly zero")
 
 
 def check_gelu_lut() -> None:
@@ -470,24 +526,35 @@ def check_moe_fused() -> None:
 
 
 def check_decode_fused() -> None:
+    from repro_torch.kernels import attn_plan
     from repro_torch.kernels import decode_fused as kdf
 
     b, hq, hkv, smax, d = LM_BATCH, 32, 8, LM_MAX_LEN, 64
-    cl = torch.tensor([0, 512, 1, 77, 300, 511, 128, 33], dtype=torch.int32,
+    # a zero length, Smax, and lengths on and around the 64-key split
+    # boundaries
+    cl = torch.tensor([0, 512, 1, 63, 64, 65, 300, 129], dtype=torch.int32,
                       device="cuda")
+    plan = attn_plan.plan_decode(b, hq, hkv, smax)
+    splits = f"{plan.splits} splits of {plan.split} keys, {plan.blocks} blocks"
     for dtype in (torch.bfloat16, torch.float32):
-        for window in (None, 100):
+        # window 100 leaves the splits wholly behind the frontier unread
+        for window in (None, 100, 5):
             q = randn((b, hq, 1, d), dtype, seed=61)
             k = randn((b, hkv, smax, d), dtype, seed=62)
             v = randn((b, hkv, smax, d), dtype, seed=63)
             got = kdf.fused_decode_attention(q, k, v, cl, window=window)
-            check("decode_fused", f"B={b} Hq={hq} Hkv={hkv} Smax={smax} "
-                  f"D={d} cache_len {cl.tolist()} window={window} "
-                  f"{_dt(q)}", got,
+            label = (f"B={b} Hq={hq} Hkv={hkv} Smax={smax} D={d} cache_len "
+                     f"{cl.tolist()} window={window} {_dt(q)} [{splits}]")
+            check("decode_fused", label, got,
                   kdf.fused_decode_attention_plain(q, k, v, cl,
                                                    window=window), dtype)
             if bool((got[0] != 0).any()):
                 raise AssertionError("decode_fused: cache_len 0 not zero")
+            # the splits merge in a fixed order: a second launch is
+            # bit-identical
+            check_exact("decode_fused", f"{label} run 2 against run 1",
+                        kdf.fused_decode_attention(q, k, v, cl,
+                                                   window=window), got)
     # ragged: GQA 6/2 (group 3), head_dim 128, odd Smax, a zero length
     q = randn((3, 6, 1, 128), torch.float32, seed=64)
     k = randn((3, 2, 70, 128), torch.float32, seed=65)
@@ -498,6 +565,17 @@ def check_decode_fused() -> None:
           kdf.fused_decode_attention(q, k, v, cl3, window=5),
           kdf.fused_decode_attention_plain(q, k, v, cl3, window=5),
           torch.float32)
+    # ragged: a group of 12 in two chunks of heads, at head_dim 40 (rows of
+    # 80 bytes: 16-byte copies) and 36 (72 bytes: element copies)
+    cl2 = torch.tensor([130, 65], dtype=torch.int32, device="cuda")
+    for d in (40, 36):
+        q = randn((2, 24, 1, d), torch.bfloat16, seed=67)
+        k = randn((2, 2, 130, d), torch.bfloat16, seed=68)
+        v = randn((2, 2, 130, d), torch.bfloat16, seed=69)
+        check("decode_fused", f"ragged B=2 Hq=24 Hkv=2 Smax=130 D={d} "
+              f"cache_len [130, 65] bf16",
+              kdf.fused_decode_attention(q, k, v, cl2),
+              kdf.fused_decode_attention_plain(q, k, v, cl2), torch.bfloat16)
 
 
 # ------------------------------------------------------- launch records
@@ -536,15 +614,16 @@ def recorded_launches(calls: dict):
             mod._launch = launch
 
 
-#: GEMM kernel -> variant -> launches, summed over the counted main-path
-#: runs (the variant counters of the wrappers)
+#: kernel -> variant -> launches, summed over the counted main-path runs
+#: (the variant counters of the GEMM and flash_attention wrappers)
 COUNTED_VARIANTS: dict = {}
 
 
 def read_variants(label) -> dict:
-    """The GEMM wrappers' variant counters after a counted run: printed,
-    added to COUNTED_VARIANTS, and none may be the SIMT route (every main
-    path runs bf16 at 16-byte aligned shapes)."""
+    """The variant counters of the GEMM and flash_attention wrappers after
+    a counted run: printed, added to COUNTED_VARIANTS, and none may be the
+    SIMT route (every main path runs bf16 at 16-byte aligned shapes and a
+    head_dim of 64)."""
     from repro_torch.kernels import variant_counts
 
     counts = variant_counts()
@@ -872,12 +951,14 @@ def _attention_case(args) -> Case:
     pairs, keys = int(ok.sum()), int(ok.any(dim=0).sum())
     mask = ok if causal or window is not None else None
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    plan = kfa.plan_for(q)
     return Case(
         key=("attention", tuple(q.shape), tuple(k.shape), q.dtype, causal,
              window, q_offset),
         label=f"B={b} Hq={hq} Hkv={hkv} Sq={sq} Skv={skv} D={d} "
               f"{'causal' if causal else 'non-causal'} q_offset={q_offset} "
-              f"window={window} {_dt(q)} ({keys} keys visible)",
+              f"window={window} {_dt(q)} ({keys} keys visible) "
+              f"[{_attn_label(plan)}]", variant=plan.variant,
         kernel=lambda: kfa.flash_attention(q, k, v, **kw),
         plain=lambda: kfa.flash_attention_plain(q, k, v, **kw),
         library=lambda: F.scaled_dot_product_attention(
@@ -1185,12 +1266,14 @@ def main() -> None:
                 or line.startswith("=="):
             print("   " + line.strip())
     hgmma = build.sass_counts("HGMMA")
-    for kernel in ("unified_linear_tc_kernel", "moe_gemm_tc_kernel"):
+    for kernel, n in (("unified_linear_tc_kernel", 12),
+                      ("moe_gemm_tc_kernel", 12),
+                      ("flash_attention_tc_kernel", 2)):
         found = {k: v for k, v in hgmma.items() if kernel in k}
-        if len(found) != 12:
-            raise AssertionError(f"{kernel}: {len(found)} of 12 instances "
+        if len(found) != n:
+            raise AssertionError(f"{kernel}: {len(found)} of {n} instances "
                                  f"issue HGMMA in their SASS")
-        print(f"  {kernel}: HGMMA in the SASS of all 12 instances "
+        print(f"  {kernel}: HGMMA in the SASS of all {n} instances "
               f"({min(found.values())}..{max(found.values())} each)")
 
     print("phase 2: kernels against their plain versions, made-up inputs")

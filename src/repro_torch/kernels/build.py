@@ -27,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "function", "check", "build_seconds", "build_log",
-           "sass_counts", "DTYPE_CODES", "NVCC_FLAGS"]
+__all__ = ["library", "function", "check", "tickets", "build_seconds",
+           "build_log", "sass_counts", "DTYPE_CODES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -41,6 +41,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LOCK = threading.Lock()
 _STATE: dict = {}
+_TICKETS: dict = {}          # (kernel, device index) -> int32 counters
 
 
 def _nvcc() -> str:
@@ -181,3 +182,22 @@ def check(name: str, err: int) -> None:
         msg.restype = ctypes.c_char_p
         raise RuntimeError(f"{name}: CUDA error {err} at launch: "
                            f"{msg(err).decode()}")
+
+
+def tickets(kernel: str, device, n: int) -> torch.Tensor:
+    """The arrival counters of ``kernel``'s launches on ``device`` whose
+    last block of a group combines the group's float32 partials (split-K
+    tiles, decode splits): zeros, allocated once per kernel and device
+    (outside any CUDA graph capture) and left at zero by every launch,
+    whose last block of a group resets its counter.  Such launches of one
+    kernel on one device therefore run in stream order, never concurrently
+    on two streams."""
+    t = _TICKETS.get((kernel, device.index))
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: its tickets must be allocated "
+                               f"before a CUDA graph capture; launch the "
+                               f"shape once outside it")
+        t = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
+        _TICKETS[(kernel, device.index)] = t
+    return t

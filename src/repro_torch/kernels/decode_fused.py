@@ -10,15 +10,21 @@ Replaces the Pallas kernel ``src/repro/kernels/decode_fused.py``
 What bounds it on the H100: one query row per head against the live K/V
 prefix is ~4·head_dim FLOPs per key and head over 4·head_dim bytes (bf16
 K and V), far below the card's operations-per-byte line, so the bytes of
-the live prefixes set the least time.  Its design: one block per (b, kv
-head) serves the query heads of that GQA group, one warp each (for
-Llama-3.2-1B the group of 4), so a K/V tile is read once per group; the
-block reads ``cache_len[b]`` from device memory — no host sync, and one
-launch serves any mix of lengths (continuous batching) — and stops at the
-live prefix, skipping the tiles a window leaves behind.  head_dim is not
-padded to 128 and the group not to 8 (the TPU wrapper's); ragged edges are
-masked in the kernel.  With B·Hkv blocks (64 at B = 8) a launch is
-latency-bound; splitting the prefix over more blocks comes later.
+the live prefixes set the least time; in practice latency and parallelism
+do.  Its design (``csrc/decode_fused.cu`` has the notes): the Smax cache
+slots are split into key ranges of 64 fixed at launch
+(:func:`repro_torch.kernels.attn_plan.plan_decode`: 8 splits at Smax 512,
+so B·Hkv·8 blocks), each block serving the query heads of one GQA group
+(the LM's 4), so a K/V row is read once per group.  Each block reads
+``cache_len[b]`` on the card — no host sync, and one launch serves any mix
+of lengths (continuous batching) — and a split past the live prefix or
+wholly behind the window frontier loads nothing.  K/V tiles of 32 keys
+arrive by 16-byte ``cp.async`` into a 2-stage ring; the dot products and
+the P·V sums are float32.  Each split stores its float32 (m, l, acc)
+partial and takes a ticket; the last block of a (b, kv head) merges the
+splits in ascending order and writes the output, in the same launch and
+without float atomics, so two launches on the same inputs are
+bit-identical.
 
 The public :func:`fused_decode_attention` runs
 :func:`fused_decode_attention_plain` for CPU tensors and launches the
@@ -33,12 +39,21 @@ import math
 import torch
 
 from repro_torch.core.attention import NEG_INF, scale_in_dtype
-from repro_torch.kernels import build
+from repro_torch.kernels import attn_plan, build
+from repro_torch.kernels.attn_plan import MAX_D
 
 __all__ = ["fused_decode_attention", "fused_decode_attention_plain",
-           "MAX_D"]
+           "plan_for", "MAX_D"]
 
-MAX_D = 128          # csrc/decode_fused.cu:kMaxD
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def plan_for(q, k_cache) -> attn_plan.DecodePlan:
+    """The plan the wrapper follows for a CUDA launch on these operands."""
+    b, hq = q.shape[:2]
+    _, hkv, smax, _ = k_cache.shape
+    return attn_plan.plan_decode(b, hq, hkv, smax)
 
 
 def _lengths(cache_len, b, device):
@@ -103,15 +118,19 @@ def _launch(q, k, v, cl, window, scale):
     if o.numel() == 0:
         return o
     scale_t = float(torch.tensor(scale, dtype=q.dtype))
-    fn = build.function("decode_fused_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p])
+    plan = plan_for(q, k)
+    # 16-byte cp.async rows need D * itemsize and the bases 16-byte aligned
+    vec = (d * q.element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (k, v))
+    partials = torch.empty(plan.blocks * plan.heads * (d + 2),
+                           dtype=torch.float32, device=q.device)
+    tickets = build.tickets("decode_fused", q.device,
+                            plan.grid[1] * plan.grid[2])
+    fn = build.function("decode_fused_launch", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cl.data_ptr(),
-             o.data_ptr(), b, hq, hkv, smax, d,
-             -1 if window is None else int(window), scale_t,
-             build.DTYPE_CODES[q.dtype],
+             o.data_ptr(), partials.data_ptr(), tickets.data_ptr(), b, hq,
+             hkv, smax, d, -1 if window is None else int(window), scale_t,
+             plan.split, plan.splits, int(vec), build.DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("decode_fused", err)
     fused_decode_attention.launches += 1

@@ -6,18 +6,26 @@ Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py``
 ``kernels/ops.py:flash_attention``).  CUDA source:
 ``csrc/flash_attention.cu``.
 
-What bounds it on the H100: at M3ViT's shapes (B·3 heads, S = 128,
-head_dim 64) one head is 4 MFLOP over 64 KB of bf16 q/k/v/o, so the bytes
-set the least time; a launch is short, and this kernel's time is set by
-the float32 pipes and by latency.  Its design: one block per (b, h, 8
-query rows), one warp per query row, K/V tiles of 32 keys staged once in
-shared memory and reused by all 8 rows (the paper's resident-Q reuse), the
-(m, l, acc) carry in registers, fully masked K tiles skipped, and head_dim
-kept at its true size (the TPU wrapper padded 64 to 128; here the ragged
-edge is masked in the kernel).
+What bounds it on the H100: at the paths' shapes (M3ViT: B·3 heads, S =
+128; the Llama-3.2-1B prefill: B·32 heads over 128 visible keys; head_dim
+64) a head is 4 MFLOP over 64 KB of bf16 q/k/v/o, so the bytes set the
+least time, and what a launch costs in practice is latency.  Two variants,
+chosen by :func:`repro_torch.kernels.attn_plan.plan_attention` from the
+dtype and head_dim (``csrc/flash_attention.cu`` has the design notes):
+
+* ``tc`` — bf16, head_dim a multiple of 16 up to 128: 64 query rows a
+  block, ``Q·Kᵀ`` and ``P·V`` on the tensor cores (wgmma; P as a bf16
+  hi/lo pair, which keeps the bf16 tolerance where a single bf16 P does
+  not), K/V tiles of 64 keys through a TMA ring, the online softmax in
+  registers.  q, k and v are read through tensor maps built from their
+  strides: the transposed views ``_split_heads`` hands over need no copy.
+* ``simt`` — float32, or a head_dim the ``tc`` kernel does not take: 8
+  query rows a block on the float32 FMA pipes (the first kernel).
 
 The public :func:`flash_attention` runs :func:`flash_attention_plain` for
-CPU tensors and launches the kernel for CUDA tensors, or raises.
+CPU tensors and launches a kernel for CUDA tensors, or raises;
+``flash_attention.launches`` counts every launch, ``flash_attention.variants``
+each variant's.
 """
 
 from __future__ import annotations
@@ -28,11 +36,10 @@ import math
 import torch
 
 from repro_torch.core.attention import NEG_INF, allowed_keys
-from repro_torch.kernels import build
+from repro_torch.kernels import attn_plan, build
+from repro_torch.kernels.attn_plan import MAX_D
 
-__all__ = ["flash_attention", "flash_attention_plain", "MAX_D"]
-
-MAX_D = 128          # csrc/flash_attention.cu:kMaxD
+__all__ = ["flash_attention", "flash_attention_plain", "plan_for", "MAX_D"]
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -57,14 +64,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
     return out.to(q.dtype)
 
 
+_SIMT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_TC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                       ctypes.c_void_p]
+
+
+def plan_for(q) -> attn_plan.AttnPlan:
+    """The plan the wrapper follows for a CUDA launch with this q."""
+    b, hq, sq, d = q.shape
+    return attn_plan.plan_attention(b, hq, sq, d, q.dtype)
+
+
 def _launch(q, k, v, causal, window, q_offset, scale):
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected q (B,Hq,Sq,D), k=v (B,Hkv,Skv,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -81,21 +99,32 @@ def _launch(q, k, v, causal, window, q_offset, scale):
         raise ValueError("window must be non-negative")
     if b * hq > 65535:
         raise ValueError("B * Hq exceeds the grid's y limit")
-    o = torch.empty_like(q)
+    if not (k.device == v.device == q.device):
+        raise ValueError("operands lie on different devices")
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    fn = build.function("flash_attention_launch", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             b, hq, hkv, sq, skv, d, int(q_offset), int(bool(causal)),
-             -1 if window is None else int(window), float(scale),
-             build.DTYPE_CODES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention", err)
+    plan = plan_for(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    window = -1 if window is None else int(window)
+    if plan.variant == "tc":
+        # the 4-D tensor maps read strided views as they lie
+        q, k, v = (t if attn_plan.tma_view_ok(t) else t.contiguous()
+                   for t in (q, k, v))
+        strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
+        fn = build.function("flash_attention_tc_launch", _TC_ARGS)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 b, hq, hkv, sq, skv, d, *strides, int(q_offset),
+                 int(bool(causal)), window, float(scale), stream)
+    else:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fn = build.function("flash_attention_launch", _SIMT_ARGS)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 b, hq, hkv, sq, skv, d, int(q_offset), int(bool(causal)),
+                 window, float(scale), build.DTYPE_CODES[q.dtype], stream)
+    build.check(f"flash_attention ({plan.variant})", err)
     flash_attention.launches += 1
+    flash_attention.variants[plan.variant] += 1
     return o
 
 
@@ -107,9 +136,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
     if q.device.type == "cuda":
-        return _launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                       causal, window, q_offset, scale)
+        return _launch(q, k, v, causal, window, q_offset, scale)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
 flash_attention.launches = 0
+flash_attention.variants = {"tc": 0, "simt": 0}

@@ -84,29 +84,11 @@ _TC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
 _SIMT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p] + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
-_TICKETS: dict = {}          # device index -> int32 split-K tickets
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _split_tickets(device, n: int) -> torch.Tensor:
-    """The per-tile arrival counters of split-K launches on ``device``:
-    zeros, allocated once (outside any CUDA graph capture) and left at zero
-    by every launch, whose last block of a tile resets its counter.  Split-K
-    launches on one device therefore run in stream order, never
-    concurrently on two streams."""
-    t = _TICKETS.get(device.index)
-    if t is None or t.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("unified_linear: split-K tickets must be "
-                               "allocated before a CUDA graph capture; "
-                               "launch the shape once outside it")
-        t = torch.zeros(max(n, 1 << 16), dtype=torch.int32, device=device)
-        _TICKETS[device.index] = t
-    return t
 
 
 def plan_for(x2, w, y=None) -> gemm_plan.GemmPlan:
@@ -163,7 +145,7 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
             partials = torch.empty(plan.blocks * plan.bt // 2 * plan.nwg
                                    * 128, dtype=torch.float32,
                                    device=x2.device)
-            tickets = _split_tickets(x2.device, plan.tiles)
+            tickets = build.tickets("unified_linear", x2.device, plan.tiles)
         fn = build.function("unified_linear_tc_launch", _TC_ARGS)
         err = fn(*common, plan.bt, plan.nwg, plan.splits, plan.stages,
                  None if partials is None else partials.data_ptr(),

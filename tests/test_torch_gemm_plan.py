@@ -184,4 +184,5 @@ def test_cpu_tensors_move_no_variant_counter(rng):
     kmg.moe_gemm(x[None].to(BF16), x.T.contiguous()[None].to(BF16),
                  torch.tensor([5], dtype=torch.int32))
     assert launch_counts() == before_l and variant_counts() == before_v
-    assert set(variant_counts()) == {"unified_linear", "moe_gemm"}
+    assert set(variant_counts()) == {"unified_linear", "moe_gemm",
+                                     "flash_attention"}
