@@ -11,8 +11,10 @@ Phases, each printing its lines:
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
    with ``nvcc`` for ``sm_90a`` (into ``build/``), with ptxas' register and
    spill report per entry function, and a ``cuobjdump -sass`` count of
-   ``HGMMA`` in each instance of the two tensor-core GEMM kernels and of
-   the tensor-core (``tc``) attention kernel.
+   ``HGMMA`` in each instance of the two tensor-core GEMM kernels, of the
+   tensor-core (``tc``) attention kernel and of the ``tc`` fused MoE
+   kernel, whose build log must show no C7518 (ptxas serializing a
+   ``wgmma``).
 2. Each of the six kernels against its plain PyTorch version on the card,
    on made-up inputs: at the main paths' shapes (M³ViT at B = 8; the
    Llama-3.2-1B projections at M = 8 and M = 1024 and its causal GQA
@@ -33,7 +35,15 @@ Phases, each printing its lines:
    (``repro_torch.kernels.attn_plan``); ``decode_fused`` adds cache lengths
    on and around its 64-key split boundaries (63, 64, 65, Smax), windows
    that leave whole splits unread, and a second launch that must be
-   bit-identical.
+   bit-identical; ``moe_fused`` adds every queue at capacity, all tokens
+   routed to one expert (tiles spanning every group), an empty expert,
+   top-1 and top-8, two routing groups (f split over two blocks),
+   d = f = 768, d = 128, NaN in x rows that no queue reads, exact GELU,
+   SwiGLU at M³ViT's widths and at ragged ones on ``tc`` and ``simt``,
+   float32 on ``simt``,
+   and a second launch that must be bit-identical; every launch
+   must move exactly the variant counter its planner names
+   (``gemm_plan.plan_moe_fused``).
 3. The main path: an ``M3ViTServer`` at the full 12-layer ``CONFIG`` in
    bf16 under the ``cuda`` policy, with seeded random weights, answers 16
    requests (8 semseg, 8 depth) in batches of 8.  Output shapes and
@@ -45,8 +55,8 @@ Phases, each printing its lines:
    calls (``repro_torch.serve.profile.wall_per_batch``).  The same 16
    requests are then served under ``cuda`` with ``moe_ffn="cuda_fused"``:
    cosine >= 0.999 against the plain policy, ``moe_fused`` launched 6 times
-   per forward, ``moe_gemm`` and ``gelu_lut`` not at all; timed the same
-   way.
+   per forward, every launch on ``tc``, ``moe_gemm`` and ``gelu_lut`` not
+   at all; timed the same way.
 4. The LM path: a ``ServingEngine`` at the full Llama-3.2-1B ``CONFIG``
    (16 layers, bf16, seeded random weights, ``max_len`` 512) under ``cuda``
    with ``attention_decode="cuda_fused"`` generates 32 greedy tokens for
@@ -78,13 +88,14 @@ Phases, each printing its lines:
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs.  The variant counters (the GEMMs', ``flash_attention``'s) are
-read with them: no main path may take the SIMT route, and the variants
-the recorded launches were planned on must equal the counted ones (``variants`` in the JSON line and
-per unit).  The recorded launches must match the counted ones kernel by
-kernel, and a kernel's times and bound in the JSON line cover exactly
-those launches (in-order replays; ``alone_ms`` sums the launches timed
-alone), with a breakdown (``units``) per recorded twin.
+those runs.  The variant counters (the GEMMs', ``flash_attention``'s,
+``moe_fused``'s) are read with them: no main path may take the SIMT
+route, and the variants the recorded launches were planned on must
+equal the counted ones (``variants`` in the JSON line and per unit).
+The recorded launches must match the counted ones kernel by kernel, and
+a kernel's times and bound in the JSON line cover exactly those launches
+(in-order replays; ``alone_ms`` sums the launches timed alone), with a
+breakdown (``units``) per recorded twin.
 
 The plain versions run in full float32: TF32 is switched off for matmuls
 and for cuDNN before anything runs.  Any failed check raises; the last two
@@ -476,53 +487,139 @@ def check_moe_gemm() -> None:
         randn((5, 40, 72), torch.bfloat16, 0.2, seed=18), rs)
 
 
+def _fused_label(plan) -> str:
+    if plan.variant == "simt":
+        return "simt"
+    return (f"tc {64 * plan.ny}-column slices, F in {plan.fsplit}, "
+            f"{plan.stages} stages, {plan.blocks} blocks")
+
+
+def _fused_params(kind, e, d, f, dtype, seed):
+    if kind == "swiglu":
+        return {"wg": randn((e, d, f), dtype, d ** -0.5, seed=seed),
+                "wu": randn((e, d, f), dtype, d ** -0.5, seed=seed + 1),
+                "wd": randn((e, f, d), dtype, f ** -0.5, seed=seed + 2)}
+    return {"w1": randn((e, d, f), dtype, d ** -0.5, seed=seed),
+            "b1": randn((e, f), torch.float32, 0.1, seed=seed + 1),
+            "w2": randn((e, f, d), dtype, f ** -0.5, seed=seed + 2),
+            "b2": randn((e, d), torch.float32, 0.1, seed=seed + 3)}
+
+
 def check_moe_fused() -> None:
     from repro_torch.core import routing as R
-    from repro_torch.core.moe import MoEConfig
+    from repro_torch.core.gelu import device_table
     from repro_torch.kernels import moe_fused as kmf
     from repro_torch.kernels.compare import moe_lut_allowance
 
-    g, t, e, k, d, f = BATCH, 128, 16, 4, 192, 768
-    mcfg = MoEConfig(d_model=d, d_ff=f, num_experts=e, top_k=k,
-                     expert_kind="gelu", capacity_factor=2.0, group_size=t)
-    c = mcfg.capacity(t)
-    r = R.route(randn((g, t, e), torch.float32, seed=50), k, c)
-    sizes = R.dispatch_counts(r, e)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = randn((g, t, d), dtype, seed=51)
-        p = {"w1": randn((e, d, f), dtype, d ** -0.5, seed=52),
-             "b1": randn((e, f), torch.float32, 0.1, seed=53),
-             "w2": randn((e, f, d), dtype, f ** -0.5, seed=54),
-             "b2": randn((e, d), torch.float32, 0.1, seed=55)}
+    def run(label, x, p, r, c, kind="gelu", use_lut=True):
+        """One launch, which must move exactly its planned variant counter,
+        held against the plain version; returns the output and a second
+        launch on the same inputs."""
+        e = p["wg" if kind == "swiglu" else "w1"].shape[0]
+        sizes = R.dispatch_counts(r, e)
         args = (x, p, r.expert, r.gate, r.position, r.valid, sizes)
-        kw = dict(kind="gelu", capacity=c, use_lut=True)
-        check("moe_fused", f"G={g} T={t} E={e} top-{k} C={c} d={d} f={f} "
-              f"gelu-lut {_dt(x)} (random logits, {int(sizes.sum())} of "
-              f"{g * t * k} slots live)", kmf.fused_moe_ffn(*args, **kw),
-              kmf.fused_moe_ffn_plain(*args, **kw), dtype,
+        kw = dict(kind=kind, capacity=c, use_lut=use_lut)
+        table = device_table("silu" if kind == "swiglu" else "gelu", -8, 8.0,
+                             x.device) if use_lut else None
+        plan = kmf.plan_for(x, p, kind, c, table)
+        got = planned("moe_fused", kmf.fused_moe_ffn, plan,
+                      lambda: kmf.fused_moe_ffn(*args, **kw))
+        g, t, d = x.shape
+        check("moe_fused", f"{label}: G={g} T={t} E={e} "
+              f"top-{r.expert.shape[-1]} C={c} d={d} {kind}"
+              f"{'-lut' if use_lut else ' exact'} {_dt(x)}, "
+              f"{int(sizes.sum())} of {r.valid.numel()} slots live "
+              f"[{_fused_label(plan)}]", got,
+              kmf.fused_moe_ffn_plain(*args, **kw), x.dtype,
               extra=moe_lut_allowance(x, p, r.expert, r.gate, r.valid,
-                                      kind="gelu"))
+                                      kind=kind) if use_lut else None)
+        return got, lambda: planned("moe_fused", kmf.fused_moe_ffn, plan,
+                                    lambda: kmf.fused_moe_ffn(*args, **kw))
+
+    def routed(g, t, e, k, c, seed, hot=None, cold=None):
+        logits = randn((g, t, e), torch.float32, seed=seed)
+        if hot is not None:
+            logits[..., hot] = 30.0
+        if cold is not None:
+            logits[..., cold] = -30.0
+        return R.route(logits, k, c)
+
+    g, t, e, k, d, f, c = BATCH, 128, 16, 4, 192, 768, 68
+    r = routed(g, t, e, k, c, seed=50)
+    for dtype in (torch.float32, torch.bfloat16):   # simt, then tc
+        x = randn((g, t, d), dtype, seed=51)
+        p = _fused_params("gelu", e, d, f, dtype, seed=52)
+        first, again = run("M3ViT layer", x, p, r, c)
+    # x, p: the bf16 layer; a second launch on the same inputs is
+    # bit-identical to the first
+    check_exact("moe_fused", "second launch on the same inputs", again(),
+                first)
+    run("exact GELU", x, p, r, c, use_lut=False)
+    run("SwiGLU, SiLU through the LUT", x,
+        _fused_params("swiglu", e, d, f, torch.bfloat16, seed=76), r, c,
+        kind="swiglu")
+    # every queue at capacity: 272 tokens a group, token t's slots to
+    # experts 4t..4t+3 (mod 16), 68 slots each
+    tf = 272
+    dev = r.expert.device
+    expert = ((4 * torch.arange(tf, device=dev)[:, None]
+               + torch.arange(k, device=dev)) % e).int().expand(
+                   g, tf, k).contiguous()
+    position, valid = R.build_dispatch(expert, e, c)
+    gate = torch.softmax(randn((g, tf, k), torch.float32, seed=60), -1)
+    full = R.Routing(expert=expert, gate=gate,
+                     position=position, valid=valid, probs=None)
+    if not bool((R.dispatch_counts(full, e) == c).all()):
+        raise AssertionError("moe_fused: expected every queue at capacity")
+    run("every queue at capacity", randn((g, tf, d), torch.bfloat16,
+                                         seed=61), p, full, c)
+    # every token's one slot to expert 3: 60 rows a group, so each 64-row
+    # tile spans two groups and the expert's tiles span all eight
+    run("all tokens to one expert", randn((g, 60, d), torch.bfloat16,
+                                          seed=62), p,
+        routed(g, 60, e, 1, c, seed=63, hot=3), c)
+    one_empty = routed(g, t, e, k, c, seed=64, cold=7)
+    if bool((R.dispatch_counts(one_empty, e)[:, 7] != 0).any()):
+        raise AssertionError("moe_fused: expected expert 7 empty")
+    run("one empty expert", x, p, one_empty, c)
+    run("top-1", x, p, routed(g, t, e, 1, c, seed=65), c)
+    # two routing groups: f in two ranges, whose planes the combine adds
+    run("batch 2", x[:2].contiguous(), p, routed(2, t, e, k, c, seed=73), c)
+    run("top-8 (capacity drops)", x, p, routed(g, t, e, 8, c, seed=66), c)
+    # top-1 at capacity 4 drops most tokens; their x rows hold NaN, which no
+    # queue reads and which must not reach any output
+    sparse = routed(g, t, e, 1, 4, seed=67)
+    dropped = ~sparse.valid.any(dim=-1)
+    xn = x.clone()
+    xn[dropped] = float("nan")
+    got, _ = run("NaN in the x rows no queue reads", xn, p, sparse, 4)
+    if not bool(dropped.any()) or not bool(torch.isfinite(got).all()) \
+            or bool((got[dropped] != 0).any()):
+        raise AssertionError("moe_fused: NaN rows of dropped tokens leaked "
+                             "or dropped tokens were not exact zeros")
+    # d = f = 768: four 192-column d-slices, a one-stage ring; d = 128:
+    # one slice of two 64-column atoms
+    run("d = f = 768", randn((g, t, 768), torch.bfloat16, seed=68),
+        _fused_params("gelu", e, 768, 768, torch.bfloat16, seed=69), r, c)
+    run("d = 128, f = 256", randn((g, t, 128), torch.bfloat16, seed=74),
+        _fused_params("gelu", e, 128, 256, torch.bfloat16, seed=75), r, c)
     # ragged: 3 groups of 37 tokens, 5 SwiGLU experts with one never
-    # chosen, top-2 at a capacity that drops slots, exact SiLU, float32
-    x = randn((3, 37, 24), torch.float32, seed=56)
-    p = {"wg": randn((5, 24, 40), torch.float32, 0.2, seed=57),
-         "wu": randn((5, 24, 40), torch.float32, 0.2, seed=58),
-         "wd": randn((5, 40, 24), torch.float32, 0.15, seed=59)}
-    logits = randn((3, 37, 5), torch.float32, seed=60)
-    logits[..., 3] = -30.0
-    r = R.route(logits, 2, 12)
-    sizes = R.dispatch_counts(r, 5)
-    args = (x, p, r.expert, r.gate, r.position, r.valid, sizes)
-    kw = dict(kind="swiglu", capacity=12, use_lut=False)
-    got = kmf.fused_moe_ffn(*args, **kw)
-    check("moe_fused", "ragged G=3 T=37 E=5 (one empty) top-2 C=12 swiglu "
-          "exact float32", got, kmf.fused_moe_ffn_plain(*args, **kw),
-          torch.float32)
-    dropped = ~r.valid.any(dim=-1)
-    if not bool(dropped.any()) or bool((got[dropped] != 0).any()) \
-            or bool((sizes[:, 3] != 0).any()):
-        raise AssertionError("moe_fused ragged: expected an empty expert "
-                             "and dropped tokens with exact zeros")
+    # chosen, top-2 at a capacity that drops slots, exact SiLU — on the
+    # tensor cores at d = 24, f = 40 (partial atoms and chunks), then at
+    # d = 36 (72-byte rows: simt) and in float32 (simt)
+    ragged = routed(3, 37, 5, 2, 12, seed=70, cold=3)
+    for dtype, dr in ((torch.bfloat16, 24), (torch.bfloat16, 36),
+                      (torch.float32, 24)):
+        got, _ = run("ragged (one empty expert)",
+                     randn((3, 37, dr), dtype, seed=71),
+                     _fused_params("swiglu", 5, dr, 40, dtype, seed=72),
+                     ragged, 12, kind="swiglu", use_lut=False)
+        dropped = ~ragged.valid.any(dim=-1)
+        if not bool(dropped.any()) or bool((got[dropped] != 0).any()) \
+                or bool((R.dispatch_counts(ragged, 5)[:, 3] != 0).any()):
+            raise AssertionError("moe_fused ragged: expected an empty "
+                                 "expert and dropped tokens with exact "
+                                 "zeros")
 
 
 def check_decode_fused() -> None:
@@ -615,15 +712,16 @@ def recorded_launches(calls: dict):
 
 
 #: kernel -> variant -> launches, summed over the counted main-path runs
-#: (the variant counters of the GEMM and flash_attention wrappers)
+#: (the variant counters of the GEMM, flash_attention and moe_fused
+#: wrappers)
 COUNTED_VARIANTS: dict = {}
 
 
 def read_variants(label) -> dict:
-    """The variant counters of the GEMM and flash_attention wrappers after
-    a counted run: printed, added to COUNTED_VARIANTS, and none may be the
-    SIMT route (every main path runs bf16 at 16-byte aligned shapes and a
-    head_dim of 64)."""
+    """The variant counters of the GEMM, flash_attention and moe_fused
+    wrappers after a counted run: printed, added to COUNTED_VARIANTS, and
+    none may be the SIMT route (every main path runs bf16 at 16-byte
+    aligned shapes and a head_dim of 64)."""
     from repro_torch.kernels import variant_counts
 
     counts = variant_counts()
@@ -747,7 +845,7 @@ def fused_path(ctx, units):
     outs = {task: server.infer(imgs, task) for task, imgs in batches}
     counts = launch_counts()
     report = ops.dispatch_report()
-    read_variants("the 16 requests (fused)")
+    variants = read_variants("the 16 requests (fused)")
 
     for task, imgs in batches:
         y = outs[task]
@@ -761,6 +859,9 @@ def fused_path(ctx, units):
             raise AssertionError(f"{task}: fused cosine {cos} < 0.999")
     print(f"  launches over the 16 requests: {json.dumps(counts)}")
     n_moe = 2 * (MV.CONFIG.num_layers // 2)        # two forwards
+    if variants["moe_fused"] != {"tc": n_moe, "simt": 0}:
+        raise AssertionError(f"moe_fused variants {variants['moe_fused']}: "
+                             f"all {n_moe} launches must take tc")
     if counts["moe_fused"] != n_moe or counts["moe_gemm"] \
             or counts["gelu_lut"] or not counts["unified_linear"] \
             or not counts["flash_attention"]:
@@ -908,7 +1009,7 @@ class Case:
     tol: Optional[Callable] = dict    # -> tolerance keywords; None: exact
     after: Optional[Callable] = None  # further check of the kernel's output
     staged: Optional[Callable] = None  # moe_fused: the staged cuda path
-    variant: Optional[str] = None     # GEMMs: the planned kernel variant
+    variant: Optional[str] = None     # the planned kernel variant
 
 
 def _linear_case(args) -> Case:
@@ -1018,6 +1119,7 @@ _EXPERT_WEIGHTS = {"gelu": ("w1", "b1", "w2", "b2"),
 def _moe_fused_case(args) -> Case:
     from repro_torch import ops
     from repro_torch.core import routing as R
+    from repro_torch.core.gelu import device_table
     from repro_torch.core.moe import MoEConfig
     from repro_torch.kernels import moe_fused as kmf
     from repro_torch.kernels.compare import moe_lut_allowance
@@ -1030,7 +1132,14 @@ def _moe_fused_case(args) -> Case:
     f = weights[0].shape[-1]
     live, dropped = int(sizes.sum()), int((~valid).sum())
     active = int((sizes > 0).any(dim=0).sum())
-    blocks = int(((sizes + 31) // 32).sum())     # 32 queue rows a block
+    plan = kmf.plan_for(x, params, kind, capacity, device_table(
+        "silu" if kind == "swiglu" else "gelu", step, rng,
+        x.device) if use_lut else None)
+    if plan.variant == "tc":    # 64 packed rows of one expert a block
+        per_e = sizes.clamp(0, capacity).sum(dim=0)
+        ran = int(((per_e + 63) // 64).sum()) * plan.grid[1]
+    else:                       # 32 rows of one (group, expert) a block
+        ran = int(((sizes.clamp(0, capacity) + 31) // 32).sum())
     call = (x, params, expert, gate, position, valid, sizes)
     kw = dict(kind=kind, capacity=capacity, use_lut=use_lut, step_log2=step,
               lut_range=rng)
@@ -1051,7 +1160,8 @@ def _moe_fused_case(args) -> Case:
         label=f"G={g} T={t} E={e} top-{k} C={capacity} d={d} f={f} "
               f"{kind}{'-lut' if use_lut else ''} {_dt(x)}: {live} slots "
               f"live, {dropped} dropped, {active} experts used, longest "
-              f"queue {int(sizes.max())}, {blocks} blocks of 32 rows",
+              f"queue {int(sizes.max())}, {ran} of {plan.blocks or ran} "
+              f"blocks ran [{_fused_label(plan)}]", variant=plan.variant,
         kernel=lambda: kmf.fused_moe_ffn(*call, **kw),
         plain=lambda: kmf.fused_moe_ffn_plain(*call, **kw),
         library=None, staged=staged,
@@ -1261,14 +1371,26 @@ def main() -> None:
     secs = build.build_seconds()
     print(f"  kernels built and loaded in {secs:.1f} s (nvcc "
           f"{' '.join(build.NVCC_FLAGS)})")
-    for line in build.build_log().splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")) \
-                or line.startswith("=="):
+    log = build.build_log()
+    for line in log.splitlines():
+        if (any(w in line for w in ("entry function", "registers", "spill",
+                                    "serialized"))
+                and "C7519" not in line) or line.startswith("=="):
             print("   " + line.strip())
+    # ptxas serializes the wgmmas of a kernel that issues one under a
+    # branch (C7518) or runs short of registers (C7512); the fused MoE
+    # source holds no other wgmma kernel than moe_fused_tc_kernel
+    fused_log = log.split("== moe_fused.cu", 1)[-1].split("\n== ", 1)[0]
+    if "C7518" in fused_log or "serialized" in fused_log:
+        raise AssertionError("moe_fused_tc_kernel: ptxas serialized its "
+                             "wgmmas")
+    print("  moe_fused.cu: no wgmma serialization (C7518, C7512) in its "
+          "build log")
     hgmma = build.sass_counts("HGMMA")
     for kernel, n in (("unified_linear_tc_kernel", 12),
                       ("moe_gemm_tc_kernel", 12),
-                      ("flash_attention_tc_kernel", 2)):
+                      ("flash_attention_tc_kernel", 2),
+                      ("moe_fused_tc_kernel", 12)):
         found = {k: v for k, v in hgmma.items() if kernel in k}
         if len(found) != n:
             raise AssertionError(f"{kernel}: {len(found)} of {n} instances "

@@ -32,19 +32,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // ReLU(y) - delta(|y|) from the half-table (core/gelu.py:lut_correction).
 // `scale` is 2^-step_log2, so |y| * scale is exact.  "In range" is decided
 // in float before any int conversion; the index rounds half to even
-// (__float2int_rn, as jnp.round / torch.round); a non-finite y returns
-// y * 0.5 * (1 + sign(y)): +inf -> +inf, -inf -> NaN, NaN -> NaN.
+// (__float2int_rn, as jnp.round / torch.round) and is clamped to n - 1; a
+// non-finite y returns y * 0.5 * (1 + sign(y)): +inf -> +inf, -inf -> NaN,
+// NaN -> NaN.  Written without branches (the index is clamped in float,
+// where fminf also maps NaN to n - 1, and every case selects), so a warp
+// never splits over a tile of values and the table loads can be issued
+// together.
 __device__ __forceinline__ float lut_correction(float y, const float* table,
                                                 int n, float scale) {
-  if (!isfinite(y)) return y * 0.5f * (1.0f + copysignf(1.0f, y));
   const float t = fabsf(y) * scale;
-  float delta = 0.0f;
-  if (t < (float)n) {
-    int i = __float2int_rn(t);
-    i = min(max(i, 0), n - 1);
-    delta = table[i];
-  }
-  return fmaxf(y, 0.0f) - delta;
+  const float delta = table[__float2int_rn(fminf(t, (float)(n - 1)))];
+  const float r = fmaxf(y, 0.0f) - (t < (float)n ? delta : 0.0f);
+  return isfinite(y) ? r : y * 0.5f * (1.0f + copysignf(1.0f, y));
 }
 
 // ---------------------------------------------------------------- GEMM tile

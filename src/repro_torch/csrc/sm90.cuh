@@ -1,9 +1,9 @@
 // sm90.cuh: the Hopper (sm_90a) PTX pieces that the port's tensor-core
 // kernels share: shared-memory addresses, mbarriers, TMA tensor loads,
-// named barriers, the wgmma fences and shared-memory descriptors, the two
-// m64n64k16 wgmma forms attention needs, and the host-side tensor-map
-// encoder.  gemm_sm90.cuh (unified_linear, moe_gemm) and the attention
-// kernels (flash_attention.cu) include it.
+// named barriers, the wgmma fences and shared-memory descriptors, the
+// m64n64k16 wgmma forms of attention and of the fused MoE layer, and the
+// host-side tensor-map encoder.  gemm_sm90.cuh (unified_linear, moe_gemm,
+// moe_fused) and the attention kernels (flash_attention.cu) include it.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; libcuda is not linked)
@@ -121,7 +121,7 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// ------------------------------------------------- wgmma for attention
+// ------------------------------- wgmma for attention and the fused MoE layer
 
 // d(64 x 64) (+)= A(64 x 16) * B(16 x 64), both from shared memory and both
 // K-major (transpose bits 0): S = Q K^T with Q's and K's rows along the
@@ -136,6 +136,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d(64 x 64) (+)= A(64 x 16) * B(16 x 64), both from shared memory, A
+// K-major (transpose bit 0) and B MN-major (transpose bit 1): h = x W1 with
+// the rows of x along the model width and W1's rows along its hidden units
+// (moe_fused.cu).
+__device__ __forceinline__ void wgmma_m64n64k16_ss_bt(float (&d)[32],
+                                                      uint64_t a, uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

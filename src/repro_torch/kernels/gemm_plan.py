@@ -1,4 +1,5 @@
-"""Tile plans for the two GEMM kernels, ``unified_linear`` and ``moe_gemm``.
+"""Tile plans for the two GEMM kernels, ``unified_linear`` and ``moe_gemm``,
+and for the fused MoE layer, ``moe_fused`` (:func:`plan_moe_fused`).
 
 Both run one bf16 tensor-core mainloop (``csrc/gemm_sm90.cuh``) that
 computes ``yᵀ = wᵀ·xᵀ``: a block owns ``64·nwg`` rows of the weights' N
@@ -43,7 +44,9 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["GemmPlan", "plan_linear", "plan_moe", "k_ranges", "TILE_K",
-           "WGMMA_K", "TOKEN_TILES", "SMEM_BUDGET"]
+           "WGMMA_K", "TOKEN_TILES", "SMEM_BUDGET", "FusedPlan",
+           "plan_moe_fused", "fused_smem_bytes", "fused_tile_rows",
+           "FUSED_ROWS"]
 
 TILE_K = 64            # k-tile: one 128-byte swizzle row of bf16
 WGMMA_K = 16           # wgmma's k per instruction
@@ -164,3 +167,123 @@ def plan_moe(queues: int, c: int, d: int, f: int, dtype: torch.dtype,
     stages = _stages(bt, nwg, -(-d // TILE_K))
     return GemmPlan("tc", f"{bt}-row queue tiles against {WG_ROWS * nwg} "
                     f"columns of F", bt, nwg, 1, stages, grid)
+
+
+# ------------------------------------------------------------ moe_fused
+
+FUSED_ROWS = 64        # packed queue rows a tc block owns: wgmma's M side
+FUSED_CHUNK = 64       # hidden units a ring stage carries
+FUSED_WGS = 2          # consumer warpgroups, taking the chunks in turn
+FUSED_MAX_NY = 3       # 64-column atoms of y a warpgroup holds: 96 floats
+FUSED_MAX_STAGES = 4
+FUSED_ATOM = 64 * 128  # one 64-row box of 128-byte rows
+# dynamic shared memory a tc block may take: the card's 227 KB per block
+# less the 1 KB of static row tables (csrc/moe_fused.cu)
+FUSED_SMEM_LIMIT = 227 * 1024 - 1024
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    variant: str            # "tc" or "simt"
+    reason: str             # why this variant (the routing rule that chose it)
+    ny: int = 0             # 64-column atoms of y a warpgroup holds
+    stages: int = 0         # shared-memory ring depth (chunks of F)
+    fsplit: int = 1         # ranges of F, each its own block and plane
+    smem: int = 0           # dynamic shared memory of one block, bytes
+    grid: tuple = ()        # (row tiles an expert, d-slices x fsplit,
+    #                          experts)
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid) if self.grid else 0
+
+
+def fused_smem_bytes(d: int, ny: int, kind: str, stages: int,
+                     table: int) -> int:
+    """``csrc/moe_fused.cu:tc_smem_bytes``: 1 KB of alignment slack, the x
+    tile, the ring (or the epilogue's float32 y tile that reuses it), the
+    LUT half-table of ``table`` entries, the barriers."""
+    ka = -(-d // 64)
+    stage = ((2 if kind == "swiglu" else 1) * ka + ny) * FUSED_ATOM
+    ring = max(stages * stage, FUSED_ROWS * (64 * ny + 4) * 4)
+    return 1024 + ka * FUSED_ATOM + ring + (table + 1) // 2 * 8 + 16 * stages
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_moe_fused(g: int, e: int, c: int, d: int, f: int,
+                   dtype: torch.dtype, kind: str, sms: int, table: int = 0,
+                   aligned: bool = True) -> FusedPlan:
+    """The variant, y atoms, ring depth and grid of one ``moe_fused``
+    launch: ``g`` routing groups, ``e`` experts of capacity ``c``, width
+    ``d``, hidden ``f``, a LUT half-table of ``table`` entries (0: exact
+    activations); ``aligned``: x and the weights start on 16-byte
+    boundaries.
+
+    ``tc`` packs each expert's live queue rows of every group into 64-row
+    tiles; the grid is the capacity bound, ⌈g·c/64⌉ tiles an expert, and
+    the tiles past an expert's live rows return at once.  A warpgroup holds
+    y for a d-slice of 64·ny columns, ny the largest of 3, 2, 1 that
+    divides d's 64-column atoms (so no slice reads a box wholly past d;
+    d = 192: one slice), and the ring is as deep as shared memory allows,
+    up to 4 chunks of F.  Where the capacity-bound grid has fewer blocks
+    than the card has SMs (M³ViT below batch 8; at batch 8 it is 144 for
+    132), F is split in two ranges of at least two chunks each, one block
+    each: twice the blocks, each half as long, their partial y summed in a
+    fixed order by the combine (a second float32 plane of the slot
+    scratch).  A block takes a whole SM (its shared memory), so at batch 8
+    the ~142 live blocks of a split would run in two waves: on the H100
+    the split gained at batches 1, 2 and 4 and lost at 8 and 16."""
+    if dtype != torch.bfloat16:
+        return FusedPlan("simt", f"{dtype} operands: wgmma takes float32 "
+                         f"only as TF32")
+    if not (aligned and _aligned(2 * d, 2 * f)):
+        return FusedPlan("simt", "a bf16 row pitch or base not a multiple "
+                         "of 16 bytes (cp.async and TMA cannot address it)")
+    atoms = -(-d // 64)
+    ny = max(n for n in range(FUSED_MAX_NY, 0, -1) if atoms % n == 0)
+    fits = [s for s in range(1, FUSED_MAX_STAGES + 1)
+            if fused_smem_bytes(d, ny, kind, s, table) <= FUSED_SMEM_LIMIT]
+    if not fits:
+        return FusedPlan("simt", f"the x tile and one ring stage at d={d} "
+                         f"({kind}) exceed a block's shared memory")
+    stages = fits[-1]
+    tiles = -(-g * c // FUSED_ROWS)
+    bound = tiles * (atoms // ny) * e
+    chunks = -(-f // FUSED_CHUNK)
+    fsplit = 2 if bound < sms and chunks >= 4 else 1
+    grid = (tiles, atoms // ny * fsplit, e)
+    return FusedPlan(
+        "tc", f"{FUSED_ROWS}-row tiles of packed queue rows, {64 * ny}-column "
+        f"d-slices, F in {fsplit} range(s), {stages}-stage ring; a grid of "
+        f"{math.prod(grid)} blocks (capacity bound) for {sms} SMs", ny,
+        stages, fsplit, fused_smem_bytes(d, ny, kind, stages, table), grid)
+
+
+def fused_tile_rows(sizes, capacity: int) -> dict:
+    """The tile assignment of the ``tc`` kernel, as its blocks compute it
+    (``csrc/moe_fused.cu:moe_fused_tc_kernel``): for ``sizes`` (G, E) of
+    queue lengths, {(expert, tile): [(group, queue row) or None for a dead
+    row, one per tile row]} for every tile that runs; tiles at or past an
+    expert's live rows return at once and are left out."""
+    sizes = [[min(max(int(s), 0), capacity) for s in row] for row in sizes]
+    g_num = len(sizes)
+    e_num = len(sizes[0]) if sizes else 0
+    out = {}
+    for e in range(e_num):
+        total = sum(sizes[g][e] for g in range(g_num))
+        for tile in range(-(-g_num * capacity // FUSED_ROWS)):
+            p0 = tile * FUSED_ROWS
+            if p0 >= total:
+                continue
+            rows = []
+            for p in range(p0, p0 + FUSED_ROWS):
+                if p >= total:
+                    rows.append(None)
+                    continue
+                before, g = 0, 0
+                while p >= before + sizes[g][e]:
+                    before += sizes[g][e]
+                    g += 1
+                rows.append((g, p - before))
+            out[(e, tile)] = rows
+    return out

@@ -9,41 +9,66 @@ impl).  CUDA source: ``csrc/moe_fused.cu``.
 What bounds it on the H100: an M³ViT MoE layer at B = 8 (8 routing groups
 of 128 tokens, 16 experts, top-4, d 192, f 768) is ~2.4 GFLOP over ~10 MB
 (x, the used experts' weights, the slot scratch, out), so the bytes set
-the least time; this first kernel, on the float32 FMA pipes, is limited by
-operation issue and shared-memory traffic far above that bound.  Its
-design: no (E, C, d) dispatch buffer and no (rows, f) hidden in memory — a
-block gathers its 32 queue rows of x by token index into shared memory
-(the TPU kernel's one-hot matmul was a device of the MXU), walks the hidden
-dimension in chunks of 64 with all math in float32, and writes each live
-row's ``gate · y`` to a float32 slot scratch (G, T, k, d); a short second
-launch sums each token's valid slots in ascending expert index — the
-order the sequential TPU grid adds them in, with no float atomics — and
-casts once to ``x.dtype``.  Empty queues and capacity blocks past a
-queue's end return before the expert's weights are read.  The two
-launches count as one ``moe_fused`` launch.
+the least time (~3 µs); with ~70 tiles of 64 rows for 132 SMs, what a
+launch costs is one block's latency.  The design keeps the TPU kernel's
+contracts — no (E, C, d) dispatch buffer and no (rows, f) hidden in device
+memory, routing read on the card, empty queues and tiles past a queue's
+end returning before the expert's weights are read, dead slots adding
+nothing — and runs in one of two variants, chosen by
+:func:`repro_torch.kernels.gemm_plan.plan_moe_fused` and counted apart in
+``fused_moe_ffn.variants``:
+
+* ``tc`` (bf16, 16-byte rows, d <= 768): each block packs 64 of one
+  expert's live queue rows, taken from every routing group in turn,
+  gathers their x rows by token index (``cp.async``), streams the expert's
+  weights by TMA through an ``mbarrier`` ring one 64-wide chunk of f at a
+  time, and for each chunk computes ``h = act(x·w1 + b1)`` by ``wgmma`` in
+  float32 registers and ``y += h·w2`` by ``wgmma`` with h as the register
+  operand, as a bf16 pair ``hi + lo`` (one bf16 h leaves the tolerance at
+  M³ViT's shape: ``tests/test_torch_moe_numerics.py``).  Two warpgroups
+  take the chunks in turn and add their partial y once, in shared memory.
+* ``simt`` (float32, unaligned bf16, what tc's shared memory cannot hold):
+  32 queue rows of one (group, expert) a block, the hidden walked in chunks
+  of 64 on the float32 FMA pipes.
+
+A short first launch builds the queues by reference on the card (the
+arrays of :func:`build_queues`).  Both variants write each live row's
+``gate · (y + b2)`` to a float32 slot scratch (G, T, k, d) — ``tc`` in
+one plane per range of f where it splits f over blocks (small batches) —
+and a short last launch sums each token's valid slots in ascending expert
+index — the order the sequential TPU grid adds them in, with no float
+atomics — and casts once to ``x.dtype``.  The three launches count as one
+``moe_fused`` launch.
 
 The public :func:`fused_moe_ffn` keeps a leading group axis, x (G, T, d),
 so one MoE layer is one kernel pass over every routing group (the reference
 ``vmap``s it per group).  It runs :func:`fused_moe_ffn_plain` for CPU
-tensors and launches the kernel for CUDA tensors, or raises.
+tensors and launches the planned variant for CUDA tensors, or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.gelu import (device_table, exact_gelu, exact_silu,
                                    lut_correction)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, gemm_plan
 
-__all__ = ["fused_moe_ffn", "fused_moe_ffn_plain", "build_queues", "MAX_D",
-           "MAX_K"]
+__all__ = ["fused_moe_ffn", "fused_moe_ffn_plain", "build_queues",
+           "plan_for", "MAX_D", "MAX_K"]
 
-MAX_D = 768          # csrc/moe_fused.cu: two (32, d) float32 tiles in smem
-MAX_K = 8            # csrc/moe_fused.cu:kMaxK
+# d both variants take: simt keeps two (32, d) float32 tiles and the table
+# in its 216 KB of shared memory; tc the (64, d) bf16 x tile and one ring
+# stage (GELU: d 768 at one stage; SwiGLU's two first-product matrices stop
+# tc below that, gemm_plan.plan_moe_fused)
+MAX_D = 768
+MAX_K = 8            # csrc/moe_fused.cu:kMaxK (the combine's slot order)
 KINDS = {"gelu": 0, "swiglu": 1}     # csrc/moe_fused.cu:Kind
+_EXPERT_NAMES = {"gelu": ("w1", "b1", "w2", "b2"),
+                 "swiglu": ("wg", "wu", "wd")}
 
 
 def build_queues(expert, gate, position, valid, num_experts: int,
@@ -76,9 +101,7 @@ def build_queues(expert, gate, position, valid, num_experts: int,
 
 
 def _weights(params, kind):
-    if kind == "swiglu":
-        return params["wg"], params["wu"], params["wd"]
-    return params["w1"], params["b1"], params["w2"], params["b2"]
+    return tuple(params[n] for n in _EXPERT_NAMES[kind])
 
 
 def _activate(h, kind, use_lut, table, step_log2):
@@ -165,6 +188,27 @@ def _check(x, weights, kind, expert, group_sizes):
     return g, t, d, e_num, f
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x, params, kind, capacity, table=None) -> gemm_plan.FusedPlan:
+    """The plan the wrapper follows for a CUDA launch on these operands
+    (x (G, T, d); ``table``: the LUT half-table, or None)."""
+    return _plan(x, _weights(params, kind), kind, capacity, table)
+
+
+def _plan(x, weights, kind, capacity, table):
+    g, _, d = x.shape
+    e_num, _, f = weights[0].shape
+    return gemm_plan.plan_moe_fused(
+        g, e_num, capacity, d, f, x.dtype, kind,
+        _sm_count(x.device.index or 0),
+        0 if table is None else table.shape[0],
+        all(a.data_ptr() % 16 == 0 for a in (x, *weights)))
+
+
 def _launch(x, params, expert, gate, position, valid, group_sizes, kind,
             capacity, use_lut, step_log2, lut_range):
     weights = [w.contiguous() for w in _weights(params, kind)]
@@ -174,17 +218,23 @@ def _launch(x, params, expert, gate, position, valid, group_sizes, kind,
     if len(devices) != 1:
         raise ValueError("operands lie on different devices")
     k = expert.shape[-1]
-    tok_idx, gates, slot_idx = (a.contiguous() for a in build_queues(
-        expert, gate, position, valid, e_num, capacity))
-    expert_c = expert.to(torch.int32).contiguous()
-    valid_c = valid.to(torch.bool).contiguous()
+    routing = [expert.to(torch.int32).contiguous(),
+               gate.to(torch.float32).contiguous(),
+               position.to(torch.int32).contiguous(),
+               valid.to(torch.bool).contiguous()]
     sizes = group_sizes.to(torch.int32).contiguous()
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    scratch = torch.empty((g, t, k, d), dtype=torch.float32, device=x.device)
     table = device_table("silu" if kind == "swiglu" else "gelu", step_log2,
                          lut_range, x.device) if use_lut else None
+    plan = _plan(x, weights, kind, capacity, table)
+    # the queues (tok_idx, slot_idx, gates: build_queues' three arrays) are
+    # built on the card by the launch itself
+    queues = torch.empty((3, g, e_num, capacity), dtype=torch.int32,
+                         device=x.device)
+    scratch = torch.empty((plan.fsplit, g, t, k, d), dtype=torch.float32,
+                          device=x.device)
     if kind == "swiglu":
         w1, wu, w2 = weights
         b1 = b2 = None
@@ -195,22 +245,30 @@ def _launch(x, params, expert, gate, position, valid, group_sizes, kind,
     def ptr(a):
         return None if a is None else a.data_ptr()
 
-    fn = build.function("moe_fused_launch", [
-        *([ctypes.c_void_p] * 13), ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, *([ctypes.c_int] * 10),
-        ctypes.c_void_p])
-    err = fn(x.data_ptr(), w1.data_ptr(), ptr(b1), ptr(wu), w2.data_ptr(),
-             ptr(b2), sizes.data_ptr(), tok_idx.data_ptr(),
-             slot_idx.data_ptr(), gates.data_ptr(), expert_c.data_ptr(),
-             valid_c.data_ptr(), ptr(table),
-             0 if table is None else table.shape[0],
-             float(2.0 ** (-step_log2)), scratch.data_ptr(), out.data_ptr(),
-             g, e_num, capacity, t, k, d, f, KINDS[kind], int(bool(use_lut)),
-             build.DTYPE_CODES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("moe_fused", err)
+    args = [x.data_ptr(), w1.data_ptr(), ptr(b1), ptr(wu), w2.data_ptr(),
+            ptr(b2), sizes.data_ptr(), *(a.data_ptr() for a in routing),
+            ptr(table), 0 if table is None else table.shape[0],
+            float(2.0 ** (-step_log2)), queues.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), g, e_num, capacity, t, k, d,
+            f, KINDS[kind], int(bool(use_lut))]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.variant == "tc":
+        fn = build.function("moe_fused_tc_launch", _ARGS + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        err = fn(*args, plan.ny, plan.stages, plan.fsplit, stream)
+    else:
+        fn = build.function("moe_fused_launch", _ARGS + [
+            ctypes.c_int, ctypes.c_void_p])
+        err = fn(*args, build.DTYPE_CODES[x.dtype], stream)
+    build.check(f"moe_fused ({plan.variant})", err)
+    fused_moe_ffn.variants[plan.variant] += 1
     fused_moe_ffn.launches += 1
     return out
+
+
+# the arguments the two C entry points share (csrc/moe_fused.cu)
+_ARGS = [*([ctypes.c_void_p] * 12), ctypes.c_int, ctypes.c_float,
+         *([ctypes.c_void_p] * 3), *([ctypes.c_int] * 9)]
 
 
 def fused_moe_ffn(x, params, expert, gate, position, valid, group_sizes, *,
@@ -237,3 +295,4 @@ def fused_moe_ffn(x, params, expert, gate, position, valid, group_sizes, *,
 
 
 fused_moe_ffn.launches = 0
+fused_moe_ffn.variants = {"tc": 0, "simt": 0}

@@ -1,7 +1,8 @@
-"""The tile planner of the port's two GEMM kernels
-(``repro_torch.kernels.gemm_plan``): which variant each shape takes, how K
-is split, and how many blocks a launch gives the card.  Plain Python, so
-every decision the wrappers make on the card is checked here on the CPU.
+"""The tile planner of the port's two GEMM kernels and of the fused MoE
+layer (``repro_torch.kernels.gemm_plan``): which variant each shape takes,
+how K is split, how many blocks a launch gives the card, and which queue
+rows each ``moe_fused`` tile reads.  Plain Python, so every decision the
+wrappers make on the card is checked here on the CPU.
 """
 
 import math
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import launch_counts, variant_counts
+from repro_torch.kernels import moe_fused as kmf
 from repro_torch.kernels import moe_gemm as kmg
 from repro_torch.kernels import unified_linear as kul
 
@@ -183,6 +185,129 @@ def test_cpu_tensors_move_no_variant_counter(rng):
     kul.unified_linear(x.to(BF16), x.T.contiguous().to(BF16))
     kmg.moe_gemm(x[None].to(BF16), x.T.contiguous()[None].to(BF16),
                  torch.tensor([5], dtype=torch.int32))
+    w = torch.from_numpy(rng.normal(size=(2, 64, 16)).astype(np.float32))
+    expert = torch.tensor([[[0], [1], [0]]], dtype=torch.int32)
+    kmf.fused_moe_ffn(x[None, :3].to(BF16),
+                      {"wg": w.to(BF16), "wu": w.to(BF16),
+                       "wd": w.transpose(1, 2).contiguous().to(BF16)},
+                      expert, torch.ones((1, 3, 1)),
+                      torch.tensor([[[0], [0], [1]]]),
+                      torch.ones((1, 3, 1), dtype=torch.bool),
+                      torch.tensor([[2, 1]], dtype=torch.int32),
+                      kind="swiglu", capacity=2)
     assert launch_counts() == before_l and variant_counts() == before_v
     assert set(variant_counts()) == {"unified_linear", "moe_gemm",
-                                     "flash_attention"}
+                                     "flash_attention", "moe_fused"}
+
+
+# ------------------------------------------------------------ moe_fused
+
+# M3ViT's MoE layer at B = 8: 8 routing groups, 16 experts, capacity 68,
+# d 192, f 768, the GELU half-table of 2048 entries (step 2^-8, range 8)
+M3VIT_FUSED = (8, 16, 68, 192, 768)
+GELU_TABLE = 2048
+
+
+def test_m3vit_moe_fused_takes_the_tensor_cores():
+    plan = gp.plan_moe_fused(*M3VIT_FUSED, BF16, "gelu", SMS, GELU_TABLE)
+    assert plan.variant == "tc", plan.reason
+    # 64-row tiles of the 8 x 68 capacity bound, one d-slice of 192, f
+    # whole (144 blocks of the capacity bound for 132 SMs), the expert
+    # slowest
+    assert plan.grid == (math.ceil(8 * 68 / 64), 1, 16) and plan.ny == 3
+    assert plan.fsplit == 1
+    assert plan.stages == gp.FUSED_MAX_STAGES
+    assert plan.smem == gp.fused_smem_bytes(192, 3, "gelu", plan.stages,
+                                            GELU_TABLE)
+    assert plan.smem <= gp.FUSED_SMEM_LIMIT
+    # exact activations need no table; the plan is the same
+    exact = gp.plan_moe_fused(*M3VIT_FUSED, BF16, "gelu", SMS)
+    assert exact.variant == "tc" and exact.grid == plan.grid
+
+
+@pytest.mark.parametrize("d,f,aligned", [(192, 768, True), (36, 64, True),
+                                         (192, 60, True), (192, 768, False)],
+                         ids=["m3vit_float32", "d36", "f60", "base"])
+def test_float32_and_unaligned_moe_fused_take_the_simt_route(d, f, aligned):
+    """float32 (wgmma would take it only as TF32), and bf16 whose rows of d
+    or f are not a multiple of 16 bytes or whose base is not 16-byte
+    aligned (cp.async and TMA cannot address them)."""
+    assert gp.plan_moe_fused(8, 16, 68, 192, 768, F32, "gelu", SMS,
+                             GELU_TABLE).variant == "simt"
+    if (d, f, aligned) != (192, 768, True):
+        plan = gp.plan_moe_fused(8, 16, 68, d, f, BF16, "gelu", SMS,
+                                 GELU_TABLE, aligned)
+        assert plan.variant == "simt", plan.reason
+
+
+@pytest.mark.parametrize("kind,d,variant,stages,slices,fsplit", [
+    ("gelu", 768, "tc", 1, 4, 1), ("swiglu", 192, "tc", 2, 1, 1),
+    ("swiglu", 768, "simt", 0, 0, 0), ("gelu", 256, "tc", 3, 2, 1),
+    ("gelu", 40, "tc", 4, 1, 1)])
+def test_moe_fused_shared_memory_sets_the_ring_and_the_route(
+        kind, d, variant, stages, slices, fsplit):
+    """d = 768 leaves room for one ring stage beside the x tile; SwiGLU's
+    two first-product matrices fit two stages at d = 192 and none at 768.
+    d-slices of 192 columns where d's atoms allow, else 128 or 64; f split
+    in two only while the capacity-bound grid is under one block per SM."""
+    plan = gp.plan_moe_fused(8, 16, 68, d, 768, BF16, kind, SMS, GELU_TABLE)
+    assert plan.variant == variant, plan.reason
+    if variant == "tc":
+        assert plan.stages == stages and plan.fsplit == fsplit
+        n = plan.grid[1] // plan.fsplit
+        assert n == slices and n * 64 * plan.ny >= d > (n - 1) * 64 * plan.ny
+        assert plan.blocks == 9 * slices * fsplit * 16
+        assert plan.smem <= gp.FUSED_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("g,f,fsplit", [(1, 768, 2), (4, 768, 2),
+                                        (8, 768, 1), (16, 768, 1),
+                                        (4, 192, 1), (4, 256, 2)])
+def test_moe_fused_splits_f_only_for_a_small_grid(g, f, fsplit):
+    """Two ranges of f where even the capacity-bound grid leaves SMs idle
+    (M³ViT below batch 8), one from batch 8 on; never a range of under two
+    chunks."""
+    plan = gp.plan_moe_fused(g, 16, 68, 192, f, BF16, "gelu", SMS)
+    assert plan.fsplit == fsplit and plan.grid[1] == fsplit
+
+
+def _skewed_sizes():
+    g, e, c = 8, 16, 68
+    rng = np.random.default_rng(3)
+    one = np.zeros((g, e), int)
+    one[:, 5] = c                       # every token's slot to one expert
+    empty = rng.integers(0, c + 1, (g, e))
+    empty[:, 0] = 0                     # one expert with no row anywhere
+    return {"all_to_one_expert": one, "one_empty_expert": empty,
+            "every_queue_at_capacity": np.full((g, e), c),
+            "random_with_out_of_range": rng.integers(-3, c + 9, (g, e)),
+            "single_group": rng.integers(0, c + 1, (1, e))}
+
+
+@pytest.mark.parametrize("case", list(_skewed_sizes()))
+def test_fused_tiles_cover_every_live_row_exactly_once(case):
+    sizes = _skewed_sizes()[case]
+    c = 68
+    g_num, e_num = sizes.shape
+    live = np.clip(sizes, 0, c)
+    tiles = gp.fused_tile_rows(sizes.tolist(), c)
+    grid_tiles = gp.plan_moe_fused(g_num, e_num, c, 192, 768, BF16, "gelu",
+                                   SMS).grid[0]
+    for e in range(e_num):
+        total = int(live[:, e].sum())
+        ran = sorted(t for (ee, t) in tiles if ee == e)
+        # the tiles that run are the first ceil(total / 64) of the grid's;
+        # the rest (all of them for an empty expert) return at once
+        assert ran == list(range(-(-total // gp.FUSED_ROWS)))
+        assert len(ran) <= grid_tiles
+        rows = [row for t in ran for row in tiles[(e, t)]]
+        got = [row for row in rows if row is not None]
+        want = [(g, q) for g in range(g_num) for q in range(live[g, e])]
+        assert got == want          # each live row once, groups in order
+        # dead rows only at the end of the expert's last tile
+        assert rows[len(got):] == [None] * (len(rows) - len(got))
+        assert len(rows) - len(got) < gp.FUSED_ROWS
+    if case == "all_to_one_expert":
+        assert len([k for k in tiles if k[0] == 5]) == grid_tiles
+        spans = {len({r[0] for r in rows if r}) for rows in tiles.values()}
+        assert max(spans) == 2      # a tile reads rows of two groups
