@@ -37,7 +37,7 @@ Phases, each printing its lines:
    that leave whole splits unread, and a second launch that must be
    bit-identical; ``moe_fused`` adds every queue at capacity, all tokens
    routed to one expert (tiles spanning every group), an empty expert,
-   top-1 and top-8, two routing groups (f split over two blocks),
+   top-1 and top-8, two routing groups,
    d = f = 768, d = 128, NaN in x rows that no queue reads, exact GELU,
    SwiGLU at M³ViT's widths and at ragged ones on ``tc`` and ``simt``,
    float32 on ``simt``,
@@ -56,7 +56,22 @@ Phases, each printing its lines:
    requests are then served under ``cuda`` with ``moe_ffn="cuda_fused"``:
    cosine >= 0.999 against the plain policy, ``moe_fused`` launched 6 times
    per forward, every launch on ``tc``, ``moe_gemm`` and ``gelu_lut`` not
-   at all; timed the same way.
+   at all; timed the same way.  After each of the two runs, frame 0 of
+   each task served at batch 1, 2 and 4 must equal its row at batch 8 bit
+   for bit (the reduction order of every kernel on these paths depends on
+   the layer's widths, not on the batch).  Then the same 16 requests are
+   served with expert paging under ``cuda``: 8 of each MoE layer's 16
+   experts resident (``resident_fraction=0.5``), synchronously, then
+   through the copy-stream ``TransferEngine`` (``async_paging=True``),
+   then under a budget of four experts' bytes.  Each output must be
+   ``np.array_equal`` to the all-resident ``cuda`` run's, ``moe_gemm``
+   (every launch on ``tc``) and ``gelu_lut`` must launch and the dispatch
+   report show the kernels hit on the card; the cache counters (hits,
+   misses, evictions, bytes paged per batch, hit rate), the waves per
+   layer, the transfers' stall and hidden time and overlap ratio, and ms
+   per batch are printed.  These paged runs' launches are checked here
+   and stay out of phase 5 (they run the same kernels at the same
+   per-queue shapes as the ``cuda`` run).
 4. The LM path: a ``ServingEngine`` at the full Llama-3.2-1B ``CONFIG``
    (16 layers, bf16, seeded random weights, ``max_len`` 512) under ``cuda``
    with ``attention_decode="cuda_fused"`` generates 32 greedy tokens for
@@ -490,7 +505,7 @@ def check_moe_gemm() -> None:
 def _fused_label(plan) -> str:
     if plan.variant == "simt":
         return "simt"
-    return (f"tc {64 * plan.ny}-column slices, F in {plan.fsplit}, "
+    return (f"tc {64 * plan.ny}-column slices, F whole, "
             f"{plan.stages} stages, {plan.blocks} blocks")
 
 
@@ -583,7 +598,7 @@ def check_moe_fused() -> None:
         raise AssertionError("moe_fused: expected expert 7 empty")
     run("one empty expert", x, p, one_empty, c)
     run("top-1", x, p, routed(g, t, e, 1, c, seed=65), c)
-    # two routing groups: f in two ranges, whose planes the combine adds
+    # two routing groups: a grid of 48 blocks for 132 SMs, f whole
     run("batch 2", x[:2].contiguous(), p, routed(2, t, e, k, c, seed=73), c)
     run("top-8 (capacity drops)", x, p, routed(g, t, e, 8, c, seed=66), c)
     # top-1 at capacity 4 drops most tokens; their x rows hold NaN, which no
@@ -809,7 +824,9 @@ def main_path(units):
             raise AssertionError(f"dispatch report for {op}: {entry}")
     print(f"  dispatch report: {json.dumps(report)}")
     _time_batches(server, batches)
-    return counts, {"params": params, "batches": batches, "plain": plain}
+    batch_independence(server, batches, "policy cuda")
+    return counts, {"params": params, "batches": batches, "plain": plain,
+                    "outs": outs}
 
 
 def _time_batches(server, batches):
@@ -873,7 +890,119 @@ def fused_path(ctx, units):
         raise AssertionError(f"dispatch report for moe_ffn: {entry}")
     print(f"  dispatch report moe_ffn: {json.dumps(entry)}")
     _time_batches(server, batches)
+    batch_independence(server, batches, "policy cuda + moe_ffn=cuda_fused")
     return counts
+
+
+def batch_independence(server, batches, label):
+    """Frame 0 of each task served alone and at batch 2 and 4 must give
+    the bits it gets at batch 8 (the other frames of a batch are other
+    images)."""
+    for task, imgs in batches:
+        full = server.infer(imgs, task)[0]
+        diffs = {b: float(np.abs(server.infer(imgs[:b], task)[0]
+                                 - full).max()) for b in (1, 2, 4)}
+        print(f"  {label}, {task}: frame 0 at batch 1, 2, 4 against batch "
+              f"{len(imgs)}: max abs diff {json.dumps(diffs)}")
+        if any(diffs.values()):
+            raise AssertionError(f"{label}, {task}: frame 0 depends on its "
+                                 f"batch: {diffs}")
+
+
+def paged_path(ctx):
+    """The 16 requests through expert paging under ``cuda``: 8 of the 16
+    experts of each MoE layer resident, synchronous, then through the
+    copy-stream TransferEngine, then under a budget of four experts'
+    bytes.  Every output must equal the all-resident ``cuda`` run's bit
+    for bit; the waves run moe_gemm (all on tc) and gelu_lut.  These runs'
+    launches are checked and printed here and stay out of phase 5, which
+    times the same kernels at the same per-queue shapes."""
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+    from repro_torch.serve.vision import M3ViTServer
+
+    cfg = replace(MV.CONFIG, policy=ops.policy_named("cuda"))
+    batches, want = ctx["batches"], ctx["outs"]
+    # each run's arguments from the bytes of one expert, which the first
+    # run's cache reports
+    runs = (("synchronous, resident_fraction 0.5",
+             lambda _: dict(resident_fraction=0.5)),
+            ("asynchronous (TransferEngine), resident_fraction 0.5",
+             lambda _: dict(resident_fraction=0.5, async_paging=True)),
+            ("asynchronous, budget of four experts' bytes",
+             lambda nbytes: dict(async_paging=True,
+                                 expert_budget_bytes=4 * nbytes)))
+    n_moe = MV.CONFIG.num_layers // 2
+    per_expert = 0
+    for label, make in runs:
+        server = M3ViTServer(cfg, ctx["params"], **make(per_expert))
+        layer = next(iter(server.paged.values()))
+        per_expert = layer.cache.stats()["paged_expert_bytes"]
+        for task, imgs in batches:          # warm-up, not counted
+            server.infer(imgs, task)
+        torch.cuda.synchronize()
+        server.reset_stats()
+        reset_launch_counts()
+        ops.reset_dispatch_report()
+        outs = {task: server.infer(imgs, task) for task, imgs in batches}
+        counts = launch_counts()
+        variants = variant_counts()
+        report = ops.dispatch_report()
+        stats = server.cache_stats()
+        waves = [len(p.last_timeline) for p in server.paged.values()]
+        print(f"  paged, {label}: {layer.cache.max_resident} of "
+              f"{MV.CONFIG.moe.num_experts} experts resident per layer, "
+              f"{per_expert} bytes an expert")
+        for task, _ in batches:
+            if not np.array_equal(outs[task], want[task]):
+                raise AssertionError(
+                    f"paged {label}, {task}: output differs from the "
+                    f"all-resident cuda run (max abs diff "
+                    f"{float(np.abs(outs[task] - want[task]).max())})")
+        print(f"    outputs of both tasks bit-identical to the all-resident "
+              f"cuda run")
+        print(f"    launches over the 16 requests: {json.dumps(counts)}; "
+              f"moe_gemm variants {json.dumps(variants['moe_gemm'])}")
+        if not (counts["moe_gemm"] and counts["gelu_lut"]
+                and counts["unified_linear"] and counts["flash_attention"]) \
+                or counts["moe_fused"] or variants["moe_gemm"]["simt"] \
+                or variants["moe_gemm"]["tc"] != counts["moe_gemm"]:
+            raise AssertionError(f"paged {label}: launches {counts}, "
+                                 f"moe_gemm variants {variants['moe_gemm']}")
+        for op in ("linear", "attention", "moe_grouped_gemm", "activation"):
+            entry = report.get(op, {})
+            if entry.get("fallbacks") or entry.get("modes", {}).get(
+                    "cuda") != {"cuda": entry.get("hits", {}).get("cuda", -1)}:
+                raise AssertionError(f"paged dispatch report for {op}: "
+                                     f"{entry}")
+        print(f"    dispatch report: every linear, attention, "
+              f"moe_grouped_gemm and activation on the card's kernels "
+              f"({json.dumps({op: report[op]['hits'] for op in report})})")
+        print(f"    waves per MoE layer (last forward): {waves}; cache over "
+              f"the 2 batches: hits {stats['hits']}, misses "
+              f"{stats['misses']}, evictions {stats['evictions']}, hit rate "
+              f"{stats['hit_rate']:.4f}, {stats['bytes_paged'] / 2:.0f} "
+              f"bytes paged per batch")
+        if server.engine is not None:
+            if not stats["hidden_s"] > 0:
+                raise AssertionError(f"paged {label}: no copy time hidden "
+                                     f"behind compute: {stats}")
+            print(f"    transfers: stall {stats['stall_s'] * 1e3:.3f} ms, "
+                  f"hidden {stats['hidden_s'] * 1e3:.3f} ms, overlap ratio "
+                  f"{stats['overlap_ratio']:.4f} over the 2 batches")
+        if len(waves) != n_moe:
+            raise AssertionError(f"paged {label}: {len(waves)} paged layers")
+        server.reset_stats()
+        _time_batches(server, batches)
+        if server.engine is not None:
+            stats = server.cache_stats()
+            print(f"    over the timed batches: stall "
+                  f"{stats['stall_s'] * 1e3:.3f} ms, hidden "
+                  f"{stats['hidden_s'] * 1e3:.3f} ms, overlap ratio "
+                  f"{stats['overlap_ratio']:.4f}, hit rate "
+                  f"{stats['hit_rate']:.4f}")
 
 
 # ------------------------------------------------------------ phase 4
@@ -1408,6 +1537,7 @@ def main() -> None:
     print("phase 3: main path, M3ViT serving")
     counts, ctx = main_path(units)
     fused_counts = fused_path(ctx, units)
+    paged_path(ctx)
 
     print("phase 4: LM path, Llama-3.2-1B serving")
     lm_counts = lm_path(units)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,7 +24,8 @@ from repro_torch.core import routing as R
 from repro_torch.core.unified_linear import unified_linear
 
 __all__ = ["MoEConfig", "init_moe", "apply_moe", "group_shape",
-           "expert_param_names"]
+           "expert_param_names", "route_groups", "RoutedGroups",
+           "add_shared_experts"]
 
 
 @dataclass(frozen=True)
@@ -120,21 +122,52 @@ def _is_task_vector(task_id) -> bool:
     return not isinstance(task_id, int) and np.ndim(task_id) == 1
 
 
-def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
-              return_stats: bool = False):
-    """x: (..., T, d) -> (y, aux_loss[, counts]).
+#: rows of one gating product: a multiple of every routing group length
+#: the serving paths use (128), so each group's rows land in one product
+GATE_ROWS = 1024
 
-    ``task_id`` is a scalar (one gating network for the call) or a 1-D
-    vector of per-sequence tasks matching x's leading dim.
-    ``return_stats`` adds the per-expert dispatch counts summed over groups:
-    (E,), or (num_tasks, E) for a task vector.
-    """
-    if cfg.impl != "grouped":
-        raise NotImplementedError(
-            f"MoE impl {cfg.impl!r} is not ported yet: the port serves "
-            "'grouped' (onehot and ep_local come with the distribution "
-            "slice)")
-    orig_shape = x.shape
+
+def _gate_logits(xf: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """xf (G, g, d) float32 times the gate (d, E), or every task's gate
+    (tasks, d, E) -> (G, g, E) or (G, g, tasks, E), in float32 products of
+    exactly ``GATE_ROWS`` rows (the last one zero-padded).  Every product
+    has the same shape at any G, so the library takes the same algorithm
+    and a token's logits do not depend on the tokens beside it.  (One
+    product over all G·g rows did: on the H100 it took another algorithm
+    below 896 rows — split-K — and moved the logits' last bits, which the
+    fused MoE kernel carries in its float32 gate weights.)"""
+    g_num, t, d = xf.shape
+    w = gate_w if gate_w.dim() == 2 else \
+        gate_w.permute(1, 0, 2).reshape(d, -1)
+    rows = xf.reshape(-1, d)
+    n = rows.shape[0]
+    pad = -n % GATE_ROWS
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, d))])
+    out = torch.cat([torch.mm(c, w) for c in rows.split(GATE_ROWS)]) \
+        if rows.shape[0] > GATE_ROWS else torch.mm(rows, w)
+    return out[:n].reshape((g_num, t) + gate_w.shape[:-2] + (-1,))
+
+
+class RoutedGroups(NamedTuple):
+    """One MoE call's tokens cut into routing groups and routed: what
+    :func:`apply_moe` and the paged layer (``serve/expert_cache.py``)
+    share, so both route a token to the same bits."""
+
+    groups: torch.Tensor            # (G, g, d), zero-padded
+    real: Optional[torch.Tensor]    # (G, g) bool pad mask, None: no pads
+    routing: R.Routing              # (G, g, k) per slot
+    stat: torch.Tensor              # (G, rows) int32 per-expert counts
+    capacity: int
+    t_total: int
+
+
+def route_groups(params, cfg: MoEConfig, x: torch.Tensor,
+                 task_id=0) -> RoutedGroups:
+    """Group, gate and route ``x`` (..., T, d): the gating logits in
+    float32, top-k and capacity per group, and the per-expert dispatch
+    counts with pad rows excluded — ``stat`` rows are experts, or
+    (task, expert) pairs for a per-sequence task vector."""
     d = x.shape[-1]
     dev = x.device
     flat = x.reshape(-1, d)
@@ -167,12 +200,12 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
             gate_w = gate_w[int(task_id)]
             if gate_b is not None and gate_b.dim() == 2:
                 gate_b = gate_b[int(task_id)]
-        logits = torch.einsum("gtd,de->gte", xf, gate_w)
+        logits = _gate_logits(xf, gate_w)
         if gate_b is not None:
             logits = logits + gate_b.float()
     else:
         # every task's gate, then select per token
-        all_logits = torch.einsum("gtd,kde->gtke", xf, gate_w)
+        all_logits = _gate_logits(xf, gate_w)
         logits = torch.gather(
             all_logits, 2,
             task_groups[:, :, None, None].expand(
@@ -181,7 +214,6 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
             logits = logits + gate_b[task_groups].float()
 
     r = R.route(logits, cfg.top_k, capacity, renormalize=cfg.renormalize)
-    group_sizes = R.dispatch_counts(r, cfg.num_experts)      # (G, E)
     stat_valid = r.valid if real is None else r.valid & real[..., None]
     stat_idx = r.expert.reshape(n_groups, -1).long()
     n_rows = cfg.num_experts
@@ -192,23 +224,51 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
     stat = torch.zeros((n_groups, n_rows), dtype=torch.int32, device=dev)
     stat.scatter_add_(-1, stat_idx,
                       stat_valid.reshape(n_groups, -1).to(torch.int32))
+    return RoutedGroups(groups, real, r, stat, capacity, t_total)
+
+
+def add_shared_experts(params, x: torch.Tensor,
+                       y: torch.Tensor) -> torch.Tensor:
+    """y + the always-on shared SwiGLU expert(s) on x."""
+    gshared = unified_linear(x, params["shared_wg"], activation="silu")
+    ushared = unified_linear(x, params["shared_wu"])
+    return y + unified_linear((gshared * ushared).to(x.dtype),
+                              params["shared_wd"])
+
+
+def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
+              return_stats: bool = False):
+    """x: (..., T, d) -> (y, aux_loss[, counts]).
+
+    ``task_id`` is a scalar (one gating network for the call) or a 1-D
+    vector of per-sequence tasks matching x's leading dim.
+    ``return_stats`` adds the per-expert dispatch counts summed over groups:
+    (E,), or (num_tasks, E) for a task vector.
+    """
+    if cfg.impl != "grouped":
+        raise NotImplementedError(
+            f"MoE impl {cfg.impl!r} is not ported yet: the port serves "
+            "'grouped' (onehot and ep_local come with the distribution "
+            "slice)")
+    d = x.shape[-1]
+    rt = route_groups(params, cfg, x, task_id)
+    r = rt.routing
+    group_sizes = R.dispatch_counts(r, cfg.num_experts)      # (G, E)
 
     from repro_torch.ops.registry import dispatch as op_dispatch
 
-    y = op_dispatch("moe_ffn", groups,
+    y = op_dispatch("moe_ffn", rt.groups,
                     {k: params[k] for k in expert_param_names(cfg)},
-                    r, group_sizes, cfg=cfg, capacity=capacity)
-    aux = R.load_balance_loss(r.probs, r.expert, cfg.num_experts, mask=real)
-    y = y.to(x.dtype).reshape(-1, d)[:t_total].reshape(orig_shape)
+                    r, group_sizes, cfg=cfg, capacity=rt.capacity)
+    aux = R.load_balance_loss(r.probs, r.expert, cfg.num_experts,
+                              mask=rt.real)
+    y = y.to(x.dtype).reshape(-1, d)[:rt.t_total].reshape(x.shape)
 
     if cfg.num_shared_experts:
-        gshared = unified_linear(x, params["shared_wg"], activation="silu")
-        ushared = unified_linear(x, params["shared_wu"])
-        y = y + unified_linear((gshared * ushared).to(x.dtype),
-                               params["shared_wd"])
+        y = add_shared_experts(params, x, y)
     if return_stats:
-        counts = stat.sum(dim=0, dtype=torch.int32)
-        if task_groups is not None:
-            counts = counts.reshape(n_stat_tasks, cfg.num_experts)
+        counts = rt.stat.sum(dim=0, dtype=torch.int32)
+        if _is_task_vector(task_id):
+            counts = counts.reshape(-1, cfg.num_experts)
         return y, aux.mean(), counts
     return y, aux.mean()

@@ -33,6 +33,7 @@ __all__ = [
     "dispatch",
     "dispatch_counts",
     "combine",
+    "combine_rows",
     "load_balance_loss",
 ]
 
@@ -121,11 +122,24 @@ def dispatch(x: torch.Tensor, routing: Routing, num_experts: int,
 def combine(expert_out: torch.Tensor, routing: Routing) -> torch.Tensor:
     """Gate-weighted scatter back to token order: (..., E, C, d) ->
     (..., T, d); the k-slot sum runs in ``expert_out.dtype``."""
-    g, t, k, e, p, v, gate = _flat_groups(routing)
+    g, t, k, e, p, _, _ = _flat_groups(routing)
     num_e, c, d = expert_out.shape[-3:]
     out = expert_out.reshape(g, num_e, c, d)
     gi = torch.arange(g, device=out.device)[:, None].expand(g, t * k)
-    rows = out[gi, e, torch.clamp_max(p, c - 1)]
+    return combine_rows(out[gi, e, torch.clamp_max(p, c - 1)], routing)
+
+
+def combine_rows(rows: torch.Tensor, routing: Routing) -> torch.Tensor:
+    """The weighting and k-slot sum of :func:`combine` on rows already in
+    routing-slot order: rows (G, T·k, d), each slot's expert output (any
+    finite value where the slot is invalid) -> (..., T, d).  The paged
+    expert layer (``serve/expert_cache.py:PagedMoE``) fills such a buffer
+    wave by wave and finishes through here, so its arithmetic is
+    :func:`combine`'s to the bit."""
+    t, k = routing.expert.shape[-2:]
+    g, _, d = rows.shape
+    gate = routing.gate.reshape(g, t * k)
+    v = routing.valid.reshape(g, t * k)
     rows = rows * (gate * v).to(rows.dtype)[..., None]
     y = rows.reshape(g, t, k, d).sum(dim=2)
     return y.reshape(*routing.expert.shape[:-1], d)

@@ -15,21 +15,19 @@
 //    the card.
 // 2. An expert kernel (two variants below) writes each live queue row's
 //    gate * (y + b2) in float32 to the slot scratch (G, Tg, K, D) at its
-//    (token, routing slot), in one or more planes (partial sums over ranges
-//    of F).
+//    (token, routing slot).
 // 3. moe_fused_combine_kernel, one block per token, sums the token's valid
 //    slots in ascending expert index, ((0 + c_e1) + c_e2) + ..., the order
-//    the sequential TPU grid accumulates them in (each slot's planes added
-//    first, in plane order), and casts once to x's dtype.  No float atomics:
-//    the result does not depend on block order.
+//    the sequential TPU grid accumulates them in, and casts once to x's
+//    dtype.  No float atomics: the result does not depend on block order.
 //
 // The expert kernel's variants (kernels/gemm_plan.py:plan_moe_fused):
 //
 // tc — bf16, D and F multiples of 8 (16-byte rows), D <= 768 (GELU; SwiGLU's
 //   two first-product matrices stop it lower).  The tensor cores, in the
 //   FlashAttention shape of flash_attention.cu:
-//   * Rows packed by expert across groups.  Block (tile j, d-slice and F
-//     range, expert e) owns packed rows [64 j, 64 j + 64) of the
+//   * Rows packed by expert across groups.  Block (tile j, d-slice,
+//     expert e) owns packed rows [64 j, 64 j + 64) of the
 //     concatenation over g of queue(g, e)[0 : size(g, e)], found from the G
 //     sizes of column e; the grid is fixed at launch from the capacity
 //     bound, ceil(G C / 64) tiles an expert, the expert slowest so one
@@ -69,10 +67,9 @@
 //     in shared memory as y_even + y_odd (one float add: a second launch is
 //     bit-identical), and all consumer threads store each live row's
 //     gate * (y + b2) to the scratch, coalesced float4s along d.
-//   * F in ranges: where the capacity-bound grid is smaller than the card
-//     (M3ViT below batch 8), each tile's F is split in two ranges, one block
-//     each, each writing its partial y to its own plane of the scratch
-//     (b2 in the first); the combine adds the planes in order.
+//   * F whole in every block, at every number of routing groups: a row's
+//     sum over F runs in the same order whatever the batch, so a frame's
+//     output does not depend on the frames beside it.
 //   * Every wgmma is issued outside any branch: the exit and the warpgroup
 //     index are warp-uniform (__shfl_sync), the chunk loop's bounds are
 //     uniform and each chunk commits and waits unconditionally, so ptxas
@@ -253,15 +250,12 @@ __global__ void moe_fused_queue_kernel(const int* __restrict__ expert,
   }
 }
 
-// One block per token: its valid slots in ascending expert index, each
-// slot's value the sum of its `planes` partial planes (plane stride
-// `plane` floats) in plane order.
+// One block per token: its valid slots in ascending expert index.
 template <typename T>
 __global__ void moe_fused_combine_kernel(const float* __restrict__ scratch,
                                          const int* __restrict__ expert,
                                          const uint8_t* __restrict__ valid,
-                                         T* __restrict__ out, int K, int D,
-                                         int planes, size_t plane) {
+                                         T* __restrict__ out, int K, int D) {
   const size_t tok = blockIdx.x;  // g * Tg + t
   __shared__ int order[kMaxK];
   const uint8_t* ok = valid + tok * K;
@@ -280,12 +274,8 @@ __global__ void moe_fused_combine_kernel(const float* __restrict__ scratch,
   __syncthreads();
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float acc = 0.0f;
-    for (int r = 0; r < n_live; ++r) {
-      const float* slot = scratch + (tok * K + order[r]) * D + d;
-      float v = slot[0];
-      for (int s = 1; s < planes; ++s) v = v + slot[s * plane];
-      acc = acc + v;
-    }
+    for (int r = 0; r < n_live; ++r)
+      acc = acc + scratch[(tok * K + order[r]) * D + d];
     out[tok * D + d] = from_f32<T>(acc);
   }
 }
@@ -309,11 +299,10 @@ static int launch_queues(const void* expert, const void* gate,
 template <typename T>
 static int launch_combine(const void* scratch, const void* expert,
                           const void* valid, void* out, int G, int Tg, int K,
-                          int D, int planes, cudaStream_t stream) {
+                          int D, cudaStream_t stream) {
   moe_fused_combine_kernel<T><<<G * Tg, 64, 0, stream>>>(
       static_cast<const float*>(scratch), static_cast<const int*>(expert),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), K, D, planes,
-      (size_t)G * Tg * K * D);
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), K, D);
   return (int)cudaGetLastError();
 }
 
@@ -383,9 +372,9 @@ extern "C" int moe_fused_launch(
   if (err != 0) return err;
   return dtype == kFloat32
              ? launch_combine<float>(scratch, expert, valid, out, G, Tg, K,
-                                     D, 1, st)
+                                     D, st)
              : launch_combine<__nv_bfloat16>(scratch, expert, valid, out, G,
-                                             Tg, K, D, 1, st);
+                                             Tg, K, D, st);
 }
 
 // ------------------------------------------------- bf16 tensor cores (tc)
@@ -422,9 +411,8 @@ __host__ __device__ constexpr size_t tc_smem_bytes(int ka, int stage_atoms,
          (size_t)(n_table + 1) / 2 * 8 + 16 * (size_t)stages;
 }
 
-// grid (ceil(G C / 64) tiles, d-slices of 64 NY columns x fsplit ranges of
-// F, E); 3-D maps over w1 / wu (F, D, E) and w2 (D, F, E), boxes of 64 x 64;
-// the F range fs writes its partial y to plane fs of the scratch.  LUT: the
+// grid (ceil(G C / 64) tiles, d-slices of 64 NY columns, E); 3-D maps over
+// w1 / wu (F, D, E) and w2 (D, F, E), boxes of 64 x 64.  LUT: the
 // activation is the table's (a template argument, so the exact GELU / SiLU
 // code is not interleaved with it in the element loop).
 template <int KIND, int NY, bool LUT>
@@ -437,11 +425,10 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
     const int* __restrict__ tok_idx, const int* __restrict__ slot_idx,
     const float* __restrict__ gates, const float* __restrict__ table,
     int n_table, float lut_scale, float* __restrict__ scratch, int G, int E,
-    int C, int Tg, int K, int D, int F, int ka_n, int stages, int fsplit) {
+    int C, int Tg, int K, int D, int F, int ka_n, int stages) {
   constexpr int KW = KIND == kSwiglu ? 2 : 1;  // first-product matrices
   const int tile = blockIdx.x, e = blockIdx.z;
-  const int fs = blockIdx.y % fsplit;          // this block's range of F
-  const int n0 = blockIdx.y / fsplit * 64 * NY;  // and its d-slice
+  const int n0 = blockIdx.y * 64 * NY;         // this block's d-slice
   const int p0 = tile * kTcRows;
   int total = 0;                               // the expert's live rows
   for (int g = 0; g < G; ++g) total += min(max(sizes[g * E + e], 0), C);
@@ -495,10 +482,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
   }
   __syncthreads();
 
-  // chunks [c_lo, c_lo + n_chunks) of F, contiguous, each range in turn
-  const int f_chunks = (F + kTcChunk - 1) / kTcChunk;
-  const int c_lo = fs * f_chunks / fsplit;
-  const int n_chunks = (fs + 1) * f_chunks / fsplit - c_lo;
+  // the chunks of F, in ascending order
+  const int n_chunks = (F + kTcChunk - 1) / kTcChunk;
   if (tid >= kTcConsumers) {  // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (tid == kTcConsumers) {
@@ -512,15 +497,15 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
         uint8_t* st = ring + (size_t)s * stage_atoms * kAtom;
         for (int ka = 0; ka < ka_n; ++ka) {
           sm90::tma_load_3d(st + ka * kAtom, &w1map, &full[s],
-                            (c_lo + c) * kTcChunk, ka * 64, e);
+                            c * kTcChunk, ka * 64, e);
           if (KIND == kSwiglu)
             sm90::tma_load_3d(st + (ka_n + ka) * kAtom, &wumap, &full[s],
-                              (c_lo + c) * kTcChunk, ka * 64, e);
+                              c * kTcChunk, ka * 64, e);
         }
 #pragma unroll
         for (int a = 0; a < NY; ++a)
           sm90::tma_load_3d(st + (KW * ka_n + a) * kAtom, &w2map, &full[s],
-                            n0 + a * 64, (c_lo + c) * kTcChunk, e);
+                            n0 + a * 64, c * kTcChunk, e);
       }
     }
     return;
@@ -586,7 +571,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
     float2 bias[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int f = (c_lo + c) * kTcChunk + 8 * j + c0;
+      const int f = c * kTcChunk + 8 * j + c0;
       bias[j] = KIND == kGelu && f < F
                     ? *reinterpret_cast<const float2*>(b1 + (size_t)e * F + f)
                     : make_float2(0.0f, 0.0f);
@@ -619,7 +604,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
     uint32_t hi[4][4], lo[4][4];
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      const int f = (c_lo + c) * kTcChunk + 8 * (i >> 2) + c0;
+      const int f = c * kTcChunk + 8 * (i >> 2) + c0;
       float v[2];
 #pragma unroll
       for (int e2 = 0; e2 < 2; ++e2) {
@@ -674,8 +659,8 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
   }
 
   // y = y_odd + y_even through the idle ring, then gate * (y + b2) of each
-  // live row (gate * y past the first range of F) into its (token, slot) of
-  // the scratch's plane fs, consecutive threads along d
+  // live row into its (token, slot) of the scratch, consecutive threads
+  // along d
   constexpr int kLd = 64 * NY + 4;
   float* yt = reinterpret_cast<float*>(ring);
   sm90::named_barrier_sync(1, kTcConsumers);  // no wgmma reads the ring now
@@ -698,19 +683,18 @@ __global__ void __launch_bounds__(kTcThreads, 1) moe_fused_tc_kernel(
       }
   sm90::named_barrier_sync(1, kTcConsumers);
   const int cols = min(64 * NY, D - n0);  // a multiple of 8
-  float* plane = scratch + (size_t)fs * G * Tg * K * D;
   for (int i = tid; i < kTcRows * 16 * NY; i += kTcConsumers) {
     const int r = i / (16 * NY), col = 4 * (i % (16 * NY)), tok = rtok[r];
     if (tok < 0 || col >= cols) continue;
     float4 v = *reinterpret_cast<const float4*>(yt + r * kLd + col);
-    if (KIND == kGelu && fs == 0) {
+    if (KIND == kGelu) {
       const float4 b = *reinterpret_cast<const float4*>(
           b2 + (size_t)e * D + n0 + col);
       v = make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
     }
     const float gw = rgate[r];
     *reinterpret_cast<float4*>(
-        plane + (((size_t)rgrp[r] * Tg + tok) * K + rslot[r]) * D + n0 +
+        scratch + (((size_t)rgrp[r] * Tg + tok) * K + rslot[r]) * D + n0 +
         col) = make_float4(gw * v.x, gw * v.y, gw * v.z, gw * v.w);
   }
 }
@@ -721,7 +705,7 @@ static int launch_tc(const void* x, const void* w1, const void* b1,
                      const void* sizes, const int* queues, const void* table,
                      int n_table, float lut_scale, void* scratch, int G,
                      int E, int C, int Tg, int K, int D, int F, int stages,
-                     int fsplit, cudaStream_t stream) {
+                     cudaStream_t stream) {
   constexpr int KW = KIND == kSwiglu ? 2 : 1;
   CUtensorMap w1m, wum, w2m;
   int err = sm90::encode_3d(&w1m, w1, F, D, E, 64);
@@ -738,23 +722,21 @@ static int launch_tc(const void* x, const void* w1, const void* b1,
   err = sm90::allow_smem(kernel, smem, granted);
   if (err != 0) return err;
   const size_t n = (size_t)G * E * C;
-  dim3 grid((G * C + kTcRows - 1) / kTcRows,
-            (D + 64 * NY - 1) / (64 * NY) * fsplit, E);
+  dim3 grid((G * C + kTcRows - 1) / kTcRows, (D + 64 * NY - 1) / (64 * NY),
+            E);
   kernel<<<grid, kTcThreads, smem, stream>>>(
       w1m, wum, w2m, static_cast<const __nv_bfloat16*>(x),
       static_cast<const float*>(b1), static_cast<const float*>(b2),
       static_cast<const int*>(sizes), queues, queues + n,
       reinterpret_cast<const float*>(queues + 2 * n),
       static_cast<const float*>(table), n_table, lut_scale,
-      static_cast<float*>(scratch), G, E, C, Tg, K, D, F, ka_n, stages,
-      fsplit);
+      static_cast<float*>(scratch), G, E, C, Tg, K, D, F, ka_n, stages);
   return (int)cudaGetLastError();
 }
 
 // the tc variant: bf16 only, D and F multiples of 8; ny (64-column atoms of
-// y a warpgroup holds), stages and fsplit (ranges of F, each a plane of the
-// (fsplit, G, Tg, K, D) float32 scratch) from
-// kernels/gemm_plan.py:plan_moe_fused; queues as for moe_fused_launch.
+// y a warpgroup holds) and stages from kernels/gemm_plan.py:plan_moe_fused;
+// queues and scratch as for moe_fused_launch.
 // Returns a CUDA error or sm90::kEncodeError + a CUresult.
 extern "C" int moe_fused_tc_launch(
     const void* x, const void* w1, const void* b1, const void* wu,
@@ -762,8 +744,7 @@ extern "C" int moe_fused_tc_launch(
     const void* gate, const void* position, const void* valid,
     const void* table, int n_table, float lut_scale, void* queues,
     void* scratch, void* out, int G, int E, int C, int Tg, int K, int D,
-    int F, int kind, int use_lut, int ny, int stages, int fsplit,
-    void* stream) {
+    int F, int kind, int use_lut, int ny, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = launch_queues(expert, gate, position, valid, queues, G, E, C, Tg,
                           K, st);
@@ -775,7 +756,7 @@ extern "C" int moe_fused_tc_launch(
              : launch_tc<KIND, 1, LUT>(ARGS))
 #define ARGS                                                               \
   x, w1, b1, wu, w2, b2, sizes, q, table, n_table, lut_scale, scratch, G, \
-      E, C, Tg, K, D, F, stages, fsplit, st
+      E, C, Tg, K, D, F, stages, st
   if (kind == kSwiglu)
     err = use_lut ? MOE_FUSED_TC(kSwiglu, true) : MOE_FUSED_TC(kSwiglu, false);
   else
@@ -784,5 +765,5 @@ extern "C" int moe_fused_tc_launch(
 #undef MOE_FUSED_TC
   if (err != 0) return err;
   return launch_combine<__nv_bfloat16>(scratch, expert, valid, out, G, Tg, K,
-                                       D, fsplit, st);
+                                       D, st);
 }

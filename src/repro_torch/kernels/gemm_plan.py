@@ -30,9 +30,13 @@ Tile choice:
 * M > 72: the largest of 128×128, 128×64, 64×128, 64×64, 64×32, 64×16
   (rows of N × tokens; 128 rows only where N is a multiple of 128) whose
   grid reaches two waves of the SMs when K is at most four k-tiles, else
-  7/8 of a wave; K is split only when even 64×16 tiles leave SMs idle.
-  Split-K costs a float32 partial round trip per split, and on the chip it
-  lost to smaller tiles at every M = 1024 shape of the main paths.
+  7/8 of a wave; K is never split, even where 64×16 tiles leave SMs idle
+  (M³ViT at one to seven frames).  A token's sum then runs over K in one
+  block in the same order at every M: the ring depth, and with it the
+  promotion group ``min(stages, 4)`` of ``csrc/gemm_sm90.cuh``, depends on
+  K alone, so a frame's output does not depend on the batch it rides in.
+  Split-K also lost to smaller tiles at every M = 1024 shape of the main
+  paths on the chip.
 """
 
 from __future__ import annotations
@@ -141,9 +145,9 @@ def plan_linear(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
             tiles = -(-n // (WG_ROWS * nwg)) * -(-m // bt)
             if tiles >= target:
                 break
-        splits = 1 if tiles >= sms * 7 / 8 else min(kt, -(-sms // tiles))
+        splits = 1      # the order of a row's sum must not depend on M
         reason = (f"M={m} > {SMALL_M}: {WG_ROWS * nwg} x {bt} tiles, "
-                  f"{splits} K split(s), for {sms} SMs")
+                  f"K whole, for {sms} SMs")
     grid = (-(-n // (WG_ROWS * nwg)), -(-m // bt), splits)
     stages = _stages(bt, nwg, -(-kt // splits))
     return GemmPlan("tc_splitk" if splits > 1 else "tc", reason, bt, nwg,
@@ -188,10 +192,8 @@ class FusedPlan:
     reason: str             # why this variant (the routing rule that chose it)
     ny: int = 0             # 64-column atoms of y a warpgroup holds
     stages: int = 0         # shared-memory ring depth (chunks of F)
-    fsplit: int = 1         # ranges of F, each its own block and plane
     smem: int = 0           # dynamic shared memory of one block, bytes
-    grid: tuple = ()        # (row tiles an expert, d-slices x fsplit,
-    #                          experts)
+    grid: tuple = ()        # (row tiles an expert, d-slices, experts)
 
     @property
     def blocks(self) -> int:
@@ -225,14 +227,10 @@ def plan_moe_fused(g: int, e: int, c: int, d: int, f: int,
     y for a d-slice of 64·ny columns, ny the largest of 3, 2, 1 that
     divides d's 64-column atoms (so no slice reads a box wholly past d;
     d = 192: one slice), and the ring is as deep as shared memory allows,
-    up to 4 chunks of F.  Where the capacity-bound grid has fewer blocks
-    than the card has SMs (M³ViT below batch 8; at batch 8 it is 144 for
-    132), F is split in two ranges of at least two chunks each, one block
-    each: twice the blocks, each half as long, their partial y summed in a
-    fixed order by the combine (a second float32 plane of the slot
-    scratch).  A block takes a whole SM (its shared memory), so at batch 8
-    the ~142 live blocks of a split would run in two waves: on the H100
-    the split gained at batches 1, 2 and 4 and lost at 8 and 16."""
+    up to 4 chunks of F.  F is never split over blocks: a row's sum over F
+    then runs in one block in the same order at every number of routing
+    groups, so a frame's output does not depend on its batch (a split in
+    two gained ≈ 4 µs a launch below batch 8 on the H100, PERF.md)."""
     if dtype != torch.bfloat16:
         return FusedPlan("simt", f"{dtype} operands: wgmma takes float32 "
                          f"only as TF32")
@@ -247,16 +245,12 @@ def plan_moe_fused(g: int, e: int, c: int, d: int, f: int,
         return FusedPlan("simt", f"the x tile and one ring stage at d={d} "
                          f"({kind}) exceed a block's shared memory")
     stages = fits[-1]
-    tiles = -(-g * c // FUSED_ROWS)
-    bound = tiles * (atoms // ny) * e
-    chunks = -(-f // FUSED_CHUNK)
-    fsplit = 2 if bound < sms and chunks >= 4 else 1
-    grid = (tiles, atoms // ny * fsplit, e)
+    grid = (-(-g * c // FUSED_ROWS), atoms // ny, e)
     return FusedPlan(
         "tc", f"{FUSED_ROWS}-row tiles of packed queue rows, {64 * ny}-column "
-        f"d-slices, F in {fsplit} range(s), {stages}-stage ring; a grid of "
+        f"d-slices, F whole, {stages}-stage ring; a grid of "
         f"{math.prod(grid)} blocks (capacity bound) for {sms} SMs", ny,
-        stages, fsplit, fused_smem_bytes(d, ny, kind, stages, table), grid)
+        stages, fused_smem_bytes(d, ny, kind, stages, table), grid)
 
 
 def fused_tile_rows(sizes, capacity: int) -> dict:

@@ -33,11 +33,12 @@ nothing — and runs in one of two variants, chosen by
 
 A short first launch builds the queues by reference on the card (the
 arrays of :func:`build_queues`).  Both variants write each live row's
-``gate · (y + b2)`` to a float32 slot scratch (G, T, k, d) — ``tc`` in
-one plane per range of f where it splits f over blocks (small batches) —
-and a short last launch sums each token's valid slots in ascending expert
-index — the order the sequential TPU grid adds them in, with no float
-atomics — and casts once to ``x.dtype``.  The three launches count as one
+``gate · (y + b2)`` to a float32 slot scratch (G, T, k, d), and a short
+last launch sums each token's valid slots in ascending expert index — the
+order the sequential TPU grid adds them in, with no float atomics — and
+casts once to ``x.dtype``.  A row's sums run in the same order whatever
+the number of routing groups (f is never split over blocks), so a frame's
+output does not depend on its batch.  The three launches count as one
 ``moe_fused`` launch.
 
 The public :func:`fused_moe_ffn` keeps a leading group axis, x (G, T, d),
@@ -233,7 +234,7 @@ def _launch(x, params, expert, gate, position, valid, group_sizes, kind,
     # built on the card by the launch itself
     queues = torch.empty((3, g, e_num, capacity), dtype=torch.int32,
                          device=x.device)
-    scratch = torch.empty((plan.fsplit, g, t, k, d), dtype=torch.float32,
+    scratch = torch.empty((g, t, k, d), dtype=torch.float32,
                           device=x.device)
     if kind == "swiglu":
         w1, wu, w2 = weights
@@ -254,8 +255,8 @@ def _launch(x, params, expert, gate, position, valid, group_sizes, kind,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if plan.variant == "tc":
         fn = build.function("moe_fused_tc_launch", _ARGS + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        err = fn(*args, plan.ny, plan.stages, plan.fsplit, stream)
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        err = fn(*args, plan.ny, plan.stages, stream)
     else:
         fn = build.function("moe_fused_launch", _ARGS + [
             ctypes.c_int, ctypes.c_void_p])

@@ -1,13 +1,17 @@
 """Where the time of one M³ViT batch, or of one Llama-3.2-1B decode step,
 goes on the card.
 
-    python -m repro_torch.serve.profile [--batch 8] [--reps 5] [--lm]
+    python -m repro_torch.serve.profile [--batch 8] [--reps 5] [--paged]
+                                        [--lm]
 
 Serves ``--reps`` batches of ``--batch`` semseg images through an
 ``M3ViTServer`` at the full ``CONFIG`` (bf16, seeded random weights) under
 the ``cuda`` policy (the kernels), under ``cuda`` with
-``moe_ffn="cuda_fused"`` (the fused MoE kernel) and under the plain
-``blocked`` policy, and prints for each: the host wall time per batch
+``moe_ffn="cuda_fused"`` (the fused MoE kernel), under ``cuda`` with half
+of each MoE layer's experts resident, paged synchronously and through the
+copy-stream ``TransferEngine`` (with ``--paged``; with the paged layers'
+cache counters per batch), and under the plain ``blocked`` policy, and prints
+for each: the host wall time per batch
 (median, from :func:`wall_per_batch`, the timer ``chip_smoke.py`` uses
 too), then from a second run of the same batches under ``torch.profiler``
 the device's busy time per batch (the union of all kernel and copy
@@ -110,21 +114,39 @@ def _report(label: str, unit: str, run, reps: int, wall: float) -> None:
               f"busy  x{counts[name] // reps:<4d} {name}")
 
 
-M3VIT_POLICIES = {
-    "cuda": ops.policy_named("cuda"),
-    "cuda+moe_ffn=cuda_fused": ops.policy_named("cuda").with_impls(
-        moe_ffn="cuda_fused"),
-    "blocked": ops.policy_named("blocked"),
+# name -> (compute policy, M3ViTServer arguments)
+M3VIT_RUNS = {
+    "cuda": (ops.policy_named("cuda"), {}),
+    "cuda+moe_ffn=cuda_fused": (ops.policy_named("cuda").with_impls(
+        moe_ffn="cuda_fused"), {}),
+    "cuda, paged 0.5 sync": (ops.policy_named("cuda"),
+                             {"resident_fraction": 0.5}),
+    "cuda, paged 0.5 async": (ops.policy_named("cuda"),
+                              {"resident_fraction": 0.5,
+                               "async_paging": True}),
+    "blocked": (ops.policy_named("blocked"), {}),
 }
+PAGED_RUNS = ("cuda, paged 0.5 sync", "cuda, paged 0.5 async")
 
 
 def profile_policy(name: str, params, images, reps: int) -> None:
-    cfg = replace(MV.CONFIG, policy=M3VIT_POLICIES[name])
-    server = M3ViTServer(cfg, params)
+    policy, kwargs = M3VIT_RUNS[name]
+    server = M3ViTServer(replace(MV.CONFIG, policy=policy), params,
+                         **kwargs)
     wall = statistics.median(wall_per_batch(server, images, "semseg", reps))
     n = images.shape[0]
+    server.reset_stats()
     _report(f"policy {name}, {n / wall:.1f} img/s at batch {n}", "batch",
             lambda: server.infer(images, "semseg"), reps, wall)
+    if server.paged:
+        s = server.cache_stats()
+        print(f"  paged layers over the {reps} profiled batches: hit rate "
+              f"{s['hit_rate']:.4f}, {s['bytes_paged'] / reps:.0f} bytes "
+              f"paged per batch"
+              + (f", copy stall {s['stall_s'] * 1e3 / reps:.3f} ms and "
+                 f"hidden {s['hidden_s'] * 1e3 / reps:.3f} ms per batch, "
+                 f"overlap ratio {s['overlap_ratio']:.4f}"
+                 if server.engine is not None else ""))
 
 
 def profile_lm(batch: int, reps: int) -> None:
@@ -169,6 +191,9 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--lm", action="store_true",
                     help="profile Llama-3.2-1B decode steps instead")
+    ap.add_argument("--paged", action="store_true",
+                    help="add the paged runs (half the experts resident, "
+                    "synchronous and asynchronous)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: CUDA is not available")
@@ -181,8 +206,9 @@ def main(argv=None) -> None:
     params = init_params(0, MV.CONFIG)
     images = np.random.default_rng(0).normal(
         size=(args.batch, MV.IMAGE_H, MV.IMAGE_W, 3)).astype(np.float32)
-    for name in M3VIT_POLICIES:
-        profile_policy(name, params, images, args.reps)
+    for name in M3VIT_RUNS:
+        if args.paged or name not in PAGED_RUNS:
+            profile_policy(name, params, images, args.reps)
 
 
 if __name__ == "__main__":

@@ -80,6 +80,67 @@ def test_m3vit_grids_cover_the_sms(case):
     assert plan.blocks >= SMS and plan.splits == 1
 
 
+# every linear shape (K, N) of the two models: M³ViT's (qkv, o, the MLP,
+# the patch embed and the two heads) and Llama-3.2-1B's projections
+MODEL_KN = {"m3vit_patch_embed": (768, 192), "m3vit_qkv": (192, 576),
+            "m3vit_o": (192, 192), "m3vit_mlp_up": (192, 768),
+            "m3vit_mlp_down": (768, 192), "m3vit_semseg_head": (192, 4864),
+            "m3vit_depth_head": (192, 256),
+            **{f"lm_{name}": kn for name, kn in LM.items()}}
+
+
+@pytest.mark.parametrize("case", list(MODEL_KN))
+def test_large_m_plans_never_split_k(case):
+    """At M = 128·b, b = 1..16 (one to sixteen M³ViT frames, or LM prefill
+    rows), K is never split and the ring depth's promotion group
+    ``min(stages, 4)`` (``csrc/gemm_sm90.cuh``) is the same at every b: a
+    row's sum runs over K in the same order whatever the batch."""
+    k, n = MODEL_KN[case]
+    plans = [gp.plan_linear(128 * b, n, k, BF16, SMS) for b in range(1, 17)]
+    assert all(p.splits == 1 and p.variant == "tc" for p in plans), \
+        [p.reason for p in plans]
+    assert len({min(p.stages, 4) for p in plans}) == 1
+
+
+# (bt, nwg, splits, stages) at M = 1, 8, 16, 72 and 1024, as the planner
+# chose them before K splits at M > 72 were dropped: decode and the
+# batch-8 / prefill plans do not change
+KEPT_PLANS = {
+    "m3vit_patch_embed": [(8, 1, 12, 1), (8, 1, 12, 1), (16, 1, 12, 1),
+                          (72, 1, 12, 1), (16, 1, 1, 6)],
+    "m3vit_qkv": [(8, 1, 3, 1), (8, 1, 3, 1), (16, 1, 3, 1), (72, 1, 3, 1),
+                  (32, 1, 1, 3)],
+    "m3vit_o": [(8, 1, 3, 1), (8, 1, 3, 1), (16, 1, 3, 1), (72, 1, 3, 1),
+                (16, 1, 1, 3)],
+    "m3vit_mlp_up": [(8, 1, 3, 1), (8, 1, 3, 1), (16, 1, 3, 1),
+                     (72, 1, 3, 1), (32, 1, 1, 3)],
+    "m3vit_mlp_down": [(8, 1, 12, 1), (8, 1, 12, 1), (16, 1, 12, 1),
+                       (72, 1, 12, 1), (16, 1, 1, 6)],
+    "m3vit_semseg_head": [(8, 1, 2, 2), (8, 1, 2, 2), (16, 1, 2, 2),
+                          (72, 1, 2, 2), (128, 2, 1, 3)],
+    "m3vit_depth_head": [(8, 1, 3, 1), (8, 1, 3, 1), (16, 1, 3, 1),
+                         (72, 1, 3, 1), (16, 1, 1, 3)],
+    "lm_q_o": [(8, 1, 8, 4), (8, 1, 8, 4), (16, 1, 8, 4), (72, 1, 8, 4),
+               (128, 2, 1, 6)],
+    "lm_k_v": [(8, 1, 17, 2), (8, 1, 17, 2), (16, 1, 17, 2), (72, 1, 17, 2),
+               (64, 1, 1, 6)],
+    "lm_gate_up": [(8, 1, 3, 6), (8, 1, 3, 6), (16, 1, 3, 6), (72, 1, 3, 6),
+                   (128, 2, 1, 6)],
+    "lm_down": [(8, 1, 9, 6), (8, 1, 9, 6), (16, 1, 9, 6), (72, 1, 9, 6),
+                (128, 2, 1, 6)],
+}
+
+
+def test_small_m_and_batch_8_plans_are_unchanged():
+    for case, want in KEPT_PLANS.items():
+        k, n = MODEL_KN[case]
+        for m, (bt, nwg, splits, stages) in zip((1, 8, 16, 72, 1024), want):
+            plan = gp.plan_linear(m, n, k, BF16, SMS)
+            assert (plan.bt, plan.nwg, plan.splits, plan.stages) \
+                == (bt, nwg, splits, stages), (case, m, plan)
+            assert plan.grid == (-(-n // (64 * nwg)), -(-m // bt), splits)
+
+
 @pytest.mark.parametrize("case", [c for c in MAIN_LINEAR
                                   if c.startswith("lm_prefill")])
 def test_prefill_grids_fill_a_wave(case):
@@ -215,7 +276,7 @@ def test_m3vit_moe_fused_takes_the_tensor_cores():
     # whole (144 blocks of the capacity bound for 132 SMs), the expert
     # slowest
     assert plan.grid == (math.ceil(8 * 68 / 64), 1, 16) and plan.ny == 3
-    assert plan.fsplit == 1
+    assert "F whole" in plan.reason
     assert plan.stages == gp.FUSED_MAX_STAGES
     assert plan.smem == gp.fused_smem_bytes(192, 3, "gelu", plan.stages,
                                             GELU_TABLE)
@@ -240,35 +301,38 @@ def test_float32_and_unaligned_moe_fused_take_the_simt_route(d, f, aligned):
         assert plan.variant == "simt", plan.reason
 
 
-@pytest.mark.parametrize("kind,d,variant,stages,slices,fsplit", [
-    ("gelu", 768, "tc", 1, 4, 1), ("swiglu", 192, "tc", 2, 1, 1),
-    ("swiglu", 768, "simt", 0, 0, 0), ("gelu", 256, "tc", 3, 2, 1),
-    ("gelu", 40, "tc", 4, 1, 1)])
+@pytest.mark.parametrize("kind,d,variant,stages,slices", [
+    ("gelu", 768, "tc", 1, 4), ("swiglu", 192, "tc", 2, 1),
+    ("swiglu", 768, "simt", 0, 0), ("gelu", 256, "tc", 3, 2),
+    ("gelu", 40, "tc", 4, 1)])
 def test_moe_fused_shared_memory_sets_the_ring_and_the_route(
-        kind, d, variant, stages, slices, fsplit):
+        kind, d, variant, stages, slices):
     """d = 768 leaves room for one ring stage beside the x tile; SwiGLU's
     two first-product matrices fit two stages at d = 192 and none at 768.
-    d-slices of 192 columns where d's atoms allow, else 128 or 64; f split
-    in two only while the capacity-bound grid is under one block per SM."""
+    d-slices of 192 columns where d's atoms allow, else 128 or 64."""
     plan = gp.plan_moe_fused(8, 16, 68, d, 768, BF16, kind, SMS, GELU_TABLE)
     assert plan.variant == variant, plan.reason
     if variant == "tc":
-        assert plan.stages == stages and plan.fsplit == fsplit
-        n = plan.grid[1] // plan.fsplit
+        assert plan.stages == stages
+        n = plan.grid[1]
         assert n == slices and n * 64 * plan.ny >= d > (n - 1) * 64 * plan.ny
-        assert plan.blocks == 9 * slices * fsplit * 16
+        assert plan.blocks == 9 * slices * 16
         assert plan.smem <= gp.FUSED_SMEM_LIMIT
 
 
-@pytest.mark.parametrize("g,f,fsplit", [(1, 768, 2), (4, 768, 2),
-                                        (8, 768, 1), (16, 768, 1),
-                                        (4, 192, 1), (4, 256, 2)])
-def test_moe_fused_splits_f_only_for_a_small_grid(g, f, fsplit):
-    """Two ranges of f where even the capacity-bound grid leaves SMs idle
-    (M³ViT below batch 8), one from batch 8 on; never a range of under two
-    chunks."""
+@pytest.mark.parametrize("g,f", [(1, 768), (4, 768), (8, 768), (16, 768),
+                                 (4, 192), (4, 256)])
+def test_moe_fused_never_splits_f(g, f):
+    """f whole in every block at every number of routing groups, even where
+    the capacity-bound grid leaves SMs idle (M³ViT below batch 8): a row's
+    sum over f runs in one block in the same order whatever the batch, so
+    the grid's middle axis holds only d-slices and the plan's ring is the
+    same at every g."""
     plan = gp.plan_moe_fused(g, 16, 68, 192, f, BF16, "gelu", SMS)
-    assert plan.fsplit == fsplit and plan.grid[1] == fsplit
+    assert plan.variant == "tc" and "F whole" in plan.reason
+    assert plan.grid == (-(-g * 68 // gp.FUSED_ROWS), 1, 16)
+    assert plan.stages == gp.plan_moe_fused(8, 16, 68, 192, f, BF16, "gelu",
+                                            SMS).stages
 
 
 def _skewed_sizes():

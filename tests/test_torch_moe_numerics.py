@@ -11,14 +11,12 @@ queue rows of every group packed into 64-row tiles
 of f, ``h = x·w1[:, chunk]`` from bf16 operands (products exact in
 float32), ``b1`` added to the float32 sum, the activation (the LUT or exact
 GELU / SiLU) in float32, h split into the bf16 pair ``hi = bf16(h)``,
-``lo = bf16(h − hi)`` and ``y += hi·w2[chunk] + lo·w2[chunk]``; f split
-into the planner's ranges (two at this shape), each range's two
-warpgroups taking its chunks in turn, each in ascending order, their
-partial sums meeting as ``y_odd + y_even``; each live row writes
-``gate · (y + b2)`` (the first range) or ``gate · y`` (the others) to its
-(token, slot) in the range's plane of the scratch; each token sums its
-valid slots from 0 in ascending expert index, each slot's planes in order,
-and casts once to bf16.  The same model
+``lo = bf16(h − hi)`` and ``y += hi·w2[chunk] + lo·w2[chunk]``; f whole
+in every tile at any number of groups, the two warpgroups taking its
+chunks in turn, each in ascending order, their partial sums meeting as
+``y_odd + y_even``; each live row writes ``gate · (y + b2)`` to its
+(token, slot) of the scratch; each token sums its valid slots from 0 in
+ascending expert index and casts once to bf16.  The same model
 with a single bf16 h leaves the tolerance at M³ViT's shape: that is why
 the kernel multiplies the pair.
 """
@@ -77,42 +75,38 @@ def tc_model(x, params, r, sizes, *, kind, use_lut, pair=True):
     plan = gp.plan_moe_fused(g_num, E, C, d, f, x.dtype, kind, SMS)
     assert plan.variant == "tc", plan.reason
     f_chunks = -(-f // gp.FUSED_CHUNK)
-    scratch = torch.zeros((plan.fsplit, g_num, t, k, d))
+    scratch = torch.zeros((g_num, t, k, d))
     for (e, _tile), rows in gp.fused_tile_rows(sizes.tolist(), C).items():
         live = [(g, int(tok_idx[g, e, c]), int(slot_idx[g, e, c]),
                  float(gates[g, e, c])) for g, c in filter(None, rows)]
         xq = torch.zeros((gp.FUSED_ROWS, d))
         for i, (g, tok, _, _) in enumerate(live):
             xq[i] = x[g, tok].float()
-        for fs in range(plan.fsplit):
-            c_lo = fs * f_chunks // plan.fsplit
-            c_hi = (fs + 1) * f_chunks // plan.fsplit
-            parts = []
-            for wg in range(gp.FUSED_WGS):
-                y = torch.zeros((gp.FUSED_ROWS, d))
-                for c in range(c_lo + wg, c_hi, gp.FUSED_WGS):
-                    cols = slice(c * gp.FUSED_CHUNK,
-                                 (c + 1) * gp.FUSED_CHUNK)
-                    if kind == "swiglu":
-                        h = _act(xq @ w["wg"][e][:, cols], kind, use_lut) \
-                            * (xq @ w["wu"][e][:, cols])
-                        w_out = w["wd"][e][cols]
-                    else:
-                        h = _act(xq @ w["w1"][e][:, cols] + w["b1"][e][cols],
-                                 kind, use_lut)
-                        w_out = w["w2"][e][cols]
-                    hi = h.to(BF16).float()
-                    if pair:
-                        lo = (h - hi).to(BF16).float()
-                        y = y + (hi @ w_out + lo @ w_out)
-                    else:
-                        y = y + hi @ w_out
-                parts.append(y)
-            y = parts[1] + parts[0]
-            if kind == "gelu" and fs == 0:
-                y = y + w["b2"][e]
-            for i, (g, tok, slot, gate) in enumerate(live):
-                scratch[fs, g, tok, slot] = torch.tensor(gate) * y[i]
+        parts = []
+        for wg in range(gp.FUSED_WGS):
+            y = torch.zeros((gp.FUSED_ROWS, d))
+            for c in range(wg, f_chunks, gp.FUSED_WGS):
+                cols = slice(c * gp.FUSED_CHUNK, (c + 1) * gp.FUSED_CHUNK)
+                if kind == "swiglu":
+                    h = _act(xq @ w["wg"][e][:, cols], kind, use_lut) \
+                        * (xq @ w["wu"][e][:, cols])
+                    w_out = w["wd"][e][cols]
+                else:
+                    h = _act(xq @ w["w1"][e][:, cols] + w["b1"][e][cols],
+                             kind, use_lut)
+                    w_out = w["w2"][e][cols]
+                hi = h.to(BF16).float()
+                if pair:
+                    lo = (h - hi).to(BF16).float()
+                    y = y + (hi @ w_out + lo @ w_out)
+                else:
+                    y = y + hi @ w_out
+            parts.append(y)
+        y = parts[1] + parts[0]
+        if kind == "gelu":
+            y = y + w["b2"][e]
+        for i, (g, tok, slot, gate) in enumerate(live):
+            scratch[g, tok, slot] = torch.tensor(gate) * y[i]
     # each token's valid slots in ascending expert index
     key = torch.where(r.valid, r.expert.long(), E)
     order = torch.sort(key, dim=-1, stable=True).indices
@@ -120,12 +114,9 @@ def tc_model(x, params, r, sizes, *, kind, use_lut, pair=True):
     for j in range(k):
         slot = order[..., j]
         ok = torch.gather(r.valid, -1, slot[..., None])
-        v = None
-        for plane in scratch:           # each slot's planes in order
-            row = torch.gather(plane, 2, slot[..., None, None].expand(
-                g_num, t, 1, d))[:, :, 0]
-            v = row if v is None else v + row
-        acc = acc + torch.where(ok, v, 0.0)
+        row = torch.gather(scratch, 2, slot[..., None, None].expand(
+            g_num, t, 1, d))[:, :, 0]
+        acc = acc + torch.where(ok, row, 0.0)
     return acc.to(x.dtype)
 
 
@@ -179,10 +170,9 @@ def test_tc_model_matches_pallas(kind, use_lut):
 
 def test_tc_model_packs_rows_of_several_groups_into_one_tile():
     """The inputs above do exercise the packing (some tile holds rows of
-    both routing groups) and, at two groups, the split of f in two
-    ranges."""
+    both routing groups), with f whole at two groups as at eight."""
     _, _, _, sizes, _ = _case("gelu", True)
-    assert gp.plan_moe_fused(G, E, C, D, F, BF16, "gelu", SMS).fsplit == 2
+    assert gp.plan_moe_fused(G, E, C, D, F, BF16, "gelu", SMS).grid[1] == 1
     tiles = gp.fused_tile_rows(sizes.tolist(), C)
     assert any(len({row[0] for row in rows if row is not None}) > 1
                for rows in tiles.values())

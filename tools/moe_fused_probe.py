@@ -5,27 +5,20 @@ d 192, f 768).
 
     python3 tools/moe_fused_probe.py
 
-Two readings, each the device time of one wrapper call (a CUDA graph of 10
-calls replayed 20 times, ``chip_smoke.time_ms``), beside the card's name
-and power limit:
-
-1. The split of f over blocks (``gemm_plan.plan_moe_fused``'s ``fsplit``)
-   at 1, 2, 4, 8 and 16 routing groups, with every split forced in turn
-   and checked against the plain version; the planner's own choice is
-   printed beside them.
-2. Part ablations at 8 groups: the CUDA source is copied (under the
-   git-ignored ``build/``), one part of the ``tc`` kernel is cut out (the
-   activation, the LUT lookup, the low half of the bf16 pair, the first
-   product, the scratch stores, ...), the copy is built with the flags of
-   ``kernels/build.py`` and timed through the same wrapper.  A cut
-   variant's output is wrong by design and is not checked; the difference
-   to ``base`` is what the part costs in the launch.
+Part ablations at 8 routing groups, each the device time of one wrapper
+call (a CUDA graph of 10 calls replayed 20 times, ``chip_smoke.time_ms``),
+beside the card's name and power limit: the CUDA source is copied (under
+the git-ignored ``build/``), one part of the ``tc`` kernel is cut out (the
+activation, the LUT lookup, the low half of the bf16 pair, the first
+product, the scratch stores, ...), the copy is built with the flags of
+``kernels/build.py`` and timed through the same wrapper.  A cut variant's
+output is wrong by design and is not checked; the difference to ``base``
+is what the part costs in the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import json
 import os
 import re
@@ -42,7 +35,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core import routing as R  # noqa: E402
-from repro_torch.kernels import build, gemm_plan  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 E, K, D, FF, C, T = 16, 4, 192, 768, 68, 128
@@ -68,45 +61,20 @@ CUTS = {
                          ("moe_fused.cu", r"float h\[32\], u",
                           "float h[32] = {}, u")],
     "no_scratch_stores": [("moe_fused.cu",
-                           r"\*reinterpret_cast<float4\*>\(\s*plane \+[^;]*;",
+                           r"\*reinterpret_cast<float4\*>\(\s*scratch \+[^;]*;",
                            "(void)gw;")],
 }
 
 
 def layer(g: int):
-    """One M³ViT MoE layer at ``g`` routing groups: (case, plan)."""
+    """The wrapper's case for one M³ViT MoE layer at ``g`` routing
+    groups."""
     r = R.route(cs.randn((g, T, E), torch.float32, seed=50), K, C)
     sizes = R.dispatch_counts(r, E)
     x = cs.randn((g, T, D), torch.bfloat16, seed=51)
     p = cs._fused_params("gelu", E, D, FF, torch.bfloat16, seed=52)
-    case = cs._moe_fused_case((x, p, r.expert, r.gate, r.position, r.valid,
+    return cs._moe_fused_case((x, p, r.expert, r.gate, r.position, r.valid,
                                sizes, "gelu", C, True, -8, 8.0))
-    return case, gemm_plan.plan_moe_fused(g, E, C, D, FF, torch.bfloat16,
-                                          "gelu", 132, 2048)
-
-
-def split_sweep() -> dict:
-    out = {}
-    planner = gemm_plan.plan_moe_fused
-    try:
-        for g in (1, 2, 4, 8, 16):
-            case, plan = layer(g)
-            times = {}
-            for fs in (1, 2, 4):
-                forced = dataclasses.replace(plan, fsplit=fs, grid=(
-                    plan.grid[0], plan.grid[1] // plan.fsplit * fs, E))
-                gemm_plan.plan_moe_fused = lambda *a, _p=forced, **kw: _p
-                cs.check("moe_fused", f"G={g} fsplit {fs}", case.kernel(),
-                         case.plain(), torch.bfloat16, **case.tol())
-                times[fs] = cs.time_ms(case.kernel)
-            gemm_plan.plan_moe_fused = planner
-            out[g] = {"planned_fsplit": plan.fsplit, "ms": times}
-            print(f"  G={g}: planner fsplit {plan.fsplit}; "
-                  + ", ".join(f"fsplit {k} {v:.4f} ms"
-                              for k, v in times.items()), flush=True)
-    finally:
-        gemm_plan.plan_moe_fused = planner
-    return out
 
 
 def build_cuts(tmp: str) -> dict:
@@ -138,7 +106,7 @@ def build_cuts(tmp: str) -> dict:
 
 
 def ablations() -> dict:
-    case, _ = layer(8)
+    case = layer(8)
     real = build.function
     times: dict = {name: [] for name in CUTS}
     (ROOT / "build").mkdir(exist_ok=True)
@@ -172,11 +140,9 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(smi)
     build.library()
-    print("the split of f over blocks, ms per wrapper call:")
-    sweep = split_sweep()
     print("part ablations at G=8, ms per wrapper call:")
     parts = ablations()
-    print(json.dumps({"card": smi, "split_sweep": sweep, "ablations": parts}))
+    print(json.dumps({"card": smi, "ablations": parts}))
 
 
 if __name__ == "__main__":
