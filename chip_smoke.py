@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA Hopper card (H100): M³ViT
 serving through the kernels and through the fused MoE kernel, and
-Llama-3.2-1B prefill + decode serving.
+Llama-3.2-1B prefill + decode serving, each also through the
+continuous-batching scheduler.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,10 @@ Phases, each printing its lines:
    float32 on ``simt``,
    and a second launch that must be bit-identical; every launch
    must move exactly the variant counter its planner names
-   (``gemm_plan.plan_moe_fused``).
+   (``gemm_plan.plan_moe_fused``).  Then ``unified_linear`` at every
+   projection shape of both models: the rows of launches of M = 1, 16, 70,
+   80, 128 and 1024 rows must equal the M = 1024 launch's bit for bit (a
+   row's sum runs over the same K ranges in the same order at every M).
 3. The main path: an ``M3ViTServer`` at the full 12-layer ``CONFIG`` in
    bf16 under the ``cuda`` policy, with seeded random weights, answers 16
    requests (8 semseg, 8 depth) in batches of 8.  Output shapes and
@@ -71,7 +75,13 @@ Phases, each printing its lines:
    layer, the transfers' stall and hidden time and overlap ratio, and ms
    per batch are printed.  These paged runs' launches are checked here
    and stay out of phase 5 (they run the same kernels at the same
-   per-queue shapes as the ``cuda`` run).
+   per-queue shapes as the ``cuda`` run).  Then the 16 requests, all due
+   at once, through the continuous-batching ``Scheduler`` over
+   ``VisionBackend``'s per-task buckets of 4 (``total_slots`` 8), under
+   ``cuda`` and under ``moe_ffn="cuda_fused"``, all resident (counted, with
+   recorded twins for phase 5) and at ``resident_fraction`` 0.5 (checked
+   only): every result ``np.array_equal`` to its server's ``infer`` of the
+   same frames at batch 8; img/s and latency p50/p99 printed.
 4. The LM path: a ``ServingEngine`` at the full Llama-3.2-1B ``CONFIG``
    (16 layers, bf16, seeded random weights, ``max_len`` 512) under ``cuda``
    with ``attention_decode="cuda_fused"`` generates 32 greedy tokens for
@@ -82,10 +92,26 @@ Phases, each printing its lines:
    argmax must give back the generated tokens) and under the plain
    ``eager`` policy on the card, with cosine >= 0.999 between the two
    logits at every step.  Prefill ms, ms per decode step and tokens/s.
+   Then the same model through the continuous-batching ``Scheduler``
+   (``LMBackend``, 8 slots): (a) the 8 prompts of 128 tokens, whose
+   tokens must equal the static run's bit for bit; (b) 32 requests with
+   prompts of 16..128 tokens (16, 64, 70, 80 among them) and 8..32 new
+   tokens, each equal to the static engine serving its prompt alone and
+   in a batch of 8 copies (which must agree), with decode steps whose
+   slots' cache lengths differ; (c) a bursty multi-tenant
+   ``TraceGenerator`` trace under ``SLOPolicy(preemption=True)``,
+   ``prefill_chunk`` 64 and a 32-entry prefix cache, on a tick clock:
+   every request equal to the engine serving it alone, at least one
+   preemption, restore and prefix hit.  tok/s, TTFT and TPOT p50/p99, slot
+   utilization, host syncs per decode step (must be 1) and the
+   ``decode_fused`` launches with non-uniform lengths are printed.  (a)
+   and (b) are counted, their admissions and decode steps recorded apart
+   for phase 5; (c) is checked and printed only.
 5. The kernels at the main paths' own inputs.  Beside each counted run of
    phases 3 and 4 an uncounted twin (one more forward of each task; the
    teacher-forced replay of the prefill and the 32 decode steps) records
-   the arguments of every kernel launch.  Each distinct recorded launch
+   the arguments of every kernel launch (the schedulers' runs are
+   repeated for it).  Each distinct recorded launch
    (by shape and data) is held against its plain version and timed alone
    (a CUDA graph of 10 calls on the same operands, which stay warm in L2;
    CUDA events, median of 20 replays after warm-up).  Then each recorded
@@ -349,6 +375,56 @@ def check_unified_linear() -> None:
     if kul.plan_for(x16, w16).variant != "simt":
         raise AssertionError("K=33 bf16 must be planned on the SIMT route")
     one("ragged erf-gelu", x16, w16, b[:129], "gelu")
+
+
+#: (label, K, N, bias, activation, LUT) of every projection of the two
+#: models: M3ViT's and Llama-3.2-1B's
+PROJECTIONS = [("patch_embed", 768, 192, True, None, False),
+               ("qkvo", 192, 192, False, None, False),
+               ("mlp_up_gelu_lut", 192, 768, True, "gelu", True),
+               ("mlp_down", 768, 192, True, None, False),
+               ("semseg_head", 192, 4864, True, None, False),
+               ("depth_head", 192, 256, True, None, False),
+               ("lm_q_o", 2048, 2048, False, None, False),
+               ("lm_k_v", 2048, 512, False, None, False),
+               ("lm_gate_silu_lut", 2048, 8192, False, "silu", True),
+               ("lm_up", 2048, 8192, False, None, False),
+               ("lm_down", 8192, 2048, False, None, False)]
+ROW_MS = (1, 16, 70, 80, 128, 1024)
+
+
+def check_unified_linear_rows() -> None:
+    """A row's output must not depend on how many rows share the launch:
+    rows of M = 1, 16, 70, 80, 128 and 1024 against the M = 1024 launch,
+    bit for bit, at every projection shape of both models (split-K at
+    M <= 72 and whole K above sum the same K ranges in the same order)."""
+    from repro_torch.kernels import unified_linear as kul
+
+    for i, (label, k, n, has_b, act, lut) in enumerate(PROJECTIONS):
+        x = randn((ROW_MS[-1], k), torch.bfloat16, seed=500 + i)
+        w = randn((k, n), torch.bfloat16, 1.0 / math.sqrt(k), seed=600 + i)
+        b = randn((n,), torch.float32, 0.1, seed=700 + i) if has_b else None
+        outs = {}
+        for m in ROW_MS:
+            xm = x[:m].contiguous()
+            plan = kul.plan_for(xm, w)
+            outs[m] = (planned("unified_linear", kul.unified_linear, plan,
+                               lambda: kul.unified_linear(
+                                   xm, w, b, activation=act, use_lut=lut)),
+                       plan)
+        full = outs[ROW_MS[-1]][0]
+        torch.cuda.synchronize()
+        bad = {m: int((y != full[:m]).sum()) for m, (y, _) in outs.items()}
+        plans = ", ".join(f"M={m} {p.variant} {64 * p.nwg}x{p.bt}"
+                          for m, (_, p) in outs.items())
+        ranges, promote = outs[1][1].ranges, outs[1][1].promote
+        print(f"  unified_linear {label} K={k} N={n}: rows at M = "
+              f"{', '.join(map(str, ROW_MS))} bit-identical to M=1024 "
+              f"({ranges} K ranges, groups of {promote} k-tiles; {plans}): "
+              f"{'ok' if not any(bad.values()) else 'FAIL'}")
+        if any(bad.values()):
+            raise AssertionError(f"unified_linear {label}: a row's output "
+                                 f"depends on M: differing outputs {bad}")
 
 
 def _attn_label(plan) -> str:
@@ -702,19 +778,21 @@ class Unit(NamedTuple):
 
 
 @contextlib.contextmanager
-def recorded_launches(calls: dict):
+def recorded_launches(calls):
     """Record the arguments of every kernel launch made inside the block
-    into ``calls`` (kernel name -> list), at each kernel module's
-    ``_launch`` — the one place its wrapper launches and counts.  The
-    launches run and count as they would."""
+    into ``calls`` (kernel name -> list; or a function returning the dict
+    to record each launch into), at each kernel module's ``_launch`` — the
+    one place its wrapper launches and counts.  The launches run and count
+    as they would."""
     from repro_torch import kernels
 
+    pick = calls if callable(calls) else (lambda: calls)
     saved = []
     for name, wrapper in kernels.KERNELS.items():
         mod = sys.modules[wrapper.__module__]
 
         def record(*args, _launch=mod._launch, _name=name):
-            calls.setdefault(_name, []).append(args)
+            pick().setdefault(_name, []).append(args)
             return _launch(*args)
 
         saved.append((mod, mod._launch))
@@ -1005,6 +1083,87 @@ def paged_path(ctx):
                   f"{stats['hit_rate']:.4f}")
 
 
+def _pct_ms(values, p) -> float:
+    return float(np.percentile(values, p)) * 1e3 if len(values) else 0.0
+
+
+def scheduler_vision(ctx, units):
+    """The 16 requests (8 of each task, all due at once) through the
+    continuous-batching scheduler's per-task buckets of 4 (``total_slots``
+    8), all resident and paged at ``resident_fraction`` 0.5, under ``cuda``
+    and under ``moe_ffn="cuda_fused"``: every result equal to its server's
+    ``infer`` of the same frames at batch 8, bit for bit.  The all-resident
+    runs are counted (and their launches recorded by an uncounted twin for
+    phase 5); the paged ones are checked and printed only."""
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import Request, Scheduler, VisionBackend
+
+    cuda = ops.policy_named("cuda")
+    fused = cuda.with_impls(moe_ffn="cuda_fused")
+    total = {}
+    batches = ctx["batches"]
+    for label, policy, frac in (("cuda", cuda, 1.0),
+                                ("cuda + moe_ffn=cuda_fused", fused, 1.0),
+                                ("cuda", cuda, 0.5),
+                                ("cuda + moe_ffn=cuda_fused", fused, 0.5)):
+        backend = VisionBackend(replace(MV.CONFIG, policy=policy),
+                                ctx["params"], resident_fraction=frac)
+        want = {task: backend.server.infer(imgs, task)
+                for task, imgs in batches}
+
+        def serve():
+            sched = Scheduler(backend, total_slots=2 * 4, quantum=1,
+                              num_tasks=len(MV.TASKS))
+            done = sched.run([
+                Request(rid=t * BATCH + j, task_id=t, prompt=imgs[j])
+                for t, (_, imgs) in enumerate(batches)
+                for j in range(len(imgs))])
+            return sched, done
+
+        serve()                                 # warm-up, not counted
+        torch.cuda.synchronize()
+        counted = frac == 1.0
+        reset_launch_counts()
+        sched, done = serve()
+        counts = launch_counts()
+        m = sched.metrics()
+        lat = [r.latency for r in done]
+        print(f"  scheduler, {label}, resident_fraction {frac}: 16 requests "
+              f"in buckets of {sched.slots_per_bucket}: {m['items_per_s']:.1f}"
+              f" img/s, latency p50 {_pct_ms(lat, 50):.3f} ms p99 "
+              f"{_pct_ms(lat, 99):.3f} ms (host wall, all due at once)")
+        if len(done) != 2 * BATCH:
+            raise AssertionError(f"scheduler {label}: {len(done)} done")
+        for r in done:
+            task, j = MV.TASKS[r.task_id], r.rid % BATCH
+            if not np.array_equal(r.result, want[task][j]):
+                raise AssertionError(
+                    f"scheduler {label} at {frac}: request {r.rid} differs "
+                    f"from infer at batch {BATCH} (max abs diff "
+                    f"{float(np.abs(r.result - want[task][j]).max())})")
+        print(f"    every result bit-identical to infer of the same frames "
+              f"at batch {BATCH}; launches {json.dumps(counts)}")
+        need = ("unified_linear", "flash_attention") + (
+            ("moe_fused",) if policy is fused and frac == 1.0
+            else ("moe_gemm", "gelu_lut"))
+        if not all(counts[n] for n in need):
+            raise AssertionError(f"scheduler {label}: a kernel of the path "
+                                 f"never launched: {counts}")
+        if not counted:
+            continue
+        read_variants(f"the scheduler's 16 requests ({label})")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        with recorded_launches({}) as calls:
+            serve()
+        units.append(Unit(f"M3ViT scheduler forward, bucket of 4, policy "
+                          f"{label}", sched.buckets[0].steps
+                          + sched.buckets[1].steps, calls))
+    return total
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1117,7 +1276,191 @@ def lm_path(units):
     units.append(Unit(f"Llama-3.2-1B decode step, B={LM_BATCH}, cache "
                       f"{LM_PROMPT + 1}-{LM_PROMPT + LM_NEW} keys", LM_NEW,
                       decode_calls))
-    return counts
+    return counts, {"cfg": cfg, "params": params, "policy": policy,
+                    "engine": engine, "prompts": prompts.cpu().numpy(),
+                    "tokens": tokens}
+
+
+@contextlib.contextmanager
+def recorded_by_phase(backend):
+    """Record a scheduler run's kernel launches (``recorded_launches``)
+    into two dicts: the decode steps' and the admissions' (prefills,
+    chunks), by wrapping the LM backend's decode step."""
+    rec = {"admit": {}, "decode": {}}
+    cur = [rec["admit"]]
+    make = backend.decode_step
+
+    def decode_step():
+        fn = make()
+
+        def step(*args):
+            cur[0] = rec["decode"]
+            try:
+                return fn(*args)
+            finally:
+                cur[0] = rec["admit"]
+        return step
+
+    backend.decode_step = decode_step
+    try:
+        with recorded_launches(lambda: cur[0]):
+            yield rec
+    finally:
+        del backend.decode_step
+
+
+def _scheduler_report(label, sched, done):
+    """Print a scheduler run's end-to-end metrics; returns them."""
+    m = sched.metrics()
+    bucket = sched.buckets[None]
+    tpot = [r.tpot for r in done if np.isfinite(r.tpot)]
+    ttft = [r.ttft for r in done]
+    per_step = (bucket.host_syncs - bucket.admissions) / max(bucket.steps, 1)
+    print(f"  {label}: {len(done)} requests, {m['tokens']} tokens in "
+          f"{m['span_s'] * 1e3:.1f} ms: {m['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{_pct_ms(ttft, 50):.3f} ms p99 {_pct_ms(ttft, 99):.3f} ms, TPOT "
+          f"p50 {_pct_ms(tpot, 50):.3f} ms p99 {_pct_ms(tpot, 99):.3f} ms, "
+          f"slot utilization {m.get('slot_utilization', 0.0):.4f}, "
+          f"{bucket.steps} decode steps, {per_step:.2f} host syncs a decode "
+          f"step, {bucket.admissions} admissions (one sync each)")
+    if per_step != 1.0:
+        raise AssertionError(f"{label}: {per_step} host syncs a decode step")
+    return m
+
+
+def _nonuniform(decode_calls) -> int:
+    """decode_fused launches whose slots' cache lengths differ."""
+    return sum(int(args[3].min()) != int(args[3].max())
+               for args in decode_calls.get("decode_fused", ()))
+
+
+def scheduler_lm(ctx, units):
+    """Llama-3.2-1B at full width through the continuous-batching
+    scheduler (8 slots, ``max_len`` 512, ``cuda`` with
+    ``attention_decode="cuda_fused"``): (a) the 8 prompts of 128 tokens
+    of the static run, whose tokens must come back bit for bit; (b) 32
+    requests of 16..128-token prompts (16, 64, 70 and 80 among them) and
+    8..32 new tokens, each equal to the static engine serving its prompt
+    alone and in a batch of 8 copies; (c) a bursty multi-tenant trace
+    under SLO tiers with preemption, chunked admission (64-token chunks)
+    and a 32-entry prefix cache, on a tick clock, each request equal to
+    the engine serving it alone, with at least one preemption, restore and
+    prefix hit.  (a) and (b) are counted and recorded (phase 5); (c) is
+    checked and printed only."""
+    import time
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import LMBackend, Request, Scheduler, ServeConfig
+    from repro_torch.serve.slo import (SLOPolicy, TickClock, TraceConfig,
+                                       TraceGenerator)
+
+    cfg, engine = ctx["cfg"], ctx["engine"]
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=ctx["policy"])
+    backend = LMBackend(cfg, ctx["params"], scfg)
+    rng = np.random.default_rng(1)
+    lengths = [16, 64, 70, 80] + rng.integers(16, 129, 28).tolist()
+    news = rng.integers(8, 33, 32).tolist()
+    runs = {
+        "a": [dict(rid=i, task_id=0, prompt=ctx["prompts"][i],
+                   max_new_tokens=LM_NEW) for i in range(LM_BATCH)],
+        "b": [dict(rid=i, task_id=0, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=m)
+              for i, (n, m) in enumerate(zip(lengths, news))]}
+    want = {"a": {i: ctx["tokens"][i].tolist() for i in range(LM_BATCH)}}
+    t0 = time.perf_counter()
+    want["b"] = {}
+    for spec in runs["b"]:
+        p, m = spec["prompt"][None], spec["max_new_tokens"]
+        alone = engine.generate(p, m)
+        copies = engine.generate(np.repeat(p, LM_BATCH, 0), m)
+        if not (copies == alone).all():
+            raise AssertionError(f"request {spec['rid']} ({p.shape[1]} "
+                                 f"tokens): the static engine's tokens "
+                                 f"depend on its batch")
+        want["b"][spec["rid"]] = alone[0].tolist()
+    print(f"  static engine, each of the 32 prompts alone and in a batch of "
+          f"{LM_BATCH} copies: the same tokens "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    def serve(specs):
+        sched = Scheduler(backend, total_slots=LM_BATCH, quantum=4,
+                          num_tasks=1)
+        return sched, sched.run([Request(**s) for s in specs])
+
+    total = {}
+    for key, label in (("a", f"scheduler (a), the {LM_BATCH} prompts of "
+                              f"{LM_PROMPT} tokens"),
+                       ("b", "scheduler (b), 32 prompts of 16..128 tokens, "
+                             "8..32 new")):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        sched, done = serve(runs[key])
+        counts = launch_counts()
+        _scheduler_report(label, sched, done)
+        read_variants(label)
+        for r in done:
+            if r.tokens != want[key][r.rid]:
+                raise AssertionError(f"{label}: request {r.rid} (prompt "
+                                     f"{len(r.prompt)}) differs from the "
+                                     f"static engine's tokens")
+        print(f"    every request's tokens equal the static engine's bit for "
+              f"bit; launches {json.dumps(counts)}")
+        if counts["decode_fused"] != cfg.num_layers * sched.buckets[
+                None].steps or not counts["unified_linear"] \
+                or not counts["flash_attention"]:
+            raise AssertionError(f"{label}: launches {counts}")
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        with recorded_by_phase(backend) as rec:
+            twin, _ = serve(runs[key])
+        bucket = twin.buckets[None]
+        mixed = _nonuniform(rec["decode"])
+        print(f"    decode_fused launches with non-uniform per-slot lengths: "
+              f"{mixed} of {counts['decode_fused']}")
+        if key == "b" and not mixed:
+            raise AssertionError("scheduler (b): no decode step mixed "
+                                 "cache lengths")
+        units.append(Unit(f"Llama-3.2-1B scheduler {key} admission "
+                          f"(batch-1 prefill)", bucket.admissions,
+                          rec["admit"]))
+        units.append(Unit(f"Llama-3.2-1B scheduler {key} decode step, "
+                          f"{LM_BATCH} slots", bucket.steps, rec["decode"]))
+
+    # (c): tiers, preemption, chunked admission and the prefix cache
+    trace = TraceGenerator(TraceConfig(
+        n=24, seed=1, vocab=cfg.vocab_size, num_tasks=1,
+        shared_prefix_len=16, burst_factor=8.0)).generate()
+    slo_backend = LMBackend(cfg, ctx["params"], replace(
+        scfg, prefix_cache=32, prefill_chunk=64))
+    sched = Scheduler(slo_backend, total_slots=LM_BATCH, quantum=4,
+                      num_tasks=1, clock=TickClock(0.001),
+                      slo=SLOPolicy(preemption=True))
+    t0 = time.perf_counter()
+    done = sched.run(trace)
+    wall = time.perf_counter() - t0
+    m = sched.metrics()
+    pc = m["prefix_cache"]
+    print(f"  scheduler (c), a bursty trace of {len(trace)} requests "
+          f"({', '.join(f'{t}: {v['requests']}' for t, v in m['tiers'].items())}"
+          f") on a tick clock: {wall * 1e3:.1f} ms host wall, "
+          f"{m['tokens']} tokens; preemptions {m['preemptions']}, restores "
+          f"{m['restores']}, prefill chunks {m.get('prefill_chunks', 0)}, "
+          f"prefix cache hits {pc['hits']} of {pc['lookups']} "
+          f"({pc['hit_tokens']} prompt tokens skipped)")
+    if len(done) != len(trace) or not (m["preemptions"] and m["restores"]
+                                       and pc["hits"]):
+        raise AssertionError(f"scheduler (c): {len(done)} done, {m}")
+    for r in done:
+        alone = engine.generate(np.asarray(r.prompt)[None], r.max_new_tokens)
+        if r.tokens != alone[0].tolist():
+            raise AssertionError(f"scheduler (c): request {r.rid} ({r.tier}, "
+                                 f"prompt {len(r.prompt)}, preempted "
+                                 f"{r.preemptions}, prefix hit "
+                                 f"{r.prefix_hit_tokens}) differs from the "
+                                 f"static engine serving it alone")
+    print("    every request's tokens equal the static engine serving it "
+          "alone")
+    return total
 
 
 # ------------------------------------------------------------ phase 5
@@ -1516,7 +1859,7 @@ def main() -> None:
     print("  moe_fused.cu: no wgmma serialization (C7518, C7512) in its "
           "build log")
     hgmma = build.sass_counts("HGMMA")
-    for kernel, n in (("unified_linear_tc_kernel", 12),
+    for kernel, n in (("unified_linear_tc_kernel", 18),
                       ("moe_gemm_tc_kernel", 12),
                       ("flash_attention_tc_kernel", 2),
                       ("moe_fused_tc_kernel", 12)):
@@ -1528,7 +1871,8 @@ def main() -> None:
               f"({min(found.values())}..{max(found.values())} each)")
 
     print("phase 2: kernels against their plain versions, made-up inputs")
-    for run_checks in (check_unified_linear, check_flash_attention,
+    for run_checks in (check_unified_linear, check_unified_linear_rows,
+                       check_flash_attention,
                        check_gelu_lut, check_moe_gemm, check_moe_fused,
                        check_decode_fused):
         run_checks()
@@ -1538,10 +1882,14 @@ def main() -> None:
     counts, ctx = main_path(units)
     fused_counts = fused_path(ctx, units)
     paged_path(ctx)
+    vision_counts = scheduler_vision(ctx, units)
 
     print("phase 4: LM path, Llama-3.2-1B serving")
-    lm_counts = lm_path(units)
-    counted = {n: counts[n] + fused_counts[n] + lm_counts[n] for n in counts}
+    lm_counts, lm_ctx = lm_path(units)
+    sched_counts = scheduler_lm(lm_ctx, units)
+    counted = {n: counts[n] + fused_counts[n] + lm_counts[n]
+               + vision_counts.get(n, 0) + sched_counts.get(n, 0)
+               for n in counts}
 
     print("phase 5: the kernels at the main paths' own inputs")
     records = path_records(units, counted)

@@ -5,7 +5,7 @@ families read (the same names, defaults and ``reduced`` smoke shrink; the
 recurrent fields come with the slice that ports those blocks).
 ``activation_dtype`` maps the ``dtype`` string to a ``torch.dtype``.  Only
 the configs this port serves are present as modules (``m3vit``,
-``llama3_2_1b``); ``get`` raises for the others.
+``llama3_2_1b``, ``kimi_k2_1t_a32b``); ``get`` raises for the others.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
     try:
         mod = importlib.import_module(f"repro_torch.configs.{name}")
     except ModuleNotFoundError as e:
-        raise ValueError(f"config {name!r} is not ported yet "
-                         "(the port serves m3vit, llama3_2_1b)") from e
+        raise ValueError(f"config {name!r} is not ported yet (the port "
+                         "has m3vit, llama3_2_1b, kimi_k2_1t_a32b)") from e
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 

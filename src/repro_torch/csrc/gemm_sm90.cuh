@@ -27,15 +27,21 @@
 // N, K, a queue's end) in hardware.
 //
 // Numerics: bf16 products are exact in float32.  The m64nBTk16 wgmmas of
-// kPromote k-tiles (4: 256 k; fewer if the ring is shallower) accumulate
-// into a fresh register tile, which is then added into the float32
-// accumulator with ordinary round-to-nearest adds, so the tensor core's own
+// a promotion group (at most kPromote = 4 k-tiles: 256 k) accumulate into
+// a fresh register tile, which is then added into the float32 accumulator
+// with ordinary round-to-nearest adds, so the tensor core's own
 // accumulation never spans more than 256 products.  Without that, a sum
 // over K = 8192 leaves the float32 tolerance the plain version is held to:
 // chip_smoke.py phase 2 reads how many outputs of one PyTorch bf16 matmul,
-// which accumulates on the tensor cores throughout, fall outside it.  float32 operands do not come here: wgmma would take them
-// only as TF32.  The promotion's register tile is why a block's tile stops
-// at 128 x 128 (two tiles of 64 floats a thread).
+// which accumulates on the tensor cores throughout, fall outside it.
+// float32 operands do not come here: wgmma would take them only as TF32.
+// The order of a sum is fixed by K's ranges and the promotion group, which
+// unified_linear's planner takes from (N, K) and the SM count alone, never
+// from M: a split-K block sums one range, a whole-K block all of them,
+// each range from zero and added in ascending order (Mainloop::consume), so
+// a row gets the same bits at every M.  The promotion's register tile is
+// why a block's tile stops at 128 x 128 (two tiles of 64 floats a thread;
+// a third, FOLD, only with more registers, unified_linear.cu).
 #pragma once
 
 #include "sm90.cuh"  // the PTX helpers and the tensor-map encoder
@@ -278,50 +284,75 @@ struct Mainloop {
     }
   }
 
-  // consumer warpgroups: acc over k-tiles [kt0, kt1).  Thread i of
-  // warpgroup g holds acc[4j + 2h + e] = tile(n, t) at
+  // consumer warpgroups: acc over the K ranges [r0, r1) of `ranges`
+  // (split_range over kt_total k-tiles; the producer is handed the same
+  // k-tiles).  Thread i of warpgroup g holds acc[4j + 2h + e] = tile(n, t)
+  // at
   //   n = 64 g + 16 (i / 32) + (i % 32) / 4 + 8 h,  t = 8 j + 2 (i % 4) + e.
-  // The wgmmas of `promote` consecutive k-tiles accumulate into one
-  // register tile, which is then added into acc and their stages handed
-  // back.
-  __device__ void consume(int kt0, int kt1, float (&acc)[kAcc]) {
+  // Within a range the wgmmas of `promote` consecutive k-tiles (counted
+  // from the range's start, the last group cut at its end) accumulate
+  // into one register tile, which is then added into the range's float32
+  // sum and their stages handed back.  The ranges' sums are added in
+  // ascending order, as the split-K reduction adds the splits'.  Without
+  // FOLD the planner guarantees each range is one group (or there is one
+  // range), so acc, accumulating from zero, is that running total; with
+  // FOLD each range's sum starts from zero in acc and is folded into a
+  // third register tile at the range's end (kernels/gemm_plan.py).
+  template <bool FOLD>
+  __device__ void consume(int kt_total, int ranges, int r0, int r1,
+                          int promote, float (&acc)[kAcc]) {
     const int g = threadIdx.x / 128;
-    const int promote = stages < kPromote ? stages : kPromote;
     float part[kAcc];
+    float total[FOLD ? kAcc : 1];
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[i] = part[i] = 0.0f;
-    int stage = 0, held = 0;
+    int stage = 0;
     uint32_t phase = 0;
-    for (int kt = kt0; kt < kt1; ++kt) {
-      mbar_wait(&full[stage], phase);
-      const uint32_t a0 =
-          smem_addr(a + ((size_t)stage * NWG + g) * kWTileBytes);
-      const uint32_t b0 = smem_addr(b + (size_t)stage * BT * kTileK * 2);
-      wgmma_fence();
-      fence_regs(part);
-      const int fresh = held == 0;
-#pragma unroll
-      for (int kk = 0; kk < kTileK / 16; ++kk)
-        // W: 16 k rows of 128 B per k16 step, 8-row groups 1024 B apart;
-        // X: 32 B along each 128-byte row, 8-row groups 1024 B apart
-        Wgmma<BT>::mma(part, desc_sw128(a0 + kk * 2048, 1024, 1024),
-                       desc_sw128(b0 + kk * 32, 16, 1024),
-                       kk > 0 || !fresh);
-      wgmma_commit();
-      if (++held == promote || kt + 1 == kt1) {
-        wgmma_wait_all();
+    for (int r = r0; r < r1; ++r) {
+      int kt0, kt1, held = 0;
+      split_range(kt_total, ranges, r, kt0, kt1);
+      for (int kt = kt0; kt < kt1; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t a0 =
+            smem_addr(a + ((size_t)stage * NWG + g) * kWTileBytes);
+        const uint32_t b0 = smem_addr(b + (size_t)stage * BT * kTileK * 2);
+        wgmma_fence();
         fence_regs(part);
-        if ((threadIdx.x & 31) == 0)
-          for (int r = 0; r < held; ++r)
-            mbar_arrive(&empty[(stage - r + stages) % stages]);
+        const int fresh = held == 0;
 #pragma unroll
-        for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
-        held = 0;
+        for (int kk = 0; kk < kTileK / 16; ++kk)
+          // W: 16 k rows of 128 B per k16 step, 8-row groups 1024 B apart;
+          // X: 32 B along each 128-byte row, 8-row groups 1024 B apart
+          Wgmma<BT>::mma(part, desc_sw128(a0 + kk * 2048, 1024, 1024),
+                         desc_sw128(b0 + kk * 32, 16, 1024),
+                         kk > 0 || !fresh);
+        wgmma_commit();
+        if (++held == promote || kt + 1 == kt1) {
+          wgmma_wait_all();
+          fence_regs(part);
+          if ((threadIdx.x & 31) == 0)
+            for (int j = 0; j < held; ++j)
+              mbar_arrive(&empty[(stage - j + stages) % stages]);
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+          held = 0;
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      if (++stage == stages) {
-        stage = 0;
-        phase ^= 1;
+      if constexpr (FOLD) {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) {
+          total[i] = r == r0 ? acc[i] : total[i] + acc[i];
+          acc[i] = 0.0f;
+        }
       }
+    }
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[i] = total[i];
     }
   }
 

@@ -125,7 +125,10 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
     return;
   }
   float acc[ML::kAcc];
-  ml.consume(0, kt_total, acc);
+  // K whole, one range; promotion groups of up to kPromote k-tiles
+  ml.template consume<false>(kt_total, 1, 0, 1,
+                             stages < sm90::kPromote ? stages : sm90::kPromote,
+                             acc);
 
   // rows past the queue are stored as exact zeros, two adjacent f a thread
   const float* st = ml.stage(acc);

@@ -21,6 +21,14 @@
 //   grid covers the 132 SMs (kernels/gemm_plan.py chooses).  The epilogue
 //   goes through shared memory so its stores are coalesced and the LUT is
 //   a shared-memory gather.
+// - A row's bits do not depend on M: the K ranges a split-K launch gives
+//   its blocks are the ranges a whole-K block sums one by one (each from
+//   zero, added in ascending order), with the same promotion group, all
+//   fixed by N, K and the SM count (kernels/gemm_plan.py).  So a prompt's
+//   rows prefilled alone, in a batch, or a chunk at a time get the same
+//   bits.  Where a range spans more than one promotion group, the running
+//   total takes a third register tile (FOLD), which the consumers can hold
+//   at 128 x 128 once a producer warpgroup gives them its registers.
 // - float32 operands, and bf16 rows whose pitch is not a multiple of 16
 //   bytes (TMA needs it), take the SIMT kernel below (common.cuh:gemm_tile,
 //   64 x 64 tiles on the FMA pipes): wgmma would take float32 only as TF32,
@@ -109,20 +117,34 @@ extern "C" int unified_linear_launch(const void* x, const void* w,
 
 // ------------------------------------------------- bf16 tensor cores
 
-// grid (N tiles of 64 NWG rows, M tiles of BT tokens, K splits).  With
-// splits > 1 every block stores its float32 partial tile to `partials`
-// ([tile][split][register][thread]) and takes a ticket; the last block of
-// the tile sums the splits in ascending order, resets the ticket, and runs
-// the epilogue.
-template <int BT, int NWG>
-__global__ void __launch_bounds__(NWG * 128 + 32)
+// grid (N tiles of 64 NWG rows, M tiles of BT tokens, K splits).  K is cut
+// into `ranges` ranges of whole k-tiles (sm90::split_range), the planner's
+// count from N, K and the SM count; a row's sum runs over them in the same
+// order at every M (gemm_sm90.cuh, Mainloop::consume).  With splits > 1
+// (splits == ranges) block z sums range z alone, stores its float32 partial
+// tile to `partials` ([tile][split][register][thread]) and takes a ticket;
+// the last block of the tile sums the splits in ascending order, resets the
+// ticket, and runs the epilogue.  With one split a block runs every range
+// itself, each from zero, added in ascending order.
+// FOLD's third register tile does not fit the registers a thread gets when
+// the whole block shares the file evenly (ptxas spilled it at 128 x 128):
+// there the producer is a whole warpgroup, which gives its registers to the
+// consumers (setmaxnreg, as in moe_fused.cu), and only its first thread
+// issues the copies.
+template <int NWG, bool FOLD>
+constexpr int tc_threads() { return NWG * 128 + (FOLD ? 128 : 32); }
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+template <int BT, int NWG, bool FOLD>
+__global__ void __launch_bounds__(tc_threads<NWG, FOLD>(), 1)
     unified_linear_tc_kernel(const __grid_constant__ CUtensorMap wmap,
                              const __grid_constant__ CUtensorMap xmap,
                              const float* __restrict__ bias,
                              const float* __restrict__ table, int table_n,
                              float lut_scale, __nv_bfloat16* __restrict__ y,
                              int M, int N, int K, int act, int use_lut,
-                             int stages, float* __restrict__ partials,
+                             int stages, int ranges, int promote,
+                             float* __restrict__ partials,
                              int* __restrict__ tickets) {
   using ML = sm90::Mainloop<BT, NWG>;
   extern __shared__ uint8_t smem[];
@@ -130,17 +152,24 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   ML ml(smem, stages);
   float* table_s = reinterpret_cast<float*>(ml.empty + stages);
   const int splits = gridDim.z, s = blockIdx.z;
-  int kt0, kt1;
-  sm90::split_range((K + sm90::kTileK - 1) / sm90::kTileK, splits, s, kt0,
-                    kt1);
+  const int kt_total = (K + sm90::kTileK - 1) / sm90::kTileK;
+  const int r0 = splits > 1 ? s : 0, r1 = splits > 1 ? s + 1 : ranges;
+  int kt0, kt1, unused;
+  sm90::split_range(kt_total, ranges, r0, kt0, unused);
+  sm90::split_range(kt_total, ranges, r1 - 1, unused, kt1);
   const int n0 = blockIdx.x * NWG * sm90::kWgRows, t0 = blockIdx.y * BT;
   if (threadIdx.x == 0) ml.init();
   __syncthreads();
-  if (threadIdx.x >= ML::kConsumers) {  // the producer warp
+  if (threadIdx.x >= ML::kConsumers) {  // the producer warp (warpgroup)
+    if constexpr (FOLD)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+          kProducerRegs));
     if (threadIdx.x == ML::kConsumers)
       ml.produce(&wmap, &xmap, n0, 0, t0, 0, kt0, kt1);
     return;
   }
+  if constexpr (FOLD)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
 
   // the LUT half-table goes to shared memory: the epilogue's lookups are
   // a gather, which global loads would serialize line by line
@@ -151,7 +180,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
     sm90::named_barrier_sync(1, ML::kConsumers);
   }
   float acc[ML::kAcc];
-  ml.consume(kt0, kt1, acc);
+  ml.template consume<FOLD>(kt_total, ranges, r0, r1, promote, acc);
 
   if (splits > 1) {
     constexpr int kT = ML::kConsumers;
@@ -195,17 +224,17 @@ __global__ void __launch_bounds__(NWG * 128 + 32)
   }
 }
 
-template <int BT, int NWG>
+template <int BT, int NWG, bool FOLD>
 static int launch_tc(const void* x, const void* w, const void* bias,
                      const void* table, int table_n, float lut_scale, void* y,
                      int M, int N, int K, int act, int use_lut, int splits,
-                     int stages, void* partials, void* tickets,
-                     cudaStream_t stream) {
+                     int stages, int ranges, int promote, void* partials,
+                     void* tickets, cudaStream_t stream) {
   CUtensorMap wmap, xmap;
   int err = sm90::encode_3d(&wmap, w, N, K, 1, sm90::kTileK);
   if (err == 0) err = sm90::encode_3d(&xmap, x, K, M, 1, BT);
   if (err != 0) return err;
-  auto kernel = unified_linear_tc_kernel<BT, NWG>;
+  auto kernel = unified_linear_tc_kernel<BT, NWG, FOLD>;
   const size_t smem = sm90::smem_bytes(BT, NWG, stages) +
                       (use_lut ? (size_t)table_n * sizeof(float) : 0);
   static size_t granted = 0;
@@ -213,35 +242,43 @@ static int launch_tc(const void* x, const void* w, const void* bias,
   if (err != 0) return err;
   dim3 grid((N + NWG * sm90::kWgRows - 1) / (NWG * sm90::kWgRows),
             (M + BT - 1) / BT, splits);
-  kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
+  kernel<<<grid, tc_threads<NWG, FOLD>(), smem, stream>>>(
       wmap, xmap, static_cast<const float*>(bias),
       static_cast<const float*>(table), table_n, lut_scale,
-      static_cast<__nv_bfloat16*>(y), M, N, K, act, use_lut, stages,
-      static_cast<float*>(partials), static_cast<int*>(tickets));
+      static_cast<__nv_bfloat16*>(y), M, N, K, act, use_lut, stages, ranges,
+      promote, static_cast<float*>(partials), static_cast<int*>(tickets));
   return (int)cudaGetLastError();
 }
 
-// bf16 only; bt in {8, 16, 32, 64, 72, 128}, nwg in {1, 2} (the planner's
-// choices); returns a CUDA error, sm90::kEncodeError + a CUresult, or -1
-// for a tile shape with no instance
+// bf16 only; bt in {8, 16, 32, 64, 72, 128}, nwg in {1, 2}, fold only at
+// the large-M tiles (the planner's choices); `ranges` K ranges summed with
+// promotion groups of `promote` k-tiles, split over `splits` blocks (1 or
+// ranges);
+// returns a CUDA error, sm90::kEncodeError + a CUresult, or -1 for a tile
+// shape with no instance
 extern "C" int unified_linear_tc_launch(const void* x, const void* w,
                                         const void* bias, const void* table,
                                         int table_n, int step_log2, void* y,
                                         int M, int N, int K, int act,
                                         int use_lut, int bt, int nwg,
-                                        int splits, int stages,
-                                        void* partials, void* tickets,
-                                        void* stream) {
+                                        int splits, int stages, int ranges,
+                                        int promote, int fold, void* partials,
+                                        void* tickets, void* stream) {
   const float lut_scale = ldexpf(1.0f, -step_log2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define UL_TC(BT, NWG)                                                       \
-  if (bt == BT && nwg == NWG)                                                \
-    return launch_tc<BT, NWG>(x, w, bias, table, table_n, lut_scale, y, M, N, \
-                              K, act, use_lut, splits, stages, partials,      \
-                              tickets, st);
-  UL_TC(8, 1) UL_TC(16, 1) UL_TC(32, 1) UL_TC(64, 1) UL_TC(72, 1)
-  UL_TC(128, 1) UL_TC(8, 2) UL_TC(16, 2) UL_TC(32, 2) UL_TC(64, 2)
-  UL_TC(72, 2) UL_TC(128, 2)
+  if (splits != 1 && splits != ranges) return -1;
+#define UL_TC(BT, NWG, FOLD)                                                \
+  if (bt == BT && nwg == NWG && (fold != 0) == FOLD)                        \
+    return launch_tc<BT, NWG, FOLD>(x, w, bias, table, table_n, lut_scale, \
+                                    y, M, N, K, act, use_lut, splits,      \
+                                    stages, ranges, promote, partials,     \
+                                    tickets, st);
+  UL_TC(8, 1, false) UL_TC(16, 1, false) UL_TC(32, 1, false)
+  UL_TC(64, 1, false) UL_TC(72, 1, false) UL_TC(128, 1, false)
+  UL_TC(8, 2, false) UL_TC(16, 2, false) UL_TC(32, 2, false)
+  UL_TC(64, 2, false) UL_TC(72, 2, false) UL_TC(128, 2, false)
+  UL_TC(16, 1, true) UL_TC(32, 1, true) UL_TC(64, 1, true)
+  UL_TC(128, 1, true) UL_TC(64, 2, true) UL_TC(128, 2, true)
 #undef UL_TC
   return -1;
 }

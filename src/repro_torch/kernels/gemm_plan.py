@@ -30,13 +30,24 @@ Tile choice:
 * M > 72: the largest of 128×128, 128×64, 64×128, 64×64, 64×32, 64×16
   (rows of N × tokens; 128 rows only where N is a multiple of 128) whose
   grid reaches two waves of the SMs when K is at most four k-tiles, else
-  7/8 of a wave; K is never split, even where 64×16 tiles leave SMs idle
-  (M³ViT at one to seven frames).  A token's sum then runs over K in one
-  block in the same order at every M: the ring depth, and with it the
-  promotion group ``min(stages, 4)`` of ``csrc/gemm_sm90.cuh``, depends on
-  K alone, so a frame's output does not depend on the batch it rides in.
-  Split-K also lost to smaller tiles at every M = 1024 shape of the main
-  paths on the chip.
+  7/8 of a wave; K is never split over blocks, even where 64×16 tiles
+  leave SMs idle (M³ViT at one to seven frames).  Split-K also lost to
+  smaller tiles at every M = 1024 shape of the main paths on the chip.
+
+The order of a row's sum (:func:`sum_order`) depends on N, K and the SM
+count, never on M, so a row gets the same bits whatever the number of
+rows it is computed with (a prompt prefilled alone, in a batch, or a
+chunk at a time; a frame alone or in a batch).  K is cut into ``ranges``
+ranges of whole k-tiles, the split count the M <= 72 rule above gives;
+each range is summed from zero in promotion groups of ``promote`` k-tiles
+(``csrc/gemm_sm90.cuh``: at most four, the tensor core's own accumulation
+spanning at most 256 products), and the ranges' sums are added in
+ascending order.  A split-K block sums one range and the tile's last
+block adds the partials; a whole-K block sums the ranges one after
+another.  Where a range spans more than one promotion group, the
+whole-K block keeps the running total in a third register tile
+(``fold``), for which the block's producer warpgroup gives the consumers
+its registers (``csrc/unified_linear.cu``).
 """
 
 from __future__ import annotations
@@ -47,7 +58,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["GemmPlan", "plan_linear", "plan_moe", "k_ranges", "TILE_K",
+__all__ = ["GemmPlan", "plan_linear", "plan_moe", "k_ranges", "sum_order",
+           "TILE_K",
            "WGMMA_K", "TOKEN_TILES", "SMEM_BUDGET", "FusedPlan",
            "plan_moe_fused", "fused_smem_bytes", "fused_tile_rows",
            "FUSED_ROWS"]
@@ -62,6 +74,7 @@ SMEM_BUDGET = 196 * 1024   # ring bytes a block may take (of 227 KB)
 SPLITK_BLOCKS_PER_SM = 2   # small-M split target
 MIN_SPLIT_KT = 4           # small M: k-tiles a split keeps, where it can
 SHORT_K_TILES = 4          # large M: K this short aims at two waves
+PROMOTE = 4                # k-tiles a promotion group spans at most
 # large M: (tokens, warpgroups) tiles, largest first
 LARGE_M_TILES = ((128, 2), (64, 2), (128, 1), (64, 1), (32, 1), (16, 1))
 
@@ -72,9 +85,12 @@ class GemmPlan:
     reason: str             # why this variant (the routing rule that chose it)
     bt: int = 0             # tokens per tile (wgmma n)
     nwg: int = 0            # consumer warpgroups: 64·nwg rows of N a tile
-    splits: int = 1         # K splits per tile
+    splits: int = 1         # K splits per tile (1 or ``ranges``)
     stages: int = 0         # shared-memory ring depth
     grid: tuple = ()        # (N tiles, token tiles, splits or queues)
+    ranges: int = 1         # K ranges, summed in ascending order
+    promote: int = 0        # k-tiles a promotion group spans
+    fold: bool = False      # whole K, ranges of several groups: 3rd tile
 
     @property
     def blocks(self) -> int:
@@ -105,6 +121,23 @@ def _stages(bt: int, nwg: int, kt_per_block: int) -> int:
                       SMEM_BUDGET // _stage_bytes(bt, nwg)))
 
 
+@functools.lru_cache(maxsize=4096)
+def sum_order(n: int, k: int, sms: int) -> tuple[int, int]:
+    """(ranges, promote): the K ranges and the promotion group of every
+    ``unified_linear`` tensor-core launch with these N and K, at any M.
+    The ranges are the split-K count of a small-M launch: about two blocks
+    per SM streaming weights, at least one per SM, no range shorter than
+    four k-tiles beyond that; the group is the longest range, up to four
+    k-tiles (a split-K block's ring, up to six stages, is never shallower
+    than it)."""
+    kt = -(-k // TILE_K)
+    tiles = -(-n // WG_ROWS)
+    ranges = min(kt, max(-(-sms // tiles),
+                         min(-(-SPLITK_BLOCKS_PER_SM * sms // tiles),
+                             kt // MIN_SPLIT_KT)))
+    return ranges, min(PROMOTE, -(-kt // ranges))
+
+
 def _aligned(*sizes_and_ptrs: int) -> bool:
     return all(v % 16 == 0 for v in sizes_and_ptrs)
 
@@ -124,20 +157,17 @@ def plan_linear(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
         return _simt("a bf16 row pitch or base not a multiple of 16 bytes "
                      "(TMA cannot address it)")
     kt = -(-k // TILE_K)
+    ranges, promote = sum_order(n, k, sms)
     if m <= SMALL_M:
         bt, nwg = min(t for t in TOKEN_TILES if t >= m), 1
-        tiles = -(-n // WG_ROWS)
-        # about two blocks per SM, but no split under MIN_SPLIT_KT k-tiles
-        # unless the card would otherwise have fewer blocks than SMs
-        splits = min(kt, max(-(-sms // tiles),
-                             min(-(-SPLITK_BLOCKS_PER_SM * sms // tiles),
-                                 kt // MIN_SPLIT_KT)))
+        splits, fold = ranges, False
         reason = (f"M={m} <= {SMALL_M}: one {bt}-token tile, K split to "
                   f"about {SPLITK_BLOCKS_PER_SM} blocks per SM")
     else:
         # the largest tile whose grid reaches the target without a split:
         # two waves where K is short (a block's mainloop is a few k-tiles,
         # so more blocks hide the fill and the epilogue), else 7/8 of a wave
+        fold = ranges > 1 and -(-kt // ranges) > promote
         target = sms * 2 if kt <= SHORT_K_TILES else sms * 7 / 8
         shapes = [s for s in LARGE_M_TILES
                   if s[1] == 1 or n % (WG_ROWS * 2) == 0]
@@ -147,11 +177,13 @@ def plan_linear(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
                 break
         splits = 1      # the order of a row's sum must not depend on M
         reason = (f"M={m} > {SMALL_M}: {WG_ROWS * nwg} x {bt} tiles, "
-                  f"K whole, for {sms} SMs")
+                  f"K whole in {ranges} range(s)"
+                  f"{' folded' if fold else ''}, for {sms} SMs")
     grid = (-(-n // (WG_ROWS * nwg)), -(-m // bt), splits)
     stages = _stages(bt, nwg, -(-kt // splits))
+    assert stages >= promote, (m, n, k, stages, promote)
     return GemmPlan("tc_splitk" if splits > 1 else "tc", reason, bt, nwg,
-                    splits, stages, grid)
+                    splits, stages, grid, ranges, promote, fold)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -170,7 +202,8 @@ def plan_moe(queues: int, c: int, d: int, f: int, dtype: torch.dtype,
     grid = (-(-f // (WG_ROWS * nwg)), -(-c // bt), queues)
     stages = _stages(bt, nwg, -(-d // TILE_K))
     return GemmPlan("tc", f"{bt}-row queue tiles against {WG_ROWS * nwg} "
-                    f"columns of F", bt, nwg, 1, stages, grid)
+                    f"columns of F", bt, nwg, 1, stages, grid,
+                    promote=min(stages, PROMOTE))
 
 
 # ------------------------------------------------------------ moe_fused

@@ -17,8 +17,11 @@ comes from :mod:`repro_torch.kernels.gemm_plan`):
   float atomics, one epilogue on the full sum).
 * Prefill and M3ViT (M = 1024): operations, on the bf16 tensor cores, in
   128 × 128 tiles over two consumer warpgroups, or down to 64 × 16 tiles
-  where N or K is small, so the grid covers the SMs (K is split only where
-  even those leave SMs idle).
+  where N or K is small, so the grid covers the SMs; K is never split over
+  blocks there.
+* A row's bits do not depend on M: every variant sums K in the ranges and
+  promotion groups :func:`gemm_plan.sum_order` takes from N, K and the SM
+  count, each range from zero, the ranges added in ascending order.
 * float32 operands and bf16 rows not 16-byte aligned (e.g. K = 33) take
   the first SIMT kernel (64 × 64 tiles on the FMA pipes): a dispatch on
   dtype and shape, counted apart in ``unified_linear.variants["simt"]``.
@@ -79,7 +82,7 @@ def unified_linear_plain(x, w, b=None, *, activation=None, use_lut=False,
 
 
 _TC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p] + [ctypes.c_int] * 9 \
+                                     ctypes.c_void_p] + [ctypes.c_int] * 12 \
     + [ctypes.c_void_p] * 3
 _SIMT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p] + [ctypes.c_int] * 6 \
@@ -148,6 +151,7 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
             tickets = build.tickets("unified_linear", x2.device, plan.tiles)
         fn = build.function("unified_linear_tc_launch", _TC_ARGS)
         err = fn(*common, plan.bt, plan.nwg, plan.splits, plan.stages,
+                 plan.ranges, plan.promote, int(plan.fold),
                  None if partials is None else partials.data_ptr(),
                  None if tickets is None else tickets.data_ptr(), stream)
     build.check(f"unified_linear ({plan.variant})", err)

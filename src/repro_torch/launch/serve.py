@@ -1,0 +1,285 @@
+"""Serving launcher, the port of ``repro.launch.serve``: batched generation
+for an LM, or the continuous-batching scheduler for an LM or M³ViT, on the
+card unless ``--device cpu`` is given.
+
+Usage:
+  python -m repro_torch.launch.serve --arch llama3_2_1b --smoke --tokens 32
+  # continuous-batching scheduler over a mixed-task workload:
+  python -m repro_torch.launch.serve --arch kimi_k2_1t_a32b --smoke \\
+      --scheduler --requests 16 --tasks 2 --device cpu
+  # the paper's M3ViT (semseg + depth) through the same scheduler with
+  # paged expert weights:
+  python -m repro_torch.launch.serve --arch m3vit --scheduler \\
+      --resident-fraction 0.5 --async-paging
+  # SLO-aware serving: tiered admission, preemption (KV park/restore),
+  # chunked-prefill interleave, driven by a bursty multi-tenant trace,
+  # with a shared prompt-prefix cache:
+  python -m repro_torch.launch.serve --arch llama3_2_1b --scheduler \\
+      --slo --trace bursty --prefix-cache 16 --prefill-chunk 64
+
+Without ``--policy`` an LM serves under ``cuda`` with
+``attention_decode="cuda_fused"`` (the decode kernel reads each slot's own
+cache length on the card; ``cuda``'s decode impl takes uniform lengths
+only and raises on the card when the scheduler mixes positions), and
+M³ViT under ``cuda``.  ``--mesh``, ``--quant`` and ``--factor`` come with
+later slices and raise, naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from dataclasses import replace
+
+import numpy as np
+
+POLICIES = ("eager", "blocked", "cuda", "cuda_fused", "ref")
+LATER = {"mesh": 6, "quant": 3, "factor": 3}
+
+
+def _policy(args, vision: bool):
+    from repro_torch.ops import policy_named
+
+    if args.policy is not None:
+        return policy_named(args.policy)
+    policy = policy_named("cuda")
+    return policy if vision else policy.with_impls(
+        attention_decode="cuda_fused")
+
+
+def _pct(m, key):
+    return f"{m[key] * 1e3:.1f}ms"
+
+
+def host_syncs(sched) -> tuple[int, float]:
+    """(decode steps, host syncs per decode step) over an LM scheduler's
+    buckets, the admissions' own reads left out."""
+    steps = syncs = 0
+    for b in sched.buckets.values():
+        steps += b.steps
+        syncs += b.host_syncs - b.admissions
+    return steps, syncs / steps if steps else 0.0
+
+
+def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
+    from repro_torch.serve import LMBackend, Request, Scheduler
+    from repro_torch.serve.slo import SLOPolicy, TraceConfig, TraceGenerator
+
+    backend = LMBackend(cfg, params, scfg, device=dev)
+    num_tasks = max(args.tasks, 1)
+    if cfg.moe is not None:      # the gate table bounds the task-id space
+        num_tasks = min(num_tasks, backend.num_tasks)
+    else:
+        num_tasks = 1
+    slo = SLOPolicy() if args.slo else None
+    sched = Scheduler(backend, total_slots=args.batch, quantum=4,
+                      num_tasks=num_tasks, slo=slo)
+    if args.trace:
+        tc = TraceConfig(
+            n=args.requests, seed=args.seed, vocab=cfg.vocab_size,
+            num_tasks=num_tasks,
+            burst_factor=8.0 if args.trace == "bursty" else 1.0,
+            shared_prefix_len=16 if scfg.prefix_cache > 0 else 0)
+        reqs = TraceGenerator(tc).generate()
+    else:
+        rng = np.random.default_rng(args.seed)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (args.requests, args.prompt_len))
+        lengths = rng.integers(max(args.tokens // 4, 1), args.tokens + 1,
+                               args.requests)
+        reqs = [Request(rid=i, task_id=i % num_tasks,
+                        prompt=prompts[i].astype(np.int32),
+                        max_new_tokens=int(lengths[i]))
+                for i in range(args.requests)]
+    done = sched.run(reqs)
+    m = sched.metrics()
+    tpot = [r.tpot for r in done if np.isfinite(r.tpot)]
+    steps, per_step = host_syncs(sched)
+    print(f"[serve] arch={cfg.name} scheduler served {len(done)} requests "
+          f"({m['tokens']} tokens) over {num_tasks} task(s) on {dev}: "
+          f"{m['tok_per_s']:.1f} tok/s, ttft p50 {_pct(m, 'ttft_p50_s')} "
+          f"p99 {_pct(m, 'ttft_p99_s')}, tpot p50 "
+          f"{np.percentile(tpot, 50) * 1e3 if tpot else 0.0:.1f}ms p99 "
+          f"{np.percentile(tpot, 99) * 1e3 if tpot else 0.0:.1f}ms, "
+          f"latency p50 {_pct(m, 'latency_p50_s')} p99 "
+          f"{_pct(m, 'latency_p99_s')}, slot util "
+          f"{m.get('slot_utilization', 0):.2f}; {steps} decode steps, "
+          f"{per_step:.2f} host syncs a step")
+    for name, tm in sorted(m.get("tiers", {}).items()):
+        if slo is None and not args.trace:
+            break
+        print(f"[serve]   tier {name}: {tm['requests']} reqs, "
+              f"ttft p50 {_pct(tm, 'ttft_p50_s')} / "
+              f"p99 {_pct(tm, 'ttft_p99_s')}, "
+              f"slo_attainment {tm['slo_attainment']:.2f}, "
+              f"preemptions {tm['preemptions']}")
+    if slo is not None:
+        print(f"[serve] slo: goodput {m['goodput_rps']:.1f} req/s "
+              f"({m['goodput_tok_per_s']:.1f} tok/s), "
+              f"preemptions {m['preemptions']}, restores {m['restores']}, "
+              f"parked peak {m['parked_bytes_peak'] / 1e6:.2f} MB")
+    if "prefix_cache" in m:
+        pc = m["prefix_cache"]
+        print(f"[serve] prefix cache: {pc['entries']} entries, "
+              f"hit_rate {pc['hit_rate']:.2f}, "
+              f"{pc['hit_tokens']} prefill tokens skipped")
+    return m
+
+
+def serve_scheduler_vision(cfg, args, dev) -> dict:
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.models import vit as V
+    from repro_torch.serve import Request, Scheduler, VisionBackend
+
+    params = V.init_params(args.seed, cfg, device=dev)
+    backend = VisionBackend(cfg, params,
+                            resident_fraction=args.resident_fraction,
+                            expert_budget_bytes=args.expert_budget_bytes
+                            or None,
+                            async_paging=args.async_paging,
+                            placement=args.placement, device=dev)
+    sched = Scheduler(backend, total_slots=args.batch, quantum=1,
+                      num_tasks=len(MV.TASKS))
+    imgs = np.random.default_rng(args.seed).normal(
+        size=(4, MV.IMAGE_H, MV.IMAGE_W, 3)).astype(np.float32)
+    reqs = [Request(rid=i, task_id=i % len(MV.TASKS),
+                    prompt=imgs[i % imgs.shape[0]])
+            for i in range(args.requests)]
+    done = sched.run(reqs)
+    m = sched.metrics()
+    cache = m.get("expert_cache", {})
+    print(f"[serve] arch={cfg.name} scheduler served {len(done)} "
+          f"semseg/depth requests on {dev}: {m['items_per_s']:.1f} img/s, "
+          f"latency p50 {_pct(m, 'latency_p50_s')} p99 "
+          f"{_pct(m, 'latency_p99_s')}; expert cache: hit_rate "
+          f"{cache.get('hit_rate', 1.0):.2f} at resident_fraction "
+          f"{cache.get('resident_fraction', 1.0):.2f}")
+    if args.async_paging:
+        print(f"[serve] async paging: "
+              f"stall {cache.get('stall_s', 0.0) * 1e3:.1f}ms, "
+              f"hidden {cache.get('hidden_s', 0.0) * 1e3:.1f}ms, "
+              f"overlap_ratio {cache.get('overlap_ratio', 1.0):.2f}")
+    return m
+
+
+def serve_static(cfg, params, scfg, args, dev):
+    from repro_torch.serve import ServingEngine
+
+    engine = ServingEngine(cfg, params, scfg, device=dev)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.tokens, task_id=args.task_id)
+    dt = time.perf_counter() - t0
+    print(f"[serve] arch={cfg.name} generated {out.shape} on {dev} in "
+          f"{dt:.2f}s ({args.batch * args.tokens / dt:.1f} tok/s)")
+    print(out[: min(2, out.shape[0])])
+    return out
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="where to serve (default: the card; 'cpu' runs "
+                         "every kernel module's plain version)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static batch, or the scheduler's total slots")
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--task-id", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill size (0 = one-shot)")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a sequence at this token (-1 = never)")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve a workload through the continuous-batching "
+                         "scheduler")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="scheduler mode: number of requests")
+    ap.add_argument("--tasks", type=int, default=2,
+                    help="scheduler mode: number of gating tasks")
+    ap.add_argument("--slo", action="store_true",
+                    help="scheduler mode: SLO-aware tiered admission, "
+                         "batch-slot preemption with KV park/restore, "
+                         "chunked-prefill interleave")
+    ap.add_argument("--trace", default=None, choices=["bursty", "steady"],
+                    help="scheduler mode: arrivals from a seeded "
+                         "multi-tenant traffic trace")
+    ap.add_argument("--prefix-cache", type=int, default=0,
+                    help="scheduler mode: cache up to N prompt prefill "
+                         "states in a radix trie")
+    ap.add_argument("--resident-fraction", type=float, default=0.5,
+                    help="vision scheduler: fraction of experts resident")
+    ap.add_argument("--expert-budget-bytes", type=int, default=0,
+                    help="vision scheduler: per-layer expert-weight byte "
+                         "budget (0 = use --resident-fraction)")
+    ap.add_argument("--async-paging", action="store_true",
+                    help="vision scheduler: page expert weights through "
+                         "the copy-stream TransferEngine")
+    ap.add_argument("--placement", default=None,
+                    choices=["static", "lru", "budget", "elastic"],
+                    help="vision scheduler: expert placement policy")
+    ap.add_argument("--policy", default=None, choices=POLICIES,
+                    help="compute policy for every serving step")
+    ap.add_argument("--dispatch-report", action="store_true",
+                    help="print ops.dispatch_report() after serving")
+    for flag, item in LATER.items():
+        ap.add_argument(f"--{flag}", default=None,
+                        help=f"comes with ROADMAP.md queue 1 item {item}")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    for flag, item in LATER.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(f"--{flag} comes with ROADMAP.md "
+                                      f"queue 1 item {item}")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.ops import dispatch_report
+    from repro_torch.serve import ServeConfig
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+
+        # the kernels build at first use: do it before the serving clock
+        print(f"[serve] kernels built and loaded in "
+              f"{build.build_seconds():.1f} s")
+    cfg = get(args.arch, smoke=args.smoke)
+    vision = cfg.family == "vit-moe"
+    policy = _policy(args, vision)
+    if vision:
+        if not args.scheduler:
+            raise SystemExit("M3ViT serves through --scheduler")
+        serve_scheduler_vision(replace(cfg, policy=policy), args, dev)
+    else:
+        scfg = ServeConfig(max_len=args.max_len,
+                           temperature=args.temperature, eos_id=args.eos_id,
+                           seed=args.seed, prefill_chunk=args.prefill_chunk,
+                           policy=policy, prefix_cache=args.prefix_cache)
+        params = M.init_params(args.seed, cfg, device=dev)
+        if args.scheduler:
+            if scfg.temperature > 0:
+                scfg = replace(scfg, temperature=0.0)
+                print("[serve] the scheduler decodes greedily; ignoring "
+                      "temperature")
+            serve_scheduler_lm(cfg, params, scfg, args, dev)
+        else:
+            serve_static(cfg, params, scfg, args, dev)
+    if args.dispatch_report:
+        print("[serve] dispatch report:", json.dumps(dispatch_report()))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,7 +25,18 @@ from repro_torch.core.unified_linear import unified_linear
 _MROPE_LATER = "M-RoPE comes with the vision-language slice of the port"
 _KV_INT8_LATER = "the int8 KV cache comes with the packed-formats slice " \
                  "of the port (quant/qtensor.py)"
+_PER_SEQ_PREFILL = ("a multi-row prefill at per-sequence offsets is not "
+                    "supported: the scheduler admits each prompt alone, at "
+                    "one scalar offset")
 _HEAD_ROWS = 16384   # tied-head table rows widened to float32 per product
+# On the card the library picks a reduction's (and a product's) split from
+# the number of rows, so a row's bits would depend on how many rows share
+# the call: a norm reduces over at least _NORM_ROWS rows (short calls are
+# padded with zero rows) and the tied head multiplies _HEAD_M rows at a
+# time (padded the same way).  A decode row then gets the same bits in a
+# batch of 1 or 8, and a prompt's rows alone or in a batch.
+_NORM_ROWS = 16
+_HEAD_M = 8
 
 # ---------------------------------------------------------------- norms
 
@@ -38,15 +49,30 @@ def init_norm(cfg: ArchConfig, d=None):
     return p
 
 
+def _pad_rows(x2, rows: int):
+    """x2 (M, N) with zero rows appended up to ``rows``."""
+    return torch.nn.functional.pad(x2, (0, 0, 0, rows - x2.shape[0]))
+
+
+def _row_mean(v):
+    """Mean over the last dim, keepdim, in an order that does not depend on
+    the number of rows (``_NORM_ROWS``)."""
+    m = v.numel() // v.shape[-1]
+    if v.device.type != "cuda" or m >= _NORM_ROWS:
+        return v.mean(-1, keepdim=True)
+    return _pad_rows(v.reshape(m, -1), _NORM_ROWS).mean(
+        -1, keepdim=True)[:m].reshape(*v.shape[:-1], 1)
+
+
 def apply_norm(params, x, cfg: ArchConfig, eps=1e-6):
     xf = x.float()
     if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        mu = _row_mean(xf)
+        var = _row_mean((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
             + params["bias"]
     else:  # rmsnorm
-        ms = (xf * xf).mean(-1, keepdim=True)
+        ms = _row_mean(xf * xf)
         y = xf * torch.rsqrt(ms + eps) * params["scale"]
     return y.to(x.dtype)
 
@@ -152,8 +178,7 @@ def _upd_cache(c, new, slot):
     s, smax = new.shape[2], c.shape[2]
     if isinstance(slot, torch.Tensor) and slot.dim() == 1:
         if s != 1:
-            raise NotImplementedError("prefill at per-sequence offsets "
-                                      "comes with the scheduler slice")
+            raise NotImplementedError(_PER_SEQ_PREFILL)
         start = slot.to(c.device).long().clamp(0, smax - 1)
         c[torch.arange(c.shape[0], device=c.device), :, start] = new[:, :, 0]
         return c
@@ -230,8 +255,7 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
         # attend against everything cached so far; causal masking by
         # absolute position covers the first chunk and continuations
         if isinstance(cache_index, torch.Tensor):
-            raise NotImplementedError("prefill at per-sequence offsets "
-                                      "comes with the scheduler slice")
+            raise NotImplementedError(_PER_SEQ_PREFILL)
         _kv_write(cache, k, v, cache_index)
         kc, vc = _kv_full(cache)
         o = attention(q, kc, vc, causal=causal, window=window,
@@ -293,13 +317,26 @@ def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
     products and sums and no rounding of the logits to the activation
     dtype (the reference's ``preferred_element_type=f32``): a plain float32
     product, taken over ``_HEAD_ROWS`` table rows at a time so the widened
-    copy of the table never exists whole."""
+    copy of the table never exists whole, and on the card over ``_HEAD_M``
+    rows of x at a time."""
     if cfg.vocab_size == 0:
         return x  # feature trunk (M3ViT): task heads applied by the caller
     if cfg.tie_embeddings:
-        xf, table = x.float(), embed_params["tokens"]
-        return torch.cat([torch.matmul(xf, table[i:i + _HEAD_ROWS].float().T)
-                          for i in range(0, table.shape[0], _HEAD_ROWS)], -1)
+        table = embed_params["tokens"]
+        x2 = x.float().reshape(-1, x.shape[-1])
+        m = x2.shape[0]
+        blocks = [x2]
+        if x2.device.type == "cuda" and m != _HEAD_M:
+            blocks = list(_pad_rows(x2, -(-m // _HEAD_M) * _HEAD_M).split(
+                _HEAD_M))
+
+        def product(t):
+            parts = [xb @ t for xb in blocks]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        out = torch.cat([product(table[i:i + _HEAD_ROWS].float().T)
+                         for i in range(0, table.shape[0], _HEAD_ROWS)], -1)
+        return out[:m].reshape(*x.shape[:-1], -1)
     logits = unified_linear(x, head_params["w"],
                             preferred_dtype=torch.float32)
     return logits.float()

@@ -150,14 +150,16 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
 
 def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
             cache_index=None, decode=False, task_id=0, return_state=None,
-            logits_mode: str = "all", return_expert_counts: bool = False):
+            logits_mode="all", return_expert_counts: bool = False):
     """inputs: tokens (B, S) int or embeddings (B, S, d); params: the
     nested tree.
 
     Returns (logits, state, aux_loss): float32 logits (the trunk's features
     when ``vocab_size == 0``), the state when one was passed (prefill /
     decode, its caches written in place) or ``return_state`` forces it.
-    ``logits_mode="last"`` applies the LM head to the final position only.
+    ``logits_mode="last"`` applies the LM head to the final position only,
+    an int ``i`` to position ``i`` only (the last real token of a padded
+    prompt; the same logits as row ``i`` of ``"all"``).
     ``cache_index`` is an int or a (B,) tensor (continuous batching: each
     slot at its own position).  Attention blocks decode whenever a state,
     a cache index and one token are given; ``decode=True`` states that this
@@ -189,7 +191,7 @@ def _positions(b, s, cache_index, device):
 
 def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
              cache_index=None, task_id=0, return_state=None,
-             logits_mode: str = "all", return_expert_counts: bool = False):
+             logits_mode="all", return_expert_counts: bool = False):
     embed = params.get("embed", {})
     x = L.embed_inputs(embed, inputs, cfg)
     b, s = x.shape[0], x.shape[1]
@@ -229,6 +231,8 @@ def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     x = L.apply_norm(params["final_norm"], x, cfg)
     if logits_mode == "last":
         x = x[:, -1:]
+    elif not isinstance(logits_mode, str):
+        x = x[:, int(logits_mode):int(logits_mode) + 1]
     logits = L.apply_lm_head(params.get("head", {}), embed, x, cfg)
     out_state = (state if state is not None else {}) if want_state else None
     if return_expert_counts:

@@ -1,14 +1,17 @@
 """Batched LM serving: prefill, then decode over KV caches — the port of
-``repro.serve.engine`` (``ServeConfig``, ``ServingEngine``) for
-single-device serving of the attention families.
+``repro.serve.engine`` (``ServeConfig``, ``ServingEngine``,
+``feedback_inputs``, ``state_batch_axes``) for single-device serving of
+the attention families.
 
 A static batch of prompts is prefilled (in one pass, or in fixed-size
 chunks) into per-layer KV caches on the card, then decoded token by token
 with greedy or temperature sampling; per-request EOS stops a row early.
-The caches are written in place between steps.  Meshes (``rules``),
-quantized KV caches, asynchronous expert paging, the prefix cache,
-recurrent families and embedding-input frontends come with later slices of
-the port and raise ``NotImplementedError``.
+The caches are written in place between steps.  ``ServeConfig.prefix_cache``
+is read by the scheduler's ``LMBackend`` only; the static engine ignores
+it, as the reference's does.  Meshes (``rules``), quantized KV caches,
+asynchronous expert paging, recurrent families and embedding-input
+frontends come with later slices of the port and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,8 +27,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.ops.policy import ComputePolicy
 from repro_torch.train.step import make_serve_step
+from repro_torch.tree import flatten
 
-__all__ = ["ServeConfig", "ServingEngine", "is_recurrent"]
+__all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
+           "state_batch_axes"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 
@@ -33,6 +38,37 @@ _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 def is_recurrent(cfg: ArchConfig) -> bool:
     """True when the arch carries recurrent state (no KV cache semantics)."""
     return any(k in _RECURRENT for k in cfg.block_pattern)
+
+
+def feedback_inputs(cfg: ArchConfig, tok):
+    """Next-step model input from sampled (B,) token ids: the ids as a
+    (B, 1) column (token-input archs).  The reference's pseudo-embedding
+    feedback for embedding-input frontends comes with ROADMAP.md queue 1
+    item 5 and raises."""
+    if cfg.embed_input != "tokens":
+        raise NotImplementedError(
+            f"embedding-input feedback ({cfg.name}) comes with ROADMAP.md "
+            "queue 1 item 5")
+    return tok[:, None]
+
+
+def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
+    """Per-leaf batch-axis indices of the decode state, in
+    ``repro_torch.tree.flatten`` order, discovered structurally: the state
+    is built on the meta device at batch 1 and 2, and the axis whose size
+    changed is the batch axis (1 under the stacked ``layers``, 0 under
+    ``rest``)."""
+    s1 = flatten(M.init_state(cfg, 1, max_len, device="meta"))
+    s2 = flatten(M.init_state(cfg, 2, max_len, device="meta"))
+    axes = []
+    for name, a in s1.items():
+        diffs = [i for i, (x, y) in enumerate(zip(a.shape, s2[name].shape))
+                 if x != y]
+        if len(diffs) != 1:
+            raise ValueError(f"ambiguous batch axis of {name}: "
+                             f"{tuple(a.shape)}")
+        axes.append(diffs[0])
+    return axes
 
 
 @dataclass(frozen=True)
@@ -46,7 +82,11 @@ class ServeConfig:
     policy: Optional[ComputePolicy] = None
     kv_quant: Optional[str] = None     # "int8" comes with a later slice
     async_paging: bool = False         # the vision backend's; later slice
-    prefix_cache: int = 0              # scheduler prefix trie; later slice
+    # shared prompt-prefix cache (scheduler LM backend): >0 attaches a
+    # radix trie of up to that many cached prompt prefill states; ignored
+    # by the static ServingEngine
+    prefix_cache: int = 0
+    prefix_min: int = 8                # min matched tokens worth reusing
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -68,8 +108,6 @@ class ServingEngine:
             raise _later(f"kv_quant={kv_quant!r}", "packed-formats")
         if scfg.async_paging:
             raise _later("asynchronous expert paging", "paged serving")
-        if scfg.prefix_cache:
-            raise _later("the prefix cache", "scheduler")
         if is_recurrent(cfg):
             raise _later(f"recurrent serving ({cfg.name})", "recurrent")
         if cfg.embed_input != "tokens":
@@ -123,8 +161,9 @@ class ServingEngine:
                       task_id=task_id, return_state=True, logits_mode="last")
         logits, state, _ = M.forward(self.params, final, cfg, state=state,
                                      cache_index=n_mid * chunk,
-                                     task_id=task_id, return_state=True)
-        return logits[:, last], state
+                                     task_id=task_id, return_state=True,
+                                     logits_mode=last)
+        return logits[:, 0], state
 
     def generate(self, prompts, max_new_tokens: int, task_id: int = 0,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:

@@ -7,9 +7,16 @@ expert resident (``core.moe.apply_moe``, the default) or page their
 experts through one ``serve.expert_cache.PagedMoE`` per layer, synchronous
 or through a shared copy-stream ``TransferEngine``.  Task switching is the
 paper's §IV-F gate index switch, plus, when paging, a prefetch of the
-incoming task's usage-hot experts.  Meshes, factored experts and the
-scheduler's buckets come with later slices of the port and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+incoming task's usage-hot experts.  Meshes and factored experts come
+with later slices of the port and raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
+
+``VisionBackend`` adapts the server to the ``serve.scheduler.Scheduler``
+bucket protocol: a request's prompt is an image (H, W, 3); a bucket stages
+up to ``slots`` same-task requests and completes them in one ``infer``,
+a partial batch padded by repeating its first image.  A frame's result
+does not depend on the batch it rides in, so a request served through the
+scheduler gets the bits a direct ``infer`` gives it.
 """
 
 from __future__ import annotations
@@ -28,10 +35,12 @@ from repro_torch.models import transformer as T
 from repro_torch.models import vit as V
 from repro_torch.ops.policy import use_policy
 from repro_torch.serve.expert_cache import PagedMoE
+from repro_torch.serve.scheduler import Request
+from repro_torch.serve.slo.tiers import is_preemptible
 from repro_torch.serve.transfer import TransferEngine
 from repro_torch.tree import index, unflatten
 
-__all__ = ["M3ViTServer"]
+__all__ = ["M3ViTServer", "VisionBackend"]
 
 
 class M3ViTServer:
@@ -207,3 +216,103 @@ class M3ViTServer:
             paged.cache.reset_stats()
         if self.engine is not None:
             self.engine.reset_stats()
+
+
+class VisionTaskBucket:
+    """Stages up to ``slots`` same-task requests and serves them in one
+    batched forward (a vision request completes in a single quantum)."""
+
+    def __init__(self, backend: "VisionBackend", task_id: int, slots: int):
+        self.backend = backend
+        self.task_id = task_id
+        self.slots = slots
+        self.staged: list[Request] = []
+        self.steps = 0
+        self.slot_steps = 0
+
+    @property
+    def active(self) -> int:
+        return len(self.staged)
+
+    @property
+    def free_slots(self) -> list[int]:
+        return list(range(self.slots - len(self.staged)))
+
+    def admit(self, req: Request, now: float) -> list[Request]:
+        req.t_admit = now
+        self.staged.append(req)
+        return []
+
+    def bump_batch(self) -> Optional[Request]:
+        """SLO preemption hook: displace the most recently staged batch-tier
+        request so a due interactive one can take its place in the next
+        forward.  Inference is stateless, so a bump is result-identical —
+        the request just rides a later batch."""
+        for i in range(len(self.staged) - 1, -1, -1):
+            if is_preemptible(self.staged[i]):
+                req = self.staged.pop(i)
+                req.preemptions += 1
+                return req
+        return None
+
+    def run_quantum(self, n: int, now_fn, admit_cb=None) -> list[Request]:
+        if admit_cb is not None:
+            admit_cb()      # top up the batch before launching it
+        if not self.staged:
+            return []
+        server = self.backend.server
+        server.prefetch(self.task_id)
+        batch = self.staged
+        self.staged = []
+        imgs = np.stack([np.asarray(r.prompt) for r in batch])
+        if imgs.shape[0] < self.slots:   # the reference's fixed batch
+            pad = np.repeat(imgs[:1], self.slots - imgs.shape[0], axis=0)
+            imgs = np.concatenate([imgs, pad], axis=0)
+        preds = server.infer(imgs, self.task_id)
+        now = now_fn()
+        self.steps += 1
+        self.slot_steps += len(batch)
+        for i, req in enumerate(batch):
+            req.result = preds[i]
+            req.t_first = req.t_done = now
+        return batch
+
+
+class VisionBackend:
+    """Scheduler backend serving M³ViT semseg/depth through per-task
+    buckets; the keywords are :class:`M3ViTServer`'s (``resident_fraction``
+    defaults to 0.5, as the reference's)."""
+
+    def __init__(self, cfg: ArchConfig, params, *,
+                 resident_fraction: float = 0.5,
+                 expert_budget_bytes: Optional[int] = None,
+                 rules=None, ep_mesh=None, async_paging: bool = False,
+                 transfer_engine=None, factor=None, placement=None,
+                 device="cuda"):
+        self.server = M3ViTServer(cfg, params,
+                                  resident_fraction=resident_fraction,
+                                  expert_budget_bytes=expert_budget_bytes,
+                                  rules=rules, ep_mesh=ep_mesh,
+                                  async_paging=async_paging,
+                                  transfer_engine=transfer_engine,
+                                  factor=factor, placement=placement,
+                                  device=device)
+        self.num_tasks = len(MV.TASKS)
+        self.usage = None   # per-layer usage lives inside each PagedMoE
+
+    def make_bucket(self, task_id: int, slots: int) -> VisionTaskBucket:
+        return VisionTaskBucket(self, task_id, slots)
+
+    def lookahead(self, task_id: int) -> None:
+        """Scheduler hook: stream task ``task_id``'s usage-hot experts
+        behind the quantum about to run.  A no-op without a transfer
+        engine — a synchronous lookahead would block before the quantum
+        and evict the current task's set."""
+        if self.server.engine is not None:
+            self.server.lookahead(task_id)
+
+    def cache_stats(self) -> dict[str, Any]:
+        return self.server.cache_stats()
+
+    def reset_stats(self) -> None:
+        self.server.reset_stats()

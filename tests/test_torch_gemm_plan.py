@@ -92,19 +92,21 @@ MODEL_KN = {"m3vit_patch_embed": (768, 192), "m3vit_qkv": (192, 576),
 @pytest.mark.parametrize("case", list(MODEL_KN))
 def test_large_m_plans_never_split_k(case):
     """At M = 128·b, b = 1..16 (one to sixteen M³ViT frames, or LM prefill
-    rows), K is never split and the ring depth's promotion group
-    ``min(stages, 4)`` (``csrc/gemm_sm90.cuh``) is the same at every b: a
-    row's sum runs over K in the same order whatever the batch."""
+    rows), K is never split over blocks and its ranges and promotion group
+    (``csrc/gemm_sm90.cuh``) are the same at every b: a row's sum runs over
+    K in the same order whatever the batch."""
     k, n = MODEL_KN[case]
     plans = [gp.plan_linear(128 * b, n, k, BF16, SMS) for b in range(1, 17)]
     assert all(p.splits == 1 and p.variant == "tc" for p in plans), \
         [p.reason for p in plans]
-    assert len({min(p.stages, 4) for p in plans}) == 1
+    assert len({(p.ranges, p.promote, p.fold) for p in plans}) == 1
 
 
 # (bt, nwg, splits, stages) at M = 1, 8, 16, 72 and 1024, as the planner
 # chose them before K splits at M > 72 were dropped: decode and the
-# batch-8 / prefill plans do not change
+# batch-8 / prefill plans do not change (the prefill of Llama's gate/up and
+# down projections, whose K ranges span several promotion groups, keeps its
+# tiles and folds the running total into a third register tile)
 KEPT_PLANS = {
     "m3vit_patch_embed": [(8, 1, 12, 1), (8, 1, 12, 1), (16, 1, 12, 1),
                           (72, 1, 12, 1), (16, 1, 1, 6)],
@@ -139,6 +141,30 @@ def test_small_m_and_batch_8_plans_are_unchanged():
             assert (plan.bt, plan.nwg, plan.splits, plan.stages) \
                 == (bt, nwg, splits, stages), (case, m, plan)
             assert plan.grid == (-(-n // (64 * nwg)), -(-m // bt), splits)
+
+
+ANY_M = (1, 8, 16, 64, 72, 80, 128, 1024)
+
+
+@pytest.mark.parametrize("case", list(MODEL_KN))
+def test_k_ranges_and_promotion_group_do_not_depend_on_m(case):
+    """Every Llama-3.2-1B and M³ViT projection: the same K ranges and
+    promotion group at M = 1, 8, 16, 64, 72, 80, 128 and 1024; split-K
+    splits exactly those ranges; a whole-K plan folds exactly where a range
+    spans more than one group; no ring is shallower than the group (the
+    consumers hold a group's stages)."""
+    k, n = MODEL_KN[case]
+    kt = -(-k // gp.TILE_K)
+    ranges, promote = gp.sum_order(n, k, SMS)
+    assert 1 <= promote <= gp.PROMOTE and 1 <= ranges <= kt
+    for m in ANY_M:
+        plan = gp.plan_linear(m, n, k, BF16, SMS)
+        assert (plan.ranges, plan.promote) == (ranges, promote), (m, plan)
+        assert plan.splits in (1, ranges)
+        assert plan.stages >= promote
+        longest = max(b - a for a, b in gp.k_ranges(k, ranges))
+        multi = ranges > 1 and longest > promote * gp.TILE_K
+        assert plan.fold == (plan.splits == 1 and multi), (m, plan)
 
 
 @pytest.mark.parametrize("case", [c for c in MAIN_LINEAR

@@ -18,8 +18,9 @@ import torch
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import m3vit as TM
 from repro_torch.models import model, vit
-from repro_torch.serve.engine import ServingEngine
-from repro_torch.serve.vision import M3ViTServer
+from repro_torch.serve.engine import ServeConfig, ServingEngine
+from repro_torch.serve.scheduler import LMBackend
+from repro_torch.serve.vision import M3ViTServer, VisionBackend
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -53,7 +54,8 @@ def test_port_never_falls_back_to_the_cpu_by_itself(path):
 
 @pytest.mark.parametrize("entry", [M3ViTServer, vit.M3ViT, vit.init_params,
                                    params_from_jax, ServingEngine,
-                                   model.init_params, model.init_state])
+                                   model.init_params, model.init_state,
+                                   LMBackend, VisionBackend])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -63,10 +65,16 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a card is present, so the default device is usable")
     cfg = TM.SMOKE_CONFIG
     params = vit.init_params(0, cfg, device="cpu")
+    from repro_torch.configs import llama3_2_1b as TL
+
+    lm = TL.SMOKE_CONFIG
+    lm_params = model.init_params(0, lm, device="cpu")
     for call in (lambda: M3ViTServer(cfg, params),
                  lambda: vit.M3ViT(cfg, params),
                  lambda: vit.init_params(0, cfg),
-                 lambda: params_from_jax({"w": params["patch.b"].numpy()})):
+                 lambda: params_from_jax({"w": params["patch.b"].numpy()}),
+                 lambda: VisionBackend(cfg, params),
+                 lambda: LMBackend(lm, lm_params, ServeConfig(max_len=32))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -1,0 +1,62 @@
+"""``python -m repro_torch.launch.serve`` on the CPU (``--device cpu``, the
+kernel modules' plain versions) at ``SMOKE_CONFIG``: the static engine,
+the LM scheduler (greedy tokens equal to the static engine's), SLO tiers
+with a bursty trace and the prefix cache, the M³ViT scheduler, and the
+flags of later slices raising with their ``ROADMAP.md`` item."""
+
+import pytest
+
+from repro_torch.launch import serve
+
+
+def _run(capsys, *argv):
+    assert serve.main(["--device", "cpu", "--smoke", *argv]) == 0
+    return capsys.readouterr().out
+
+
+def test_static_generate(capsys):
+    out = _run(capsys, "--arch", "llama3_2_1b", "--tokens", "6")
+    assert "generated (4, 6) on cpu" in out
+
+
+def test_lm_scheduler_reports_one_host_sync_a_step(capsys):
+    out = _run(capsys, "--arch", "llama3_2_1b", "--scheduler", "--requests",
+               "6", "--tokens", "8", "--dispatch-report")
+    assert "scheduler served 6 requests" in out
+    assert "1.00 host syncs a step" in out
+    assert '"attention_decode": {"requests"' in out and "cuda_fused" in out
+
+
+def test_lm_scheduler_slo_trace_prefix(capsys):
+    out = _run(capsys, "--arch", "kimi_k2_1t_a32b", "--scheduler",
+               "--requests", "8", "--slo", "--trace", "bursty",
+               "--prefix-cache", "16", "--prefill-chunk", "16",
+               "--max-len", "160")
+    assert "scheduler served 8 requests" in out
+    assert "slo: goodput" in out and "prefix cache:" in out
+
+
+def test_vision_scheduler(capsys):
+    out = _run(capsys, "--arch", "m3vit", "--scheduler", "--requests", "4",
+               "--resident-fraction", "0.5", "--batch", "4")
+    assert "scheduler served 4 semseg/depth requests on cpu" in out
+    assert "resident_fraction 0.50" in out
+
+
+@pytest.mark.parametrize("flag,item", [("--mesh", 6), ("--quant", 3),
+                                       ("--factor", 3)])
+def test_later_flags_raise(flag, item):
+    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+        serve.main(["--arch", "llama3_2_1b", "--smoke", "--device", "cpu",
+                    flag, "x"])
+
+
+def test_defaults_to_the_card():
+    """No --device: the card, which this machine lacks — a loud error, no
+    fallback to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "llama3_2_1b", "--smoke"])

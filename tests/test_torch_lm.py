@@ -269,8 +269,19 @@ def test_eos_and_temperature_sampling():
     ids=["kv_int8", "async_paging", "prefix_cache", "mesh", "recurrent",
          "embeddings"])
 def test_later_slices_raise(over):
+    """Each feature of a later slice raises; ``prefix_cache``, the
+    scheduler's since its slice, is ignored by the static engine (as the
+    reference's is): same tokens as without it."""
     _, tcfg, _, tparams = _lm("float32")
     cfg = replace(tcfg, **over.get("cfg", {}))
+    if "prefix_cache" in over.get("scfg", {}):
+        eng = ServingEngine(cfg, tparams, ServeConfig(
+            max_len=MAX_LEN, **over["scfg"]), device="cpu")
+        np.testing.assert_array_equal(
+            eng.generate(PROMPT, 4), ServingEngine(
+                cfg, tparams, ServeConfig(max_len=MAX_LEN),
+                device="cpu").generate(PROMPT, 4))
+        return
     with pytest.raises(NotImplementedError, match="slice of the port"):
         ServingEngine(cfg, tparams, ServeConfig(**over.get("scfg", {})),
                       rules=over.get("rules"), device="cpu")
@@ -332,14 +343,15 @@ def test_tied_head_in_row_chunks_matches_jax(dtype, monkeypatch):
 
 
 def test_decode_flag_and_per_sequence_prefill_raise():
-    """``decode=True`` is a one-token step, and a prefill at a (B,) vector
-    of offsets waits for the scheduler slice."""
+    """``decode=True`` is a one-token step, and a multi-row prefill at a
+    (B,) vector of offsets is not supported (the scheduler admits each
+    prompt alone at a scalar offset)."""
     _, tcfg, _, tparams = _lm("float32")
     state = tmodel.init_state(tcfg, 2, MAX_LEN, device="cpu")
     two = torch.from_numpy(PROMPT[:, :2]).long()
     with pytest.raises(ValueError, match="one-token step"):
         tmodel.forward(tparams, two, tcfg, state=state, cache_index=4,
                        decode=True)
-    with pytest.raises(NotImplementedError, match="scheduler slice"):
+    with pytest.raises(NotImplementedError, match="per-sequence offsets"):
         tmodel.forward(tparams, two, tcfg, state=state,
                        cache_index=torch.tensor([3, 9]))
