@@ -81,7 +81,25 @@ Phases, each printing its lines:
    ``cuda`` and under ``moe_ffn="cuda_fused"``, all resident (counted, with
    recorded twins for phase 5) and at ``resident_fraction`` 0.5 (checked
    only): every result ``np.array_equal`` to its server's ``infer`` of the
-   same frames at batch 8; img/s and latency p50/p99 printed.
+   same frames at batch 8; img/s and latency p50/p99 printed.  Then the
+   packed expert formats (checked and printed only; their launches stay
+   out of phase 5): the 16 requests with int8 and int4 weights
+   (``quant.quantize_tree``), rank-8 factored experts with float32 deltas
+   and butterfly ones with int8 deltas (``M3ViTServer(factor=...)``),
+   under ``cuda`` with ``linear``/``moe_grouped_gemm`` on ``eager_int8``
+   (or ``moe_grouped_gemm`` on ``eager_factored``), as
+   ``launch/serve.py --quant``/``--factor`` serve them: each task held to
+   cosine >= 0.999 against the same packed parameters under the plain
+   ``eager_int8``/``eager_factored`` preset, its cosine against the
+   unquantized ``cuda`` run printed beside the reference's int8 bar;
+   ``flash_attention`` and ``gelu_lut`` (and, factored,
+   ``unified_linear``) launched as hits on the card, the packed impls hits
+   with no fallback; paged at 0.5 (synchronous and through the
+   ``TransferEngine``) and under a four-bf16-expert budget (at least 7
+   int8 and 12 int4 experts), each ``np.array_equal`` to the format's own
+   all-resident run; ms per batch, bytes per expert, pinned bytes, hit
+   rate, bytes paged and frame 0's differing elements at batch 1, 2, 4
+   printed.
 4. The LM path: a ``ServingEngine`` at the full Llama-3.2-1B ``CONFIG``
    (16 layers, bf16, seeded random weights, ``max_len`` 512) under ``cuda``
    with ``attention_decode="cuda_fused"`` generates 32 greedy tokens for
@@ -106,7 +124,16 @@ Phases, each printing its lines:
    utilization, host syncs per decode step (must be 1) and the
    ``decode_fused`` launches with non-uniform lengths are printed.  (a)
    and (b) are counted, their admissions and decode steps recorded apart
-   for phase 5; (c) is checked and printed only.
+   for phase 5; (c) is checked and printed only.  Then, checked and
+   printed only, int8 weights with an int8 KV cache under ``cuda`` with
+   the ``eager_int8`` overrides: 32 tokens for the 8 prompts,
+   ``flash_attention`` and ``gelu_lut`` launched, ``attention_decode`` a
+   hit on ``eager_int8``; the teacher-forced replay at cosine >= 0.999
+   against the plain ``eager_int8`` preset at every step; a 64-token-chunk
+   prefill giving the same tokens; the bursty trace through the scheduler
+   with int8 parking under preemption, every request equal to its run
+   without preemption; int8 parking of a bf16 cache under 0.75x the
+   bytes; tokens/s, ms per decode step and cache bytes against bf16.
 5. The kernels at the main paths' own inputs.  Beside each counted run of
    phases 3 and 4 an uncounted twin (one more forward of each task; the
    teacher-forced replay of the prefill and the 32 decode steps) records
@@ -1164,6 +1191,158 @@ def scheduler_vision(ctx, units):
     return total
 
 
+def _packed_policies(factored: bool):
+    """(kernel policy, plain preset's name) of a packed run: ``cuda`` with
+    the packed ops overridden as ``launch/serve.py`` does, and the
+    reference's preset in the port's names."""
+    from repro_torch import ops
+    from repro_torch.launch.serve import INT8_OPS
+
+    if factored:
+        return (ops.policy_named("cuda").with_impls(
+            moe_grouped_gemm="eager_factored"), "eager_factored")
+    return (ops.policy_named("cuda").with_impls(
+        **{op: "eager_int8" for op in INT8_OPS}), "eager_int8")
+
+
+def _diff_counts(server, batches, label):
+    """Frame 0 at batch 1, 2 and 4 against its row at batch 8: the number
+    of differing elements, printed (float32 cuBLAS products pick their
+    algorithm from the row count, so the packed impls make no claim)."""
+    for task, imgs in batches:
+        full = server.infer(imgs, task)[0]
+        counts = {b: int((server.infer(imgs[:b], task)[0] != full).sum())
+                  for b in (1, 2, 4)}
+        print(f"    {label}, {task}: frame 0 at batch 1, 2, 4 against "
+              f"batch {len(imgs)}: {json.dumps(counts)} of {full.size} "
+              f"elements differ (printed, not gated)")
+
+
+def packed_path(ctx):
+    """The 16 requests with packed expert formats (checked and printed
+    only; their launches stay out of phase 5): int8 and int4 weights
+    (``quant.quantize_tree``), rank-8 factored experts with float32 deltas
+    and butterfly ones with int8 deltas (``M3ViTServer(factor=...)``),
+    under ``cuda`` with the packed ops overridden.  Each task held to
+    cosine >= 0.999 against the same packed parameters under the plain
+    preset; the cosine against the unquantized ``cuda`` run printed
+    beside the reference's int8 bar; ``flash_attention`` and ``gelu_lut``
+    (and, factored, ``unified_linear``) launched as dispatch hits; the
+    packed impls hits with no fallback; paged at 0.5, synchronously and
+    through the TransferEngine, ``np.array_equal`` to the format's own
+    all-resident run; the slots of a four-bf16-expert budget."""
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.quant import quantize_tree
+    from repro_torch.serve.vision import M3ViTServer
+
+    batches, base = ctx["batches"], ctx["outs"]
+    experts = [n for n in ctx["params"] if n.startswith("layers.b1.moe.")
+               and n.rsplit(".", 1)[1] in ("w1", "b1", "w2", "b2")]
+    bf16_expert = sum(ctx["params"][n][0, 0].nbytes for n in experts)
+    budget = 4 * bf16_expert
+    print(f"  packed formats: one bf16 expert {bf16_expert} bytes, the "
+          f"four-expert budget {budget} bytes a layer")
+    formats = (("int8", 8, None, 7), ("int4", 4, None, 12),
+               ("rank:8, float32 deltas", None, ("rank", 8, None), None),
+               ("butterfly, int8 deltas", None, ("butterfly", 0, 8), None))
+    for label, bits, factor, want_slots in formats:
+        kernel_pol, preset = _packed_policies(factor is not None)
+        params = ctx["params"] if bits is None else quantize_tree(
+            ctx["params"], bits=bits)
+
+        def server(policy, **kw):
+            return M3ViTServer(replace(MV.CONFIG, policy=policy), params,
+                               factor=factor, **kw)
+
+        resident = server(kernel_pol)
+        for task, imgs in batches:             # warm-up, not counted
+            resident.infer(imgs, task)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ops.reset_dispatch_report()
+        outs = {task: resident.infer(imgs, task) for task, imgs in batches}
+        counts = launch_counts()
+        report = ops.dispatch_report()
+        plain = server(ops.policy_named(preset))
+        print(f"  packed {label}: launches over the 16 requests "
+              f"{json.dumps(counts)}")
+        for task, imgs in batches:
+            y = outs[task]
+            if not np.isfinite(y).all():
+                raise AssertionError(f"packed {label}, {task}: not finite")
+            cos = cosine(torch.from_numpy(y),
+                         torch.from_numpy(plain.infer(imgs, task)))
+            vs_base = cosine(torch.from_numpy(y),
+                             torch.from_numpy(base[task]))
+            print(f"    {task}: cosine vs the plain {preset} preset on "
+                  f"the card {cos:.6f} (>= 0.999: "
+                  f"{'ok' if cos >= 0.999 else 'FAIL'}); vs the unquantized "
+                  f"cuda run {vs_base:.6f} (reference int8 bar 0.999, set "
+                  f"on a float32 smoke model: a reading)")
+            if cos < 0.999:
+                raise AssertionError(f"packed {label}, {task}: cosine {cos}")
+        need = ("flash_attention", "gelu_lut") + (
+            ("unified_linear",) if factor is not None else ())
+        if not all(counts[n] for n in need) or counts["moe_fused"] \
+                or counts["moe_gemm"]:
+            raise AssertionError(f"packed {label}: launches {counts}")
+        hits = {"moe_grouped_gemm": preset,
+                "linear": "cuda" if factor is not None else preset,
+                "attention": "cuda", "activation": "cuda"}
+        for op, name in hits.items():
+            entry = report.get(op, {})
+            n = entry.get("hits", {}).get(name, 0)
+            modes = entry.get("modes", {})
+            if not n or entry.get("fallbacks") or set(entry["hits"]) != {
+                    name} or (name == "cuda" and modes != {
+                        "cuda": {"cuda": n}}):
+                raise AssertionError(f"packed {label}: dispatch report for "
+                                     f"{op}: {entry}")
+        print(f"    dispatch report: "
+              f"{json.dumps({op: report[op]['hits'] for op in hits})}, no "
+              f"fallbacks; the kernels on the card")
+        _time_batches(resident, batches)
+        _diff_counts(resident, batches, f"packed {label}")
+        runs = (("paged 0.5, synchronous", dict(resident_fraction=0.5)),
+                ("paged 0.5, TransferEngine",
+                 dict(resident_fraction=0.5, async_paging=True)),
+                ("four-bf16-expert budget",
+                 dict(expert_budget_bytes=budget)))
+        for run_label, kw in runs:
+            paged = server(kernel_pol, **kw)
+            cache = next(iter(paged.paged.values())).cache
+            for task, imgs in batches:         # warm-up, not counted
+                paged.infer(imgs, task)
+            torch.cuda.synchronize()
+            paged.reset_stats()
+            got = {task: paged.infer(imgs, task) for task, imgs in batches}
+            for task, _ in batches:
+                if not np.array_equal(got[task], outs[task]):
+                    raise AssertionError(
+                        f"packed {label}, {run_label}, {task}: differs from "
+                        f"its all-resident run (max abs diff "
+                        f"{float(np.abs(got[task] - outs[task]).max())})")
+            st = paged.cache_stats()
+            print(f"    {run_label}: {cache.max_resident} of "
+                  f"{MV.CONFIG.moe.num_experts} experts resident a layer, "
+                  f"{cache.stats()['paged_expert_bytes']} bytes an expert, "
+                  f"{cache.pinned_bytes} pinned bytes a layer; outputs "
+                  f"bit-identical to the all-resident run; hit rate "
+                  f"{st['hit_rate']:.4f}, {st['bytes_paged'] / 2:.0f} bytes "
+                  f"paged per batch")
+            if want_slots is not None and "budget" in run_label \
+                    and cache.max_resident < min(
+                        want_slots, MV.CONFIG.moe.num_experts):
+                raise AssertionError(f"packed {label}: the budget holds "
+                                     f"{cache.max_resident} experts, fewer "
+                                     f"than {want_slots}")
+            if "budget" not in run_label:
+                _time_batches(paged, batches)
+
+
 # ------------------------------------------------------------ phase 4
 
 
@@ -1461,6 +1640,170 @@ def scheduler_lm(ctx, units):
     print("    every request's tokens equal the static engine serving it "
           "alone")
     return total
+
+
+def packed_lm(ctx):
+    """Llama-3.2-1B with int8 weights (``quant.quantize_tree``) and an int8
+    KV cache under ``cuda`` with the ``eager_int8`` overrides (checked and
+    printed only; its launches stay out of phase 5): 32 greedy tokens for
+    the 8 prompts of 128 tokens, ``flash_attention`` and ``gelu_lut``
+    launched, ``attention_decode`` a hit on ``eager_int8``; the
+    teacher-forced replay held to cosine >= 0.999 against the plain
+    ``eager_int8`` preset at every step; a 64-token-chunk prefill giving
+    the same tokens; the scheduler with int8 parking under preemption
+    giving every request the tokens of its uninterrupted run; int8 parking
+    of a bf16 cache in under 0.75x the bytes."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.models import model as LM
+    from repro_torch.quant import quantize_tree, tree_bytes
+    from repro_torch.serve import LMBackend, Request, Scheduler
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.serve.slo import (SLOPolicy, TickClock, TraceConfig,
+                                       TraceGenerator)
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import flatten
+
+    cfg, prompts = ctx["cfg"], torch.from_numpy(ctx["prompts"]).cuda()
+    policy, preset = _packed_policies(False)
+    t0 = time.perf_counter()
+    params = quantize_tree(ctx["params"])
+    torch.cuda.synchronize()
+    print(f"  Llama-3.2-1B int8 weights: {tree_bytes(ctx['params']) / 1e9:.3f}"
+          f" -> {tree_bytes(params) / 1e9:.3f} GB "
+          f"({time.perf_counter() - t0:.1f} s), int8 KV cache")
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy, kv_quant="int8")
+    engine = ServingEngine(cfg, params, scfg)
+    engine.generate(prompts, 2)               # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = ops.dispatch_report()
+    print(f"    {LM_BATCH} prompts of {LM_PROMPT} tokens, {LM_NEW} greedy "
+          f"tokens each: {wall * 1e3:.1f} ms host wall, "
+          f"{LM_BATCH * LM_NEW / wall:.1f} tokens/s; launches "
+          f"{json.dumps(counts)}")
+    if not (counts["flash_attention"] and counts["gelu_lut"]) \
+            or counts["decode_fused"] or counts["unified_linear"]:
+        raise AssertionError(f"packed LM launches: {counts}")
+    hits = {"linear": preset, "attention_decode": preset,
+            "attention": "cuda", "activation": "cuda"}
+    for op, name in hits.items():
+        entry = report.get(op, {})
+        n = entry.get("hits", {}).get(name, 0)
+        if not n or entry.get("fallbacks") or set(entry["hits"]) != {name} \
+                or (name == "cuda" and entry.get("modes") != {
+                    "cuda": {"cuda": n}}):
+            raise AssertionError(f"packed LM: dispatch report for {op}: "
+                                 f"{entry}")
+    print(f"    dispatch report: "
+          f"{json.dumps({op: report[op]['hits'] for op in hits})}, no "
+          f"fallbacks")
+
+    # teacher-forced replay: the kernel policy (whose argmax must give
+    # back the tokens) against the plain preset, both on int8 caches
+    ecfg = engine.cfg
+    plain_prefill, plain_decode = make_serve_step(
+        replace(ecfg, policy=ops.policy_named(preset)))
+    prefill, decode = engine.steps()
+    toks = torch.from_numpy(tokens).long().cuda()
+    cosines, step_ms = [], []
+    with torch.inference_mode():
+        state = LM.init_state(ecfg, LM_BATCH, LM_MAX_LEN)
+        logits, state = prefill(engine.params, prompts, state)
+        pstate = LM.init_state(ecfg, LM_BATCH, LM_MAX_LEN)
+        plain, pstate = plain_prefill(engine.params, prompts, pstate)
+        for i in range(LM_NEW):
+            if not torch.equal(torch.argmax(logits, -1), toks[:, i]):
+                raise AssertionError(f"packed LM step {i}: the replayed "
+                                     "logits do not give back the tokens")
+            cosines.append(cosine(logits, plain))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = decode(engine.params, toks[:, i:i + 1], state,
+                                   LM_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            plain, pstate = plain_decode(engine.params, toks[:, i:i + 1],
+                                         pstate, LM_PROMPT + i)
+        cosines.append(cosine(logits, plain))
+    bf16_cache = sum(t.numel() * t.element_size() for t in flatten(
+        LM.init_state(cfg, LM_BATCH, LM_MAX_LEN, device="meta")).values())
+    int8_cache = sum(t.numel() * t.element_size() for t in flatten(
+        state).values())
+    print(f"    logits vs the plain {preset} preset, teacher-forced: prefill"
+          f" cosine {cosines[0]:.6f}, decode steps min "
+          f"{min(cosines[1:]):.6f} (>= 0.999: "
+          f"{'ok' if min(cosines) >= 0.999 else 'FAIL'}); decode "
+          f"{statistics.median(step_ms):.3f} ms per step (median of "
+          f"{LM_NEW}); cache {int8_cache} bytes against {bf16_cache} in "
+          f"bf16 ({int8_cache / bf16_cache:.4f}x)")
+    if min(cosines) < 0.999:
+        raise AssertionError(f"packed LM cosine {min(cosines)} < 0.999")
+    chunked = ServingEngine(cfg, params, replace(scfg, prefill_chunk=64))
+    got = chunked.generate(prompts, LM_NEW)
+    print(f"    prefill in 64-token chunks: {int((got != tokens).sum())} of "
+          f"{tokens.size} tokens differ from the one-shot run")
+    if not np.array_equal(got, tokens):
+        raise AssertionError("packed LM: the chunked prefill's tokens "
+                             "differ from the one-shot run's")
+
+    # the scheduler: int8 cache, int8 parking, preemption; every request
+    # against the same scheduler run without SLO tiers (no preemption)
+    backend = LMBackend(cfg, params, scfg)
+    trace = TraceGenerator(TraceConfig(
+        n=24, seed=1, vocab=cfg.vocab_size, num_tasks=1,
+        shared_prefix_len=16, burst_factor=8.0)).generate()
+
+    def serve(slo):
+        sched = Scheduler(backend, total_slots=LM_BATCH, quantum=4,
+                          num_tasks=1, clock=TickClock(0.001), slo=slo)
+        t0 = time.perf_counter()
+        done = sched.run([replace(r, tokens=[]) for r in trace])
+        return sched, {r.rid: r for r in done}, time.perf_counter() - t0
+
+    plain_sched, alone, _ = serve(None)
+    sched, done, wall = serve(SLOPolicy(preemption=True,
+                                        park_compress="int8"))
+    m = sched.metrics()
+    preempted = [r for r in done.values() if r.preemptions]
+    print(f"    scheduler, int8 cache and int8 parking, the bursty trace of "
+          f"{len(trace)}: {wall * 1e3:.1f} ms host wall, preemptions "
+          f"{m['preemptions']}, restores {m['restores']}, parked peak "
+          f"{m['parked_bytes_peak']} bytes")
+    if len(done) != len(trace) or not (m["preemptions"] and m["restores"]):
+        raise AssertionError(f"packed scheduler: {len(done)} done, {m}")
+    for rid, r in done.items():
+        if r.tokens != alone[rid].tokens:
+            raise AssertionError(f"packed scheduler: request {rid} "
+                                 f"(preempted {r.preemptions}) differs from "
+                                 f"its uninterrupted run")
+    print(f"    every request's tokens ({len(preempted)} preempted) equal "
+          f"its run without preemption")
+
+    # int8 parking of a bf16 cache
+    fp_backend = LMBackend(cfg, params, replace(
+        scfg, kv_quant=None, policy=policy.with_impls(
+            attention_decode="cuda_fused")))
+    bucket = fp_backend.make_bucket(None, 2)
+    bucket.admit(Request(rid=0, task_id=0, prompt=ctx["prompts"][0],
+                         max_new_tokens=8, tier="batch"), 0.0)
+    bucket.run_quantum(3, lambda: 0.0)
+    nbytes = {c: fp_backend.parker(c).park(bucket.state, 0).nbytes
+              for c in ("none", "int8")}
+    ratio = nbytes["int8"] / nbytes["none"]
+    print(f"    parking a slot of a bf16 cache: {nbytes['int8']} bytes int8 "
+          f"against {nbytes['none']} verbatim ({ratio:.4f}x, < 0.75: "
+          f"{'ok' if ratio < 0.75 else 'FAIL'})")
+    if ratio >= 0.75:
+        raise AssertionError(f"int8 parking ratio {ratio}")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1883,10 +2226,12 @@ def main() -> None:
     fused_counts = fused_path(ctx, units)
     paged_path(ctx)
     vision_counts = scheduler_vision(ctx, units)
+    packed_path(ctx)
 
     print("phase 4: LM path, Llama-3.2-1B serving")
     lm_counts, lm_ctx = lm_path(units)
     sched_counts = scheduler_lm(lm_ctx, units)
+    packed_lm(lm_ctx)
     counted = {n: counts[n] + fused_counts[n] + lm_counts[n]
                + vision_counts.get(n, 0) + sched_counts.get(n, 0)
                for n in counts}

@@ -8,6 +8,13 @@ each leaf's logical dtype).  It returns the port's flat dotted-name dict of
 tensors on ``device``, with every dtype kept: bfloat16 leaves arrive as
 ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` rejects, so their
 bits are viewed as uint16 and reinterpreted as ``torch.bfloat16``.
+
+A NumPy tree may hold the reference's packed leaves — its ``QTensor``
+(int8/int4 weights) and ``FactoredTensor`` (basis + per-expert delta) —
+as ``jax.device_get`` returns them.  They are recognised by their
+attributes, never by importing the reference, and rebuilt as the port's
+``repro_torch.quant.QTensor`` / ``repro_torch.factor.FactoredTensor`` at
+the same dotted name.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.factor import FactoredTensor
+from repro_torch.quant import QTensor
 from repro_torch.tree import flatten
 
 __all__ = ["params_from_jax", "tensor_from_numpy"]
@@ -32,6 +41,26 @@ def tensor_from_numpy(arr) -> torch.Tensor:
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(arr.copy())
+
+
+def leaf_from_numpy(leaf):
+    """One leaf of a NumPy tree as the port's: an array as a CPU tensor;
+    an object with the reference QTensor's attributes (``q``, ``scale``,
+    ``bits``, ``rows``, ``dtype``) as a :class:`QTensor`, and one with the
+    reference FactoredTensor's (``basis``, ``u``, ``v``, ``kind``,
+    ``dtype``) as a :class:`FactoredTensor` whose deltas are converted
+    the same way."""
+    if all(hasattr(leaf, a) for a in ("q", "scale", "bits", "rows",
+                                       "dtype")):
+        return QTensor(tensor_from_numpy(leaf.q),
+                       tensor_from_numpy(leaf.scale), bits=leaf.bits,
+                       dtype=leaf.dtype, rows=leaf.rows)
+    if all(hasattr(leaf, a) for a in ("basis", "u", "v", "kind", "dtype")):
+        return FactoredTensor(tensor_from_numpy(leaf.basis),
+                              leaf_from_numpy(leaf.u),
+                              leaf_from_numpy(leaf.v), kind=leaf.kind,
+                              dtype=leaf.dtype)
+    return tensor_from_numpy(leaf)
 
 
 def _from_checkpoint(directory: str) -> dict[str, torch.Tensor]:
@@ -56,6 +85,6 @@ def params_from_jax(tree_or_dir, device="cuda") -> dict[str, torch.Tensor]:
     if isinstance(tree_or_dir, (str, os.PathLike)):
         flat = _from_checkpoint(os.fspath(tree_or_dir))
     else:
-        flat = {k: tensor_from_numpy(v)
+        flat = {k: leaf_from_numpy(v)
                 for k, v in flatten(tree_or_dir).items()}
     return {k: v.to(dev) for k, v in flat.items()}

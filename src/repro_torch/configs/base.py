@@ -59,8 +59,8 @@ class ArchConfig:
     # scoped around the model's forward pass
     dtype: str = "bfloat16"
     policy: Optional[ComputePolicy] = None
-    # KV-cache storage: "none" keeps activation-dtype caches; "int8" comes
-    # with the packed-formats slice of the port and raises until then
+    # KV-cache storage: "none" keeps activation-dtype caches; "int8" holds
+    # int8 rows + a float32 scale per (token, head)
     kv_quant: str = "none"
     remat: bool = True             # kept for parity; inference ignores it
     num_tasks: int = 1

@@ -16,13 +16,26 @@ Usage:
   # with a shared prompt-prefix cache:
   python -m repro_torch.launch.serve --arch llama3_2_1b --scheduler \\
       --slo --trace bursty --prefix-cache 16 --prefill-chunk 64
+  # packed weights: int8 (or int4) QTensor weights and an int8 KV cache;
+  # M3ViT's experts factored into a shared basis + rank-8 deltas:
+  python -m repro_torch.launch.serve --arch llama3_2_1b --quant int8
+  python -m repro_torch.launch.serve --arch m3vit --scheduler \\
+      --factor rank:8 --resident-fraction 0.5
 
 Without ``--policy`` an LM serves under ``cuda`` with
 ``attention_decode="cuda_fused"`` (the decode kernel reads each slot's own
 cache length on the card; ``cuda``'s decode impl takes uniform lengths
 only and raises on the card when the scheduler mixes positions), and
-M³ViT under ``cuda``.  ``--mesh``, ``--quant`` and ``--factor`` come with
-later slices and raise, naming their ``ROADMAP.md`` item.
+M³ViT under ``cuda``.  ``--quant int8|int4`` quantizes the weight tree
+(QTensor leaves) and stores the KV cache int8; without ``--policy`` it
+overrides ``linear``, ``moe_grouped_gemm`` and ``attention_decode`` to
+``eager_int8``, so the packed ops are dispatch hits while attention and
+the activations stay on the kernels.  ``--factor rank:R|butterfly``
+factors M³ViT's experts per MoE layer (deltas at ``--quant``'s precision,
+the basis float32) and overrides ``moe_grouped_gemm`` to
+``eager_factored``.  ``--policy eager_int8`` / ``eager_factored`` give the
+reference's presets.  ``--mesh`` comes with a later slice and raises,
+naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -34,18 +47,63 @@ from dataclasses import replace
 
 import numpy as np
 
-POLICIES = ("eager", "blocked", "cuda", "cuda_fused", "ref")
-LATER = {"mesh": 6, "quant": 3, "factor": 3}
+POLICIES = ("eager", "blocked", "cuda", "cuda_fused", "ref", "eager_int8",
+            "eager_factored")
+LATER = {"mesh": 6}
+INT8_OPS = ("linear", "moe_grouped_gemm", "attention_decode")
 
 
 def _policy(args, vision: bool):
     from repro_torch.ops import policy_named
 
     if args.policy is not None:
-        return policy_named(args.policy)
-    policy = policy_named("cuda")
-    return policy if vision else policy.with_impls(
-        attention_decode="cuda_fused")
+        policy = policy_named(args.policy)
+    else:
+        policy = policy_named("cuda")
+        if not vision:
+            policy = policy.with_impls(attention_decode="cuda_fused")
+        if args.quant:
+            # the packed ops on their impls; attention and the activations
+            # stay on the kernels
+            policy = policy.with_impls(**{op: "eager_int8"
+                                          for op in INT8_OPS})
+    if args.factor:
+        policy = policy.with_impls(moe_grouped_gemm="eager_factored")
+    return policy
+
+
+def _parse_factor(spec: str) -> tuple[str, int]:
+    """``rank:R`` -> ("rank", R); ``butterfly`` -> ("butterfly", 0)."""
+    s = spec.lower()
+    if s == "butterfly":
+        return "butterfly", 0
+    if s.startswith("rank:"):
+        try:
+            r = int(s.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(f"--factor rank:R needs an integer R, "
+                             f"got {spec!r}")
+        if r < 0:
+            raise SystemExit(f"--factor rank must be >= 0, got {r}")
+        return "rank", r
+    raise SystemExit(f"--factor expects rank:R or butterfly, got {spec!r}")
+
+
+def factor_spec(args):
+    """``--factor``/``--quant`` -> the ``(kind, rank, delta_bits)`` triple
+    (deltas at ``--quant``'s precision; the basis stays float32)."""
+    kind, rank = _parse_factor(args.factor)
+    return kind, rank, {"int8": 8, "int4": 4}.get(args.quant)
+
+
+def _quantize(params, args):
+    from repro_torch.quant import quantize_tree, tree_bytes
+
+    before = tree_bytes(params)
+    params = quantize_tree(params, bits=8 if args.quant == "int8" else 4)
+    print(f"[serve] --quant {args.quant}: weights {before / 1e6:.2f} MB -> "
+          f"{tree_bytes(params) / 1e6:.2f} MB")
+    return params
 
 
 def _pct(m, key):
@@ -133,11 +191,17 @@ def serve_scheduler_vision(cfg, args, dev) -> dict:
     from repro_torch.serve import Request, Scheduler, VisionBackend
 
     params = V.init_params(args.seed, cfg, device=dev)
+    if args.quant:
+        params = _quantize(params, args)
+    # factorization happens per MoE layer inside the server, after the
+    # per-layer slice; quantized expert leaves re-factor there too
     backend = VisionBackend(cfg, params,
                             resident_fraction=args.resident_fraction,
                             expert_budget_bytes=args.expert_budget_bytes
                             or None,
                             async_paging=args.async_paging,
+                            factor=factor_spec(args) if args.factor
+                            else None,
                             placement=args.placement, device=dev)
     sched = Scheduler(backend, total_slots=args.batch, quantum=1,
                       num_tasks=len(MV.TASKS))
@@ -230,6 +294,18 @@ def parser() -> argparse.ArgumentParser:
                     help="compute policy for every serving step")
     ap.add_argument("--dispatch-report", action="store_true",
                     help="print ops.dispatch_report() after serving")
+    ap.add_argument("--quant", default=None, choices=["int8", "int4"],
+                    help="quantize the weight tree (QTensor leaves), store "
+                         "the KV cache int8, and serve linear, "
+                         "moe_grouped_gemm and attention_decode on "
+                         "eager_int8 unless --policy is given")
+    ap.add_argument("--factor", default=None, metavar="KIND",
+                    help="factor each MoE layer's expert weights into a "
+                         "shared basis + per-expert delta ('rank:R' or "
+                         "'butterfly'), serve moe_grouped_gemm on "
+                         "eager_factored; the paged cache pins the basis "
+                         "and pages only the deltas.  With --quant the "
+                         "deltas quantize at its precision")
     for flag, item in LATER.items():
         ap.add_argument(f"--{flag}", default=None,
                         help=f"comes with ROADMAP.md queue 1 item {item}")
@@ -266,8 +342,19 @@ def main(argv=None) -> int:
         scfg = ServeConfig(max_len=args.max_len,
                            temperature=args.temperature, eos_id=args.eos_id,
                            seed=args.seed, prefill_chunk=args.prefill_chunk,
-                           policy=policy, prefix_cache=args.prefix_cache)
+                           policy=policy, prefix_cache=args.prefix_cache,
+                           kv_quant="int8" if args.quant else None)
         params = M.init_params(args.seed, cfg, device=dev)
+        if args.factor:
+            from repro_torch.factor import factorize_tree
+
+            # stacked expert leaves beside their router only: scanned
+            # layer stacks (ndim 4) pass through
+            kind, rank, bits = factor_spec(args)
+            params = factorize_tree(params, kind=kind, rank=rank,
+                                    delta_bits=bits)
+        if args.quant:
+            params = _quantize(params, args)
         if args.scheduler:
             if scfg.temperature > 0:
                 scfg = replace(scfg, temperature=0.0)

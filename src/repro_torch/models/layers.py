@@ -7,7 +7,10 @@ the ``attention`` / ``decode_attention`` dispatchers; which implementation
 serves each op is the ambient compute policy's choice.  KV caches are
 updated in place: where the reference returns a new cache array, the port
 writes the new rows into the cache tensors it was given and returns them.
-M-RoPE and the int8 KV cache follow with later slices and raise here.
+An int8 KV cache (``cfg.kv_quant="int8"``) holds int8 rows and a float32
+scale per (token, head); decode hands it to ``attention_decode`` as
+``QTensor`` views, which the ``eager_int8`` impl serves.  M-RoPE follows
+with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -21,10 +24,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.quant.qtensor import (QTensor, dequantize, dtype_name,
+                                       quantize_kv)
 
 _MROPE_LATER = "M-RoPE comes with the vision-language slice of the port"
-_KV_INT8_LATER = "the int8 KV cache comes with the packed-formats slice " \
-                 "of the port (quant/qtensor.py)"
 _PER_SEQ_PREFILL = ("a multi-row prefill at per-sequence offsets is not "
                     "supported: the scheduler admits each prompt alone, at "
                     "one scalar offset")
@@ -187,16 +190,36 @@ def _upd_cache(c, new, slot):
     return c
 
 
-def _kv_write(cache, k, v, slot):
-    """Write fp K/V rows into the cache in place."""
+def _kv_write(cache, k, v, slot, kvq: bool):
+    """Write fp K/V rows into the cache in place, quantized per (token,
+    head) when the cache is int8 (``kvq``)."""
+    if kvq:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        _upd_cache(cache["k"], kq, slot)
+        _upd_cache(cache["v"], vq, slot)
+        _upd_cache(cache["k_scale"], ks, slot)
+        _upd_cache(cache["v_scale"], vs, slot)
+        return cache
     _upd_cache(cache["k"], k, slot)
     _upd_cache(cache["v"], v, slot)
     return cache
 
 
-def _kv_full(cache):
-    """Dense K/V views of an fp cache (what chunked prefill attends to)."""
+def _kv_read(cache, kvq: bool, dtype):
+    """The cache's K/V as ``attention_decode`` takes them: ``QTensor``
+    views of an int8 cache (logical dtype ``dtype``), else the tensors."""
+    if kvq:
+        return (QTensor(cache["k"], cache["k_scale"], dtype=dtype_name(dtype)),
+                QTensor(cache["v"], cache["v_scale"], dtype=dtype_name(dtype)))
     return cache["k"], cache["v"]
+
+
+def _kv_full(cache, kvq: bool, dtype):
+    """Dense K/V of a cache (dequantized when int8) — what chunked prefill
+    attends to; the cache itself stays packed."""
+    k, v = _kv_read(cache, kvq, dtype)
+    return (dequantize(k), dequantize(v)) if kvq else (k, v)
 
 
 def _cache_len(ci, b, device):
@@ -212,8 +235,9 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     """x: (B, S, d).  Training/prefill when ``cache`` is None or being
     filled; decode (S == 1) when ``cache_index`` is given.
 
-    Returns (y, cache).  cache = {"k": (B, Hkv, Smax, hd), "v": ...},
-    updated in place.  ``cache_index`` is an int (every sequence at one
+    Returns (y, cache).  cache = {"k": (B, Hkv, Smax, hd), "v": ...} (int8
+    with ``k_scale``/``v_scale`` (B, Hkv, Smax, 1) when quantized), updated
+    in place.  ``cache_index`` is an int (every sequence at one
     position) or a (B,) tensor (each at its own); a layer with a window and
     a cache of at most ``window`` slots keeps a ring (token t at slot
     t % Smax)."""
@@ -231,8 +255,7 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     elif cfg.rope == "mrope":
         raise NotImplementedError(_MROPE_LATER)
 
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError(_KV_INT8_LATER)
+    kvq = cache is not None and "k_scale" in cache
     smax = cache["k"].shape[2] if cache is not None else None
     ring = cache is not None and window is not None and smax <= window
     if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 0:
@@ -241,23 +264,22 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
         # decode: write the new token, attend over the cache
         ci = cache_index
         slot = ci % smax if ring else ci
-        _kv_write(cache, k, v, slot)
+        _kv_write(cache, k, v, slot, kvq)
+        kr, vr = _kv_read(cache, kvq, k.dtype)
         cache_len = _cache_len(ci, b, x.device)
         if ring:
             # every live slot lies inside the window by construction
-            o = decode_attention(q, cache["k"], cache["v"],
-                                 torch.clamp_max(cache_len, smax))
+            o = decode_attention(q, kr, vr, torch.clamp_max(cache_len, smax))
         else:
-            o = decode_attention(q, cache["k"], cache["v"], cache_len,
-                                 window=window)
+            o = decode_attention(q, kr, vr, cache_len, window=window)
     elif cache is not None and not ring and cache_index is not None:
         # (chunked) prefill: write the chunk at its absolute offset and
         # attend against everything cached so far; causal masking by
         # absolute position covers the first chunk and continuations
         if isinstance(cache_index, torch.Tensor):
             raise NotImplementedError(_PER_SEQ_PREFILL)
-        _kv_write(cache, k, v, cache_index)
-        kc, vc = _kv_full(cache)
+        _kv_write(cache, k, v, cache_index, kvq)
+        kc, vc = _kv_full(cache, kvq, k.dtype)
         o = attention(q, kc, vc, causal=causal, window=window,
                       q_offset=cache_index)
     else:
@@ -268,21 +290,27 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
                 # slot t % smax
                 shift = (s - smax) % smax
                 _kv_write(cache, torch.roll(k[:, :, -smax:], shift, dims=2),
-                          torch.roll(v[:, :, -smax:], shift, dims=2), 0)
+                          torch.roll(v[:, :, -smax:], shift, dims=2), 0, kvq)
             else:
-                _kv_write(cache, k, v, 0)
+                _kv_write(cache, k, v, 0, kvq)
     o = o.transpose(1, 2).reshape(b, s, hq * hd)
     return unified_linear(o, params["wo"]), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                     device=None):
+    shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
     if cfg.kv_quant == "int8":
-        raise NotImplementedError(_KV_INT8_LATER)
+        sshape = (batch, cfg.num_kv_heads, max_len, 1)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)}
     if cfg.kv_quant != "none":
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r} "
                          "(expected none | int8)")
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

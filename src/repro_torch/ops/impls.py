@@ -5,9 +5,22 @@ Imported lazily by ``registry.dispatch``.  Each impl follows the registry
 contract ``fn(policy, *args, **kwargs)``.  Impl names: ``eager`` (plain
 PyTorch, the reference's ``xla``), ``blocked``, ``lut``, ``cuda`` (the
 Hopper kernels, the reference's ``pallas``), ``cuda_fused`` (the fused
-kernels, the reference's ``pallas_fused``), ``ref``.  Capability
-predicates return the reference's reason strings.  The packed-weight
-(QTensor / FactoredTensor) impls follow with the slice that ports them.
+kernels, the reference's ``pallas_fused``), ``ref``, and for packed
+weights ``eager_int8`` (QTensor weights and int8 KV caches, the
+reference's ``xla_int8``) and ``eager_factored`` (FactoredTensor weights,
+the reference's ``xla_factored``).  Capability predicates return the
+reference's reason strings, with the port's impl names: every
+floating-point and kernel impl rejects a packed operand, so it reaches
+the packed impl as a recorded fallback, never a crash.
+
+The packed impls are plain PyTorch, as the reference's are plain XLA (no
+Pallas kernel): they upcast to the policy's accumulation dtype and
+multiply there.  Their expert products run one expert at a time
+(``factor.factored.per_expert_products``), so a product's shape never
+depends on how many experts share the call and a paged wave gives the
+all-resident bits; the int8/int4 linear multiplies in fixed 64-row
+products on the card, so a row's bits do not depend on how many rows share
+the call (a prompt prefilled whole or in chunks gives the same tokens).
 """
 
 from __future__ import annotations
@@ -15,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import gelu as gelu_lib
+from repro_torch.factor.factored import (factored_linear, factored_moe_gemm,
+                                         is_factored, per_expert_products)
 from repro_torch.kernels import decode_fused as kdf
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import gelu_lut as kgl
@@ -24,12 +39,37 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels import unified_linear as kul
 from repro_torch.ops import apply_activation
 from repro_torch.ops.registry import register
+from repro_torch.quant.qtensor import dequantize, is_qtensor
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: rows of one float32 product of the packed linear impl on the card.  The
+#: library picks a product's algorithm from its row count, so a row's bits
+#: would depend on how many rows share the call (a prompt prefilled whole
+#: or in chunks, a frame alone or in a batch); products of exactly this
+#: many rows, the last zero-padded, give a row the same bits at any M
+_PACKED_ROWS = 64
+
+
+def _packed(x) -> bool:
+    return is_qtensor(x) or is_factored(x)
 
 
 def _floating(*tensors) -> bool:
-    return all(t.is_floating_point() for t in tensors)
+    return all(not _packed(t) and t.is_floating_point() for t in tensors)
+
+
+def _reject_packed(*operands):
+    """Reason string when any operand is packed — the floating-point and
+    kernel impls send QTensors to ``eager_int8`` and FactoredTensors to
+    ``eager_factored`` loudly (a recorded fallback), never crash on or
+    silently expand them (the reference's ``_reject_qtensor``)."""
+    if any(is_qtensor(a) for a in operands):
+        return "operand is quantized (QTensor) — served by the eager_int8 " \
+               "impl"
+    if any(is_factored(a) for a in operands):
+        return "operand is factored (FactoredTensor) — served by the " \
+               "eager_factored impl"
+    return None
 
 
 def _kernel_dtype(*tensors):
@@ -149,8 +189,16 @@ def _decode_eager(policy, q, k_cache, v_cache, cache_len, *, window=None,
                                   window=window, scale=scale)
 
 
+def _decode_fp_requires(policy, q, k_cache, v_cache, cache_len, *,
+                        window=None, scale=None):
+    return _reject_packed(q, k_cache, v_cache)
+
+
 def _decode_kernel_requires(policy, q, k_cache, v_cache, cache_len, *,
                             window=None, scale=None):
+    why = _reject_packed(q, k_cache, v_cache)
+    if why:
+        return why
     if not _floating(q, k_cache, v_cache):
         return f"non-float dtypes {q.dtype}/{k_cache.dtype}"
     if q.shape[1] % k_cache.shape[1] != 0:
@@ -207,8 +255,33 @@ def _decode_ref(policy, q, k_cache, v_cache, cache_len, *, window=None,
                                      window=window, scale=scale)
 
 
+def _decode_int8_requires(policy, q, k_cache, v_cache, cache_len, *,
+                          window=None, scale=None):
+    if not (is_qtensor(k_cache) and is_qtensor(v_cache)):
+        return "KV cache is not quantized (enable kv_quant='int8' to " \
+               "build int8 caches)"
+    if k_cache.bits != 8 or v_cache.bits != 8:
+        return f"int{k_cache.bits} KV cache (int8 only)"
+    if not _floating(q):
+        return f"non-float query dtype {q.dtype}"
+    return None
+
+
+def _decode_int8(policy, q, k_cache, v_cache, cache_len, *, window=None,
+                 scale=None):
+    # the per-(token, head) scales broadcast against the int8 payload:
+    # dequantized on read, the attention arithmetic in q's dtype as the
+    # eager impl's
+    from repro_torch.core import attention as A
+
+    return A.decode_attention_xla(q, dequantize(k_cache, q.dtype),
+                                  dequantize(v_cache, q.dtype), cache_len,
+                                  window=window, scale=scale)
+
+
 # grouped GQA einsum over the whole cache, masked past cache_len
-register("attention_decode", "eager", _decode_eager, default=True)
+register("attention_decode", "eager", _decode_eager, default=True,
+         requires=_decode_fp_requires)
 # the flash kernel over the live prefix; uniform cache_len only
 register("attention_decode", "cuda", _decode_cuda,
          requires=_decode_cuda_requires, kernel=True)
@@ -217,7 +290,12 @@ register("attention_decode", "cuda", _decode_cuda,
 register("attention_decode", "cuda_fused", _decode_fused,
          requires=_decode_kernel_requires, kernel=True)
 # oracle: the fused kernel's plain version
-register("attention_decode", "ref", _decode_ref)
+register("attention_decode", "ref", _decode_ref,
+         requires=_decode_fp_requires)
+# int8 KV cache with per-(token, head) scales, dequantized on read; vector
+# per-slot cache_len
+register("attention_decode", "eager_int8", _decode_int8,
+         requires=_decode_int8_requires)
 
 
 # ==================================================================== linear
@@ -226,6 +304,11 @@ register("attention_decode", "ref", _decode_ref)
 def _accum_dtype(policy, preferred):
     return preferred if preferred is not None \
         else getattr(torch, policy.accum_dtype)
+
+
+def _linear_fp_requires(policy, x, w, b=None, *, activation=None,
+                        preferred_dtype=None):
+    return _reject_packed(x, w)
 
 
 def _linear_eager(policy, x, w, b=None, *, activation=None,
@@ -240,6 +323,9 @@ def _linear_eager(policy, x, w, b=None, *, activation=None,
 
 def _linear_cuda_requires(policy, x, w, b=None, *, activation=None,
                           preferred_dtype=None):
+    why = _reject_packed(x, w)
+    if why:
+        return why
     if not _floating(x, w):
         return f"non-float dtypes {x.dtype}/{w.dtype}"
     if activation not in (None, "none", "relu", "gelu", "silu"):
@@ -270,15 +356,99 @@ def _linear_ref(policy, x, w, b=None, *, activation=None,
                            lut_range=policy.lut_range)
 
 
+def _fixed_rows_matmul(x, w):
+    """``x @ w`` for x (..., K); on the card in products of exactly
+    ``_PACKED_ROWS`` rows."""
+    if x.device.type != "cuda":
+        return torch.matmul(x, w)
+    x2 = x.reshape(-1, x.shape[-1])
+    m = x2.shape[0]
+    pad = -m % _PACKED_ROWS
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros((pad, x2.shape[1]))])
+    y = torch.cat([c @ w for c in x2.split(_PACKED_ROWS)])
+    return y[:m].reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _bias_act(policy, y, x, b, activation, acc):
+    """The fp impls' epilogue: widened bias, policy-dispatched activation,
+    the result in x's dtype."""
+    if b is not None:
+        y = y + (b.to(acc) if policy.bias_f32 else b.to(y.dtype))
+    return apply_activation(y, activation).to(x.dtype)
+
+
+def _linear_int8_requires(policy, x, w, b=None, *, activation=None,
+                          preferred_dtype=None):
+    if is_factored(w):
+        return "weight is factored (FactoredTensor) — served by the " \
+               "eager_factored impl"
+    if not is_qtensor(w):
+        return "weight is not quantized (run quant.quantize_tree first)"
+    if is_qtensor(x):
+        return "activations are quantized (weights-only impl)"
+    if not _floating(x):
+        return f"non-float input dtype {x.dtype}"
+    if x.shape[-1] != w.shape[-2]:
+        return f"contraction mismatch {x.shape[-1]} vs {w.shape[-2]}"
+    return None
+
+
+def _linear_int8(policy, x, w, b=None, *, activation=None,
+                 preferred_dtype=None):
+    # int8 per-channel: the scale is constant along K, so (x @ q) * scale
+    # is the epilogue form; grouped int4 scales vary along K, so the
+    # weight dequantizes before the product
+    acc = _accum_dtype(policy, preferred_dtype)
+    if w.bits == 8:
+        y = _fixed_rows_matmul(x.to(acc), w.q.to(acc)) * w.scale.to(acc)
+    else:
+        y = _fixed_rows_matmul(x.to(acc), dequantize(w, acc))
+    return _bias_act(policy, y, x, b, activation, acc)
+
+
+def _linear_factored_requires(policy, x, w, b=None, *, activation=None,
+                              preferred_dtype=None):
+    if not is_factored(w):
+        return "weight is not factored (run factor.factorize_tree first)"
+    if w.experts is not None:
+        return "factored weight carries a per-expert axis (serve it " \
+               "through moe_grouped_gemm)"
+    if _packed(x):
+        return "activations are packed (weights-only impl)"
+    if not _floating(x):
+        return f"non-float input dtype {x.dtype}"
+    if x.shape[-1] != w.shape[-2]:
+        return f"contraction mismatch {x.shape[-1]} vs {w.shape[-2]}"
+    return None
+
+
+def _linear_factored(policy, x, w, b=None, *, activation=None,
+                     preferred_dtype=None):
+    # shared basis product + low-rank / butterfly delta correction
+    acc = _accum_dtype(policy, preferred_dtype)
+    return _bias_act(policy, factored_linear(x, w, acc), x, b, activation,
+                     acc)
+
+
 # torch.matmul, policy accum dtype + widened f32 bias, policy-dispatched
 # activation epilogue
-register("linear", "eager", _linear_eager, default=True)
+register("linear", "eager", _linear_eager, default=True,
+         requires=_linear_fp_requires)
 # tiled GEMM kernel, fused bias+(LUT) activation epilogue; f32/bf16,
 # relu/gelu/silu/none epilogues
 register("linear", "cuda", _linear_cuda, requires=_linear_cuda_requires,
          kernel=True)
 # oracle (f32 accumulation)
-register("linear", "ref", _linear_ref)
+register("linear", "ref", _linear_ref, requires=_linear_fp_requires)
+# QTensor weights: int8 per-channel dequant epilogue / int4 grouped
+# dequant-then-product; fp activations
+register("linear", "eager_int8", _linear_int8,
+         requires=_linear_int8_requires)
+# FactoredTensor weights (no expert axis): basis product + low-rank /
+# butterfly delta correction; fp activations
+register("linear", "eager_factored", _linear_factored,
+         requires=_linear_factored_requires)
 
 
 # ========================================================== moe_grouped_gemm
@@ -295,6 +465,10 @@ def _mask_queue_tails(y, group_sizes):
                                             device=y.device))
 
 
+def _moe_fp_requires(policy, buf, w, group_sizes=None):
+    return _reject_packed(buf, w)
+
+
 def _moe_eager(policy, buf, w, group_sizes=None):
     # dense sweep: empty experts are still computed (masked afterwards)
     acc = getattr(torch, policy.accum_dtype)
@@ -303,6 +477,9 @@ def _moe_eager(policy, buf, w, group_sizes=None):
 
 
 def _moe_cuda_requires(policy, buf, w, group_sizes=None):
+    why = _reject_packed(buf, w)
+    if why:
+        return why
     if group_sizes is None:
         return "group_sizes unavailable (dense/onehot dispatch carries no " \
                "per-expert queue lengths)"
@@ -321,14 +498,74 @@ def _moe_ref(policy, buf, w, group_sizes=None):
     return kref.ref_moe_gemm(buf, w, group_sizes).float()
 
 
+def _moe_int8_requires(policy, buf, w, group_sizes=None):
+    if is_factored(w):
+        return "expert weights are factored (FactoredTensor) — served by " \
+               "the eager_factored impl"
+    if not is_qtensor(w):
+        return "expert weights are not quantized (run quant.quantize_tree " \
+               "first)"
+    if is_qtensor(buf):
+        return "expert queue buffers are quantized (weights-only impl)"
+    if not _floating(buf):
+        return f"non-float buffer dtype {buf.dtype}"
+    return None
+
+
+def _moe_int8(policy, buf, w, group_sizes=None):
+    # one product per expert, (queue rows, d) x (d, f): int8 with the
+    # expert's per-channel scale as the epilogue, int4 dequantized first
+    acc = getattr(torch, policy.accum_dtype)
+    xb = buf.to(acc)
+    if w.bits == 8:
+        y = per_expert_products(
+            xb, lambda e, r: (r @ w.q[e].to(acc)) * w.scale[e].to(acc))
+    else:
+        wf = dequantize(w, acc)
+        y = per_expert_products(xb, lambda e, r: r @ wf[e])
+    return _mask_queue_tails(y, group_sizes)
+
+
+def _moe_factored_requires(policy, buf, w, group_sizes=None):
+    if not is_factored(w):
+        return "expert weights are not factored (run " \
+               "factor.factorize_tree first)"
+    if w.experts is None:
+        return "factored weight has no expert axis (serve it through " \
+               "linear)"
+    if _packed(buf):
+        return "expert queue buffers are packed (weights-only impl)"
+    if not _floating(buf):
+        return f"non-float buffer dtype {buf.dtype}"
+    if buf.shape[-3] != w.shape[0]:
+        return f"expert-count mismatch {buf.shape[-3]} vs {w.shape[0]}"
+    return None
+
+
+def _moe_factored(policy, buf, w, group_sizes=None):
+    # per expert: the shared basis product + the expert's delta correction
+    y = factored_moe_gemm(buf, w, getattr(torch, policy.accum_dtype))
+    return _mask_queue_tails(y, group_sizes)
+
+
 # dense ecd,edf einsum (f32 accum); computes empty experts
-register("moe_grouped_gemm", "eager", _moe_eager, default=True)
+register("moe_grouped_gemm", "eager", _moe_eager, default=True,
+         requires=_moe_fp_requires)
 # grouped GEMM kernel, all routing groups in one launch, empty-queue skip;
 # needs group_sizes, f32/bf16
 register("moe_grouped_gemm", "cuda", _moe_cuda, requires=_moe_cuda_requires,
          kernel=True)
 # einsum oracle with queue-tail zeroing
-register("moe_grouped_gemm", "ref", _moe_ref)
+register("moe_grouped_gemm", "ref", _moe_ref, requires=_moe_fp_requires)
+# QTensor expert weights: int8 per-channel dequant epilogue / int4 grouped
+# dequant-then-product, one product per expert; fp queue buffers
+register("moe_grouped_gemm", "eager_int8", _moe_int8,
+         requires=_moe_int8_requires)
+# FactoredTensor expert weights: per expert, the shared basis product +
+# the low-rank / butterfly delta correction (optionally int8/int4 delta
+# factors); fp queue buffers
+register("moe_grouped_gemm", "eager_factored", _moe_factored,
+         requires=_moe_factored_requires)
 
 
 # ================================================================== moe_ffn
@@ -346,6 +583,11 @@ def _moe_ffn_eager(policy, x, params, routing, group_sizes, *, cfg,
     return R.combine(out, routing).to(x.dtype)
 
 
+def _moe_ffn_ref_requires(policy, x, params, routing, group_sizes, *, cfg,
+                          capacity):
+    return _reject_packed(x, *params.values())
+
+
 def _moe_ffn_ref(policy, x, params, routing, group_sizes, *, cfg,
                  capacity):
     return kref.ref_moe_ffn(x, params, routing, cfg=cfg)
@@ -353,11 +595,17 @@ def _moe_ffn_ref(policy, x, params, routing, group_sizes, *, cfg,
 
 def _moe_ffn_fused_requires(policy, x, params, routing, group_sizes, *,
                             cfg, capacity):
-    # the reference's reasons for what the port has (its packed-weight and
-    # mesh reasons have no operands here yet), then the kernel's limits
+    # the reference's reasons for what the port has (its mesh reason has
+    # no operands here yet), then the kernel's limits
     if cfg.impl == "onehot":
         return "onehot (GSPMD) dispatch requested — the fused kernel " \
                "replaces the gather path only"
+    if any(is_qtensor(p) for p in params.values()):
+        return "expert weights are quantized (QTensor) — staged path " \
+               "serves them via the eager_int8 grouped GEMM"
+    if any(is_factored(p) for p in params.values()):
+        return "expert weights are factored (FactoredTensor) — staged " \
+               "path serves them via the eager_factored grouped GEMM"
     if not _floating(x):
         return f"non-float activation dtype {x.dtype}"
     why = _kernel_dtype(x)
@@ -383,7 +631,8 @@ def _moe_ffn_fused(policy, x, params, routing, group_sizes, *, cfg,
 
 
 # staged dispatch → grouped GEMMs → combine (materializes the (G, E, C, d)
-# buffer; inner GEMMs re-dispatch moe_grouped_gemm)
+# buffer; inner GEMMs re-dispatch moe_grouped_gemm, so packed expert
+# weights are served here, by eager_int8 / eager_factored)
 register("moe_ffn", "eager", _moe_ffn_eager, default=True)
 # megakernel: gather by token index + expert MLP + ordered combine in one
 # pass over every routing group, metaqueue skip, no dispatch buffer
@@ -391,4 +640,4 @@ register("moe_ffn", "cuda_fused", _moe_ffn_fused,
          requires=_moe_ffn_fused_requires, kernel=True)
 # token-level dense oracle: every expert on every token, exact activations,
 # gate-weighted sum
-register("moe_ffn", "ref", _moe_ffn_ref)
+register("moe_ffn", "ref", _moe_ffn_ref, requires=_moe_ffn_ref_requires)

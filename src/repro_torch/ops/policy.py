@@ -16,6 +16,9 @@ Implementation names in the port:
   * ``"cuda_fused"`` — the fused Hopper kernels of ``moe_ffn`` and
                     ``attention_decode`` (the reference's ``"pallas_fused"``).
   * ``"ref"``     — the ``kernels/ref.py`` oracles.
+  * ``"eager_int8"`` / ``"eager_factored"`` — plain PyTorch over packed
+                    weights (QTensor / FactoredTensor), the reference's
+                    ``"xla_int8"`` / ``"xla_factored"``.
 
 Tile overrides and the Pallas ``interpret`` switch have no counterpart yet:
 the kernels take fixed tiles, stated in their sources.
@@ -101,6 +104,18 @@ def policy_named(name: str) -> ComputePolicy:
                     blocked attention and LUT activations around them (the
                     reference's ``"pallas_fused"`` preset).
     ``"ref"``     — the oracle impls.
+    ``"eager_int8"`` — quantized serving: ``linear``, ``moe_grouped_gemm``
+                    and ``attention_decode`` run the ``eager_int8`` impls
+                    (QTensor weights, int8 KV caches); prefill attention
+                    and activations keep the registry defaults (the
+                    reference's ``"xla_int8"`` preset).  Floating-point
+                    operands fall back loudly in ``dispatch_report()``.
+    ``"eager_factored"`` — factored-expert serving: ``moe_grouped_gemm``
+                    runs ``eager_factored``; everything else keeps the
+                    registry defaults (the reference's ``"xla_factored"``).
+                    Compose with quantization as
+                    ``policy_named("eager_int8").with_impls(
+                    moe_grouped_gemm="eager_factored")``.
     """
     if name == "eager":
         return ComputePolicy(default_impl="eager",
@@ -118,8 +133,15 @@ def policy_named(name: str) -> ComputePolicy:
                                     ("attention_decode", "cuda_fused")))
     if name == "ref":
         return ComputePolicy(default_impl="ref")
+    if name == "eager_int8":
+        return ComputePolicy(impls=(("linear", "eager_int8"),
+                                    ("moe_grouped_gemm", "eager_int8"),
+                                    ("attention_decode", "eager_int8")))
+    if name == "eager_factored":
+        return ComputePolicy(impls=(("moe_grouped_gemm", "eager_factored"),))
     raise ValueError(f"unknown policy preset: {name!r} "
-                     "(expected eager | blocked | cuda | cuda_fused | ref)")
+                     "(expected eager | blocked | cuda | cuda_fused | ref | "
+                     "eager_int8 | eager_factored)")
 
 
 _POLICY: contextvars.ContextVar[Optional[ComputePolicy]] = \

@@ -8,9 +8,12 @@ chunks) into per-layer KV caches on the card, then decoded token by token
 with greedy or temperature sampling; per-request EOS stops a row early.
 The caches are written in place between steps.  ``ServeConfig.prefix_cache``
 is read by the scheduler's ``LMBackend`` only; the static engine ignores
-it, as the reference's does.  Meshes (``rules``), quantized KV caches,
-asynchronous expert paging, recurrent families and embedding-input
-frontends come with later slices of the port and raise
+it, as the reference's does.  ``ServeConfig.kv_quant="int8"`` stores the
+caches as int8 rows with a float32 scale per (token, head); pair it with
+``policy_named("eager_int8")`` (or an ``attention_decode="eager_int8"``
+override) so the int8 decode impl is a dispatch hit.  Meshes
+(``rules``), asynchronous expert paging, recurrent families and
+embedding-input frontends come with later slices of the port and raise
 ``NotImplementedError``.
 """
 
@@ -30,7 +33,7 @@ from repro_torch.train.step import make_serve_step
 from repro_torch.tree import flatten
 
 __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
-           "state_batch_axes"]
+           "state_batch_axes", "serve_overrides"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 
@@ -57,7 +60,8 @@ def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
     ``repro_torch.tree.flatten`` order, discovered structurally: the state
     is built on the meta device at batch 1 and 2, and the axis whose size
     changed is the batch axis (1 under the stacked ``layers``, 0 under
-    ``rest``)."""
+    ``rest``).  An int8 cache's ``k_scale``/``v_scale`` leaves get theirs
+    the same way."""
     s1 = flatten(M.init_state(cfg, 1, max_len, device="meta"))
     s2 = flatten(M.init_state(cfg, 2, max_len, device="meta"))
     axes = []
@@ -80,13 +84,27 @@ class ServeConfig:
     prefill_chunk: int = 0         # >0: chunked prefill
     # compute policy for every serving step; None keeps the arch config's
     policy: Optional[ComputePolicy] = None
-    kv_quant: Optional[str] = None     # "int8" comes with a later slice
+    # KV-cache storage override ("none" | "int8"); None keeps the arch
+    # config's kv_quant
+    kv_quant: Optional[str] = None
     async_paging: bool = False         # the vision backend's; later slice
     # shared prompt-prefix cache (scheduler LM backend): >0 attaches a
     # radix trie of up to that many cached prompt prefill states; ignored
     # by the static ServingEngine
     prefix_cache: int = 0
     prefix_min: int = 8                # min matched tokens worth reusing
+
+
+def serve_overrides(cfg: ArchConfig, scfg: ServeConfig) -> ArchConfig:
+    """The arch config with the serve-level overrides applied: the compute
+    policy and the KV-cache storage (the reference's
+    ``_policy_override``)."""
+    over = {}
+    if scfg.policy is not None:
+        over["policy"] = scfg.policy
+    if scfg.kv_quant is not None:
+        over["kv_quant"] = scfg.kv_quant
+    return replace(cfg, **over) if over else cfg
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -102,10 +120,6 @@ class ServingEngine:
                  rules=None, *, device="cuda"):
         if rules is not None:
             raise _later("mesh serving (rules)", "distribution")
-        kv_quant = scfg.kv_quant if scfg.kv_quant is not None \
-            else cfg.kv_quant
-        if kv_quant != "none":
-            raise _later(f"kv_quant={kv_quant!r}", "packed-formats")
         if scfg.async_paging:
             raise _later("asynchronous expert paging", "paged serving")
         if is_recurrent(cfg):
@@ -114,9 +128,7 @@ class ServingEngine:
             raise _later(f"embedding-input frontends ({cfg.name})",
                          "modality")
         self.device = resolve_device(device)
-        if scfg.policy is not None:
-            cfg = replace(cfg, policy=scfg.policy)
-        self.cfg, self.scfg = cfg, scfg
+        self.cfg, self.scfg = serve_overrides(cfg, scfg), scfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self._steps: dict[int, tuple] = {}
 

@@ -29,10 +29,21 @@ demand.  Three pieces:
     ``routing.combine`` — so the paged forward is **bit-exact** with the
     all-resident staged forward at any residency.
 
-Left for later slices (each raises ``NotImplementedError`` naming its
+Packed expert weights page as their packed tensors: a ``QTensor`` leaf as
+``<name>.q`` and ``<name>.scale``, a ``FactoredTensor``'s deltas as
+``<name>.u`` and ``<name>.v`` (split further into ``.q``/``.scale`` when
+quantized), while the factored basis is a *pinned* leaf — on the device
+once, never paged.  Per-expert bytes, and so the slots a byte budget
+buys, count the paged leaves only; the pinned bytes come off the budget
+first.  Each wave rebuilds the packed objects from the slots (and the
+pinned basis), so its expert products dispatch the ``eager_int8`` /
+``eager_factored`` impls, which take one product per expert: a slot's
+product has the shape the all-resident expert's has, and paged output
+stays bit-exact.
+
+Left for a later slice (it raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item): expert parallelism over a mesh (the reference's
-``ShardedExpertCache``, queue 1 item 6) and packed expert leaves
-(QTensor / FactoredTensor, queue 1 item 3).  The reference's XLA-only
+``ShardedExpertCache``, queue 1 item 6).  The reference's XLA-only
 store machinery (donated jitted writes, power-of-two write batches, the
 sharded cache's write callback) has no counterpart: PyTorch writes a slot
 in place.
@@ -51,6 +62,8 @@ from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import routing as R
 from repro_torch.core.moe import MoEConfig, expert_param_names
+from repro_torch.factor.factored import FactoredTensor, is_factored
+from repro_torch.quant.qtensor import QTensor, is_qtensor
 from repro_torch.serve.placement import PlacementPolicy, get_policy
 from repro_torch.serve.transfer import Transfer
 
@@ -62,8 +75,6 @@ PREFETCH_DROPPED_KEEP = 64
 
 _MESH = ("expert-parallel paging over a mesh (the sharded expert cache) "
          "comes with ROADMAP.md queue 1 item 6")
-_PACKED = ("packed expert leaves (QTensor / FactoredTensor) come with "
-           "ROADMAP.md queue 1 item 3")
 
 
 def _host_tensor(w) -> torch.Tensor:
@@ -76,8 +87,15 @@ def _host_tensor(w) -> torch.Tensor:
 
 def _per_expert_bytes(host: dict) -> int:
     """Device bytes one expert occupies across the paged weight leaves —
-    the unit of paging accounting and byte-budget residency sizing."""
+    the unit of paging accounting and byte-budget residency sizing.
+    Pinned leaves (a factored layer's shared basis) are not in ``host``:
+    they are resident once, not per expert (:func:`_pinned_bytes`)."""
     return sum(int(w[0].nbytes) for w in host.values())
+
+
+def _pinned_bytes(pinned: dict) -> int:
+    """Device bytes of the always-resident (never paged) leaves."""
+    return sum(int(v.nbytes) for v in pinned.values())
 
 
 class ExpertUsage:
@@ -161,7 +179,7 @@ class ExpertCache:
             raise ValueError(f"leaves both pinned and paged: {sorted(clash)}")
         self.pinned = {n: _host_tensor(v).to(self.device)
                        for n, v in pinned.items()}
-        self.pinned_bytes = sum(int(v.nbytes) for v in self.pinned.values())
+        self.pinned_bytes = _pinned_bytes(self.pinned)
         # transfer keys are (label, expert): stable and test-addressable
         self.label = label
         self.names = tuple(host)
@@ -479,8 +497,9 @@ class PagedMoE:
 
     ``params`` are the layer's MoE params (``gate``, optional
     ``gate_bias``, the expert leaves, optional shared experts); the expert
-    leaves may lie anywhere (they are copied to the pinned host store),
-    the rest is moved to ``device``.
+    leaves — tensors, ``QTensor`` or ``FactoredTensor`` objects — may lie
+    anywhere (their paged tensors are copied to the pinned host store, a
+    factored basis to the device), the rest is moved to ``device``.
     """
 
     def __init__(self, params, cfg: MoEConfig,
@@ -495,11 +514,35 @@ class PagedMoE:
             raise NotImplementedError(
                 f"MoE impl {cfg.impl!r}: the port pages the 'grouped' path")
         names = expert_param_names(cfg)
-        if any(not isinstance(params[n], torch.Tensor) for n in names):
-            raise NotImplementedError(_PACKED)
         self.cfg = cfg
         self.device = resolve_device(device)
-        host = {n: _host_tensor(params[n]) for n in names}
+        # packed leaves split into the tensors the cache pages (and a
+        # factored basis into a pinned leaf); _slot_params rebuilds them
+        self._names = names
+        self._qmeta: dict[str, tuple] = {}
+        self._fmeta: dict[str, dict] = {}
+        host: dict[str, torch.Tensor] = {}
+        pinned: dict[str, torch.Tensor] = {}
+
+        def host_leaf(key: str, leaf):
+            """One paged leaf (tensor or QTensor) into host entries; the
+            QTensor's rebuild meta, or None for a tensor."""
+            if is_qtensor(leaf):
+                host[key + ".q"] = _host_tensor(leaf.q)
+                host[key + ".scale"] = _host_tensor(leaf.scale)
+                return (leaf.bits, leaf.dtype, leaf.rows)
+            host[key] = _host_tensor(leaf)
+            return None
+
+        for n in names:
+            wn = params[n]
+            if is_factored(wn):
+                pinned[n + ".basis"] = wn.basis
+                self._fmeta[n] = {"kind": wn.kind, "dtype": wn.dtype,
+                                  "u": host_leaf(n + ".u", wn.u),
+                                  "v": host_leaf(n + ".v", wn.v)}
+            else:
+                self._qmeta[n] = host_leaf(n, wn)
         # residency decisions live in the placement policy: ``placement``
         # is a name ("static"/"lru"/"budget"/"elastic") or a constructed
         # PlacementPolicy.  A bare ``budget_bytes`` resolves to the budget
@@ -515,7 +558,8 @@ class PagedMoE:
         # at least top_k slots, so one wave can serve a token's whole
         # expert set
         max_resident = self.policy.slots(
-            per_expert_bytes=_per_expert_bytes(host), pinned_bytes=0,
+            per_expert_bytes=_per_expert_bytes(host),
+            pinned_bytes=_pinned_bytes(pinned),
             experts_per_shard=cfg.num_experts,
             resident_fraction=resident_fraction, floor=cfg.top_k)
         self.usage = usage or ExpertUsage(cfg.num_experts, cfg.num_tasks,
@@ -523,7 +567,8 @@ class PagedMoE:
         self.engine = transfer_engine
         self.cache = ExpertCache(host, max_resident, usage=self.usage,
                                  transfer_engine=transfer_engine,
-                                 policy=self.policy, device=self.device)
+                                 pinned=pinned, policy=self.policy,
+                                 device=self.device)
         # per-wave record of the most recent forward (wave id, expert
         # count, lookahead submissions, fence stall)
         self.last_timeline: list[dict] = []
@@ -531,6 +576,31 @@ class PagedMoE:
                        for k in ("gate", "gate_bias") if k in params}
         self.shared = {k: params[k].to(self.device) for k in
                        ("shared_wg", "shared_wu", "shared_wd") if k in params}
+
+    def _slot_params(self) -> dict:
+        """The per-slot expert params from the device slots: packed leaves
+        rewrapped as QTensors, factored ones as FactoredTensors over the
+        pinned basis."""
+        slots, pinned = self.cache.slots, self.cache.pinned
+
+        def leaf(key, qmeta):
+            if qmeta is None:
+                return slots[key]
+            bits, dtype, rows = qmeta
+            return QTensor(slots[key + ".q"], slots[key + ".scale"],
+                           bits=bits, dtype=dtype, rows=rows)
+
+        out = {}
+        for n in self._names:
+            if n in self._fmeta:
+                fm = self._fmeta[n]
+                out[n] = FactoredTensor(pinned[n + ".basis"],
+                                        leaf(n + ".u", fm["u"]),
+                                        leaf(n + ".v", fm["v"]),
+                                        kind=fm["kind"], dtype=fm["dtype"])
+            else:
+                out[n] = leaf(n, self._qmeta[n])
+        return out
 
     # ------------------------------------------------------------- forward
 
@@ -616,7 +686,7 @@ class PagedMoE:
                         valid=r.valid & in_wave, probs=r.probs)
         buf = R.dispatch(rt.groups, r_w, n_slots, rt.capacity)
         sizes = R.dispatch_counts(r_w, n_slots)
-        out = moe_lib._expert_ffn(self.cache.slots, self.cfg, buf, sizes)
+        out = moe_lib._expert_ffn(self._slot_params(), self.cfg, buf, sizes)
         n = rows.shape[0]
         gi = torch.arange(n, device=dev)[:, None]
         got = out[gi, r_w.expert.reshape(n, -1).long(),

@@ -44,16 +44,18 @@ in ``prefill_chunk``-token chunks interleaved with decode steps.
 
 ``Scheduler`` is backend-generic: ``LMBackend`` serves autoregressive
 decode; ``serve/vision.py`` provides the batched M³ViT backend (vision
-"preemption" is a staged-batch bump — inference is stateless).  Meshes,
-int8 KV caches and recurrent families come with later slices and raise,
-naming their ``ROADMAP.md`` item.
+"preemption" is a staged-batch bump — inference is stateless).  An int8
+KV cache (``ServeConfig.kv_quant="int8"``) is served like a floating one:
+its scale leaves are spliced, parked and cloned with the rows.  Meshes and
+recurrent families come with later slices and raise, naming their
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
@@ -63,7 +65,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ServeConfig, feedback_inputs,
-                                      is_recurrent, state_batch_axes)
+                                      is_recurrent, serve_overrides,
+                                      state_batch_axes)
 from repro_torch.serve.expert_cache import ExpertUsage
 from repro_torch.serve.slo.preempt import SlotParker
 from repro_torch.serve.slo.prefix import RadixPrefixCache
@@ -184,13 +187,8 @@ class LMBackend:
             raise _later(f"recurrent serving ({cfg.name})", 5)
         if cfg.embed_input != "tokens":
             raise _later(f"embedding-input prompts ({cfg.name})", 5)
-        kv_quant = scfg.kv_quant if scfg.kv_quant is not None \
-            else cfg.kv_quant
-        if kv_quant != "none":
-            raise _later(f"kv_quant={kv_quant!r}", 3)
-        if scfg.policy is not None:
-            cfg = replace(cfg, policy=scfg.policy)
-        self.cfg, self.scfg = cfg, scfg
+        self.cfg = cfg = serve_overrides(cfg, scfg)
+        self.scfg = scfg
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         # padded prefill relies on causal / cache_len masking

@@ -4,8 +4,8 @@ the port of ``repro.serve.slo``.
   * ``tiers``    — service classes (interactive/batch) with TTFT/TPOT
                    deadlines, the ``SLOPolicy`` scheduler knob bundle,
                    and goodput-under-SLO accounting;
-  * ``preempt``  — bit-exact decode-slot park/restore (int8 parking comes
-                   with the packed-formats slice);
+  * ``preempt``  — bit-exact decode-slot park/restore, optionally packing
+                   floating KV rows to int8;
   * ``prefix``   — radix-trie shared prompt-prefix cache seeding fused
                    prefill admissions;
   * ``trace``    — seeded heavy-tailed multi-tenant traffic traces

@@ -11,27 +11,48 @@ order) and clones the slice: the bucket keeps decoding its other slots,
 in place, so a view would change under the parked request.  Restore
 copies the parked rows back into the slot in place.
 
-``compress="int8"`` (fp KV rows packed through ``quantize_kv``) comes
-with the packed-formats slice of the port (``ROADMAP.md`` queue 1 item 3)
-and raises; ``"none"`` is always bit-exact.
+With ``kv_quant="int8"`` the slot's leaves are already int8 (+ small
+float32 scales), so a parked request costs about a quarter of the
+floating-point bytes and the round trip stays bit-exact.  For floating
+caches, ``compress="int8"`` packs the rows through ``quant.quantize_kv``
+on the way out (per-(token, head) scales) — a lossy saving for workloads
+that tolerate it; ``"none"`` is always bit-exact.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch.quant.qtensor import QTensor, dequantize, quantize_kv
 from repro_torch.tree import flatten
 
 __all__ = ["ParkedState", "SlotParker"]
+
+# floating leaves with at least this many elements along the last axis are
+# quantized under compress="int8": KV rows (head_dim wide) qualify; the
+# per-row float32 scales of an already-int8 cache (last dim 1) and other
+# small bookkeeping leaves pass through verbatim — which is what keeps the
+# int8-KV round trip bit-exact
+_MIN_ROW = 8
 
 
 @dataclass
 class ParkedState:
     """One slot's extracted batch-1 state: ``leaves`` parallels the bucket
-    state's flattened leaves, each a batch-1 tensor of its own."""
+    state's flattened leaves; a packed entry is a ``(q, scale)`` pair,
+    every other one a batch-1 tensor of its own."""
 
     leaves: list
     nbytes: int
+
+
+def _packs(leaf, compress: str) -> bool:
+    return (compress == "int8" and leaf.is_floating_point()
+            and leaf.dim() >= 2 and leaf.shape[-1] >= _MIN_ROW)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 class SlotParker:
@@ -42,23 +63,26 @@ class SlotParker:
         if compress not in ("none", "int8"):
             raise ValueError(f"unknown park compress {compress!r} "
                              "(expected none | int8)")
-        if compress == "int8":
-            raise NotImplementedError(
-                "int8 parking (fp KV rows through quantize_kv) comes with "
-                "ROADMAP.md queue 1 item 3 (packed formats)")
         self.axes = list(axes)
         self.compress = compress
 
     def park(self, state, slot: int) -> ParkedState:
-        leaves = [leaf.narrow(ax, slot, 1).clone()
-                  for leaf, ax in zip(flatten(state).values(), self.axes)]
+        leaves = []
+        for leaf, ax in zip(flatten(state).values(), self.axes):
+            row = leaf.narrow(ax, slot, 1)
+            leaves.append(quantize_kv(row) if _packs(leaf, self.compress)
+                          else row.clone())
         return ParkedState(leaves=leaves, nbytes=sum(
-            t.numel() * t.element_size() for t in leaves))
+            sum(map(_nbytes, p)) if isinstance(p, tuple) else _nbytes(p)
+            for p in leaves))
 
     def restore(self, state, parked: ParkedState, slot: int):
-        """Copy the parked rows into ``slot`` of ``state`` in place;
-        returns ``state``."""
+        """Copy the parked rows into ``slot`` of ``state`` in place (a
+        packed entry dequantized to the leaf's dtype); returns
+        ``state``."""
         for leaf, small, ax in zip(flatten(state).values(), parked.leaves,
                                    self.axes):
+            if isinstance(small, tuple):
+                small = dequantize(QTensor(*small), leaf.dtype)
             leaf.narrow(ax, slot, 1).copy_(small)
         return state

@@ -50,9 +50,10 @@ class SLOPolicy:
                          bit-exact — see ``slo/preempt.py``) when a due
                          interactive request has no free slot;
     ``park_compress``    parked-state storage: ``"none"`` keeps the slot
-                         leaves verbatim (always bit-exact); ``"int8"``
-                         (packed fp KV rows) comes with the packed-formats
-                         slice of the port and raises in ``SlotParker``;
+                         leaves verbatim (always bit-exact), ``"int8"``
+                         packs fp KV rows via ``quant.quantize_kv`` (a
+                         no-op — still bit-exact — when the cache is
+                         already int8 via ``kv_quant="int8"``);
     ``chunk_interleave`` admit long prompts in ``ServeConfig.
                          prefill_chunk``-token chunks interleaved with
                          decode steps, so one long prefill cannot

@@ -7,9 +7,12 @@ expert resident (``core.moe.apply_moe``, the default) or page their
 experts through one ``serve.expert_cache.PagedMoE`` per layer, synchronous
 or through a shared copy-stream ``TransferEngine``.  Task switching is the
 paper's §IV-F gate index switch, plus, when paging, a prefetch of the
-incoming task's usage-hot experts.  Meshes and factored experts come
-with later slices of the port and raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.
+incoming task's usage-hot experts.  The parameters may be packed
+(``quant.quantize_tree``: QTensor leaves), and ``factor=(kind, rank,
+delta_bits)`` factorizes each MoE layer's experts into a shared basis and
+per-expert deltas; paged layers then page the packed tensors and pin the
+basis.  Meshes come with a later slice of the port and raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 ``VisionBackend`` adapts the server to the ``serve.scheduler.Scheduler``
 bucket protocol: a request's prompt is an image (H, W, 3); a bucket stages
@@ -30,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import m3vit as MV
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
+from repro_torch.factor import factorize_tree
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import vit as V
@@ -66,6 +70,14 @@ class M3ViTServer:
     layer's waves run the same staged expert FFN and combine.  Under
     ``cuda_fused`` the waves stay staged, so paged output agrees with the
     fused all-resident output to the kernels' tolerance.
+
+    ``params`` may hold ``QTensor`` leaves (``quant.quantize_tree``), and
+    ``factor=(kind, rank, delta_bits)`` (``kind`` ``"rank"`` or
+    ``"butterfly"``, ``delta_bits`` None, 8 or 4) factorizes each MoE
+    layer's expert stack into a basis and per-expert deltas after the
+    per-layer slice, as the reference does: a layer's experts share that
+    layer's basis.  Serve them under a policy whose ``linear`` /
+    ``moe_grouped_gemm`` are ``eager_int8`` / ``eager_factored``.
     """
 
     def __init__(self, cfg: ArchConfig, params, *,
@@ -79,9 +91,6 @@ class M3ViTServer:
         if rules is not None or ep_mesh is not None:
             raise NotImplementedError(
                 "mesh serving comes with ROADMAP.md queue 1 item 6")
-        if factor is not None:
-            raise NotImplementedError(
-                "factored experts come with ROADMAP.md queue 1 item 3")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mcfg = T.moe_config(cfg)
@@ -112,6 +121,15 @@ class M3ViTServer:
                 self.layer_params.append(index(tree["layers"][f"b{b}"], p))
             else:
                 self.layer_params.append(tree["rest"][str(i - n_scan * period)])
+        if factor is not None:
+            f_kind, f_rank, f_bits = factor
+            for i, kind in enumerate(self.kinds):
+                if kind == "attn_moe":
+                    lp = dict(self.layer_params[i])
+                    lp["moe"] = factorize_tree(lp["moe"], kind=f_kind,
+                                               rank=f_rank,
+                                               delta_bits=f_bits)
+                    self.layer_params[i] = lp
         self.paged = {
             i: PagedMoE(self.layer_params[i]["moe"], self.mcfg,
                         resident_fraction=resident_fraction,

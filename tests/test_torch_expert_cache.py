@@ -406,12 +406,16 @@ def test_async_prefetch_hides_copies_as_the_reference():
 
 
 def test_paged_refuses_what_later_slices_port():
+    """Meshes (queue 1 item 6) and onehot raise; packed leaves (item 3,
+    ported) page as their packed tensors."""
     _, tcfg, _, _, tp, _ = _moe_setup()
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TEC.PagedMoE(tp, tcfg, mesh=object(), device="cpu")
-    packed = dict(tp, w1={"q": tp["w1"], "scale": tp["b1"]})
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        TEC.PagedMoE(packed, tcfg, device="cpu")
+    from repro_torch.quant import quantize_tree
+
+    packed = TEC.PagedMoE(quantize_tree(tp), tcfg, device="cpu")
+    assert packed.cache.names == ("w1.q", "w1.scale", "b1", "w2.q",
+                                  "w2.scale", "b2")
     with pytest.raises(NotImplementedError, match="onehot"):
         TEC.PagedMoE(tp, replace(tcfg, impl="onehot"), device="cpu")
 
@@ -478,9 +482,20 @@ def test_server_results_stay_distinct():
 
 
 def test_server_refuses_what_later_slices_port():
+    """Meshes (queue 1 item 6) raise; factored experts (item 3, ported)
+    factor every MoE layer, and an unknown factor kind is refused."""
     _, tserver, _ = _servers()
     for kw, item in ((dict(rules=object()), "item 6"),
-                     (dict(ep_mesh=object()), "item 6"),
-                     (dict(factor=("lowrank", 4, 8)), "item 3")):
+                     (dict(ep_mesh=object()), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             M3ViTServer(tserver.cfg, tserver.params, device="cpu", **kw)
+    from repro_torch.factor import is_factored
+
+    server = M3ViTServer(tserver.cfg, tserver.params, device="cpu",
+                         factor=("rank", 4, 8))
+    moe = [lp["moe"] for lp in server.layer_params if "moe" in lp]
+    assert moe and all(is_factored(m["w1"]) and is_factored(m["w2"])
+                       for m in moe)
+    with pytest.raises(ValueError, match="kind"):
+        M3ViTServer(tserver.cfg, tserver.params, device="cpu",
+                    factor=("lowrank", 4, 8))

@@ -1,8 +1,9 @@
 """``python -m repro_torch.launch.serve`` on the CPU (``--device cpu``, the
 kernel modules' plain versions) at ``SMOKE_CONFIG``: the static engine,
 the LM scheduler (greedy tokens equal to the static engine's), SLO tiers
-with a bursty trace and the prefix cache, the M³ViT scheduler, and the
-flags of later slices raising with their ``ROADMAP.md`` item."""
+with a bursty trace and the prefix cache, the M³ViT scheduler, packed
+weights (``--quant``, ``--factor``) with the packed impls as dispatch hits,
+and the flags of later slices raising with their ``ROADMAP.md`` item."""
 
 import pytest
 
@@ -45,10 +46,36 @@ def test_vision_scheduler(capsys):
 
 @pytest.mark.parametrize("flag,item", [("--mesh", 6), ("--quant", 3),
                                        ("--factor", 3)])
-def test_later_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-        serve.main(["--arch", "llama3_2_1b", "--smoke", "--device", "cpu",
-                    flag, "x"])
+def test_later_flags_raise(flag, item, capsys):
+    """``--mesh`` (queue 1 item 6) raises naming its item; ``--quant`` and
+    ``--factor`` (item 3, ported) serve, their packed impls dispatch
+    hits beside the kernels' plain versions."""
+    if item != 3:
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            serve.main(["--arch", "llama3_2_1b", "--smoke", "--device",
+                        "cpu", flag, "x"])
+        return
+    from repro_torch import ops
+
+    ops.reset_dispatch_report()
+    if flag == "--quant":
+        out = _run(capsys, "--arch", "llama3_2_1b", "--tokens", "4",
+                   "--quant", "int8", "--dispatch-report")
+        hits = ('"attention_decode": {"requests": 8, "hits": '
+                '{"eager_int8": 8}, "fallbacks": []',
+                '"linear": {"requests": 70, "hits": {"eager_int8": 70}, '
+                '"fallbacks": []')
+    else:
+        out = _run(capsys, "--arch", "m3vit", "--scheduler", "--requests",
+                   "2", "--batch", "2", "--factor", "butterfly",
+                   "--dispatch-report")
+        hits = ('"moe_grouped_gemm": {"requests": 16, "hits": '
+                '{"eager_factored": 16}, "fallbacks": []',
+                '"linear": {"requests": 44, "hits": {"cuda": 44}, '
+                '"fallbacks": []')
+    for h in hits:
+        assert h in out, out
 
 
 def test_defaults_to_the_card():

@@ -271,9 +271,23 @@ def test_eos_and_temperature_sampling():
 def test_later_slices_raise(over):
     """Each feature of a later slice raises; ``prefix_cache``, the
     scheduler's since its slice, is ignored by the static engine (as the
-    reference's is): same tokens as without it."""
+    reference's is): same tokens as without it.  ``kv_quant="int8"`` (the
+    packed-formats slice, ported) serves: the int8 KV error is far below
+    the argmax margin here, so the tokens equal the float cache's, as in
+    the reference's ``tests/test_quant.py``, with the int8 decode a hit."""
     _, tcfg, _, tparams = _lm("float32")
     cfg = replace(tcfg, **over.get("cfg", {}))
+    if "kv_quant" in over.get("scfg", {}):
+        ops.reset_dispatch_report()
+        got = ServingEngine(cfg, tparams, ServeConfig(
+            max_len=MAX_LEN, policy=ops.policy_named("eager_int8"),
+            **over["scfg"]), device="cpu").generate(PROMPT, 6)
+        rep = ops.dispatch_report()["attention_decode"]
+        assert rep["hits"] == {"eager_int8": 2 * 6} and not rep["fallbacks"]
+        np.testing.assert_array_equal(got, ServingEngine(
+            cfg, tparams, ServeConfig(max_len=MAX_LEN),
+            device="cpu").generate(PROMPT, 6))
+        return
     if "prefix_cache" in over.get("scfg", {}):
         eng = ServingEngine(cfg, tparams, ServeConfig(
             max_len=MAX_LEN, **over["scfg"]), device="cpu")

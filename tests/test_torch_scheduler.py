@@ -39,6 +39,7 @@ from repro_torch.serve import (LMBackend, Request, Scheduler, ServeConfig,
                                ServingEngine)
 from repro_torch.serve.engine import state_batch_axes
 from repro_torch.serve.slo import TickClock
+from repro_torch.tree import flatten
 
 POLICY = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
 
@@ -280,12 +281,28 @@ def test_task_skew_80_20_bounded_ttft_gap():
     dict(scfg=dict(temperature=1.0))],
     ids=["recurrent", "embeddings", "kv_int8", "mesh", "temperature"])
 def test_later_items_raise(over):
-    """Recurrent archs and embedding prompts (queue 1 item 5), int8 KV
-    caches (item 3) and meshes (item 6) raise naming their item; the
-    scheduler decodes greedily."""
+    """Recurrent archs and embedding prompts (queue 1 item 5) and meshes
+    (item 6) raise naming their item; the scheduler decodes greedily.  An
+    int8 KV cache (item 3, ported) is served: every request gets the
+    static int8-cache engine's tokens and the JAX scheduler's schedule."""
     _, tcfg, _, tparams = _model()
     cfg = replace(tcfg, **over.get("cfg", {}))
     scfg = ServeConfig(max_len=64, **over.get("scfg", {}))
+    if "kv_quant" in over.get("scfg", {}):
+        prompts = _prompts(tcfg.vocab_size, 3, 8, 5)
+        specs = [dict(rid=i, task_id=0, prompt=prompts[i],
+                      max_new_tokens=4 + 2 * i) for i in range(3)]
+        js, ts, _, tb = run_both("llama3_2_1b", dict(max_len=64,
+                                                     kv_quant="int8"),
+                                 specs, total_slots=2, quantum=2,
+                                 num_tasks=1, clock=True)
+        assert any(k.endswith("k_scale") for k in flatten(
+            tb.new_state(1)))
+        ref = engine(tcfg, tparams, scfg).generate(prompts, 8)
+        for r in ts.finished:
+            assert r.tokens == list(ref[r.rid][:r.max_new_tokens])
+        assert_same_schedule(js, ts)
+        return
     if "temperature" in over.get("scfg", {}):
         with pytest.raises(ValueError, match="greedily"):
             LMBackend(cfg, tparams, scfg, device="cpu")

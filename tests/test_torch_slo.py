@@ -16,8 +16,9 @@ the JAX reference, on the CPU.
   would change the entry under the next one.
 * The reference's other oracles (``tests/test_slo_serve.py``,
   ``tests/test_prefix_cache.py``): the parker's bit-exact round trip, the
-  TTFT/latency NaN and empty-metrics guards; the int8 ones assert the
-  raise naming ``ROADMAP.md`` queue 1 item 3.
+  TTFT/latency NaN and empty-metrics guards; with an int8 KV cache and
+  int8 parking, preempted requests keep the uninterrupted run's tokens and
+  the reference's schedule.
 """
 
 import math
@@ -174,11 +175,35 @@ def test_preempt_restore_token_identical_fp32():
 
 
 def test_preempt_restore_int8_kv_raises():
-    """int8 KV caches (and int8 parking) come with queue 1 item 3."""
+    """Once the packed-formats slice's to-do (it raised until then): with
+    an int8 KV cache the parked leaves are already int8 (+ float32 row
+    scales below the packing threshold), so ``park_compress="int8"``
+    stores them verbatim and the round trip stays bit-exact — both token
+    streams equal the uninterrupted int8-cache engine's, every decision
+    the reference's."""
     _, tcfg, _, tparams = _model()
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        LMBackend(tcfg, tparams, ServeConfig(max_len=64, kv_quant="int8"),
-                  device="cpu")
+    scfg = dict(max_len=64, kv_quant="int8")
+    prompts = _prompts(tcfg.vocab_size, 2, 8, 3)
+    ref = engine(tcfg, tparams, ServeConfig(**scfg)).generate(prompts, 24)
+    specs = [dict(rid=0, task_id=0, prompt=prompts[0], max_new_tokens=24,
+                  arrival=0.0, tier="batch"),
+             dict(rid=1, task_id=0, prompt=prompts[1], max_new_tokens=4,
+                  arrival=0.25, tier="interactive")]
+    js, ts, _, tb = run_both(
+        "llama3_2_1b", scfg, specs, total_slots=1, quantum=4, num_tasks=1,
+        clock=True, slo=SLOPolicy(preemption=True, chunk_interleave=False,
+                                  park_compress="int8"))
+    done = {r.rid: r for r in ts.finished}
+    assert done[0].tokens == list(ref[0][:24])
+    assert done[1].tokens == list(ref[1][:4])
+    assert done[0].preemptions >= 1 and ts.metrics()["restores"] >= 1
+    assert_same_schedule(js, ts)
+    # the int8 leaves park verbatim: the parked bytes are the slot's
+    bucket = tb.make_bucket(None, 2)
+    parked = tb.parker("int8").park(bucket.state, 1)
+    assert not any(isinstance(p, tuple) for p in parked.leaves)
+    assert parked.nbytes * 2 == sum(
+        t.numel() * t.element_size() for t in flatten(bucket.state).values())
 
 
 def _one_admitted(tcfg, tparams, slots, new):
@@ -218,12 +243,33 @@ def test_parker_leaf_bit_exact_roundtrip():
 
 
 def test_int8_parking_raises():
-    """``compress="int8"`` (fp rows through quantize_kv) comes with queue 1
-    item 3."""
+    """Once the packed-formats slice's to-do (it raised until then):
+    ``compress="int8"`` on a floating cache packs the KV rows to int8 +
+    float32 per-row scales — a real byte reduction (float32 rows here) —
+    and the lossy restore still decodes the request to completion (the
+    reference's ``test_int8_park_compresses_fp_state_and_decode_
+    continues``); the rows come back within half a quantization step."""
     _, tcfg, _, tparams = _model()
-    b, _ = _one_admitted(tcfg, tparams, 1, 10)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        b.parker("int8")
+    b, bucket = _one_admitted(tcfg, tparams, 1, 10)
+    p_none = b.parker("none").park(bucket.state, 0)
+    p_int8 = b.parker("int8").park(bucket.state, 0)
+    # a float32 row of hd elements -> hd int8 values + one float32 scale
+    hd = tcfg.hd
+    assert p_int8.nbytes * 4 * hd == p_none.nbytes * (hd + 4)
+    assert all(isinstance(p, tuple) for p in p_int8.leaves)
+    parker = b.parker("int8")
+    before = [t.clone() for t in flatten(bucket.state).values()]
+    parked = bucket.park(0, parker)
+    bucket.restore(parked, parker)
+    for was, now, (q, scale) in zip(before, flatten(bucket.state).values(),
+                                    parked["state"].leaves):
+        assert bool(((was - now).abs() <= scale / 2 + 1e-7).all())
+    done = []
+    for _ in range(20):
+        done += bucket.run_quantum(4, lambda: 0.0)
+        if done:
+            break
+    assert done and len(done[0].tokens) == 10
 
 
 def test_chunked_interleave_token_identical_and_non_blocking():

@@ -161,8 +161,13 @@ def test_vision_slo_bump_is_result_identical():
 
 
 def test_backend_refuses_what_later_slices_port():
+    """Meshes (queue 1 item 6) raise; ``factor`` (item 3, ported) reaches
+    the server, whose paged layers pin each layer's basis."""
     _, tcfg, _, tparams = _model()
-    for kw, item in ((dict(rules=object()), "item 6"),
-                     (dict(factor=("rank", 4, 8)), "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            VisionBackend(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        VisionBackend(tcfg, tparams, device="cpu", rules=object())
+    backend = VisionBackend(tcfg, tparams, device="cpu",
+                            factor=("rank", 4, 8))
+    assert backend.server.paged and all(
+        set(p.cache.pinned) == {"w1.basis", "w2.basis"}
+        for p in backend.server.paged.values())
