@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA Hopper card (H100): M³ViT
 serving through the kernels and through the fused MoE kernel, and
 Llama-3.2-1B prefill + decode serving, each also through the
-continuous-batching scheduler.
+continuous-batching scheduler; then training both models through the
+kernels.
 
     python3 chip_smoke.py
 
@@ -154,9 +155,40 @@ Phases, each printing its lines:
    float32), counting the work this run's data needs (live queue rows,
    visible keys), summed over the launches.
 
+6. Training.  (a) M³ViT at the full ``CONFIG`` (bf16, seed 0, batch 8
+   frames from ``SyntheticM3ViTStream``, loss semseg + depth on one batch
+   through ``vit.multitask_loss``, AdamW lr 3e-3, warmup 2 of 40, no
+   weight decay): the forward with gradients on must equal the
+   ``inference_mode`` forward bit for bit under ``cuda``; at step 0 the
+   loss and every gradient leaf under ``cuda`` (the kernels forward, their
+   ``torch.autograd`` backward) are held against the default policy (the
+   reference's training policy) to ``kernels/compare.py``'s training
+   bounds (the same model's float32 gradients the yardstick where bf16
+   noise alone exceeds the all-leaves target), the worst leaf printed; 20 ``TrainLoop`` steps under each
+   policy, both tasks' losses at step 19 below step 0; under ``cuda`` the
+   dispatch report must show ``linear``, ``attention``, ``activation`` and
+   ``moe_grouped_gemm`` as hits on the card with no fallback and all four
+   kernels launched (counted); a checkpoint at step 10 restored into
+   seed-1 weights must replay steps 10–19 within ``rel=1e-6`` (bit
+   equality printed); a batch with a NaN pixel must leave parameters and
+   optimizer state bit-identical with ``skipped == 1``; ``accum_steps=2``
+   against 1 within loss ``rel=1e-5`` and parameters 2e-3 (the reference's
+   accumulation test, with its optimizer: lr 1e-3, warmup 3).  (b)
+   Llama-3.2-1B at the full ``CONFIG`` through ``repro_torch.launch.train``'s
+   step (batch 4 × 128 tokens): the step-0 loss and gradients against the
+   default policy to the same bounds, the training forward's distinct
+   kernel launches against their plain versions, and 5 steps under each
+   policy with every loss finite (counted under ``cuda``).  Printed: ms a
+   step (median host wall), frames/s or tokens/s, peak memory, and from
+   ``torch.profiler`` (``train/profile.py``) the forward, backward and
+   optimizer device ms, the idle share, and each kernel's forward and
+   backward device ms a step.
+
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs.  The variant counters (the GEMMs', ``flash_attention``'s,
+those runs, training's included (also given apart as
+``training_launches``, with ``training_ms``: the kernel's forward and
+backward device ms a training step by model).  The variant counters (the GEMMs', ``flash_attention``'s,
 ``moe_fused``'s) are read with them: no main path may take the SIMT
 route, and the variants the recorded launches were planned on must
 equal the counted ones (``variants`` in the JSON line and per unit).
@@ -1806,6 +1838,388 @@ def packed_lm(ctx):
         raise AssertionError(f"int8 parking ratio {ratio}")
 
 
+# ------------------------------------------------------------ phase 6
+
+TRAIN_STEPS, RESUME_AT, PROFILED_STEPS = 20, 10, 3
+LM_TRAIN = ["--arch", "llama3_2_1b", "--steps", "5", "--batch", "4",
+            "--seq-len", "128", "--policy", "cuda"]
+#: kernel -> device ms per training step (forward launches, backward) by
+#: model, from the profiled steps
+TRAIN_KERNEL_MS: dict = {}
+
+
+def _train_gates(label, losses, grads) -> None:
+    """The step-0 loss and gradients under the kernels against the
+    default policy, to ``kernels/compare.py``'s training bounds (with the
+    float32 model's gradients as the yardstick where bf16 noise alone
+    exceeds the all-leaves target)."""
+    from repro_torch.kernels import compare
+
+    ok, r = compare.training_agrees(losses["cuda"], losses["default"],
+                                    grads["cuda"], grads["default"],
+                                    grads["float32"])
+    print(f"  {label}: loss under cuda {losses['cuda']:.6f}, default policy "
+          f"{losses['default']:.6f}, float32 {losses['float32']:.6f} "
+          f"(relative {r['loss_rel']:.3e} <= {compare.TRAIN_LOSS_RTOL}); "
+          f"gradient cosine over all {len(grads['default'])} leaves "
+          f"{r['cosine']:.6f} (target {compare.GRAD_COSINE_ALL}); against "
+          f"the float32 gradients: cuda {r['cosine_f32_kernels']:.6f}, "
+          f"default {r['cosine_f32_default']:.6f} (cuda >= default - "
+          f"{compare.GRAD_FLOAT32_MARGIN} where the target is missed); "
+          f"worst leaf above {compare.GRAD_LEAF_FLOOR} of the largest norm "
+          f"{r['worst_leaf']} {r['worst_leaf_cosine']:.6f} (>= "
+          f"{compare.GRAD_COSINE_LEAF}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel training disagrees with the "
+                             f"default policy")
+
+
+def _timed(step, walls):
+    """``step`` with its host wall recorded: from an idle card to the loss
+    on the host."""
+    import time
+
+    def run(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, opt_state, batch)
+        float(out[2]["loss"])
+        walls.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def _check_no_fallback(label, report, counts, op_names,
+                       kernels=CUDA_PATH_KERNELS) -> None:
+    """Every op of ``op_names`` a ``cuda`` hit on the card with no
+    fallback, and every kernel of ``kernels`` launched."""
+    for op in op_names:
+        entry = report.get(op, {})
+        n = entry.get("hits", {}).get("cuda", -1)
+        if entry.get("fallbacks") or entry.get("modes") != {"cuda": {
+                "cuda": n}}:
+            raise AssertionError(f"{label}: dispatch report for {op}: "
+                                 f"{entry}")
+    if not all(counts[k] > 0 for k in kernels):
+        raise AssertionError(f"{label}: a kernel never launched: {counts}")
+    print(f"  {label}: {', '.join(op_names)} all cuda hits on the card, no "
+          f"fallback; training launches {json.dumps(counts)}")
+
+
+def _same_state(a, b) -> bool:
+    from repro_torch.tree import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def _profile(label, step, params, opt_state, batch, walls, key) -> dict:
+    """Profile PROFILED_STEPS more steps on the same state and batch; the
+    idle share against the median wall of the timed steps."""
+    from repro_torch.train.profile import profile_steps
+
+    wall = statistics.median(walls)
+    prof = profile_steps(
+        lambda: float(step(params, opt_state, batch)[2]["loss"]),
+        PROFILED_STEPS, wall)
+    print(f"  {label} profile (torch.profiler, {PROFILED_STEPS} steps): "
+          f"busy {prof['busy_ms']:.3f} ms a step, idle share "
+          f"{prof['idle_share']:.3f} of the {prof['wall_ms']:.3f} ms wall; "
+          f"forward {prof['forward_ms']:.3f} ms, backward "
+          f"{prof['backward_ms']:.3f} ms, optimizer "
+          f"{prof['optimizer_ms']:.3f} ms device time; "
+          f"{prof['device_events']:.0f} device events a step")
+    for name in prof["kernel_forward_ms"]:
+        fwd, bwd = prof["kernel_forward_ms"][name], \
+            prof["kernel_backward_ms"][name]
+        TRAIN_KERNEL_MS.setdefault(name, {})[key] = {
+            "forward_ms": fwd, "backward_ms": bwd}
+        print(f"    {name}: forward launches {fwd:.4f} ms, its backward "
+              f"{bwd:.4f} ms a step")
+    for name, ms in prof["top"]:
+        print(f"    {ms:9.4f} ms/step  {name}")
+    return prof
+
+
+def _m3vit_loss(cfg, parts=None):
+    """semseg + depth on one batch (the reference's test_vit loss); each
+    task's loss appended to ``parts`` without a host read."""
+    from repro_torch.models import vit
+
+    def loss_fn(p, b):
+        l0, (s0, _) = vit.multitask_loss(p, b["image"], b["semseg"], cfg,
+                                         "semseg")
+        l1, (s1, _) = vit.multitask_loss(p, b["image"], b["depth"], cfg,
+                                         "depth")
+        if parts is not None:
+            parts.append(torch.stack([s0.detach(), s1.detach()]))
+        return l0 + l1, None
+    return loss_fn
+
+
+def train_m3vit() -> dict:
+    """M³ViT at the full CONFIG: 20 TrainLoop steps under cuda and under
+    the default policy, with the slice's gates."""
+    import tempfile
+
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.data import DataConfig, device_transform, make_stream
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import vit
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import (LoopConfig, TrainConfig, TrainLoop,
+                                   make_train_step)
+    from repro_torch.train.step import loss_and_grads
+
+    cfgs = {"cuda": replace(MV.CONFIG, policy=ops.policy_named("cuda")),
+            "default": replace(MV.CONFIG, policy=None)}
+    params0 = vit.init_params(0, MV.CONFIG)
+    n_params = sum(v.numel() for v in params0.values())
+    stream = make_stream(DataConfig(batch=BATCH, seq_len=0, kind="m3vit",
+                                    seed=0))
+    put = device_transform("cuda")
+    ocfg = OptConfig(lr=3e-3, warmup_steps=2, total_steps=40,
+                     weight_decay=0.0)
+    tcfg = TrainConfig(opt=ocfg)
+    b0 = put(stream.batch(0))
+    print(f"  M3ViT {MV.CONFIG.num_layers} layers, {n_params / 1e6:.3f} M "
+          f"parameters, {MV.CONFIG.dtype}, batch {BATCH} frames, loss "
+          f"semseg + depth, AdamW lr 3e-3 warmup 2 of 40")
+
+    # the training forward gives the serving bits
+    for task in MV.TASKS:
+        with torch.inference_mode():
+            y_serve, aux_serve = vit.forward(params0, b0["image"],
+                                             cfgs["cuda"], task)
+        leaves = {k: v.detach().requires_grad_() for k, v in params0.items()}
+        y_train, aux_train = vit.forward(leaves, b0["image"], cfgs["cuda"],
+                                         task)
+        same = torch.equal(y_train.detach(), y_serve) and \
+            torch.equal(aux_train.detach(), aux_serve)
+        print(f"  {task}: the forward with gradients on equals the "
+              f"inference_mode forward bit for bit: "
+              f"{'ok' if same else 'FAIL'} (output has grad_fn "
+              f"{type(y_train.grad_fn).__name__})")
+        if not same or y_train.grad_fn is None:
+            raise AssertionError(f"{task}: training forward != serving")
+        del leaves, y_train, aux_train
+
+    losses, grads = {}, {}
+    f32 = {k: v.float() for k, v in params0.items()}
+    for name, cfg, p in (
+            ("cuda", cfgs["cuda"], params0),
+            ("default", cfgs["default"], params0),
+            ("float32", replace(cfgs["default"], dtype="float32"), f32)):
+        loss, grads[name] = loss_and_grads(_m3vit_loss(cfg), p, b0)
+        losses[name] = float(loss)
+    _train_gates("M3ViT step 0", losses, grads)
+    del grads, f32
+
+    runs = {}
+    for name, cfg in cfgs.items():
+        parts, walls = [], []
+        step = make_train_step(cfg, tcfg, loss_fn=_m3vit_loss(cfg, parts))
+        loop = TrainLoop(LoopConfig(total_steps=TRAIN_STEPS, log_every=1000),
+                         _timed(step, walls), stream, params0,
+                         adamw_init(params0, ocfg), log=lambda s: None,
+                         batch_transform=put)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ops.reset_dispatch_report()
+        st = loop.run()
+        counts, report = launch_counts(), ops.dispatch_report()
+        peak = torch.cuda.max_memory_allocated()
+        tasks = torch.stack(parts).cpu()
+        wall = statistics.median(walls[5:])
+        print(f"  policy {name}: {TRAIN_STEPS} steps, loss "
+              f"{st.history[0][1]:.4f} -> {st.history[-1][1]:.4f}; semseg "
+              f"{float(tasks[0, 0]):.4f} -> {float(tasks[-1, 0]):.4f}, depth "
+              f"{float(tasks[0, 1]):.4f} -> {float(tasks[-1, 1]):.4f}; "
+              f"{wall * 1e3:.3f} ms a step (median host wall of steps "
+              f"5-19), {BATCH / wall:.1f} frames/s; peak memory "
+              f"{peak / 2**20:.1f} MiB")
+        if not (len(st.history) == TRAIN_STEPS and bool(
+                (tasks[-1] < tasks[0]).all())):
+            raise AssertionError(f"M3ViT under {name}: a task did not learn "
+                                 f"({tasks[0].tolist()} -> "
+                                 f"{tasks[-1].tolist()})")
+        if name == "cuda":
+            _check_no_fallback("M3ViT training under cuda", report, counts,
+                               ("linear", "attention", "activation",
+                                "moe_grouped_gemm"))
+            train_counts = counts
+            read_variants("the M3ViT training run")
+            _profile("M3ViT cuda", step, loop.params, loop.opt_state, b0,
+                     walls[5:], "m3vit")
+        runs[name] = (st, loop, step)
+
+    # resume: checkpoint at step 10, restore into other weights, run on
+    st_a, loop_a, step_k = runs["cuda"]
+    with tempfile.TemporaryDirectory() as d:
+        def make(total, params):
+            return TrainLoop(LoopConfig(total_steps=total, ckpt_dir=d,
+                                        ckpt_every=RESUME_AT,
+                                        log_every=1000),
+                             make_train_step(cfgs["cuda"], tcfg,
+                                             loss_fn=_m3vit_loss(
+                                                 cfgs["cuda"])),
+                             stream, params, adamw_init(params, ocfg),
+                             log=lambda s: None, batch_transform=put)
+
+        make(RESUME_AT, params0).run()
+        resumed = make(TRAIN_STEPS, vit.init_params(1, MV.CONFIG))
+        if not (resumed.try_restore() and resumed.state.step == RESUME_AT):
+            raise AssertionError("resume: no checkpoint at step 10")
+        st_b = resumed.run()
+    tail_a, tail_b = dict(st_a.history[RESUME_AT:]), dict(st_b.history)
+    rel = max(abs(tail_b[s] - tail_a[s]) / abs(tail_a[s]) for s in tail_a)
+    bits = all(tail_b[s] == tail_a[s] for s in tail_a) and all(
+        torch.equal(loop_a.params[k], resumed.params[k])
+        for k in loop_a.params)
+    print(f"  resume: checkpoint at step {RESUME_AT}, restored into seed-1 "
+          f"weights, steps {RESUME_AT}-{TRAIN_STEPS - 1} against the "
+          f"uninterrupted run: max relative loss difference {rel:.3e} "
+          f"(<= 1e-6: {'ok' if rel <= 1e-6 else 'FAIL'}); losses and final "
+          f"parameters bit-identical: {bits}")
+    if set(tail_a) != set(tail_b) or rel > 1e-6:
+        raise AssertionError("resume does not replay the uninterrupted run")
+
+    # the NaN guard: a NaN pixel leaves every parameter and state bit
+    bad = stream.batch(0)
+    bad["image"][0, 5, 7, 1] = np.nan
+    p, o = loop_a.params, loop_a.opt_state
+    p2, o2, m = step_k(p, o, put(bad))
+    ok = int(m["skipped"]) == 1 and _same_state({"p": p, "o": o},
+                                                {"p": p2, "o": o2})
+    print(f"  NaN guard: a NaN pixel gives loss {float(m['loss'])}, skipped "
+          f"{int(m['skipped'])}, parameters and optimizer state "
+          f"bit-identical: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the NaN guard let the update through")
+
+    # accumulation over 2 microbatches against one batch, under the
+    # optimizer of the reference's accumulation test (its 2e-3 bound is
+    # the bf16 grid plus a first Adam step of lr/3 that may flip sign where
+    # a gradient element is near 0)
+    acfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=3,
+                                     total_steps=60))
+    opt0 = adamw_init(params0, acfg.opt)
+    p1, _, m1 = make_train_step(cfgs["cuda"], acfg,
+                                loss_fn=_m3vit_loss(cfgs["cuda"]))(
+        params0, opt0, b0)
+    p2, _, m2 = make_train_step(cfgs["cuda"], replace(acfg, accum_steps=2),
+                                loss_fn=_m3vit_loss(cfgs["cuda"]))(
+        params0, opt0, b0)
+    rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(float(m1["loss"]))
+    dmax = max(float((p1[k].float() - p2[k].float()).abs().max())
+               for k in p1)
+    ok = rel <= 1e-5 and dmax < 2e-3
+    print(f"  accumulation: accum_steps=2 against 1: loss relative {rel:.3e} "
+          f"(<= 1e-5), max parameter difference {dmax:.3e} (< 2e-3): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("accumulation disagrees with one batch")
+    return train_counts
+
+
+def train_lm() -> dict:
+    """Llama-3.2-1B at the full CONFIG through the training launcher's
+    step: 5 steps under cuda and under the default policy."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.data import device_transform
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as LM
+    from repro_torch.train import LoopConfig, TrainLoop
+    from repro_torch.train.step import loss_and_grads
+
+    args = LT.parser().parse_args(LM_TRAIN)
+    t0 = time.perf_counter()
+    cfg, params, opt0, step_k, stream, dev = LT.build(args)
+    torch.cuda.synchronize()
+    cfg_d = replace(cfg, policy=None)
+    steps = {"cuda": step_k, "default": LT.train_step_for(cfg_d, args)}
+    tokens = args.batch * args.seq_len
+    print(f"  Llama-3.2-1B {cfg.num_layers} layers d={cfg.d_model} "
+          f"{cfg.dtype}, {sum(v.numel() for v in params.values()) / 1e9:.3f}"
+          f" B parameters from seed 0 in {time.perf_counter() - t0:.1f} s; "
+          f"batch {args.batch} x {args.seq_len} tokens, AdamW lr {args.lr}")
+    put = device_transform(dev)
+    b0 = put(stream.batch(0))
+
+    losses, grads = {}, {}
+    calls = {}
+    for name, c in (("cuda", cfg), ("default", cfg_d),
+                    ("float32", replace(cfg_d, dtype="float32"))):
+        def loss_fn(p, b, c=c):
+            return LM.lm_loss(p, b, c)
+
+        p = params if name != "float32" else {
+            k: v.float() for k, v in params.items()}
+        with recorded_launches(calls if name == "cuda" else {}):
+            loss, grads[name] = loss_and_grads(loss_fn, p, b0)
+        losses[name] = float(loss)
+        del p
+    _train_gates("Llama-3.2-1B step 0", losses, grads)
+    del grads
+    # the training forward's launches (M = 512 rows, causal GQA over 128
+    # keys) against their plain versions, each distinct one once
+    seen = set()
+    with torch.no_grad():
+        for name, launches in calls.items():
+            for a in launches:
+                case = CASES[name](a)
+                if case.key in seen:
+                    continue
+                seen.add(case.key)
+                got, want = case.kernel(), case.plain()
+                if case.tol is None:
+                    check_exact(name, case.label, got, want)
+                else:
+                    check(name, case.label, got, want, want.dtype,
+                          **case.tol())
+    del calls
+
+    for name, step in steps.items():
+        walls = []
+        loop = TrainLoop(LoopConfig(total_steps=args.steps, log_every=1000),
+                         _timed(step, walls), stream, params, opt0,
+                         log=lambda s: None, batch_transform=put)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        ops.reset_dispatch_report()
+        st = loop.run()
+        counts, report = launch_counts(), ops.dispatch_report()
+        peak = torch.cuda.max_memory_allocated()
+        wall = statistics.median(walls[1:])
+        hist = [l for _, l in st.history]
+        print(f"  policy {name}: {args.steps} steps, losses "
+              f"{', '.join(f'{l:.4f}' for l in hist)}; {wall * 1e3:.3f} ms a "
+              f"step (median host wall of steps 1-{args.steps - 1}), "
+              f"{tokens / wall:.1f} tokens/s; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+        if len(hist) != args.steps or not np.isfinite(hist).all():
+            raise AssertionError(f"Llama under {name}: a loss is not finite")
+        if name == "cuda":
+            # SiLU is fused into the gate projection's epilogue and the
+            # model has no experts: two ops, two kernels
+            _check_no_fallback("Llama training under cuda", report, counts,
+                               ("linear", "attention"),
+                               ("unified_linear", "flash_attention"))
+            train_counts = counts
+            read_variants("the Llama training run")
+            _profile("Llama-3.2-1B cuda", step, loop.params,
+                     loop.opt_state, b0, walls[1:], "llama")
+        del loop
+    return train_counts
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -2238,6 +2652,22 @@ def main() -> None:
 
     print("phase 5: the kernels at the main paths' own inputs")
     records = path_records(units, counted)
+    del units, ctx, lm_ctx
+    torch.cuda.empty_cache()
+
+    print("phase 6: training, M3ViT and Llama-3.2-1B")
+    m3vit_train = train_m3vit()
+    torch.cuda.empty_cache()
+    lm_train = train_lm()
+    for rec in records:
+        name = rec["name"]
+        trained = m3vit_train[name] + lm_train[name]
+        rec["launches"] += trained
+        rec["training_launches"] = trained
+        rec["training_ms"] = TRAIN_KERNEL_MS.get(name)
+    print(f"  training launches per kernel (M3ViT {TRAIN_STEPS} steps + "
+          f"Llama {LM_TRAIN[3]} steps, counted runs under cuda): "
+          + json.dumps({r["name"]: r["training_launches"] for r in records}))
 
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -19,7 +19,6 @@ the same dotted name.
 
 from __future__ import annotations
 
-import json
 import os
 
 import numpy as np
@@ -36,11 +35,10 @@ __all__ = ["params_from_jax", "tensor_from_numpy"]
 def tensor_from_numpy(arr) -> torch.Tensor:
     """A NumPy array (including ml_dtypes bfloat16) as a CPU tensor with
     the same dtype and bits."""
-    arr = np.ascontiguousarray(np.asarray(arr))
+    arr = np.array(arr, copy=True, order="C")   # keeps a 0-d shape
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def leaf_from_numpy(leaf):
@@ -64,18 +62,12 @@ def leaf_from_numpy(leaf):
 
 
 def _from_checkpoint(directory: str) -> dict[str, torch.Tensor]:
-    with open(os.path.join(directory, "manifest.json")) as f:
-        manifest = json.load(f)
-    out = {}
-    for name, meta in manifest["leaves"].items():
-        arr = np.load(os.path.join(directory, meta["file"]))
-        t = tensor_from_numpy(arr)
-        # bf16 and other narrow types are stored widened to float32
-        logical = getattr(torch, meta["dtype"], None)
-        if isinstance(logical, torch.dtype) and logical != t.dtype:
-            t = t.to(logical)
-        out[name] = t
-    return out
+    """Every leaf of a checkpoint directory (the one holding
+    ``manifest.json``), read by ``repro_torch.checkpoint``: packed leaves
+    arrive as their parts (``<name>.q``, ``<name>.scale``)."""
+    from repro_torch.checkpoint import read_leaves
+
+    return read_leaves(directory)
 
 
 def params_from_jax(tree_or_dir, device="cuda") -> dict[str, torch.Tensor]:

@@ -21,6 +21,9 @@ __all__ = [
     "lut_correction",
     "lut_activation",
     "device_table",
+    "lut_grad",
+    "activation_grad",
+    "widen",
     "LUT_STEP_LOG2",
     "LUT_RANGE",
 ]
@@ -29,6 +32,13 @@ LUT_STEP_LOG2 = -8
 LUT_RANGE = 8.0
 
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype the kernels' plain versions and backward compute
+    in: float32, or float64 for a float64 ``x`` (so a float64
+    ``gradcheck`` sees float64 arithmetic)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def exact_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -96,8 +106,49 @@ def lut_correction(y: torch.Tensor, table: torch.Tensor,
     r = torch.where(in_range, torch.round(ay * scale), 0.0)
     idx = r.to(torch.int64).clamp_(0, n - 1)
     delta = torch.where(in_range, table[idx], 0.0)
-    out = torch.clamp_min(y, 0.0) - delta
-    return torch.where(finite, out, y * 0.5 * (1.0 + torch.sign(y)))
+    # maximum, not clamp_min: the same values, and at y == 0 the gradient
+    # 0.5 that the reference's jnp.maximum gives (clamp_min gives 1)
+    out = torch.maximum(y, y.new_zeros(())) - delta
+    # torch.sign(NaN) is 0 where jnp.sign gives NaN: the same NaN out, but
+    # a NaN gradient only with jnp's sign
+    sign = torch.where(torch.isnan(y), y, torch.sign(y))
+    return torch.where(finite, out, y * 0.5 * (1.0 + sign))
+
+
+def lut_grad(y: torch.Tensor) -> torch.Tensor:
+    """d lut_correction / dy for float32 y, as ``jax.grad`` of the
+    reference's gives it: the table's gather carries no gradient, so a
+    finite y has ReLU's derivative through ``jnp.maximum`` (1 above 0, 0.5
+    at 0, 0 below); a non-finite y has ``0.5 * (1 + sign(y))`` (1 at +inf,
+    0 at -inf, NaN at NaN)."""
+    one, zero = y.new_ones(()), y.new_zeros(())
+    finite = torch.where(y > 0, one, torch.where(y == 0, 0.5 * one, zero))
+    other = torch.where(torch.isnan(y), y, torch.where(y > 0, one, zero))
+    return torch.where(torch.isfinite(y), finite, other)
+
+
+_INV_SQRT_2PI = float(1.0 / math.sqrt(2.0 * math.pi))
+
+
+def activation_grad(y: torch.Tensor, kind: str,
+                    use_lut: bool = False) -> torch.Tensor:
+    """The derivative of a fused epilogue's activation at the float32
+    pre-activation ``y``: the LUT's (:func:`lut_grad`) for gelu/silu under
+    LUT activations; otherwise the analytic derivative of
+    :func:`exact_gelu` / :func:`exact_silu`, and ReLU's as ``jax.nn.relu``
+    has it (0 at 0: the reference's training policy runs a relu epilogue
+    as its ``xla`` activation)."""
+    if kind == "relu":
+        return (y > 0).to(y.dtype)
+    if use_lut and kind in ("gelu", "silu"):
+        return lut_grad(y)
+    if kind == "gelu":
+        return 0.5 * (1.0 + torch.erf(y / _SQRT2_F32)) \
+            + y * torch.exp(-0.5 * y * y) * _INV_SQRT_2PI
+    if kind == "silu":
+        s = torch.sigmoid(y)
+        return s * (1.0 + y * (1.0 - s))
+    raise ValueError(f"no derivative for activation {kind!r}")
 
 
 def lut_activation(x: torch.Tensor, kind: str = "gelu", table=None,
@@ -107,5 +158,5 @@ def lut_activation(x: torch.Tensor, kind: str = "gelu", table=None,
     float32 and returned in ``x.dtype``."""
     if table is None:
         table = device_table(kind, step_log2, rng, x.device)
-    y = lut_correction(x.float(), table.float(), step_log2)
+    y = lut_correction(widen(x), table.float(), step_log2)
     return y.to(x.dtype)

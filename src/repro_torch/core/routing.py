@@ -107,14 +107,16 @@ def dispatch(x: torch.Tensor, routing: Routing, num_experts: int,
     """Gather tokens into per-expert queues: (..., T, d) -> (..., E, C, d)."""
     g, t, k, e, p, v, _ = _flat_groups(routing)
     d = x.shape[-1]
-    xg = x.reshape(g, t, d)
-    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    # each token's row repeated for its k slots: an expand, whose backward
+    # sums the k slot gradients in a fixed order (a gather by token index
+    # would accumulate them with atomics on the card, in no fixed order)
+    rows = x.reshape(g, t, 1, d).expand(g, t, k, d).reshape(g, t * k, d)
     gi = torch.arange(g, device=x.device)[:, None].expand(g, t * k)
     # dropped entries write a scrap row (index capacity), sliced off below
     p_safe = torch.where(v, p, capacity)
     buf = torch.zeros((g, num_experts, capacity + 1, d), dtype=x.dtype,
                       device=x.device)
-    buf[gi, e, p_safe] = xg[:, tok]
+    buf[gi, e, p_safe] = rows
     return buf[:, :, :capacity].reshape(*x.shape[:-2], num_experts,
                                         capacity, d)
 

@@ -23,7 +23,34 @@ import torch
 from repro_torch.core.gelu import device_table
 
 __all__ = ["bf16_ulp", "kernel_tolerance", "within_tolerance",
-           "max_abs_err", "cosine", "moe_lut_allowance"]
+           "max_abs_err", "cosine", "moe_lut_allowance", "TRAIN_LOSS_RTOL",
+           "GRAD_COSINE_ALL", "GRAD_COSINE_LEAF", "GRAD_LEAF_FLOOR",
+           "GRAD_FLOAT32_MARGIN", "grad_agreement", "training_agrees"]
+
+#: Training through the kernels against the default policy (the
+#: reference's training policy) on the same parameters and batch
+#: (:func:`training_agrees`): the loss within TRAIN_LOSS_RTOL relative;
+#: the cosine of each gradient leaf whose norm exceeds GRAD_LEAF_FLOOR ×
+#: the largest leaf norm at least GRAD_COSINE_LEAF; and the cosine of all
+#: leaves together at least GRAD_COSINE_ALL — or, where bf16 rounding
+#: alone puts the default policy's own gradients further than that from
+#: the same model's float32 gradients (the exact ones, up to float32
+#: rounding), the kernels' gradients no further from the float32 ones than
+#: the default policy's, less GRAD_FLOAT32_MARGIN.  Both policies compute
+#: the same functions (the kernels' backward is their derivative) in bf16
+#: with other sums, other roundings of the softmax weights and LUT indices
+#: that can round apart at a half-step: two bf16 estimates of one
+#: gradient, which agree in direction, not bit for bit.  On the CPU at
+#: Llama-3.2-1B's smoke size (4 layers, 4 × 128 tokens) the reference's
+#: own two plain attention impls (blocked, naive) give gradients at cosine
+#: 0.9984 of each other, and each bf16 policy's sit at 0.9981 of the
+#: float32 ones: the all-leaves target of 0.999 lies below that noise
+#: there, while M³ViT meets it (0.99999).
+TRAIN_LOSS_RTOL = 0.01
+GRAD_COSINE_ALL = 0.999
+GRAD_COSINE_LEAF = 0.99
+GRAD_LEAF_FLOOR = 1e-3
+GRAD_FLOAT32_MARGIN = 1e-3
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -124,3 +151,38 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double().flatten(), b.double().flatten()
     return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def grad_agreement(got: dict, want: dict) -> tuple[float, str, float]:
+    """(cosine over every leaf together, the worst leaf among those whose
+    norm in ``want`` exceeds ``GRAD_LEAF_FLOOR`` × the largest, its
+    cosine) for two {name: gradient} dicts."""
+    names = sorted(want)
+    norms = {k: float(want[k].double().norm()) for k in names}
+    floor = GRAD_LEAF_FLOOR * max(norms.values())
+    whole = cosine(torch.cat([got[k].double().flatten() for k in names]),
+                   torch.cat([want[k].double().flatten() for k in names]))
+    worst = min((cosine(got[k], want[k]), k) for k in names
+                if norms[k] > floor)
+    return whole, worst[1], worst[0]
+
+
+def training_agrees(loss_k: float, loss_d: float, grads_k: dict,
+                    grads_d: dict, grads_f32: dict | None = None):
+    """(ok, readings): the kernels' loss and gradients (``_k``) against
+    the default policy's (``_d``) under the training bounds above;
+    ``grads_f32``, the same model's float32 gradients under the default
+    policy, is needed only where the all-leaves cosine falls short of
+    GRAD_COSINE_ALL."""
+    whole, leaf, worst = grad_agreement(grads_k, grads_d)
+    r = {"loss_rel": abs(loss_k - loss_d) / abs(loss_d), "cosine": whole,
+         "worst_leaf": leaf, "worst_leaf_cosine": worst}
+    if grads_f32 is not None:
+        r["cosine_f32_kernels"] = grad_agreement(grads_k, grads_f32)[0]
+        r["cosine_f32_default"] = grad_agreement(grads_d, grads_f32)[0]
+    whole_ok = whole >= GRAD_COSINE_ALL or (
+        grads_f32 is not None and r["cosine_f32_kernels"]
+        >= r["cosine_f32_default"] - GRAD_FLOAT32_MARGIN)
+    ok = (r["loss_rel"] <= TRAIN_LOSS_RTOL and worst >= GRAD_COSINE_LEAF
+          and whole_ok)
+    return ok, r

@@ -25,7 +25,12 @@ dtype and head_dim (``csrc/flash_attention.cu`` has the design notes):
 The public :func:`flash_attention` runs :func:`flash_attention_plain` for
 CPU tensors and launches a kernel for CUDA tensors, or raises;
 ``flash_attention.launches`` counts every launch, ``flash_attention.variants``
-each variant's.
+each variant's.  With gradients enabled and an operand that requires one,
+the same forward runs inside :class:`FlashAttentionFn`, whose backward is
+the softmax backward in PyTorch, recomputed from the saved q, k and v: P
+formed in float32 under the same mask (causal, window, ``q_offset``), GQA
+as a grouped contraction whose dK and dV sum over the query heads that
+share a kv head.
 """
 
 from __future__ import annotations
@@ -36,10 +41,12 @@ import math
 import torch
 
 from repro_torch.core.attention import NEG_INF, allowed_keys
+from repro_torch.core.gelu import widen
 from repro_torch.kernels import attn_plan, build
 from repro_torch.kernels.attn_plan import MAX_D
 
-__all__ = ["flash_attention", "flash_attention_plain", "plan_for", "MAX_D"]
+__all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn",
+           "plan_for", "MAX_D"]
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -51,9 +58,9 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, q_offset=0,
     hkv, skv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     group = hq // hkv
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.matmul(q.float() * scale, kf.transpose(-1, -2))
+    kf = widen(k).repeat_interleave(group, dim=1)
+    vf = widen(v).repeat_interleave(group, dim=1)
+    s = torch.matmul(widen(q) * scale, kf.transpose(-1, -2))
     ok = allowed_keys(torch.arange(sq, device=q.device) + q_offset,
                       torch.arange(skv, device=q.device), causal, window)
     s = torch.where(ok, s, NEG_INF)
@@ -128,16 +135,63 @@ def _launch(q, k, v, causal, window, q_offset, scale):
     return o
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
-                    scale=None):
-    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+def _forward(q, k, v, causal, window, q_offset, scale):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, window, q_offset, scale)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward; the softmax
+    backward in float32 PyTorch, each gradient in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset, scale)
+        return _forward(q, k, v, causal, window, q_offset, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        # a profiler label: the backward's device time per kernel
+        with torch.profiler.record_function("flash_attention.backward"):
+            return FlashAttentionFn._backward(ctx, do)
+
+    @staticmethod
+    def _backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, q_offset, scale = ctx.mask
+        b, hq, sq, d = q.shape
+        hkv, skv = k.shape[1], k.shape[2]
+        qg = widen(q).reshape(b, hkv, hq // hkv, sq, d)
+        kf, vf = widen(k), widen(v)
+        ok = allowed_keys(torch.arange(sq, device=q.device) + q_offset,
+                          torch.arange(skv, device=q.device), causal, window)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+        s = torch.where(ok, s, NEG_INF)
+        p = torch.where(ok, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+        p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-37)
+        dog = widen(do).reshape(b, hkv, hq // hkv, sq, d)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+        dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+        dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+        return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                    scale=None):
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    args = (q, k, v, causal, window, q_offset, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(*args)
+    return _forward(*args)
 
 
 flash_attention.launches = 0

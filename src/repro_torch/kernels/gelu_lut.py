@@ -15,7 +15,11 @@ wrapper's) is made.
 
 The public :func:`lut_activation` runs the plain version
 (``core.gelu.lut_activation``) for CPU tensors and launches the kernel for
-CUDA tensors, or raises.
+CUDA tensors, or raises.  With gradients enabled and an input that requires
+one, the same forward runs inside :class:`LutActivationFn`, whose backward
+multiplies the incoming gradient by ``core.gelu.lut_grad`` (ReLU's
+derivative through ``maximum``, 0.5 at exactly 0; the reference's rule for
+non-finite inputs) in float32.
 """
 
 from __future__ import annotations
@@ -24,11 +28,11 @@ import ctypes
 
 import torch
 
-from repro_torch.core.gelu import device_table
+from repro_torch.core.gelu import device_table, lut_grad, widen
 from repro_torch.core.gelu import lut_activation as lut_activation_plain
 from repro_torch.kernels import build
 
-__all__ = ["lut_activation", "lut_activation_plain"]
+__all__ = ["lut_activation", "lut_activation_plain", "LutActivationFn"]
 
 
 def _launch(x, kind, step_log2, lut_range):
@@ -57,12 +61,40 @@ def lut_activation(x, kind="gelu", *, step_log2=-8, lut_range=8.0):
     (``kind`` is ``"gelu"`` or ``"silu"``)."""
     if kind not in ("gelu", "silu"):
         raise ValueError(f"no LUT correction table for {kind!r}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        return LutActivationFn.apply(x, kind, step_log2, lut_range)
+    return _forward(x, kind, step_log2, lut_range)
+
+
+def _forward(x, kind, step_log2, lut_range):
     if x.device.type == "cpu":
         return lut_activation_plain(x, kind, step_log2=step_log2,
                                     rng=lut_range)
     if x.device.type == "cuda":
         return _launch(x.contiguous(), kind, step_log2, lut_range)
     raise ValueError(f"lut_activation runs on cuda or cpu, not {x.device}")
+
+
+class LutActivationFn(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward; backward
+    ``dy · lut_grad(x)`` in float32, in ``x.dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, kind, step_log2, lut_range):
+        ctx.save_for_backward(x)
+        return _forward(x, kind, step_log2, lut_range)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # a profiler label: the backward's device time per kernel
+        with torch.profiler.record_function("gelu_lut.backward"):
+            return LutActivationFn._backward(ctx, dy)
+
+    @staticmethod
+    def _backward(ctx, dy):
+        x, = ctx.saved_tensors
+        return (widen(dy) * lut_grad(widen(x))).to(x.dtype), None, None, \
+            None
 
 
 lut_activation.launches = 0

@@ -26,7 +26,12 @@ counted apart in ``moe_gemm.variants["simt"]``).
 
 The public :func:`moe_gemm` runs :func:`moe_gemm_plain` for CPU tensors and
 launches a kernel for CUDA tensors, or raises.  It takes ``buf`` as
-(G, E, C, D) with sizes (G, E), or (E, C, D) with sizes (E,).
+(G, E, C, D) with sizes (G, E), or (E, C, D) with sizes (E,).  With
+gradients enabled and an operand that requires one, the same forward runs
+inside :class:`MoeGemmFn`, whose backward in float32 PyTorch gives, per
+expert, ``d buf = dy·wₑᵀ`` and ``dwₑ = Σ_g bufᵀ·dy`` over the live rows
+only: rows at or past ``group_sizes[g, e]`` come out zeroed in the forward
+and so contribute nothing and get a zero gradient.
 """
 
 from __future__ import annotations
@@ -35,16 +40,17 @@ import ctypes
 
 import torch
 
+from repro_torch.core.gelu import widen
 from repro_torch.kernels import build, gemm_plan
 
-__all__ = ["moe_gemm", "moe_gemm_plain"]
+__all__ = ["moe_gemm", "moe_gemm_plain", "MoeGemmFn"]
 
 
 def moe_gemm_plain(buf, w, group_sizes=None):
     """float32 products and accumulation, rows at or past the queue length
     zeroed, cast to ``buf.dtype``.  buf (..., E, C, D), sizes (..., E) or
     None (no rows zeroed)."""
-    out = torch.einsum("...ecd,edf->...ecf", buf.float(), w.float())
+    out = torch.einsum("...ecd,edf->...ecf", widen(buf), widen(w))
     if group_sizes is not None:
         keep = torch.arange(buf.shape[-2], device=buf.device)[:, None] \
             < group_sizes[..., None, None]
@@ -116,14 +122,51 @@ def moe_gemm(buf, w, group_sizes):
     folded = buf.dim() == 4
     if not folded:
         buf, group_sizes = buf[None], group_sizes[None]
-    if buf.device.type == "cpu":
-        out = moe_gemm_plain(buf, w, group_sizes)
-    elif buf.device.type == "cuda":
-        out = _launch(buf.contiguous(), w.contiguous(),
-                      group_sizes.to(torch.int32).contiguous())
+    if torch.is_grad_enabled() and (buf.requires_grad or w.requires_grad):
+        out = MoeGemmFn.apply(buf, w, group_sizes)
     else:
-        raise ValueError(f"moe_gemm runs on cuda or cpu, not {buf.device}")
+        out = _forward(buf, w, group_sizes)
     return out if folded else out[0]
+
+
+def _forward(buf, w, group_sizes):
+    if buf.device.type == "cpu":
+        return moe_gemm_plain(buf, w, group_sizes)
+    if buf.device.type == "cuda":
+        return _launch(buf.contiguous(), w.contiguous(),
+                       group_sizes.to(torch.int32).contiguous())
+    raise ValueError(f"moe_gemm runs on cuda or cpu, not {buf.device}")
+
+
+class MoeGemmFn(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward over
+    (G, E, C, D) queues; the backward over the live rows in float32
+    PyTorch, each gradient in its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, buf, w, group_sizes):
+        ctx.save_for_backward(buf, w, group_sizes)
+        return _forward(buf, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # a profiler label: the backward's device time per kernel
+        with torch.profiler.record_function("moe_gemm.backward"):
+            return MoeGemmFn._backward(ctx, dy)
+
+    @staticmethod
+    def _backward(ctx, dy):
+        buf, w, group_sizes = ctx.saved_tensors
+        live = torch.arange(buf.shape[-2], device=buf.device)[:, None] \
+            < group_sizes[..., None, None]
+        g = torch.where(live, widen(dy), 0.0)
+        dbuf = dw = None
+        if ctx.needs_input_grad[0]:
+            dbuf = torch.einsum("gecf,edf->gecd", g, widen(w)).to(buf.dtype)
+        if ctx.needs_input_grad[1]:
+            xs = torch.where(live, widen(buf), 0.0)
+            dw = torch.einsum("gecd,gecf->edf", xs, g).to(w.dtype)
+        return dbuf, dw, None
 
 
 moe_gemm.launches = 0

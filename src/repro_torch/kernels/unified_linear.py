@@ -35,6 +35,15 @@ The public :func:`unified_linear` flattens leading dims into M (what
 returns ``x.dtype``.  For a CPU tensor it runs :func:`unified_linear_plain`;
 for a CUDA tensor it launches a kernel or raises.  ``unified_linear.launches``
 counts every launch, ``unified_linear.variants`` each variant's.
+
+With gradients enabled and an operand that requires one, the same forward
+runs inside :class:`UnifiedLinearFn`, whose backward is written out in
+PyTorch: ``dx = g·wᵀ``, ``dw = xᵀ·g``, ``db = Σ g`` in float32, where ``g``
+is the incoming gradient times the activation's derivative at the float32
+pre-activation.  The fused kernel never stores the pre-activation, so the
+backward recomputes it as a float32 product (``x·w + b``, what
+:func:`unified_linear_plain` forms before its epilogue); the forward stays
+the one fused launch, so a training forward has the serving bits.
 """
 
 from __future__ import annotations
@@ -44,11 +53,13 @@ import functools
 
 import torch
 
-from repro_torch.core.gelu import (device_table, exact_gelu, exact_silu,
-                                   lut_correction)
+from repro_torch.core.gelu import (activation_grad, device_table,
+                                   exact_gelu, exact_silu, lut_correction,
+                                   widen)
 from repro_torch.kernels import build, gemm_plan
 
-__all__ = ["unified_linear", "unified_linear_plain", "ACTIVATIONS"]
+__all__ = ["unified_linear", "unified_linear_plain", "UnifiedLinearFn",
+           "ACTIVATIONS"]
 
 #: csrc/unified_linear.cu:Activation
 ACTIVATIONS = {None: 0, "none": 0, "relu": 1, "gelu": 2, "silu": 3}
@@ -72,9 +83,9 @@ def unified_linear_plain(x, w, b=None, *, activation=None, use_lut=False,
                          step_log2=-8, lut_range=8.0):
     """The kernel's arithmetic in plain PyTorch: float32 products and
     accumulation, float32 bias, the epilogue, one cast to ``x.dtype``."""
-    y = torch.matmul(x.float(), w.float())
+    y = torch.matmul(widen(x), widen(w))
     if b is not None:
-        y = y + b.float()
+        y = y + widen(b)
     table = None
     if use_lut and activation in ("gelu", "silu"):
         table = device_table(activation, step_log2, lut_range, x.device)
@@ -160,22 +171,66 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
     return y
 
 
+def _forward(x2, w, b, activation, use_lut, step_log2, lut_range):
+    if x2.device.type == "cpu":
+        return unified_linear_plain(x2, w, b, activation=activation,
+                                    use_lut=use_lut, step_log2=step_log2,
+                                    lut_range=lut_range)
+    if x2.device.type == "cuda":
+        return _launch(x2.contiguous(), w.contiguous(), b, activation,
+                       use_lut, step_log2, lut_range)
+    raise ValueError(f"unified_linear runs on cuda or cpu, not {x2.device}")
+
+
+class UnifiedLinearFn(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) forward; the
+    backward in PyTorch, float32 throughout, each gradient in its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, activation, use_lut, step_log2, lut_range):
+        ctx.save_for_backward(x2, w, b)
+        ctx.act = (activation, use_lut)
+        return _forward(x2, w, b, activation, use_lut, step_log2, lut_range)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # a profiler label: the backward's device time per kernel
+        with torch.profiler.record_function("unified_linear.backward"):
+            return UnifiedLinearFn._backward(ctx, dy)
+
+    @staticmethod
+    def _backward(ctx, dy):
+        x2, w, b = ctx.saved_tensors
+        activation, use_lut = ctx.act
+        g = widen(dy)
+        if activation not in (None, "none"):
+            pre = torch.matmul(widen(x2), widen(w))
+            if b is not None:
+                pre = pre + widen(b)
+            g = g * activation_grad(pre, activation, use_lut)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, widen(w).T).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(widen(x2).T, g).to(w.dtype)
+        if b is not None and ctx.needs_input_grad[2]:
+            db = g.sum(0).to(b.dtype)
+        return dx, dw, db, None, None, None, None
+
+
 def unified_linear(x, w, b=None, *, activation=None, use_lut=False,
                    step_log2=-8, lut_range=8.0):
     """x: (..., K); w: (K, N); b: (N,) float32 or None -> (..., N) in
     ``x.dtype``.  Leading dims are flattened into M."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
-        y = unified_linear_plain(x2, w, b, activation=activation,
-                                 use_lut=use_lut, step_log2=step_log2,
-                                 lut_range=lut_range)
-    elif x.device.type == "cuda":
-        y = _launch(x2.contiguous(), w.contiguous(), b, activation, use_lut,
-                    step_log2, lut_range)
+    args = (x2, w, b, activation, use_lut, step_log2, lut_range)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x2, w, b)):
+        y = UnifiedLinearFn.apply(*args)
     else:
-        raise ValueError(f"unified_linear runs on cuda or cpu, not "
-                         f"{x.device}")
+        y = _forward(*args)
     return y.reshape(*lead, w.shape[1])
 
 

@@ -329,7 +329,12 @@ def embed_inputs(params, inputs, cfg: ArchConfig):
     """tokens (B, S) int -> (B, S, d); embeddings pass through in the
     activation dtype (the vit-moe trunk, stub frontends)."""
     if cfg.embed_input == "tokens":
-        return params["tokens"][inputs.long()]
+        # embedding(), not indexing: the same rows (a negative id wraps as
+        # an index does), and a backward that sums a repeated token's
+        # gradients in a fixed order on the card
+        ids = inputs.long()
+        ids = torch.where(ids < 0, ids + cfg.vocab_size, ids)
+        return torch.nn.functional.embedding(ids, params["tokens"])
     return inputs.to(cfg.activation_dtype)
 
 

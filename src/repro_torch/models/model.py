@@ -1,6 +1,6 @@
-"""Model facade for the decoder LMs: ``init_params``, ``forward`` and
-``init_state`` (the port of the serving part of ``repro.models.model``;
-``lm_loss`` and ``input_specs`` follow with the training slice).
+"""Model facade for the decoder LMs: ``init_params``, ``forward``,
+``init_state`` and ``lm_loss`` (the port of ``repro.models.model``;
+``input_specs`` follows with the shape dry-run).
 
 Parameters are the flat dotted-name dict (``bridge.params_from_jax`` or
 :func:`init_params`), with the reference's key paths: ``embed.tokens``,
@@ -11,13 +11,14 @@ Parameters are the flat dotted-name dict (``bridge.params_from_jax`` or
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.tree import flatten, unflatten
 
-__all__ = ["init_params", "forward", "init_state"]
+__all__ = ["init_params", "forward", "init_state", "lm_loss"]
 
 
 def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda"):
@@ -41,3 +42,28 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     on ``device``."""
     return T.init_state(cfg, batch, max_len, dtype,
                         device=resolve_device(device))
+
+
+def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,
+            task_id=0):
+    """Next-token cross-entropy, the reference's: batch {"inputs" (B, S)
+    tokens or (B, S, d) embeddings, "labels" (B, S) int, -100 masked}.
+
+    The float32 logits' max is subtracted as a constant (no gradient), the
+    label logit is taken by a mask-reduce over the vocabulary (the
+    reference's shard-friendly form; the same value as a gather), and the
+    mean runs over the unmasked positions.  Returns
+    (loss + aux_weight·aux, {"ce", "aux"})."""
+    logits, _, aux = T.forward(unflatten(params), batch["inputs"], cfg,
+                               task_id=task_id)
+    labels = batch["labels"]
+    lf = logits.float()
+    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    onehot = torch.arange(lf.shape[-1], device=lf.device) \
+        == labels.clamp_min(0)[..., None]
+    label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
+    mask = labels >= 0
+    loss = ((lse - label_logit) * mask).sum() \
+        / torch.clamp_min(mask.sum(), 1)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

@@ -5,7 +5,9 @@ Patch embedding → the block stack (even blocks dense, odd blocks MoE with
 per-task gating) → task heads for semantic segmentation and depth.  The
 functional :func:`forward` takes the flat dotted-name parameter dict (see
 ``repro_torch.tree``); :class:`M3ViT` holds the same parameters as an
-``nn.Module`` whose ``state_dict()`` keys are those names.
+``nn.Module`` whose ``state_dict()`` keys are those names and stays the
+inference module.  :func:`multitask_loss` is the training loss over the
+functional forward (``train.make_train_step`` takes it as ``loss_fn``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from repro_torch.models import transformer as T
 from repro_torch.ops.policy import use_policy
 from repro_torch.tree import flatten, unflatten
 
-__all__ = ["M3ViT", "init_params", "forward", "patchify", "embed_patches",
-           "apply_head"]
+__all__ = ["M3ViT", "init_params", "forward", "multitask_loss", "patchify",
+           "embed_patches", "apply_head"]
 
 
 def patchify(images: torch.Tensor) -> torch.Tensor:
@@ -104,6 +106,22 @@ def forward(params: dict[str, torch.Tensor], images, cfg: ArchConfig,
         feats, _, aux = T.forward(tree, x, cfg, task_id=task_id)
         y = apply_head(tree, feats, task, num_seg_classes=num_seg_classes)
     return y, aux
+
+
+def multitask_loss(params, images, labels, cfg: ArchConfig, task: str,
+                   aux_weight: float = 0.01):
+    """The reference's loss for one task: semseg cross-entropy over the
+    (B, H, W) int class labels, or depth RMSE against (B, H, W) float
+    labels (the paper's), plus ``aux_weight`` times the MoE load-balance
+    loss.  Returns (loss, (task loss, aux))."""
+    pred, aux = forward(params, images, cfg, task=task)
+    if task == "semseg":
+        logp = torch.log_softmax(pred, dim=-1)
+        nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        loss = nll.mean()
+    else:
+        loss = torch.sqrt(torch.mean((pred - labels) ** 2) + 1e-8)
+    return loss + aux_weight * aux, (loss, aux)
 
 
 class M3ViT(nn.Module):

@@ -13,6 +13,16 @@ reference's reason strings, with the port's impl names: every
 floating-point and kernel impl rejects a packed operand, so it reaches
 the packed impl as a recorded fallback, never a crash.
 
+Training: the ``cuda`` impls of ``linear``, ``attention``, ``activation``
+and ``moe_grouped_gemm`` run their kernels inside ``torch.autograd``
+Functions with a backward (``kernels/*.py``).  Every impl with no backward
+refuses, by its capability predicate, an operand that requires grad while
+gradients are enabled, and says why: ``moe_ffn``/``cuda_fused``, the decode
+kernels of ``attention_decode``, and the packed impls for a packed weight
+(a QTensor's scale or a FactoredTensor's factors).  On the card a refused
+kernel impl then raises (``DispatchError``) instead of running a plain
+version in the kernel's place.
+
 The packed impls are plain PyTorch, as the reference's are plain XLA (no
 Pallas kernel): they upcast to the policy's accumulation dtype and
 multiply there.  Their expert products run one expert at a time
@@ -69,6 +79,22 @@ def _reject_packed(*operands):
     if any(is_factored(a) for a in operands):
         return "operand is factored (FactoredTensor) — served by the " \
                "eager_factored impl"
+    return None
+
+
+def _requires_grad(x) -> bool:
+    if is_qtensor(x):
+        return x.q.requires_grad or x.scale.requires_grad
+    if is_factored(x):
+        return any(_requires_grad(t) for t in (x.basis, x.u, x.v))
+    return isinstance(x, torch.Tensor) and x.requires_grad
+
+
+def _no_backward(what, *operands):
+    """Reason string when gradients are on and an operand requires one:
+    ``what`` (an impl with no backward) would cut the gradient."""
+    if torch.is_grad_enabled() and any(_requires_grad(a) for a in operands):
+        return f"an operand requires grad and {what} has no backward"
     return None
 
 
@@ -196,7 +222,8 @@ def _decode_fp_requires(policy, q, k_cache, v_cache, cache_len, *,
 
 def _decode_kernel_requires(policy, q, k_cache, v_cache, cache_len, *,
                             window=None, scale=None):
-    why = _reject_packed(q, k_cache, v_cache)
+    why = _reject_packed(q, k_cache, v_cache) or _no_backward(
+        "the decode kernel (decode is serving only)", q, k_cache, v_cache)
     if why:
         return why
     if not _floating(q, k_cache, v_cache):
@@ -262,6 +289,9 @@ def _decode_int8_requires(policy, q, k_cache, v_cache, cache_len, *,
                "build int8 caches)"
     if k_cache.bits != 8 or v_cache.bits != 8:
         return f"int{k_cache.bits} KV cache (int8 only)"
+    why = _no_backward("eager_int8 (frozen packed caches)", k_cache, v_cache)
+    if why:
+        return why
     if not _floating(q):
         return f"non-float query dtype {q.dtype}"
     return None
@@ -387,6 +417,9 @@ def _linear_int8_requires(policy, x, w, b=None, *, activation=None,
         return "weight is not quantized (run quant.quantize_tree first)"
     if is_qtensor(x):
         return "activations are quantized (weights-only impl)"
+    why = _no_backward("eager_int8 (frozen packed weights)", w)
+    if why:
+        return why
     if not _floating(x):
         return f"non-float input dtype {x.dtype}"
     if x.shape[-1] != w.shape[-2]:
@@ -416,6 +449,9 @@ def _linear_factored_requires(policy, x, w, b=None, *, activation=None,
                "through moe_grouped_gemm)"
     if _packed(x):
         return "activations are packed (weights-only impl)"
+    why = _no_backward("eager_factored (frozen packed weights)", w)
+    if why:
+        return why
     if not _floating(x):
         return f"non-float input dtype {x.dtype}"
     if x.shape[-1] != w.shape[-2]:
@@ -507,6 +543,9 @@ def _moe_int8_requires(policy, buf, w, group_sizes=None):
                "first)"
     if is_qtensor(buf):
         return "expert queue buffers are quantized (weights-only impl)"
+    why = _no_backward("eager_int8 (frozen packed weights)", w)
+    if why:
+        return why
     if not _floating(buf):
         return f"non-float buffer dtype {buf.dtype}"
     return None
@@ -535,6 +574,9 @@ def _moe_factored_requires(policy, buf, w, group_sizes=None):
                "linear)"
     if _packed(buf):
         return "expert queue buffers are packed (weights-only impl)"
+    why = _no_backward("eager_factored (frozen packed weights)", w)
+    if why:
+        return why
     if not _floating(buf):
         return f"non-float buffer dtype {buf.dtype}"
     if buf.shape[-3] != w.shape[0]:
@@ -600,6 +642,10 @@ def _moe_ffn_fused_requires(policy, x, params, routing, group_sizes, *,
     if cfg.impl == "onehot":
         return "onehot (GSPMD) dispatch requested — the fused kernel " \
                "replaces the gather path only"
+    why = _no_backward("the fused kernel (train through the staged moe_ffn)",
+                       x, *params.values())
+    if why:
+        return why
     if any(is_qtensor(p) for p in params.values()):
         return "expert weights are quantized (QTensor) — staged path " \
                "serves them via the eager_int8 grouped GEMM"
