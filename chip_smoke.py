@@ -2,12 +2,14 @@
 """Drive the PyTorch/CUDA port on one NVIDIA Hopper card (H100): M³ViT
 serving through the kernels and through the fused MoE kernel, and
 Llama-3.2-1B prefill + decode serving, each also through the
-continuous-batching scheduler; then training both models through the
-kernels.
+continuous-batching scheduler; the recurrent families (xLSTM-350M and
+RecurrentGemma-9B) serving; then training M³ViT and Llama-3.2-1B through
+the kernels.
 
     python3 chip_smoke.py
 
-Phases, each printing its lines:
+Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 6
+(phase 5 checks and times the launches of 3, 4 and 7):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
@@ -32,13 +34,17 @@ Phases, each printing its lines:
    (``repro_torch.kernels.gemm_plan``).  ``flash_attention`` adds the
    transposed views the models hand over, Sq = 1 over a live cache prefix
    (the ``attention_decode``/``cuda`` route), head_dim 48 (``tc``), 40
-   (``simt``) and 128, fully masked rows, float32 on ``simt``, and every
+   (``simt``) and 128, fully masked rows, float32 on ``simt``, head_dim
+   256 (RecurrentGemma-9B's MQA 16:1 on ``tc``'s four atoms: causal at B =
+   8 × 128, causal and windowed at 2 × 2304 tokens with window 2048, GQA
+   16:4 at ragged lengths; float32 on ``simt``), and every
    launch must move exactly the variant counter its planner names
    (``repro_torch.kernels.attn_plan``); ``decode_fused`` adds cache lengths
    on and around its 64-key split boundaries (63, 64, 65, Smax), windows
-   that leave whole splits unread, and a second launch that must be
-   bit-identical; ``moe_fused`` adds every queue at capacity, all tokens
-   routed to one expert (tiles spanning every group), an empty expert,
+   that leave whole splits unread, head_dim 256 with MQA 16:1 (two chunks
+   of 8 heads) at mixed lengths up to a 2048-slot ring, and a second
+   launch that must be bit-identical; ``moe_fused`` adds every queue at
+   capacity, all tokens routed to one expert (tiles spanning every group), an empty expert,
    top-1 and top-8, two routing groups,
    d = f = 768, d = 128, NaN in x rows that no queue reads, exact GELU,
    SwiGLU at M³ViT's widths and at ragged ones on ``tc`` and ``simt``,
@@ -184,14 +190,49 @@ Phases, each printing its lines:
    optimizer device ms, the idle share, and each kernel's forward and
    backward device ms a step.
 
+7. The recurrent families at full width and depth (random weights drawn
+   on the card from seed 0: RecurrentGemma-9B's 9.6 B parameters would
+   take minutes of NumPy on the host; the seconds are printed), each under
+   ``cuda`` with ``attention_decode="cuda_fused"``: (a) xLSTM-350M (24
+   layers, 7 mLSTM : 1 sLSTM) and RecurrentGemma-9B (38 layers, RG-LRU,
+   RG-LRU, local attention over 2048 tokens, MQA at head_dim 256) each
+   generate 32 greedy tokens for 8 prompts of 128 tokens (``max_len``
+   512, so every local-attention cache is a 512-slot ring), counted:
+   ``unified_linear`` launches, and for RecurrentGemma ``flash_attention``
+   and ``decode_fused`` 12 times a decode step (its 12 local-attention
+   layers), all hits on the card with no fallback; xLSTM's sLSTM
+   projections (rows of 1365 bf16, 2730 bytes) are the SIMT launches
+   allowed by name, exactly their count; then the prefill and every
+   decode step replayed teacher-forced under the kernel policy (whose
+   argmax must give back the tokens) and the plain ``eager`` policy:
+   cosine >= 0.999 at every step, or, where bf16 noise alone exceeds it,
+   the kernels' distance (1 − cosine) from the same model in float32 at
+   most 1.25 times the plain policy's + 1e-3
+   (``compare.serving_agrees``); (b) RecurrentGemma with 2 prompts of 2304
+   tokens (past the window), ``max_len`` 4096 (a
+   2048-slot ring taking the rolled write), the same checks; (c) both
+   models through the ``Scheduler`` (``LMBackend``, 8 slots, no prompt
+   padding, no prefix cache): 16 requests of 16..128-token prompts, each
+   equal bit for bit to the static engine serving it alone and in a batch
+   of 8 copies; (d) xLSTM preemption: a parked and restored request
+   (``compress="none"``) equals its uninterrupted run; (e) xLSTM chunked
+   prefill, 8 prompts of 150 tokens in chunks of 64 (the last one 22,
+   unpadded), gives the one-shot tokens with the weights in float32 (in
+   bf16 the stack amplifies the chunks' other roundings until the greedy
+   streams part; their agreement is printed as a reading).  Prefill ms,
+   ms a decode step, tokens/s, peak memory and the phase's wall time are printed; (a) and
+   (b) are counted and recorded for phase 5, (c)–(e) checked only.
+
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
 those runs, training's included (also given apart as
 ``training_launches``, with ``training_ms``: the kernel's forward and
 backward device ms a training step by model).  The variant counters (the GEMMs', ``flash_attention``'s,
 ``moe_fused``'s) are read with them: no main path may take the SIMT
-route, and the variants the recorded launches were planned on must
-equal the counted ones (``variants`` in the JSON line and per unit).
+route (but for xLSTM's sLSTM projections, whose 2730-byte rows no TMA
+map can address: exactly their number, named with the reason), and the
+variants the recorded launches were planned on must equal the counted
+ones (``variants`` in the JSON line and per unit).
 The recorded launches must match the counted ones kernel by kernel, and
 a kernel's times and bound in the JSON line cover exactly those launches
 (in-order replays; ``alone_ms`` sums the launches timed alone), with a
@@ -205,6 +246,7 @@ lines are the kernels' JSON record and the result line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -239,6 +281,7 @@ SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 CUDA_PATH_KERNELS = ("unified_linear", "flash_attention", "gelu_lut",
                      "moe_gemm")
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 128, 32, 512
+RG_WINDOW, RG_LONG = 2048, 2304      # RecurrentGemma's window; prompts past it
 
 
 def time_ms(fn, reps: int = 20, calls: int = 10) -> float:
@@ -558,6 +601,27 @@ def check_flash_attention() -> None:
         if bool((got[:, :, :4] != 0).any()):
             raise AssertionError("flash_attention: a fully masked row is "
                                  "not exactly zero")
+    # head_dim 256 (RecurrentGemma-9B's local attention, MQA 16:1): tc with
+    # four head-dim atoms (float32 on simt); causal, then the 2048-key
+    # window over a 2304-token query block so the mask bites; GQA 16:4 at
+    # ragged lengths (Sq 77 against Skv 100 with a q_offset, a K tail off
+    # the 64-key tile)
+    for dtype in (torch.bfloat16, torch.float32):
+        one("D=256 MQA 16:1 causal",
+            _split_heads_view(LM_BATCH, LM_PROMPT, 16, 256, dtype, 81),
+            _split_heads_view(LM_BATCH, LM_PROMPT, 1, 256, dtype, 82),
+            _split_heads_view(LM_BATCH, LM_PROMPT, 1, 256, dtype, 83),
+            causal=True)
+    for window in (None, RG_WINDOW):
+        one(f"D=256 MQA 16:1 past the window",
+            *(_split_heads_view(2, RG_LONG, h, 256, torch.bfloat16, seed)
+              for h, seed in ((16, 84), (1, 85), (1, 86))), causal=True,
+            window=window)
+    one("D=256 ragged GQA 16:4", randn((2, 16, 77, 256), torch.bfloat16,
+                                       seed=87),
+        randn((2, 4, 100, 256), torch.bfloat16, seed=88),
+        randn((2, 4, 100, 256), torch.bfloat16, seed=89), causal=True,
+        window=40, q_offset=23)
 
 
 def check_gelu_lut() -> None:
@@ -812,6 +876,28 @@ def check_decode_fused() -> None:
           kdf.fused_decode_attention(q, k, v, cl3, window=5),
           kdf.fused_decode_attention_plain(q, k, v, cl3, window=5),
           torch.float32)
+    # head_dim 256, MQA 16:1 (two chunks of 8 query heads), mixed lengths
+    # across the split boundaries and past a ring's 2048 slots, window unset
+    # (the ring decode) and set
+    cl4 = torch.tensor([1, 63, 64, 65, 500, 2047, 2048, 0], dtype=torch.int32,
+                       device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (None, 100):
+            q = randn((8, 16, 1, 256), dtype, seed=70)
+            k = randn((8, 1, RG_WINDOW, 256), dtype, seed=71)
+            v = randn((8, 1, RG_WINDOW, 256), dtype, seed=72)
+            plan = attn_plan.plan_decode(8, 16, 1, RG_WINDOW)
+            label = (f"D=256 MQA B=8 Hq=16 Hkv=1 Smax={RG_WINDOW} cache_len "
+                     f"{cl4.tolist()} window={window} {_dt(q)} "
+                     f"[{plan.splits} splits, {plan.heads} heads a block in "
+                     f"{plan.grid[2]} chunks]")
+            got = kdf.fused_decode_attention(q, k, v, cl4, window=window)
+            check("decode_fused", label, got,
+                  kdf.fused_decode_attention_plain(q, k, v, cl4,
+                                                   window=window), dtype)
+            check_exact("decode_fused", f"{label} run 2 against run 1",
+                        kdf.fused_decode_attention(q, k, v, cl4,
+                                                   window=window), got)
     # ragged: a group of 12 in two chunks of heads, at head_dim 40 (rows of
     # 80 bytes: 16-byte copies) and 36 (72 bytes: element copies)
     cl2 = torch.tensor([130, 65], dtype=torch.int32, device="cuda")
@@ -869,19 +955,30 @@ def recorded_launches(calls):
 COUNTED_VARIANTS: dict = {}
 
 
-def read_variants(label) -> dict:
+def read_variants(label, simt_ok=None, tally=True) -> dict:
     """The variant counters of the GEMM, flash_attention and moe_fused
     wrappers after a counted run: printed, added to COUNTED_VARIANTS, and
     none may be the SIMT route (every main path runs bf16 at 16-byte
-    aligned shapes and a head_dim of 64)."""
+    aligned shapes and a head_dim of 64, 128 or 256) — except, where
+    ``simt_ok`` names a kernel, exactly the stated number of launches
+    whose rows no TMA map can address, with the reason printed (xLSTM's
+    sLSTM projections, ``_slstm_simt``).  ``tally=False``: a run checked
+    only, kept out of COUNTED_VARIANTS."""
     from repro_torch.kernels import variant_counts
 
     counts = variant_counts()
     print(f"  kernel variants over {label}: {json.dumps(counts)}")
     for name, by in counts.items():
-        if by.get("simt"):
-            raise AssertionError(f"{name}: {by['simt']} SIMT launches on a "
-                                 f"main path")
+        allowed, why = (simt_ok or {}).get(name, (0, None))
+        if by.get("simt", 0) != allowed:
+            raise AssertionError(f"{name}: {by.get('simt', 0)} SIMT "
+                                 f"launches on a main path ({allowed} "
+                                 f"allowed)")
+        if allowed:
+            print(f"  {name}: the {allowed} SIMT launches allowed by name: "
+                  f"{why}")
+        if not tally:
+            continue
         total = COUNTED_VARIANTS.setdefault(name, {})
         for v, k in by.items():
             total[v] = total.get(v, 0) + k
@@ -2220,6 +2317,386 @@ def train_lm() -> dict:
     return train_counts
 
 
+# ------------------------------------------------------------ phase 7
+
+RECURRENT = ("xlstm_350m", "recurrentgemma_9b")
+RC_BATCH, RC_PROMPT, RC_NEW, RC_MAX_LEN = 8, 128, 32, 512   # (a), (c)
+RING_BATCH, RING_MAX_LEN = 2, 4096             # (b): a ring of 2048 slots
+CHUNK_PROMPT, CHUNK = 150, 64                  # (e): 64 + 64 + a 22 rest
+
+
+def _slstm_simt(cfg, forwards: int) -> dict:
+    """The SIMT launches an xLSTM run makes, for ``read_variants``: sLSTM's
+    up, up2 and down projections have rows of 4d/3 = 1365 bf16 (2730
+    bytes), which no TMA map can address, so ``unified_linear`` takes its
+    SIMT route for them (three a layer and forward)."""
+    n = sum(cfg.block_kind(i) == "slstm" for i in range(cfg.num_layers))
+    if not n:
+        return {}
+    return {"unified_linear": (3 * n * forwards, "sLSTM's projections to "
+            "and from 4d/3 = 1365 columns: bf16 rows of 2730 bytes, which "
+            "TMA cannot address")}
+
+
+def recurrent_model(name):
+    """The full ``CONFIG`` with random weights drawn on the card from seed
+    0 (the same shapes, scales and dtypes as the host draw)."""
+    import importlib
+    import time
+
+    from repro_torch.models import model as M
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(0, cfg, draw_on_device=True)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in params.values())
+    print(f"  {name}: {cfg.num_layers} layers of {cfg.block_pattern} "
+          f"d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} window="
+          f"{cfg.window} {cfg.dtype}: {n / 1e9:.3f} B parameters drawn on "
+          f"the card from seed 0 in {time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _float32_replay(cfg, params, prompts, toks, max_len) -> list:
+    """The same model in float32 (weights widened, plain policy), teacher
+    forced on ``toks``: the logits of the prefill and of every step."""
+    from repro_torch import ops
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_step
+
+    cfg32 = replace(cfg, dtype="float32", policy=ops.policy_named("eager"))
+    p32 = {k: v.float() for k, v in params.items()}
+    prefill, decode = make_serve_step(cfg32)
+    out = []
+    with torch.inference_mode():
+        state = M.init_state(cfg32, prompts.shape[0], max_len)
+        logits, state = prefill(p32, prompts, state)
+        out.append(logits)
+        for i in range(toks.shape[1]):
+            logits, state = decode(p32, toks[:, i:i + 1], state,
+                                   prompts.shape[1] + i)
+            out.append(logits)
+    del p32, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_static(label, cfg, params, policy, prompts, max_len, units,
+                     expect):
+    """One counted ``generate`` (RC_NEW greedy tokens) under the kernel
+    policy, then the prefill and every decode step replayed teacher-forced
+    under the kernel policy (the twin, recorded) and the plain ``eager``
+    one: the replay's argmax gives back the tokens, and the logits agree
+    (``compare.serving_agrees``).  ``expect(counts)`` checks the launches.
+    Returns (counts, engine, tokens)."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import (SERVE_NOISE_RATIO, cosine,
+                                             serving_agrees)
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train.step import make_serve_step
+
+    b, s0 = prompts.shape
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=max_len,
+                                                    policy=policy))
+    engine.generate(prompts, 2)               # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, RC_NEW)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = ops.dispatch_report()
+    read_variants(label, _slstm_simt(cfg, 1 + RC_NEW))
+    print(f"  {label}: {b} prompts of {s0} tokens, {RC_NEW} greedy tokens "
+          f"each: {wall * 1e3:.1f} ms host wall, {b * RC_NEW / wall:.1f} "
+          f"tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  launches over the generate call: {json.dumps(counts)}")
+    if tokens.shape != (b, RC_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: tokens {tokens.shape} out of range")
+    expect(counts)
+    windowed = cfg.window is not None
+    hits = {"linear": "cuda"}
+    if windowed:
+        hits.update(attention="cuda", attention_decode="cuda_fused")
+    for op, impl in hits.items():
+        entry = report.get(op, {})
+        n = entry.get("hits", {}).get(impl, -1)
+        if entry.get("fallbacks") or entry.get("modes") != {impl: {"cuda": n}}:
+            raise AssertionError(f"{label}: dispatch report for {op}: "
+                                 f"{entry}")
+    if any(e.get("fallbacks") for e in report.values()):
+        raise AssertionError(f"{label}: a fallback in {report}")
+    print(f"  dispatch report: {json.dumps(report)}")
+
+    plain_prefill, plain_decode = make_serve_step(
+        replace(cfg, policy=ops.policy_named("eager")))
+    prefill, decode = engine.steps()
+    toks = torch.from_numpy(tokens).long().cuda()
+    prefill_calls, decode_calls = {}, {}
+    kern, plain, step_ms, prefill_ms = [], [], [], []
+    with torch.inference_mode():
+        for rep in range(3):
+            state = M.init_state(cfg, b, max_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_launches(prefill_calls if rep == 0 else {}):
+                logits, state = prefill(engine.params, prompts, state)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        pstate = M.init_state(cfg, b, max_len)
+        want, pstate = plain_prefill(engine.params, prompts, pstate)
+        for i in range(RC_NEW):
+            if not torch.equal(torch.argmax(logits, -1), toks[:, i]):
+                raise AssertionError(f"{label} step {i}: the replayed "
+                                     "logits do not give back the tokens")
+            kern.append(logits)
+            plain.append(want)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recorded_launches(decode_calls):
+                logits, state = decode(engine.params, toks[:, i:i + 1],
+                                       state, s0 + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            want, pstate = plain_decode(engine.params, toks[:, i:i + 1],
+                                        pstate, s0 + i)
+        kern.append(logits)
+        plain.append(want)
+    del state, pstate
+    cos = [cosine(k, p) for k, p in zip(kern, plain)]
+    print(f"  logits vs the plain eager policy on the card, teacher-forced: "
+          f"prefill cosine {cos[0]:.6f}, decode steps min "
+          f"{min(cos[1:]):.6f} (>= 0.999: "
+          f"{'ok' if min(cos) >= 0.999 else 'no'})")
+    k32 = p32 = None
+    if min(cos) < 0.999:
+        ref = _float32_replay(cfg, params, prompts, toks, max_len)
+        k32 = [cosine(k, r) for k, r in zip(kern, ref)]
+        p32 = [cosine(p, r) for p, r in zip(plain, ref)]
+        worst = max(range(len(k32)),
+                    key=lambda i: (1 - k32[i]) / (1 - p32[i]))
+        print(f"  bf16 noise exceeds 0.999: against the same model in "
+              f"float32, kernels min cosine {min(k32):.6f}, plain "
+              f"{min(p32):.6f}; worst step {worst}: kernels "
+              f"{k32[worst]:.6f} vs plain {p32[worst]:.6f}, distance ratio "
+              f"{(1 - k32[worst]) / (1 - p32[worst]):.3f} (at most "
+              f"{SERVE_NOISE_RATIO} x the plain policy's + 1e-3: "
+              f"{'ok' if serving_agrees(cos, k32, p32) else 'FAIL'})")
+        del ref
+    if not serving_agrees(cos, k32, p32):
+        raise AssertionError(f"{label}: kernel logits disagree with the "
+                             f"plain policy's (min cosine {min(cos)})")
+    del kern, plain
+    print(f"  prefill {statistics.median(prefill_ms):.3f} ms (median of 3, "
+          f"B={b} x {s0} tokens); decode {statistics.median(step_ms):.3f} "
+          f"ms per step (median of {RC_NEW}, B={b}, host wall to a "
+          f"synchronized card)")
+    units.append(Unit(f"{label} prefill, B={b} x {s0} tokens", 1,
+                      prefill_calls))
+    units.append(Unit(f"{label} decode step, B={b}, positions {s0}-"
+                      f"{s0 + RC_NEW - 1}", RC_NEW, decode_calls))
+    return counts, engine, tokens
+
+
+def _expect_launches(label, cfg, steps):
+    """The launch check of a counted run: ``unified_linear`` always; with
+    local attention ``flash_attention`` (prefill) and ``decode_fused`` once
+    per attention layer and decode step."""
+    n_attn = sum(cfg.block_kind(i) == "attn_local_mlp"
+                 for i in range(cfg.num_layers))
+
+    def expect(counts):
+        bad = not counts["unified_linear"] \
+            or counts["decode_fused"] != n_attn * steps \
+            or (counts["flash_attention"] == 0) != (n_attn == 0)
+        if bad or counts["moe_gemm"] or counts["moe_fused"]:
+            raise AssertionError(f"{label}: launches {counts} (decode_fused "
+                                 f"must be {n_attn} x {steps})")
+        print(f"  {label}: decode_fused {counts['decode_fused']} = {n_attn} "
+              f"local-attention layers x {steps} steps")
+    return expect
+
+
+def recurrent_scheduler(label, cfg, params, policy, engine):
+    """(c) 16 requests of 16..128-token prompts and 8..32 new tokens through
+    the ``Scheduler`` (``LMBackend``, 8 slots): each request's tokens equal
+    the static engine serving its prompt alone and in a batch of 8 copies,
+    bit for bit."""
+    import time
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.serve import LMBackend, Request, Scheduler, ServeConfig
+
+    backend = LMBackend(cfg, params, ServeConfig(max_len=RC_MAX_LEN,
+                                                 policy=policy,
+                                                 prefix_cache=32))
+    if backend.prompt_pad or backend.prefix is not None:
+        raise AssertionError(f"{label}: a recurrent backend padded its "
+                             f"prompts or took a prefix cache")
+    rng = np.random.default_rng(2)
+    lengths = [16, 64, 70, 80] + rng.integers(16, 129, 12).tolist()
+    news = rng.integers(8, 33, 16).tolist()
+    specs = [dict(rid=i, task_id=0, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=m)
+        for i, (n, m) in enumerate(zip(lengths, news))]
+    t0 = time.perf_counter()
+    want = {}
+    for spec in specs:
+        p, m = spec["prompt"][None], spec["max_new_tokens"]
+        alone = engine.generate(p, m)
+        copies = engine.generate(np.repeat(p, RC_BATCH, 0), m)
+        if not (copies == alone).all():
+            raise AssertionError(f"{label}: request {spec['rid']} "
+                                 f"({p.shape[1]} tokens): the static "
+                                 f"engine's tokens depend on its batch")
+        want[spec["rid"]] = alone[0].tolist()
+    print(f"  {label}: static engine, each of the 16 prompts alone and in a "
+          f"batch of {RC_BATCH} copies: the same tokens "
+          f"({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(backend, total_slots=RC_BATCH, quantum=4, num_tasks=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    done = sched.run([Request(**s) for s in specs])
+    _scheduler_report(f"{label} scheduler (c)", sched, done)
+    read_variants(f"{label} scheduler (c)", _slstm_simt(
+        cfg, sched.buckets[None].steps + sched.buckets[None].admissions),
+        tally=False)
+    for r in done:
+        if r.tokens != want[r.rid]:
+            raise AssertionError(f"{label} scheduler (c): request {r.rid} "
+                                 f"(prompt {len(r.prompt)}) differs from "
+                                 f"the static engine's tokens")
+    print("    every request's tokens equal the static engine's bit for bit")
+
+
+def recurrent_preempt(cfg, params, policy, engine):
+    """(d) One slot, a batch-tier request of 24 tokens and an interactive
+    arrival mid-decode on a tick clock: the batch request's recurrent state
+    is parked (``compress="none"``) and restored, and both requests get
+    the tokens of their uninterrupted runs."""
+    from repro_torch.serve import LMBackend, Request, Scheduler, ServeConfig
+    from repro_torch.serve.slo import SLOPolicy, TickClock
+
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    sched = Scheduler(LMBackend(cfg, params, ServeConfig(
+        max_len=RC_MAX_LEN, policy=policy)), total_slots=1, quantum=4,
+        num_tasks=1, clock=TickClock(), slo=SLOPolicy(
+            preemption=True, chunk_interleave=False, park_compress="none"))
+    done = {r.rid: r for r in sched.run([
+        Request(rid=0, task_id=0, prompt=prompts[0], max_new_tokens=24,
+                arrival=0.0, tier="batch"),
+        Request(rid=1, task_id=0, prompt=prompts[1], max_new_tokens=4,
+                arrival=0.25, tier="interactive")])}
+    m = sched.metrics()
+    for rid, n in ((0, 24), (1, 4)):
+        if done[rid].tokens != engine.generate(prompts[rid:rid + 1],
+                                               n)[0].tolist():
+            raise AssertionError(f"xLSTM preemption (d): request {rid} "
+                                 f"differs from its uninterrupted run")
+    if not (done[0].preemptions and m["preemptions"] and m["restores"]):
+        raise AssertionError(f"xLSTM preemption (d): nothing preempted {m}")
+    print(f"  xLSTM preemption (d): {m['preemptions']} preemptions, "
+          f"{m['restores']} restores, parked peak "
+          f"{m['parked_bytes_peak'] / 2**20:.2f} MiB; both requests equal "
+          f"their uninterrupted runs")
+
+
+def recurrent_chunked(cfg, params, policy, engine):
+    """(e) 8 prompts of 150 tokens prefilled in chunks of 64 (64 + 64 + an
+    unpadded 22) give the one-shot prefill's greedy tokens — checked with
+    the weights in float32 (``cuda`` then takes its float32 kernels),
+    where a chunked and a one-shot prefill differ by float32 roundings.
+    In bf16 the two prefills' roundings differ in the mLSTM's chunkwise
+    sums (64-token chunks against one 256-token chunk), and the xLSTM
+    stack amplifies a bf16 rounding until the greedy streams part (its
+    bf16 logits sit at cosine 0.96 of its float32 ones): the bf16 streams
+    and the prefill logits' cosine are printed as a reading."""
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (RC_BATCH, CHUNK_PROMPT)).astype(np.int32)
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    out = {}
+    for dt, c, p, one in (("bfloat16", cfg, params, engine),
+                          ("float32", cfg32, p32, None)):
+        one = one or ServingEngine(c, p, ServeConfig(max_len=RC_MAX_LEN,
+                                                      policy=policy))
+        chk = ServingEngine(c, p, ServeConfig(
+            max_len=RC_MAX_LEN, policy=policy, prefill_chunk=CHUNK))
+        pt = torch.from_numpy(prompts).long().cuda()
+        with torch.inference_mode():
+            logits = [e._prefill(pt, M.init_state(c, RC_BATCH, RC_MAX_LEN),
+                                 0)[0] for e in (one, chk)]
+        a, b = one.generate(prompts, RC_NEW), chk.generate(prompts, RC_NEW)
+        out[dt] = int((a == b).all(axis=1).sum())
+        print(f"  xLSTM chunked prefill (e), {dt}: {RC_BATCH} prompts of "
+              f"{CHUNK_PROMPT} tokens in chunks of {CHUNK}: prefill logits "
+              f"at cosine {cosine(*logits):.6f} of the one-shot prefill's, "
+              f"{out[dt]} of {RC_BATCH} greedy streams of {RC_NEW} tokens "
+              f"equal")
+    del p32
+    torch.cuda.empty_cache()
+    if out["float32"] != RC_BATCH:
+        raise AssertionError("xLSTM chunked prefill (e) differs from the "
+                             "one-shot tokens in float32")
+
+
+def recurrent_path(units):
+    """Phase 7: xLSTM-350M and RecurrentGemma-9B at full width and depth
+    under ``cuda`` with ``attention_decode="cuda_fused"``.  Returns the
+    launches of the counted runs (a) and (b); (c)-(e) are checked and
+    printed only.  Returns (counts, context holding the models)."""
+    import time
+
+    from repro_torch import ops
+
+    t_phase = time.perf_counter()
+    policy = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
+    total, keep = {}, []
+    for name in RECURRENT:
+        t0 = time.perf_counter()
+        cfg, params = recurrent_model(name)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(RC_BATCH, RC_PROMPT))).cuda()
+        counts, engine, _ = recurrent_static(
+            f"{name} (a)", cfg, params, policy, prompts, RC_MAX_LEN, units,
+            _expect_launches(f"{name} (a)", cfg, RC_NEW))
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        if cfg.window is not None:
+            long = torch.from_numpy(np.random.default_rng(5).integers(
+                0, cfg.vocab_size, size=(RING_BATCH, 2304))).cuda()
+            counts, _, _ = recurrent_static(
+                f"{name} (b) ring", cfg, params, policy, long, RING_MAX_LEN,
+                units, _expect_launches(f"{name} (b)", cfg, RC_NEW))
+            for n, c in counts.items():
+                total[n] = total.get(n, 0) + c
+        recurrent_scheduler(name, cfg, params, policy, engine)
+        if cfg.window is None:
+            recurrent_preempt(cfg, params, policy, engine)
+            recurrent_chunked(cfg, params, policy, engine)
+        keep.append(params)
+        torch.cuda.synchronize()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    print(f"  phase 7 wall time {time.perf_counter() - t_phase:.1f} s")
+    return total, keep
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -2618,7 +3095,7 @@ def main() -> None:
     hgmma = build.sass_counts("HGMMA")
     for kernel, n in (("unified_linear_tc_kernel", 18),
                       ("moe_gemm_tc_kernel", 12),
-                      ("flash_attention_tc_kernel", 2),
+                      ("flash_attention_tc_kernel", 3),
                       ("moe_fused_tc_kernel", 12)):
         found = {k: v for k, v in hgmma.items() if kernel in k}
         if len(found) != n:
@@ -2650,9 +3127,16 @@ def main() -> None:
                + vision_counts.get(n, 0) + sched_counts.get(n, 0)
                for n in counts}
 
+    print("phase 7: the recurrent families, xLSTM-350M and "
+          "RecurrentGemma-9B serving")
+    rc_counts, rc_models = recurrent_path(units)
+    for n, c in rc_counts.items():
+        counted[n] += c
+
     print("phase 5: the kernels at the main paths' own inputs")
     records = path_records(units, counted)
-    del units, ctx, lm_ctx
+    del units, ctx, lm_ctx, rc_models
+    gc.collect()                # RecurrentGemma's 19 GB before training
     torch.cuda.empty_cache()
 
     print("phase 6: training, M3ViT and Llama-3.2-1B")

@@ -1,11 +1,12 @@
 """Architecture configuration for the PyTorch port.
 
 The frozen dataclasses of ``repro.configs.base`` with the fields the ported
-families read (the same names, defaults and ``reduced`` smoke shrink; the
-recurrent fields come with the slice that ports those blocks).
-``activation_dtype`` maps the ``dtype`` string to a ``torch.dtype``.  Only
-the configs this port serves are present as modules (``m3vit``,
-``llama3_2_1b``, ``kimi_k2_1t_a32b``); ``get`` raises for the others.
+families read (the same names, defaults and ``reduced`` smoke shrink,
+the recurrent families' ``lru_width``, ``conv_width`` and ``mlstm_chunk``
+included).  ``activation_dtype`` maps the ``dtype`` string to a
+``torch.dtype``.  Only the configs this port serves are present as modules
+(``m3vit``, ``llama3_2_1b``, ``kimi_k2_1t_a32b``, ``xlstm_350m``,
+``recurrentgemma_9b``); ``get`` raises for the others.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ class ArchConfig:
     embed_input: str = "tokens"    # tokens | embeddings
     tie_embeddings: bool = False
     moe: Optional[MoESpec] = None
+    # ssm/hybrid extras
+    lru_width: int = 0             # 0 => d_model
+    conv_width: int = 4
+    mlstm_chunk: int = 256
     # None = the ambient repro_torch.ops policy; a ComputePolicy here is
     # scoped around the model's forward pass
     dtype: str = "bfloat16"
@@ -91,7 +96,8 @@ def get(name: str, smoke: bool = False) -> ArchConfig:
         mod = importlib.import_module(f"repro_torch.configs.{name}")
     except ModuleNotFoundError as e:
         raise ValueError(f"config {name!r} is not ported yet (the port "
-                         "has m3vit, llama3_2_1b, kimi_k2_1t_a32b)") from e
+                         "has m3vit, llama3_2_1b, kimi_k2_1t_a32b, "
+                         "xlstm_350m, recurrentgemma_9b)") from e
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
@@ -106,7 +112,9 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=128,
+        lru_width=64 if cfg.lru_width or cfg.family in ("hybrid",) else 0,
         window=min(cfg.window, 16) if cfg.window else None,
+        mlstm_chunk=8,
         remat=False,
     )
     if cfg.moe is not None:

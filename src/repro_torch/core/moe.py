@@ -48,9 +48,13 @@ class MoEConfig:
         return max(4, -(-c // 4) * 4)  # round up to a multiple of 4
 
 
-def normal(rng: np.random.Generator, shape, scale: float,
-           dtype: torch.dtype) -> torch.Tensor:
-    """Seeded N(0, 1)·scale in float32, cast to ``dtype`` (on the CPU)."""
+def normal(rng, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """Seeded N(0, 1)·scale in float32, cast to ``dtype``: drawn by a NumPy
+    generator on the CPU, or by a ``torch.Generator`` on its own device
+    (the same shapes, scales and dtypes; other values)."""
+    if isinstance(rng, torch.Generator):
+        a = torch.randn(shape, generator=rng, device=rng.device)
+        return (a * np.float32(scale)).to(dtype)
     a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
     return torch.from_numpy(a).to(dtype)
 

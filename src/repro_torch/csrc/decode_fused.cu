@@ -3,7 +3,7 @@
 // kernel src/repro/kernels/decode_fused.py:fused_decode_kernel.
 //
 // q (B, Hq, D), k and v caches (B, Hkv, Smax, D) in float32 or bfloat16,
-// D <= 128 (not padded), cache_len (B,) int32 on the card, out (B, Hq, D) in
+// D <= 256 (not padded), cache_len (B,) int32 on the card, out (B, Hq, D) in
 // q's dtype.  Semantics of the Pallas kernel: q is scaled in its own dtype
 // (the scale rounded to that dtype first) before the float32 upcast; keys at
 // or past cache_len[b], and with a window those at or behind the frontier
@@ -35,7 +35,9 @@
 //   reads of their key rows fall in distinct banks; values are widened to
 //   float32 in registers.  The q.K dot products (lane = key) and the P.V
 //   sums (lane = head dim) are float32 on the CUDA cores: 4 query rows per
-//   group leave the tensor cores nothing to do.
+//   group leave the tensor cores nothing to do.  At D = 256 (RecurrentGemma's
+//   MQA: 16 query heads on one kv head, two chunks of 8) a bf16 tile is 16
+//   KB and the two rings 66 KB, past the 48 KB a launch gets by default.
 // - Combine in the same launch, deterministically: every split stores its
 //   float32 (m, l, acc[D]) partial and takes a ticket on its (b, kv head,
 //   chunk) counter; the last block to arrive merges the splits in ascending
@@ -48,7 +50,7 @@
 constexpr int kMaxWarps = 8;   // query heads per block
 constexpr int kTile = 32;      // keys per tile: one per lane
 constexpr int kStages = 2;     // tiles of a split in flight
-constexpr int kMaxD = 128;     // 4 dims per lane in acc
+constexpr int kMaxD = 256;     // head_dim limit: 8 dims a lane (kDL)
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float dwarp_max(float v) {
@@ -122,7 +124,9 @@ __device__ __forceinline__ SplitRange split_keys(int s, int split, int Smax,
 // as (m, l, acc[0..D)).  Dp = D rounded up to 16 bytes of T; `vec`: rows
 // and bases are 16-byte aligned, so tiles load by cp.async (otherwise by
 // element, for ragged D).
-template <typename T>
+// kDL: head dims a lane holds in acc, 4 for D <= 128 and 8 above, so the
+// D <= 128 instances keep their registers (and occupancy)
+template <typename T, int kDL>
 __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ cache_len,
@@ -190,9 +194,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
     qs[i] = val;
   }
 
-  float m = kNegInf, l = 0.0f, acc[kMaxD / 32];
+  float m = kNegInf, l = 0.0f, acc[kDL];
 #pragma unroll
-  for (int c = 0; c < kMaxD / 32; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < kDL; ++c) acc[c] = 0.0f;
 
   for (int t = 0; t < ntiles; ++t) {
     if (vec) {
@@ -232,7 +236,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
     const float* prow = ps + warp * kTile;
     // lane = head dims lane, lane + 32, ...: one V row per key, coalesced
 #pragma unroll
-    for (int c = 0; c < kMaxD / 32; ++c) {
+    for (int c = 0; c < kDL; ++c) {
       const int d = lane + 32 * c;
       if (d >= D) break;
       float pv = 0.0f;
@@ -259,7 +263,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
       __stcg(mine + 1, l);
     }
 #pragma unroll
-    for (int c = 0; c < kMaxD / 32; ++c) {
+    for (int c = 0; c < kDL; ++c) {
       const int d = lane + 32 * c;
       if (d < D) __stcg(mine + 2 + d, acc[c]);
     }
@@ -276,15 +280,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
     float mx = kNegInf;
     for (int j = 0; j < splits; ++j)
       mx = fmaxf(mx, __ldcg(base + ((size_t)j * nw + warp) * P));
-    float lsum = 0.0f, out[kMaxD / 32];
+    float lsum = 0.0f, out[kDL];
 #pragma unroll
-    for (int c = 0; c < kMaxD / 32; ++c) out[c] = 0.0f;
+    for (int c = 0; c < kDL; ++c) out[c] = 0.0f;
     for (int j = 0; j < splits; ++j) {
       const float* part = base + ((size_t)j * nw + warp) * P;
       const float w = expf(__ldcg(part) - mx);
       lsum += __ldcg(part + 1) * w;
 #pragma unroll
-      for (int c = 0; c < kMaxD / 32; ++c) {
+      for (int c = 0; c < kDL; ++c) {
         const int d = lane + 32 * c;
         if (d < D) out[c] += __ldcg(part + 2 + d) * w;
       }
@@ -292,7 +296,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
     const float denom = fmaxf(lsum, 1e-37f);
     T* op = o + ((size_t)b * Hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < kMaxD / 32; ++c) {
+    for (int c = 0; c < kDL; ++c) {
       const int d = lane + 32 * c;
       if (d < D) op[d] = from_f32<T>(out[c] / denom);
     }
@@ -300,7 +304,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) decode_fused_kernel(
   if (threadIdx.x == 0) tickets[group_slot] = 0;
 }
 
-template <typename T>
+template <typename T, int kDL>
 static int launch(const void* q, const void* k, const void* v,
                   const void* cache_len, void* o, void* partials,
                   void* tickets, int B, int Hq, int Hkv, int Smax, int D,
@@ -314,10 +318,11 @@ static int launch(const void* q, const void* k, const void* v,
   const size_t smem = (size_t)nw * Dp * 4 +
                       2 * (size_t)kStages * kTile * (Dp * sizeof(T) + 16) +
                       (size_t)nw * kTile * 4;
-  static size_t granted = 48 * 1024;   // float32 rows of D = 128 need more
-  const int err = sm90::allow_smem(decode_fused_kernel<T>, smem, granted);
+  static size_t granted = 48 * 1024;   // rows of D >= 128 may need more
+  const int err =
+      sm90::allow_smem(decode_fused_kernel<T, kDL>, smem, granted);
   if (err != 0) return err;
-  decode_fused_kernel<T><<<grid, nw * 32, smem, stream>>>(
+  decode_fused_kernel<T, kDL><<<grid, nw * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(cache_len),
       static_cast<T*>(o), static_cast<float*>(partials),
@@ -339,10 +344,13 @@ extern "C" int decode_fused_launch(const void* q, const void* k,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (split <= 0 || split > kStages * kTile || split % kTile != 0) return -1;
+  if (D <= 0 || D > kMaxD) return -1;
+  const bool wide = D > 128;
   if (dtype == kFloat32)
-    return launch<float>(q, k, v, cache_len, o, partials, tickets, B, Hq,
-                         Hkv, Smax, D, window, scale, split, splits, vec, st);
-  return launch<__nv_bfloat16>(q, k, v, cache_len, o, partials, tickets, B,
-                               Hq, Hkv, Smax, D, window, scale, split, splits,
-                               vec, st);
+    return (wide ? launch<float, 8> : launch<float, 4>)(
+        q, k, v, cache_len, o, partials, tickets, B, Hq, Hkv, Smax, D,
+        window, scale, split, splits, vec, st);
+  return (wide ? launch<__nv_bfloat16, 8> : launch<__nv_bfloat16, 4>)(
+      q, k, v, cache_len, o, partials, tickets, B, Hq, Hkv, Smax, D, window,
+      scale, split, splits, vec, st);
 }

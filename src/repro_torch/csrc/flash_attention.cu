@@ -18,13 +18,14 @@
 // time; what a launch costs in practice is latency (a block sees one or
 // two K tiles).  Two variants (kernels/attn_plan.py picks one):
 //
-// tc — bf16, D % 16 == 0, D <= 128.  One block per (b, q head, 64 query
+// tc — bf16, D % 16 == 0, D <= 256.  One block per (b, q head, 64 query
 //   rows): one consumer warpgroup and one producer warp.  The producer's
 //   lane 0 loads the Q tile once and streams K/V tiles of 64 keys through a
 //   2-stage TMA ring (128-byte swizzle, mbarriers, out-of-bounds rows and
 //   head dims zero-filled) from 4-D tensor maps built from the tensors'
 //   strides, so transposed (B, S, H, D) views need no copy.  D is padded to
-//   64-wide atoms in shared memory (D = 48 reads 16 zero columns).
+//   64-wide atoms in shared memory (D = 48 reads 16 zero columns; D = 256
+//   is four atoms: Q 32 KB and K/V 32 KB each a stage, 161 KB in all).
 //   S = Q K^T is wgmma m64n64k16 from shared memory, both operands K-major,
 //   into float32; `scale` (times log2 e, for exp2f) multiplies the float32
 //   S (the reference scales q in float32, and q * scale rounded to bf16 is
@@ -45,16 +46,20 @@
 //   which is small beside the latency.  Each tile's P V goes into a fresh
 //   register tile that is added as acc * alpha + pv with float32 adds, as
 //   the reference adds it, so the tensor core's own accumulation never
-//   spans more than one tile.
+//   spans more than one tile.  Up to two atoms (D <= 128) take their P V
+//   in one round; at four atoms the float32 O alone is 128 registers a
+//   thread, so each atom's P V is its own round (a 32-register pv tile,
+//   committed and added before the next atom's is issued).
 // simt — float32, D not a multiple of 16, or anything tc refuses: 8 query
 //   rows a block, one warp per row, K/V tiles of 32 keys widened to float32
-//   in shared memory (the first kernel of the port).
+//   in shared memory (the first kernel of the port); above 48 KB of shared
+//   memory (float32 rows past D = 160) it asks for the dynamic maximum.
 #include "common.cuh"
 #include "sm90.cuh"
 
 constexpr int kWarps = 8;      // query rows per block
 constexpr int kTileKV = 32;    // keys per tile: one per lane
-constexpr int kMaxD = 128;     // head_dim limit: 4 dims per lane in acc
+constexpr int kMaxD = 256;     // head_dim limit: 8 dims per lane in acc
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -154,18 +159,22 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename T>
-static void launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int D,
-                   int q_offset, int causal, int window, float scale,
-                   cudaStream_t stream) {
+static int launch(const void* q, const void* k, const void* v, void* o,
+                  int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                  int q_offset, int causal, int window, float scale,
+                  cudaStream_t stream) {
   dim3 grid((Sq + kWarps - 1) / kWarps, B * Hq);
   const size_t smem =
       sizeof(float) * ((size_t)kWarps * D + (size_t)kTileKV * (D + 1) +
                        (size_t)kTileKV * D + (size_t)kWarps * kTileKV);
+  static size_t granted = 48 * 1024;
+  const int err = sm90::allow_smem(flash_attention_kernel<T>, smem, granted);
+  if (err != 0) return err;
   flash_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, D,
       q_offset, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -175,12 +184,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q_offset, causal,
-                  window, scale, st);
-  else
-    launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q_offset,
-                          causal, window, scale, st);
-  return (int)cudaGetLastError();
+    return launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q_offset,
+                         causal, window, scale, st);
+  return launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, q_offset,
+                               causal, window, scale, st);
 }
 
 // ------------------------------------------------- bf16 tensor cores (tc)
@@ -383,33 +390,37 @@ __global__ void __launch_bounds__(kTcThreads)
     }
 
     // pv = P_hi V + P_lo V into a fresh tile: 16 keys a wgmma, 16 rows of
-    // 128 bytes, 8-row groups 1024 bytes apart
-    float pv[NA][32];
-    sm90::wgmma_fence();
+    // 128 bytes, 8-row groups 1024 bytes apart; kPv atoms a round
+    constexpr int kPv = NA > 2 ? 1 : NA;
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a0 = 0; a0 < NA; a0 += kPv) {
+      float pv[kPv][32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < kPv; ++a)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t vd = sm90::desc_sw128(
+              v_addr + (a0 + a) * kAtomBytes + kk * 2048, 1024, 1024);
+          sm90::wgmma_m64n64k16_rs(pv[a], p_hi[kk], vd, kk > 0);
+          sm90::wgmma_m64n64k16_rs(pv[a], p_lo[kk], vd, 1);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int a = 0; a < kPv; ++a) sm90::fence_regs(pv[a]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t vd =
-            sm90::desc_sw128(v_addr + a * kAtomBytes + kk * 2048, 1024, 1024);
-        sm90::wgmma_m64n64k16_rs(pv[a], p_hi[kk], vd, kk > 0);
-        sm90::wgmma_m64n64k16_rs(pv[a], p_lo[kk], vd, 1);
+        sm90::fence_regs(p_hi[kk]);
+        sm90::fence_regs(p_lo[kk]);
       }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait_all();
 #pragma unroll
-    for (int a = 0; a < NA; ++a) sm90::fence_regs(pv[a]);
+      for (int a = 0; a < kPv; ++a)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      sm90::fence_regs(p_hi[kk]);
-      sm90::fence_regs(p_lo[kk]);
+        for (int i = 0; i < 32; ++i)
+          acc[a0 + a][i] = acc[a0 + a][i] * alpha[(i >> 1) & 1] + pv[a][i];
     }
     if (lane == 0) sm90::mbar_arrive(&empty[stage]);
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        acc[a][i] = acc[a][i] * alpha[(i >> 1) & 1] + pv[a][i];
     if (++stage == kTcStages) {
       stage = 0;
       phase ^= 1;
@@ -472,7 +483,7 @@ static int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-// bf16 only, D % 16 == 0, D <= 128 (kernels/attn_plan.py); strides in
+// bf16 only, D % 16 == 0, D <= 256 (kernels/attn_plan.py); strides in
 // elements, (batch, head, seq) for each of q, k, v, D contiguous; out
 // (B, Hq, Sq, D) contiguous.  Returns a CUDA error or sm90::kEncodeError +
 // a CUresult.
@@ -488,6 +499,9 @@ extern "C" int flash_attention_tc_launch(
   if (D <= 64)
     return launch_tc<1>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qst, kst, vst,
                         q_offset, causal, window, scale, st);
-  return launch_tc<2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qst, kst, vst,
+  if (D <= 128)
+    return launch_tc<2>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qst, kst, vst,
+                        q_offset, causal, window, scale, st);
+  return launch_tc<4>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, qst, kst, vst,
                       q_offset, causal, window, scale, st);
 }

@@ -6,11 +6,12 @@ the GEMMs).
 ``flash_attention`` (:func:`plan_attention`) routes by dtype and shape,
 never as a fallback on failure:
 
-* ``"tc"`` — bf16 with ``D % 16 == 0`` and ``D <= 128``: one block per
+* ``"tc"`` — bf16 with ``D % 16 == 0`` and ``D <= 256``: one block per
   (b, q head, 64 query rows), one consumer warpgroup (wgmma for ``Q·Kᵀ`` and
   ``P·V``) and one producer warp streaming K/V tiles of 64 keys through a
   2-stage TMA ring; D is padded in shared memory to 64-wide atoms (1 for
-  D <= 64, else 2).
+  D <= 64, 2 for D <= 128, else 4: RecurrentGemma's head_dim 256, whose
+  P·V runs one atom a round).
 * ``"simt"`` — float32 (wgmma would take it only as TF32), or D not a
   multiple of 16 (the first kernel: 8 query rows a block on the FMA pipes).
 
@@ -36,7 +37,7 @@ __all__ = ["AttnPlan", "DecodePlan", "plan_attention", "plan_decode",
            "split_ranges", "tma_view_ok", "TC_ROWS", "TC_KEYS",
            "DECODE_SPLIT", "DECODE_TILE", "MAX_D"]
 
-MAX_D = 128           # both kernels: head_dim limit
+MAX_D = 256           # both kernels: head_dim limit
 TC_ROWS = 64          # query rows a tc block: wgmma's M side
 TC_KEYS = 64          # keys a K/V tile
 WGMMA_K = 16          # head dims a wgmma step
@@ -83,7 +84,7 @@ def plan_attention(b: int, hq: int, sq: int, d: int,
         return AttnPlan("simt", f"head_dim {d} not a multiple of "
                         f"{WGMMA_K} up to {MAX_D}", SIMT_ROWS,
                         grid=(-(-sq // SIMT_ROWS), b * hq))
-    atoms = -(-d // 64)
+    atoms = 1 if d <= 64 else 2 if d <= 128 else 4
     return AttnPlan("tc", f"bf16, head_dim {d}: {TC_ROWS} query rows a "
                     f"block, {atoms} head-dim atom(s)", TC_ROWS, atoms,
                     grid=(-(-sq // TC_ROWS), b * hq))

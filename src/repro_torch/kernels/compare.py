@@ -25,7 +25,8 @@ from repro_torch.core.gelu import device_table
 __all__ = ["bf16_ulp", "kernel_tolerance", "within_tolerance",
            "max_abs_err", "cosine", "moe_lut_allowance", "TRAIN_LOSS_RTOL",
            "GRAD_COSINE_ALL", "GRAD_COSINE_LEAF", "GRAD_LEAF_FLOOR",
-           "GRAD_FLOAT32_MARGIN", "grad_agreement", "training_agrees"]
+           "GRAD_FLOAT32_MARGIN", "grad_agreement", "training_agrees",
+           "SERVE_COSINE", "SERVE_NOISE_RATIO", "serving_agrees"]
 
 #: Training through the kernels against the default policy (the
 #: reference's training policy) on the same parameters and batch
@@ -51,6 +52,24 @@ GRAD_COSINE_ALL = 0.999
 GRAD_COSINE_LEAF = 0.99
 GRAD_LEAF_FLOOR = 1e-3
 GRAD_FLOAT32_MARGIN = 1e-3
+#: Serving through the kernels against the plain policy on the card, the
+#: same weights and teacher-forced tokens (:func:`serving_agrees`): the
+#: logits of every step at cosine >= SERVE_COSINE — or, where bf16
+#: rounding alone puts the plain policy's logits further than that from
+#: the same model's float32 logits, the kernels' distance from the float32
+#: logits (1 − cosine) at every step at most SERVE_NOISE_RATIO times the
+#: plain policy's, plus GRAD_FLOAT32_MARGIN.  Two bf16 policies sum in
+#: other orders, and a stack that amplifies bf16 roundings scatters two
+#: correct bf16 runs about the float32 result: on the CPU at xLSTM-350M's
+#: smoke size the reference's and the port's bf16 logits sit 0.00573 and
+#: 0.00667 from the reference's float32 ones (16 % apart); on the H100 at
+#: full size xLSTM's plain bf16 logits sit 0.038 from float32 and the
+#: kernels' 0.040, RecurrentGemma-9B's 0.00138 and 0.00135, while each
+#: kernel launch holds its plain version to one bf16 ulp (``chip_smoke.py``
+#: phase 5).  The ratio was set after that first reading of xLSTM at full
+#: size, where the plain policy itself sits at cosine 0.962 of float32.
+SERVE_COSINE = 0.999
+SERVE_NOISE_RATIO = 1.25
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -186,3 +205,16 @@ def training_agrees(loss_k: float, loss_d: float, grads_k: dict,
     ok = (r["loss_rel"] <= TRAIN_LOSS_RTOL and worst >= GRAD_COSINE_LEAF
           and whole_ok)
     return ok, r
+
+
+def serving_agrees(kernel_plain: list, kernel_f32: list | None = None,
+                   plain_f32: list | None = None) -> bool:
+    """The serving rule above, from per-step cosines: kernels against the
+    plain policy, and (when the first falls short) each against the
+    float32 logits."""
+    if min(kernel_plain) >= SERVE_COSINE:
+        return True
+    if kernel_f32 is None or plain_f32 is None:
+        return False
+    return all(1.0 - k <= SERVE_NOISE_RATIO * (1.0 - p) + GRAD_FLOAT32_MARGIN
+               for k, p in zip(kernel_f32, plain_f32))

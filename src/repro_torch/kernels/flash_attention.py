@@ -13,7 +13,7 @@ least time, and what a launch costs in practice is latency.  Two variants,
 chosen by :func:`repro_torch.kernels.attn_plan.plan_attention` from the
 dtype and head_dim (``csrc/flash_attention.cu`` has the design notes):
 
-* ``tc`` — bf16, head_dim a multiple of 16 up to 128: 64 query rows a
+* ``tc`` — bf16, head_dim a multiple of 16 up to 256: 64 query rows a
   block, ``Q·Kᵀ`` and ``P·V`` on the tensor cores (wgmma; P as a bf16
   hi/lo pair, which keeps the bf16 tolerance where a single bf16 P does
   not), K/V tiles of 64 keys through a TMA ring, the online softmax in

@@ -21,6 +21,12 @@ Usage:
   python -m repro_torch.launch.serve --arch llama3_2_1b --quant int8
   python -m repro_torch.launch.serve --arch m3vit --scheduler \\
       --factor rank:8 --resident-fraction 0.5
+  # the recurrent families (recurrent state through engine and scheduler;
+  # no prefix cache, no chunked admission, unpadded prompts):
+  python -m repro_torch.launch.serve --arch xlstm_350m --scheduler \\
+      --batch 8 --requests 16 --max-len 512
+  python -m repro_torch.launch.serve --arch recurrentgemma_9b --batch 8 \\
+      --prompt-len 128 --tokens 32 --max-len 512
 
 Without ``--policy`` an LM serves under ``cuda`` with
 ``attention_decode="cuda_fused"`` (the decode kernel reads each slot's own
@@ -34,8 +40,11 @@ the activations stay on the kernels.  ``--factor rank:R|butterfly``
 factors M³ViT's experts per MoE layer (deltas at ``--quant``'s precision,
 the basis float32) and overrides ``moe_grouped_gemm`` to
 ``eager_factored``.  ``--policy eager_int8`` / ``eager_factored`` give the
-reference's presets.  ``--mesh`` comes with a later slice and raises,
-naming its ``ROADMAP.md`` item.
+reference's presets.  On the card an LM's random weights are drawn there
+(``model.init_params(..., draw_on_device=True)``: RecurrentGemma-9B's
+9.6 B parameters would take minutes of NumPy on the host); on the CPU by
+NumPy.  ``--mesh`` comes with a later slice and raises, naming its
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -344,7 +353,8 @@ def main(argv=None) -> int:
                            seed=args.seed, prefill_chunk=args.prefill_chunk,
                            policy=policy, prefix_cache=args.prefix_cache,
                            kv_quant="int8" if args.quant else None)
-        params = M.init_params(args.seed, cfg, device=dev)
+        params = M.init_params(args.seed, cfg, device=dev,
+                               draw_on_device=dev.type == "cuda")
         if args.factor:
             from repro_torch.factor import factorize_tree
 

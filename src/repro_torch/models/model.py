@@ -21,12 +21,21 @@ from repro_torch.tree import flatten, unflatten
 __all__ = ["init_params", "forward", "init_state", "lm_loss"]
 
 
-def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda"):
+def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
+                draw_on_device: bool = False):
     """Random parameters from ``seed`` with the reference's shapes, scales
     and dtypes (norm scales float32), as a flat dotted-name dict on
-    ``device``."""
+    ``device``.  They are drawn by NumPy on the host, or with
+    ``draw_on_device`` by a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (other values; RecurrentGemma-9B's 9.6 B parameters would
+    take minutes of NumPy on the host)."""
     dev = resolve_device(device)
-    tree = T.init_params(np.random.default_rng(seed), cfg, dtype)
+    if draw_on_device:
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(seed)
+    else:
+        rng = np.random.default_rng(seed)
+    tree = T.init_params(rng, cfg, dtype)
     return {k: v.to(dev) for k, v in flatten(tree).items()}
 
 
@@ -38,7 +47,8 @@ def forward(params, inputs, cfg: ArchConfig, **kw):
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
-    """Zeroed KV caches for ``batch`` sequences of up to ``max_len`` tokens
+    """Zeroed KV caches and initial recurrent states (the reference's
+    −1e30 stabilizers) for ``batch`` sequences of up to ``max_len`` tokens
     on ``device``."""
     return T.init_state(cfg, batch, max_len, dtype,
                         device=resolve_device(device))

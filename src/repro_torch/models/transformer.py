@@ -1,6 +1,6 @@
-"""The block stack, the port of ``repro.models.transformer`` for the
-families without recurrent state: the M³ViT trunk and dense / MoE decoder
-LMs (attention blocks, windowed local attention).
+"""The block stack, the port of ``repro.models.transformer``: the M³ViT
+trunk, dense / MoE decoder LMs (attention blocks, windowed local
+attention) and the recurrent families (mLSTM, sLSTM, RG-LRU blocks).
 
 Layers are grouped into periods (one cycle of ``cfg.block_pattern``);
 parameters and decode states under ``layers`` are stacked with a leading
@@ -8,18 +8,19 @@ parameters and decode states under ``layers`` are stacked with a leading
 ``p`` where the reference runs ``lax.scan``.  A remainder of
 ``num_layers % period`` layers lives under ``rest`` (keyed "0", "1", … as
 in the dotted-name trees).  The same :func:`forward` serves a full pass,
-prefill into a state and one-token decode; KV caches are written in place.
-The recurrent blocks (mLSTM, sLSTM, RG-LRU) follow with their slice.
+prefill into a state and one-token decode; KV caches and recurrent states
+are written in place.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 from repro_torch.ops.policy import use_policy
 from repro_torch.tree import index
 
@@ -45,15 +46,19 @@ def moe_config(cfg: ArchConfig) -> moe_lib.MoEConfig:
     )
 
 
-def _check_kind(kind: str) -> None:
+def _init_block(rng, kind: str, cfg: ArchConfig, dtype):
+    if kind == "mlstm":
+        return {"ln": L.init_norm(cfg), "mlstm": XL.init_mlstm(rng, cfg,
+                                                                dtype)}
+    if kind == "slstm":
+        return {"ln": L.init_norm(cfg), "slstm": XL.init_slstm(rng, cfg,
+                                                                dtype)}
+    if kind == "rglru_mlp":
+        return {"ln1": L.init_norm(cfg),
+                "rglru": RG.init_rglru(rng, cfg, dtype),
+                "ln2": L.init_norm(cfg), "mlp": L.init_mlp(rng, cfg, dtype)}
     if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  "(recurrent blocks come with their slice)")
-
-
-def _init_block(rng: np.random.Generator, kind: str, cfg: ArchConfig,
-                dtype):
-    _check_kind(kind)
+        raise ValueError(f"unknown block kind {kind}")
     p = {"ln1": L.init_norm(cfg), "attn": L.init_attention(rng, cfg, dtype),
          "ln2": L.init_norm(cfg)}
     if kind == "attn_moe":
@@ -65,7 +70,14 @@ def _init_block(rng: np.random.Generator, kind: str, cfg: ArchConfig,
 
 def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
                       dtype, device):
-    _check_kind(kind)
+    if kind == "mlstm":
+        return XL.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return XL.init_slstm_state(cfg, batch, device)
+    if kind == "rglru_mlp":
+        return RG.init_rglru_state(cfg, batch, device)
+    if kind not in _ATTN_KINDS:
+        raise ValueError(kind)
     if kind == "attn_local_mlp":
         # ring cache: windowed attention only reads the last `window`
         # positions, so the cache holds `window` slots (token t at t % window)
@@ -73,9 +85,10 @@ def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
     return L.init_attn_cache(cfg, batch, max_len, dtype, device)
 
 
-def init_params(rng: np.random.Generator, cfg: ArchConfig, dtype=None):
+def init_params(rng, cfg: ArchConfig, dtype=None):
     """Nested parameter tree with the reference's keys and stacked layout
-    (values from ``rng``, not the reference's JAX keys); on the CPU."""
+    (values from ``rng``, not the reference's JAX keys): a NumPy generator
+    draws on the CPU, a ``torch.Generator`` on its device."""
     dtype = dtype or cfg.activation_dtype
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
@@ -96,8 +109,8 @@ def init_params(rng: np.random.Generator, cfg: ArchConfig, dtype=None):
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
-    """Decode/prefill state: KV caches stacked over the periods under
-    ``layers``, per layer under ``rest``."""
+    """Decode/prefill state: KV caches and recurrent states stacked over
+    the periods under ``layers``, per layer under ``rest``."""
     dtype = dtype or cfg.activation_dtype
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
@@ -121,13 +134,27 @@ def _stack(trees):
 
 
 def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
-                 cache_index, task_id, counts_shape=(0,)):
-    """Returns (x, aux, counts); ``state`` (the block's KV cache, or None)
-    is updated in place.  ``counts`` is the per-expert dispatch count
-    tensor (zeros for dense blocks); ``counts_shape=(0,)`` disables it."""
-    _check_kind(kind)
+                 cache_index, decode, task_id, counts_shape=(0,)):
+    """Returns (x, aux, counts); ``state`` (the block's KV cache or
+    recurrent state, or None) is updated in place.  A recurrent block takes
+    its one-step path when ``decode`` and S == 1, as the reference's does.
+    ``counts`` is the per-expert dispatch count tensor (zeros for dense
+    blocks); ``counts_shape=(0,)`` disables it."""
     aux = torch.zeros((), device=x.device)
     counts = torch.zeros(counts_shape, dtype=torch.int32, device=x.device)
+    if kind in ("mlstm", "slstm"):
+        apply = XL.apply_mlstm if kind == "mlstm" else XL.apply_slstm
+        h = L.apply_norm(params["ln"], x, cfg)
+        y, _ = apply(params[kind], h, cfg, state, decode)
+        return x + y, aux, counts
+    if kind == "rglru_mlp":
+        h = L.apply_norm(params["ln1"], x, cfg)
+        y, _ = RG.apply_rglru(params["rglru"], h, cfg, state, decode)
+        x = x + y
+        h = L.apply_norm(params["ln2"], x, cfg)
+        return x + L.apply_mlp(params["mlp"], h, cfg), aux, counts
+    if kind not in _ATTN_KINDS:
+        raise ValueError(kind)
     window = cfg.window if kind == "attn_local_mlp" else None
     h = L.apply_norm(params["ln1"], x, cfg)
     a, _ = L.apply_attention(params["attn"], h, cfg, pos=pos,
@@ -163,7 +190,8 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     ``cache_index`` is an int or a (B,) tensor (continuous batching: each
     slot at its own position).  Attention blocks decode whenever a state,
     a cache index and one token are given; ``decode=True`` states that this
-    is such a step and raises if it is not.  ``return_expert_counts``
+    is such a step (and takes the recurrent blocks' one-step path) and
+    raises if it is not.  ``return_expert_counts``
     appends the per-expert dispatch counts summed over the MoE layers.
     ``cfg.policy`` (when set) is scoped around the whole pass.
     """
@@ -173,7 +201,8 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
                          f"a cache_index and S == 1 (got S={inputs.shape[1]})")
     with use_policy(cfg.policy):
         return _forward(params, inputs, cfg, pos=pos, state=state,
-                        cache_index=cache_index, task_id=task_id,
+                        cache_index=cache_index, decode=decode,
+                        task_id=task_id,
                         return_state=return_state, logits_mode=logits_mode,
                         return_expert_counts=return_expert_counts)
 
@@ -190,7 +219,7 @@ def _positions(b, s, cache_index, device):
 
 
 def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
-             cache_index=None, task_id=0, return_state=None,
+             cache_index=None, decode=False, task_id=0, return_state=None,
              logits_mode="all", return_expert_counts: bool = False):
     embed = params.get("embed", {})
     x = L.embed_inputs(embed, inputs, cfg)
@@ -224,7 +253,7 @@ def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     for kind, bparams, bstate in blocks:
         x, aux, cnt = _apply_block(kind, bparams, x, cfg, pos=pos,
                                    state=bstate, cache_index=cache_index,
-                                   task_id=task_id,
+                                   decode=decode, task_id=task_id,
                                    counts_shape=counts_shape)
         aux_total = aux_total + aux
         counts_total = counts_total + cnt

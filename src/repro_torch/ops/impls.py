@@ -197,7 +197,7 @@ def _attn_ref(policy, q, k, v, **kw):
 register("attention", "blocked", _attn_blocked, default=True)
 # materialized N×N scores (paper baseline), any mask
 register("attention", "eager", _attn_eager)
-# tiled flash kernel; f32/bf16, GQA-divisible heads, head_dim <= 128
+# tiled flash kernel; f32/bf16, GQA-divisible heads, head_dim <= 256
 register("attention", "cuda", _attn_cuda, requires=_attn_cuda_requires,
          kernel=True)
 # oracle: the kernel's plain version (f32 softmax, −1e30 masking)
@@ -316,7 +316,7 @@ register("attention_decode", "eager", _decode_eager, default=True,
 register("attention_decode", "cuda", _decode_cuda,
          requires=_decode_cuda_requires, kernel=True)
 # single-pass decode kernel, per-slot cache_len read at run time; f32/bf16,
-# GQA-divisible heads, head_dim <= 128
+# GQA-divisible heads, head_dim <= 256
 register("attention_decode", "cuda_fused", _decode_fused,
          requires=_decode_kernel_requires, kernel=True)
 # oracle: the fused kernel's plain version

@@ -1,20 +1,20 @@
-"""Batched LM serving: prefill, then decode over KV caches — the port of
-``repro.serve.engine`` (``ServeConfig``, ``ServingEngine``,
-``feedback_inputs``, ``state_batch_axes``) for single-device serving of
-the attention families.
+"""Batched LM serving: prefill, then decode over KV caches and recurrent
+state — the port of ``repro.serve.engine`` (``ServeConfig``,
+``ServingEngine``, ``feedback_inputs``, ``state_batch_axes``) for
+single-device serving of the attention and recurrent families.
 
 A static batch of prompts is prefilled (in one pass, or in fixed-size
-chunks) into per-layer KV caches on the card, then decoded token by token
-with greedy or temperature sampling; per-request EOS stops a row early.
-The caches are written in place between steps.  ``ServeConfig.prefix_cache``
-is read by the scheduler's ``LMBackend`` only; the static engine ignores
-it, as the reference's does.  ``ServeConfig.kv_quant="int8"`` stores the
+chunks) into per-layer KV caches and recurrent states (mLSTM C/n/m,
+sLSTM cells, RG-LRU h, their conv windows) on the card, then decoded token
+by token with greedy or temperature sampling; per-request EOS stops a row
+early.  The state is written in place between steps.
+``ServeConfig.prefix_cache`` is read by the scheduler's ``LMBackend``
+only; the static engine ignores it, as the reference's does.  ``ServeConfig.kv_quant="int8"`` stores the
 caches as int8 rows with a float32 scale per (token, head); pair it with
 ``policy_named("eager_int8")`` (or an ``attention_decode="eager_int8"``
 override) so the int8 decode impl is a dispatch hit.  Meshes
-(``rules``), asynchronous expert paging, recurrent families and
-embedding-input frontends come with later slices of the port and raise
-``NotImplementedError``.
+(``rules``), asynchronous expert paging and embedding-input frontends come
+with later slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -122,8 +122,6 @@ class ServingEngine:
             raise _later("mesh serving (rules)", "distribution")
         if scfg.async_paging:
             raise _later("asynchronous expert paging", "paged serving")
-        if is_recurrent(cfg):
-            raise _later(f"recurrent serving ({cfg.name})", "recurrent")
         if cfg.embed_input != "tokens":
             raise _later(f"embedding-input frontends ({cfg.name})",
                          "modality")
@@ -158,10 +156,15 @@ class ServingEngine:
         # fixed-size chunks; a short final chunk is padded, its pad rows
         # land at positions >= s0, past every later cache_len (the first
         # decode overwrites position s0), and the logits are read at the
-        # last real position
+        # last real position.  A recurrent state is a running reduction
+        # that zero padding would pollute: its final chunk runs at its own
+        # length.
         n_full, rem = divmod(s0, chunk)
         if rem == 0:
             n_mid, last = n_full - 1, chunk - 1
+            final = prompts[:, n_mid * chunk:]
+        elif is_recurrent(cfg):
+            n_mid, last = n_full, rem - 1
             final = prompts[:, n_mid * chunk:]
         else:
             tail = prompts[:, n_full * chunk:]

@@ -11,14 +11,16 @@ hot task cannot starve the rest.
 
 Continuous batching mechanics:
 
-  * each bucket owns a batched decode state (the KV caches) of ``slots``
+  * each bucket owns a batched decode state (the KV caches and recurrent
+    states) of ``slots``
     sequences plus a per-slot ``cache_pos`` vector — the vector
     ``cache_index`` decode path of ``models/transformer.py``, which runs
     ``decode_fused`` with each slot's own cache length under
     ``attention_decode="cuda_fused"``;
   * admission prefills the new request alone (batch 1, the prompt padded up
     to a multiple of ``prompt_pad`` so its rows are masked past the real
-    prompt) and splices the resulting state into the freed slot, leaf by
+    prompt; unpadded for recurrent archs, whose state padding would
+    pollute) and splices the resulting state into the freed slot, leaf by
     leaf along each leaf's batch axis (``_StateSlots``);
   * a request finishes on its own EOS/max-tokens; its slot is immediately
     reusable — no waiting for the rest of the batch;
@@ -40,14 +42,17 @@ SLO-aware serving (``Scheduler(..., slo=SLOPolicy(...))``, the
 due interactive requests preempt batch-tier slots (park/restore, bit
 exact), a radix prefix cache (``ServeConfig.prefix_cache`` > 0) seeds
 admissions from cached shared-prompt prefill state, and long prompts admit
-in ``prefill_chunk``-token chunks interleaved with decode steps.
+in ``prefill_chunk``-token chunks interleaved with decode steps.  Recurrent
+archs get neither a prefix cache nor chunked admission, as in the
+reference: their state is a running reduction with no truncation
+property.
 
 ``Scheduler`` is backend-generic: ``LMBackend`` serves autoregressive
 decode; ``serve/vision.py`` provides the batched M³ViT backend (vision
 "preemption" is a staged-batch bump — inference is stateless).  An int8
 KV cache (``ServeConfig.kv_quant="int8"``) is served like a floating one:
 its scale leaves are spliced, parked and cloned with the rows.  Meshes and
-recurrent families come with later slices and raise, naming their
+embedding-input prompts come with later slices and raise, naming their
 ``ROADMAP.md`` item.
 """
 
@@ -162,7 +167,7 @@ class _PrefillJob:
     s0: int
 
 
-def _later(what: str, item: int) -> NotImplementedError:
+def _later(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} comes with ROADMAP.md queue 1 item "
                                f"{item}")
 
@@ -183,16 +188,16 @@ class LMBackend:
                              "the decode step)")
         if rules is not None:
             raise _later("mesh serving (rules)", 6)
-        if is_recurrent(cfg):
-            raise _later(f"recurrent serving ({cfg.name})", 5)
         if cfg.embed_input != "tokens":
-            raise _later(f"embedding-input prompts ({cfg.name})", 5)
+            raise _later(f"embedding-input prompts ({cfg.name})", "5b")
         self.cfg = cfg = serve_overrides(cfg, scfg)
         self.scfg = scfg
         self.device = resolve_device(device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
-        # padded prefill relies on causal / cache_len masking
-        self.prompt_pad = prompt_pad
+        self.recurrent = is_recurrent(cfg)
+        # padded prefill relies on causal / cache_len masking — attention
+        # archs only
+        self.prompt_pad = 0 if self.recurrent else prompt_pad
         self.num_tasks = max(cfg.num_tasks,
                              cfg.moe.num_tasks if cfg.moe else 1)
         self.usage = (ExpertUsage(cfg.moe.num_experts, self.num_tasks)
@@ -200,9 +205,10 @@ class LMBackend:
         self._slots_io = _StateSlots(cfg, scfg.max_len)
         self._parkers: dict[str, SlotParker] = {}
         # shared prompt-prefix reuse needs the attention truncation
-        # property (stale rows masked by causal/cache_len)
+        # property (stale rows masked by causal/cache_len); recurrent
+        # state is a running reduction, so no cache for those archs
         self.prefix: Optional[RadixPrefixCache] = None
-        if scfg.prefix_cache > 0:
+        if scfg.prefix_cache > 0 and not self.recurrent:
             self.prefix = RadixPrefixCache(
                 scfg.prefix_cache, min_match=max(1, scfg.prefix_min))
 
@@ -427,7 +433,7 @@ class LMTaskBucket:
         suffix_len = s0 - matched
         # chunking only pays while there are active decoders to protect
         if (chunk_interleave and self.active > 0 and chunk > 0
-                and suffix_len > chunk
+                and suffix_len > chunk and not b.recurrent
                 and matched + _pad_len(suffix_len, chunk) <= b.scfg.max_len):
             small = _clone(entry) if entry is not None else b.new_state(1)
             self.jobs.append(_PrefillJob(req=req, slot=slot, small=small,

@@ -2,7 +2,9 @@
 the port of ``repro.serve.slo.preempt``.
 
 Preempting a batch-tier request means lifting its per-slot decode state
-(the KV cache rows of every layer) out of the bucket's batched state so
+(the KV cache rows of every layer, or a recurrent arch's cells: mLSTM
+C/n/m, sLSTM c/n/h/m, RG-LRU h and the conv windows) out of the bucket's
+batched state so
 the slot can serve an interactive request, then splicing it back later
 and continuing decode *token-identically* — the same greedy tokens as an
 uninterrupted run.  Extraction slices each leaf along its batch axis
@@ -29,10 +31,12 @@ from repro_torch.tree import flatten
 __all__ = ["ParkedState", "SlotParker"]
 
 # floating leaves with at least this many elements along the last axis are
-# quantized under compress="int8": KV rows (head_dim wide) qualify; the
-# per-row float32 scales of an already-int8 cache (last dim 1) and other
-# small bookkeeping leaves pass through verbatim — which is what keeps the
-# int8-KV round trip bit-exact
+# quantized under compress="int8", the reference's rule: KV rows (head_dim
+# wide) and the recurrent cells' rows (mLSTM C and n, the sLSTM cells,
+# RG-LRU h, the conv windows) qualify; the per-row float32 scales of an
+# already-int8 cache (last dim 1), mLSTM's per-head stabilizer m (B, H)
+# with fewer than 8 heads and other small bookkeeping leaves pass through
+# verbatim — which is what keeps the int8-KV round trip bit-exact
 _MIN_ROW = 8
 
 

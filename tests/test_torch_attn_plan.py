@@ -45,13 +45,28 @@ def test_float32_attention_takes_the_simt_route(case):
 
 @pytest.mark.parametrize("d, variant, atoms", [
     (16, "tc", 1), (48, "tc", 1), (64, "tc", 1), (80, "tc", 2),
-    (128, "tc", 2), (40, "simt", 0), (8, "simt", 0), (72, "simt", 0),
-    (127, "simt", 0)])
+    (128, "tc", 2), (144, "tc", 4), (256, "tc", 4), (40, "simt", 0),
+    (8, "simt", 0), (72, "simt", 0), (127, "simt", 0), (264, "simt", 0)])
 def test_head_dim_routes_the_variant(d, variant, atoms):
     plan = ap.plan_attention(2, 6, 77, d, BF16)
     assert plan.variant == variant and plan.atoms == atoms
     if variant == "tc":
         assert plan.atoms * 64 >= d
+
+
+@pytest.mark.parametrize("b, hq, sq", [(8, 16, 128), (2, 16, 2304),
+                                       (1, 16, 1)])
+def test_recurrentgemma_attention_takes_four_atoms(b, hq, sq):
+    """RecurrentGemma-9B's local attention (MQA 16:1, head_dim 256) at
+    prefill, past the 2048 window, and Sq = 1 over a prefix: ``tc`` with
+    four head-dim atoms; a float32 launch takes ``simt``, which also
+    holds D = 256; D past the limit is refused by the reason."""
+    plan = ap.plan_attention(b, hq, sq, 256, BF16)
+    assert plan.variant == "tc" and plan.atoms == 4, plan.reason
+    assert plan.grid == (-(-sq // ap.TC_ROWS), b * hq)
+    assert ap.plan_attention(b, hq, sq, 256, F32).variant == "simt"
+    assert ap.MAX_D == kfa.MAX_D == kdf.MAX_D == 256
+    assert "up to 256" in ap.plan_attention(b, hq, sq, 272, BF16).reason
 
 
 def test_decode_route_on_tc():
@@ -116,6 +131,7 @@ def test_decode_main_path_grid():
 
 @pytest.mark.parametrize("hq, hkv, heads, chunks", [(6, 2, 3, 1),
                                                     (24, 2, 8, 2),
+                                                    (16, 1, 8, 2),
                                                     (8, 8, 1, 1)])
 def test_decode_large_groups_take_head_chunks(hq, hkv, heads, chunks):
     plan = ap.plan_decode(2, hq, hkv, 130)

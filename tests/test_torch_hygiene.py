@@ -84,8 +84,8 @@ _T = torch.zeros
 REJECTED = {
     "linear": (("linear", _T(4, 8), _T(8, 4, dtype=torch.bfloat16)), {},
                "mixed dtypes", "eager"),
-    "attention": (("attention", _T(1, 1, 4, 192), _T(1, 1, 4, 192),
-                   _T(1, 1, 4, 192)), {}, "head_dim 192 > 128", "blocked"),
+    "attention": (("attention", _T(1, 1, 4, 320), _T(1, 1, 4, 320),
+                   _T(1, 1, 4, 320)), {}, "head_dim 320 > 256", "blocked"),
     "activation": (("activation", _T(4, 8)), {"kind": "relu"},
                    "no LUT correction table for 'relu'", "eager"),
     "moe_grouped_gemm": (("moe_grouped_gemm", _T(2, 3, 4), _T(2, 4, 5),

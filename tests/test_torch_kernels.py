@@ -8,7 +8,9 @@ inputs, at M³ViT main-path shapes and at ragged ones.  Tolerances
 ulp plus that float32 tolerance (the two float32 sums before rounding
 differ by it, which shows only near zero); one table step more where a
 LUT epilogue's pre-activation sits on an index half-step; the LUT
-activation bit-exact; rows past a queue exactly zero.
+activation bit-exact; rows past a queue exactly zero.  At head_dim 256
+(RecurrentGemma-9B's MQA) both attention modules' plain versions are held
+against the reference's oracle ``repro.kernels.ref.ref_attention``.
 """
 
 import jax
@@ -157,6 +159,57 @@ def test_flash_attention_fully_masked_rows_are_zero(rng):
     # query 0 sits at position -3: causal leaves it no key
     out = kfa.flash_attention(q, k, k, causal=True, q_offset=-3)
     assert (out[0, 0, :3] == 0).all() and (out[0, 0, 3] != 0).any()
+
+
+# (B, Hq, Hkv, Sq, Skv, causal, window, q_offset) at head_dim 256:
+# RecurrentGemma-9B's local attention (MQA 16:1) at prefill, past its
+# window, GQA, and Sq = 1 over a live prefix (the decode route)
+D256_CASES = {
+    "prefill_mqa": (2, 16, 1, 24, 24, True, None, 0),
+    "windowed_mqa": (1, 16, 1, 40, 40, True, 16, 0),
+    "gqa_offset": (1, 8, 2, 9, 30, True, 12, 21),
+    "sq1_prefix": (2, 16, 1, 1, 33, True, None, 32),
+}
+
+
+@pytest.mark.parametrize("case", list(D256_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_plain_matches_reference(rng, case, dtype):
+    """``flash_attention``'s plain version at head_dim 256 against the
+    reference's oracle ``repro.kernels.ref.ref_attention``."""
+    from repro.kernels.ref import ref_attention
+
+    b, hq, hkv, sq, skv, causal, window, q_offset = D256_CASES[case]
+    qj, qt = pair(rng.normal(size=(b, hq, sq, 256)), dtype)
+    kj, kt = pair(rng.normal(size=(b, hkv, skv, 256)), dtype)
+    vj, vt = pair(rng.normal(size=(b, hkv, skv, 256)), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = kfa.flash_attention(qt, kt, vt, **kw)
+    assert got.shape == qt.shape
+    assert_close(got, to_torch(ref_attention(qj, kj, vj, **kw)),
+                 DTYPES[dtype][1])
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_head_dim_256_mqa_matches_reference(rng, window, dtype):
+    """``decode_fused``'s plain version at head_dim 256, MQA 16:1, mixed
+    per-slot lengths (one of them the whole cache): each slot against the
+    reference's oracle over its live prefix (q at the last position)."""
+    from repro.kernels.ref import ref_attention
+    from repro_torch.kernels import decode_fused as kdf
+
+    lengths = [7, 30, 1]
+    qj, qt = pair(rng.normal(size=(3, 16, 1, 256)), dtype)
+    kj, kt = pair(rng.normal(size=(3, 1, 30, 256)), dtype)
+    vj, vt = pair(rng.normal(size=(3, 1, 30, 256)), dtype)
+    got = kdf.fused_decode_attention(qt, kt, vt, torch.tensor(lengths),
+                                     window=window)
+    for i, n in enumerate(lengths):
+        want = to_torch(ref_attention(qj[i:i + 1], kj[i:i + 1, :, :n],
+                                      vj[i:i + 1, :, :n], causal=True,
+                                      window=window, q_offset=n - 1))
+        assert_close(got[i:i + 1], want, DTYPES[dtype][1])
 
 
 # ------------------------------------------------------------ moe_gemm

@@ -274,9 +274,21 @@ def test_later_slices_raise(over):
     reference's is): same tokens as without it.  ``kv_quant="int8"`` (the
     packed-formats slice, ported) serves: the int8 KV error is far below
     the argmax margin here, so the tokens equal the float cache's, as in
-    the reference's ``tests/test_quant.py``, with the int8 decode a hit."""
+    the reference's ``tests/test_quant.py``, with the int8 decode a hit.
+    A recurrent arch (the recurrent slice, ported; its oracles in
+    ``test_torch_recurrent_serve.py``) serves: a chunked prefill with an
+    exact remainder chunk gives the one-shot tokens."""
     _, tcfg, _, tparams = _lm("float32")
     cfg = replace(tcfg, **over.get("cfg", {}))
+    if cfg.block_pattern == ("rglru_mlp",):
+        params = tmodel.init_params(0, cfg, device="cpu")
+        one = ServingEngine(cfg, params, ServeConfig(max_len=MAX_LEN),
+                            device="cpu").generate(PROMPT, 6)
+        assert one.shape == (2, 6)
+        np.testing.assert_array_equal(one, ServingEngine(
+            cfg, params, ServeConfig(max_len=MAX_LEN, prefill_chunk=5),
+            device="cpu").generate(PROMPT, 6))
+        return
     if "kv_quant" in over.get("scfg", {}):
         ops.reset_dispatch_report()
         got = ServingEngine(cfg, tparams, ServeConfig(

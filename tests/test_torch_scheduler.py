@@ -15,7 +15,8 @@ The reference's own oracles (``tests/test_scheduler.py``) are ported
 beside them: results identical to the static engine, mixed-task batches
 with router-usage export (Kimi-K2 ``SMOKE_CONFIG`` with two tasks), slot
 recycling on EOS, fairness, metrics, open-loop arrivals and padded
-prefill.  Recurrent archs raise, naming ``ROADMAP.md`` queue 1 item 5.
+prefill.  Recurrent archs are served (``test_torch_recurrent_serve.py``
+holds them against the reference).
 """
 
 import functools
@@ -281,13 +282,32 @@ def test_task_skew_80_20_bounded_ttft_gap():
     dict(scfg=dict(temperature=1.0))],
     ids=["recurrent", "embeddings", "kv_int8", "mesh", "temperature"])
 def test_later_items_raise(over):
-    """Recurrent archs and embedding prompts (queue 1 item 5) and meshes
-    (item 6) raise naming their item; the scheduler decodes greedily.  An
-    int8 KV cache (item 3, ported) is served: every request gets the
-    static int8-cache engine's tokens and the JAX scheduler's schedule."""
+    """Embedding prompts (queue 1 item 5b) and meshes (item 6) raise
+    naming their item; the scheduler decodes greedily.  An int8 KV cache
+    (item 3, ported) is served: every request gets the static int8-cache
+    engine's tokens and the JAX scheduler's schedule.  A recurrent arch
+    (item 5a, ported; ``test_torch_recurrent_serve.py`` holds it against
+    the reference) is served unpadded, without a prefix cache, each
+    request with the static engine's tokens."""
     _, tcfg, _, tparams = _model()
     cfg = replace(tcfg, **over.get("cfg", {}))
     scfg = ServeConfig(max_len=64, **over.get("scfg", {}))
+    if cfg.block_pattern == ("mlstm",):
+        from repro_torch.models import model as tmodel
+
+        params = tmodel.init_params(0, cfg, device="cpu")
+        b = LMBackend(cfg, params, replace(scfg, prefix_cache=4),
+                      device="cpu")
+        assert b.prompt_pad == 0 and b.prefix is None and b.recurrent
+        prompts = _prompts(cfg.vocab_size, 3, 7, 5)
+        ref = ServingEngine(cfg, params, scfg, device="cpu").generate(
+            prompts, 5)
+        done = Scheduler(b, total_slots=2, quantum=2, num_tasks=1).run(
+            [Request(rid=i, task_id=0, prompt=prompts[i], max_new_tokens=5)
+             for i in range(3)])
+        for r in done:
+            assert r.tokens == list(ref[r.rid]), r.rid
+        return
     if "kv_quant" in over.get("scfg", {}):
         prompts = _prompts(tcfg.vocab_size, 3, 8, 5)
         specs = [dict(rid=i, task_id=0, prompt=prompts[i],
