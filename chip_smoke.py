@@ -3,13 +3,16 @@
 serving through the kernels and through the fused MoE kernel, and
 Llama-3.2-1B prefill + decode serving, each also through the
 continuous-batching scheduler; the recurrent families (xLSTM-350M and
-RecurrentGemma-9B) serving; then training M³ViT and Llama-3.2-1B through
-the kernels.
+RecurrentGemma-9B) serving; the remaining configurations (MusicGen-Large,
+Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, Llama-4-Scout,
+M³ViT-many) serving; then training M³ViT and Llama-3.2-1B through the
+kernels.
 
     python3 chip_smoke.py
 
-Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 6
-(phase 5 checks and times the launches of 3, 4 and 7):
+Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6
+(phase 5 checks and times the launches of 3, 4 and 7, and of phase 8's
+Qwen2-VL-72B and Llama-4-Scout units while each model lives):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
@@ -222,6 +225,44 @@ Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 6
    streams part; their agreement is printed as a reading).  Prefill ms,
    ms a decode step, tokens/s, peak memory and the phase's wall time are printed; (a) and
    (b) are counted and recorded for phase 5, (c)–(e) checked only.
+8. The remaining configurations at full width in bf16 under ``cuda`` with
+   ``attention_decode="cuda_fused"``, weights drawn on the card from seed
+   0, one model at a time, each freed before the next: MusicGen-Large
+   (48 layers), Phi-4-mini (32), Qwen1.5-4B (40), and cut in depth only,
+   Qwen2-VL-72B (16 of 80), DeepSeek-67B (16 of 95) and Llama-4-Scout (6
+   of 48, all 16 experts); each line gives the depth, ``param_count`` of
+   the run config, the bytes and the cut.  For each: ``generate`` of 8
+   prompts of 128 (token ids, or (128, d) embeddings for MusicGen and
+   Qwen2-VL, whose sampled tokens come back as rows of the stub table),
+   32 greedy tokens, ``max_len`` 512, counted: every launch as planned
+   (``unified_linear`` per projection and head, ``flash_attention`` and
+   ``decode_fused`` per layer, Llama-4-Scout's three expert projections
+   on ``moe_gemm`` and its SiLU on ``gelu_lut`` per layer and forward, at
+   top-1 with the shared expert on ``unified_linear``), no SIMT route,
+   every kernel op in mode ``cuda`` and the one fallback allowed
+   (Llama-4-Scout's ``moe_ffn``, which has no ``cuda`` impl) printed with
+   its reason; with ``moe_ffn="cuda_fused"`` Scout's layer is refused on
+   the card with the reference's reason (``onehot``), no ``moe_fused``
+   launch; (a) the prefill logits against the plain ``eager`` policy
+   at cosine >= 0.999, or past bf16 noise within the float32 yardstick
+   (``compare.serving_agrees``; the same model in float32, its bf16
+   weights widened one op at a time, so it fits beside every config);
+   the teacher-forced replay gives back the tokens; (c) MusicGen and
+   Qwen2-VL through the ``Scheduler``: 16 requests of 16..128 positions
+   in 8 slots, padded, each equal to the static engine's tokens bit for
+   bit; then Qwen2-VL's and Llama-4-Scout's ``generate(prompts, 1)``
+   (a prefill and a decode step) counted, recorded and checked and timed
+   as phase 5 does, added to the kernels' entries.  (e) M³ViT-many (256
+   experts, 8 tasks) through ``M3ViTServer`` at batch 8 under ``cuda``
+   and ``moe_ffn="cuda_fused"`` (every ``moe_fused`` launch on ``tc``):
+   cosine >= 0.999 of the plain policy or within the float32 yardstick,
+   beside the count of routed rows whose top-4 expert set the bf16
+   policies and float32 disagree on; frame 0 at batch 1, 2, 4 equal to
+   its batch-8 bits; then the launcher's example ``--arch m3vit_many
+   --smoke --scheduler --factor rank:8 --expert-budget-bytes 2000000`` to
+   its end.  Prefill ms, ms a decode step, tokens/s and peak memory per
+   config and the phase's wall time are printed; the configs but the two
+   units are checked and printed only.
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
@@ -2697,6 +2738,495 @@ def recurrent_path(units):
     return total, keep
 
 
+# ------------------------------------------------------------ phase 8
+
+#: the decoders of phase 8 and the depth each runs at (None: all of it);
+#: weights for the three cut ones would not fit the card at full depth
+FRONTIER = {"musicgen_large": None, "phi4_mini_3_8b": None,
+            "qwen1_5_4b": None, "qwen2_vl_72b": 16, "deepseek_67b": 16,
+            "llama4_scout_17b_a16e": 6}
+FRONTIER_SCHEDULED = ("musicgen_large", "qwen2_vl_72b")     # (c)
+FRONTIER_UNITS = ("qwen2_vl_72b", "llama4_scout_17b_a16e")  # to phase 5
+M3VIT_MANY_LAUNCH = ["--arch", "m3vit_many", "--smoke", "--scheduler",
+                     "--factor", "rank:8", "--expert-budget-bytes",
+                     "2000000"]
+
+
+def frontier_model(name):
+    """The full-width ``CONFIG``, cut in depth where ``FRONTIER`` says,
+    with random weights drawn on the card from seed 0."""
+    import time
+
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+
+    full = get(name)
+    depth = FRONTIER[name]
+    cfg = full if depth is None else replace(full, num_layers=depth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(0, cfg, draw_on_device=True)
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
+           f"{cfg.moe.d_ff} + {cfg.moe.num_shared_experts} shared "
+           f"({cfg.moe.impl})" if cfg.moe else "")
+    cut = ("none" if depth is None else f"depth {depth} of "
+           f"{full.num_layers} (widths as published; fewer layers make the "
+           f"host's share of a step larger than in a deployment)")
+    print(f"  {name}: {cfg.num_layers} layers of {full.num_layers}, "
+          f"d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab_size} rope={cfg.rope} "
+          f"qkv_bias={cfg.qkv_bias} input={cfg.embed_input}{moe}: "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (param_count of the "
+          f"run config; {full.param_count() / 1e9:.3f} B at full depth), "
+          f"{nbytes / 2**30:.2f} GiB of {cfg.dtype} weights drawn on the "
+          f"card from seed 0 in {time.perf_counter() - t0:.1f} s; cut: {cut}")
+    return cfg, params
+
+
+def frontier_prompts(cfg, n: int, length: int, seed: int):
+    """``n`` prompts of ``length`` on the card: token ids, or (length, d)
+    float32 embeddings for a stub frontend."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input == "tokens":
+        a = rng.integers(0, cfg.vocab_size, (n, length))
+    else:
+        a = rng.standard_normal((n, length, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(a).cuda()
+
+
+def _frontier_expect(label, cfg, forwards: int, steps: int, counts):
+    """The launches of ``forwards`` forwards (one prefill, ``steps`` decode
+    steps): ``unified_linear`` 4 attention projections and the MLP's (or
+    the shared expert's) 2 or 3 a layer and the head, ``flash_attention``
+    a layer at prefill, ``decode_fused`` a layer and step; an MoE layer's
+    three expert projections on ``moe_gemm`` (all routing groups in one
+    launch each) and its SiLU on ``gelu_lut``."""
+    n = cfg.num_layers
+    mlp = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    moe = n if cfg.moe is not None else 0
+    want = {"unified_linear": forwards * (n * (4 + mlp) + 1),
+            "flash_attention": n, "decode_fused": n * steps,
+            "moe_gemm": 3 * moe * forwards, "gelu_lut": moe * forwards,
+            "moe_fused": 0}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, planned {want}")
+    print(f"  {label}: launches as planned over {forwards} forwards: "
+          f"{json.dumps(counts)}")
+
+
+def _frontier_report(label, report, moe: bool) -> None:
+    """Every op on a kernel impl reports mode ``cuda``; the only fallback
+    is an MoE layer's ``moe_ffn`` (no ``cuda`` impl: the staged path, its
+    GEMMs on ``moe_gemm``), recorded with its reason."""
+    for op, entry in report.items():
+        for impl, modes in entry.get("modes", {}).items():
+            if set(modes) != {"cuda"}:
+                raise AssertionError(f"{label}: {op}/{impl} modes {modes}")
+        for fb in entry.get("fallbacks", ()):
+            if not (moe and op == "moe_ffn"):
+                raise AssertionError(f"{label}: fallback {op}: {fb}")
+            print(f"  {label}: recorded fallback {op} {fb['requested']} -> "
+                  f"{fb['used']} x{fb['count']}: {fb['reasons'][0]}")
+    if moe and report["moe_grouped_gemm"]["modes"] != {
+            "cuda": {"cuda": report["moe_grouped_gemm"]["hits"]["cuda"]}}:
+        raise AssertionError(f"{label}: moe_grouped_gemm "
+                             f"{report['moe_grouped_gemm']}")
+
+
+def _frontier_yardstick(cfg, params, prompts, kern, plain) -> bool:
+    """(a) past 0.999: the same model in float32 (the bf16 weights widened
+    one op at a time by the plain policy, the token table widened once),
+    its prefill logits the yardstick of ``compare.serving_agrees``."""
+    from repro_torch import ops
+    from repro_torch.kernels.compare import (SERVE_NOISE_RATIO, cosine,
+                                             serving_agrees)
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_step
+
+    cfg32 = replace(cfg, dtype="float32", policy=ops.policy_named("eager"))
+    p32 = dict(params)
+    if "embed.tokens" in p32:
+        p32["embed.tokens"] = p32["embed.tokens"].float()
+    prefill, _ = make_serve_step(cfg32)
+    with torch.inference_mode():
+        ref, _ = prefill(p32, prompts, M.init_state(
+            cfg32, prompts.shape[0], LM_MAX_LEN))
+    del p32
+    k32, p32c = cosine(kern, ref), cosine(plain, ref)
+    ok = serving_agrees([cosine(kern, plain)], [k32], [p32c])
+    print(f"  bf16 noise exceeds 0.999: against the same model in float32 "
+          f"the kernels sit at cosine {k32:.6f}, the plain policy at "
+          f"{p32c:.6f}: distance ratio {(1 - k32) / (1 - p32c):.3f} (at most "
+          f"{SERVE_NOISE_RATIO} x the plain policy's + 1e-3: "
+          f"{'ok' if ok else 'FAIL'})")
+    torch.cuda.empty_cache()
+    return ok
+
+
+def frontier_static(name, cfg, params, policy, units):
+    """(a), (b), (d): one counted ``generate`` of 8 prompts of 128 (token
+    ids or embeddings), 32 greedy tokens, ``max_len`` 512; the prefill and
+    every decode step replayed teacher-forced (the argmax must give back
+    the tokens; prefill ms, ms a step); the prefill logits against the
+    plain ``eager`` policy.  For ``FRONTIER_UNITS`` a counted
+    ``generate(prompts, 1)`` (a prefill and a decode step) and its
+    recorded twin go to phase 5 (``units``); its counts are returned."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.train.step import make_serve_step
+
+    prompts = frontier_prompts(cfg, LM_BATCH, LM_PROMPT, seed=0)
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=LM_MAX_LEN,
+                                                    policy=policy))
+    engine.generate(prompts, 2)               # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompts, LM_NEW)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    report = ops.dispatch_report()
+    read_variants(f"{name} generate", tally=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if tokens.shape != (LM_BATCH, LM_NEW) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{name}: tokens {tokens.shape} out of range")
+    _frontier_expect(f"{name} generate", cfg, 1 + LM_NEW, LM_NEW, counts)
+    _frontier_report(name, report, cfg.moe is not None)
+    print(f"  {name} dispatch report: {json.dumps(report)}")
+
+    prefill, decode = engine.steps()
+    toks = torch.from_numpy(tokens).long().cuda()
+    step_ms, prefill_ms = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            state = M.init_state(cfg, LM_BATCH, LM_MAX_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = prefill(engine.params, prompts, state)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        kern = logits
+        for i in range(LM_NEW):
+            if not torch.equal(torch.argmax(logits, -1), toks[:, i]):
+                raise AssertionError(f"{name} step {i}: the replayed "
+                                     "logits do not give back the tokens")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = decode(engine.params,
+                                   engine.feedback(toks[:, i]), state,
+                                   LM_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del state
+        plain_prefill, _ = make_serve_step(
+            replace(cfg, policy=ops.policy_named("eager")))
+        plain, _ = plain_prefill(engine.params, prompts, M.init_state(
+            cfg, LM_BATCH, LM_MAX_LEN))
+    cos = cosine(kern, plain)
+    print(f"  {name} (a): prefill logits vs the plain eager policy on the "
+          f"card, cosine {cos:.6f} (>= 0.999: "
+          f"{'ok' if cos >= 0.999 else 'no'})")
+    torch.cuda.empty_cache()
+    ok = serving_agrees([cos]) or _frontier_yardstick(cfg, params, prompts,
+                                                     kern, plain)
+    if not ok:
+        raise AssertionError(f"{name}: kernel logits disagree with the "
+                             f"plain policy's (cosine {cos})")
+    print(f"  {name}: prefill {statistics.median(prefill_ms):.3f} ms "
+          f"(median of 3, B={LM_BATCH} x {LM_PROMPT}); decode "
+          f"{statistics.median(step_ms):.3f} ms a step (median of {LM_NEW}, "
+          f"B={LM_BATCH}, host wall to a synchronized card); generate "
+          f"{wall * 1e3:.1f} ms, {LM_BATCH * LM_NEW / wall:.1f} tokens/s; "
+          f"peak memory {peak:.2f} GiB")
+    if cfg.moe is not None:
+        _frontier_fused_moe(name, cfg, params, policy, prompts)
+    unit_counts = None
+    if name in FRONTIER_UNITS:
+        reset_launch_counts()
+        engine.generate(prompts, 1)
+        unit_counts = launch_counts()
+        variants = read_variants(f"{name} prefill + one step", tally=False)
+        _frontier_expect(f"{name} prefill + one step", cfg, 2, 1,
+                         unit_counts)
+        prefill_calls, decode_calls = {}, {}
+        with torch.inference_mode():
+            state = M.init_state(cfg, LM_BATCH, LM_MAX_LEN)
+            with recorded_launches(prefill_calls):
+                logits, state = prefill(engine.params, prompts, state)
+            with recorded_launches(decode_calls):
+                decode(engine.params, engine.feedback(toks[:, 0]), state,
+                       LM_PROMPT)
+        del state
+        units.append((variants, [
+            Unit(f"{name} prefill, B={LM_BATCH} x {LM_PROMPT}", 1,
+                 prefill_calls),
+            Unit(f"{name} decode step, B={LM_BATCH}, cache "
+                 f"{LM_PROMPT + 1} keys", 1, decode_calls)]))
+    return engine, unit_counts
+
+
+def _frontier_fused_moe(name, cfg, params, policy, prompts):
+    """(b) An MoE decoder with ``moe_ffn="cuda_fused"``: ``moe_fused``
+    cannot take the layer (the reference's reason: ``onehot`` dispatch;
+    d 5120 is also past both variants' 768), and with the operands on the
+    card the port's dispatch raises naming the reason rather than run
+    another impl in the kernel's place (on the CPU the same call falls
+    back to the staged path, recorded, as the reference's does); no
+    ``moe_fused`` launch is made."""
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    engine = ServingEngine(cfg, params, ServeConfig(
+        max_len=LM_MAX_LEN, policy=policy.with_impls(moe_ffn="cuda_fused")))
+    reset_launch_counts()
+    try:
+        engine.generate(prompts, 1)
+    except ops.DispatchError as e:
+        why = str(e)
+    else:
+        raise AssertionError(f"{name}: moe_fused took a layer it cannot "
+                             f"hold")
+    if "onehot" not in why or launch_counts()["moe_fused"]:
+        raise AssertionError(f"{name} with moe_ffn=cuda_fused: {why}")
+    print(f"  {name} with moe_ffn=cuda_fused (b): refused on the card, no "
+          f"moe_fused launch: {why}")
+
+
+def frontier_scheduler(name, cfg, params, policy, engine):
+    """(c) 16 requests of 16..128-position prompts (token ids or
+    embeddings) and 8..16 new tokens through the ``Scheduler`` in 8 slots,
+    prompts padded to multiples of 16: each request's tokens equal the
+    static engine serving it alone, bit for bit."""
+    import time
+
+    from repro_torch.serve import LMBackend, Request, Scheduler, ServeConfig
+
+    rng = np.random.default_rng(2)
+    lengths = [16, 64, 70, 80] + rng.integers(16, 129, 12).tolist()
+    news = rng.integers(8, 17, 16).tolist()
+    specs = []
+    for i, (n, m) in enumerate(zip(lengths, news)):
+        p = frontier_prompts(cfg, 1, n, seed=100 + i)[0].cpu().numpy()
+        specs.append(dict(rid=i, task_id=0, prompt=p, max_new_tokens=m))
+    t0 = time.perf_counter()
+    want = {s["rid"]: engine.generate(s["prompt"][None],
+                                      s["max_new_tokens"])[0].tolist()
+            for s in specs}
+    print(f"  {name} (c): the static engine served each of the 16 prompts "
+          f"alone ({time.perf_counter() - t0:.1f} s)")
+    backend = LMBackend(cfg, params, ServeConfig(max_len=LM_MAX_LEN,
+                                                 policy=policy),
+                        stub_table=engine.fb_table)
+    sched = Scheduler(backend, total_slots=LM_BATCH, quantum=4, num_tasks=1)
+    done = sched.run([Request(**s) for s in specs])
+    _scheduler_report(f"{name} scheduler (c)", sched, done)
+    if sorted(r.rid for r in done) != list(range(16)):
+        raise AssertionError(f"{name} scheduler (c): not every request done")
+    for r in done:
+        if r.tokens != want[r.rid]:
+            raise AssertionError(f"{name} scheduler (c): request {r.rid} "
+                                 f"({len(r.prompt)} positions) differs from "
+                                 f"the static engine's tokens")
+    print("    every request's tokens equal the static engine's bit for bit")
+
+
+@contextlib.contextmanager
+def recorded_topk(sets: list):
+    """Append the expert set that each routing call gives each row
+    ((..., T, k), sorted per row, on the host) to ``sets``."""
+    from repro_torch.core import routing as R
+
+    route = R.route
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        sets.append(torch.sort(r.expert, -1).values.cpu())
+        return r
+
+    R.route = recording
+    try:
+        yield
+    finally:
+        R.route = route
+
+
+def topk_differences(a: list, b: list) -> tuple[int, int]:
+    """(rows whose expert sets differ, rows) over the routing calls of two
+    recorded runs of the same inputs (group padding rows included)."""
+    differ = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    return differ, sum(x[..., 0].numel() for x in a)
+
+
+def m3vit_many_path():
+    """(e) M³ViT-many (256 experts, 8 tasks) through ``M3ViTServer`` at
+    batch 8 under ``cuda`` and with ``moe_ffn="cuda_fused"``: outputs
+    finite and at cosine >= 0.999 of the plain policy's or, past bf16
+    noise, within the float32 yardstick of ``compare.serving_agrees``;
+    the routed rows whose top-4 expert set differs between the kernels,
+    the plain policy and float32 are printed beside it (how far routing
+    flips account for the gap); frame 0 at batch 1, 2, 4 equal to its
+    batch-8 bits; then the launcher's factored, budgeted example to its
+    end."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.configs import m3vit_many as MVM
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.vit import init_params
+    from repro_torch.serve.vision import M3ViTServer
+
+    cfg = MVM.CONFIG
+    t0 = time.perf_counter()
+    params = init_params(0, cfg)
+    n_moe = cfg.num_layers // 2
+    print(f"  m3vit_many: {cfg.num_layers} layers d={cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} over "
+          f"{cfg.moe.num_tasks} tasks: {cfg.param_count() / 1e9:.3f} B "
+          f"parameters ({sum(v.numel() * v.element_size() for v in params.values()) / 2**30:.2f} "
+          f"GiB) from seed 0 in {time.perf_counter() - t0:.1f} s; cut: none")
+    rng = np.random.default_rng(7)
+    batches = [(task, rng.normal(size=(BATCH, MV.IMAGE_H, MV.IMAGE_W, 3))
+                .astype(np.float32)) for task in MV.TASKS]
+    topk: dict[tuple[str, str], list] = {}
+
+    def infer_recorded(server, imgs, task, label):
+        with recorded_topk(topk.setdefault((label, task), [])):
+            return server.infer(imgs, task)
+
+    blocked = ops.policy_named("blocked")
+    plain = {task: torch.from_numpy(infer_recorded(M3ViTServer(
+        replace(cfg, policy=blocked), params), imgs, task, "plain"))
+        for task, imgs in batches}
+    f32 = M3ViTServer(replace(cfg, dtype="float32", policy=blocked),
+                      {k: v.float() for k, v in params.items()})
+    ref32 = {task: torch.from_numpy(infer_recorded(f32, imgs, task, "f32"))
+             for task, imgs in batches}
+    del f32
+    cuda = ops.policy_named("cuda")
+    for label, policy in (("cuda", cuda), ("cuda + moe_ffn=cuda_fused",
+                          cuda.with_impls(moe_ffn="cuda_fused"))):
+        server = M3ViTServer(replace(cfg, policy=policy), params)
+        for task, imgs in batches:
+            server.infer(imgs, task)          # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs = {task: infer_recorded(server, imgs, task, label)
+                for task, imgs in batches}
+        counts = launch_counts()
+        variants = read_variants(f"m3vit_many {label}", tally=False)
+        fused = "fused" in label
+        if fused and (counts["moe_fused"] != n_moe * len(batches)
+                      or counts["moe_gemm"]
+                      or variants["moe_fused"].get("simt")):
+            raise AssertionError(f"m3vit_many {label}: launches {counts}")
+        if not fused and (counts["moe_gemm"] != 2 * n_moe * len(batches)
+                          or counts["moe_fused"]):
+            raise AssertionError(f"m3vit_many {label}: launches {counts}")
+        print(f"  m3vit_many {label}: launches {json.dumps(counts)}")
+        for task, imgs in batches:
+            y = torch.from_numpy(outs[task])
+            cos = cosine(y, plain[task])
+            k32, p32 = cosine(y, ref32[task]), cosine(plain[task],
+                                                       ref32[task])
+            ok = serving_agrees([cos], [k32], [p32])
+            print(f"  m3vit_many {label}, {task}: output {tuple(y.shape)}, "
+                  f"cosine vs the plain blocked policy {cos:.6f}; against "
+                  f"the same model in float32 the kernels {k32:.6f}, the "
+                  f"plain policy {p32:.6f} ({'ok' if ok else 'FAIL'})")
+            flips = [topk_differences(topk[x], topk[y]) for x, y in (
+                ((label, task), ("plain", task)),
+                ((label, task), ("f32", task)),
+                (("plain", task), ("f32", task)))]
+            print(f"    routed rows whose top-{cfg.moe.top_k} expert set "
+                  f"differs, of {flips[0][1]} over {n_moe} MoE layers: "
+                  f"kernels vs plain {flips[0][0]}, kernels vs float32 "
+                  f"{flips[1][0]}, plain vs float32 {flips[2][0]}")
+            if not torch.isfinite(y).all() or not ok:
+                raise AssertionError(f"m3vit_many {label} {task}: cosine "
+                                     f"{cos}")
+        _time_batches(server, batches)
+        batch_independence(server, batches, f"m3vit_many {label}")
+        del server
+    del plain, ref32, params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"  m3vit_many, the launcher's example: python -m "
+          f"repro_torch.launch.serve {' '.join(M3VIT_MANY_LAUNCH)}")
+    if launch_serve.main(M3VIT_MANY_LAUNCH) != 0:
+        raise AssertionError("the m3vit_many launcher example failed")
+    print(f"  m3vit_many launcher example ran to its end in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def frontier_path() -> list:
+    """Phase 8: the six remaining decoders at full width (three cut in
+    depth) and M³ViT-many, one model at a time, each freed before the
+    next.  Returns the phase-5 records of ``FRONTIER_UNITS``' counted
+    prefill-and-step runs (each checked and timed while its model lives),
+    to be added to the kernels' entries."""
+    import time
+
+    from repro_torch import ops
+
+    t_phase = time.perf_counter()
+    policy = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
+    extra = []
+    for name in FRONTIER:
+        t0 = time.perf_counter()
+        cfg, params = frontier_model(name)
+        units = []
+        engine, unit_counts = frontier_static(name, cfg, params, policy,
+                                              units)
+        if name in FRONTIER_SCHEDULED:
+            frontier_scheduler(name, cfg, params, policy, engine)
+        if unit_counts is not None:
+            print(f"  phase 5 units of {name}, checked and timed now (the "
+                  f"model is freed before the next)")
+            extra.append(path_records(units[0][1], unit_counts, units[0][0]))
+        del engine, params, units     # the recorded launches hold weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s")
+    m3vit_many_path()
+    print(f"  phase 8 wall time {time.perf_counter() - t_phase:.1f} s")
+    return extra
+
+
+def add_records(records, extra) -> None:
+    """Add phase 8's per-kernel readings (``path_records`` of its units)
+    into phase 5's records: launches, times and bounds summed, units
+    appended."""
+    for more in extra:
+        for rec, add in zip(records, more):
+            if not add["launches"]:
+                continue
+            t = rec.pop("_total")
+            _add(t, add.pop("_total"))
+            rec.update(_entry(t), _total=t)
+            rec["launches"] += add["launches"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], add["max_abs_err"])
+            rec["units"] += add["units"]
+            for v, k in add.get("variants", {}).items():
+                rec.setdefault("variants", {})[v] = \
+                    rec.get("variants", {}).get(v, 0) + k
+    for rec in records:
+        rec.pop("_total", None)
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -2970,13 +3500,18 @@ def _entry(total: dict) -> dict:
     return out
 
 
-def path_records(units, counted) -> list[dict]:
+def path_records(units, counted, counted_variants=None) -> list[dict]:
     """Each kernel's JSON entry from the recorded launches of the main
-    paths, whose number must equal the counted launches.  Every distinct
-    launch (by shape and data) is checked and timed alone once; every
-    distinct run is timed in order once."""
+    paths, whose number must equal the counted launches (and whose planned
+    variants the counted ones: ``counted_variants``, by default
+    COUNTED_VARIANTS).  Every distinct launch (by shape and data) is
+    checked and timed alone once; every distinct run is timed in order
+    once.  A kernel no unit launched gets ``launches`` 0 and no times;
+    each entry keeps its sums under ``_total`` (``add_records``)."""
     from repro_torch.kernels import KERNELS
 
+    if counted_variants is None:
+        counted_variants = COUNTED_VARIANTS
     checked: dict = {}      # case key -> (err, alone ms, bound parts)
     timed: dict = {}        # run's case keys -> in-order reading
     records = []
@@ -3041,9 +3576,12 @@ def path_records(units, counted) -> list[dict]:
                   f"{row['bound_ms'] / n:.4f} ms ({row['bound_by']})"
                   + (f"; variants {row['variants']}" if "variants" in row
                      else ""))
+        if not rows:
+            records.append({"name": name, "launches": 0})
+            continue
         extra = {}
-        if name in COUNTED_VARIANTS:
-            counted_v = {v: k for v, k in COUNTED_VARIANTS[name].items() if k}
+        if name in counted_variants:
+            counted_v = {v: k for v, k in counted_variants[name].items() if k}
             if variants != counted_v:
                 raise AssertionError(f"{name}: recorded launches planned "
                                      f"{variants}, counters {counted_v}")
@@ -3053,7 +3591,7 @@ def path_records(units, counted) -> list[dict]:
                         "launches": counted[name], "max_abs_err": max_err,
                         **_entry(total), **extra,
                         "per": "every launch of the counted main-path runs",
-                        "units": rows})
+                        "units": rows, "_total": total})
     return records
 
 
@@ -3136,8 +3674,13 @@ def main() -> None:
     print("phase 5: the kernels at the main paths' own inputs")
     records = path_records(units, counted)
     del units, ctx, lm_ctx, rc_models
-    gc.collect()                # RecurrentGemma's 19 GB before training
+    gc.collect()                # RecurrentGemma's 19 GB before phase 8
     torch.cuda.empty_cache()
+
+    print("phase 8: the remaining configurations — MusicGen-Large, "
+          "Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, "
+          "Llama-4-Scout, M3ViT-many")
+    add_records(records, frontier_path())
 
     print("phase 6: training, M3ViT and Llama-3.2-1B")
     m3vit_train = train_m3vit()

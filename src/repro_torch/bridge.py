@@ -15,6 +15,12 @@ as ``jax.device_get`` returns them.  They are recognised by their
 attributes, never by importing the reference, and rebuilt as the port's
 ``repro_torch.quant.QTensor`` / ``repro_torch.factor.FactoredTensor`` at
 the same dotted name.
+
+:func:`stub_table_from_jax` carries the reference's pseudo-embedding table
+of a stub frontend (``repro.serve.engine._stub_embed_table``, drawn by
+``jax.random``, which the port cannot draw) across as a host tensor; an
+engine or ``LMBackend`` given it as ``stub_table`` feeds back the
+reference's rows.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from repro_torch.factor import FactoredTensor
 from repro_torch.quant import QTensor
 from repro_torch.tree import flatten
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "tensor_from_numpy", "stub_table_from_jax"]
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -80,3 +86,11 @@ def params_from_jax(tree_or_dir, device="cuda") -> dict[str, torch.Tensor]:
         flat = {k: leaf_from_numpy(v)
                 for k, v in flatten(tree_or_dir).items()}
     return {k: v.to(dev) for k, v in flat.items()}
+
+
+def stub_table_from_jax(table) -> torch.Tensor:
+    """The reference's (max(vocab, 2), d) stub-frontend table (a NumPy
+    array in the config's dtype) as a host tensor, to pass as
+    ``stub_table`` to ``ServingEngine`` or ``LMBackend`` so they feed back
+    its rows."""
+    return tensor_from_numpy(table)

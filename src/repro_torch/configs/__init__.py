@@ -1,3 +1,23 @@
-from repro_torch.configs.base import ArchConfig, MoESpec, get, reduced
+from repro_torch.configs.base import (
+    ARCH_NAMES,
+    SHAPES,
+    ArchConfig,
+    MoESpec,
+    Shape,
+    cells,
+    get,
+    list_archs,
+    reduced,
+)
 
-__all__ = ["ArchConfig", "MoESpec", "get", "reduced"]
+__all__ = [
+    "ARCH_NAMES",
+    "SHAPES",
+    "ArchConfig",
+    "MoESpec",
+    "Shape",
+    "cells",
+    "get",
+    "list_archs",
+    "reduced",
+]

@@ -1,5 +1,10 @@
 """Mixture-of-Experts layer with multi-task gating (Edge-MoE §IV-D + §IV-F),
-the port of ``repro.core.moe`` with ``impl="grouped"``.
+the port of ``repro.core.moe`` with ``impl="grouped"`` and
+``impl="onehot"``.  Both run the gather into per-expert queues: the
+reference's one-hot einsums build the same queues bit for bit (they exist
+to lower to plain dots under GSPMD), and their combine differs only in
+how a token's k slots are summed (not at all at top-1, Llama-4-Scout's
+routing).
 
 Tokens are cut into routing groups of ``group_size`` (zero-padded up to a
 multiple); each group is routed on its own, exactly as the reference does
@@ -39,7 +44,7 @@ class MoEConfig:
     num_shared_experts: int = 0
     capacity_factor: float = 1.25
     group_size: int = 4096         # tokens routed per independent group
-    impl: str = "grouped"          # the port serves "grouped"
+    impl: str = "grouped"          # "grouped" | "onehot"
     renormalize: bool = True
 
     def capacity(self, tokens_per_group: int) -> int:
@@ -249,10 +254,10 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
     ``return_stats`` adds the per-expert dispatch counts summed over groups:
     (E,), or (num_tasks, E) for a task vector.
     """
-    if cfg.impl != "grouped":
+    if cfg.impl not in ("grouped", "onehot"):
         raise NotImplementedError(
             f"MoE impl {cfg.impl!r} is not ported yet: the port serves "
-            "'grouped' (onehot and ep_local come with the distribution "
+            "'grouped' and 'onehot' (ep_local comes with the distribution "
             "slice)")
     d = x.shape[-1]
     rt = route_groups(params, cfg, x, task_id)

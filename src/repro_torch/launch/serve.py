@@ -27,6 +27,16 @@ Usage:
       --batch 8 --requests 16 --max-len 512
   python -m repro_torch.launch.serve --arch recurrentgemma_9b --batch 8 \\
       --prompt-len 128 --tokens 32 --max-len 512
+  # stub frontends (MusicGen's EnCodec frames, Qwen2-VL's patches): seeded
+  # (requests, prompt_len, d) embedding prompts, tokens fed back as rows
+  # of the pseudo-embedding table:
+  python -m repro_torch.launch.serve --arch musicgen_large --scheduler \\
+      --batch 8 --requests 16 --prompt-len 128 --max-len 512
+  # M3ViT-many (256 experts, 8 tasks) with factored, paged experts:
+  python -m repro_torch.launch.serve --arch m3vit_many --smoke --scheduler \\
+      --factor rank:8 --expert-budget-bytes 2000000
+
+``--arch`` takes every name of ``configs.ARCH_NAMES`` and ``m3vit_many``.
 
 Without ``--policy`` an LM serves under ``cuda`` with
 ``attention_decode="cuda_fused"`` (the decode kernel reads each slot's own
@@ -129,6 +139,14 @@ def host_syncs(sched) -> tuple[int, float]:
     return steps, syncs / steps if steps else 0.0
 
 
+def _prompts(rng, cfg, n: int, length: int) -> np.ndarray:
+    """``n`` prompts from ``rng``: int32 token ids, or (length, d) float32
+    embeddings for a stub frontend."""
+    if cfg.embed_input == "tokens":
+        return rng.integers(0, cfg.vocab_size, (n, length)).astype(np.int32)
+    return rng.standard_normal((n, length, cfg.d_model)).astype(np.float32)
+
+
 def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
     from repro_torch.serve import LMBackend, Request, Scheduler
     from repro_torch.serve.slo import SLOPolicy, TraceConfig, TraceGenerator
@@ -143,6 +161,9 @@ def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
     sched = Scheduler(backend, total_slots=args.batch, quantum=4,
                       num_tasks=num_tasks, slo=slo)
     if args.trace:
+        if cfg.embed_input != "tokens":
+            raise SystemExit("--trace generates token prompts; "
+                             f"arch {cfg.name} embeds raw inputs")
         tc = TraceConfig(
             n=args.requests, seed=args.seed, vocab=cfg.vocab_size,
             num_tasks=num_tasks,
@@ -151,12 +172,10 @@ def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
         reqs = TraceGenerator(tc).generate()
     else:
         rng = np.random.default_rng(args.seed)
-        prompts = rng.integers(0, cfg.vocab_size,
-                               (args.requests, args.prompt_len))
+        prompts = _prompts(rng, cfg, args.requests, args.prompt_len)
         lengths = rng.integers(max(args.tokens // 4, 1), args.tokens + 1,
                                args.requests)
-        reqs = [Request(rid=i, task_id=i % num_tasks,
-                        prompt=prompts[i].astype(np.int32),
+        reqs = [Request(rid=i, task_id=i % num_tasks, prompt=prompts[i],
                         max_new_tokens=int(lengths[i]))
                 for i in range(args.requests)]
     done = sched.run(reqs)
@@ -240,8 +259,8 @@ def serve_static(cfg, params, scfg, args, dev):
     from repro_torch.serve import ServingEngine
 
     engine = ServingEngine(cfg, params, scfg, device=dev)
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))
+    prompts = _prompts(np.random.default_rng(args.seed), cfg, args.batch,
+                       args.prompt_len)
     t0 = time.perf_counter()
     out = engine.generate(prompts, args.tokens, task_id=args.task_id)
     dt = time.perf_counter() - t0

@@ -9,8 +9,10 @@ updated in place: where the reference returns a new cache array, the port
 writes the new rows into the cache tensors it was given and returns them.
 An int8 KV cache (``cfg.kv_quant="int8"``) holds int8 rows and a float32
 scale per (token, head); decode hands it to ``attention_decode`` as
-``QTensor`` views, which the ``eager_int8`` impl serves.  M-RoPE follows
-with a later slice and raises here.
+``QTensor`` views, which the ``eager_int8`` impl serves.  M-RoPE
+(Qwen2-VL) rotates sections of the frequency slots by three position
+streams; a (B, S) position is broadcast to all three, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from repro_torch.core.unified_linear import unified_linear
 from repro_torch.quant.qtensor import (QTensor, dequantize, dtype_name,
                                        quantize_kv)
 
-_MROPE_LATER = "M-RoPE comes with the vision-language slice of the port"
 _PER_SEQ_PREFILL = ("a multi-row prefill at per-sequence offsets is not "
                     "supported: the scheduler admits each prompt alone, at "
                     "one scalar offset")
@@ -95,6 +96,31 @@ def apply_rope(x, pos, theta: float):
     freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
     angles = pos[:, None, :, None].float() * freqs           # (B,1,S,hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+MROPE_SECTIONS = (0.25, 0.375, 0.375)  # temporal / height / width fractions
+
+
+def apply_mrope(x, pos3, theta: float):
+    """M-RoPE (Qwen2-VL): the hd/2 frequency slots split into (t, h, w)
+    sections of ``int(half·0.25)``, ``int(half·0.375)`` and the rest, each
+    rotated by its own position stream.  x: (B, H, S, hd); pos3:
+    (3, B, S) int.  Float32 angles and rotation, as :func:`apply_rope`."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)                  # (half,)
+    n_t = int(half * MROPE_SECTIONS[0])
+    n_h = int(half * MROPE_SECTIONS[1])
+    sec = torch.cat([torch.zeros(n_t, dtype=torch.long),
+                     torch.ones(n_h, dtype=torch.long),
+                     torch.full((half - n_t - n_h,), 2, dtype=torch.long)])
+    pos_sel = pos3[sec.to(pos3.device)].float()              # (half, B, S)
+    angles = pos_sel.permute(1, 2, 0) * freqs                # (B, S, half)
+    cos = torch.cos(angles)[:, None]                         # (B,1,S,half)
+    sin = torch.sin(angles)[:, None]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -253,7 +279,9 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError(_MROPE_LATER)
+        pos3 = pos if pos.dim() == 3 else pos.expand((3,) + tuple(pos.shape))
+        q = apply_mrope(q, pos3, cfg.rope_theta)
+        k = apply_mrope(k, pos3, cfg.rope_theta)
 
     kvq = cache is not None and "k_scale" in cache
     smax = cache["k"].shape[2] if cache is not None else None

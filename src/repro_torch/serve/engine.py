@@ -12,13 +12,30 @@ early.  The state is written in place between steps.
 only; the static engine ignores it, as the reference's does.  ``ServeConfig.kv_quant="int8"`` stores the
 caches as int8 rows with a float32 scale per (token, head); pair it with
 ``policy_named("eager_int8")`` (or an ``attention_decode="eager_int8"``
-override) so the int8 decode impl is a dispatch hit.  Meshes
-(``rules``), asynchronous expert paging and embedding-input frontends come
-with later slices of the port and raise ``NotImplementedError``.
+override) so the int8 decode impl is a dispatch hit.
+``ServeConfig.async_paging`` belongs to the vision backend; the LM engine
+ignores it, as the reference's does.  Meshes (``rules``) come with a later
+slice of the port and raise ``NotImplementedError``.
+
+Embedding-input frontends (``embed_input="embeddings"``: MusicGen's
+EnCodec frames, Qwen2-VL's patches) are stubs, as in the reference: a
+prompt is (B, S0, d) embeddings, and each sampled token is fed back as its
+row of a fixed pseudo-embedding table (``feedback_inputs``).  The
+reference draws that table with ``jax.random.normal(PRNGKey(0xE0BED))``
+times 0.02; the port imports no JAX, so :func:`_stub_embed_table` draws
+its own from seeded host ``torch.Generator`` objects (other values; the
+same table on the CPU and on the card).  An engine (and the scheduler's
+``LMBackend``) takes a table as ``stub_table``, and copies it (or its own
+draw) to the device once for its lifetime;
+``repro_torch.bridge.stub_table_from_jax`` carries the reference's table
+across for it, as ``params_from_jax`` carries weights, so the two engines
+feed back the same rows.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -33,9 +50,11 @@ from repro_torch.train.step import make_serve_step
 from repro_torch.tree import flatten
 
 __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
-           "state_batch_axes", "serve_overrides"]
+           "state_batch_axes", "serve_overrides", "stub_feedback_table"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
+_STUB_SEED = 0xE0BED
+_STUB_ROWS = 8192      # table rows a generator draws (float32), then cast
 
 
 def is_recurrent(cfg: ArchConfig) -> bool:
@@ -43,16 +62,51 @@ def is_recurrent(cfg: ArchConfig) -> bool:
     return any(k in _RECURRENT for k in cfg.block_pattern)
 
 
-def feedback_inputs(cfg: ArchConfig, tok):
-    """Next-step model input from sampled (B,) token ids: the ids as a
-    (B, 1) column (token-input archs).  The reference's pseudo-embedding
-    feedback for embedding-input frontends comes with ROADMAP.md queue 1
-    item 5 and raises."""
-    if cfg.embed_input != "tokens":
-        raise NotImplementedError(
-            f"embedding-input feedback ({cfg.name}) comes with ROADMAP.md "
-            "queue 1 item 5")
-    return tok[:, None]
+def _stub_embed_table(vocab: int, d: int, dtype: str) -> torch.Tensor:
+    """The (max(vocab, 2), d) host pseudo-embedding table of a stub
+    frontend: N(0, 1)·0.02 in float32, cast to ``dtype``; rows
+    [8192·c, 8192·(c + 1)) from a CPU ``torch.Generator`` seeded with
+    0xE0BED + c, the blocks drawn in parallel threads (Qwen2-VL's table
+    holds 1.25 G values)."""
+    dt = getattr(torch, dtype)
+    rows = max(vocab, 2)
+
+    def draw(c):
+        n = min(_STUB_ROWS, rows - c * _STUB_ROWS)
+        gen = torch.Generator().manual_seed(_STUB_SEED + c)
+        return (torch.randn((n, d), generator=gen) * 0.02).to(dt)
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return torch.cat(list(pool.map(draw, range(-(-rows // _STUB_ROWS)))))
+
+
+def stub_feedback_table(cfg: ArchConfig, device, table=None):
+    """The device copy of a stub frontend's table that a decode loop keeps
+    for its lifetime: ``table`` (a host table, e.g. the reference's from
+    ``bridge.stub_table_from_jax``) or :func:`_stub_embed_table`'s draw;
+    None for a token-input arch."""
+    if cfg.embed_input == "tokens":
+        return None
+    if table is None:
+        table = _stub_embed_table(cfg.vocab_size, cfg.d_model, cfg.dtype)
+    return table.to(device=device, dtype=getattr(torch, cfg.dtype))
+
+
+def feedback_inputs(cfg: ArchConfig, tok, table=None):
+    """Next-step model input from sampled (B,) token ids.
+
+    Token-input archs feed the ids as a (B, 1) column; stub frontends
+    (``embed_input="embeddings"``) feed each id's row of ``table``, the
+    device copy of the pseudo-embedding table that the decode loop keeps
+    (:func:`stub_feedback_table`), as (B, 1, d)."""
+    if cfg.embed_input == "tokens":
+        return tok[:, None]
+    if table is None:
+        raise ValueError(
+            f"{cfg.name}: embedding inputs feed back rows of the stub "
+            "table; pass the decode loop's device copy (ServingEngine."
+            "fb_table, LMBackend.fb_table, stub_feedback_table)")
+    return table.index_select(0, tok.reshape(-1).long())[:, None]
 
 
 def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
@@ -87,7 +141,7 @@ class ServeConfig:
     # KV-cache storage override ("none" | "int8"); None keeps the arch
     # config's kv_quant
     kv_quant: Optional[str] = None
-    async_paging: bool = False         # the vision backend's; later slice
+    async_paging: bool = False         # the vision backend's; LMs ignore it
     # shared prompt-prefix cache (scheduler LM backend): >0 attaches a
     # radix trie of up to that many cached prompt prefill states; ignored
     # by the static ServingEngine
@@ -107,28 +161,28 @@ def serve_overrides(cfg: ArchConfig, scfg: ServeConfig) -> ArchConfig:
     return replace(cfg, **over) if over else cfg
 
 
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the {where} slice of the "
-                               "port")
-
-
 class ServingEngine:
     """``generate(prompts, max_new_tokens)`` over ``params`` (the flat
-    dotted-name dict) on ``device`` (default: the card)."""
+    dotted-name dict) on ``device`` (default: the card).  A stub frontend
+    feeds back rows of ``stub_table`` (a host table; default: the port's
+    own draw), copied to the device once."""
 
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
-                 rules=None, *, device="cuda"):
+                 rules=None, *, device="cuda", stub_table=None):
         if rules is not None:
-            raise _later("mesh serving (rules)", "distribution")
-        if scfg.async_paging:
-            raise _later("asynchronous expert paging", "paged serving")
-        if cfg.embed_input != "tokens":
-            raise _later(f"embedding-input frontends ({cfg.name})",
-                         "modality")
+            raise NotImplementedError("mesh serving (rules) comes with the "
+                                      "distribution slice of the port")
         self.device = resolve_device(device)
         self.cfg, self.scfg = serve_overrides(cfg, scfg), scfg
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self._steps: dict[int, tuple] = {}
+        # a stub frontend's feedback table, on the device once
+        self.fb_table = stub_feedback_table(self.cfg, self.device,
+                                            stub_table)
+
+    def feedback(self, tok):
+        """``feedback_inputs`` over the engine's device table."""
+        return feedback_inputs(self.cfg, tok, table=self.fb_table)
 
     def steps(self, task_id: int = 0):
         """(prefill, decode) of ``train.step.make_serve_step``, per task."""
@@ -148,7 +202,7 @@ class ServingEngine:
 
     def _prefill(self, prompts, state, task_id):
         cfg, chunk = self.cfg, self.scfg.prefill_chunk
-        b, s0 = prompts.shape
+        b, s0 = prompts.shape[:2]
         windowed = any("attn_local" in k for k in cfg.block_pattern)
         if not (chunk and not windowed and s0 > chunk):
             prefill, _ = self.steps(task_id)
@@ -168,7 +222,8 @@ class ServingEngine:
             final = prompts[:, n_mid * chunk:]
         else:
             tail = prompts[:, n_full * chunk:]
-            final = torch.cat([tail, tail.new_zeros((b, chunk - rem))], 1)
+            final = torch.cat([tail, tail.new_zeros(
+                (b, chunk - rem) + tuple(tail.shape[2:]))], 1)
             n_mid, last = n_full, rem - 1
         for i in range(n_mid):
             M.forward(self.params, prompts[:, i * chunk:(i + 1) * chunk],
@@ -182,14 +237,17 @@ class ServingEngine:
 
     def generate(self, prompts, max_new_tokens: int, task_id: int = 0,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """prompts: (B, S0) int token ids (NumPy or tensor).  Returns
+        """prompts: (B, S0) int token ids, or (B, S0, d) embeddings for a
+        stub frontend (NumPy or tensor).  Returns
         (B, max_new_tokens) int32 NumPy tokens; after a row emits
         ``eos_id`` it holds ``eos_id``.  Temperature sampling draws from
         ``generator`` (default: a new one on the device seeded with
         ``ServeConfig.seed``)."""
         cfg, scfg = self.cfg, self.scfg
-        prompts = torch.as_tensor(prompts, device=self.device).long()
-        b, s0 = prompts.shape
+        prompts = torch.as_tensor(prompts, device=self.device)
+        if cfg.embed_input == "tokens":
+            prompts = prompts.long()
+        b, s0 = prompts.shape[:2]
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(scfg.seed)
@@ -207,7 +265,7 @@ class ServingEngine:
                     done |= host == scfg.eos_id
                     if done.all():
                         break
-                logits, state = decode(self.params, tok[:, None], state,
-                                       s0 + i)
+                logits, state = decode(self.params, self.feedback(tok),
+                                       state, s0 + i)
                 tok = self._sample(logits, generator)
         return out

@@ -510,9 +510,11 @@ class PagedMoE:
                  transfer_engine=None, placement=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(_MESH)
-        if cfg.impl != "grouped":
+        if cfg.impl not in ("grouped", "onehot"):
             raise NotImplementedError(
-                f"MoE impl {cfg.impl!r}: the port pages the 'grouped' path")
+                f"MoE impl {cfg.impl!r}: the port pages the 'grouped' and "
+                "'onehot' paths (both gather, as the reference's waves do "
+                "on one device)")
         names = expert_param_names(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

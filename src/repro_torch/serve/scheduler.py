@@ -51,9 +51,13 @@ property.
 decode; ``serve/vision.py`` provides the batched M³ViT backend (vision
 "preemption" is a staged-batch bump — inference is stateless).  An int8
 KV cache (``ServeConfig.kv_quant="int8"``) is served like a floating one:
-its scale leaves are spliced, parked and cloned with the rows.  Meshes and
-embedding-input prompts come with later slices and raise, naming their
-``ROADMAP.md`` item.
+its scale leaves are spliced, parked and cloned with the rows.  A stub
+frontend's prompt (``embed_input="embeddings"``) is (S0, d) embeddings,
+padded with zero rows under the same causal and ``cache_len`` masking; the
+decode step feeds each slot's token back as its row of the engine's
+pseudo-embedding table (one device copy for the backend's lifetime); the
+prefix cache serves token prompts only, as in the reference.  Meshes come
+with a later slice and raise, naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -70,8 +74,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ServeConfig, feedback_inputs,
-                                      is_recurrent, serve_overrides,
-                                      state_batch_axes)
+                                      is_recurrent, stub_feedback_table,
+                                      serve_overrides, state_batch_axes)
 from repro_torch.serve.expert_cache import ExpertUsage
 from repro_torch.serve.slo.preempt import SlotParker
 from repro_torch.serve.slo.prefix import RadixPrefixCache
@@ -86,7 +90,7 @@ __all__ = ["Request", "Scheduler", "LMBackend"]
 class Request:
     rid: int
     task_id: int
-    prompt: Any                     # (S0,) int tokens | (H, W, 3) image
+    prompt: Any     # (S0,) int tokens | (S0, d) embeddings | (H, W, 3) image
     max_new_tokens: int = 0         # LM: tokens to generate (>=1)
     arrival: float = 0.0
     eos_id: Optional[int] = None    # None => backend default
@@ -162,14 +166,17 @@ class _PrefillJob:
     req: Request
     slot: int
     small: Any          # batch-1 staging state (owned: written in place)
-    prompt: np.ndarray  # (1, S0)
+    prompt: np.ndarray  # (1, S0) tokens | (1, S0, d) embeddings
     off: int            # next prefill position (prefix-matched tokens skip)
     s0: int
 
 
-def _later(what: str, item) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with ROADMAP.md queue 1 item "
-                               f"{item}")
+def _pad_rows(prompt: np.ndarray, n: int) -> np.ndarray:
+    """``prompt`` (1, S[, d]) with ``n`` zero rows appended."""
+    if n <= 0:
+        return prompt
+    return np.concatenate([prompt, np.zeros((1, n) + prompt.shape[2:],
+                                            prompt.dtype)], 1)
 
 
 class LMBackend:
@@ -177,19 +184,21 @@ class LMBackend:
     step serves slots gated by different tasks (per-token gating — the
     per-slot generalization of the paper's zero-cost task switch), with
     vector cache positions and MoE router-usage export.  ``params`` is the
-    flat dotted-name dict, moved to ``device`` (default: the card)."""
+    flat dotted-name dict, moved to ``device`` (default: the card); a stub
+    frontend feeds back rows of ``stub_table`` (as ``ServingEngine``'s).
+    """
 
     bucketing = "mixed"   # one full-width bucket; fairness at admission
 
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
-                 rules=None, prompt_pad: int = 16, *, device="cuda"):
+                 rules=None, prompt_pad: int = 16, *, device="cuda",
+                 stub_table=None):
         if scfg.temperature > 0.0:
             raise ValueError("the scheduler decodes greedily (argmax in "
                              "the decode step)")
         if rules is not None:
-            raise _later("mesh serving (rules)", 6)
-        if cfg.embed_input != "tokens":
-            raise _later(f"embedding-input prompts ({cfg.name})", "5b")
+            raise NotImplementedError("mesh serving (rules) comes with "
+                                      "ROADMAP.md queue 1 item 6")
         self.cfg = cfg = serve_overrides(cfg, scfg)
         self.scfg = scfg
         self.device = resolve_device(device)
@@ -211,6 +220,8 @@ class LMBackend:
         if scfg.prefix_cache > 0 and not self.recurrent:
             self.prefix = RadixPrefixCache(
                 scfg.prefix_cache, min_match=max(1, scfg.prefix_min))
+        # a stub frontend's feedback table, on the device once
+        self.fb_table = stub_feedback_table(cfg, self.device, stub_table)
 
     def new_state(self, batch: int):
         return M.init_state(self.cfg, batch, self.scfg.max_len,
@@ -271,7 +282,8 @@ class LMBackend:
         want_counts = cfg.moe is not None
 
         def decode(params, toks, state, cache_pos, task_ids):
-            out = M.forward(params, feedback_inputs(cfg, toks), cfg,
+            out = M.forward(params, feedback_inputs(cfg, toks,
+                                                    self.fb_table), cfg,
                             state=state, cache_index=cache_pos, decode=True,
                             task_id=task_ids, return_state=True,
                             return_expert_counts=want_counts)
@@ -367,9 +379,11 @@ class LMTaskBucket:
         return out.numpy().copy()
 
     def _tensor(self, prompt: np.ndarray):
-        """Prompt tokens on the device, through page-locked memory (a
-        pageable copy would synchronize the stream)."""
-        t = torch.from_numpy(np.ascontiguousarray(prompt, np.int64))
+        """Prompt tokens (int64) or embeddings (float32) on the device,
+        through page-locked memory (a pageable copy would synchronize the
+        stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(
+            prompt, np.int64 if prompt.ndim == 2 else np.float32))
         if self.backend.device.type != "cuda":
             return t
         return t.pin_memory().to(self.backend.device, non_blocking=True)
@@ -409,7 +423,7 @@ class LMTaskBucket:
         """
         b = self.backend
         slot = self.free_slots[0]
-        prompt = np.asarray(req.prompt)[None]        # (1, S0)
+        prompt = np.asarray(req.prompt)[None]        # (1, S0[, d])
         s0 = prompt.shape[1]
         padded = _pad_len(s0, b.prompt_pad)
         if padded > b.scfg.max_len:
@@ -421,9 +435,9 @@ class LMTaskBucket:
                 f"request {req.rid}: prompt {s0} + {req.max_new_tokens} "
                 f"new tokens does not fit max_len {b.scfg.max_len}")
 
-        # shared-prefix lookup
+        # shared-prefix lookup (token prompts only)
         entry, matched = None, 0
-        if b.prefix is not None:
+        if b.prefix is not None and prompt.ndim == 2:
             entry, matched = b.prefix.lookup(prompt[0])
             matched = min(matched, s0 - 1)   # always prefill >= 1 token
             if entry is None or matched < b.prefix.min_match:
@@ -444,12 +458,10 @@ class LMTaskBucket:
             return []
 
         req.t_admit = now
-        if b.prefix is None:
-            if padded != s0:
-                prompt = np.concatenate(
-                    [prompt, np.zeros((1, padded - s0), prompt.dtype)], 1)
+        if b.prefix is None or prompt.ndim != 2:
             tok, self.state = b.admit_step(req.task_id)(
-                b.params, self._tensor(prompt), self.state, slot, s0 - 1)
+                b.params, self._tensor(_pad_rows(prompt, padded - s0)),
+                self.state, slot, s0 - 1)
             return self._activate(req, slot, int(self._read(tok)[0]), s0,
                                   now)
         tok = self._admit_staged(req, slot, entry, matched, prompt)
@@ -468,10 +480,8 @@ class LMTaskBucket:
             entry, matched = None, 0
         small = _clone(entry) if entry is not None else b.new_state(1)
         suffix = prompt[:, matched:]
-        padded = _pad_len(suffix.shape[1], b.prompt_pad)
-        if padded != suffix.shape[1]:
-            suffix = np.concatenate([suffix, np.zeros(
-                (1, padded - suffix.shape[1]), suffix.dtype)], 1)
+        suffix = _pad_rows(suffix, _pad_len(suffix.shape[1], b.prompt_pad)
+                           - suffix.shape[1])
         _, finish = b.staged_steps(req.task_id)
         tok, small, self.state = finish(
             b.params, self._tensor(suffix), small, matched,
@@ -497,14 +507,12 @@ class LMTaskBucket:
                 job.small = mid(b.params, toks, job.small, job.off)
                 job.off += chunk
                 continue
-            tail = job.prompt[:, job.off:]
-            if remaining < chunk:   # pad the final chunk to the chunk width
-                tail = np.concatenate(
-                    [tail, np.zeros((1, chunk - remaining), tail.dtype)], 1)
+            # the final chunk padded to the chunk width
+            tail = _pad_rows(job.prompt[:, job.off:], chunk - remaining)
             tok, small, self.state = finish(
                 b.params, self._tensor(tail), job.small, job.off,
                 remaining - 1, self.state, job.slot)
-            if b.prefix is not None:
+            if b.prefix is not None and job.prompt.ndim == 2:
                 b.prefix.insert(job.prompt[0], small, _state_bytes(small))
             self.jobs.remove(job)
             self.reserved.discard(job.slot)

@@ -25,6 +25,7 @@ from repro.kernels import ops as jk
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import attn_plan
 from repro_torch.kernels.compare import kernel_tolerance, within_tolerance
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 NEG = -1e30
 BF16 = torch.bfloat16

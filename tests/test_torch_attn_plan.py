@@ -13,6 +13,7 @@ from repro_torch.kernels import attn_plan as ap
 from repro_torch.kernels import decode_fused as kdf
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import launch_counts, variant_counts
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF16, F32 = torch.bfloat16, torch.float32
 

@@ -54,6 +54,7 @@ from repro_torch.models import model as TMOD
 from repro_torch.models import vit
 from repro_torch.quant import QTensor, quantize, quantize_kv
 from repro_torch.train.step import loss_and_grads
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(shape, dtype=torch.float32, seed=0, scale=1.0):

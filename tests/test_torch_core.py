@@ -30,6 +30,7 @@ from repro_torch.core import moe as TMOE
 from repro_torch.core import routing as TR
 from repro_torch.core import unified_linear as TUL
 from repro_torch.models import layers as TL
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def t(a):
@@ -218,7 +219,9 @@ def test_apply_moe(rng, case, policies):
 
 
 def test_apply_moe_refuses_unported_impls():
+    """``ep_local`` (the distribution slice) raises; ``onehot`` is ported
+    (``tests/test_torch_frontends.py`` holds it to the reference)."""
     cfg = TMOE.MoEConfig(d_model=8, d_ff=8, num_experts=2, top_k=1,
-                         impl="onehot")
-    with pytest.raises(NotImplementedError, match="onehot"):
+                         impl="ep_local")
+    with pytest.raises(NotImplementedError, match="ep_local"):
         TMOE.apply_moe({}, cfg, torch.zeros((1, 2, 8)))

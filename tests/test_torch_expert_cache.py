@@ -48,6 +48,7 @@ from repro_torch.core import moe as TMOE
 from repro_torch.serve import expert_cache as TEC
 from repro_torch.serve import transfer as TT
 from repro_torch.serve.vision import M3ViTServer
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _host(e=6, seed=0):
@@ -406,9 +407,11 @@ def test_async_prefetch_hides_copies_as_the_reference():
 
 
 def test_paged_refuses_what_later_slices_port():
-    """Meshes (queue 1 item 6) and onehot raise; packed leaves (item 3,
-    ported) page as their packed tensors."""
-    _, tcfg, _, _, tp, _ = _moe_setup()
+    """Meshes (queue 1 item 6) raise; packed leaves (item 3, ported) page
+    as their packed tensors; ``onehot`` (the reference pages it) pages
+    through the same gather as ``grouped``, bit for bit, and equals the
+    resident layer."""
+    _, tcfg, _, _, tp, tx = _moe_setup()
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         TEC.PagedMoE(tp, tcfg, mesh=object(), device="cpu")
     from repro_torch.quant import quantize_tree
@@ -416,8 +419,13 @@ def test_paged_refuses_what_later_slices_port():
     packed = TEC.PagedMoE(quantize_tree(tp), tcfg, device="cpu")
     assert packed.cache.names == ("w1.q", "w1.scale", "b1", "w2.q",
                                   "w2.scale", "b2")
-    with pytest.raises(NotImplementedError, match="onehot"):
-        TEC.PagedMoE(tp, replace(tcfg, impl="onehot"), device="cpu")
+    ocfg = replace(tcfg, impl="onehot")
+    onehot = TEC.PagedMoE(tp, ocfg, resident_fraction=0.25, device="cpu")
+    grouped = TEC.PagedMoE(tp, tcfg, resident_fraction=0.25, device="cpu")
+    for task in (0, 1):
+        y, _ = _paged(onehot, tx, task, "eager")
+        assert torch.equal(y, _paged(grouped, tx, task, "eager")[0])
+        assert torch.equal(y, _resident(tp, ocfg, tx, task, "eager")[0])
 
 
 # ---------------------------------------------------------- M3ViTServer

@@ -33,6 +33,7 @@ from repro_torch.factor import (FactoredTensor, factorize, factorize_tree,
                                 split_dim)
 from repro_torch.kernels.compare import within_tolerance
 from repro_torch.quant import is_qtensor, quantize_tree
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 F32 = torch.float32
 

@@ -49,6 +49,7 @@ from repro_torch.kernels.compare import (cosine, kernel_tolerance,
                                          moe_lut_allowance, within_tolerance)
 from repro_torch.kernels.ref import ref_moe_ffn
 from repro_torch.models import vit
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -32,6 +32,7 @@ from repro.kernels import ops as jk
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels.compare import within_tolerance
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132
 BF16 = torch.bfloat16

@@ -16,6 +16,7 @@ from repro_torch.kernels import launch_counts, variant_counts
 from repro_torch.kernels import moe_fused as kmf
 from repro_torch.kernels import moe_gemm as kmg
 from repro_torch.kernels import unified_linear as kul
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMS = 132          # H100 SXM
 BF16, F32 = torch.bfloat16, torch.float32

@@ -21,6 +21,7 @@ from repro_torch.models import model, vit
 from repro_torch.serve.engine import ServeConfig, ServingEngine
 from repro_torch.serve.scheduler import LMBackend
 from repro_torch.serve.vision import M3ViTServer, VisionBackend
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \

@@ -27,6 +27,7 @@ from repro_torch.kernels import moe_gemm as kmg
 from repro_torch.kernels import unified_linear as kul
 from repro_torch.kernels.compare import kernel_tolerance, within_tolerance
 from repro_torch.bridge import tensor_from_numpy
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -8,6 +8,7 @@ and the flags of later slices raising with their ``ROADMAP.md`` item."""
 import pytest
 
 from repro_torch.launch import serve
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _run(capsys, *argv):

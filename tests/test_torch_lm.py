@@ -38,6 +38,7 @@ from repro_torch.configs import llama3_2_1b as TL
 from repro_torch.kernels.compare import cosine
 from repro_torch.models import model as tmodel
 from repro_torch.serve.engine import ServeConfig, ServingEngine
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PROMPT = np.random.default_rng(1).integers(0, 128, size=(2, 16)).astype(
     np.int32)
@@ -269,9 +270,12 @@ def test_eos_and_temperature_sampling():
     ids=["kv_int8", "async_paging", "prefix_cache", "mesh", "recurrent",
          "embeddings"])
 def test_later_slices_raise(over):
-    """Each feature of a later slice raises; ``prefix_cache``, the
-    scheduler's since its slice, is ignored by the static engine (as the
-    reference's is): same tokens as without it.  ``kv_quant="int8"`` (the
+    """A mesh (a later slice) raises; ``prefix_cache``, the scheduler's,
+    and ``async_paging``, the vision backend's, are ignored by the static
+    engine (as the reference's ignores them): same tokens as without
+    them.  An embedding-input frontend serves (B, S, d) prompts and feeds
+    each token back as its stub-table row: the tokens of a hand-written
+    prefill-and-decode loop over ``feedback_inputs``.  ``kv_quant="int8"`` (the
     packed-formats slice, ported) serves: the int8 KV error is far below
     the argmax margin here, so the tokens equal the float cache's, as in
     the reference's ``tests/test_quant.py``, with the int8 decode a hit.
@@ -300,7 +304,29 @@ def test_later_slices_raise(over):
             cfg, tparams, ServeConfig(max_len=MAX_LEN),
             device="cpu").generate(PROMPT, 6))
         return
-    if "prefix_cache" in over.get("scfg", {}):
+    if cfg.embed_input == "embeddings":
+        from repro_torch.serve.engine import feedback_inputs
+        from repro_torch.train.step import make_serve_step
+
+        emb = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (2, 7, cfg.d_model)).astype(np.float32))
+        eng = ServingEngine(cfg, tparams, ServeConfig(max_len=MAX_LEN),
+                            device="cpu")
+        got = eng.generate(emb, 5)
+        prefill, decode = make_serve_step(cfg)
+        with torch.inference_mode():
+            state = tmodel.init_state(cfg, 2, MAX_LEN, device="cpu")
+            logits, state = prefill(tparams, emb, state)
+            want = []
+            for i in range(5):
+                tok = torch.argmax(logits, -1)
+                want.append(tok.numpy())
+                logits, state = decode(
+                    tparams, feedback_inputs(cfg, tok, eng.fb_table),
+                    state, 7 + i)
+        np.testing.assert_array_equal(got, np.stack(want, 1))
+        return
+    if {"prefix_cache", "async_paging"} & set(over.get("scfg", {})):
         eng = ServingEngine(cfg, tparams, ServeConfig(
             max_len=MAX_LEN, **over["scfg"]), device="cpu")
         np.testing.assert_array_equal(

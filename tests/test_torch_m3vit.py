@@ -48,6 +48,7 @@ from repro_torch.configs import m3vit as TM
 from repro_torch.kernels.compare import cosine
 from repro_torch.models import vit
 from repro_torch.serve.vision import M3ViTServer
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "smoke": (JM.SMOKE_CONFIG, TM.SMOKE_CONFIG),

@@ -37,6 +37,7 @@ from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import moe_fused as kmf
 from repro_torch.kernels.compare import (kernel_tolerance, moe_lut_allowance,
                                          within_tolerance)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 SMS = 132          # H100 SXM

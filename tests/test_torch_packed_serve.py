@@ -45,6 +45,7 @@ from repro_torch.core import moe as TMOE
 from repro_torch.factor import is_factored
 from repro_torch.serve import expert_cache as TEC
 from repro_torch.serve.vision import M3ViTServer
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FORMATS = {  # name: (JAX converter, JAX policy, port policy)
     "int8": (lambda p: jquantize_tree(p, bits=8), "xla_int8", "eager_int8"),

@@ -15,6 +15,7 @@ from repro.serve import expert_cache as JEC
 from repro.serve import placement as JP
 from repro_torch.serve import expert_cache as TEC
 from repro_torch.serve import placement as TP
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _layout(plan):

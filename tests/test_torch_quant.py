@@ -52,6 +52,7 @@ from repro_torch.quant import (QTensor, dequantize, dequantize_tree,
                                is_qtensor, quantize, quantize_kv,
                                quantize_tree, tree_bytes)
 from repro_torch.serve.engine import ServeConfig, ServingEngine
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 LUT_BOUND = 5e-4        # tests/test_torch_m3vit.py
 F32 = torch.float32

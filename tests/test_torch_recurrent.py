@@ -53,6 +53,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import rglru as TR
 from repro_torch.models import xlstm as TX
 from repro_torch.train.step import make_serve_step
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("xlstm_350m", "recurrentgemma_9b")

@@ -48,6 +48,7 @@ from repro_torch.serve import (LMBackend, Request, Scheduler, ServeConfig,
 from repro_torch.serve.engine import state_batch_axes
 from repro_torch.serve.slo import SlotParker, SLOPolicy, TickClock
 from test_torch_scheduler import assert_same_schedule, run_both
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ("xlstm_350m", "recurrentgemma_9b")
 PRESETS = {  # name: (JAX policy, port policy)

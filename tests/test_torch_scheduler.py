@@ -41,6 +41,7 @@ from repro_torch.serve import (LMBackend, Request, Scheduler, ServeConfig,
 from repro_torch.serve.engine import state_batch_axes
 from repro_torch.serve.slo import TickClock
 from repro_torch.tree import flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 POLICY = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
 
@@ -282,8 +283,11 @@ def test_task_skew_80_20_bounded_ttft_gap():
     dict(scfg=dict(temperature=1.0))],
     ids=["recurrent", "embeddings", "kv_int8", "mesh", "temperature"])
 def test_later_items_raise(over):
-    """Embedding prompts (queue 1 item 5b) and meshes (item 6) raise
-    naming their item; the scheduler decodes greedily.  An int8 KV cache
+    """Meshes (queue 1 item 6) raise naming their item; the scheduler
+    decodes greedily.  Embedding prompts (item 5b, ported;
+    ``test_torch_frontends.py`` holds them to the reference) are served
+    padded, without the prefix cache, each request with the static
+    engine's tokens.  An int8 KV cache
     (item 3, ported) is served: every request gets the static int8-cache
     engine's tokens and the JAX scheduler's schedule.  A recurrent arch
     (item 5a, ported; ``test_torch_recurrent_serve.py`` holds it against
@@ -305,6 +309,20 @@ def test_later_items_raise(over):
         done = Scheduler(b, total_slots=2, quantum=2, num_tasks=1).run(
             [Request(rid=i, task_id=0, prompt=prompts[i], max_new_tokens=5)
              for i in range(3)])
+        for r in done:
+            assert r.tokens == list(ref[r.rid]), r.rid
+        return
+    if cfg.embed_input == "embeddings":
+        b = LMBackend(cfg, tparams, replace(scfg, prefix_cache=4),
+                      device="cpu")
+        emb = np.random.default_rng(4).standard_normal(
+            (3, 7, cfg.d_model)).astype(np.float32)
+        ref = ServingEngine(cfg, tparams, scfg, device="cpu").generate(
+            emb, 5)
+        done = Scheduler(b, total_slots=2, quantum=2, num_tasks=1).run(
+            [Request(rid=i, task_id=0, prompt=emb[i], max_new_tokens=5)
+             for i in range(3)])
+        assert b.prompt_pad == 16 and b.prefix.stats()["entries"] == 0
         for r in done:
             assert r.tokens == list(ref[r.rid]), r.rid
         return

@@ -40,6 +40,7 @@ from repro_torch.serve.slo import (BATCH, INTERACTIVE, RadixPrefixCache,
 from repro_torch.tree import flatten
 from test_torch_scheduler import (_model, _prompts, assert_same_schedule,
                                   backend, engine, run_both)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # ------------------------------------------------------------- the copies
 

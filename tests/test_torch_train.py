@@ -68,6 +68,7 @@ from repro_torch.quant import QTensor, quantize
 from repro_torch.train import (LoopConfig, TrainConfig, TrainLoop,
                                make_train_step)
 from repro_torch.tree import flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # ---------------------------------------------------------------- data
 

@@ -19,6 +19,7 @@ import torch
 
 from repro.serve import transfer as JT
 from repro_torch.serve import transfer as TT
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _fake(mod, **kw):

@@ -33,6 +33,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import m3vit as TM
 from repro_torch.serve import Request, Scheduler, VisionBackend
 from repro_torch.serve.slo import SLOPolicy, TickClock
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)
