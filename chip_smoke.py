@@ -10,8 +10,8 @@ kernels.
 
     python3 chip_smoke.py
 
-Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6
-(phase 5 checks and times the launches of 3, 4 and 7, and of phase 8's
+Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6,
+9 (phase 5 checks and times the launches of 3, 4 and 7, and of phase 8's
 Qwen2-VL-72B and Llama-4-Scout units while each model lives):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
@@ -264,6 +264,32 @@ Qwen2-VL-72B and Llama-4-Scout units while each model lives):
    config and the phase's wall time are printed; the configs but the two
    units are checked and printed only.
 
+9. The roofline of the main paths (``repro_torch.roofline``), at full
+   width: the M³ViT semseg forward at batch 8 under ``cuda`` and under
+   ``moe_ffn="cuda_fused"``, a Llama-3.2-1B prefill of 8 × 128 and a
+   decode step at batch 8 (128 cached, ``attention_decode="cuda_fused"``;
+   weights drawn on the card from seed 0).  For each: (a) the cost
+   counter (``roofline/op_cost.py``) under the kernel policy and under
+   ``eager`` on the card — FLOPs, bytes and FLOPs by scope must be equal
+   (a registry op counts analytically, whichever impl serves it) and the
+   unit's kernels must have launched; (b) the counter's ``linear`` FLOPs
+   must equal phase 5's 2·m·n·k over the same recorded ``unified_linear``
+   launches, its expert-product FLOPs (E × C capacity rows) must be >=
+   phase 5's over the live rows of ``moe_gemm`` / ``moe_fused``, and its
+   attention FLOPs (the whole rectangle, the reference's count) print
+   beside phase 5's visible pairs; (d) the roofline time (the larger of
+   counted bytes at 3.35 TB/s and FLOPs at 989 TFLOP/s), its bound term,
+   the device's busy time and the device ms by scope from a
+   ``torch.profiler`` run (each launch to the innermost scope open when
+   it was made), the median host wall of 5 calls, and bound/busy and
+   bound/wall, beside the card's name and power limit.  (c) The Llama
+   prefill under ``eager``: the dry-run's peak of live bytes (the same
+   call on ``meta``) against ``torch.cuda.max_memory_allocated`` after
+   ``reset_peak_memory_stats``, less what was allocated before, within 10
+   % or 64 MiB, whichever is larger; its argument bytes (weights, cache,
+   tokens) against what ``memory_allocated`` grew by when they were
+   built, within 1 %.  Any miss fails the run.
+
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
 those runs, training's included (also given apart as
@@ -304,9 +330,11 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
-              torch.float32: 67e12}     # float32 outside the tensor cores
+from repro_torch.launch.mesh import HW  # noqa: E402  (after the path)
+
+HBM_BYTES_PER_S = HW.HBM_BW                      # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: HW.PEAK_FLOPS_BF16,   # dense tensor-core bf16
+              torch.float32: HW.PEAK_FLOPS_F32}     # float32, no tensor cores
 BATCH = 8
 TOKENS = 128 * BATCH
 
@@ -3595,6 +3623,330 @@ def path_records(units, counted, counted_variants=None) -> list[dict]:
     return records
 
 
+# ------------------------------------------------------------ phase 9
+
+#: the dry-run's peak against the card's: 10 % or 64 MiB, the larger; its
+#: argument bytes against the card's allocation: 1 %
+PEAK_TOL, PEAK_FLOOR, ARG_TOL = 0.10, 64 * 2**20, 0.01
+
+
+def _wall_ms(run, reps: int = 5) -> float:
+    """Median host wall time of one call that ends on the card."""
+    import time
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+#: kernel -> the prefix of its CUDA functions' names
+KERNEL_NAME_PREFIXES = {"unified_linear": "unified_linear",
+                        "flash_attention": "flash_attention",
+                        "gelu_lut": "lut_activation", "moe_gemm": "moe_gemm",
+                        "moe_fused": "moe_fused",
+                        "decode_fused": "decode_fused"}
+
+
+def _busy_by_scope(run, reps: int = 3) -> tuple[float, dict]:
+    """(device busy ms per call, {scope: device ms per call}) from a
+    ``torch.profiler`` run: the busy time is the union of the device's
+    kernel and copy intervals (``serve/profile.py:_busy_us``).  A PyTorch
+    kernel counts for the innermost scope open when its host-side launch
+    was made (the scopes open a ``record_function`` while the profiler
+    runs), else ``other``.  The hand-written kernels launch through
+    ``ctypes``, which the profiler does not tie to a host call: their
+    wrappers' launches are recorded with the scope they were made in, and
+    matched to the device's kernels of that name in stream order (a
+    stream runs its kernels in launch order)."""
+    from collections import defaultdict
+
+    from repro_torch import kernels
+    from repro_torch.roofline import scope as S
+    from repro_torch.roofline.scope import SCOPE_MARKERS
+    from repro_torch.serve.profile import _busy_us, _short
+
+    names = set(SCOPE_MARKERS) | {"moe_aux"}
+    launched = defaultdict(list)        # kernel -> [scope], in order
+    saved = []
+    for name, wrapper in kernels.KERNELS.items():
+        mod = sys.modules[wrapper.__module__]
+
+        def note(*args, _launch=mod._launch, _name=name):
+            launched[_name].append(S.current())
+            return _launch(*args)
+
+        saved.append((mod, mod._launch))
+        mod._launch = note
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        for mod, launch in saved:
+            mod._launch = launch
+    events = prof.events()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name not in names]
+    if not device:
+        raise AssertionError("the profiler recorded no device time")
+    busy = _busy_us((e.time_range.start, e.time_range.end)
+                    for e in device) / reps / 1e3
+    by_scope = defaultdict(float)
+    # the hand-written kernels, matched in stream order
+    for name, prefix in KERNEL_NAME_PREFIXES.items():
+        ours = sorted((e for e in device
+                       if _short(e.name).startswith(prefix)),
+                      key=lambda e: e.time_range.start)
+        scopes = launched.get(name, [])
+        if not ours:
+            continue
+        if not scopes or len(ours) % len(scopes):
+            # a launch that issued a varying number of kernels: the
+            # family's time stays whole, under its own name
+            print(f"    {name}: {len(ours)} device kernels for "
+                  f"{len(scopes)} launches, not matched to scopes")
+            scopes, per = [f"{name} (unmatched)"], len(ours)
+        else:
+            per = len(ours) // len(scopes)
+        for j, e in enumerate(ours):
+            by_scope[scopes[j // per]] += \
+                e.time_range.elapsed_us() / reps / 1e3
+    # PyTorch's own kernels, by their host-side launch
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in host if e.name in names)
+    own_launches = []
+    for e in host:
+        own = getattr(e, "self_device_time_total", None)
+        own = e.self_cuda_time_total if own is None else own
+        if own and e.name not in names:
+            own_launches.append((e.time_range.start, own))
+    open_spans, i = [], 0           # the scopes open at time t, nested
+    for t, own in sorted(own_launches):
+        while i < len(spans) and spans[i][0] <= t:
+            while open_spans and open_spans[-1][1] < spans[i][0]:
+                open_spans.pop()
+            open_spans.append(spans[i])
+            i += 1
+        while open_spans and open_spans[-1][1] < t:
+            open_spans.pop()
+        by_scope[open_spans[-1][2] if open_spans else "other"] += \
+            own / reps / 1e3
+    return busy, dict(by_scope)
+
+
+def _phase5_ops(calls) -> dict:
+    """Phase 5's operation counts of recorded launches: 2·m·n·k a
+    ``unified_linear``, 2·live·d·f a ``moe_gemm`` (live queue rows), (4 or
+    6)·live·d·f a ``moe_fused``, 4·b·hq·pairs·d an attention launch
+    (visible pairs only)."""
+    out = {}
+    for name, launches in calls.items():
+        case = CASES[name]
+        out[name] = sum(case(args).flops for args in launches)
+    return out
+
+
+def roofline_unit(label, run, eager_run, cfg, shape, kernels, smi):
+    """Phase 9 on one unit: (a) the counter under the kernel policy and
+    under ``eager`` (equal totals; the kernels launched), (b) the
+    counter's FLOPs of ``unified_linear`` (equal) and of the expert
+    products (>=, capacity rows) against phase 5's counts of the same
+    launches, (d) the roofline time beside the device's busy time and the
+    host wall."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.roofline.analysis import analyze_step
+    from repro_torch.roofline.op_cost import count_cost
+
+    with torch.no_grad():
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with recorded_launches({}) as calls:
+            report, _ = analyze_step(run, (), cfg, shape)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        _, eager = count_cost(eager_run)
+    print(f"  {label}: counted {report.hlo_flops:.6e} FLOPs, "
+          f"{report.hlo_bytes:.6e} bytes under the kernels; eager "
+          f"{eager.flops:.6e} FLOPs, {eager.bytes_accessed:.6e} bytes; "
+          f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    if (report.hlo_flops, report.hlo_bytes) != (eager.flops,
+                                                eager.bytes_accessed):
+        raise AssertionError(f"{label}: the count under the kernels differs "
+                             f"from eager's")
+    if {k: v["flops"] for k, v in report.by_scope.items()} != \
+            {k: v["flops"] for k, v in eager.by_scope.items()}:
+        raise AssertionError(f"{label}: the count by scope differs")
+    missing = [k for k in kernels if not counts[k]]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched")
+    ops5 = _phase5_ops(calls)
+    lin = report.by_op.get("linear", {}).get("flops", 0.0)
+    print(f"    unified_linear: counter {lin:.6e} FLOPs, phase 5's count "
+          f"of the same {len(calls.get('unified_linear', ()))} launches "
+          f"{ops5.get('unified_linear', 0.0):.6e}")
+    if lin != ops5.get("unified_linear", 0.0):
+        raise AssertionError(f"{label}: unified_linear FLOPs differ")
+    for name in ("moe_gemm", "moe_fused"):
+        if name in ops5:
+            gemm = report.by_op["moe_grouped_gemm"]["flops"]
+            print(f"    {name}: counter {gemm:.6e} FLOPs over the capacity "
+                  f"rows >= phase 5's {ops5[name]:.6e} over the live rows")
+            if gemm < ops5[name]:
+                raise AssertionError(f"{label}: {name} counted below its "
+                                     f"live rows")
+    for name in ("flash_attention", "decode_fused"):
+        if name in ops5:
+            att = sum(v["flops"] for k, v in report.by_op.items()
+                      if k.startswith("attention"))
+            print(f"    {name}: counter {att:.6e} FLOPs over the whole "
+                  f"rectangle (the reference's count), phase 5's "
+                  f"{ops5[name]:.6e} over the visible pairs")
+    with torch.no_grad():
+        wall = _wall_ms(run)
+        busy, scopes = _busy_by_scope(run)
+    bound = report.t_roofline * 1e3
+    top = sorted(scopes.items(), key=lambda kv: -kv[1])[:6]
+    print(f"    roofline {bound:.4f} ms ({report.bottleneck}: compute "
+          f"{report.t_compute * 1e3:.4f} ms, memory "
+          f"{report.t_memory * 1e3:.4f} ms); busy {busy:.4f} ms, wall "
+          f"{wall:.4f} ms; bound/busy {bound / busy:.4f}, bound/wall "
+          f"{bound / wall:.4f} [{smi}]")
+    print(f"    busy by scope (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in top))
+    return {"unit": label, "roofline_ms": bound,
+            "bottleneck": report.bottleneck, "busy_ms": busy,
+            "wall_ms": wall, "bound_over_busy": bound / busy,
+            "bound_over_wall": bound / wall,
+            "flops": report.hlo_flops, "bytes": report.hlo_bytes}
+
+
+def _memory_check(cfg, params, tokens, state, prefill) -> None:
+    """(c) The dry-run's meta counts of the Llama prefill under ``eager``
+    against the card: its peak live bytes against
+    ``max_memory_allocated`` (less what was allocated before), its
+    argument bytes against the allocation the weights and cache took."""
+    from repro_torch import ops
+    from repro_torch.models import model as LM
+    from repro_torch.quant import tree_bytes
+    from repro_torch.roofline.op_cost import count_cost
+
+    b, s = tokens.shape
+    meta_args = (LM.param_specs(cfg),
+                 torch.empty((b, s), dtype=tokens.dtype, device="meta"),
+                 LM.init_state(cfg, b, state_len(state), device="meta"))
+    with torch.no_grad(), ops.use_policy(ops.policy_named("eager")):
+        _, meta = count_cost(prefill, *meta_args)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        prefill(params, tokens, state)
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated() - before
+    tol = max(PEAK_TOL * card_peak, PEAK_FLOOR)
+    print(f"  Llama prefill under eager: dry-run peak live "
+          f"{meta.peak_live_bytes / 2**20:.1f} MiB (meta), card "
+          f"max_memory_allocated - before {card_peak / 2**20:.1f} MiB, "
+          f"tolerance {tol / 2**20:.1f} MiB")
+    if abs(meta.peak_live_bytes - card_peak) > tol:
+        raise AssertionError("the dry-run's peak misses the card's")
+    return tree_bytes(meta_args)
+
+
+def state_len(state) -> int:
+    return next(iter(state["layers"].values()))["k"].shape[3]
+
+
+def roofline_path(smi) -> list:
+    """Phase 9: the roofline of the main paths at full width."""
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.configs.base import Shape
+    from repro_torch.models import model as LM
+    from repro_torch.models import vit
+    from repro_torch.train.step import make_serve_step
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  the card's memory: total_memory {total} bytes; the dry-run's "
+          f"HW.HBM_BYTES {HW.HBM_BYTES}")
+    out = []
+    params = vit.init_params(0, MV.CONFIG)
+    images = randn((BATCH, MV.IMAGE_H, MV.IMAGE_W, 3), torch.float32,
+                   seed=9)
+    shape = Shape("m3vit_b8", "prefill", MV.NUM_PATCHES, BATCH)
+    cuda = ops.policy_named("cuda")
+
+    def m3vit(policy):
+        cfg = replace(MV.CONFIG, policy=policy)
+        return lambda: vit.forward(params, images, cfg, "semseg")
+
+    for label, policy, kernels in (
+            ("M3ViT semseg forward B=8, cuda", cuda, CUDA_PATH_KERNELS),
+            ("M3ViT semseg forward B=8, moe_ffn=cuda_fused",
+             cuda.with_impls(moe_ffn="cuda_fused"),
+             ("unified_linear", "flash_attention", "moe_fused"))):
+        out.append(roofline_unit(label, m3vit(policy),
+                                 m3vit(ops.policy_named("eager")),
+                                 MV.CONFIG, shape, kernels, smi))
+    del params, images
+    torch.cuda.empty_cache()
+
+    cfg = LL.CONFIG
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    lparams = LM.init_params(0, cfg, draw_on_device=True)
+    state = LM.init_state(cfg, LM_BATCH, LM_MAX_LEN)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - m0
+    prefill, decode = make_serve_step(cfg)
+    meta_args = _memory_check(cfg, lparams, tokens, state, prefill)
+    print(f"  Llama prefill argument bytes: dry-run {meta_args / 2**20:.1f}"
+          f" MiB (meta), card memory_allocated after the weights, cache "
+          f"and tokens {card_args / 2**20:.1f} MiB")
+    if abs(meta_args - card_args) > ARG_TOL * card_args:
+        raise AssertionError("the dry-run's argument bytes miss the card's")
+    kern = cuda.with_impls(attention_decode="cuda_fused")
+
+    def with_policy(policy, fn, *args):
+        def run():
+            with ops.use_policy(policy):
+                return fn(*args)
+        return run
+
+    pshape = Shape("prefill_8x128", "prefill", LM_PROMPT, LM_BATCH)
+    out.append(roofline_unit(
+        f"Llama-3.2-1B prefill {LM_BATCH}x{LM_PROMPT}, cuda",
+        with_policy(kern, prefill, lparams, tokens, state),
+        with_policy(ops.policy_named("eager"), prefill, lparams, tokens,
+                    state), cfg, pshape, ("unified_linear",
+                                          "flash_attention"), smi))
+    token = tokens[:, :1].contiguous()
+    dshape = Shape("decode_b8", "decode", LM_PROMPT + 1, LM_BATCH)
+    out.append(roofline_unit(
+        f"Llama-3.2-1B decode step B={LM_BATCH} at {LM_PROMPT} cached, "
+        f"cuda + attention_decode=cuda_fused",
+        with_policy(kern, decode, lparams, token, state, LM_PROMPT),
+        with_policy(ops.policy_named("eager"), decode, lparams, token,
+                    state, LM_PROMPT), cfg, dshape,
+        ("unified_linear", "decode_fused"), smi))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -3695,6 +4047,11 @@ def main() -> None:
     print(f"  training launches per kernel (M3ViT {TRAIN_STEPS} steps + "
           f"Llama {LM_TRAIN[3]} steps, counted runs under cuda): "
           + json.dumps({r["name"]: r["training_launches"] for r in records}))
+
+    torch.cuda.empty_cache()
+    print("phase 9: the roofline of the main paths")
+    roofline = roofline_path(smi)
+    print(f"  roofline per unit: {json.dumps(roofline)}")
 
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -10,6 +10,7 @@
                             ``eager`` impl of ``attention_decode``.
   * ``decode_attention``  — the policy-dispatched decode op (``eager`` /
                             ``cuda`` / ``cuda_fused`` / ``ref``).
+  * ``bandwidth_model``   — Table II's closed forms (``BandwidthModel``).
 
 GQA (kv heads broadcast over query-head groups), causal masking, sliding
 windows and ``q_offset`` as in the reference.
@@ -18,12 +19,16 @@ windows and ``q_offset`` as in the reference.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
+from repro_torch.roofline.scope import scope
+
 __all__ = ["naive_attention", "blocked_attention", "attention",
            "decode_attention_xla", "decode_attention", "allowed_keys",
-           "scale_in_dtype", "NEG_INF"]
+           "scale_in_dtype", "NEG_INF", "BandwidthModel",
+           "bandwidth_model"]
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked rows NaN-free
 
@@ -74,13 +79,15 @@ def naive_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     b, hq, sq, d = q.shape
     k, v = _broadcast_kv(k, v, hq)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    bias = _mask_bias(sq, k.shape[2], q_offset, causal, window,
-                      scores.dtype, q.device)
-    if bias is not None:
-        scores = scores + bias
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    with scope("attn_scores"):
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        bias = _mask_bias(sq, k.shape[2], q_offset, causal, window,
+                          scores.dtype, q.device)
+        if bias is not None:
+            scores = scores + bias
+        probs = torch.softmax(scores, dim=-1)
+    with scope("attn_pv"):
+        out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
 
@@ -109,27 +116,33 @@ def blocked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     for start in range(0, nblk * block_k, block_k):
         kblk = k[:, :, start:start + block_k].float()
         vblk = v[:, :, start:start + block_k]
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kblk)
-        kpos = start + torch.arange(block_k, device=q.device)
-        ok = (kpos[None, :] < skv) & allowed_keys(qpos, kpos, causal, window)
-        s = torch.where(ok, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
+        with scope("attn_scores"):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kblk)
+            kpos = start + torch.arange(block_k, device=q.device)
+            ok = (kpos[None, :] < skv) & allowed_keys(qpos, kpos, causal,
+                                                      window)
+            s = torch.where(ok, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+        with scope("attn_pv"):
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def attention(q, k, v, *, causal=True, window=None, q_offset=0, scale=None):
-    """Policy-dispatched attention (op ``"attention"``)."""
+    """Policy-dispatched attention (op ``"attention"``), under the
+    ``attn_scores`` scope (a fused kernel's whole time lands there; the
+    plain impls open ``attn_pv`` for their second product)."""
     from repro_torch.ops.registry import dispatch
 
-    return dispatch("attention", q, k, v, causal=causal, window=window,
-                    q_offset=q_offset, scale=scale)
+    with scope("attn_scores"):
+        return dispatch("attention", q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, scale=scale)
 
 
 def decode_attention_xla(q, k_cache, v_cache, cache_len, *, window=None,
@@ -142,6 +155,12 @@ def decode_attention_xla(q, k_cache, v_cache, cache_len, *, window=None,
     cache), q scaled in its dtype, float32 scores masked to −1e30, the
     probabilities rounded to the cache's dtype before the PV product — the
     reference's arithmetic."""
+    with scope("attn_decode"):
+        return _decode_attention_xla(q, k_cache, v_cache, cache_len,
+                                     window, scale)
+
+
+def _decode_attention_xla(q, k_cache, v_cache, cache_len, window, scale):
     b, hq, one, d = q.shape
     hkv, smax = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -170,5 +189,46 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
     the card."""
     from repro_torch.ops.registry import dispatch
 
-    return dispatch("attention_decode", q, k_cache, v_cache, cache_len,
-                    window=window, scale=scale)
+    with scope("attn_decode"):
+        return dispatch("attention_decode", q, k_cache, v_cache, cache_len,
+                        window=window, scale=scale)
+
+
+@dataclass(frozen=True)
+class BandwidthModel:
+    """Closed forms of paper Table II for N tokens at parallelism p: the
+    blocks loaded and the cycles taken without and with the attention
+    reordering, and their ratio (blocks per cycle)."""
+
+    n: int
+    p: int
+
+    @property
+    def loads_without_reorder(self) -> int:
+        return self.n * self.n + self.n
+
+    @property
+    def loads_with_reorder(self) -> int:
+        return self.n * self.n // self.p + self.n + self.p - 1
+
+    @property
+    def latency_without_reorder(self) -> float:
+        return self.n * self.n / self.p
+
+    @property
+    def latency_with_reorder(self) -> float:
+        return self.n * self.n / self.p + self.p - 1
+
+    @property
+    def bandwidth_without_reorder(self) -> float:
+        """blocks per cycle ~ p"""
+        return self.loads_without_reorder / self.latency_without_reorder
+
+    @property
+    def bandwidth_with_reorder(self) -> float:
+        """blocks per cycle ~ 1"""
+        return self.loads_with_reorder / self.latency_with_reorder
+
+
+def bandwidth_model(n: int, p: int) -> BandwidthModel:
+    return BandwidthModel(n=n, p=p)

@@ -20,6 +20,10 @@ __all__ = [
     "exact_silu",
     "lut_correction",
     "lut_activation",
+    "lut_gelu",
+    "lut_silu",
+    "get_activation",
+    "build_delta_table",
     "device_table",
     "lut_grad",
     "activation_grad",
@@ -70,6 +74,16 @@ def _delta_table_f64(kind: str, step_log2: int, rng: float) -> np.ndarray:
     if not ((delta >= 0.0).all() and (delta < 1.0).all()):
         raise ValueError("LUT correction outside [0, 1)")
     return delta
+
+
+def build_delta_table(kind: str = "gelu", step_log2: int = LUT_STEP_LOG2,
+                      rng: float = LUT_RANGE, dtype=torch.float32,
+                      device="cpu") -> torch.Tensor:
+    """The half-table of δ(x) for x in [0, rng) at step 2^step_log2: entry
+    i holds δ(i · 2^step_log2); δ is even, so negative x reuse it (the
+    paper stores only x >= 0).  Values lie in [0, 1)."""
+    return torch.from_numpy(_delta_table_f64(kind, step_log2, rng)).to(
+        device=device, dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,3 +174,26 @@ def lut_activation(x: torch.Tensor, kind: str = "gelu", table=None,
         table = device_table(kind, step_log2, rng, x.device)
     y = lut_correction(widen(x), table.float(), step_log2)
     return y.to(x.dtype)
+
+
+def lut_gelu(x, **kw):
+    return lut_activation(x, kind="gelu", **kw)
+
+
+def lut_silu(x, **kw):
+    return lut_activation(x, kind="silu", **kw)
+
+
+def get_activation(name: str, use_lut: bool = False):
+    """Explicit exact-vs-LUT selection.  Model code goes through the
+    policy-dispatched ``repro_torch.ops.apply_activation`` (op
+    ``"activation"``); this pins one form, for oracles and tests."""
+    if name in (None, "none", "identity"):
+        return lambda x: x
+    if name == "relu":
+        return torch.relu
+    if name == "gelu":
+        return lut_gelu if use_lut else exact_gelu
+    if name == "silu":
+        return lut_silu if use_lut else exact_silu
+    raise ValueError(f"unknown activation: {name}")

@@ -27,10 +27,11 @@ import torch
 
 from repro_torch.core import routing as R
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.roofline.scope import scope
 
 __all__ = ["MoEConfig", "init_moe", "apply_moe", "group_shape",
            "expert_param_names", "route_groups", "RoutedGroups",
-           "add_shared_experts"]
+           "add_shared_experts", "replace_impl"]
 
 
 @dataclass(frozen=True)
@@ -56,7 +57,11 @@ class MoEConfig:
 def normal(rng, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     """Seeded N(0, 1)·scale in float32, cast to ``dtype``: drawn by a NumPy
     generator on the CPU, or by a ``torch.Generator`` on its own device
-    (the same shapes, scales and dtypes; other values)."""
+    (the same shapes, scales and dtypes; other values).  A
+    ``torch.device`` in ``rng``'s place makes an empty tensor there: the
+    shape-only build on ``meta``."""
+    if isinstance(rng, torch.device):
+        return torch.empty(shape, dtype=dtype, device=rng)
     if isinstance(rng, torch.Generator):
         a = torch.randn(shape, generator=rng, device=rng.device)
         return (a * np.float32(scale)).to(dtype)
@@ -245,6 +250,12 @@ def add_shared_experts(params, x: torch.Tensor,
                               params["shared_wd"])
 
 
+def replace_impl(cfg: MoEConfig, impl: str) -> MoEConfig:
+    from dataclasses import replace
+
+    return replace(cfg, impl=impl)
+
+
 def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
               return_stats: bool = False):
     """x: (..., T, d) -> (y, aux_loss[, counts]).
@@ -260,21 +271,25 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
             "'grouped' and 'onehot' (ep_local comes with the distribution "
             "slice)")
     d = x.shape[-1]
-    rt = route_groups(params, cfg, x, task_id)
-    r = rt.routing
-    group_sizes = R.dispatch_counts(r, cfg.num_experts)      # (G, E)
+    with scope("moe_gate"):
+        rt = route_groups(params, cfg, x, task_id)
+        r = rt.routing
+        group_sizes = R.dispatch_counts(r, cfg.num_experts)      # (G, E)
 
     from repro_torch.ops.registry import dispatch as op_dispatch
 
-    y = op_dispatch("moe_ffn", rt.groups,
-                    {k: params[k] for k in expert_param_names(cfg)},
-                    r, group_sizes, cfg=cfg, capacity=rt.capacity)
-    aux = R.load_balance_loss(r.probs, r.expert, cfg.num_experts,
-                              mask=rt.real)
+    with scope("moe_ffn"):      # the staged impl opens its stages' own
+        y = op_dispatch("moe_ffn", rt.groups,
+                        {k: params[k] for k in expert_param_names(cfg)},
+                        r, group_sizes, cfg=cfg, capacity=rt.capacity)
+    with scope("moe_aux"):
+        aux = R.load_balance_loss(r.probs, r.expert, cfg.num_experts,
+                                  mask=rt.real)
     y = y.to(x.dtype).reshape(-1, d)[:rt.t_total].reshape(x.shape)
 
     if cfg.num_shared_experts:
-        y = add_shared_experts(params, x, y)
+        with scope("moe_shared"):
+            y = add_shared_experts(params, x, y)
     if return_stats:
         counts = rt.stat.sum(dim=0, dtype=torch.int32)
         if _is_task_vector(task_id):

@@ -5,14 +5,18 @@ Every linear layer goes through one op, ``"linear"``, whose implementation
 (``eager`` matmul, ``cuda`` tiled-GEMM kernel with a fused bias + LUT
 epilogue, ``ref``) the ambient compute policy names.  The sparse gather
 (``token_index``) and the weighted accumulate (``accum_out``) stay here as
-stages around whichever GEMM runs.
+stages around whichever GEMM runs.  ``sparse_linear`` is the paper's
+sparse-input mode and ``Linear`` a module over the same op.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-__all__ = ["unified_linear"]
+__all__ = ["unified_linear", "sparse_linear", "Linear"]
 
 
 def unified_linear(x: torch.Tensor, w: torch.Tensor,
@@ -43,3 +47,49 @@ def unified_linear(x: torch.Tensor, w: torch.Tensor,
     if token_index is not None:
         return accum_out.index_add(-2, token_index, scaled)
     return accum_out + scaled
+
+
+def sparse_linear(x, w, b, token_index, **kw):
+    """The paper's sparse-input mode: rows ``token_index`` of x through
+    the unified linear op."""
+    return unified_linear(x, w, b, token_index=token_index, **kw)
+
+
+class Linear(torch.nn.Module):
+    """A linear layer through the unified op (dispatched by the ambient
+    policy): weight (in_dim, out_dim) in ``dtype``, the widened float32
+    bias.  ``Linear.init`` and ``Linear.apply`` are the reference's
+    parameter helpers, on a flat {"w", "b"} dict."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
+                 dtype=torch.bfloat16, seed: int = 0, scale=None,
+                 device="cuda", **kw):
+        super().__init__()
+        from repro_torch import resolve_device
+
+        p = self.init(np.random.default_rng(seed), in_dim, out_dim,
+                      bias=bias, dtype=dtype, scale=scale)
+        dev = resolve_device(device)
+        self.w = torch.nn.Parameter(p["w"].to(dev))
+        self.b = None if "b" not in p else torch.nn.Parameter(p["b"].to(dev))
+        self.kw = kw
+
+    @staticmethod
+    def init(rng, in_dim, out_dim, *, bias=True, dtype=torch.bfloat16,
+             scale=None):
+        """{"w": N(0, 1)·scale (default 1/√in_dim) in ``dtype``, "b":
+        float32 zeros}, drawn by a NumPy generator."""
+        scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+        w = rng.standard_normal((in_dim, out_dim), dtype=np.float32) \
+            * np.float32(scale)
+        p = {"w": torch.from_numpy(w).to(dtype)}
+        if bias:
+            p["b"] = torch.zeros((out_dim,), dtype=torch.float32)
+        return p
+
+    @staticmethod
+    def apply(params, x, **kw):
+        return unified_linear(x, params["w"], params.get("b"), **kw)
+
+    def forward(self, x, **kw):
+        return unified_linear(x, self.w, self.b, **{**self.kw, **kw})

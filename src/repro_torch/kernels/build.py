@@ -28,7 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "function", "check", "tickets", "build_seconds",
-           "build_log", "sass_counts", "DTYPE_CODES", "NVCC_FLAGS"]
+           "build_log", "sass_counts", "DTYPE_CODES", "NVCC_FLAGS",
+           "PLAIN_DEVICES"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -38,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: dtype codes of csrc/common.cuh:DTypeCode
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: devices on which a kernel wrapper runs its plain version: the CPU (the
+#: tests) and ``meta`` (the shape-only dry-run, where nothing is computed)
+PLAIN_DEVICES = ("cpu", "meta")
 
 _LOCK = threading.Lock()
 _STATE: dict = {}

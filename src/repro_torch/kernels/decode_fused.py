@@ -144,7 +144,7 @@ def fused_decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
     (for CUDA tensors it should already lie on the card).  Returns
     (B, Hq, 1, D) in ``q.dtype``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return fused_decode_attention_plain(q, k_cache, v_cache, cache_len,
                                             window=window, scale=scale)
     if q.device.type == "cuda":
@@ -152,7 +152,7 @@ def fused_decode_attention(q, k_cache, v_cache, cache_len, *, window=None,
                        v_cache.contiguous(),
                        _lengths(cache_len, q.shape[0], q.device), window,
                        scale)
-    raise ValueError(f"fused_decode_attention runs on cuda or cpu, not "
+    raise ValueError(f"fused_decode_attention runs on cuda, cpu or meta, not "
                      f"{q.device}")
 
 

@@ -136,12 +136,13 @@ def _launch(q, k, v, causal, window, q_offset, scale):
 
 
 def _forward(q, k, v, causal, window, q_offset, scale):
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, window, q_offset, scale)
-    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    raise ValueError(f"flash_attention runs on cuda, cpu or meta, "
+                     f"not {q.device}")
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -67,12 +67,13 @@ def lut_activation(x, kind="gelu", *, step_log2=-8, lut_range=8.0):
 
 
 def _forward(x, kind, step_log2, lut_range):
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return lut_activation_plain(x, kind, step_log2=step_log2,
                                     rng=lut_range)
     if x.device.type == "cuda":
         return _launch(x.contiguous(), kind, step_log2, lut_range)
-    raise ValueError(f"lut_activation runs on cuda or cpu, not {x.device}")
+    raise ValueError(f"lut_activation runs on cuda, cpu or meta, "
+                     f"not {x.device}")
 
 
 class LutActivationFn(torch.autograd.Function):

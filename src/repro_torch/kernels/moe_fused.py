@@ -285,14 +285,15 @@ def fused_moe_ffn(x, params, expert, gate, position, valid, group_sizes, *,
         raise ValueError(f"expert kind {kind!r} (expected gelu | swiglu)")
     kw = dict(kind=kind, capacity=capacity, use_lut=use_lut,
               step_log2=step_log2, lut_range=lut_range)
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return fused_moe_ffn_plain(x, params, expert, gate, position, valid,
                                    group_sizes, **kw)
     if x.device.type == "cuda":
         return _launch(x.contiguous(), params, expert, gate, position, valid,
                        group_sizes, kind, capacity, use_lut, step_log2,
                        lut_range)
-    raise ValueError(f"fused_moe_ffn runs on cuda or cpu, not {x.device}")
+    raise ValueError(f"fused_moe_ffn runs on cuda, cpu or meta, "
+                     f"not {x.device}")
 
 
 fused_moe_ffn.launches = 0

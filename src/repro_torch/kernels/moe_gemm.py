@@ -130,12 +130,12 @@ def moe_gemm(buf, w, group_sizes):
 
 
 def _forward(buf, w, group_sizes):
-    if buf.device.type == "cpu":
+    if buf.device.type in build.PLAIN_DEVICES:
         return moe_gemm_plain(buf, w, group_sizes)
     if buf.device.type == "cuda":
         return _launch(buf.contiguous(), w.contiguous(),
                        group_sizes.to(torch.int32).contiguous())
-    raise ValueError(f"moe_gemm runs on cuda or cpu, not {buf.device}")
+    raise ValueError(f"moe_gemm runs on cuda, cpu or meta, not {buf.device}")
 
 
 class MoeGemmFn(torch.autograd.Function):

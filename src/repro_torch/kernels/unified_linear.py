@@ -172,14 +172,15 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
 
 
 def _forward(x2, w, b, activation, use_lut, step_log2, lut_range):
-    if x2.device.type == "cpu":
+    if x2.device.type in build.PLAIN_DEVICES:
         return unified_linear_plain(x2, w, b, activation=activation,
                                     use_lut=use_lut, step_log2=step_log2,
                                     lut_range=lut_range)
     if x2.device.type == "cuda":
         return _launch(x2.contiguous(), w.contiguous(), b, activation,
                        use_lut, step_log2, lut_range)
-    raise ValueError(f"unified_linear runs on cuda or cpu, not {x2.device}")
+    raise ValueError(f"unified_linear runs on cuda, cpu or meta, "
+                     f"not {x2.device}")
 
 
 class UnifiedLinearFn(torch.autograd.Function):

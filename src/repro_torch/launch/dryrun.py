@@ -1,0 +1,256 @@
+"""The dry-run on one H100, on the ``meta`` device: does each cell fit, and
+what is its roofline?  The port of ``repro.launch.dryrun`` for one card.
+
+For every (architecture × input shape) cell of ``configs.cells()`` this
+script:
+
+  1. builds the step the cell runs — the training step (loss, gradients
+     over ``--accum`` microbatches, AdamW with ``opt_config_for``'s rule)
+     for train shapes, the prefill or decode serving step for the others;
+  2. runs it on ``meta`` tensors (``models.model.param_specs`` /
+     ``input_specs``: shapes and dtypes, no values, no memory) under the
+     cost counter (``roofline/op_cost.py``), under the ``cuda`` policy
+     (what the card runs; the kernel wrappers run their plain versions
+     on ``meta``);
+  3. records the roofline report (``roofline/analysis.py``), the argument
+     bytes (parameters, optimizer state, inputs and state), the output
+     bytes (the new tensors the step returns), the peak live bytes (the
+     run's allocations, outputs included) and whether arguments plus peak
+     fit the card's memory (``launch/mesh.HW.HBM_BYTES``);
+  4. writes one JSON a cell to ``--out``.
+
+Nothing runs on a card: the numbers are counts from shapes, and the
+"fits" verdict is the port's own allocations on meta, not a measurement.
+Where the reference compiles on the 16×16 and 2×16×16 meshes, this
+dry-run is one card; the mesh flags come with the distribution slice.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch llama3_2_1b --shape train_4k
+  python -m repro_torch.launch.dryrun --all [--out results/dryrun_torch]
+  python -m repro_torch.launch.dryrun --list
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+from dataclasses import replace
+
+import torch
+
+from repro_torch import configs, ops
+from repro_torch.configs.base import SHAPES, ArchConfig
+from repro_torch.launch.mesh import HW
+from repro_torch.models import model as M
+from repro_torch.optim import OptConfig, adamw_init
+from repro_torch.quant import tree_bytes
+from repro_torch.roofline.analysis import analyze_step, kernel_adjusted_terms
+from repro_torch.train.step import TrainConfig, make_serve_step, \
+    make_train_step
+
+__all__ = ["TRAIN_ACCUM", "opt_config_for", "build_cell", "run_cell",
+           "main"]
+
+# grad-accumulation per train cell (the reference's)
+TRAIN_ACCUM = 8
+POLICY = "cuda"     # the impls the card runs
+
+_LATER_MESH = ("comes with the distribution slice (ROADMAP.md queue 1 item "
+               "6): the port's dry-run runs on one card")
+_LATER_TILES = ("needs the port's schedule table and the policy's tiles "
+                "(ROADMAP.md queue 1 item 7, ops/schedules.py)")
+
+
+def opt_config_for(cfg: ArchConfig) -> OptConfig:
+    big = cfg.param_count() > 3e10
+    # >30B params: bf16 momentum + factored second moment (the reference's)
+    return OptConfig(momentum_dtype="bfloat16" if big else "float32",
+                     factored=big)
+
+
+def build_cell(arch: str, shape_name: str, variant: dict | None = None,
+               *, smoke: bool = False, shape=None, device="meta"):
+    """(step function, its arguments, cfg, shape) for one cell, every
+    argument on ``device`` (``meta``: shapes only).  ``variant``:
+    ``moe_impl`` (str), ``accum`` (int), ``no_remat`` (bool).  ``smoke``
+    takes the arch's ``SMOKE_CONFIG``; ``shape`` (a ``Shape``) replaces
+    ``SHAPES[shape_name]`` (the tests' tiny cells)."""
+    variant = variant or {}
+    cfg = configs.get(arch, smoke=smoke)
+    if variant.get("moe_impl") and cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, impl=variant["moe_impl"]))
+    if variant.get("no_remat"):
+        # the port keeps every activation for the backward (it has no
+        # rematerialization), so this is the only way it runs
+        cfg = replace(cfg, remat=False)
+    shape = shape or SHAPES[shape_name]
+    params = M.param_specs(cfg, device=device)
+    specs = M.input_specs(cfg, shape, device=device)
+    if shape.kind == "train":
+        ocfg = opt_config_for(cfg)
+        tcfg = TrainConfig(opt=ocfg,
+                           accum_steps=variant.get("accum") or TRAIN_ACCUM)
+        opt_state = adamw_init(params, ocfg)
+        return (make_train_step(cfg, tcfg), (params, opt_state, specs), cfg,
+                shape)
+    prefill, decode = make_serve_step(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "prefill":
+        state = M.init_state(cfg, b, s, device=device)
+        return prefill, (params, specs["inputs"], state), cfg, shape
+    # decode: one new token against a seq_len cache; the scalar index is
+    # handed over as every slot's position (a host read of a meta scalar
+    # is not possible), which writes and reads the same cache rows
+    index = specs["cache_index"].expand(b)
+    return decode, (params, specs["inputs"], specs["state"], index), cfg, \
+        shape
+
+
+def run_cell(arch: str, shape_name: str, out_dir: str | None = None,
+             verbose: bool = True, variant: dict | None = None,
+             tag: str = "", *, smoke: bool = False, shape=None) -> dict:
+    t0 = time.time()
+    fn, args, cfg, shape = build_cell(arch, shape_name, variant,
+                                      smoke=smoke, shape=shape)
+    shape_name = shape.name
+    t_build = time.time() - t0
+    argument_bytes = tree_bytes(args)
+    t0 = time.time()
+    with ops.use_policy(ops.policy_named(POLICY)):
+        report, out = analyze_step(fn, args, cfg, shape)
+    t_run = time.time() - t0
+    arg_keys = {t.untyped_storage()._cdata for t in _leaves(args)}
+    output_bytes = sum(t.untyped_storage().nbytes() for t in
+                       {t.untyped_storage()._cdata: t
+                        for t in _leaves(out)}.values()
+                       if t.untyped_storage()._cdata not in arg_keys)
+    del out
+    rec = report.to_dict()
+    rec["kernel_adjusted"] = kernel_adjusted_terms(rec, cfg, shape)
+    total = argument_bytes + report.peak_live_bytes
+    rec.update(
+        arch=arch, shape=shape_name, variant=tag or "baseline",
+        policy=POLICY, build_s=t_build, run_s=t_run,
+        argument_bytes=float(argument_bytes),
+        output_bytes=float(output_bytes),
+        temp_bytes=float(report.peak_live_bytes),
+        total_bytes=float(total), hbm_bytes=float(HW.HBM_BYTES),
+        fits=bool(total <= HW.HBM_BYTES), ok=True,
+    )
+    rec["bytes_per_device"] = float(total)
+    if verbose:
+        print(f"[dryrun] {arch} × {shape_name} × {rec['mesh']} "
+              f"(policy {POLICY}): built {t_build:.1f}s, counted "
+              f"{t_run:.1f}s")
+        print(f"  roofline: compute {report.t_compute*1e3:.2f}ms  "
+              f"memory {report.t_memory*1e3:.2f}ms  "
+              f"-> {report.bottleneck}-bound  "
+              f"useful={report.useful_ratio:.2f} "
+              f"roofline_frac={report.roofline_fraction:.3f}")
+        print(f"  bytes: arguments {argument_bytes/2**30:.2f} GiB, peak "
+              f"live {report.peak_live_bytes/2**30:.2f} GiB, outputs "
+              f"{output_bytes/2**30:.2f} GiB -> "
+              f"{'fits' if rec['fits'] else 'does not fit'} in "
+              f"{HW.HBM_BYTES/2**30:.1f} GiB")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        suffix = f"__{tag}" if tag else ""
+        fn_out = os.path.join(out_dir, f"{arch}__{shape_name}__"
+                              f"{rec['mesh']}{suffix}.json")
+        with open(fn_out, "w") as f:
+            json.dump(rec, f, indent=1)
+        if verbose:
+            print(f"  -> {fn_out}")
+    return rec
+
+
+def _leaves(tree) -> list:
+    out, stack = [], [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.
+                                 RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", help="architecture id (see configs)")
+    ap.add_argument("--shape", help="shape id: train_4k | prefill_32k | "
+                                    "decode_32k | long_500k")
+    ap.add_argument("--all", action="store_true",
+                    help="run every runnable cell")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--list", action="store_true")
+    ap.add_argument("--tag", default="", help="variant tag for the output "
+                                              "file")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=["onehot", "grouped", "ep_local"])
+    ap.add_argument("--accum", type=int, default=None)
+    ap.add_argument("--no-remat", action="store_true",
+                    help="keep every activation for the backward (the "
+                         "port's only mode)")
+    for flag in ("--multi-pod", "--no-fsdp", "--fsdp-moe-only",
+                 "--seq-shard"):
+        ap.add_argument(flag, action="store_true", help=_LATER_MESH)
+    ap.add_argument("--attn-block-k", type=int, default=None,
+                    help=_LATER_TILES)
+    args = ap.parse_args(argv)
+    for flag in ("multi_pod", "no_fsdp", "fsdp_moe_only", "seq_shard"):
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} {_LATER_MESH}")
+    if args.attn_block_k:
+        raise NotImplementedError(f"--attn-block-k {_LATER_TILES}")
+    if args.moe_impl == "ep_local":
+        raise NotImplementedError(f"--moe-impl ep_local {_LATER_MESH}")
+    variant = {}
+    if args.moe_impl:
+        variant["moe_impl"] = args.moe_impl
+    if args.accum:
+        variant["accum"] = args.accum
+    if args.no_remat:
+        variant["no_remat"] = True
+
+    if args.list:
+        for a, s, runnable in configs.cells(include_skipped=True):
+            state = "runnable" if runnable else "SKIP (full attention @500k)"
+            print(f"{a:28s} {s:12s} {state}")
+        return 0
+
+    if args.all:
+        failures = []
+        for a, s, runnable in configs.cells():
+            if not runnable:
+                continue
+            try:
+                run_cell(a, s, out_dir=args.out, variant=variant,
+                         tag=args.tag)
+            except Exception as e:
+                traceback.print_exc()
+                failures.append((a, s, repr(e)))
+        if failures:
+            print(f"FAILURES: {failures}")
+            return 1
+        print("all cells OK")
+        return 0
+
+    if not (args.arch and args.shape):
+        ap.error("give --arch and --shape, or --all, or --list")
+    run_cell(args.arch, args.shape, out_dir=args.out, variant=variant,
+             tag=args.tag)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""The card's roofline constants, the port of ``repro.launch.mesh``.
+
+``HW`` holds one NVIDIA H100 SXM's peak rates (dense, no sparsity), the
+counterpart of the reference's TPU v5e constants; ``chip_smoke.py`` and
+``roofline/analysis.py`` both read them, so a kernel's bound and a step's
+roofline cannot drift apart.  ``HBM_BYTES`` is what
+``torch.cuda.get_device_properties(0).total_memory`` reads on an H100
+80GB HBM3 (``chip_smoke.py`` phase 9 prints both); the dry-run's "fits"
+holds a cell's bytes against it.
+
+``make_production_mesh`` (the 16×16 and 2×16×16 meshes) comes with the
+distribution slice.
+"""
+
+from __future__ import annotations
+
+__all__ = ["HW", "make_production_mesh"]
+
+
+class HW:
+    """H100 SXM roofline constants (one card)."""
+
+    PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense tensor-core bf16
+    PEAK_FLOPS_F32 = 67e12          # FLOP/s, float32 outside the tensor cores
+    HBM_BW = 3.35e12                # bytes/s, HBM3
+    NVLINK_BW = 450e9               # bytes/s a direction (NVLink 4)
+    ICI_BW = NVLINK_BW              # the reference's name for the link rate
+    HBM_BYTES = 85_017_493_504      # the H100 80GB HBM3's total_memory
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    raise NotImplementedError(
+        "production meshes come with the distribution slice (ROADMAP.md "
+        "queue 1 item 6); the port's roofline and dry-run run on one card")

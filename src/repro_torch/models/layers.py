@@ -28,6 +28,7 @@ from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
 from repro_torch.quant.qtensor import (QTensor, dequantize, dtype_name,
                                        quantize_kv)
+from repro_torch.roofline.scope import scope
 
 _PER_SEQ_PREFILL = ("a multi-row prefill at per-sequence offsets is not "
                     "supported: the scheduler admits each prompt alone, at "
@@ -68,6 +69,7 @@ def _row_mean(v):
         -1, keepdim=True)[:m].reshape(*v.shape[:-1], 1)
 
 
+@scope("norm")
 def apply_norm(params, x, cfg: ArchConfig, eps=1e-6):
     xf = x.float()
     if cfg.norm == "layernorm":
@@ -165,6 +167,7 @@ def init_mlp(rng: np.random.Generator, cfg: ArchConfig, dtype):
             "b2": torch.zeros((d,), dtype=torch.float32)}
 
 
+@scope("mlp")
 def apply_mlp(params, x, cfg: ArchConfig):
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
@@ -269,19 +272,22 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     t % Smax)."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = _split_heads(unified_linear(x, params["wq"], params.get("bq")),
-                     hq, hd)
-    k = _split_heads(unified_linear(x, params["wk"], params.get("bk")),
-                     hkv, hd)
-    v = _split_heads(unified_linear(x, params["wv"], params.get("bv")),
-                     hkv, hd)
-    if cfg.rope == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-    elif cfg.rope == "mrope":
-        pos3 = pos if pos.dim() == 3 else pos.expand((3,) + tuple(pos.shape))
-        q = apply_mrope(q, pos3, cfg.rope_theta)
-        k = apply_mrope(k, pos3, cfg.rope_theta)
+    with scope("attn_qkv"):
+        q = _split_heads(unified_linear(x, params["wq"], params.get("bq")),
+                         hq, hd)
+        k = _split_heads(unified_linear(x, params["wk"], params.get("bk")),
+                         hkv, hd)
+        v = _split_heads(unified_linear(x, params["wv"], params.get("bv")),
+                         hkv, hd)
+    with scope("rope"):
+        if cfg.rope == "rope":
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        elif cfg.rope == "mrope":
+            pos3 = pos if pos.dim() == 3 else pos.expand(
+                (3,) + tuple(pos.shape))
+            q = apply_mrope(q, pos3, cfg.rope_theta)
+            k = apply_mrope(k, pos3, cfg.rope_theta)
 
     kvq = cache is not None and "k_scale" in cache
     smax = cache["k"].shape[2] if cache is not None else None
@@ -321,8 +327,9 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
                           torch.roll(v[:, :, -smax:], shift, dims=2), 0, kvq)
             else:
                 _kv_write(cache, k, v, 0, kvq)
-    o = o.transpose(1, 2).reshape(b, s, hq * hd)
-    return unified_linear(o, params["wo"]), cache
+    with scope("attn_out"):
+        o = o.transpose(1, 2).reshape(b, s, hq * hd)
+        return unified_linear(o, params["wo"]), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -353,6 +360,7 @@ def init_embed(rng: np.random.Generator, cfg: ArchConfig, dtype):
     return p
 
 
+@scope("embed")
 def embed_inputs(params, inputs, cfg: ArchConfig):
     """tokens (B, S) int -> (B, S, d); embeddings pass through in the
     activation dtype (the vit-moe trunk, stub frontends)."""
@@ -373,6 +381,7 @@ def init_lm_head(rng: np.random.Generator, cfg: ArchConfig, dtype):
                         1.0 / math.sqrt(cfg.d_model), dtype)}
 
 
+@scope("lm_head")
 def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
     """float32 logits.  The tied head is ``x @ tokens.T`` with float32
     products and sums and no rounding of the logits to the activation

@@ -1,6 +1,7 @@
 """Model facade for the decoder LMs: ``init_params``, ``forward``,
-``init_state`` and ``lm_loss`` (the port of ``repro.models.model``;
-``input_specs`` follows with the shape dry-run).
+``init_state``, ``lm_loss`` and ``input_specs`` (the port of
+``repro.models.model``), with ``param_specs``, the shape-only parameter
+build the dry-run (``launch/dryrun.py``) runs on ``meta``.
 
 Parameters are the flat dotted-name dict (``bridge.params_from_jax`` or
 :func:`init_params`), with the reference's key paths: ``embed.tokens``,
@@ -14,11 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, Shape
 from repro_torch.models import transformer as T
+from repro_torch.roofline.scope import scope
 from repro_torch.tree import flatten, unflatten
 
-__all__ = ["init_params", "forward", "init_state", "lm_loss"]
+__all__ = ["init_params", "forward", "init_state", "lm_loss",
+           "input_specs", "param_specs"]
 
 
 def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
@@ -67,13 +70,53 @@ def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,
     logits, _, aux = T.forward(unflatten(params), batch["inputs"], cfg,
                                task_id=task_id)
     labels = batch["labels"]
-    lf = logits.float()
-    shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    onehot = torch.arange(lf.shape[-1], device=lf.device) \
-        == labels.clamp_min(0)[..., None]
-    label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
-    mask = labels >= 0
-    loss = ((lse - label_logit) * mask).sum() \
-        / torch.clamp_min(mask.sum(), 1)
+    with scope("loss"):
+        lf = logits.float()
+        shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(shifted).sum(dim=-1))
+        onehot = torch.arange(lf.shape[-1], device=lf.device) \
+            == labels.clamp_min(0)[..., None]
+        label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
+        mask = labels >= 0
+        loss = ((lse - label_logit) * mask).sum() \
+            / torch.clamp_min(mask.sum(), 1)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def param_specs(cfg: ArchConfig, dtype=None, device="meta") -> dict:
+    """The parameters' shapes and dtypes, as :func:`init_params` builds
+    them, on ``meta``: no values are drawn and no memory is taken (the
+    counterpart of the reference's ``jax.eval_shape`` of ``init_params``).
+    ``init_params`` draws its values with generators on a real device."""
+    meta = torch.device(device)
+    tree = T.init_params(meta, cfg, dtype)
+    return {k: v.to(meta) for k, v in flatten(tree).items()}
+
+
+def input_specs(cfg: ArchConfig, shape: Shape, dtype=None,
+                device="meta") -> dict:
+    """Meta tensors for the cell's step inputs (the reference's
+    ``ShapeDtypeStruct`` stand-ins): train {"inputs", "labels"}; prefill
+    {"inputs"}; decode {"inputs" (one token), "state" (the caches and
+    recurrent states of ``seq_len`` positions), "cache_index" (a scalar)}.
+    Inputs are (B, S) int32 tokens, or (B, S, d) embeddings for the stub
+    frontends."""
+    dtype = dtype or cfg.activation_dtype
+    dev = torch.device(device)
+    b, s = shape.global_batch, shape.seq_len
+
+    def inputs(length):
+        if cfg.embed_input == "tokens":
+            return torch.empty((b, length), dtype=torch.int32, device=dev)
+        return torch.empty((b, length, cfg.d_model), dtype=dtype,
+                           device=dev)
+
+    if shape.kind == "train":
+        return {"inputs": inputs(s),
+                "labels": torch.empty((b, s), dtype=torch.int32,
+                                      device=dev)}
+    if shape.kind == "prefill":
+        return {"inputs": inputs(s)}
+    return {"inputs": inputs(1),
+            "state": T.init_state(cfg, b, s, dtype, device=dev),
+            "cache_index": torch.empty((), dtype=torch.int32, device=dev)}

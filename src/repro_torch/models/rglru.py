@@ -32,6 +32,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
 from repro_torch.models.xlstm import _write, causal_conv1d, seq_groups
+from repro_torch.roofline.scope import scope
 
 __all__ = ["init_rglru", "apply_rglru", "init_rglru_state", "rglru_step",
            "C_SCALE"]
@@ -53,7 +54,9 @@ def init_rglru(rng, cfg: ArchConfig, dtype):
          "conv": normal(rng, (cfg.conv_width, w), 0.1, f32),
          "gates": normal(rng, (h, bw, 2 * bw), sb, f32)}
     # Lambda so that a = exp(-c * softplus(Lambda)) spreads over (0.9, 0.999)
-    if isinstance(rng, torch.Generator):
+    if isinstance(rng, torch.device):       # shapes only
+        u = torch.full((w,), 0.95, device=rng)
+    elif isinstance(rng, torch.Generator):
         u = torch.rand((w,), generator=rng, device=rng.device) * 0.099 + 0.9
     else:
         u = torch.from_numpy(rng.uniform(0.9, 0.999, size=(w,)).astype(
@@ -108,6 +111,7 @@ def _gates(xc32, gates):
     return r.reshape(b, s, w), i.reshape(b, s, w)
 
 
+@scope("rglru")
 def apply_rglru(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d) -> (y, state).  state: {"h": (B, W), "conv": (B,
     cw-1, W)} or None, updated in place."""

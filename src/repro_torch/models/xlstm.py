@@ -34,6 +34,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.roofline.op_cost import repeat
+from repro_torch.roofline.scope import scope
 
 __all__ = ["group_norm", "causal_conv1d", "seq_groups", "init_mlstm",
            "apply_mlstm", "init_mlstm_state", "mlstm_recurrent_step",
@@ -181,36 +183,42 @@ def _mlstm_chunk_scan(q, k, v, logi, logf, state, chunk: int):
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=q.device))
     outs = []
-    for c in range(nchunk):
-        qb, kb, vb = qc[:, :, c], kc[:, :, c], vc[:, :, c]
-        li, lf = lic[:, :, c], lfc[:, :, c]
-        bcum = torch.cumsum(lf, dim=-1)                # b_i = sum_{s<=i} logf
-        # stabilizer: m_i = b_i + max(m_prev, running max_{j<=i} (li_j - b_j))
-        run = torch.cummax(li - bcum, dim=-1).values
-        m_i = bcum + torch.maximum(m[..., None], run)
-        # intra-chunk decay: log w_ij = b_i - b_j + li_j  (j <= i)
-        logw = bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
-        logw = torch.where(tri, logw - m_i[..., :, None], NEG)
-        sc = torch.einsum("bhid,bhjd->bhij", qb, kb) * torch.exp(logw)
-        num_intra = torch.einsum("bhij,bhjd->bhid", sc, vb)
-        den_intra = sc.sum(-1)
-        # inter-chunk: the carried state at scale m_prev
-        inter_scale = torch.exp(bcum + m[..., None] - m_i)
-        num_inter = torch.einsum("bhid,bhde->bhie", qb, C)
-        den_inter = torch.einsum("bhid,bhd->bhi", qb, n)
-        num = num_intra + num_inter * inter_scale[..., None]
-        den = den_intra + den_inter * inter_scale
-        outs.append(num / torch.maximum(den.abs(),
-                                        torch.exp(-m_i))[..., None])
-        # the state at the end of the chunk
-        m_l = m_i[..., -1]
-        carry = torch.exp(bcum[..., -1:] + m[..., None] - m_l[..., None])
-        kv_scale = torch.exp(bcum[..., -1:] - bcum + li - m_l[..., None])
-        C = C * carry[..., None] + torch.einsum("bhj,bhjd,bhje->bhde",
-                                                kv_scale, kb, vb)
-        n = n * carry + torch.einsum("bhj,bhjd->bhd", kv_scale, kb)
-        m = m_l
-    hseq = torch.stack(outs, dim=2).reshape(b, h, nchunk * chunk, dh)
+    # the dry-run on meta counts one chunk nchunk times (op_cost.repeat)
+    with repeat(nchunk, q.device) as rep:
+        qc, kc, vc, lic, lfc, C, n, m = rep.begin(qc, kc, vc, lic, lfc,
+                                                  C, n, m, each=5)
+        for c in range(rep.steps):
+            qb, kb, vb = qc[:, :, c], kc[:, :, c], vc[:, :, c]
+            li, lf = lic[:, :, c], lfc[:, :, c]
+            bcum = torch.cumsum(lf, dim=-1)        # b_i = sum_{s<=i} logf
+            # stabilizer: m_i = b_i + max(m_prev, running max_{j<=i}
+            # (li_j - b_j))
+            run = torch.cummax(li - bcum, dim=-1).values
+            m_i = bcum + torch.maximum(m[..., None], run)
+            # intra-chunk decay: log w_ij = b_i - b_j + li_j  (j <= i)
+            logw = bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
+            logw = torch.where(tri, logw - m_i[..., :, None], NEG)
+            sc = torch.einsum("bhid,bhjd->bhij", qb, kb) * torch.exp(logw)
+            num_intra = torch.einsum("bhij,bhjd->bhid", sc, vb)
+            den_intra = sc.sum(-1)
+            # inter-chunk: the carried state at scale m_prev
+            inter_scale = torch.exp(bcum + m[..., None] - m_i)
+            num_inter = torch.einsum("bhid,bhde->bhie", qb, C)
+            den_inter = torch.einsum("bhid,bhd->bhi", qb, n)
+            num = num_intra + num_inter * inter_scale[..., None]
+            den = den_intra + den_inter * inter_scale
+            outs.append(num / torch.maximum(den.abs(),
+                                            torch.exp(-m_i))[..., None])
+            # the state at the end of the chunk
+            m_l = m_i[..., -1]
+            carry = torch.exp(bcum[..., -1:] + m[..., None] - m_l[..., None])
+            kv_scale = torch.exp(bcum[..., -1:] - bcum + li - m_l[..., None])
+            C = C * carry[..., None] + torch.einsum("bhj,bhjd,bhje->bhde",
+                                                    kv_scale, kb, vb)
+            n = n * carry + torch.einsum("bhj,bhjd->bhd", kv_scale, kb)
+            m = m_l
+    hseq, C, n, m = rep.end(rep.stack(outs, dim=2), C, n, m)
+    hseq = hseq.reshape(b, h, nchunk * chunk, dh)
     return hseq[:, :, :s].to(q.dtype), (C, n, m)
 
 
@@ -264,6 +272,7 @@ def _mlstm_core(params, cfg: ArchConfig, decode: bool, uc, qkv, z, C, n, m):
     return gated.to(uc.dtype), inner
 
 
+@scope("mlstm")
 def apply_mlstm(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d).  state: {"C", "n", "m", "conv"} or None, updated in
     place.  Returns (y, state)."""
@@ -351,14 +360,20 @@ def _slstm_core(params, cfg: ArchConfig, x, c, n, hp, m):
     else:
         inner = (c, n, hp, m)
     hs = []
-    for t in range(s):   # decode (S == 1) is the same one step
-        inner, ht = _slstm_cell(wx[:, t], params["r_gates"], inner)
-        hs.append(ht)
-    hseq = torch.stack(hs, dim=1)                            # (B, S, H, dh)
+    # decode (S == 1) is the same one step; the dry-run on meta counts one
+    # step s times (op_cost.repeat)
+    with repeat(s, x.device) as rep:
+        wx, r_gates, *inner = rep.begin(wx, params["r_gates"], *inner,
+                                        each=2)
+        for t in range(rep.steps):
+            inner, ht = _slstm_cell(wx[:, t], r_gates, inner)
+            hs.append(ht)
+    hseq, *inner = rep.end(rep.stack(hs, dim=1), *inner)     # (B,S,H,dh)
     hn = group_norm(hseq, params["gn_scale"]).reshape(b, s, d)
-    return hn.to(x.dtype), inner
+    return hn.to(x.dtype), tuple(inner)
 
 
+@scope("slstm")
 def apply_slstm(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d).  Strictly sequential scan (the recurrent h feeds the
     gates).  state: {"c", "n", "h", "m"} or None, updated in place."""

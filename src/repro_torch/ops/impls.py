@@ -50,6 +50,10 @@ from repro_torch.kernels import unified_linear as kul
 from repro_torch.ops import apply_activation
 from repro_torch.ops.registry import register
 from repro_torch.quant.qtensor import dequantize, is_qtensor
+from repro_torch.roofline.op_cost import Part, register_cost
+from repro_torch.roofline.scope import scope
+
+__all__ = ["apply_activation"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: rows of one float32 product of the packed linear impl on the card.  The
@@ -106,6 +110,46 @@ def _kernel_dtype(*tensors):
     return None
 
 
+# ------------------------------------------------------------------ costs
+#
+# Each op's analytic cost (``roofline/op_cost.py``): the same whatever impl
+# serves the op, with the FLOPs as the reference's HLO counts its plain
+# (``xla``) path — products 2·M·N·K, elementwise ops one an element, a
+# transcendental also tallied apart — and bytes as each operand read once
+# and each output written once.
+
+
+def _stored_bytes(t) -> int:
+    """Bytes a (possibly packed) operand occupies."""
+    if t is None:
+        return 0
+    if is_qtensor(t):
+        return _stored_bytes(t.q) + _stored_bytes(t.scale)
+    if is_factored(t):
+        return sum(_stored_bytes(f) for f in (t.basis, t.u, t.v))
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    return 0
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+#: (flops, transcendentals) an element of each activation's exact form:
+#: relu = max; gelu = x·0.5·(1 + erf(x/√2)); silu = x·logistic(x)
+_ACT_FLOPS = {"relu": (1, 0), "gelu": (5, 1), "silu": (2, 1),
+              None: (0, 0), "none": (0, 0), "identity": (0, 0)}
+
+
+def _act_parts(kind, n, where=None):
+    f, tr = _ACT_FLOPS[kind]
+    return [Part(f * n, 0.0, tr * n, where, "activation")] if f else []
+
+
 # ================================================================ activation
 
 
@@ -145,14 +189,23 @@ def _act_cuda(policy, x, *, kind):
                               lut_range=policy.lut_range)
 
 
-# exact erf-GELU / sigmoid-SiLU / ReLU, any dtype
-register("activation", "eager", _act_eager)
-# ReLU − δ(|x|) half-table (§IV-C); gelu/silu only
+register("activation", "eager", _act_eager,
+         doc="exact erf-GELU / sigmoid-SiLU / ReLU, any dtype")
 register("activation", "lut", _act_lut, requires=_act_lut_requires,
-         default=True)
-# LUT kernel, shared-memory table; gelu/silu, f32/bf16
+         default=True,
+         doc="ReLU − δ(|x|) half-table (§IV-C); gelu/silu only")
 register("activation", "cuda", _act_cuda, requires=_act_cuda_requires,
-         kernel=True)
+         kernel=True,
+         doc="LUT kernel, shared-memory table; gelu/silu, f32/bf16")
+
+
+def _act_cost(x, *, kind):
+    n = x.numel()
+    f, tr = _ACT_FLOPS[kind]
+    return [Part(f * n, 2.0 * n * x.element_size(), tr * n)]
+
+
+register_cost("activation", _act_cost)
 
 
 # ================================================================= attention
@@ -193,15 +246,42 @@ def _attn_ref(policy, q, k, v, **kw):
     return kref.ref_attention(q, k, v, **kw)
 
 
-# streaming K/V blocks + online-softmax carry (§IV-A/B)
-register("attention", "blocked", _attn_blocked, default=True)
-# materialized N×N scores (paper baseline), any mask
-register("attention", "eager", _attn_eager)
-# tiled flash kernel; f32/bf16, GQA-divisible heads, head_dim <= 256
+register("attention", "blocked", _attn_blocked, default=True,
+         doc="streaming K/V blocks + online-softmax carry (§IV-A/B)")
+register("attention", "eager", _attn_eager,
+         doc="materialized N×N scores (paper baseline), any mask")
 register("attention", "cuda", _attn_cuda, requires=_attn_cuda_requires,
-         kernel=True)
-# oracle: the kernel's plain version (f32 softmax, −1e30 masking)
-register("attention", "ref", _attn_ref)
+         kernel=True,
+         doc="tiled flash kernel; f32/bf16, GQA-divisible heads, head_dim <= "
+             "256")
+register("attention", "ref", _attn_ref,
+         doc="oracle: the kernel's plain version (f32 softmax, −1e30 "
+             "masking)")
+
+
+#: elementwise ops a score element of the plain attention costs, as the
+#: reference's HLO counts them: the softmax statistics (max, subtract,
+#: exp, sum) in ``attn_scores``, the normalizing divide in ``attn_pv``; a
+#: causal or windowed mask adds its bias and its select
+_SOFTMAX_STATS, _MASK_OPS, _NORMALIZE = 4, 2, 1
+
+
+def _attn_cost(q, k, v, *, causal=True, window=None, q_offset=0,
+               scale=None):
+    b, hq, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    pairs = b * hq * sq * skv
+    per = _SOFTMAX_STATS + (_MASK_OPS if causal or window is not None
+                            else 0)
+    out_bytes = b * hq * sq * dv * q.element_size()
+    return [Part(2.0 * pairs * d + per * pairs + b * hq * sq * d,
+                 _stored_bytes(q) + _stored_bytes(k), pairs,
+                 "attn_scores"),
+            Part(2.0 * pairs * dv + _NORMALIZE * pairs,
+                 _stored_bytes(v) + out_bytes, 0.0, "attn_pv")]
+
+
+register_cost("attention", _attn_cost)
 
 
 # ========================================================== attention_decode
@@ -245,6 +325,9 @@ def _decode_cuda_requires(policy, q, k_cache, v_cache, cache_len, *,
     # a host read of the (B,) lengths; the reference's other reason,
     # "cache_len is traced", has no counterpart in eager PyTorch
     lengths = torch.as_tensor(cache_len).reshape(-1)
+    if lengths.device.type == "meta":
+        return "cache lengths on the meta device (a shape-only run) cannot " \
+               "be read on the host"
     if lengths.numel() > 1 and not bool((lengths == lengths[0]).all()):
         return "per-sequence cache lengths differ (continuous batching " \
                "mixes decode positions)"
@@ -309,23 +392,43 @@ def _decode_int8(policy, q, k_cache, v_cache, cache_len, *, window=None,
                                   window=window, scale=scale)
 
 
-# grouped GQA einsum over the whole cache, masked past cache_len
 register("attention_decode", "eager", _decode_eager, default=True,
-         requires=_decode_fp_requires)
-# the flash kernel over the live prefix; uniform cache_len only
+         requires=_decode_fp_requires,
+         doc="grouped GQA einsum over the whole cache, masked past cache_len")
 register("attention_decode", "cuda", _decode_cuda,
-         requires=_decode_cuda_requires, kernel=True)
-# single-pass decode kernel, per-slot cache_len read at run time; f32/bf16,
-# GQA-divisible heads, head_dim <= 256
+         requires=_decode_cuda_requires, kernel=True,
+         doc="the flash kernel over the live prefix; uniform cache_len only")
 register("attention_decode", "cuda_fused", _decode_fused,
-         requires=_decode_kernel_requires, kernel=True)
-# oracle: the fused kernel's plain version
+         requires=_decode_kernel_requires, kernel=True,
+         doc="single-pass decode kernel, per-slot cache_len read at run "
+             "time; f32/bf16, GQA-divisible heads, head_dim <= 256")
 register("attention_decode", "ref", _decode_ref,
-         requires=_decode_fp_requires)
-# int8 KV cache with per-(token, head) scales, dequantized on read; vector
-# per-slot cache_len
+         requires=_decode_fp_requires,
+         doc="oracle: the fused kernel's plain version")
 register("attention_decode", "eager_int8", _decode_int8,
-         requires=_decode_int8_requires)
+         requires=_decode_int8_requires,
+         doc="int8 KV cache with per-(token, head) scales, dequantized on "
+             "read; vector per-slot cache_len")
+
+
+def _decode_cost(q, k_cache, v_cache, cache_len, *, window=None,
+                 scale=None):
+    # over the whole cache, as the reference's plain decode computes it:
+    # q scaled, scores, the length mask (compare, select; the window adds
+    # a compare and an ``and``), the softmax, the PV product
+    b, hq, one, d = q.shape
+    smax = k_cache.shape[2]
+    pairs = b * hq * one * smax
+    per = 2 + (2 if window is not None else 0) + 5
+    nbytes = (_stored_bytes(q) + _stored_bytes(k_cache)
+              + _stored_bytes(v_cache) + _stored_bytes(
+                  cache_len if isinstance(cache_len, torch.Tensor) else None)
+              + b * hq * one * v_cache.shape[-1] * q.element_size())
+    return [Part(4.0 * pairs * d + per * pairs + b * hq * one * d, nbytes,
+                 pairs, "attn_decode")]
+
+
+register_cost("attention_decode", _decode_cost)
 
 
 # ==================================================================== linear
@@ -467,24 +570,38 @@ def _linear_factored(policy, x, w, b=None, *, activation=None,
                      acc)
 
 
-# torch.matmul, policy accum dtype + widened f32 bias, policy-dispatched
-# activation epilogue
 register("linear", "eager", _linear_eager, default=True,
-         requires=_linear_fp_requires)
-# tiled GEMM kernel, fused bias+(LUT) activation epilogue; f32/bf16,
-# relu/gelu/silu/none epilogues
+         requires=_linear_fp_requires,
+         doc="torch.matmul, policy accum dtype + widened f32 bias, "
+             "policy-dispatched activation epilogue")
 register("linear", "cuda", _linear_cuda, requires=_linear_cuda_requires,
-         kernel=True)
-# oracle (f32 accumulation)
-register("linear", "ref", _linear_ref, requires=_linear_fp_requires)
-# QTensor weights: int8 per-channel dequant epilogue / int4 grouped
-# dequant-then-product; fp activations
+         kernel=True,
+         doc="tiled GEMM kernel, fused bias+(LUT) activation epilogue; "
+             "f32/bf16, relu/gelu/silu/none epilogues")
+register("linear", "ref", _linear_ref, requires=_linear_fp_requires,
+         doc="oracle (f32 accumulation)")
 register("linear", "eager_int8", _linear_int8,
-         requires=_linear_int8_requires)
-# FactoredTensor weights (no expert axis): basis product + low-rank /
-# butterfly delta correction; fp activations
+         requires=_linear_int8_requires,
+         doc="QTensor weights: int8 per-channel dequant epilogue / int4 "
+             "grouped dequant-then-product; fp activations")
 register("linear", "eager_factored", _linear_factored,
-         requires=_linear_factored_requires)
+         requires=_linear_factored_requires,
+         doc="FactoredTensor weights (no expert axis): basis product + "
+             "low-rank / butterfly delta correction; fp activations")
+
+
+def _linear_cost(x, w, b=None, *, activation=None, preferred_dtype=None):
+    kdim, n = w.shape[-2], w.shape[-1]
+    m = _numel(x.shape) // kdim
+    nbytes = (_stored_bytes(x) + _stored_bytes(w) + _stored_bytes(b)
+              + m * n * x.element_size())
+    parts = [Part(2.0 * m * n * kdim, nbytes)]
+    if b is not None:
+        parts.append(Part(m * n, op="linear.bias"))
+    return parts + _act_parts(activation, m * n)
+
+
+register_cost("linear", _linear_cost)
 
 
 # ========================================================== moe_grouped_gemm
@@ -590,24 +707,41 @@ def _moe_factored(policy, buf, w, group_sizes=None):
     return _mask_queue_tails(y, group_sizes)
 
 
-# dense ecd,edf einsum (f32 accum); computes empty experts
 register("moe_grouped_gemm", "eager", _moe_eager, default=True,
-         requires=_moe_fp_requires)
-# grouped GEMM kernel, all routing groups in one launch, empty-queue skip;
-# needs group_sizes, f32/bf16
+         requires=_moe_fp_requires,
+         doc="dense ecd,edf einsum (f32 accum); computes empty experts")
 register("moe_grouped_gemm", "cuda", _moe_cuda, requires=_moe_cuda_requires,
-         kernel=True)
-# einsum oracle with queue-tail zeroing
-register("moe_grouped_gemm", "ref", _moe_ref, requires=_moe_fp_requires)
-# QTensor expert weights: int8 per-channel dequant epilogue / int4 grouped
-# dequant-then-product, one product per expert; fp queue buffers
+         kernel=True,
+         doc="grouped GEMM kernel, all routing groups in one launch, "
+             "empty-queue skip; needs group_sizes, f32/bf16")
+register("moe_grouped_gemm", "ref", _moe_ref, requires=_moe_fp_requires,
+         doc="einsum oracle with queue-tail zeroing")
 register("moe_grouped_gemm", "eager_int8", _moe_int8,
-         requires=_moe_int8_requires)
-# FactoredTensor expert weights: per expert, the shared basis product +
-# the low-rank / butterfly delta correction (optionally int8/int4 delta
-# factors); fp queue buffers
+         requires=_moe_int8_requires,
+         doc="QTensor expert weights: int8 per-channel dequant epilogue / "
+             "int4 grouped dequant-then-product, one product per expert; fp "
+             "queue buffers")
 register("moe_grouped_gemm", "eager_factored", _moe_factored,
-         requires=_moe_factored_requires)
+         requires=_moe_factored_requires,
+         doc="FactoredTensor expert weights: per expert, the shared basis "
+             "product + the low-rank / butterfly delta correction "
+             "(optionally int8/int4 delta factors); fp queue buffers")
+
+
+def _moe_gemm_cost(buf, w, group_sizes=None):
+    # every expert over its whole capacity C (the dense einsum's count)
+    e, c, d = buf.shape[-3:]
+    f = w.shape[-1]
+    rows = _numel(buf.shape[:-1])
+    nbytes = (_stored_bytes(buf) + _stored_bytes(w) + rows * f * 4
+              + _stored_bytes(group_sizes))
+    parts = [Part(2.0 * rows * d * f, nbytes)]
+    if group_sizes is not None:   # the queue-tail mask's select
+        parts.append(Part(rows * f, op="moe_grouped_gemm.mask"))
+    return parts
+
+
+register_cost("moe_grouped_gemm", _moe_gemm_cost)
 
 
 # ================================================================== moe_ffn
@@ -620,9 +754,12 @@ def _moe_ffn_eager(policy, x, params, routing, group_sizes, *, cfg,
     from repro_torch.core import moe as moe_lib
     from repro_torch.core import routing as R
 
-    buf = R.dispatch(x, routing, cfg.num_experts, capacity)
-    out = moe_lib._expert_ffn(params, cfg, buf, group_sizes)
-    return R.combine(out, routing).to(x.dtype)
+    with scope("moe_dispatch"):
+        buf = R.dispatch(x, routing, cfg.num_experts, capacity)
+    with scope("moe_ffn"):
+        out = moe_lib._expert_ffn(params, cfg, buf, group_sizes)
+    with scope("moe_combine"):
+        return R.combine(out, routing).to(x.dtype)
 
 
 def _moe_ffn_ref_requires(policy, x, params, routing, group_sizes, *, cfg,
@@ -676,14 +813,64 @@ def _moe_ffn_fused(policy, x, params, routing, group_sizes, *, cfg,
         lut_range=policy.lut_range)
 
 
-# staged dispatch → grouped GEMMs → combine (materializes the (G, E, C, d)
-# buffer; inner GEMMs re-dispatch moe_grouped_gemm, so packed expert
-# weights are served here, by eager_int8 / eager_factored)
-register("moe_ffn", "eager", _moe_ffn_eager, default=True)
-# megakernel: gather by token index + expert MLP + ordered combine in one
-# pass over every routing group, metaqueue skip, no dispatch buffer
+register("moe_ffn", "eager", _moe_ffn_eager, default=True,
+         doc="staged dispatch → grouped GEMMs → combine (materializes the "
+             "(G, E, C, d) buffer; inner GEMMs re-dispatch moe_grouped_gemm, "
+             "so packed expert weights are served here, by eager_int8 / "
+             "eager_factored)")
 register("moe_ffn", "cuda_fused", _moe_ffn_fused,
-         requires=_moe_ffn_fused_requires, kernel=True)
-# token-level dense oracle: every expert on every token, exact activations,
-# gate-weighted sum
-register("moe_ffn", "ref", _moe_ffn_ref, requires=_moe_ffn_ref_requires)
+         requires=_moe_ffn_fused_requires, kernel=True,
+         doc="megakernel: gather by token index + expert MLP + ordered "
+             "combine in one pass over every routing group, metaqueue skip, "
+             "no dispatch buffer")
+register("moe_ffn", "ref", _moe_ffn_ref, requires=_moe_ffn_ref_requires,
+         doc="token-level dense oracle: every expert on every token, exact "
+             "activations, gate-weighted sum")
+
+
+def _moe_ffn_cost(x, params, routing, group_sizes, *, cfg, capacity):
+    """The staged layer (dispatch, the expert MLP over E × C rows per
+    group, combine), as the reference's plain ``moe_ffn`` computes it;
+    ``onehot`` adds its dispatch and combine einsums."""
+    d = x.shape[-1]
+    t = x.shape[-2]
+    groups = _numel(x.shape[:-2])
+    e, k, c = cfg.num_experts, cfg.top_k, capacity
+    act = x.element_size()
+    mats = [params[n] for n in ("wg", "wu", "wd", "w1", "w2") if n in params]
+    f = mats[0].shape[-1]
+    slots = groups * t * k
+    rows = groups * e * c                        # queue rows, all groups
+    idx_bytes = sum(_stored_bytes(a) for a in (routing.expert, routing.gate,
+                                               routing.position,
+                                               routing.valid))
+    dispatch_flops = slots
+    combine_flops = 2.0 * slots * d + slots
+    if cfg.impl == "onehot":
+        dispatch_flops = (slots * (e + 2 * c) + 2.0 * slots * e * c
+                          + 2.0 * groups * t * e * c * d)
+        combine_flops = (slots * (e + 3 * c) + 2.0 * slots * e * c
+                         + 2.0 * groups * t * e * c * d)
+    n_proj = len(mats)
+    gemm = 2.0 * rows * d * f * n_proj
+    if cfg.expert_kind == "swiglu":
+        epilogue = 2 * rows * f + rows * d + rows * f   # masks, act · up
+        act_part = _act_parts("silu", rows * f, "moe_ffn")
+    else:
+        epilogue = rows * f + rows * d + rows * f + rows * d  # masks, biases
+        act_part = _act_parts("gelu", rows * f, "moe_ffn")
+    w_bytes = sum(_stored_bytes(params[n]) for n in params)
+    return [
+        Part(dispatch_flops, _stored_bytes(x) + idx_bytes + rows * d * act,
+             0.0, "moe_dispatch"),
+        Part(gemm, w_bytes + rows * d * act * n_proj
+             + rows * (f * (n_proj - 1) + d) * 4, 0.0, "moe_ffn",
+             "moe_grouped_gemm"),
+        Part(epilogue, 0.0, 0.0, "moe_ffn", "moe_ffn.epilogue"),
+        *act_part,
+        Part(combine_flops, rows * d * act + groups * t * d * act
+             + idx_bytes, 0.0, "moe_combine"),
+    ]
+
+
+register_cost("moe_ffn", _moe_ffn_cost)

@@ -12,8 +12,13 @@ run a plain version there.
 
 ``dispatch_report()[op]["modes"]`` records, for kernel impls, where the call
 ran: ``"cuda"`` when the operands lay on the card and the kernel launched,
-``"cpu"`` when they lay on the CPU and the kernel module ran its plain
-version.  Impl functions receive ``(policy, *args, **kwargs)``.
+``"cpu"`` or ``"meta"`` when they lay there and the kernel module ran its
+plain version.  Impl functions receive ``(policy, *args, **kwargs)``.
+
+While a cost counter is active (``roofline/op_cost.py``), each dispatch
+hands the op to it: the op's analytic cost is counted, nothing beneath it.
+``registered``, ``op_names``, ``capability_matrix`` and ``default_impl``
+read the table as the reference's do.
 """
 
 from __future__ import annotations
@@ -26,9 +31,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.ops.policy import current_policy
+from repro_torch.roofline import op_cost
 
 __all__ = [
     "register",
+    "registered",
+    "op_names",
+    "capability_matrix",
+    "default_impl",
     "dispatch",
     "dispatch_report",
     "reset_dispatch_report",
@@ -47,6 +57,7 @@ class OpImpl:
     fn: Callable
     requires: Optional[Callable] = None     # (policy, *a, **kw) -> None | str
     kernel: bool = False                    # CUDA kernel impl: record the mode
+    doc: str = ""                           # capability summary
 
 
 _REGISTRY: dict[str, dict[str, OpImpl]] = {}
@@ -60,10 +71,12 @@ _IMPLS_LOADED = False
 
 def register(op: str, name: str, fn: Callable, *,
              requires: Optional[Callable] = None,
-             default: bool = False, kernel: bool = False) -> OpImpl:
+             default: bool = False, kernel: bool = False,
+             doc: str = "") -> OpImpl:
     """Register implementation ``name`` for logical op ``op`` (``default``
     makes it the op's default; otherwise the first registered is)."""
-    impl = OpImpl(op=op, name=name, fn=fn, requires=requires, kernel=kernel)
+    impl = OpImpl(op=op, name=name, fn=fn, requires=requires, kernel=kernel,
+                  doc=doc)
     with _LOCK:
         table = _REGISTRY.setdefault(op, {})
         table[name] = impl
@@ -82,6 +95,30 @@ def _ensure_impls() -> None:
         _IMPLS_LOADED = True
 
 
+def registered(op: str) -> dict[str, OpImpl]:
+    _ensure_impls()
+    if op not in _REGISTRY:
+        raise KeyError(f"unknown op {op!r}; registered: {sorted(_REGISTRY)}")
+    return dict(_REGISTRY[op])
+
+
+def op_names() -> tuple[str, ...]:
+    _ensure_impls()
+    return tuple(sorted(_REGISTRY))
+
+
+def capability_matrix() -> dict[str, dict[str, str]]:
+    """{op: {impl: capability summary}}."""
+    _ensure_impls()
+    return {op: {n: i.doc for n, i in impls.items()}
+            for op, impls in sorted(_REGISTRY.items())}
+
+
+def default_impl(op: str) -> str:
+    _ensure_impls()
+    return _DEFAULTS[op]
+
+
 def _candidates(op: str, requested: str) -> list[str]:
     table = _REGISTRY[op]
     order = [requested]
@@ -93,11 +130,14 @@ def _candidates(op: str, requested: str) -> list[str]:
 
 
 def _mode(args) -> str:
-    """Where a kernel impl ran: on the card (the kernel) or on the CPU
-    (its plain version) — decided by the first operand's device."""
+    """Where a kernel impl ran: on the card (the kernel), or on the CPU or
+    the meta device (its plain version) — decided by the first operand's
+    device."""
     first = args[0]
-    return "cuda" if isinstance(first, torch.Tensor) and first.is_cuda \
-        else "cpu"
+    if isinstance(first, torch.Tensor) and first.device.type in ("cuda",
+                                                                 "meta"):
+        return first.device.type
+    return "cpu"
 
 
 def dispatch(op: str, *args, **kwargs):
@@ -128,6 +168,11 @@ def dispatch(op: str, *args, **kwargs):
         mode = _mode(args) if impl.kernel else ""
         with _LOCK:
             _COUNTS[(op, requested, name, tuple(reasons), mode)] += 1
+        counter = op_cost.active()
+        if counter is not None:
+            return counter.registry_op(
+                op, impl.kernel, lambda: impl.fn(policy, *args, **kwargs),
+                args, kwargs)
         return impl.fn(policy, *args, **kwargs)
     raise DispatchError(
         f"no capable implementation for op {op!r} "
@@ -140,7 +185,7 @@ def dispatch_report() -> dict:
     {op: {"requests": N,
           "hits": {impl: n},
           "fallbacks": [{"requested", "used", "reasons", "count"}, ...],
-          "modes": {impl: {"cuda"|"cpu": n}}}}        # kernel impls
+          "modes": {impl: {"cuda"|"cpu"|"meta": n}}}}   # kernel impls
     """
     with _LOCK:
         items = list(_COUNTS.items())

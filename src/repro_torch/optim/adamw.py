@@ -27,6 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.roofline.scope import scope
+
 __all__ = ["OptConfig", "adamw_init", "adamw_update", "cosine_schedule",
            "global_norm"]
 
@@ -109,6 +111,7 @@ def _no_decay(name: str) -> bool:
 
 
 @torch.no_grad()
+@scope("adamw")
 def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
     """Returns (new_params, new_state, metrics {"lr", "grad_norm"})."""
     step = state["step"] + 1

@@ -41,6 +41,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_update
+from repro_torch.roofline.op_cost import repeat
 
 __all__ = ["TrainConfig", "make_train_step", "loss_and_grads",
            "make_serve_step"]
@@ -90,11 +91,15 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
                                    device=v.device)
                     for k, v in params.items()}
             lsum = None
-            for mb in _split_microbatches(batch, tcfg.accum_steps):
-                loss, g = loss_and_grads(loss_fn, params, mb)
-                for k in gsum:
-                    gsum[k] += g[k]
-                lsum = loss.float() if lsum is None else lsum + loss
+            micro = _split_microbatches(batch, tcfg.accum_steps)
+            # the dry-run on meta counts one microbatch accum_steps times
+            with repeat(len(micro), next(iter(params.values())).device) \
+                    as rep:
+                for mb in micro[:rep.steps]:
+                    loss, g = loss_and_grads(loss_fn, params, mb)
+                    for k in gsum:
+                        gsum[k] += g[k]
+                    lsum = loss.float() if lsum is None else lsum + loss
             grads = {k: v / tcfg.accum_steps for k, v in gsum.items()}
             loss = lsum / tcfg.accum_steps
         else:

@@ -1,0 +1,184 @@
+"""The one-card dry-run (``repro_torch.launch.dryrun``) and its tables
+(``repro_torch.roofline.report``), on ``meta`` on the CPU.
+
+* ``input_specs`` gives the reference's input shapes and dtypes for every
+  runnable cell, and ``param_specs`` the parameters ``init_params``
+  draws, key for key, on ``meta``.
+* One tiny cell per family — dense (Llama-3.2-1B), MoE (Llama-4-Scout),
+  recurrent (xLSTM-350M, RecurrentGemma-9B), M-RoPE (Qwen2-VL-72B) and
+  embedding inputs (MusicGen-Large) — in train, prefill and decode, at
+  the smoke config: each completes on ``meta``, writes its JSON, and the
+  report renders both tables from them.
+* The counts on ``meta`` equal the counts of the same step on real CPU
+  tensors (the counter sees shapes, not values): the FLOPs exactly, the
+  bytes and the peak of live bytes within 0.1 % (a few ops decompose
+  differently on meta).
+* The mesh flags raise, naming the distribution slice; ``--list``
+  prints the reference's cells.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.configs.base import SHAPES as JSHAPES
+from repro.models import model as JM
+from repro_torch import configs as tconfigs
+from repro_torch import ops
+from repro_torch.configs.base import SHAPES, Shape
+from repro_torch.launch import dryrun
+from repro_torch.models import model as TM
+from repro_torch.roofline import report
+from repro_torch.roofline.op_cost import count_cost
+from test_torch_threads import one_torch_thread  # noqa: F401
+
+FAMILIES = ["llama3_2_1b", "llama4_scout_17b_a16e", "xlstm_350m",
+            "recurrentgemma_9b", "qwen2_vl_72b", "musicgen_large"]
+TINY = {"train": Shape("tiny_train", "train", 32, 4),
+        "prefill": Shape("tiny_prefill", "prefill", 32, 2),
+        "decode": Shape("tiny_decode", "decode", 48, 2)}
+
+
+def _spec(x):
+    return tuple(x.shape), str(x.dtype).split(".")[-1]
+
+
+@pytest.mark.parametrize("arch,shape", [
+    (a, s) for a, s, runnable in jconfigs.cells() if runnable])
+def test_input_specs_match_the_reference(arch, shape):
+    want = JM.input_specs(jconfigs.get(arch), JSHAPES[shape])
+    got = TM.input_specs(tconfigs.get(arch), SHAPES[shape])
+    assert set(got) == set(want)
+    for k in ("inputs", "labels", "cache_index"):
+        if k in want:
+            w = want[k]
+            assert _spec(got[k]) == (tuple(w.shape), str(w.dtype))
+            assert got[k].device.type == "meta"
+    if "state" in want:
+        flat = jax.tree_util.tree_leaves(want["state"])
+        leaves = []
+        stack = [got["state"]]
+        while stack:
+            t = stack.pop()
+            if isinstance(t, dict):
+                stack.extend(t.values())
+            else:
+                leaves.append(t)
+        assert sorted(t.numel() for t in leaves) \
+            == sorted(int(np.prod(w.shape)) for w in flat)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_param_specs_are_init_params_on_meta(arch):
+    cfg = tconfigs.get(arch, smoke=True)
+    spec = TM.param_specs(cfg)
+    real = TM.init_params(0, cfg, device="cpu")
+    assert list(spec) == list(real)
+    for k, v in real.items():
+        assert spec[k].device.type == "meta"
+        assert (spec[k].shape, spec[k].dtype) == (v.shape, v.dtype), k
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_tiny_cell_completes_and_renders(arch, kind, tmp_path):
+    rec = dryrun.run_cell(arch, "", out_dir=str(tmp_path), verbose=False,
+                          variant={"accum": 2}, smoke=True,
+                          shape=TINY[kind])
+    assert rec["ok"] and rec["mesh"] == "1xH100" and rec["chips"] == 1
+    assert rec["hlo_flops"] > 0 and rec["hlo_bytes"] > 0
+    assert rec["argument_bytes"] > 0 and rec["temp_bytes"] > 0
+    assert rec["fits"] == (rec["argument_bytes"] + rec["temp_bytes"]
+                           <= rec["hbm_bytes"])
+    assert rec["t_compute"] == rec["hlo_flops"] / 989e12
+    files = list(tmp_path.glob("*.json"))
+    assert len(files) == 1
+    loaded = json.loads(files[0].read_text())
+    assert loaded["arch"] == arch and loaded["shape"] == TINY[kind].name
+    recs = report.load(str(tmp_path))
+    table = report.dryrun_table(recs)
+    roof = report.roofline_table(recs)
+    assert f"| {arch} | {TINY[kind].name} | 1xH100 |" in table
+    assert f"| {arch} | {TINY[kind].name} |" in roof
+    assert report.scope_summary(recs[0])
+
+
+def _fill(args, vocab):
+    """Real CPU values for a cell's CPU arguments (seeded): the counts do
+    not depend on them, but the plain versions must not see NaNs."""
+    g = np.random.default_rng(0)
+    stack = [args]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and 0 not in t.stride():
+            if t.is_floating_point():
+                t.copy_(torch.from_numpy(
+                    g.standard_normal(t.shape).astype(np.float32) * 0.1))
+            else:
+                t.copy_(torch.from_numpy(g.integers(0, 8, t.shape)))
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "llama4_scout_17b_a16e"])
+def test_meta_counts_equal_the_cpu_run(arch):
+    for kind in ("prefill", "decode", "train"):
+        costs = {}
+        for device in ("meta", "cpu"):
+            fn, args, cfg, _ = dryrun.build_cell(
+                arch, "", {"accum": 1}, smoke=True, shape=TINY[kind],
+                device=device)
+            if device == "cpu":
+                _fill(args, cfg.vocab_size)
+                if kind == "decode":   # the scalar index, as a position
+                    args = args[:3] + (torch.full((2,), 40),)
+            with ops.use_policy(ops.policy_named("eager")):
+                if kind == "train":
+                    _, costs[device] = count_cost(fn, *args)
+                else:
+                    with torch.no_grad():
+                        _, costs[device] = count_cost(fn, *args)
+        meta, cpu = costs["meta"], costs["cpu"]
+        assert meta.flops == cpu.flops, kind
+        # bytes within 0.1 %: a few ops decompose differently on meta
+        # (``one_hot``: compares on meta, a scatter on the CPU)
+        assert abs(meta.bytes_accessed - cpu.bytes_accessed) \
+            <= 1e-3 * cpu.bytes_accessed, kind
+        assert abs(meta.peak_live_bytes - cpu.peak_live_bytes) \
+            <= 1e-3 * cpu.peak_live_bytes, kind
+
+
+@pytest.mark.parametrize("flag", ["--multi-pod", "--no-fsdp",
+                                  "--fsdp-moe-only", "--seq-shard"])
+def test_mesh_flags_name_the_distribution_slice(flag):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k", flag])
+
+
+def test_attn_block_k_names_the_schedules():
+    with pytest.raises(NotImplementedError, match="schedules"):
+        dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k",
+                     "--attn-block-k", "256"])
+
+
+def test_list_prints_the_reference_cells(capsys):
+    assert dryrun.main(["--list"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(jconfigs.cells(include_skipped=True))
+
+
+def test_opt_config_rule_is_the_reference():
+    """The reference's ``opt_config_for`` (``launch/dryrun.py``, not
+    imported here: its import forces 512 host devices): above 30 B
+    parameters bf16 momentum and a factored second moment."""
+    for arch in tconfigs.list_archs():
+        got = dryrun.opt_config_for(tconfigs.get(arch))
+        big = tconfigs.get(arch).param_count() > 3e10
+        assert got.factored == big
+        assert got.momentum_dtype == ("bfloat16" if big else "float32")

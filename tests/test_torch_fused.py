@@ -293,7 +293,12 @@ def test_fused_wrappers_run_plain_versions_on_the_cpu(rng):
 
 
 @pytest.mark.parametrize("name", ["moe_fused", "decode_fused"])
-def test_fused_wrappers_refuse_other_devices(name):
+def test_fused_wrappers_refuse_other_devices(name, monkeypatch):
+    """As ``test_torch_kernels.py``'s: meta stands in for another device,
+    with the plain devices narrowed to the CPU."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "PLAIN_DEVICES", ("cpu",))
     x = torch.empty((1, 4, 8), device="meta")
     calls = {
         "moe_fused": lambda: kmf.fused_moe_ffn(
@@ -301,7 +306,7 @@ def test_fused_wrappers_refuse_other_devices(name):
         "decode_fused": lambda: kdf.fused_decode_attention(
             x[None], x[None], x[None], 1),
     }
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+    with pytest.raises(ValueError, match="runs on cuda, cpu or meta"):
         calls[name]()
 
 

@@ -271,9 +271,14 @@ def test_cpu_tensors_run_plain_versions_without_launching(rng):
 
 
 @pytest.mark.parametrize("name", ["linear", "lut", "attention", "moe"])
-def test_wrappers_refuse_other_devices(name):
-    """A tensor on neither the CPU nor a card is refused, never silently
-    moved (the meta device stands in for one)."""
+def test_wrappers_refuse_other_devices(name, monkeypatch):
+    """A tensor on neither a plain device nor a card is refused, never
+    silently moved.  The meta device stands in for one, with the plain
+    devices narrowed to the CPU (``meta`` itself runs the plain version
+    for the shape-only dry-run)."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "PLAIN_DEVICES", ("cpu",))
     x = torch.empty((4, 8), device="meta")
     calls = {
         "linear": lambda: kul.unified_linear(x, torch.empty((8, 2),
@@ -286,5 +291,5 @@ def test_wrappers_refuse_other_devices(name):
                                     torch.empty((1,), dtype=torch.int32,
                                                 device="meta")),
     }
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+    with pytest.raises(ValueError, match="runs on cuda, cpu or meta"):
         calls[name]()
