@@ -6,13 +6,14 @@ continuous-batching scheduler; the recurrent families (xLSTM-350M and
 RecurrentGemma-9B) serving; the remaining configurations (MusicGen-Large,
 Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, Llama-4-Scout,
 M³ViT-many) serving; then training M³ViT and Llama-3.2-1B through the
-kernels.
+kernels; then mesh serving (sharding rules, expert parallelism, the
+sharded expert cache, the tile table's overrides).
 
     python3 chip_smoke.py
 
 Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6,
-9 (phase 5 checks and times the launches of 3, 4 and 7, and of phase 8's
-Qwen2-VL-72B and Llama-4-Scout units while each model lives):
+9, 10 (phase 5 checks and times the launches of 3, 4 and 7, and of phase
+8's Qwen2-VL-72B and Llama-4-Scout units while each model lives):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
@@ -289,12 +290,38 @@ Qwen2-VL-72B and Llama-4-Scout units while each model lives):
    % or 64 MiB, whichever is larger; its argument bytes (weights, cache,
    tokens) against what ``memory_allocated`` grew by when they were
    built, within 1 %.  Any miss fails the run.
+10. Mesh serving.  (a) A world of one: NCCL with an in-memory store, a
+   (1, 1) ``DeviceMesh`` (``"data"``, ``"model"``) on the card and its
+   sharding rules (``fsdp=False``).  Each check is bit for bit against
+   the same run with no mesh: the full M³ViT ``M3ViTServer(rules=)`` at
+   batch 8 for both tasks, the same server paged through
+   ``ShardedExpertCache`` at resident fraction 0.5,
+   ``apply_moe_ep_local`` on an M³ViT MoE layer against ``grouped``
+   (output and aux), full-width Llama-3.2-1B ``ServingEngine(rules=)``
+   over 8 × 128 prompts and 32 greedy tokens (tokens and prefill logits;
+   weights drawn on the card), and one ``Scheduler(rules=)`` run of 8
+   requests; each such run is counted (launches by kernel, the
+   collectives), fails on any recorded fallback or kernel impl off the
+   card, and its host wall is printed beside the unmeshed one.  Then a
+   ``with_tiles`` override of ``linear.cuda`` must raise (the tile table
+   has no ``cuda`` knob: the planners pick each launch's tile).  (b) Two
+   processes on the one card, gloo over CUDA tensors (NCCL refuses two
+   ranks on one device).  A probe first: gloo starts and all-reduces a
+   CUDA tensor; where it cannot, (b) is left out with the error printed.
+   After the probe every fault fails the run: ``apply_moe_ep_local`` at
+   M³ViT's width, 8 of 16 experts a rank on ``moe_gemm``, against
+   single-device ``grouped`` at the bf16 tolerance; and a grouped MoE on
+   each rank's half of a data-split batch (``spmd.batch_split``, M³ViT's
+   128-token groups and one group over the whole batch) bit for bit
+   against the layer on the whole batch; each counted and checked for
+   fallbacks as in (a).
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs, training's included (also given apart as
-``training_launches``, with ``training_ms``: the kernel's forward and
-backward device ms a training step by model).  The variant counters (the GEMMs', ``flash_attention``'s,
+those runs, training's and phase 10 (a)'s mesh runs included (also
+given apart as ``training_launches``, with ``training_ms``: the kernel's
+forward and backward device ms a training step by model, and
+``mesh_launches``).  The variant counters (the GEMMs', ``flash_attention``'s,
 ``moe_fused``'s) are read with them: no main path may take the SIMT
 route (but for xLSTM's sLSTM projections, whose 2730-byte rows no TMA
 map can address: exactly their number, named with the reason), and the
@@ -3947,6 +3974,380 @@ def roofline_path(smi) -> list:
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+#: the FileStore of phase 10 (b)'s two ranks, under the git-ignored build/
+MESH_STORE = ROOT / "build" / "mesh_two_ranks"
+MESH_BATCHES = 3       # median of this many host walls per mesh reading
+
+
+def _wall_ms(run, reps: int = MESH_BATCHES) -> float:
+    import time
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls) * 1e3
+
+
+def _mesh_run(label, run, total) -> object:
+    """``run()`` counted: launch counts set to 0 just before and read just
+    after, added into ``total``; fails on any recorded fallback or kernel
+    impl that did not run on the card; prints the launches by kernel and
+    the collectives."""
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    out = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    report = ops.dispatch_report()
+    for op, entry in report.items():
+        if entry["fallbacks"]:
+            raise AssertionError(f"{label}: {op} fell back: "
+                                 f"{entry['fallbacks']}")
+        for impl, modes in entry["modes"].items():
+            if set(modes) != {"cuda"}:
+                raise AssertionError(f"{label}: {op}/{impl} ran {modes}")
+    coll = {}
+    for c in ops.collective_report():
+        key = f"{c['kind']}:{c['axis']}"
+        coll[key] = coll.get(key, 0) + c["count"]
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+    print(f"  {label}: launches {json.dumps(counts)}; collectives "
+          f"{json.dumps(coll)}; no fallback")
+    return out
+
+
+def _bit_equal(label, got, want) -> None:
+    same = torch.equal(torch.as_tensor(got), torch.as_tensor(want))
+    print(f"  {label}: bit-equal to no mesh: {same}")
+    if not same:
+        raise AssertionError(f"{label}: differs from the run with no mesh")
+
+
+def _mesh_vision(rules, policy, total) -> None:
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.core import moe as moe_lib
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.models.vit import init_params
+    from repro_torch.ops import use_policy
+    from repro_torch.serve.vision import M3ViTServer
+
+    cfg = replace(MV.CONFIG, policy=policy)
+    params = init_params(0, cfg)
+    rng = np.random.default_rng(0)
+    imgs = rng.normal(size=(BATCH, MV.IMAGE_H, MV.IMAGE_W, 3)).astype(
+        np.float32)
+    plain = M3ViTServer(cfg, params)
+    for label, kw in (("M3ViTServer(rules=)", {}),
+                      ("M3ViTServer(rules=) paged through "
+                       "ShardedExpertCache at resident fraction 0.5",
+                       {"resident_fraction": 0.5})):
+        server = M3ViTServer(cfg, params, rules=rules, **kw)
+        for task in MV.TASKS:
+            want = plain.infer(imgs, task)
+            server.infer(imgs, task)                  # warm-up
+            got = _mesh_run(f"{label} {task} batch {BATCH}",
+                            lambda: server.infer(imgs, task), total)
+            _bit_equal(f"{label} {task} batch {BATCH}", got, want)
+        print(f"    walls, semseg batch {BATCH}: "
+              f"{_wall_ms(lambda: server.infer(imgs, 'semseg')):.3f} ms "
+              f"with the mesh, "
+              f"{_wall_ms(lambda: plain.infer(imgs, 'semseg')):.3f} ms "
+              f"without (median of {MESH_BATCHES}, host wall)")
+        st = server.cache_stats()
+        print(f"    shard_load {st['shard_load']} imbalance "
+              f"{st['shard_load_imbalance']:.3f}, hit_rate "
+              f"{st['hit_rate']:.3f}, resident_fraction "
+              f"{st['resident_fraction']:.2f}")
+        del server
+    mcfg = plain.mcfg
+    layer = plain.layer_params[1]["moe"]
+    h = randn((BATCH, 128, cfg.d_model), torch.bfloat16, seed=3)
+    with use_policy(policy):
+        want, aux_w = moe_lib.apply_moe(layer, mcfg, h)
+        ep = replace(mcfg, impl="ep_local")
+        with use_rules(rules):
+            got, aux_g = _mesh_run("apply_moe_ep_local, M3ViT MoE layer",
+                                   lambda: moe_lib.apply_moe(layer, ep, h),
+                                   total)
+    _bit_equal("apply_moe_ep_local against grouped", got, want)
+    _bit_equal("apply_moe_ep_local aux against grouped", aux_g, aux_w)
+
+
+def _mesh_lm(rules, total) -> None:
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+    from repro_torch.serve.scheduler import LMBackend, Request, Scheduler
+
+    policy = ops.policy_named("cuda").with_impls(attention_decode="cuda_fused")
+    cfg = LL.CONFIG
+    params = LM.init_params(0, cfg, draw_on_device=True)
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
+    plain = ServingEngine(cfg, params, scfg)
+    mesh = ServingEngine(cfg, params, scfg, rules=rules)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    want = plain.generate(prompts, LM_NEW)
+    mesh.generate(prompts, 2)                         # warm-up
+    got = _mesh_run(f"Llama-3.2-1B ServingEngine(rules=) {LM_BATCH} x "
+                    f"{LM_PROMPT} prompts, {LM_NEW} greedy tokens",
+                    lambda: mesh.generate(prompts, LM_NEW), total)
+    _bit_equal("Llama-3.2-1B engine tokens", got, want)
+    print(f"    walls, generate: "
+          f"{_wall_ms(lambda: mesh.generate(prompts, LM_NEW)):.1f} ms with "
+          f"the mesh, "
+          f"{_wall_ms(lambda: plain.generate(prompts, LM_NEW)):.1f} ms "
+          f"without (median of {MESH_BATCHES}, host wall)")
+
+    def prefill(engine, r):
+        with torch.inference_mode(), use_rules(r):
+            state = LM.init_state(engine.cfg, LM_BATCH, LM_MAX_LEN,
+                                  device="cuda")
+            return engine.steps(0)[0](engine.params, prompts, state)[0]
+
+    _bit_equal("Llama-3.2-1B prefill logits", prefill(mesh, rules),
+               prefill(plain, None))
+    del mesh, plain
+
+    rng = np.random.default_rng(1)
+    lens = rng.integers(16, LM_PROMPT + 1, LM_BATCH)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)), int(k)) for n, k in
+            zip(lens, rng.integers(8, LM_NEW + 1, LM_BATCH))]
+
+    def serve(r):
+        sched = Scheduler(LMBackend(cfg, params, scfg, rules=r),
+                          total_slots=LM_BATCH, quantum=4, num_tasks=1)
+        done = sched.run([Request(rid=i, task_id=0, prompt=p,
+                                  max_new_tokens=k)
+                          for i, (p, k) in enumerate(reqs)])
+        return sched, {q.rid: list(q.tokens) for q in done}
+
+    _, want = serve(None)
+    sched, got = _mesh_run(f"Llama-3.2-1B Scheduler(rules=) {LM_BATCH} "
+                           f"requests in {LM_BATCH} slots",
+                           lambda: serve(rules), total)
+    same = got == want
+    print(f"  Scheduler(rules=) tokens of every request bit-equal to no "
+          f"mesh: {same}")
+    if not same:
+        raise AssertionError("Scheduler(rules=) differs from no mesh")
+
+
+def _mesh_tiles() -> None:
+    """The tile table has no ``cuda`` knob (the GEMM planners pick each
+    launch's tile): a ``with_tiles`` override of ``linear.cuda`` raises
+    on the card, never silently ignored."""
+    from repro_torch import ops
+
+    x = randn((TOKENS, 192), torch.bfloat16, seed=4)
+    w = randn((192, 768), torch.bfloat16, scale=192 ** -0.5, seed=5)
+    for tile in (dict(tokens=64, warpgroups=1), dict(tokens=48)):
+        pol = ops.policy_named("cuda").with_tiles("linear", **tile)
+        try:
+            with ops.use_policy(pol):
+                ops.dispatch("linear", x, w)
+        except ValueError as e:
+            print(f"  with_tiles linear.cuda {tile} raises: {e}")
+        else:
+            raise AssertionError(f"a linear.cuda tile override ran: {tile}")
+
+
+def _two_ranks(rank: int, store: str, out: str) -> None:
+    """One of phase 10 (b)'s two ranks on the one card.  First the probe:
+    gloo starts and all-reduces a CUDA tensor (its failure, and only its,
+    leaves (b) out).  Then, counted and checked for fallbacks:
+    ``apply_moe_ep_local`` at M³ViT's width with 8 of its 16 experts a
+    rank against single-device ``grouped`` (the bf16 tolerance); and a
+    grouped MoE on this rank's half of a data-split batch, with M³ViT's
+    128-token groups and with one group over the whole batch, against the
+    layer on the whole batch, bit for bit."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.core import moe as moe_lib
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules, use_rules
+    from repro_torch.kernels.compare import max_abs_err, within_tolerance
+    from repro_torch.models.transformer import moe_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    result = {"rank": rank}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=2, rank=rank)
+        probe = torch.full((4,), rank + 1.0, device="cuda")
+        dist.all_reduce(probe)
+        if probe.tolist() != [3.0] * 4:
+            raise RuntimeError(f"gloo all-reduce of a CUDA tensor gave "
+                               f"{probe.tolist()}")
+    except Exception as e:          # (b) is left out, with this text
+        result["probe_error"] = f"{type(e).__name__}: {e}"
+        Path(out).write_text(json.dumps(result))
+        return
+    try:
+        total: dict = {}
+        mcfg = moe_config(MV.CONFIG)
+        layer = moe_lib.init_moe(np.random.default_rng(0), mcfg)
+        layer = {k: v.cuda() for k, v in layer.items()}
+        h = randn((BATCH, 128, MV.CONFIG.d_model), torch.bfloat16, seed=3)
+        with ops.use_policy(ops.policy_named("cuda")):
+            want, _ = moe_lib.apply_moe(layer, mcfg, h)
+            ep = replace(mcfg, impl="ep_local")
+            with use_rules(ShardingRules.for_mesh(
+                    spmd.init_mesh((1, 2)), fsdp=False)):
+                got, _ = _mesh_run(f"(b) rank {rank} apply_moe_ep_local",
+                                   lambda: moe_lib.apply_moe(layer, ep, h),
+                                   total)
+            result["max_abs_err"] = max_abs_err(got, want)
+            result["within"] = bool(within_tolerance(got, want,
+                                                     torch.bfloat16))
+            result["launches"] = dict(total)
+            rules = ShardingRules.for_mesh(spmd.init_mesh((2, 1)),
+                                           fsdp=False)
+            rows = spmd.batch_rows(BATCH, rules)
+            result["split"] = {}
+        # the staged expert layer by name (``cuda`` names no moe_ffn impl):
+        # its grouped GEMMs are the moe_gemm kernel
+        staged = ops.policy_named("cuda").with_impls(moe_ffn="eager")
+        with ops.use_policy(staged):
+            for group in (mcfg.group_size, BATCH * 128):
+                cfg = replace(mcfg, group_size=group)
+                whole = moe_lib.apply_moe(layer, cfg, h, return_stats=True)
+
+                def split():
+                    with spmd.batch_split(rules, BATCH):
+                        return moe_lib.apply_moe(layer, cfg, h[rows],
+                                                 return_stats=True)
+
+                counted: dict = {}
+                part = _mesh_run(f"(b) rank {rank} grouped MoE on a data "
+                                 f"split, group {group}", split, counted)
+                result["split"][group] = bool(counted.get("moe_gemm")) and \
+                    all(torch.equal(a, b) for a, b in (
+                        (part[0], whole[0][rows]), (part[1], whole[1]),
+                        (part[2], whole[2])))
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:               # a fault: the parent raises with it
+        result["error"] = traceback.format_exc()
+    Path(out).write_text(json.dumps(result))
+
+
+def two_ranks_one_card() -> None:
+    """Phase 10 (b): two processes on the one card over gloo (NCCL refuses
+    two ranks on one device).  Only a failed probe (gloo cannot start or
+    cannot all-reduce a CUDA tensor) leaves (b) out; a fault after it, a
+    rank that hangs or dies, or a missing result fails the run."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(MESH_STORE, ignore_errors=True)
+    MESH_STORE.mkdir(parents=True)
+    outs = [MESH_STORE / f"rank{r}.json" for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_two_ranks,
+                         args=(r, str(MESH_STORE / "store"), str(outs[r])))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    hung = []
+    for r, p in enumerate(procs):
+        p.join(timeout=300)
+        if p.is_alive():
+            hung.append(r)
+            p.kill()
+            p.join()
+    results = [json.loads(o.read_text()) if o.exists() else None
+               for o in outs]
+    shutil.rmtree(MESH_STORE, ignore_errors=True)
+    if hung or any(r is None for r in results):
+        raise AssertionError(f"(b): rank(s) {hung} hung, results {results}, "
+                             f"exit codes {[p.exitcode for p in procs]}")
+    probe = [r["probe_error"] for r in results if "probe_error" in r]
+    if probe:
+        print(f"  (b) two ranks on the one card over gloo: left out — the "
+              f"probe failed: {probe[0]}")
+        return
+    for r in results:
+        if "error" in r:
+            raise AssertionError(f"(b) rank {r['rank']}: {r['error']}")
+        print(f"  (b) rank {r['rank']}: gloo all-reduces CUDA tensors; "
+              f"apply_moe_ep_local at M3ViT width, 8 of 16 experts a rank, "
+              f"against single-device grouped: max abs err "
+              f"{r['max_abs_err']:.3e}, within the bf16 tolerance "
+              f"{r['within']}; launches {json.dumps(r['launches'])}")
+        for group, same in r["split"].items():
+            print(f"  (b) rank {r['rank']}: grouped MoE on its half of a "
+                  f"data-split batch, group {group}, on moe_gemm: bit-equal "
+                  f"to the whole batch: {same}")
+        if not r["within"] or not r["launches"].get("moe_gemm") \
+                or not all(r["split"].values()):
+            raise AssertionError(f"(b) rank {r['rank']}: {r}")
+
+
+def mesh_path() -> dict:
+    """Phase 10: mesh serving on the card.  (a) A world of one (NCCL, a
+    (1, 1) ``DeviceMesh``), each check bit for bit against the same run
+    with no mesh; (b) two ranks on the one card over gloo.  Returns the
+    counted launches of (a)'s mesh runs."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.spmd import init_mesh
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)        # the mesh's device, before NCCL starts
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(),
+                                world_size=1, rank=0)
+    total: dict = {}
+    try:
+        rules = ShardingRules.for_mesh(init_mesh((1, 1)), fsdp=False)
+        print("  (a) a world of one: NCCL, DeviceMesh (1, 1) "
+              "('data', 'model') on cuda")
+        _mesh_vision(rules, ops.policy_named("cuda"), total)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _mesh_lm(rules, total)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _mesh_tiles()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    mesh_kernels = ("unified_linear", "flash_attention", "gelu_lut",
+                    "moe_gemm", "decode_fused")
+    print(f"  (a) launches over the mesh runs: {json.dumps(total)}")
+    if not all(total.get(k, 0) > 0 for k in mesh_kernels):
+        raise AssertionError(f"a kernel of the mesh paths never launched: "
+                             f"{total}")
+    two_ranks_one_card()
+    print(f"  phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -4052,6 +4453,14 @@ def main() -> None:
     print("phase 9: the roofline of the main paths")
     roofline = roofline_path(smi)
     print(f"  roofline per unit: {json.dumps(roofline)}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 10: mesh serving — a world of one, two ranks on the card")
+    meshed = mesh_path()
+    for rec in records:
+        rec["mesh_launches"] = meshed.get(rec["name"], 0)
+        rec["launches"] += rec["mesh_launches"]
 
     print(smi)
     print(json.dumps({"kernels": records}))

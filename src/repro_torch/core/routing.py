@@ -34,6 +34,7 @@ __all__ = [
     "dispatch_counts",
     "combine",
     "combine_rows",
+    "combine_partial",
     "load_balance_loss",
 ]
 
@@ -144,6 +145,25 @@ def combine_rows(rows: torch.Tensor, routing: Routing) -> torch.Tensor:
     v = routing.valid.reshape(g, t * k)
     rows = rows * (gate * v).to(rows.dtype)[..., None]
     y = rows.reshape(g, t, k, d).sum(dim=2)
+    return y.reshape(*routing.expert.shape[:-1], d)
+
+
+def combine_partial(expert_out: torch.Tensor,
+                    routing: Routing) -> torch.Tensor:
+    """:func:`combine`'s weighting, its k-slot sum left in float32 and
+    unrounded: an expert shard's partial output (slots it does not own are
+    invalid, so they add exact zeros).  Summed over the shards and rounded
+    once to ``expert_out.dtype``, it gives :func:`combine`'s bits on one
+    shard, and on several the sum of the same products in another float32
+    order."""
+    g, t, k, e, p, _, _ = _flat_groups(routing)
+    num_e, c, d = expert_out.shape[-3:]
+    out = expert_out.reshape(g, num_e, c, d)
+    gi = torch.arange(g, device=out.device)[:, None].expand(g, t * k)
+    rows = out[gi, e, torch.clamp_max(p, c - 1)]
+    w = (routing.gate.reshape(g, t * k)
+         * routing.valid.reshape(g, t * k)).to(rows.dtype)
+    y = (rows * w[..., None]).float().reshape(g, t, k, d).sum(dim=2)
     return y.reshape(*routing.expert.shape[:-1], d)
 
 

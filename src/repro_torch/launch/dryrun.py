@@ -59,10 +59,8 @@ __all__ = ["TRAIN_ACCUM", "opt_config_for", "build_cell", "run_cell",
 TRAIN_ACCUM = 8
 POLICY = "cuda"     # the impls the card runs
 
-_LATER_MESH = ("comes with the distribution slice (ROADMAP.md queue 1 item "
-               "6): the port's dry-run runs on one card")
-_LATER_TILES = ("needs the port's schedule table and the policy's tiles "
-                "(ROADMAP.md queue 1 item 7, ops/schedules.py)")
+_LATER_MESH = ("comes with training over a mesh (ROADMAP.md queue 1 item "
+               "6b): the port's dry-run runs on one card")
 
 
 def opt_config_for(cfg: ArchConfig) -> OptConfig:
@@ -76,13 +74,21 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
                *, smoke: bool = False, shape=None, device="meta"):
     """(step function, its arguments, cfg, shape) for one cell, every
     argument on ``device`` (``meta``: shapes only).  ``variant``:
-    ``moe_impl`` (str), ``accum`` (int), ``no_remat`` (bool).  ``smoke``
+    ``moe_impl`` (str), ``accum`` (int), ``no_remat`` (bool),
+    ``attn_block_k`` (int: blocked attention, the impl that takes the
+    block, with that ``block_k`` through ``ComputePolicy.with_tiles``, as
+    the reference's does).  ``smoke``
     takes the arch's ``SMOKE_CONFIG``; ``shape`` (a ``Shape``) replaces
     ``SHAPES[shape_name]`` (the tests' tiny cells)."""
     variant = variant or {}
     cfg = configs.get(arch, smoke=smoke)
     if variant.get("moe_impl") and cfg.moe is not None:
         cfg = replace(cfg, moe=replace(cfg.moe, impl=variant["moe_impl"]))
+    if variant.get("attn_block_k"):
+        pol = (cfg.policy or ops.policy_named(POLICY)).with_impls(
+            attention="blocked").with_tiles(
+                "attention", block_k=variant["attn_block_k"])
+        cfg = replace(cfg, policy=pol)
     if variant.get("no_remat"):
         # the port keeps every activation for the backward (it has no
         # rematerialization), so this is the only way it runs
@@ -204,14 +210,13 @@ def main(argv=None) -> int:
                  "--seq-shard"):
         ap.add_argument(flag, action="store_true", help=_LATER_MESH)
     ap.add_argument("--attn-block-k", type=int, default=None,
-                    help=_LATER_TILES)
+                    help="blocked attention with this block_k (a policy "
+                         "tile override)")
     args = ap.parse_args(argv)
     for flag in ("multi_pod", "no_fsdp", "fsdp_moe_only", "seq_shard"):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} {_LATER_MESH}")
-    if args.attn_block_k:
-        raise NotImplementedError(f"--attn-block-k {_LATER_TILES}")
     if args.moe_impl == "ep_local":
         raise NotImplementedError(f"--moe-impl ep_local {_LATER_MESH}")
     variant = {}
@@ -221,6 +226,8 @@ def main(argv=None) -> int:
         variant["accum"] = args.accum
     if args.no_remat:
         variant["no_remat"] = True
+    if args.attn_block_k:
+        variant["attn_block_k"] = args.attn_block_k
 
     if args.list:
         for a, s, runnable in configs.cells(include_skipped=True):

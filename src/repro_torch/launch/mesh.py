@@ -30,5 +30,5 @@ class HW:
 
 def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
-        "production meshes come with the distribution slice (ROADMAP.md "
-        "queue 1 item 6); the port's roofline and dry-run run on one card")
+        "production meshes come with training over a mesh (ROADMAP.md "
+        "queue 1 item 6b); the port's roofline and dry-run run on one card")

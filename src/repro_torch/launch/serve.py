@@ -35,6 +35,13 @@ Usage:
   # M3ViT-many (256 experts, 8 tasks) with factored, paged experts:
   python -m repro_torch.launch.serve --arch m3vit_many --smoke --scheduler \\
       --factor rank:8 --expert-budget-bytes 2000000
+  # mesh serving ("DxM" = data x model: decode state and prompts sharded
+  # over data, M3ViT's experts paged expert-parallel over model), one
+  # process a rank: NCCL on the cards, gloo with --device cpu
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch m3vit --scheduler --mesh 1x4
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch llama3_2_1b --smoke --mesh 2x2 --device cpu
 
 ``--arch`` takes every name of ``configs.ARCH_NAMES`` and ``m3vit_many``.
 
@@ -53,8 +60,15 @@ the basis float32) and overrides ``moe_grouped_gemm`` to
 reference's presets.  On the card an LM's random weights are drawn there
 (``model.init_params(..., draw_on_device=True)``: RecurrentGemma-9B's
 9.6 B parameters would take minutes of NumPy on the host); on the CPU by
-NumPy.  ``--mesh`` comes with a later slice and raises, naming its
-``ROADMAP.md`` item.
+NumPy.
+
+``--mesh DxM`` serves over a ``DeviceMesh`` of D × M ranks with the
+sharding rules (``fsdp=False``, as the reference's launcher): run it
+under ``torchrun`` with D·M processes (NCCL, one card a rank), or with
+``--device cpu`` (gloo, the counterpart of the reference's forced host
+devices).  Without ``torchrun`` the world is one process, so only
+``--mesh 1x1`` runs; a mesh whose D·M is not the world size raises,
+naming both.  Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -68,7 +82,6 @@ import numpy as np
 
 POLICIES = ("eager", "blocked", "cuda", "cuda_fused", "ref", "eager_int8",
             "eager_factored")
-LATER = {"mesh": 6}
 INT8_OPS = ("linear", "moe_grouped_gemm", "attention_decode")
 
 
@@ -125,6 +138,50 @@ def _quantize(params, args):
     return params
 
 
+def _parse_mesh(spec: str) -> tuple[int, int]:
+    try:
+        d, m = (int(v) for v in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh expects DxM (e.g. 2x4), got {spec!r}")
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh axes must be >= 1, got {spec!r}")
+    return d, m
+
+
+def mesh_rules(spec: str, dev):
+    """The sharding rules of ``--mesh DxM`` over the default process group
+    (started here from ``torchrun``'s environment, or as a world of one
+    with an in-memory store); returns (rules, device of this rank, whether
+    this call started the group)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.spmd import init_mesh
+
+    d, m = _parse_mesh(spec)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if d * m != world:
+        raise ValueError(f"--mesh {spec} holds {d * m} ranks but the world "
+                         f"size is {world} (start {d * m} processes with "
+                         f"torchrun --nproc-per-node {d * m})")
+    started = not dist.is_initialized()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    if started:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if world == 1 and "MASTER_ADDR" not in os.environ:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    world_size=1, rank=0)
+        else:
+            dist.init_process_group(backend)
+    mesh = init_mesh((d, m), device_type=dev.type)
+    return ShardingRules.for_mesh(mesh, fsdp=False), dev, started
+
+
 def _pct(m, key):
     return f"{m[key] * 1e3:.1f}ms"
 
@@ -147,11 +204,11 @@ def _prompts(rng, cfg, n: int, length: int) -> np.ndarray:
     return rng.standard_normal((n, length, cfg.d_model)).astype(np.float32)
 
 
-def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
+def serve_scheduler_lm(cfg, params, scfg, args, dev, rules=None) -> dict:
     from repro_torch.serve import LMBackend, Request, Scheduler
     from repro_torch.serve.slo import SLOPolicy, TraceConfig, TraceGenerator
 
-    backend = LMBackend(cfg, params, scfg, device=dev)
+    backend = LMBackend(cfg, params, scfg, rules=rules, device=dev)
     num_tasks = max(args.tasks, 1)
     if cfg.moe is not None:      # the gate table bounds the task-id space
         num_tasks = min(num_tasks, backend.num_tasks)
@@ -213,7 +270,7 @@ def serve_scheduler_lm(cfg, params, scfg, args, dev) -> dict:
     return m
 
 
-def serve_scheduler_vision(cfg, args, dev) -> dict:
+def serve_scheduler_vision(cfg, args, dev, rules=None) -> dict:
     from repro_torch.configs import m3vit as MV
     from repro_torch.models import vit as V
     from repro_torch.serve import Request, Scheduler, VisionBackend
@@ -230,7 +287,8 @@ def serve_scheduler_vision(cfg, args, dev) -> dict:
                             async_paging=args.async_paging,
                             factor=factor_spec(args) if args.factor
                             else None,
-                            placement=args.placement, device=dev)
+                            placement=args.placement, rules=rules,
+                            device=dev)
     sched = Scheduler(backend, total_slots=args.batch, quantum=1,
                       num_tasks=len(MV.TASKS))
     imgs = np.random.default_rng(args.seed).normal(
@@ -241,6 +299,9 @@ def serve_scheduler_vision(cfg, args, dev) -> dict:
     done = sched.run(reqs)
     m = sched.metrics()
     cache = m.get("expert_cache", {})
+    if "shard_load" in m:
+        print(f"[serve] shard load {m['shard_load']}, imbalance "
+              f"{m['shard_load_imbalance']:.3f}")
     print(f"[serve] arch={cfg.name} scheduler served {len(done)} "
           f"semseg/depth requests on {dev}: {m['items_per_s']:.1f} img/s, "
           f"latency p50 {_pct(m, 'latency_p50_s')} p99 "
@@ -255,10 +316,10 @@ def serve_scheduler_vision(cfg, args, dev) -> dict:
     return m
 
 
-def serve_static(cfg, params, scfg, args, dev):
+def serve_static(cfg, params, scfg, args, dev, rules=None):
     from repro_torch.serve import ServingEngine
 
-    engine = ServingEngine(cfg, params, scfg, device=dev)
+    engine = ServingEngine(cfg, params, scfg, rules=rules, device=dev)
     prompts = _prompts(np.random.default_rng(args.seed), cfg, args.batch,
                        args.prompt_len)
     t0 = time.perf_counter()
@@ -334,25 +395,49 @@ def parser() -> argparse.ArgumentParser:
                          "eager_factored; the paged cache pins the basis "
                          "and pages only the deltas.  With --quant the "
                          "deltas quantize at its precision")
-    for flag, item in LATER.items():
-        ap.add_argument(f"--{flag}", default=None,
-                        help=f"comes with ROADMAP.md queue 1 item {item}")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve over a data x model mesh of D*M ranks "
+                         "(torchrun; gloo with --device cpu)")
     return ap
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
-    for flag, item in LATER.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag} comes with ROADMAP.md "
-                                      f"queue 1 item {item}")
     from repro_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    rules, started = None, False
+    if args.mesh:
+        import contextlib
+        import os
+
+        import torch.distributed as dist
+
+        rules, dev, started = mesh_rules(args.mesh, dev)
+        quiet = contextlib.ExitStack()
+        if dist.get_rank() != 0:
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        print(f"[serve] mesh {args.mesh} (data x model) over "
+              f"{dist.get_world_size()} rank(s), {dist.get_backend()}")
+    try:
+        _serve(args, dev, rules)
+    finally:
+        if args.mesh:
+            quiet.close()
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return 0
+
+
+def _serve(args, dev, rules) -> None:
     from repro_torch.configs import get
     from repro_torch.models import model as M
     from repro_torch.ops import dispatch_report
     from repro_torch.serve import ServeConfig
 
-    dev = resolve_device(args.device)
     if dev.type == "cuda":
         from repro_torch.kernels import build
 
@@ -365,7 +450,8 @@ def main(argv=None) -> int:
     if vision:
         if not args.scheduler:
             raise SystemExit("M3ViT serves through --scheduler")
-        serve_scheduler_vision(replace(cfg, policy=policy), args, dev)
+        serve_scheduler_vision(replace(cfg, policy=policy), args, dev,
+                               rules)
     else:
         scfg = ServeConfig(max_len=args.max_len,
                            temperature=args.temperature, eos_id=args.eos_id,
@@ -389,12 +475,15 @@ def main(argv=None) -> int:
                 scfg = replace(scfg, temperature=0.0)
                 print("[serve] the scheduler decodes greedily; ignoring "
                       "temperature")
-            serve_scheduler_lm(cfg, params, scfg, args, dev)
+            serve_scheduler_lm(cfg, params, scfg, args, dev, rules)
         else:
-            serve_static(cfg, params, scfg, args, dev)
+            serve_static(cfg, params, scfg, args, dev, rules)
     if args.dispatch_report:
         print("[serve] dispatch report:", json.dumps(dispatch_report()))
-    return 0
+        if rules is not None:
+            from repro_torch.ops import collective_report
+
+            print("[serve] collectives:", json.dumps(collective_report()))
 
 
 if __name__ == "__main__":

@@ -50,7 +50,8 @@ def parser() -> argparse.ArgumentParser:
                     help="compute-policy preset (default: the registry "
                          "defaults, the reference's training policy)")
     ap.add_argument("--mesh", choices=["none", "local"], default="none",
-                    help="'local' comes with ROADMAP.md queue 1 item 6")
+                    help="'local' comes with ROADMAP.md queue 1 item 6b "
+                         "(training over a mesh)")
     return ap
 
 
@@ -83,7 +84,7 @@ def build(args):
 
     if args.mesh != "none":
         raise NotImplementedError("--mesh local comes with ROADMAP.md "
-                                  "queue 1 item 6")
+                                  "queue 1 item 6b (training over a mesh)")
     dev = resolve_device(args.device)
     cfg = get(args.arch, smoke=args.smoke)
     if args.policy is not None:

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist.sharding import constrain
 from repro_torch.quant.qtensor import (QTensor, dequantize, dtype_name,
                                        quantize_kv)
 from repro_torch.roofline.scope import scope
@@ -173,8 +174,10 @@ def apply_mlp(params, x, cfg: ArchConfig):
         act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
         g = unified_linear(x, params["wg"], activation=act)
         u = unified_linear(x, params["wu"])
-        return unified_linear((g * u).to(x.dtype), params["wd"])
+        h = constrain((g * u).to(x.dtype), "btf")
+        return unified_linear(h, params["wd"])
     h = unified_linear(x, params["w1"], params["b1"], activation="gelu")
+    h = constrain(h, "btf")
     return unified_linear(h, params["w2"], params["b2"])
 
 
@@ -222,16 +225,13 @@ def _upd_cache(c, new, slot):
 def _kv_write(cache, k, v, slot, kvq: bool):
     """Write fp K/V rows into the cache in place, quantized per (token,
     head) when the cache is int8 (``kvq``)."""
+    rows = {"k": k, "v": v}
     if kvq:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        _upd_cache(cache["k"], kq, slot)
-        _upd_cache(cache["v"], vq, slot)
-        _upd_cache(cache["k_scale"], ks, slot)
-        _upd_cache(cache["v_scale"], vs, slot)
-        return cache
-    _upd_cache(cache["k"], k, slot)
-    _upd_cache(cache["v"], v, slot)
+        rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for name, new in rows.items():
+        cache[name] = constrain(_upd_cache(cache[name], new, slot), "cache")
     return cache
 
 
@@ -273,12 +273,15 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     with scope("attn_qkv"):
-        q = _split_heads(unified_linear(x, params["wq"], params.get("bq")),
-                         hq, hd)
-        k = _split_heads(unified_linear(x, params["wk"], params.get("bk")),
-                         hkv, hd)
-        v = _split_heads(unified_linear(x, params["wv"], params.get("bv")),
-                         hkv, hd)
+        q = constrain(_split_heads(unified_linear(x, params["wq"],
+                                                  params.get("bq")), hq, hd),
+                      "bhsd")
+        k = constrain(_split_heads(unified_linear(x, params["wk"],
+                                                  params.get("bk")), hkv, hd),
+                      "bkvsd")
+        v = constrain(_split_heads(unified_linear(x, params["wv"],
+                                                  params.get("bv")), hkv, hd),
+                      "bkvsd")
     with scope("rope"):
         if cfg.rope == "rope":
             q = apply_rope(q, pos, cfg.rope_theta)
@@ -327,9 +330,10 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
                           torch.roll(v[:, :, -smax:], shift, dims=2), 0, kvq)
             else:
                 _kv_write(cache, k, v, 0, kvq)
+    o = constrain(o, "bhsd")
     with scope("attn_out"):
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
-        return unified_linear(o, params["wo"]), cache
+        return constrain(unified_linear(o, params["wo"]), "btd"), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -337,17 +341,21 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
     shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
     if cfg.kv_quant == "int8":
         sshape = (batch, cfg.num_kv_heads, max_len, 1)
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(sshape, dtype=torch.float32,
-                                       device=device),
-                "v_scale": torch.zeros(sshape, dtype=torch.float32,
-                                       device=device)}
+        return {"k": constrain(torch.zeros(shape, dtype=torch.int8,
+                                           device=device), "cache"),
+                "v": constrain(torch.zeros(shape, dtype=torch.int8,
+                                           device=device), "cache"),
+                "k_scale": constrain(torch.zeros(sshape, dtype=torch.float32,
+                                                 device=device), "cache"),
+                "v_scale": constrain(torch.zeros(sshape, dtype=torch.float32,
+                                                 device=device), "cache")}
     if cfg.kv_quant != "none":
         raise ValueError(f"unknown kv_quant {cfg.kv_quant!r} "
                          "(expected none | int8)")
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": constrain(torch.zeros(shape, dtype=dtype, device=device),
+                           "cache"),
+            "v": constrain(torch.zeros(shape, dtype=dtype, device=device),
+                           "cache")}
 
 
 # ---------------------------------------------------------------- embeddings
@@ -370,8 +378,10 @@ def embed_inputs(params, inputs, cfg: ArchConfig):
         # gradients in a fixed order on the card
         ids = inputs.long()
         ids = torch.where(ids < 0, ids + cfg.vocab_size, ids)
-        return torch.nn.functional.embedding(ids, params["tokens"])
-    return inputs.to(cfg.activation_dtype)
+        return constrain(torch.nn.functional.embedding(ids,
+                                                       params["tokens"]),
+                         "btd")
+    return constrain(inputs.to(cfg.activation_dtype), "btd")
 
 
 def init_lm_head(rng: np.random.Generator, cfg: ArchConfig, dtype):
@@ -406,7 +416,7 @@ def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
 
         out = torch.cat([product(table[i:i + _HEAD_ROWS].float().T)
                          for i in range(0, table.shape[0], _HEAD_ROWS)], -1)
-        return out[:m].reshape(*x.shape[:-1], -1)
+        return constrain(out[:m].reshape(*x.shape[:-1], -1), "btv")
     logits = unified_linear(x, head_params["w"],
                             preferred_dtype=torch.float32)
-    return logits.float()
+    return constrain(logits.float(), "btv")

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist.sharding import constrain
 from repro_torch.models.xlstm import _write, causal_conv1d, seq_groups
 from repro_torch.roofline.scope import scope
 
@@ -115,7 +116,7 @@ def _gates(xc32, gates):
 def apply_rglru(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d) -> (y, state).  state: {"h": (B, W), "conv": (B,
     cw-1, W)} or None, updated in place."""
-    xb = unified_linear(x, params["w_up"])
+    xb = constrain(unified_linear(x, params["w_up"]), "btw")
     yb = unified_linear(x, params["w_up2"], activation="gelu")
     conv_state = state["conv"] if state is not None else None
     xc, conv_state = causal_conv1d(xb, params["conv"], conv_state)
@@ -130,7 +131,8 @@ def apply_rglru(params, x, cfg: ArchConfig, state=None, decode=False):
     else:
         hseq = _rglru_scan(xc32, r, i, params["lam"], h_prev)
     y = unified_linear(hseq.to(x.dtype) * yb, params["w_down"])
-    return y, _write(state, {"h": hseq[:, -1], "conv": conv_state})
+    return constrain(y, "btd"), _write(state, {"h": hseq[:, -1],
+                                               "conv": conv_state})
 
 
 def init_rglru_state(cfg: ArchConfig, batch: int, device=None):

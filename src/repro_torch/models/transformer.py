@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
@@ -146,13 +147,14 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
         apply = XL.apply_mlstm if kind == "mlstm" else XL.apply_slstm
         h = L.apply_norm(params["ln"], x, cfg)
         y, _ = apply(params[kind], h, cfg, state, decode)
-        return x + y, aux, counts
+        return constrain(x + y, "btd"), aux, counts
     if kind == "rglru_mlp":
         h = L.apply_norm(params["ln1"], x, cfg)
         y, _ = RG.apply_rglru(params["rglru"], h, cfg, state, decode)
-        x = x + y
+        x = constrain(x + y, "btd")
         h = L.apply_norm(params["ln2"], x, cfg)
-        return x + L.apply_mlp(params["mlp"], h, cfg), aux, counts
+        return constrain(x + L.apply_mlp(params["mlp"], h, cfg), "btd"), \
+            aux, counts
     if kind not in _ATTN_KINDS:
         raise ValueError(kind)
     window = cfg.window if kind == "attn_local_mlp" else None
@@ -160,7 +162,7 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
     a, _ = L.apply_attention(params["attn"], h, cfg, pos=pos,
                              causal=cfg.family != "vit-moe", window=window,
                              cache=state, cache_index=cache_index)
-    x = x + a
+    x = constrain(x + a, "btd")
     h = L.apply_norm(params["ln2"], x, cfg)
     if kind == "attn_moe":
         if counts_shape != (0,):
@@ -172,7 +174,7 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
                                        task_id=task_id)
     else:
         y = L.apply_mlp(params["mlp"], h, cfg)
-    return x + y, aux, counts
+    return constrain(x + y, "btd"), aux, counts
 
 
 def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist.sharding import constrain
 from repro_torch.roofline.op_cost import repeat
 from repro_torch.roofline.scope import scope
 
@@ -276,7 +277,7 @@ def _mlstm_core(params, cfg: ArchConfig, decode: bool, uc, qkv, z, C, n, m):
 def apply_mlstm(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d).  state: {"C", "n", "m", "conv"} or None, updated in
     place.  Returns (y, state)."""
-    u = unified_linear(x, params["w_up"])
+    u = constrain(unified_linear(x, params["w_up"]), "btw")
     z = unified_linear(x, params["w_gates"])
     conv_state = state["conv"] if state is not None else None
     uc, conv_state = causal_conv1d(u, params["conv"], conv_state)
@@ -287,7 +288,8 @@ def apply_mlstm(params, x, cfg: ArchConfig, state=None, decode=False):
     gated, (C, n, m) = seq_groups(
         lambda *a: _mlstm_core(params, cfg, decode, *a), uc, qkv, z, *cnm)
     y = unified_linear(gated.to(x.dtype), params["w_down"])
-    return y, _write(state, {"C": C, "n": n, "m": m, "conv": conv_state})
+    return constrain(y, "btd"), _write(state, {"C": C, "n": n, "m": m,
+                                               "conv": conv_state})
 
 
 def init_mlstm_state(cfg: ArchConfig, batch: int, device=None):
@@ -384,7 +386,8 @@ def apply_slstm(params, x, cfg: ArchConfig, state=None, decode=False):
     up = unified_linear(hn, params["w_up"], activation="gelu")
     up2 = unified_linear(hn, params["w_up2"])
     y = unified_linear((up * up2).to(x.dtype), params["w_down"])
-    return y, _write(state, {"c": c, "n": n, "h": hp, "m": m})
+    return constrain(y, "btd"), _write(state, {"c": c, "n": n, "h": hp,
+                                               "m": m})
 
 
 def init_slstm_state(cfg: ArchConfig, batch: int, device=None):

@@ -10,8 +10,8 @@
 
 from repro_torch.ops.policy import (ComputePolicy, DEFAULT_POLICY,
                                     current_policy, policy_named, use_policy)
-from repro_torch.ops.registry import (DispatchError, dispatch,
-                                      dispatch_report, register,
+from repro_torch.ops.registry import (DispatchError, collective_report,
+                                      dispatch, dispatch_report, register,
                                       reset_dispatch_report)
 
 
@@ -27,5 +27,5 @@ __all__ = [
     "ComputePolicy", "DEFAULT_POLICY",
     "current_policy", "policy_named", "use_policy",
     "DispatchError", "dispatch", "dispatch_report", "register",
-    "reset_dispatch_report", "apply_activation",
+    "reset_dispatch_report", "collective_report", "apply_activation",
 ]

@@ -2,7 +2,9 @@
 the corresponding part of ``repro.ops.impls``.
 
 Imported lazily by ``registry.dispatch``.  Each impl follows the registry
-contract ``fn(policy, *args, **kwargs)``.  Impl names: ``eager`` (plain
+contract ``fn(policy, *args, **kwargs)``; an impl registered with
+``dims`` (blocked attention) also takes its resolved tile blocks as
+``tiles=`` (``ops/schedules.py``).  Impl names: ``eager`` (plain
 PyTorch, the reference's ``xla``), ``blocked``, ``lut``, ``cuda`` (the
 Hopper kernels, the reference's ``pallas``), ``cuda_fused`` (the fused
 kernels, the reference's ``pallas_fused``), ``ref``, and for packed
@@ -217,10 +219,15 @@ def _attn_eager(policy, q, k, v, **kw):
     return A.naive_attention(q, k, v, **kw)
 
 
-def _attn_blocked(policy, q, k, v, **kw):
+def _attn_dims(q, k, v, **kw):
+    return {"sq": q.shape[2], "skv": k.shape[2], "d": q.shape[3]}
+
+
+def _attn_blocked(policy, q, k, v, *, tiles, **kw):
     from repro_torch.core import attention as A
 
-    return A.blocked_attention(q, k, v, block_k=64, **kw)
+    return A.blocked_attention(q, k, v, block_k=tiles.get("block_k", 64),
+                               **kw)
 
 
 def _attn_cuda_requires(policy, q, k, v, *, causal=True, window=None,
@@ -247,6 +254,7 @@ def _attn_ref(policy, q, k, v, **kw):
 
 
 register("attention", "blocked", _attn_blocked, default=True,
+         dims=_attn_dims,
          doc="streaming K/V blocks + online-softmax carry (§IV-A/B)")
 register("attention", "eager", _attn_eager,
          doc="materialized N×N scores (paper baseline), any mask")

@@ -20,8 +20,10 @@ Implementation names in the port:
                     weights (QTensor / FactoredTensor), the reference's
                     ``"xla_int8"`` / ``"xla_factored"``.
 
-Tile overrides and the Pallas ``interpret`` switch have no counterpart yet:
-the kernels take fixed tiles, stated in their sources.
+``tiles`` holds per-op tile overrides (``with_tiles``), consulted after
+the tile table (``ops/schedules.py``), with the reference's hashing and
+merge semantics.  The Pallas ``interpret`` switch has no counterpart: the
+device of the operands decides where a kernel impl runs.
 """
 
 from __future__ import annotations
@@ -45,6 +47,14 @@ def _freeze_impls(impls) -> tuple:
     return tuple((str(k), str(v)) for k, v in impls)
 
 
+def _freeze_tiles(tiles) -> tuple:
+    if isinstance(tiles, Mapping):
+        tiles = tuple(sorted(
+            (op, tuple(sorted(blocks.items()))) for op, blocks in tiles.items()))
+    return tuple((str(op), tuple((str(k), int(v)) for k, v in blocks))
+                 for op, blocks in tiles)
+
+
 @dataclass(frozen=True)
 class ComputePolicy:
     """Per-op implementation choices + numerics.
@@ -52,12 +62,15 @@ class ComputePolicy:
     ``impls``        — (op, impl) overrides; ops without an entry use
                        ``default_impl``, and when that is also None the
                        registry's per-op default.
+    ``tiles``        — (op, ((block_name, size), ...)) overrides consulted
+                       after the tile table.
     ``accum_dtype`` / ``bias_f32`` — widened accumulator / bias (§IV-E).
     ``lut_step_log2`` / ``lut_range`` — §IV-C LUT geometry.
     """
 
     impls: tuple = ()
     default_impl: Optional[str] = None
+    tiles: tuple = ()
     accum_dtype: str = "float32"
     bias_f32: bool = True
     lut_step_log2: int = -8
@@ -65,6 +78,7 @@ class ComputePolicy:
 
     def __post_init__(self):
         object.__setattr__(self, "impls", _freeze_impls(self.impls))
+        object.__setattr__(self, "tiles", _freeze_tiles(self.tiles))
 
     def impl_for(self, op: str) -> Optional[str]:
         """Requested impl for ``op``: explicit entry > blanket default >
@@ -73,6 +87,12 @@ class ComputePolicy:
             if name == op:
                 return impl
         return self.default_impl
+
+    def tile_for(self, op: str) -> dict:
+        for name, blocks in self.tiles:
+            if name == op:
+                return dict(blocks)
+        return {}
 
     @property
     def lut_activations(self) -> bool:
@@ -84,6 +104,13 @@ class ComputePolicy:
         merged = dict(self.impls)
         merged.update(ops)
         return replace(self, impls=tuple(sorted(merged.items())))
+
+    def with_tiles(self, op: str, **blocks) -> "ComputePolicy":
+        """New policy with tile-size overrides for ``op``:
+        ``policy.with_tiles("attention", block_k=128)``."""
+        merged = {o: dict(b) for o, b in self.tiles}
+        merged.setdefault(op, {}).update(blocks)
+        return replace(self, tiles=_freeze_tiles(merged))
 
 
 #: Registry defaults: blocked attention, eager GEMMs, LUT activations.

@@ -15,10 +15,21 @@ ran: ``"cuda"`` when the operands lay on the card and the kernel launched,
 ``"cpu"`` or ``"meta"`` when they lay there and the kernel module ran its
 plain version.  Impl functions receive ``(policy, *args, **kwargs)``.
 
+Tiles resolve as the reference's do: the tile table first
+(``ops/schedules.py``, for the backend the operands lie on), then the
+policy's override, checked against the knobs the impl takes.  An impl
+registered with ``dims`` receives them as ``tiles=``.  A dispatch whose
+policy overrides no tile, to an impl without ``dims``, skips all of it.
+
 While a cost counter is active (``roofline/op_cost.py``), each dispatch
 hands the op to it: the op's analytic cost is counted, nothing beneath it.
 ``registered``, ``op_names``, ``capability_matrix`` and ``default_impl``
 read the table as the reference's do.
+
+Collectives between the shards of a mesh (``dist/spmd.py``) are
+recorded beside the dispatches:
+``collective_report()`` lists each kind, axis and call site with its
+count and bytes, and ``reset_dispatch_report()`` clears both ledgers.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.ops import schedules
 from repro_torch.ops.policy import current_policy
 from repro_torch.roofline import op_cost
 
@@ -42,6 +54,8 @@ __all__ = [
     "dispatch",
     "dispatch_report",
     "reset_dispatch_report",
+    "record_collective",
+    "collective_report",
     "DispatchError",
 ]
 
@@ -58,6 +72,8 @@ class OpImpl:
     requires: Optional[Callable] = None     # (policy, *a, **kw) -> None | str
     kernel: bool = False                    # CUDA kernel impl: record the mode
     doc: str = ""                           # capability summary
+    dims: Optional[Callable] = None         # (*a, **kw) -> bucket dims; the
+    #                                         impl then takes ``tiles=``
 
 
 _REGISTRY: dict[str, dict[str, OpImpl]] = {}
@@ -66,17 +82,20 @@ _LOCK = threading.Lock()
 
 # (op, requested, used, reasons, mode) -> count
 _COUNTS: Counter = Counter()
+# (kind, axis, where) -> [count, bytes]
+_COLLECTIVES: dict = {}
 _IMPLS_LOADED = False
 
 
 def register(op: str, name: str, fn: Callable, *,
              requires: Optional[Callable] = None,
              default: bool = False, kernel: bool = False,
-             doc: str = "") -> OpImpl:
+             doc: str = "", dims: Optional[Callable] = None) -> OpImpl:
     """Register implementation ``name`` for logical op ``op`` (``default``
-    makes it the op's default; otherwise the first registered is)."""
+    makes it the op's default; otherwise the first registered is).  An
+    impl with ``dims`` takes its resolved tiles as ``tiles=``."""
     impl = OpImpl(op=op, name=name, fn=fn, requires=requires, kernel=kernel,
-                  doc=doc)
+                  doc=doc, dims=dims)
     with _LOCK:
         table = _REGISTRY.setdefault(op, {})
         table[name] = impl
@@ -140,6 +159,22 @@ def _mode(args) -> str:
     return "cpu"
 
 
+def _resolve_tiles(op: str, name: str, impl: OpImpl, policy, args,
+                   kwargs) -> dict:
+    """``kwargs`` for ``impl`` with its tiles resolved: the table's first,
+    then the policy's override, which must name blocks the impl takes.
+    An impl registered with ``dims`` receives them as ``tiles=``."""
+    backend = schedules.backend_key(_mode(args))
+    override = policy.tile_for(op)
+    schedules.check_override(op, name, override, backend, impl.kernel)
+    if impl.dims is None:
+        return kwargs
+    tiles = schedules.schedule_for(op, name, impl.dims(*args, **kwargs),
+                                   backend)
+    tiles.update(override)
+    return dict(kwargs, tiles=tiles)
+
+
 def dispatch(op: str, *args, **kwargs):
     """Run ``op`` through the impl the ambient policy names, falling back
     (loudly: every rejection is recorded) to the first capable impl."""
@@ -166,14 +201,17 @@ def dispatch(op: str, *args, **kwargs):
             reasons.append(f"{name}: {why}")
             continue
         mode = _mode(args) if impl.kernel else ""
+        call_kw = kwargs
+        if policy.tiles or impl.dims is not None:
+            call_kw = _resolve_tiles(op, name, impl, policy, args, kwargs)
         with _LOCK:
             _COUNTS[(op, requested, name, tuple(reasons), mode)] += 1
         counter = op_cost.active()
         if counter is not None:
             return counter.registry_op(
-                op, impl.kernel, lambda: impl.fn(policy, *args, **kwargs),
+                op, impl.kernel, lambda: impl.fn(policy, *args, **call_kw),
                 args, kwargs)
-        return impl.fn(policy, *args, **kwargs)
+        return impl.fn(policy, *args, **call_kw)
     raise DispatchError(
         f"no capable implementation for op {op!r} "
         f"(requested {requested!r}): " + "; ".join(reasons))
@@ -207,6 +245,26 @@ def dispatch_report() -> dict:
     return report
 
 
+def record_collective(kind: str, axis: str, nbytes: int,
+                      where: str) -> None:
+    """Record one collective (``all_reduce``, ``all_gather``) over mesh
+    ``axis`` moving ``nbytes`` a rank, made at ``where``."""
+    with _LOCK:
+        entry = _COLLECTIVES.setdefault((kind, axis, where), [0, 0])
+        entry[0] += 1
+        entry[1] += int(nbytes)
+
+
+def collective_report() -> list[dict]:
+    """The collectives since the last reset: [{"kind", "axis", "where",
+    "count", "bytes"}, ...], sorted."""
+    with _LOCK:
+        items = sorted(_COLLECTIVES.items())
+    return [{"kind": k, "axis": a, "where": w, "count": n, "bytes": b}
+            for (k, a, w), (n, b) in items]
+
+
 def reset_dispatch_report() -> None:
     with _LOCK:
         _COUNTS.clear()
+        _COLLECTIVES.clear()

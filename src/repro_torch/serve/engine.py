@@ -14,8 +14,22 @@ caches as int8 rows with a float32 scale per (token, head); pair it with
 ``policy_named("eager_int8")`` (or an ``attention_decode="eager_int8"``
 override) so the int8 decode impl is a dispatch hit.
 ``ServeConfig.async_paging`` belongs to the vision backend; the LM engine
-ignores it, as the reference's does.  Meshes (``rules``) come with a later
-slice of the port and raise ``NotImplementedError``.
+ignores it, as the reference's does.
+
+Mesh serving (``rules``, a ``dist.sharding.ShardingRules`` over a
+``DeviceMesh``; one process a rank, every rank calling ``generate`` with
+the same prompts): each rank holds the weights its kernels compute with
+(:func:`local_params`) — every dense weight whole, while an ``ep_local``
+MoE layer keeps only its own experts, as the table shards them over
+``model``.
+The decode state and the prompts are batch-sharded over the data axes
+(:func:`shard_state`, :func:`shard_batch`): each rank prefills and
+decodes its own rows, and one all-gather a step brings every row's token
+back, so the host loop (EOS, the output) sees the whole batch.
+Temperature sampling draws the whole batch's noise from the one generator
+and keeps its rows, so a mesh gives the tokens no mesh gives.  The dense
+blocks run data-parallel, not tensor-parallel: see ``ROADMAP.md`` queue
+1 item 6a.
 
 Embedding-input frontends (``embed_input="embeddings"``: MusicGen's
 EnCodec frames, Qwen2-VL's patches) are stubs, as in the reference: a
@@ -44,13 +58,16 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import param_sharding_rules, use_rules
 from repro_torch.models import model as M
 from repro_torch.ops.policy import ComputePolicy
 from repro_torch.train.step import make_serve_step
 from repro_torch.tree import flatten
 
 __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
-           "state_batch_axes", "serve_overrides", "stub_feedback_table"]
+           "state_batch_axes", "serve_overrides", "stub_feedback_table",
+           "local_params", "shard_state", "shard_batch"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 _STUB_SEED = 0xE0BED
@@ -129,6 +146,66 @@ def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
     return axes
 
 
+def _ep_local_expert(name: str, cfg: ArchConfig) -> bool:
+    from repro_torch.core.moe import expert_param_names
+    from repro_torch.models.transformer import moe_config
+
+    if cfg.moe is None or cfg.moe.impl != "ep_local":
+        return False
+    path = name.split(".")
+    return path[-2:-1] == ["moe"] and \
+        path[-1] in expert_param_names(moe_config(cfg))
+
+
+def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
+    """The tensors each rank's kernels compute with.  The dense weights
+    are whole on every rank (the dense blocks run data-parallel).  The
+    expert stacks of an ``ep_local`` MoE keep only this rank's experts,
+    narrowed as the table shards them over ``model``
+    (``core/moe.py:apply_moe_ep_local``).  No-op without rules."""
+    if rules is None or rules.mesh is None:
+        return params
+    table = param_sharding_rules(params, rules)
+    out = dict(params)
+    for k, v in params.items():
+        if not isinstance(v, torch.Tensor) or not _ep_local_expert(k, cfg):
+            continue
+        dim = next((d for d, e in enumerate(table[k].spec) if e == "model"),
+                   None)
+        if dim is None:             # the table replicates it here
+            continue
+        per = v.shape[dim] // spmd.axis_size(rules.mesh, "model")
+        out[k] = v.narrow(dim, spmd.axis_index(rules.mesh, "model") * per,
+                          per)
+    return out
+
+
+def shard_state(state, rules, axes: list[int]):
+    """This rank's rows of a decode state (KV caches, recurrent cells):
+    each leaf's batch axis (``axes``, from :func:`state_batch_axes`) cut
+    over the mesh's batch axes, as the trimmed spec cuts it (a batch the
+    axes do not divide stays whole).  No-op without rules."""
+    if rules is None or rules.mesh is None:
+        return state
+    from repro_torch.tree import flatten, unflatten
+
+    flat = flatten(state)
+    out = {}
+    for (name, leaf), ax in zip(flat.items(), axes):
+        rows = spmd.batch_rows(leaf.shape[ax], rules)
+        out[name] = leaf.narrow(ax, rows.start, rows.stop - rows.start) \
+            .clone()
+    return unflatten(out)
+
+
+def shard_batch(x, rules):
+    """This rank's rows of a batch-leading tensor (prompts, token
+    feedback).  No-op without rules."""
+    if rules is None or rules.mesh is None:
+        return x
+    return x[spmd.batch_rows(x.shape[0], rules)]
+
+
 @dataclass(frozen=True)
 class ServeConfig:
     max_len: int = 2048
@@ -169,12 +246,12 @@ class ServingEngine:
 
     def __init__(self, cfg: ArchConfig, params, scfg: ServeConfig,
                  rules=None, *, device="cuda", stub_table=None):
-        if rules is not None:
-            raise NotImplementedError("mesh serving (rules) comes with the "
-                                      "distribution slice of the port")
         self.device = resolve_device(device)
         self.cfg, self.scfg = serve_overrides(cfg, scfg), scfg
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.rules = rules
+        self.params = local_params(
+            {k: v.to(self.device) for k, v in params.items()}, self.cfg,
+            rules)
         self._steps: dict[int, tuple] = {}
         # a stub frontend's feedback table, on the device once
         self.fb_table = stub_feedback_table(self.cfg, self.device,
@@ -193,9 +270,11 @@ class ServingEngine:
     def _sample(self, logits, generator):
         if self.scfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)    # the first maximum
-        # Gumbel-max, the algorithm of jax.random.categorical
-        u = torch.rand(logits.shape, generator=generator,
-                       device=logits.device)
+        # Gumbel-max, the algorithm of jax.random.categorical; on a mesh
+        # the whole batch's noise is drawn and this rank's rows kept
+        u = torch.rand((self._batch,) + tuple(logits.shape[1:]),
+                       generator=generator, device=logits.device)
+        u = shard_batch(u, self.rules)
         u = u.clamp_min(torch.finfo(u.dtype).tiny)
         return torch.argmax(logits / self.scfg.temperature
                             - torch.log(-torch.log(u)), dim=-1)
@@ -253,13 +332,21 @@ class ServingEngine:
             generator.manual_seed(scfg.seed)
         out = np.zeros((b, max_new_tokens), np.int32)
         done = np.zeros((b,), bool)
-        with torch.inference_mode():
-            state = M.init_state(cfg, b, scfg.max_len, device=self.device)
-            logits, state = self._prefill(prompts, state, task_id)
+        self._batch = b
+        rows = spmd.batch_rows(b, self.rules) if self.rules is not None \
+            else slice(0, b)
+        with torch.inference_mode(), use_rules(self.rules), \
+                spmd.batch_split(self.rules, b):
+            state = M.init_state(cfg, rows.stop - rows.start, scfg.max_len,
+                                 device=self.device)
+            logits, state = self._prefill(shard_batch(prompts, self.rules),
+                                          state, task_id)
             _, decode = self.steps(task_id)
             tok = self._sample(logits, generator)
             for i in range(max_new_tokens):
-                host = tok.cpu().numpy()
+                every = tok if self.rules is None else spmd.gather_batch(
+                    tok, self.rules, b, "engine tokens")
+                host = every.cpu().numpy()
                 out[:, i] = np.where(done, scfg.eos_id, host)
                 if scfg.eos_id >= 0:
                     done |= host == scfg.eos_id

@@ -1,6 +1,7 @@
-"""Expert-weight paging on one device: bounded device residency for MoE
-expert weights, the port of ``repro.serve.expert_cache`` (``ExpertUsage``,
-``ExpertCache``, ``PagedMoE``).
+"""Expert-weight paging: bounded device residency for MoE expert weights,
+on one device or expert-parallel over a mesh — the port of
+``repro.serve.expert_cache`` (``ExpertUsage``, ``ExpertCache``,
+``ShardedExpertCache``, ``PagedMoE``).
 
 The software analogue of Edge-MoE's DDR expert streaming (§IV-D): device
 memory holds only a bounded set of expert weights (a fraction of E, or a
@@ -41,12 +42,18 @@ pinned basis), so its expert products dispatch the ``eager_int8`` /
 product has the shape the all-resident expert's has, and paged output
 stays bit-exact.
 
-Left for a later slice (it raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): expert parallelism over a mesh (the reference's
-``ShardedExpertCache``, queue 1 item 6).  The reference's XLA-only
+Expert parallelism (``PagedMoE(mesh=...)``): ``ShardedExpertCache``
+places the experts over the mesh's ``model`` axis by a placement plan.
+Each rank holds one bounded slot bank, its own shard's, on its device; the
+bookkeeping (one ``ExpertCache`` a shard, keyed by global expert id) runs
+on every rank alike, so every rank plans the same waves.  A wave runs each
+shard's slots on that shard (``moe_gemm`` on its own bank), and one
+all-gather over ``model`` after the last wave brings every row home; the
+finish is ``combine_rows`` in the single-device order, so expert-parallel
+paging equals ``apply_moe`` bit for bit too.  The reference's XLA-only
 store machinery (donated jitted writes, power-of-two write batches, the
-sharded cache's write callback) has no counterpart: PyTorch writes a slot
-in place.
+stacked (shards, R, ...) store) has no counterpart: PyTorch writes a slot
+of the rank's own bank in place.
 """
 
 from __future__ import annotations
@@ -62,19 +69,18 @@ from repro_torch.bridge import tensor_from_numpy
 from repro_torch.core import moe as moe_lib
 from repro_torch.core import routing as R
 from repro_torch.core.moe import MoEConfig, expert_param_names
+from repro_torch.dist.sharding import axis_names
 from repro_torch.factor.factored import FactoredTensor, is_factored
 from repro_torch.quant.qtensor import QTensor, is_qtensor
-from repro_torch.serve.placement import PlacementPolicy, get_policy
+from repro_torch.serve.placement import (PlacementPlan, PlacementPolicy,
+                                         get_policy)
 from repro_torch.serve.transfer import Transfer
 
-__all__ = ["ExpertUsage", "ExpertCache", "PagedMoE"]
+__all__ = ["ExpertUsage", "ExpertCache", "ShardedExpertCache", "PagedMoE"]
 
 # how many truncation-dropped prefetch ids each cache retains as evidence
 # (bounded so a long-running server cannot grow the list without limit)
 PREFETCH_DROPPED_KEEP = 64
-
-_MESH = ("expert-parallel paging over a mesh (the sharded expert cache) "
-         "comes with ROADMAP.md queue 1 item 6")
 
 
 def _host_tensor(w) -> torch.Tensor:
@@ -159,6 +165,10 @@ class ExpertCache:
     slot write is a copy on the current (compute) stream, ordered after
     every wave already queued there that reads the slot; the engine's side
     stream only writes its own payload tensors.
+
+    ``store=False`` keeps the books only (the reference's external-write
+    mode): no slots, no copies — a sharded cache's record of another
+    rank's bank, whose residency decisions it replays.
     """
 
     def __init__(self, host: dict, max_resident: int,
@@ -166,7 +176,7 @@ class ExpertCache:
                  transfer_engine=None, label: str = "cache",
                  pinned: Optional[dict] = None,
                  policy: Optional[PlacementPolicy] = None,
-                 device="cuda"):
+                 device="cuda", store: bool = True):
         if not host:
             raise ValueError("empty expert weight store")
         self.device = resolve_device(device)
@@ -177,8 +187,9 @@ class ExpertCache:
         clash = set(pinned) & set(host)
         if clash:
             raise ValueError(f"leaves both pinned and paged: {sorted(clash)}")
+        self.store = store
         self.pinned = {n: _host_tensor(v).to(self.device)
-                       for n, v in pinned.items()}
+                       for n, v in pinned.items()} if store else {}
         self.pinned_bytes = _pinned_bytes(self.pinned)
         # transfer keys are (label, expert): stable and test-addressable
         self.label = label
@@ -191,14 +202,15 @@ class ExpertCache:
         self.max_resident = max(1, min(int(max_resident), self.num_experts))
         # page-locked, so a copy from it never runs synchronously; pinning
         # that fails raises here
-        self.host = {n: w.pin_memory() if self.device.type == "cuda" else w
+        pin = self.device.type == "cuda" and self.store
+        self.host = {n: w.pin_memory() if pin else w
                      for n, w in store.items()}
         self.usage = usage
         self.slots = {
             n: torch.zeros((self.max_resident,) + tuple(w.shape[1:]),
                            dtype=w.dtype, device=self.device)
             for n, w in self.host.items()
-        }
+        } if self.store else {}
         self._slot_expert = [-1] * self.max_resident     # slot -> expert id
         self._lru: OrderedDict[int, int] = OrderedDict()  # expert -> slot
         self.engine = transfer_engine
@@ -291,8 +303,9 @@ class ExpertCache:
         """Land ``rows`` (pinned host rows, or a fenced transfer's device
         payload) in ``slot`` — one copy per weight on the current stream —
         and finish the residency bookkeeping."""
-        for n in self.names:
-            self.slots[n][slot].copy_(rows[n], non_blocking=True)
+        if self.store:
+            for n in self.names:
+                self.slots[n][slot].copy_(rows[n], non_blocking=True)
         self._slot_expert[slot] = expert
         self._lru[expert] = slot
         self.bytes_paged += self._expert_bytes
@@ -305,7 +318,7 @@ class ExpertCache:
         an expert nobody prefetched still pages correctly — through the
         engine when one is attached, so its stall is accounted)."""
         slot = self._reserve_slot(pinned)
-        new = self._host_rows(expert)
+        new = self._host_rows(expert) if self.store else None
         if self.engine is not None:
             tr = self.engine.submit((self.label, expert), new, tag="demand")
             new = self.engine.fence(tr)
@@ -476,6 +489,290 @@ class ExpertCache:
         return remap[:, None], (remap >= 0).astype(np.int32)
 
 
+class ShardedExpertCache:
+    """Expert-parallel residency: experts placed over a mesh axis by a
+    :class:`~repro_torch.serve.placement.plan.PlacementPlan`.
+
+    Shard ``s`` of ``m`` holds a bounded bank of ``max_resident`` slots and
+    serves the experts the plan assigns it — under the static plan the
+    contiguous block ``[s·E/m, (s+1)·E/m)``; an elastic plan may move a
+    cold expert's home or replicate a hot one.  One ``ExpertCache`` a
+    shard keeps the books (LRU, hit/miss/bytes, prefetch truncation),
+    keyed by GLOBAL expert id, with transfer keys ``("shard<s>", e)``.  On
+    each rank only its own shard's book holds slots (on ``device``) and
+    pages through the transfer engine; the others replay the same
+    decisions with no copies (``store=False``), so every rank sees the
+    same residency and plans the same waves.  A fixed per-device slot
+    budget therefore holds ``m × R`` resident experts in aggregate.
+
+    Plan swaps (:meth:`set_plan`) happen between forwards: residency on a
+    shard the new plan removed is dropped, new homes page in (tagged
+    ``migrate`` with an engine, else on demand), and the generation
+    counter makes each swap observable once.
+    """
+
+    def __init__(self, host: dict, max_resident: int, mesh,
+                 axis: str = "model", usage: Optional[ExpertUsage] = None,
+                 transfer_engine=None, pinned: Optional[dict] = None,
+                 policy: Optional[PlacementPolicy] = None,
+                 plan: Optional[PlacementPlan] = None, device="cuda"):
+        from repro_torch.dist.spmd import axis_index, axis_size
+
+        if not host:
+            raise ValueError("empty expert weight store")
+        self.mesh = mesh
+        self.axis = axis
+        self.engine = transfer_engine
+        self.policy = policy if policy is not None else get_policy("static")
+        m = axis_size(mesh, axis)
+        self.num_shards = m
+        self.shard = axis_index(mesh, axis)       # this rank's bank
+        self.num_experts = next(iter(host.values())).shape[0]
+        if self.num_experts % m:
+            raise ValueError(f"E={self.num_experts} does not divide the "
+                             f"{m}-way {axis!r} axis")
+        self.e_local = self.num_experts // m
+        self.plan = plan if plan is not None \
+            else self.policy.initial_plan(self.num_experts, m)
+        if (self.plan.num_experts, self.plan.num_shards) \
+                != (self.num_experts, m):
+            raise ValueError(
+                f"plan is ({self.plan.num_experts} experts, "
+                f"{self.plan.num_shards} shards); cache has "
+                f"({self.num_experts}, {m})")
+        # the replica table's width is fixed by the policy (1 for static,
+        # m for elastic): a bank of width 1 never holds more than its
+        # shard's share, a replicating bank up to E
+        self.table_width = max(1, min(int(self.policy.table_width(m)), m))
+        cap = self.e_local if self.table_width == 1 else self.num_experts
+        self.max_resident = max(1, min(int(max_resident), cap))
+        self.usage = usage
+        self.shard_load = np.zeros(m, np.float64)
+        self.plan_swaps = 0
+        self.migrations = 0        # replica additions from plan swaps
+        self.migration_drops = 0   # residency released by plan swaps
+        self.replications = 0      # experts whose replica count grew
+        host = {n: _host_tensor(w) for n, w in host.items()}
+        self.books = [
+            ExpertCache(host, self.max_resident,
+                        transfer_engine=transfer_engine if s == self.shard
+                        else None, label=f"shard{s}",
+                        pinned=pinned if s == self.shard else None,
+                        policy=self.policy, device=device,
+                        store=s == self.shard)
+            for s in range(m)]
+        self.names = self.books[0].names
+        self._expert_bytes = self.books[0]._expert_bytes
+        self.pinned_bytes = self.books[self.shard].pinned_bytes
+
+    # -------------------------------------------------------------- state
+
+    @property
+    def slots(self) -> dict:
+        """This rank's bank: {name: (R, ...)} on its device."""
+        return self.books[self.shard].slots
+
+    @property
+    def pinned(self) -> dict:
+        return self.books[self.shard].pinned
+
+    @property
+    def total_slots(self) -> int:
+        return self.num_shards * self.max_resident
+
+    def owner(self, expert: int) -> int:
+        """Primary home shard of ``expert`` (the plan's call)."""
+        return self.plan.owner(expert)
+
+    @property
+    def resident(self) -> list[int]:
+        """Global ids holding a slot on ANY shard (a replicated expert is
+        listed once)."""
+        out: dict[int, None] = {}
+        for book in self.books:
+            out.update(dict.fromkeys(book.resident))
+        return list(out)
+
+    def _sum(self, attr: str) -> int:
+        return sum(getattr(b, attr) for b in self.books)
+
+    hits = property(lambda self: self._sum("hits"))
+    misses = property(lambda self: self._sum("misses"))
+    evictions = property(lambda self: self._sum("evictions"))
+    bytes_paged = property(lambda self: self._sum("bytes_paged"))
+    prefetch_truncated = property(
+        lambda self: self._sum("prefetch_truncated"))
+
+    @property
+    def hit_rate(self) -> float:
+        tot = self.hits + self.misses
+        return self.hits / tot if tot else 1.0
+
+    def reset_stats(self) -> None:
+        for b in self.books:
+            b.reset_stats()
+        # placement event counters are cumulative (the plan's history);
+        # only the per-interval load evidence resets
+        self.shard_load[:] = 0.0
+
+    def record_load(self, per_expert_counts) -> None:
+        """Fold one forward's routed-token counts into the per-shard load
+        ledger: an expert's tokens land on its plan shards (replicas split
+        evenly, as the wave dispatch splits them)."""
+        c = np.asarray(per_expert_counts, np.float64).reshape(-1)
+        for e in np.nonzero(c)[0]:
+            shards = self.plan.shards_of(int(e))
+            share = c[e] / len(shards)
+            for s in shards:
+                self.shard_load[s] += share
+
+    def shard_load_imbalance(self) -> float:
+        """max/mean of per-shard routed load (1.0 even, m all on one
+        shard); 0.0 before any load is recorded."""
+        tot = float(self.shard_load.sum())
+        if tot <= 0:
+            return 0.0
+        return float(self.shard_load.max() * self.num_shards / tot)
+
+    def stats(self) -> dict[str, Any]:
+        out = {
+            "hits": self.hits, "misses": self.misses,
+            "evictions": self.evictions, "bytes_paged": self.bytes_paged,
+            "hit_rate": self.hit_rate,
+            "max_resident": self.max_resident,       # per shard
+            "num_shards": self.num_shards,
+            "total_slots": self.total_slots,
+            "resident_fraction": self.total_slots / self.num_experts,
+            "prefetch_truncated": self.prefetch_truncated,
+            "paged_expert_bytes": self._expert_bytes,
+            "pinned_bytes": self.pinned_bytes,       # per device
+            "shard_load": [float(v) for v in self.shard_load],
+            "shard_load_imbalance": self.shard_load_imbalance(),
+            "placement": {
+                "policy": self.policy.name,
+                "generation": self.plan.generation,
+                "plan_swaps": self.plan_swaps,
+                "migrations": self.migrations,
+                "migration_drops": self.migration_drops,
+                "replications": self.replications,
+                "max_replicas": self.plan.max_replicas,
+                "table_width": self.table_width,
+            },
+        }
+        if self.engine is not None:
+            mine = self.books[self.shard]
+            out.update({
+                "async_prefetches": mine.async_prefetches,
+                "inflight_joins": mine.inflight_joins,
+                "async_cancelled": mine.async_cancelled,
+                "inflight": len(mine._inflight),
+                "stall_s": self.engine.stats.stall_s,
+                "overlap_ratio": self.engine.stats.overlap_ratio,
+                "transfer_tags": self.engine.stats.tags_dict(),
+            })
+        return out
+
+    # ------------------------------------------------------------- paging
+
+    def _by_shard(self, expert_ids) -> dict[int, list[int]]:
+        """Fan global ids out to the plan's shards (a replicated expert
+        appears in several shards' lists)."""
+        by: dict[int, list[int]] = {}
+        for e in expert_ids:
+            for s in self.plan.shards_of(int(e)):
+                by.setdefault(s, []).append(int(e))
+        return by
+
+    def ensure(self, expert_ids, record: bool = True) -> None:
+        """Make every (global) id resident on its plan shards; this rank's
+        copies are submitted before any is fenced."""
+        for s, local in self._by_shard(expert_ids).items():
+            self.books[s].ensure(local, record=record)
+
+    def prefetch(self, expert_ids) -> None:
+        """Warm each shard's bank with its share of ``expert_ids``."""
+        for s, local in self._by_shard(expert_ids).items():
+            self.books[s].prefetch(local)
+
+    def prefetch_async(self, expert_ids, tag: str = "prefetch") -> list[int]:
+        """Submit this rank's copies of its share of ``expert_ids`` (the
+        other shards' books record theirs); returns the ids submitted
+        here."""
+        submitted = []
+        for s, ids in self._by_shard(expert_ids).items():
+            got = self.books[s].prefetch_async(ids, tag=tag)
+            if s == self.shard:
+                submitted.extend(got)
+        return submitted
+
+    def fence_all(self) -> None:
+        for b in self.books:
+            b.fence_all()
+
+    # ---------------------------------------------------------- placement
+
+    def set_plan(self, new_plan: PlacementPlan) -> None:
+        """Install a rebalanced plan between forwards: residency on shards
+        the new plan removed is dropped, new homes page in (tagged
+        ``migrate`` with an engine), the generation advances."""
+        if (new_plan.num_experts, new_plan.num_shards) \
+                != (self.num_experts, self.num_shards):
+            raise ValueError("plan shape does not match cache")
+        if new_plan.generation <= self.plan.generation:
+            raise ValueError(
+                f"plan generation must advance: {new_plan.generation} <= "
+                f"{self.plan.generation}")
+        if new_plan.max_replicas > self.table_width:
+            raise ValueError(
+                f"plan replicates {new_plan.max_replicas}-way but the "
+                f"replica table is {self.table_width} wide")
+        old = self.plan
+        added: dict[int, list[int]] = {}
+        for e in range(self.num_experts):
+            before = set(old.shards_of(e))
+            after = set(new_plan.shards_of(e))
+            for s in before - after:
+                if self.books[s].drop(e):
+                    self.migration_drops += 1
+            for s in after - before:
+                added.setdefault(s, []).append(e)
+            if len(after) > len(before):
+                self.replications += 1
+        self.plan = new_plan
+        self.plan_swaps += 1
+        self.migrations += sum(len(v) for v in added.values())
+        if self.engine is not None:
+            for s, ids in added.items():
+                self.books[s].prefetch_async(ids, tag="migrate")
+
+    def remap(self) -> np.ndarray:
+        """(E,) int32: expert id -> GLOBAL slot ``shard·R + slot`` of its
+        primary resident replica, ``-1`` for non-resident."""
+        table, counts = self.replica_table()
+        return np.where(counts > 0, table[:, 0], -1).astype(np.int32)
+
+    def replica_table(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(table, counts)``: ``table`` (E, W) int32, the resident
+        replicas' global slots ``shard·R + slot`` in plan order (primary
+        first), −1 padded; ``counts`` (E,) the resident-replica counts.
+        A wave deals an expert's tokens round-robin over its first
+        ``counts[e]`` columns (``position % counts``)."""
+        books = [b.remap() for b in self.books]
+        table = np.full((self.num_experts, self.table_width), -1, np.int32)
+        counts = np.zeros(self.num_experts, np.int32)
+        for e in range(self.num_experts):
+            k = 0
+            for s in self.plan.shards_of(e):
+                if k >= self.table_width:
+                    break
+                slot = books[s][e]
+                if slot >= 0:
+                    table[e, k] = s * self.max_resident + slot
+                    k += 1
+            counts[e] = k
+        return table, counts
+
+
 class PagedMoE:
     """Serve-time MoE layer with bounded expert residency on one device.
 
@@ -500,6 +797,15 @@ class PagedMoE:
     leaves — tensors, ``QTensor`` or ``FactoredTensor`` objects — may lie
     anywhere (their paged tensors are copied to the pinned host store, a
     factored basis to the device), the rest is moved to ``device``.
+
+    ``mesh`` (a ``DeviceMesh`` with an ``ep_axis``) pages expert-parallel
+    through a :class:`ShardedExpertCache`: waves are planned first-fit
+    against every shard's bank (an expert joins the first wave in which
+    all of its plan shards have a free slot), each rank runs its own
+    bank's slots, and the rows come home by one all-gather over
+    ``ep_axis`` — bit-exact with ``apply_moe`` as on one device.  The
+    tokens are the rank's own (the same on every rank of an ``ep_axis``
+    group).  A mesh of one runs the same path with one shard.
     """
 
     def __init__(self, params, cfg: MoEConfig,
@@ -507,9 +813,14 @@ class PagedMoE:
                  usage: Optional[ExpertUsage] = None,
                  usage_decay: float = 0.9,
                  budget_bytes: Optional[int] = None, mesh=None,
-                 transfer_engine=None, placement=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+                 transfer_engine=None, placement=None, device="cuda",
+                 ep_axis: str = "model"):
+        from repro_torch.dist.spmd import axis_size
+
+        if mesh is not None and ep_axis not in axis_names(mesh):
+            raise ValueError(f"mesh has no {ep_axis!r} axis")
+        self.mesh, self.ep_axis = mesh, ep_axis
+        shards = axis_size(mesh, ep_axis) if mesh is not None else 1
         if cfg.impl not in ("grouped", "onehot"):
             raise NotImplementedError(
                 f"MoE impl {cfg.impl!r}: the port pages the 'grouped' and "
@@ -557,20 +868,29 @@ class PagedMoE:
             self.policy = get_policy(placement)
         if budget_bytes is not None and self.policy.budget_bytes is None:
             self.policy.budget_bytes = int(budget_bytes)
-        # at least top_k slots, so one wave can serve a token's whole
-        # expert set
+        # one device: at least top_k slots, so one wave can serve a
+        # token's whole expert set; per-shard banks need only one (waves
+        # fill disjoint rows, so splitting never hurts)
         max_resident = self.policy.slots(
             per_expert_bytes=_per_expert_bytes(host),
             pinned_bytes=_pinned_bytes(pinned),
-            experts_per_shard=cfg.num_experts,
-            resident_fraction=resident_fraction, floor=cfg.top_k)
+            experts_per_shard=cfg.num_experts // shards,
+            resident_fraction=resident_fraction,
+            floor=cfg.top_k if mesh is None else 1)
         self.usage = usage or ExpertUsage(cfg.num_experts, cfg.num_tasks,
                                           decay=usage_decay)
         self.engine = transfer_engine
-        self.cache = ExpertCache(host, max_resident, usage=self.usage,
-                                 transfer_engine=transfer_engine,
-                                 pinned=pinned, policy=self.policy,
-                                 device=self.device)
+        if mesh is not None:
+            self.cache = ShardedExpertCache(
+                host, max_resident, mesh, axis=ep_axis, usage=self.usage,
+                transfer_engine=transfer_engine, pinned=pinned,
+                policy=self.policy, device=self.device)
+        else:
+            self.cache = ExpertCache(host, max_resident, usage=self.usage,
+                                     transfer_engine=transfer_engine,
+                                     pinned=pinned, policy=self.policy,
+                                     device=self.device)
+        self._forwards = 0   # rebalance cadence counter
         # per-wave record of the most recent forward (wave id, expert
         # count, lookahead submissions, fence stall)
         self.last_timeline: list[dict] = []
@@ -610,13 +930,24 @@ class PagedMoE:
         cfg = self.cfg
         d = x.shape[-1]
         task_id = int(task_id)
-        rt = moe_lib.route_groups(self.router, cfg, x, task_id)
+        from repro_torch.dist import spmd
+
+        split = spmd.current_split()
+        # this rank's rows of a data-split batch: the whole batch's
+        # routing groups, as apply_moe routes them
+        rt = moe_lib.route_groups(self.router, cfg, x, task_id) \
+            if split is None else \
+            moe_lib.route_split(self.router, cfg, x, task_id, *split)
         r = rt.routing
         n, g = rt.groups.shape[:2]
 
         # the one host read of the layer: which experts this batch needs
         counts_np = rt.stat.sum(dim=0).cpu().numpy()
         self.usage.update(counts_np, task_id)
+        sharded = self.mesh is not None
+        if sharded:
+            # where this forward's tokens go, under the current plan
+            self.cache.record_load(counts_np)
         needed = [int(i) for i in np.nonzero(counts_np)[0]]
         # wave order: already-resident experts first, so warm residency
         # (prefetch or the previous batch) turns into demand hits
@@ -625,6 +956,9 @@ class PagedMoE:
 
         rows = torch.zeros((n, g * cfg.top_k, d), dtype=rt.groups.dtype,
                            device=x.device)
+        # sharded: the shard that computes each slot's row, -1 for none
+        owner = torch.full((n, g * cfg.top_k), -1, dtype=torch.long,
+                           device=x.device) if sharded else None
         waves = self._plan_waves(needed)
         eng = self.engine
         timeline: list[dict] = []
@@ -638,7 +972,11 @@ class PagedMoE:
             if not (rep_counts[wave_ids] >= 1).all():
                 raise RuntimeError(f"wave ids {wave_ids} not all resident: "
                                    f"{rep_counts[wave_ids]}")
-            rows = self._wave(rt, table[:, 0], wave_ids, rows)
+            if sharded:
+                rows, owner = self._wave_ep(rt, table, rep_counts,
+                                            wave_ids, rows, owner)
+            else:
+                rows = self._wave(rt, table[:, 0], wave_ids, rows)
             prefetched: list[int] = []
             if eng is not None:
                 if k + 1 < len(waves):
@@ -655,9 +993,12 @@ class PagedMoE:
                 else 0.0,
             })
         self.last_timeline = timeline
+        if sharded:
+            self._maybe_rebalance()
+            rows = self._gather_rows(rows, owner)
         y = R.combine_rows(rows, r).to(x.dtype)
-        aux = R.load_balance_loss(r.probs, r.expert, cfg.num_experts,
-                                  mask=rt.real)
+        aux = rt.aux if rt.aux is not None else R.load_balance_loss(
+            r.probs, r.expert, cfg.num_experts, mask=rt.real)
         y = y.reshape(-1, d)[:rt.t_total].reshape(x.shape)
         if cfg.num_shared_experts:
             y = moe_lib.add_shared_experts(self.shared, x, y)
@@ -696,18 +1037,121 @@ class PagedMoE:
                       rt.capacity - 1)]
         return torch.where(r_w.valid.reshape(n, -1)[..., None], got, rows)
 
-    def _plan_waves(self, needed: list[int]) -> list[list[int]]:
-        """Chunk the needed experts into consecutive waves of at most
-        ``max_resident``."""
+    def _wave_ep(self, rt: moe_lib.RoutedGroups, table: np.ndarray,
+                 rep_counts: np.ndarray, wave_ids: list[int],
+                 rows: torch.Tensor, owner: torch.Tensor):
+        """One expert-parallel wave on this rank: every in-wave slot goes
+        to one resident replica (``position % replicas``, each replica a
+        dense position stream), this rank dispatches the slots that landed
+        in its own bank into (G, R, C, d), runs the staged expert FFN on
+        its bank, and writes those rows; ``owner`` records, for every
+        in-wave slot, the shard that computes it."""
+        r = rt.routing
+        dev = rows.device
         rs = self.cache.max_resident
-        return [needed[i:i + rs] for i in range(0, len(needed), rs)]
+        me = self.cache.shard
+        mask = np.zeros(self.cfg.num_experts, bool)
+        mask[wave_ids] = True
+        staged = torch.from_numpy(np.concatenate(
+            [table.astype(np.int64).reshape(-1), rep_counts.astype(np.int64),
+             mask.astype(np.int64)]))
+        if dev.type == "cuda":
+            staged = staged.pin_memory()
+        staged = staged.to(dev, non_blocking=True)
+        e_num, width = table.shape
+        tab = staged[:e_num * width].reshape(e_num, width)
+        reps_all = staged[e_num * width:e_num * (width + 1)]
+        in_mask = staged[e_num * (width + 1):].bool()
+        expert = r.expert.long()
+        in_wave = in_mask[expert] & r.valid
+        reps = reps_all[expert].clamp_min(1)
+        ridx = torch.remainder(r.position.long(), reps)
+        # dereference the table only where the wave mask holds: a -1
+        # column must never alias slot 0's expert
+        gslot = torch.where(in_wave, tab[expert, ridx], 0)
+        shard = torch.div(gslot, rs, rounding_mode="floor")
+        mine = in_wave & (shard == me)
+        r_w = R.Routing(expert=torch.where(mine, gslot - me * rs,
+                                           0).to(torch.int32),
+                        gate=r.gate, position=torch.div(
+                            r.position.long(), reps,
+                            rounding_mode="floor").to(r.position.dtype),
+                        valid=mine, probs=r.probs)
+        buf = R.dispatch(rt.groups, r_w, rs, rt.capacity)
+        sizes = R.dispatch_counts(r_w, rs)
+        out = moe_lib._expert_ffn(self._slot_params(), self.cfg, buf, sizes)
+        n = rows.shape[0]
+        gi = torch.arange(n, device=dev)[:, None]
+        got = out[gi, r_w.expert.reshape(n, -1).long(),
+                  r_w.position.reshape(n, -1).long().clamp_max(
+                      rt.capacity - 1)]
+        rows = torch.where(mine.reshape(n, -1)[..., None], got, rows)
+        owner = torch.where(in_wave.reshape(n, -1), shard.reshape(n, -1),
+                            owner)
+        return rows, owner
+
+    def _gather_rows(self, rows: torch.Tensor,
+                     owner: torch.Tensor) -> torch.Tensor:
+        """Every slot's row from the shard that computed it: one
+        all-gather of the ranks' row buffers over ``ep_axis``, then a
+        select by ``owner`` (a slot no wave touched keeps rank 0's zero
+        row)."""
+        from repro_torch.dist.spmd import all_gather
+
+        every = all_gather(rows[None], self.mesh, self.ep_axis,
+                           "paged moe rows")
+        idx = owner.clamp_min(0)[None, ..., None].expand(
+            (1,) + tuple(rows.shape))
+        return every.gather(0, idx)[0]
+
+    def _plan_waves(self, needed: list[int]) -> list[list[int]]:
+        """Chunk the needed experts into residency-bounded waves.  One
+        device: consecutive chunks of ``max_resident``.  Expert-parallel:
+        first-fit against every shard's bank — an expert joins the
+        earliest wave in which ALL of its plan shards still have a free
+        slot, so the wave count is the largest per-shard slot pressure."""
+        rs = self.cache.max_resident
+        if self.mesh is None:
+            return [needed[i:i + rs] for i in range(0, len(needed), rs)]
+        plan = self.cache.plan
+        waves: list[list[int]] = []
+        loads: list[np.ndarray] = []
+        for e in needed:   # first-fit keeps the resident-first order
+            shards = plan.shards_of(e)
+            w = 0
+            while True:
+                if w == len(waves):
+                    waves.append([])
+                    loads.append(np.zeros(self.cache.num_shards, np.int64))
+                if all(loads[w][s] < rs for s in shards):
+                    waves[w].append(e)
+                    for s in shards:
+                        loads[w][s] += 1
+                    break
+                w += 1
+        return waves
+
+    def _maybe_rebalance(self) -> None:
+        """Consult the placement policy between forwards (its cadence):
+        an accepted proposal swaps the plan via ``set_plan``."""
+        every = getattr(self.policy, "rebalance_every", 0)
+        self._forwards += 1
+        if not every or self._forwards % every:
+            return
+        new = self.policy.update(self.cache.plan, self.usage,
+                                 self.cache.shard_load,
+                                 slots_per_shard=self.cache.max_resident)
+        if new is not None:
+            self.cache.set_plan(new)
 
     def predict(self, task_id: Optional[int] = None) -> list[int]:
         """Router-lookahead prediction: the next batch's expert working
         set, hottest first, from the per-task usage EMA (the placement
-        policy's ranking)."""
-        return self.policy.prefetch_ranking(self.usage,
-                                            self.cache.max_resident, task_id)
+        policy's ranking); expert-parallel, as many as every bank
+        holds."""
+        budget = self.cache.total_slots if self.mesh is not None \
+            else self.cache.max_resident
+        return self.policy.prefetch_ranking(self.usage, budget, task_id)
 
     def prefetch(self, task_id: Optional[int] = None) -> None:
         """Warm the device slots with the usage-EMA-hot experts for a task

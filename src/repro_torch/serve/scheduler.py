@@ -56,8 +56,18 @@ frontend's prompt (``embed_input="embeddings"``) is (S0, d) embeddings,
 padded with zero rows under the same causal and ``cache_len`` masking; the
 decode step feeds each slot's token back as its row of the engine's
 pseudo-embedding table (one device copy for the backend's lifetime); the
-prefix cache serves token prompts only, as in the reference.  Meshes come
-with a later slice and raise, naming their ``ROADMAP.md`` item.
+prefix cache serves token prompts only, as in the reference.
+
+Mesh serving (``LMBackend(rules=...)``, one process a rank, each running
+the same scheduler on the same requests): the weights are held as the
+static engine holds them (``serve.engine.local_params``), and a bucket's
+decode lanes are batch-sharded over the data axes — each rank holds and
+decodes its own lanes, and one all-gather a step brings every lane's token
+back (the MoE layers count the whole bucket's dispatches, ``core/moe.py``),
+so every rank's host loop takes the same decisions.  A batch-1 admission
+is replicated, as the rule table replicates a batch of one; only the
+lane's own rank splices it.  Parking a lane into another rank's lane is
+left out: with lanes split over ranks, preemption raises.
 """
 
 from __future__ import annotations
@@ -72,10 +82,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import use_rules
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ServeConfig, feedback_inputs,
-                                      is_recurrent, stub_feedback_table,
-                                      serve_overrides, state_batch_axes)
+                                      is_recurrent, local_params,
+                                      serve_overrides, state_batch_axes,
+                                      stub_feedback_table)
 from repro_torch.serve.expert_cache import ExpertUsage
 from repro_torch.serve.slo.preempt import SlotParker
 from repro_torch.serve.slo.prefix import RadixPrefixCache
@@ -151,7 +164,11 @@ class _StateSlots:
     def __init__(self, cfg: ArchConfig, max_len: int):
         self._axes = state_batch_axes(cfg, max_len)
 
-    def splice(self, big, small, slot: int):
+    def splice(self, big, small, slot: Optional[int]):
+        """``slot`` is the lane's index in this rank's rows of ``big``;
+        None: another rank's lane, nothing to write here."""
+        if slot is None:
+            return big
         for b, s, ax in zip(flatten(big).values(), flatten(small).values(),
                             self._axes):
             b.narrow(ax, slot, 1).copy_(s)
@@ -196,13 +213,12 @@ class LMBackend:
         if scfg.temperature > 0.0:
             raise ValueError("the scheduler decodes greedily (argmax in "
                              "the decode step)")
-        if rules is not None:
-            raise NotImplementedError("mesh serving (rules) comes with "
-                                      "ROADMAP.md queue 1 item 6")
         self.cfg = cfg = serve_overrides(cfg, scfg)
         self.scfg = scfg
+        self.rules = rules
         self.device = resolve_device(device)
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.params = local_params(
+            {k: v.to(self.device) for k, v in params.items()}, cfg, rules)
         self.recurrent = is_recurrent(cfg)
         # padded prefill relies on causal / cache_len masking — attention
         # archs only
@@ -227,6 +243,12 @@ class LMBackend:
         return M.init_state(self.cfg, batch, self.scfg.max_len,
                             device=self.device)
 
+    def lanes(self, slots: int) -> slice:
+        """This rank's lanes of a bucket of ``slots`` (all of them without
+        rules, or where the batch axes do not divide ``slots``)."""
+        return spmd.batch_rows(slots, self.rules) if self.rules is not None \
+            else slice(0, slots)
+
     # ----------------------------------------------------------- steps
 
     def admit_step(self, task_id: int):
@@ -238,9 +260,11 @@ class LMBackend:
 
         def admit(params, inputs, big, slot, last_idx):
             small = self.new_state(1)
-            logits, small, _ = M.forward(
-                params, inputs, cfg, state=small, cache_index=0,
-                task_id=task_id, return_state=True, logits_mode=last_idx)
+            with use_rules(self.rules):
+                logits, small, _ = M.forward(
+                    params, inputs, cfg, state=small, cache_index=0,
+                    task_id=task_id, return_state=True,
+                    logits_mode=last_idx)
             tok = torch.argmax(logits[0, 0], dim=-1)
             return tok, self._slots_io.splice(big, small, slot)
 
@@ -259,15 +283,18 @@ class LMBackend:
         cfg = self.cfg
 
         def mid(params, toks, small, idx):
-            M.forward(params, toks, cfg, state=small, cache_index=idx,
-                      task_id=task_id, return_state=True,
-                      logits_mode="last")
+            with use_rules(self.rules):
+                M.forward(params, toks, cfg, state=small, cache_index=idx,
+                          task_id=task_id, return_state=True,
+                          logits_mode="last")
             return small
 
         def finish(params, toks, small, idx, last_rel, big, slot):
-            logits, small, _ = M.forward(
-                params, toks, cfg, state=small, cache_index=idx,
-                task_id=task_id, return_state=True, logits_mode=last_rel)
+            with use_rules(self.rules):
+                logits, small, _ = M.forward(
+                    params, toks, cfg, state=small, cache_index=idx,
+                    task_id=task_id, return_state=True,
+                    logits_mode=last_rel)
             tok = torch.argmax(logits[0, 0], dim=-1)
             return tok, small, self._slots_io.splice(big, small, slot)
 
@@ -282,14 +309,23 @@ class LMBackend:
         want_counts = cfg.moe is not None
 
         def decode(params, toks, state, cache_pos, task_ids):
-            out = M.forward(params, feedback_inputs(cfg, toks,
-                                                    self.fb_table), cfg,
-                            state=state, cache_index=cache_pos, decode=True,
-                            task_id=task_ids, return_state=True,
-                            return_expert_counts=want_counts)
+            # this rank's lanes decode; every lane's token comes back, so
+            # the host loop sees the whole bucket on a mesh
+            n, rows = toks.shape[0], self.lanes(toks.shape[0])
+            with use_rules(self.rules), spmd.batch_split(self.rules, n):
+                out = M.forward(params, feedback_inputs(
+                    cfg, toks[rows], self.fb_table), cfg, state=state,
+                    cache_index=cache_pos[rows], decode=True,
+                    task_id=task_ids[rows], return_state=True,
+                    return_expert_counts=want_counts)
             logits, state = out[0], out[1]
             counts = out[3] if want_counts else None
-            return torch.argmax(logits[:, -1], dim=-1), state, counts
+            tok = torch.argmax(logits[:, -1], dim=-1)
+            if self.rules is not None:
+                # the MoE layers' counts are already the whole bucket's
+                tok = spmd.gather_batch(tok, self.rules, n,
+                                        "scheduler tokens")
+            return tok, state, counts
 
         return decode
 
@@ -322,7 +358,9 @@ class LMTaskBucket:
         self.task_id = task_id
         self.slots = slots
         dev = backend.device
-        self.state = backend.new_state(slots)
+        # this rank's lanes of the bucket (all of them without a mesh)
+        self._lanes = backend.lanes(slots)
+        self.state = backend.new_state(self._lanes.stop - self._lanes.start)
         pin = dev.type == "cuda"
         self._host_in = torch.zeros((3, slots), dtype=torch.int64,
                                     pin_memory=pin)
@@ -346,6 +384,18 @@ class LMTaskBucket:
     @property
     def active(self) -> int:
         return sum(r is not None for r in self.reqs)
+
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s index among this rank's lanes; None for another
+        rank's."""
+        lo, hi = self._lanes.start, self._lanes.stop
+        return slot - lo if lo <= slot < hi else None
+
+    def _check_whole(self) -> None:
+        if self._lanes.stop - self._lanes.start != self.slots:
+            raise NotImplementedError(
+                "parking a lane of a bucket whose lanes are split over "
+                "ranks (mesh serving preempts nothing)")
 
     @property
     def free_slots(self) -> list[int]:
@@ -461,7 +511,7 @@ class LMTaskBucket:
         if b.prefix is None or prompt.ndim != 2:
             tok, self.state = b.admit_step(req.task_id)(
                 b.params, self._tensor(_pad_rows(prompt, padded - s0)),
-                self.state, slot, s0 - 1)
+                self.state, self._local(slot), s0 - 1)
             return self._activate(req, slot, int(self._read(tok)[0]), s0,
                                   now)
         tok = self._admit_staged(req, slot, entry, matched, prompt)
@@ -485,7 +535,7 @@ class LMTaskBucket:
         _, finish = b.staged_steps(req.task_id)
         tok, small, self.state = finish(
             b.params, self._tensor(suffix), small, matched,
-            s0 - matched - 1, self.state, slot)
+            s0 - matched - 1, self.state, self._local(slot))
         req.prefix_hit_tokens = matched
         b.prefix.insert(prompt[0], small, _state_bytes(small))
         return int(self._read(tok)[0])
@@ -511,7 +561,7 @@ class LMTaskBucket:
             tail = _pad_rows(job.prompt[:, job.off:], chunk - remaining)
             tok, small, self.state = finish(
                 b.params, self._tensor(tail), job.small, job.off,
-                remaining - 1, self.state, job.slot)
+                remaining - 1, self.state, self._local(job.slot))
             if b.prefix is not None and job.prompt.ndim == 2:
                 b.prefix.insert(job.prompt[0], small, _state_bytes(small))
             self.jobs.remove(job)
@@ -533,6 +583,7 @@ class LMTaskBucket:
     def park(self, slot: int, parker: SlotParker) -> dict:
         """Evict ``slot``: clone its state out bit-exactly and free the
         lane.  Returns the parked record."""
+        self._check_whole()
         req = self.reqs[slot]
         parked = {"req": req,
                   "state": parker.park(self.state, slot),
@@ -547,6 +598,7 @@ class LMTaskBucket:
     def restore(self, parked: dict, parker: SlotParker) -> int:
         """Copy a parked record back into a free slot and resume decode
         where it left off (same cache position, same feedback token)."""
+        self._check_whole()
         slot = self.free_slots[0]
         self.state = parker.restore(self.state, parked["state"], slot)
         req = parked["req"]
@@ -981,5 +1033,12 @@ class Scheduler:
             out["slot_utilization"] = slot_steps / (steps * cap)
         cache_stats = getattr(self.backend, "cache_stats", None)
         if callable(cache_stats):
-            out["expert_cache"] = cache_stats()
+            cs = cache_stats()
+            out["expert_cache"] = cs
+            # expert-parallel backends report placement evidence (plan
+            # generation, migrations, per-shard load) at the top level
+            if "placement" in cs:
+                out["placement"] = cs["placement"]
+                out["shard_load"] = cs.get("shard_load")
+                out["shard_load_imbalance"] = cs.get("shard_load_imbalance")
         return out

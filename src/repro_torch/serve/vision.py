@@ -11,8 +11,19 @@ incoming task's usage-hot experts.  The parameters may be packed
 (``quant.quantize_tree``: QTensor leaves), and ``factor=(kind, rank,
 delta_bits)`` factorizes each MoE layer's experts into a shared basis and
 per-expert deltas; paged layers then page the packed tensors and pin the
-basis.  Meshes come with a later slice of the port and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+basis.
+
+Mesh serving (one process a rank, each calling ``infer`` with the same
+images): ``rules`` runs the dense blocks data-parallel — the images are
+batch-sharded over the data axes, the trunk's weights replicated (as the
+reference's server leaves them), the predictions all-gathered back — and
+every
+MoE layer pages expert-parallel over the ``model`` axis through a
+``ShardedExpertCache`` (per-shard slot banks: the same per-device budget
+holds ``shards ×`` more resident experts).  ``ep_mesh`` alone is the
+hybrid placement of the M³ViT line of work: the dense trunk stays local
+and only the MoE layers go expert-parallel.  Either way the MoE layers
+page, as the reference's always do, and the stats carry ``shard_load``.
 
 ``VisionBackend`` adapts the server to the ``serve.scheduler.Scheduler``
 bucket protocol: a request's prompt is an image (H, W, 3); a bucket stages
@@ -33,11 +44,14 @@ from repro_torch import resolve_device
 from repro_torch.configs import m3vit as MV
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import use_rules
 from repro_torch.factor import factorize_tree
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import vit as V
 from repro_torch.ops.policy import use_policy
+from repro_torch.serve.engine import shard_batch
 from repro_torch.serve.expert_cache import PagedMoE
 from repro_torch.serve.scheduler import Request
 from repro_torch.serve.slo.tiers import is_preemptible
@@ -88,15 +102,15 @@ class M3ViTServer:
                  device="cuda"):
         if cfg.family != "vit-moe":
             raise ValueError("M3ViTServer serves the vit-moe family")
-        if rules is not None or ep_mesh is not None:
-            raise NotImplementedError(
-                "mesh serving comes with ROADMAP.md queue 1 item 6")
         self.cfg = cfg
+        self.rules = rules
         self.device = resolve_device(device)
         self.mcfg = T.moe_config(cfg)
+        mesh = ep_mesh if ep_mesh is not None else (
+            rules.mesh if rules is not None else None)
         paging = (resident_fraction < 1.0 or expert_budget_bytes is not None
                   or placement is not None or async_paging
-                  or transfer_engine is not None)
+                  or transfer_engine is not None or mesh is not None)
         if transfer_engine is None and async_paging:
             transfer_engine = TransferEngine(device=self.device)
         self.engine = transfer_engine
@@ -106,6 +120,9 @@ class M3ViTServer:
             path = name.split(".")
             return paging and path[-2:-1] == ["moe"] and path[-1] in experts
 
+        # the dense trunk is replicated on every rank, as the reference's
+        # server leaves it (its patch embed and task heads have no entry
+        # in the rule table): the trunk runs data-parallel
         self.params = {k: v if on_host(k) else v.to(self.device)
                        for k, v in params.items()}
         tree = unflatten(self.params)
@@ -135,7 +152,7 @@ class M3ViTServer:
                         resident_fraction=resident_fraction,
                         budget_bytes=expert_budget_bytes,
                         transfer_engine=self.engine, placement=placement,
-                        device=self.device)
+                        device=self.device, mesh=mesh)
             for i, kind in enumerate(self.kinds)
             if paging and kind == "attn_moe"
         }
@@ -165,7 +182,10 @@ class M3ViTServer:
         as NumPy, in host memory of its own (no two calls share it)."""
         task_id = MV.TASKS.index(task) if isinstance(task, str) else int(task)
         x = torch.as_tensor(images, device=self.device)
-        with torch.inference_mode(), use_policy(self.cfg.policy):
+        b = x.shape[0]
+        x = shard_batch(x, self.rules)      # this rank's images
+        with torch.inference_mode(), use_policy(self.cfg.policy), \
+                use_rules(self.rules), spmd.batch_split(self.rules, b):
             x = V.embed_patches(self.tree, x, self.cfg)
             for i, (kind, bp) in enumerate(zip(self.kinds,
                                                self.layer_params)):
@@ -175,6 +195,8 @@ class M3ViTServer:
                     x = self._dense_block(bp, x)
             feats = L.apply_norm(self.tree["final_norm"], x, self.cfg)
             y = V.apply_head(self.tree, feats, MV.TASKS[task_id])
+            if self.rules is not None:
+                y = spmd.gather_batch(y, self.rules, b, "vision predictions")
             # a page-locked buffer from the caching host allocator: the
             # copy runs at the link's rate (a pageable one is staged), and
             # the returned array keeps the buffer alive
@@ -207,6 +229,8 @@ class M3ViTServer:
         async_agg = {"async_prefetches": 0, "inflight_joins": 0,
                      "async_cancelled": 0}
         frac = 1.0
+        shard_load = None
+        placement: dict[str, Any] = {}
         for paged in self.paged.values():
             s = paged.cache.stats()
             for k in agg:
@@ -214,9 +238,33 @@ class M3ViTServer:
             for k in async_agg:
                 async_agg[k] += s.get(k, 0)
             frac = s["resident_fraction"]
+            if "shard_load" in s:       # expert-parallel layers only
+                sl = np.asarray(s["shard_load"], np.float64)
+                shard_load = sl if shard_load is None else shard_load + sl
+                p = s["placement"]
+                placement = {
+                    "policy": p["policy"],
+                    "generation": max(placement.get("generation", 0),
+                                      p["generation"]),
+                    "plan_swaps": placement.get("plan_swaps", 0)
+                    + p["plan_swaps"],
+                    "migrations": placement.get("migrations", 0)
+                    + p["migrations"],
+                    "replications": placement.get("replications", 0)
+                    + p["replications"],
+                    "max_replicas": max(placement.get("max_replicas", 1),
+                                        p["max_replicas"]),
+                }
         tot = agg["hits"] + agg["misses"]
         agg["hit_rate"] = agg["hits"] / tot if tot else 1.0
         agg["resident_fraction"] = frac
+        if shard_load is not None:
+            agg["shard_load"] = [float(v) for v in shard_load]
+            s_tot = float(shard_load.sum())
+            agg["shard_load_imbalance"] = (
+                float(shard_load.max() * shard_load.size / s_tot)
+                if s_tot > 0 else 0.0)
+            agg["placement"] = placement
         if self.engine is not None:
             # one engine serves every layer: its ledger is read once
             agg.update(async_agg)

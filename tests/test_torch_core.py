@@ -219,9 +219,22 @@ def test_apply_moe(rng, case, policies):
 
 
 def test_apply_moe_refuses_unported_impls():
-    """``ep_local`` (the distribution slice) raises; ``onehot`` is ported
+    """An impl the reference does not have raises; ``ep_local`` without a
+    mesh serves as ``grouped``, as the reference's does
+    (``tests/test_moe_ep.py::test_ep_local_no_mesh_falls_back``; the mesh
+    cases are in ``tests/test_torch_dist.py``), and ``onehot`` is ported
     (``tests/test_torch_frontends.py`` holds it to the reference)."""
-    cfg = TMOE.MoEConfig(d_model=8, d_ff=8, num_experts=2, top_k=1,
-                         impl="ep_local")
-    with pytest.raises(NotImplementedError, match="ep_local"):
-        TMOE.apply_moe({}, cfg, torch.zeros((1, 2, 8)))
+    from dataclasses import replace
+
+    cfg = TMOE.MoEConfig(d_model=16, d_ff=32, num_experts=4, top_k=1,
+                         capacity_factor=4.0, impl="ep_local",
+                         expert_kind="gelu")
+    params = TMOE.init_moe(np.random.default_rng(0), cfg,
+                           dtype=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 8, 16), dtype=np.float32))
+    y, aux = TMOE.apply_moe(params, cfg, x)
+    y2, aux2 = TMOE.apply_moe(params, replace(cfg, impl="grouped"), x)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    with pytest.raises(ValueError, match="unknown MoE impl"):
+        TMOE.apply_moe(params, replace(cfg, impl="sparse"), x)

@@ -161,10 +161,18 @@ def test_mesh_flags_name_the_distribution_slice(flag):
         dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k", flag])
 
 
-def test_attn_block_k_names_the_schedules():
-    with pytest.raises(NotImplementedError, match="schedules"):
-        dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k",
-                     "--attn-block-k", "256"])
+def test_attn_block_k_names_the_schedules(tmp_path):
+    """``--attn-block-k`` runs blocked attention at that block through the
+    policy's tiles (``ops/schedules.py``), as the reference's does."""
+    _, _, cfg, _ = dryrun.build_cell("llama3_2_1b", "",
+                                     {"attn_block_k": 256}, smoke=True,
+                                     shape=TINY["prefill"])
+    assert cfg.policy.impl_for("attention") == "blocked"
+    assert cfg.policy.tile_for("attention") == {"block_k": 256}
+    rec = dryrun.run_cell("llama3_2_1b", "", out_dir=str(tmp_path),
+                          verbose=False, variant={"attn_block_k": 256},
+                          smoke=True, shape=TINY["prefill"])
+    assert rec["ok"] and rec["hlo_flops"] > 0
 
 
 def test_list_prints_the_reference_cells(capsys):

@@ -407,13 +407,30 @@ def test_async_prefetch_hides_copies_as_the_reference():
 
 
 def test_paged_refuses_what_later_slices_port():
-    """Meshes (queue 1 item 6) raise; packed leaves (item 3, ported) page
-    as their packed tensors; ``onehot`` (the reference pages it) pages
+    """A mesh (queue 1 item 6a, ported) pages expert-parallel: at a mesh
+    of one, one shard, bit for bit with one device and the resident layer
+    (``tests/test_torch_dist.py`` holds 2 and 4 shards); a mesh with no
+    ``model`` axis is refused.  Packed leaves (item 3, ported) page as
+    their packed tensors; ``onehot`` (the reference pages it) pages
     through the same gather as ``grouped``, bit for bit, and equals the
     resident layer."""
+    from types import SimpleNamespace
+
+    from _torch_mesh import mesh_of_one
+
     _, tcfg, _, _, tp, tx = _moe_setup()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TEC.PagedMoE(tp, tcfg, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no 'model' axis"):
+        TEC.PagedMoE(tp, tcfg, device="cpu", mesh=SimpleNamespace(
+            shape={"data": 1}, axis_names=("data",)))
+    ep = TEC.PagedMoE(tp, tcfg, resident_fraction=0.5, mesh=mesh_of_one(),
+                      device="cpu")
+    assert isinstance(ep.cache, TEC.ShardedExpertCache)
+    for task in (0, 1):
+        y, aux = _paged(ep, tx, task, "eager")
+        ref, aux_ref = _resident(tp, tcfg, tx, task, "eager")
+        assert torch.equal(y, ref) and torch.equal(aux, aux_ref)
+    st = ep.cache.stats()
+    assert st["num_shards"] == 1 and st["shard_load_imbalance"] == 1.0
     from repro_torch.quant import quantize_tree
 
     packed = TEC.PagedMoE(quantize_tree(tp), tcfg, device="cpu")
@@ -490,13 +507,22 @@ def test_server_results_stay_distinct():
 
 
 def test_server_refuses_what_later_slices_port():
-    """Meshes (queue 1 item 6) raise; factored experts (item 3, ported)
-    factor every MoE layer, and an unknown factor kind is refused."""
+    """Meshes (queue 1 item 6a, ported) serve: under rules or an
+    ``ep_mesh`` of one the MoE layers page expert-parallel and the
+    predictions equal the all-resident server's bit for bit, with
+    ``shard_load`` in the stats; factored experts (item 3, ported) factor
+    every MoE layer, and an unknown factor kind is refused."""
+    from _torch_mesh import mesh_of_one, rules_of_one
+
     _, tserver, _ = _servers()
-    for kw, item in ((dict(rules=object()), "item 6"),
-                     (dict(ep_mesh=object()), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            M3ViTServer(tserver.cfg, tserver.params, device="cpu", **kw)
+    imgs = _images()
+    want = tserver.infer(imgs, "semseg")
+    for kw in (dict(rules=rules_of_one(fsdp=False)),
+               dict(ep_mesh=mesh_of_one())):
+        mesh = M3ViTServer(tserver.cfg, tserver.params, device="cpu", **kw)
+        assert mesh.paged
+        np.testing.assert_array_equal(mesh.infer(imgs, "semseg"), want)
+        assert mesh.cache_stats()["shard_load"][0] > 0
     from repro_torch.factor import is_factored
 
     server = M3ViTServer(tserver.cfg, tserver.params, device="cpu",

@@ -3,7 +3,12 @@ kernel modules' plain versions) at ``SMOKE_CONFIG``: the static engine,
 the LM scheduler (greedy tokens equal to the static engine's), SLO tiers
 with a bursty trace and the prefix cache, the M³ViT scheduler, packed
 weights (``--quant``, ``--factor``) with the packed impls as dispatch hits,
-and the flags of later slices raising with their ``ROADMAP.md`` item."""
+and ``--mesh DxM``: a world of one in process, two gloo ranks under
+``torchrun``, and a mesh that is not the world size refused."""
+
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -48,14 +53,21 @@ def test_vision_scheduler(capsys):
 @pytest.mark.parametrize("flag,item", [("--mesh", 6), ("--quant", 3),
                                        ("--factor", 3)])
 def test_later_flags_raise(flag, item, capsys):
-    """``--mesh`` (queue 1 item 6) raises naming its item; ``--quant`` and
-    ``--factor`` (item 3, ported) serve, their packed impls dispatch
-    hits beside the kernels' plain versions."""
+    """``--mesh`` (queue 1 item 6a, ported) serves at a mesh of one, with
+    the collectives in the report, and refuses a mesh that is not the
+    world size, naming both; ``--quant`` and ``--factor`` (item 3, ported)
+    serve, their packed impls dispatch hits beside the kernels' plain
+    versions."""
     if item != 3:
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1 item {item}"):
+        with pytest.raises(ValueError, match="holds 2 ranks but the world "
+                                             "size is 1"):
             serve.main(["--arch", "llama3_2_1b", "--smoke", "--device",
-                        "cpu", flag, "x"])
+                        "cpu", flag, "1x2"])
+        out = _run(capsys, "--arch", "llama3_2_1b", "--tokens", "4",
+                   flag, "1x1", "--dispatch-report")
+        assert "[serve] mesh 1x1 (data x model) over 1 rank(s), gloo" in out
+        assert "generated (4, 4) on cpu" in out
+        assert '"where": "engine tokens"' in out
         return
     from repro_torch import ops
 
@@ -88,3 +100,22 @@ def test_defaults_to_the_card():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "llama3_2_1b", "--smoke"])
+
+
+def test_mesh_serves_under_torchrun(tmp_path):
+    """Two gloo ranks under ``torchrun --standalone``: M³ViT's experts page
+    expert-parallel over a 1x2 mesh; rank 0 reports the shard load."""
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--arch", "m3vit", "--smoke", "--device", "cpu", "--scheduler",
+         "--requests", "4", "--batch", "2", "--mesh", "1x2"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.count("[serve] mesh 1x2 (data x model) over 2 rank(s), "
+                          "gloo") == 1
+    assert "[serve] shard load [" in r.stdout
+    assert "scheduler served 4 semseg/depth requests on cpu" in r.stdout

@@ -264,13 +264,16 @@ def test_eos_and_temperature_sampling():
 
 @pytest.mark.parametrize("over", [
     dict(scfg=dict(kv_quant="int8")), dict(scfg=dict(async_paging=True)),
-    dict(scfg=dict(prefix_cache=4)), dict(rules=object()),
+    dict(scfg=dict(prefix_cache=4)), dict(rules="of_one"),
     dict(cfg=dict(block_pattern=("rglru_mlp",))),
     dict(cfg=dict(embed_input="embeddings"))],
     ids=["kv_int8", "async_paging", "prefix_cache", "mesh", "recurrent",
          "embeddings"])
 def test_later_slices_raise(over):
-    """A mesh (a later slice) raises; ``prefix_cache``, the scheduler's,
+    """A mesh (queue 1 item 6a, ported) serves: at a mesh of one greedy
+    and temperature tokens equal the unmeshed engine's
+    (``tests/test_torch_dist.py`` holds 1×2, 2×2, 1×4); ``prefix_cache``,
+    the scheduler's,
     and ``async_paging``, the vision backend's, are ignored by the static
     engine (as the reference's ignores them): same tokens as without
     them.  An embedding-input frontend serves (B, S, d) prompts and feeds
@@ -334,9 +337,15 @@ def test_later_slices_raise(over):
                 cfg, tparams, ServeConfig(max_len=MAX_LEN),
                 device="cpu").generate(PROMPT, 4))
         return
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        ServingEngine(cfg, tparams, ServeConfig(**over.get("scfg", {})),
-                      rules=over.get("rules"), device="cpu")
+    from _torch_mesh import rules_of_one
+
+    for scfg in (ServeConfig(max_len=MAX_LEN),
+                 ServeConfig(max_len=MAX_LEN, temperature=1.0, seed=5)):
+        np.testing.assert_array_equal(
+            ServingEngine(cfg, tparams, scfg, rules=rules_of_one(fsdp=False),
+                          device="cpu").generate(PROMPT, 6),
+            ServingEngine(cfg, tparams, scfg, device="cpu").generate(PROMPT,
+                                                                     6))
 
 
 def test_config_fields_and_lookup():

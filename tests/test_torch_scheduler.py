@@ -279,12 +279,14 @@ def test_task_skew_80_20_bounded_ttft_gap():
 @pytest.mark.parametrize("over", [
     dict(cfg=dict(block_pattern=("mlstm",))),
     dict(cfg=dict(embed_input="embeddings")),
-    dict(scfg=dict(kv_quant="int8")), dict(rules=object()),
+    dict(scfg=dict(kv_quant="int8")), dict(rules="of_one"),
     dict(scfg=dict(temperature=1.0))],
     ids=["recurrent", "embeddings", "kv_int8", "mesh", "temperature"])
 def test_later_items_raise(over):
-    """Meshes (queue 1 item 6) raise naming their item; the scheduler
-    decodes greedily.  Embedding prompts (item 5b, ported;
+    """A mesh (queue 1 item 6a, ported) serves: at a mesh of one every
+    request gets the unmeshed scheduler's tokens and schedule
+    (``tests/test_torch_dist.py`` holds 2×2); the scheduler decodes
+    greedily.  Embedding prompts (item 5b, ported;
     ``test_torch_frontends.py`` holds them to the reference) are served
     padded, without the prefix cache, each request with the static
     engine's tokens.  An int8 KV cache
@@ -345,8 +347,18 @@ def test_later_items_raise(over):
         with pytest.raises(ValueError, match="greedily"):
             LMBackend(cfg, tparams, scfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        LMBackend(cfg, tparams, scfg, rules=over.get("rules"), device="cpu")
+    from _torch_mesh import rules_of_one
+
+    prompts = _prompts(tcfg.vocab_size, 3, 8, 5)
+    runs = []
+    for rules in (None, rules_of_one(fsdp=False)):
+        sched = Scheduler(LMBackend(cfg, tparams, scfg, rules=rules,
+                                    device="cpu"),
+                          total_slots=2, quantum=2, num_tasks=1)
+        done = sched.run([Request(rid=i, task_id=0, prompt=prompts[i],
+                                  max_new_tokens=4 + i) for i in range(3)])
+        runs.append(sorted((r.rid, r.tokens) for r in done))
+    assert runs[0] == runs[1]
 
 
 def test_plain_cuda_decode_refuses_mixed_positions_on_the_card(monkeypatch):

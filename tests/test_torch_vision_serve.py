@@ -162,11 +162,16 @@ def test_vision_slo_bump_is_result_identical():
 
 
 def test_backend_refuses_what_later_slices_port():
-    """Meshes (queue 1 item 6) raise; ``factor`` (item 3, ported) reaches
-    the server, whose paged layers pin each layer's basis."""
+    """Meshes (queue 1 item 6a, ported) reach the server, whose MoE layers
+    page expert-parallel; ``factor`` (item 3, ported) reaches the server,
+    whose paged layers pin each layer's basis."""
+    from _torch_mesh import rules_of_one
+
     _, tcfg, _, tparams = _model()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        VisionBackend(tcfg, tparams, device="cpu", rules=object())
+    mesh = VisionBackend(tcfg, tparams, device="cpu",
+                         rules=rules_of_one(fsdp=False))
+    assert mesh.server.paged and all(
+        p.cache.num_shards == 1 for p in mesh.server.paged.values())
     backend = VisionBackend(tcfg, tparams, device="cpu",
                             factor=("rank", 4, 8))
     assert backend.server.paged and all(
