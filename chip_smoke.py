@@ -7,13 +7,16 @@ RecurrentGemma-9B) serving; the remaining configurations (MusicGen-Large,
 Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, Llama-4-Scout,
 M³ViT-many) serving; then training M³ViT and Llama-3.2-1B through the
 kernels; then mesh serving (sharding rules, expert parallelism, the
-sharded expert cache, the tile table's overrides).
+sharded expert cache, the tile table's overrides) and training over a
+mesh.
 
     python3 chip_smoke.py
 
 Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6,
-9, 10 (phase 5 checks and times the launches of 3, 4 and 7, and of phase
-8's Qwen2-VL-72B and Llama-4-Scout units while each model lives):
+9, 10 (a), 11 (a), 10 (b) with 11 (b) (phase 5 checks and times the
+launches of 3, 4 and 7, and of phase 8's Qwen2-VL-72B and Llama-4-Scout
+units while each model lives; phases 10 and 11 share one NCCL world of
+one and then one pair of processes):
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every ``src/repro_torch/csrc/*.cu`` kernel
@@ -315,13 +318,38 @@ Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6,
    128-token groups and one group over the whole batch) bit for bit
    against the layer on the whole batch; each counted and checked for
    fallbacks as in (a).
+11. Training over a mesh (``make_train_step(rules=)``: each rank's
+   blocks of the parameters and AdamW state, its rows of the batch, the
+   weights gathered whole, the gradients reduced to the blocks once a
+   step).  (a) Phase 10's world of one, rules ``for_mesh((1, 1))`` with
+   ``fsdp=True``, bit for bit against no rules in every loss, parameter
+   and AdamW leaf: M³ViT at the full CONFIG, batch 8, 3 steps (its
+   expert layer staged: ``cuda`` names no ``moe_ffn`` impl) and
+   Llama-3.2-1B at full width and depth, 4 × 128 tokens, 2 steps, each
+   counted as in phase 10; then ``compressed_psum`` of Llama's gradients
+   equal to their dequantized payload and its carry to ``gf - deq``.  (b)
+   On phase 10 (b)'s two ranks after its work (any fault fails the run),
+   AdamW with eps 1 (a step proportional to the gradient): M³ViT at 2×1
+   (batch 8 split 4 + 4) and Llama-3.2-1B at full width and 4 of its 16
+   layers, 2 steps each against one process on the whole batch — loss
+   and grad norm within ``compare.TRAIN_LOSS_RTOL``, the parameters
+   within one step of ``compare.py``'s tolerance a step, the ranks'
+   re-gathered parameters bit-equal; M³ViT at 1×2 under ``ep_local``
+   (8 of 16 experts a rank), each expert's gradient against
+   single-device ``grouped`` (cosine); ``compressed_psum`` over the
+   ranks bit for bit; ``launch/train.py --mesh local`` for 3 steps with a
+   checkpoint, which the parent restores without a mesh and trains on,
+   against the same runs with no mesh.  The four kernels of the training
+   path must launch (``mesh_train_launches`` in the JSON line).
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
-those runs, training's and phase 10 (a)'s mesh runs included (also
-given apart as ``training_launches``, with ``training_ms``: the kernel's
-forward and backward device ms a training step by model, and
-``mesh_launches``).  The variant counters (the GEMMs', ``flash_attention``'s,
+those runs, training's, phase 10 (a)'s and phase 11's mesh runs
+included (also given apart as ``training_launches``, with
+``training_ms``: the kernel's
+forward and backward device ms a training step by model,
+``mesh_launches`` and ``mesh_train_launches``).  The variant counters
+(the GEMMs', ``flash_attention``'s,
 ``moe_fused``'s) are read with them: no main path may take the SIMT
 route (but for xLSTM's sLSTM projections, whose 2730-byte rows no TMA
 map can address: exactly their number, named with the reason), and the
@@ -343,6 +371,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2333,7 +2362,7 @@ def train_lm() -> dict:
 
     args = LT.parser().parse_args(LM_TRAIN)
     t0 = time.perf_counter()
-    cfg, params, opt0, step_k, stream, dev = LT.build(args)
+    cfg, params, opt0, step_k, stream, dev, _ = LT.build(args)
     torch.cuda.synchronize()
     cfg_d = replace(cfg, policy=None)
     steps = {"cuda": step_k, "default": LT.train_step_for(cfg_d, args)}
@@ -4166,7 +4195,9 @@ def _mesh_tiles() -> None:
 
 
 def _two_ranks(rank: int, store: str, out: str) -> None:
-    """One of phase 10 (b)'s two ranks on the one card.  First the probe:
+    """One of phase 10 (b)'s and phase 11 (b)'s two ranks on the one
+    card (phase 11's work after phase 10's: ``_two_ranks_train``).  First
+    the probe:
     gloo starts and all-reduces a CUDA tensor (its failure, and only its,
     leaves (b) out).  Then, counted and checked for fallbacks:
     ``apply_moe_ep_local`` at M³ViT's width with 8 of its 16 experts a
@@ -4243,6 +4274,10 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
                     all(torch.equal(a, b) for a, b in (
                         (part[0], whole[0][rows]), (part[1], whole[1]),
                         (part[2], whole[2])))
+        del layer, h, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["train"] = _two_ranks_train(rank, str(MESH_TRAIN_DIR))
         dist.barrier()
         dist.destroy_process_group()
     except Exception:               # a fault: the parent raises with it
@@ -4250,17 +4285,20 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
     Path(out).write_text(json.dumps(result))
 
 
-def two_ranks_one_card() -> None:
-    """Phase 10 (b): two processes on the one card over gloo (NCCL refuses
-    two ranks on one device).  Only a failed probe (gloo cannot start or
-    cannot all-reduce a CUDA tensor) leaves (b) out; a fault after it, a
-    rank that hangs or dies, or a missing result fails the run."""
+def two_ranks_one_card() -> dict:
+    """Phases 10 (b) and 11 (b): two processes on the one card over gloo
+    (NCCL refuses two ranks on one device).  Only a failed probe (gloo
+    cannot start or cannot all-reduce a CUDA tensor) leaves (b) out; a
+    fault after it, a rank that hangs or dies, or a missing result fails
+    the run.  Returns phase 11 (b)'s launches, both ranks summed."""
     import shutil
 
     import torch.multiprocessing as mp
 
     shutil.rmtree(MESH_STORE, ignore_errors=True)
     MESH_STORE.mkdir(parents=True)
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    MESH_TRAIN_DIR.mkdir(parents=True)
     outs = [MESH_STORE / f"rank{r}.json" for r in range(2)]
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_two_ranks,
@@ -4270,7 +4308,7 @@ def two_ranks_one_card() -> None:
         p.start()
     hung = []
     for r, p in enumerate(procs):
-        p.join(timeout=300)
+        p.join(timeout=600)
         if p.is_alive():
             hung.append(r)
             p.kill()
@@ -4285,7 +4323,7 @@ def two_ranks_one_card() -> None:
     if probe:
         print(f"  (b) two ranks on the one card over gloo: left out — the "
               f"probe failed: {probe[0]}")
-        return
+        return {}
     for r in results:
         if "error" in r:
             raise AssertionError(f"(b) rank {r['rank']}: {r['error']}")
@@ -4301,12 +4339,17 @@ def two_ranks_one_card() -> None:
         if not r["within"] or not r["launches"].get("moe_gemm") \
                 or not all(r["split"].values()):
             raise AssertionError(f"(b) rank {r['rank']}: {r}")
+    print("phase 11 (b): training over two ranks on the one card")
+    launches = mesh_train_two(results)
+    shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
+    return launches
 
 
 def mesh_path() -> dict:
-    """Phase 10: mesh serving on the card.  (a) A world of one (NCCL, a
+    """Phase 10 (a): mesh serving on the card at a world of one (NCCL, a
     (1, 1) ``DeviceMesh``), each check bit for bit against the same run
-    with no mesh; (b) two ranks on the one card over gloo.  Returns the
+    with no mesh (the group is started here where none runs; phase 10
+    (b), two ranks over gloo, is ``two_ranks_one_card``).  Returns the
     counted launches of (a)'s mesh runs."""
     import time
 
@@ -4343,10 +4386,403 @@ def mesh_path() -> dict:
     if not all(total.get(k, 0) > 0 for k in mesh_kernels):
         raise AssertionError(f"a kernel of the mesh paths never launched: "
                              f"{total}")
-    two_ranks_one_card()
-    print(f"  phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    print(f"  phase 10 (a) wall time {time.perf_counter() - t_phase:.1f} s")
     return total
 
+
+def mesh_phases() -> tuple[dict, dict]:
+    """Phases 10 and 11 on the card: one NCCL world of one for 10 (a) and
+    11 (a), then two ranks for 10 (b) and 11 (b).  Returns phase 10 (a)'s
+    launches and phase 11's (both parts, the ranks' summed)."""
+    import time
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)        # the mesh's device, before NCCL starts
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(),
+                                world_size=1, rank=0)
+    trained: dict = {}
+    try:
+        print("phase 10: mesh serving — a world of one, two ranks on the "
+              "card")
+        meshed = mesh_path()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        print("phase 11: training over a mesh — (a) a world of one (phase "
+              "10's NCCL group)")
+        mesh_train_one(trained)
+        print(f"  phase 11 (a) wall time {time.perf_counter() - t0:.1f} s")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for n, c in two_ranks_one_card().items():
+        trained[n] = trained.get(n, 0) + c
+    print(f"  phases 10 (b) and 11 (b) wall time "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"  phase 11 launches (a) + (b): {json.dumps(trained)}")
+    if not all(trained.get(k, 0) > 0 for k in CUDA_PATH_KERNELS):
+        raise AssertionError(f"a kernel of mesh training never launched: "
+                             f"{trained}")
+    return meshed, trained
+
+
+# ------------------------------------------------------------ phase 11
+
+#: phase 11's AdamW for the runs held to a tolerance: eps = 1 makes a
+#: step proportional to the gradient, so the mesh's other bf16 sums move
+#: a parameter by a fraction of its ulp — at eps 1e-8 Adam's first step
+#: is the gradient's sign, and a near-zero element whose sign two sum
+#: orders disagree on moves by 2·lr
+MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1.0,
+                weight_decay=0.0)
+MESH_LM_LAYERS = 4          # (b)'s Llama: two full-depth ranks do not fit
+MESH_TRAIN_DIR = ROOT / "build" / "mesh_train"
+#: the launcher's run on each of (b)'s ranks, and the parent's after it
+MESH_LAUNCH = ["--arch", "llama3_2_1b", "--smoke", "--policy", "cuda",
+               "--batch", "8", "--seq-len", "64", "--warmup", "1",
+               "--lr", "1e-3"]
+
+
+def _staged(policy):
+    """``policy`` with M³ViT's expert layer staged by name: ``cuda`` names
+    no ``moe_ffn`` impl (the fused one refuses gradients), and the staged
+    layer's grouped GEMMs are the ``moe_gemm`` kernel."""
+    return policy.with_impls(moe_ffn="eager")
+
+
+def _host_tree(tree) -> dict:
+    from repro_torch.tree import flatten
+
+    return {k: v.detach().cpu() for k, v in flatten(tree).items()}
+
+
+def _world_of_one_train(label, cfg, tcfg, params, batches, total,
+                        loss_fn=None):
+    """``make_train_step`` with no rules, then under ``for_mesh((1, 1))``
+    rules (fsdp=True) at the world of one, each counted: every loss, the
+    parameters and the AdamW state bit for bit.  Returns the meshed step,
+    its last parameters and the rules."""
+    from repro_torch.data import device_transform, shard_for
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.spmd import init_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import flatten
+
+    rules = ShardingRules.for_mesh(init_mesh((1, 1)))
+    put = device_transform("cuda")
+
+    def run(step, p, o, place):
+        losses = []
+        for b in batches:
+            p, o, m = step(p, o, place(b))
+            losses.append(m["loss"])
+        return p, o, torch.stack(losses)
+
+    opt0 = adamw_init(params, tcfg.opt)
+    p, o, want = _mesh_run(f"{label} no rules", lambda: run(
+        make_train_step(cfg, tcfg, loss_fn=loss_fn), params, opt0, put), {})
+    want_state = _host_tree({"p": p, "o": o})
+    del p, o
+    step = make_train_step(cfg, tcfg, rules=rules, loss_fn=loss_fn)
+    lay = step.layout
+    blocks = lay.shard_params(params), lay.shard_opt_state(opt0)
+    del opt0
+    p, o, got = _mesh_run(f"{label} make_train_step(rules=) at (1, 1)",
+                          lambda: run(step, *blocks,
+                                      lambda b: shard_for(b, rules,
+                                                          "cuda")), total)
+    del blocks
+    got_state = flatten({"p": p, "o": o})
+    differ = [k for k, v in want_state.items()
+              if not torch.equal(got_state[k], v.cuda())]
+    same = torch.equal(got.cpu(), want.cpu()) and not differ
+    print(f"  (a) {label}: losses {[round(float(x), 6) for x in got]}; "
+          f"every loss, parameter and AdamW leaf ({len(want_state)}) "
+          f"bit-equal to no rules: {same}")
+    if not same:
+        raise AssertionError(f"(a) {label}: differs from no rules: losses "
+                             f"{got.tolist()} against {want.tolist()}, "
+                             f"leaves {differ[:8]}")
+    return step, p, rules
+
+
+def mesh_train_one(total) -> None:
+    """Phase 11 (a): training under rules at the world of one (phase 10's
+    NCCL group), bit for bit against no rules: M³ViT at the full CONFIG,
+    batch 8, 3 steps; Llama-3.2-1B at full width and depth, 4 × 128
+    tokens, 2 steps; then ``compressed_psum`` of Llama's gradients."""
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.data import DataConfig, make_stream, shard_for
+    from repro_torch.dist import compress as C
+    from repro_torch.models import model as LM
+    from repro_torch.models import vit
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig
+
+    cuda = ops.policy_named("cuda")
+    cfg = replace(MV.CONFIG, policy=_staged(cuda))
+    stream = make_stream(DataConfig(batch=BATCH, seq_len=0, kind="m3vit",
+                                    seed=0))
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-3, warmup_steps=2,
+                                     total_steps=40, weight_decay=0.0))
+    _world_of_one_train(f"M3ViT batch {BATCH}, 3 steps", cfg, tcfg,
+                        vit.init_params(0, MV.CONFIG),
+                        [stream.batch(i) for i in range(3)], total,
+                        loss_fn=_m3vit_loss(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = replace(LL.CONFIG, policy=cuda)
+    stream = make_stream(DataConfig(batch=4, seq_len=128,
+                                    vocab_size=cfg.vocab_size, seed=0))
+    batches = [stream.batch(i) for i in range(2)]
+    step, params, rules = _world_of_one_train(
+        "Llama-3.2-1B 4 x 128, 2 steps", cfg, TrainConfig(),
+        LM.init_params(0, cfg, draw_on_device=True), batches, total)
+    _, grads = step.grads(params, shard_for(batches[0], rules, "cuda"))
+    out, err = C.compressed_psum(grads, C.init_error_state(grads),
+                                 rules.mesh)
+    same = True
+    for k, g in grads.items():
+        gf = g.float()
+        gf = torch.where(torch.isfinite(gf), gf, 0.0)
+        deq = C.dequantize_int8(*C.quantize_int8(gf), gf.shape)
+        same &= torch.equal(out[k], deq.to(g.dtype)) and torch.equal(
+            err[k], gf - deq)
+    print(f"  (a) compressed_psum of Llama-3.2-1B's {len(grads)} gradient "
+          f"leaves at the world of one: the output equals the dequantized "
+          f"payload and the carry gf - deq, bit for bit: {same}")
+    if not same:
+        raise AssertionError("(a) compressed_psum at the world of one")
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _two_ranks_train(rank: int, workdir: str) -> dict:
+    """Phase 11 (b) on one of the two ranks (gloo over CUDA tensors),
+    after phase 10 (b)'s work: M³ViT at 2×1 (fsdp, batch 8 split 4 + 4, 2
+    steps) against one process on the whole batch; M³ViT at 1×2 under
+    ``ep_local`` (8 of 16 experts a rank), every expert's gradient against
+    single-device ``grouped``; Llama-3.2-1B at full width and
+    ``MESH_LM_LAYERS`` layers at 2×1, 2 steps, against one process;
+    ``compressed_psum`` over the ranks; the launcher's ``--mesh local``
+    for 3 steps with a checkpoint.  Returns what the parent prints."""
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.data import (DataConfig, device_transform, make_stream,
+                                  shard_for)
+    from repro_torch.dist import compress as C
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules, local_slice
+    from repro_torch.kernels import compare
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as LM
+    from repro_torch.models import vit
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+
+    res: dict = {}
+    total: dict = {}
+    cuda = ops.policy_named("cuda")
+    put = device_transform("cuda")
+    tcfg = TrainConfig(opt=OptConfig(**MESH_OPT))
+    mesh21 = spmd.init_mesh((2, 1))
+    rules21 = ShardingRules.for_mesh(mesh21)
+
+    def against_one(label, cfg, params, batches, loss_fn=None):
+        single = make_train_step(cfg, tcfg, loss_fn=loss_fn)
+        meshed = make_train_step(cfg, tcfg, rules=rules21, loss_fn=loss_fn)
+        lay = meshed.layout
+        opt = adamw_init(params, tcfg.opt)
+        p, o = params, opt
+        pm, om = lay.shard_params(params), lay.shard_opt_state(opt)
+        del opt
+        worst = {"loss": 0.0, "grad_norm": 0.0}
+        for i, b in enumerate(batches):
+            p, o, m1 = single(p, o, put(b))
+            pm, om, m2 = _mesh_run(
+                f"(b) rank {rank} {label} step {i} over 2x1",
+                lambda: meshed(pm, om, shard_for(b, rules21, "cuda")),
+                total)
+            for k in worst:
+                worst[k] = max(worst[k], _rel(m2[k], m1[k]))
+        with torch.no_grad():
+            whole = {k: spmd.gather_param(v, lay.params[k], mesh21)
+                     for k, v in pm.items()}
+        # one step of the bf16 tolerance for each step taken
+        steps = len(batches)
+        within = all(bool(((whole[k].float() - p[k].float()).abs()
+                           <= steps * compare.kernel_tolerance(
+                               whole[k], p[k], p[k].dtype)).all())
+                     for k in p)
+        worst_err = max(compare.max_abs_err(whole[k], p[k]) for k in p)
+        # the ranks' re-gathered parameters, bit for bit each other's
+        same = True
+        for k, v in whole.items():
+            both = spmd.all_gather(v[None], mesh21, "data",
+                                   "phase 11 ranks' parameters")
+            same &= torch.equal(both[0], both[1])
+        ok = (worst["loss"] <= compare.TRAIN_LOSS_RTOL
+              and worst["grad_norm"] <= compare.TRAIN_LOSS_RTOL
+              and within and same)
+        res[label] = {"loss_rel": worst["loss"],
+                      "grad_norm_rel": worst["grad_norm"],
+                      "params_within": within, "max_abs_err": worst_err,
+                      "ranks_equal": same, "ok": ok}
+
+    # M³ViT at 2×1
+    mcfg = replace(MV.CONFIG, policy=_staged(cuda))
+    mstream = make_stream(DataConfig(batch=BATCH, seq_len=0, kind="m3vit",
+                                     seed=0))
+    mparams = vit.init_params(0, MV.CONFIG)
+    against_one("M3ViT", mcfg, mparams, [mstream.batch(i) for i in range(2)],
+                loss_fn=_m3vit_loss(mcfg))
+
+    # M³ViT at 1×2 under ep_local: every expert's gradient
+    mesh12 = spmd.init_mesh((1, 2))
+    rules12 = ShardingRules.for_mesh(mesh12)
+    ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
+    b = mstream.batch(0)
+    _, want = make_train_step(mcfg, tcfg, loss_fn=_m3vit_loss(mcfg)).grads(
+        mparams, put(b))
+    ep = make_train_step(ecfg, tcfg, rules=rules12,
+                         loss_fn=_m3vit_loss(ecfg))
+    _, got = _mesh_run(
+        f"(b) rank {rank} M3ViT ep_local gradients over 1x2",
+        lambda: ep.grads(ep.layout.shard_params(mparams),
+                         shard_for(b, rules12, "cuda")), total)
+    cos, names = [], sorted(ep.layout.keep)
+    for k in names:
+        mine = want[k][local_slice(tuple(want[k].shape), ep.layout.params[k],
+                                   mesh12)]
+        for e in range(mine.shape[1]):
+            if float(mine[:, e].float().norm()) > 0:
+                cos.append(compare.cosine(got[k][:, e], mine[:, e]))
+    whole_cos = compare.cosine(torch.cat([got[k].flatten() for k in names]),
+                               torch.cat([want[k][local_slice(
+                                   tuple(want[k].shape), ep.layout.params[k],
+                                   mesh12)].flatten() for k in names]))
+    res["ep_local"] = {"leaves": len(names), "experts": len(cos),
+                       "worst_cosine": min(cos), "cosine": whole_cos,
+                       "ok": min(cos) >= compare.GRAD_COSINE_LEAF
+                       and whole_cos >= compare.GRAD_COSINE_ALL}
+    del mparams, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Llama-3.2-1B at full width, MESH_LM_LAYERS layers, 2×1
+    lcfg = replace(LL.CONFIG, num_layers=MESH_LM_LAYERS, policy=cuda)
+    lstream = make_stream(DataConfig(batch=4, seq_len=128,
+                                     vocab_size=lcfg.vocab_size, seed=0))
+    against_one(f"Llama-3.2-1B {MESH_LM_LAYERS} layers", lcfg,
+                LM.init_params(0, lcfg, draw_on_device=True),
+                [lstream.batch(i) for i in range(2)])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # compressed_psum over the two ranks: each rank knows both payloads
+    rows = [randn((2048, 2048), torch.float32, seed=r) for r in range(2)]
+    deqs = [C.dequantize_int8(*C.quantize_int8(r), r.shape) for r in rows]
+    out, err = C.compressed_psum({"w": rows[rank]},
+                                 C.init_error_state({"w": rows[rank]}),
+                                 mesh21)
+    res["compressed_psum"] = {"ok": torch.equal(out["w"], deqs[0] + deqs[1])
+                              and torch.equal(err["w"],
+                                              rows[rank] - deqs[rank])}
+
+    # the launcher over a ("data",) mesh of the two ranks
+    ckpt = os.path.join(workdir, "launch")
+    loop = _mesh_run(
+        f"(b) rank {rank} launch.train --mesh local, 3 steps",
+        lambda: LT.run(MESH_LAUNCH + ["--mesh", "local", "--steps", "3",
+                                      "--ckpt-dir", ckpt,
+                                      "--ckpt-every", "3"]), total)
+    res["launch"] = {"history": loop.state.history,
+                     "mesh": list(loop.layout.mesh.shape),
+                     "ok": loop.state.step == 3
+                     and loop.state.nan_skip_count == 0}
+    res["launches"] = total
+    dist.barrier()
+    return res
+
+
+def mesh_train_two(results) -> dict:
+    """Phase 11 (b)'s results from both ranks, checked and printed; then
+    the parent restores the launcher's mesh checkpoint without a mesh
+    and trains on, against a run with no mesh from the start.  Returns
+    the ranks' launches, summed."""
+    from repro_torch.kernels import compare
+    from repro_torch.launch import train as LT
+
+    launches: dict = {}
+    for r in results:
+        t = r["train"]
+        for label in ("M3ViT", f"Llama-3.2-1B {MESH_LM_LAYERS} layers"):
+            v = t[label]
+            print(f"  (b) rank {r['rank']} {label} at 2x1 (fsdp, the batch "
+                  f"split in two), 2 steps against one process: loss "
+                  f"relative {v['loss_rel']:.3e}, grad norm relative "
+                  f"{v['grad_norm_rel']:.3e} (<= {compare.TRAIN_LOSS_RTOL}); "
+                  f"updated parameters within 2 steps of compare.py's "
+                  f"tolerance: {v['params_within']} (max abs err "
+                  f"{v['max_abs_err']:.3e}); the ranks' re-gathered "
+                  f"parameters bit-equal: {v['ranks_equal']}")
+        v = t["ep_local"]
+        print(f"  (b) rank {r['rank']} M3ViT ep_local at 1x2, 8 of 16 "
+              f"experts a rank: {v['experts']} expert gradients over "
+              f"{v['leaves']} stacks against single-device grouped, worst "
+              f"cosine {v['worst_cosine']:.6f}, all together "
+              f"{v['cosine']:.6f}")
+        print(f"  (b) rank {r['rank']} compressed_psum over the two ranks: "
+              f"the sum of both dequantized payloads and this rank's carry, "
+              f"bit for bit: {t['compressed_psum']['ok']}")
+        print(f"  (b) rank {r['rank']} launch.train --mesh local over mesh "
+              f"{t['launch']['mesh']}: losses "
+              f"{[round(x, 5) for _, x in t['launch']['history']]}")
+        bad = [k for k, v in t.items() if isinstance(v, dict) and "ok" in v
+               and not v["ok"]]
+        if bad:
+            raise AssertionError(f"(b) rank {r['rank']}: {bad} failed: {t}")
+        for n, c in t["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    # the parent: the mesh checkpoint restored without a mesh, 2 more
+    # steps; against the same runs with no mesh (3 steps, then 2 more from
+    # their checkpoint: the launcher's schedule follows --steps)
+    def resume(ckpt):
+        return LT.run(MESH_LAUNCH + ["--steps", "5", "--ckpt-dir", ckpt])
+
+    resumed = resume(str(MESH_TRAIN_DIR / "launch"))
+    plain_dir = str(MESH_TRAIN_DIR / "plain")
+    plain = LT.run(MESH_LAUNCH + ["--steps", "3", "--ckpt-dir", plain_dir])
+    plain_resumed = resume(plain_dir)
+    got = {**dict(map(tuple, results[0]["train"]["launch"]["history"])),
+           **dict(resumed.state.history)}
+    want = {**dict(plain.state.history), **dict(plain_resumed.state.history)}
+    worst = max(_rel(got[s], want[s]) for s in want)
+    ok = set(got) == set(want) == set(range(5)) \
+        and worst <= compare.TRAIN_LOSS_RTOL
+    print(f"  (b) the parent restores the step-3 mesh checkpoint without a "
+          f"mesh and trains steps 3-4: losses 0-2 over the mesh and 3-4 "
+          f"after it against the same runs with no mesh: max relative "
+          f"{worst:.3e} (<= {compare.TRAIN_LOSS_RTOL}): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"(b) launcher checkpoint: {got} vs {want}")
+    return launches
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -4456,11 +4892,11 @@ def main() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print("phase 10: mesh serving — a world of one, two ranks on the card")
-    meshed = mesh_path()
+    meshed, trained = mesh_phases()
     for rec in records:
         rec["mesh_launches"] = meshed.get(rec["name"], 0)
-        rec["launches"] += rec["mesh_launches"]
+        rec["mesh_train_launches"] = trained.get(rec["name"], 0)
+        rec["launches"] += rec["mesh_launches"] + rec["mesh_train_launches"]
 
     print(smi)
     print(json.dumps({"kernels": records}))

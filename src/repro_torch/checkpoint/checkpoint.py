@@ -18,6 +18,13 @@
     and writes on a thread of its own, keeping the newest ``keep``.
 
 So a checkpoint written by either package restores in the other.
+
+Over a mesh (a ``dist.sharding.TrainLayout`` given) a state's leaves are
+the ranks' blocks, and the checkpoint is still the whole tree in the
+format above: every rank gathers each leaf whole (a collective), rank 0
+writes, and every rank waits for the write at a barrier.  ``restore``
+narrows each whole leaf to the rank's block.  So a checkpoint taken over
+a mesh restores without one, and the reverse.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import tensor_from_numpy
+from repro_torch.dist import spmd
 from repro_torch.factor import FactoredTensor
 from repro_torch.quant import QTensor
 
@@ -102,9 +110,35 @@ def _write(directory: str, step: int, leaves: dict) -> str:
     return final
 
 
-def save(directory: str, step: int, tree) -> str:
-    """Synchronous atomic save.  Returns the final checkpoint path."""
-    return _write(directory, step, _host_leaves(tree))
+def _whole(tree, layout) -> dict:
+    """The ``{"params", "opt"}`` state of blocks ``tree`` gathered whole
+    on every rank, by dotted name."""
+    specs = layout.tree_specs(tree)
+    with torch.no_grad():
+        return {name: spmd.gather_param(leaf, specs[name], layout.mesh,
+                                        where="checkpoint")
+                for name, leaf in _flatten(tree).items()}
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def save(directory: str, step: int, tree, layout=None) -> str:
+    """Synchronous atomic save.  Returns the final checkpoint path.
+    ``layout``: ``tree`` is a rank's blocks over a mesh (every rank calls
+    this; rank 0 writes the whole tree)."""
+    if layout is None:
+        return _write(directory, step, _host_leaves(tree))
+    leaves = _host_leaves(_whole(tree, layout))
+    path = os.path.join(directory, f"step_{step}")
+    if spmd.rank() == 0:
+        path = _write(directory, step, leaves)
+    _barrier()
+    return path
 
 
 def latest_step(directory: str) -> int | None:
@@ -136,13 +170,17 @@ def read_leaves(ckpt: str) -> dict[str, torch.Tensor]:
     return {name: _load(ckpt, meta) for name, meta in leaves.items()}
 
 
-def restore(directory: str, step: int, like):
+def restore(directory: str, step: int, like, layout=None):
     """Restore into the structure of ``like``: each tensor leaf in the
     like leaf's dtype on its device, QTensor and FactoredTensor leaves
-    rebuilt with the like leaf's metadata."""
+    rebuilt with the like leaf's metadata.  ``layout``: ``like`` is a
+    rank's blocks over a mesh; each whole leaf is narrowed to its block."""
+    from repro_torch.dist.sharding import shard_leaf
+
     ckpt = os.path.join(directory, f"step_{step}")
     with open(os.path.join(ckpt, _MANIFEST)) as f:
         leaves = json.load(f)["leaves"]
+    specs = {} if layout is None else layout.tree_specs(like)
 
     def load(node, name):
         if isinstance(node, dict):
@@ -164,6 +202,8 @@ def restore(directory: str, step: int, like):
         if meta is None:
             raise KeyError(f"checkpoint {ckpt} missing leaf {name}")
         t = _load(ckpt, meta)
+        if name in specs:
+            t = shard_leaf(t, specs[name], layout.mesh)
         if tuple(t.shape) != tuple(node.shape):
             raise ValueError(f"leaf {name}: checkpoint shape "
                              f"{tuple(t.shape)} != live {tuple(node.shape)}")
@@ -175,11 +215,14 @@ def restore(directory: str, step: int, like):
 
 
 class CheckpointManager:
-    """Async writer + retention.  One in-flight save at a time."""
+    """Async writer + retention.  One in-flight save at a time.  With a
+    ``layout`` every rank calls :meth:`save` (the leaves are gathered
+    whole), rank 0 writes, and :meth:`wait` ends at a barrier."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, layout=None):
         self.directory = directory
         self.keep = keep
+        self.layout = layout
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
 
@@ -187,6 +230,10 @@ class CheckpointManager:
         self.wait()
         # the device-to-host copy happens on the caller's thread (a
         # consistent snapshot); the disk writes on the writer thread
+        if self.layout is not None:
+            tree = _whole(tree, self.layout)
+            if spmd.rank() != 0:
+                return
         host = _host_leaves(tree)
 
         def work():
@@ -203,6 +250,8 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.layout is not None:
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

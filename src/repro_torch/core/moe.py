@@ -445,10 +445,17 @@ def apply_moe_ep_local(params, cfg: MoEConfig, x: torch.Tensor, mesh,
     the batch axes.  The partials stay float32 until that sum (the
     reference sums them in the activation dtype): rounded once, they give
     ``grouped``'s bits on one shard and its float32 sum in another order
-    on several.  Scalar tasks only.  The collectives go through
-    ``torch.distributed.nn`` where gradients flow, so the layer trains.
+    on several.  Scalar tasks only.
+
+    The layer trains: the ranks of a ``model`` group hold the same loss,
+    so the combine's all-reduce passes its gradient through, and the
+    tokens and gate weights each rank's experts read are marked with
+    ``spmd.copy_to`` (their gradients, each from this rank's experts
+    only, summed over ``model``).  An expert's gradient is then the
+    one-device gradient, and so are the router's and the input's.
     """
-    from repro_torch.dist.spmd import all_reduce, axis_index, axis_size
+    from repro_torch.dist.spmd import (all_reduce, axis_index, axis_size,
+                                       copy_to)
 
     if _is_task_vector(task_id):
         raise ValueError("ep_local serves a scalar task (the reference's "
@@ -472,10 +479,12 @@ def apply_moe_ep_local(params, cfg: MoEConfig, x: torch.Tensor, mesh,
         local = (r.expert >= e_lo) & (r.expert < e_lo + e_local)
         r_loc = R.Routing(
             expert=torch.where(local, r.expert - e_lo, 0).to(torch.int32),
-            gate=r.gate, position=r.position, valid=r.valid & local,
-            probs=r.probs)
+            gate=copy_to(r.gate, mesh, "model", "moe ep_local gate"),
+            position=r.position, valid=r.valid & local, probs=r.probs)
         sizes = R.dispatch_counts(r_loc, e_local)
-        buf = R.dispatch(rt.groups, r_loc, e_local, rt.capacity)
+        buf = R.dispatch(copy_to(rt.groups, mesh, "model",
+                                 "moe ep_local tokens"),
+                         r_loc, e_local, rt.capacity)
     with scope("moe_ffn"):
         out = _expert_ffn(ew, cfg, buf, sizes)
     with scope("moe_combine"):

@@ -16,8 +16,8 @@ Batches stay NumPy on the host.  :func:`device_transform` is the training
 loop's ``batch_transform``: each array goes to the card through
 page-locked memory, copied without blocking the host.  :func:`prefetch`
 runs the stream (and a transform) a few batches ahead on a thread.
-Sharding a batch over a mesh (the reference's ``shard_for``) comes with the
-distribution slice.
+:func:`shard_for` is the transform of training over a mesh: this rank's
+rows, put on its device the same way.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 from repro_torch import resolve_device
 
 __all__ = ["DataConfig", "SyntheticLMStream", "SyntheticM3ViTStream",
-           "make_stream", "prefetch", "device_transform"]
+           "make_stream", "prefetch", "device_transform", "shard_for"]
 
 
 @dataclass(frozen=True)
@@ -138,6 +138,37 @@ def device_transform(device="cuda") -> Callable[[dict], dict]:
         return out
 
     return put
+
+
+def shard_for(batch: dict, rules, device="cuda",
+              batch_axes=("pod", "data"), accum_steps: int = 1) -> dict:
+    """This rank's rows of a host batch under ``rules`` (the rows
+    ``dist.spmd.batch_rows`` gives, over the mesh's axes among
+    ``batch_axes``), each put on ``device`` as :func:`device_transform`
+    puts it.  With ``accum_steps`` microbatches a rank takes its rows of
+    each microbatch, so that its i-th local microbatch is its share of
+    the one-device step's i-th.  The batch must divide over the axes."""
+    from repro_torch.dist import spmd
+
+    put = device_transform(device)
+    out = {}
+    for name, arr in batch.items():
+        n = arr.shape[0]
+        per = n // accum_steps
+        shards, _, _ = spmd.batch_shard(per, rules, batch_axes)
+        want = 1
+        for a in rules.batch_axes:
+            if a in batch_axes:
+                want *= spmd.axis_size(rules.mesh, a)
+        if n % accum_steps or shards != want:
+            raise ValueError(f"{name}: a batch of {n} rows in "
+                             f"{accum_steps} microbatches does not divide "
+                             f"over {want} shards")
+        rows = spmd.batch_rows(per, rules, batch_axes)
+        micro = np.asarray(arr).reshape((accum_steps, per) + arr.shape[1:])
+        out[name] = np.ascontiguousarray(micro[:, rows]).reshape(
+            (-1,) + arr.shape[1:])
+    return put(out)
 
 
 def prefetch(stream, n: int = 2, start_step: int = 0, transform=None):

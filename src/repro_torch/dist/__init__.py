@@ -1,9 +1,11 @@
 """Distribution: the sharding rule table (``dist.sharding``, the port of
-``repro.dist.sharding``) and explicit SPMD over a ``DeviceMesh``
-(``dist.spmd``: local shards and the recorded collectives between them).
-
-The int8 error-feedback gradient collectives of ``repro.dist.compress``
-come with training over a mesh (``ROADMAP.md`` queue 1 item 6b)."""
+``repro.dist.sharding``), explicit SPMD over a ``DeviceMesh``
+(``dist.spmd``: local shards and the recorded collectives between them,
+the differentiable parameter gather of training over a mesh, and the
+device-free mesh of the dry-run), and the int8 error-feedback gradient
+collectives (``dist.compress``, the port of ``repro.dist.compress``).
+The reference's ``dist/_compat.py`` is a JAX-version shim for
+``jax.shard_map`` and has no counterpart."""
 
 from repro_torch.dist.sharding import (NamedSharding, P, ShardingRules,
                                        batch_sharding, constrain,

@@ -22,6 +22,12 @@ Three views of the one table, as in the reference:
     parameter specs are rank-padded on the LEFT.
   * **derived trees** — ``batch_sharding`` and ``opt_state_shardings``.
 
+Training over a mesh stores every leaf as its block under its spec:
+``local_slice`` gives a leaf's block from its whole shape,
+and :class:`TrainLayout` holds a training state's specs (the parameters'
+from this table, the AdamW state's mirroring them) for the step, the
+checkpoint and the dry-run.
+
 Every spec passes through ``_trim_spec``: rank padding plus divisibility
 trimming (a mesh axis that does not divide its dim is dropped).
 """
@@ -39,7 +45,8 @@ __all__ = [
     "P", "NamedSharding", "ShardingRules", "use_rules", "current_rules",
     "constrain", "param_sharding_rules", "batch_sharding",
     "opt_state_shardings", "ep_dispatch_sharding", "axis_names",
-    "axis_sizes", "_trim_spec", "_rank_pad", "_pick_spec",
+    "axis_sizes", "_trim_spec", "_rank_pad", "_pick_spec", "local_slice",
+    "shard_leaf", "opt_state_specs", "TrainLayout",
 ]
 
 
@@ -354,3 +361,114 @@ def opt_state_shardings(opt_state, params, rules: ShardingRules) -> dict:
             out["vc"] = NamedSharding(mesh, P(*spec[:-2], spec[-1]))
         ema[name] = out
     return {"step": NamedSharding(mesh, P()), "ema": ema}
+
+
+# ------------------------------------------------------------ local blocks
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_slice(shape, spec, mesh) -> tuple:
+    """This rank's block of a leaf of whole ``shape`` under ``spec``, as
+    one slice a dim: a dim over several axes takes them major first (the
+    reference's spec order).  A device-free mesh (``dist.spmd.
+    VirtualMesh``) is rank 0."""
+    sizes = axis_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, _rank_pad(shape, spec)):
+        n, index = 1, 0
+        for a in _axes(entry):
+            if a in sizes:
+                n *= sizes[a]
+                index = index * sizes[a] + mesh.get_local_rank(a)
+        per = dim // n
+        out.append(slice(index * per, (index + 1) * per))
+    return tuple(out)
+
+
+def shard_leaf(t, spec, mesh):
+    """This rank's block of the whole tensor ``t`` under ``spec``, a
+    tensor of its own (the whole one can be freed)."""
+    return t[local_slice(tuple(t.shape), spec, mesh)].clone()
+
+
+def opt_state_specs(opt_state, specs: dict) -> dict:
+    """The AdamW state's specs from its parameters' (``specs``), as
+    :func:`opt_state_shardings` derives them: ``m``/``v`` mirror the
+    parameter's, the factored ``vr`` drops the last entry and ``vc`` the
+    -2 one, ``step`` is replicated.  The state may be local blocks: the
+    specs come from the parameters' whole shapes."""
+    ema = {}
+    for name, st in opt_state["ema"].items():
+        spec = _rank_pad(st["m"].shape, specs[name])
+        out = {"m": spec}
+        if "v" in st:
+            out["v"] = spec
+        if "vr" in st:
+            out["vr"] = P(*spec[:-1])
+        if "vc" in st:
+            out["vc"] = P(*spec[:-2], spec[-1])
+        ema[name] = out
+    return {"step": P(), "ema": ema}
+
+
+_EXPERT_STACK = re.compile(r"moe/(wg|wu|wd|w1|w2)$")
+
+
+@dataclass(frozen=True)
+class TrainLayout:
+    """Where a training state's leaves live over ``rules.mesh``: each
+    parameter's spec on its whole shape (``params``) and the axes its
+    gather leaves local (``keep``: ``model`` for the expert stacks of an
+    ``ep_local`` layer, which compute on their own experts)."""
+
+    rules: ShardingRules
+    params: dict
+    keep: dict
+
+    @classmethod
+    def build(cls, shapes: dict, rules: ShardingRules,
+              ep_local: bool = False, extra=()) -> "TrainLayout":
+        """From a parameter tree of whole shapes (tensors on ``meta`` will
+        do).  ``extra``: (pattern, spec) pairs for parameters the table
+        has no rule for, tried after it."""
+        table = rules if not extra else ShardingRules(
+            rules.mesh, rules.logical, rules.param_patterns + tuple(extra),
+            rules.batch_axes, seq_shard=rules.seq_shard, fsdp=rules.fsdp)
+        specs = {k: v.spec for k, v in
+                 param_sharding_rules(shapes, table).items()}
+        keep = {k: ("model",) for k in specs
+                if ep_local and _EXPERT_STACK.search(_path_str(k))}
+        return cls(rules, specs, keep)
+
+    @property
+    def mesh(self):
+        return self.rules.mesh
+
+    def tree_specs(self, tree: dict) -> dict:
+        """{dotted name: spec} of a ``{"params", "opt"}`` state tree
+        (the checkpoint's), in its dotted names."""
+        out = {f"params.{k}": v for k, v in self.params.items()}
+        opt = opt_state_specs(tree["opt"], self.params)
+        out["opt.step"] = opt["step"]
+        for name, st in opt["ema"].items():
+            for leaf, spec in st.items():
+                out[f"opt.ema.{name}.{leaf}"] = spec
+        return out
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's blocks of whole parameters."""
+        return {k: shard_leaf(v, self.params[k], self.mesh)
+                for k, v in params.items()}
+
+    def shard_opt_state(self, opt_state: dict) -> dict:
+        """This rank's blocks of a whole AdamW state."""
+        specs = opt_state_specs(opt_state, self.params)
+        return {"step": opt_state["step"].clone(), "ema": {
+            name: {leaf: shard_leaf(t, specs["ema"][name][leaf], self.mesh)
+                   for leaf, t in st.items()}
+            for name, st in opt_state["ema"].items()}}

@@ -21,11 +21,27 @@ script:
 
 Nothing runs on a card: the numbers are counts from shapes, and the
 "fits" verdict is the port's own allocations on meta, not a measurement.
-Where the reference compiles on the 16×16 and 2×16×16 meshes, this
-dry-run is one card; the mesh flags come with the distribution slice.
+
+``--mesh 16x16`` (or ``2x16x16``; ``--multi-pod`` is the latter) runs
+**rank 0's share** of the step on the reference's production mesh, a
+device-free ``dist.spmd.VirtualMesh`` (``launch/mesh.py``): a train cell
+holds the parameters and AdamW state at their local shapes under
+``ShardingRules`` (``--no-fsdp``, ``--fsdp-moe-only``, ``--seq-shard``
+as the reference's flags), takes the batch's local rows and gathers its
+weights through the mesh, whose collectives are recorded and counted
+(``collective_bytes``, ``collectives`` by kind: the bytes a rank
+receives).  A serve cell holds whole weights on each rank (the port's
+mesh serving) and its local rows.  What the port runs differs from the
+reference's GSPMD program, and the record says so (``mesh_note``): dense
+compute is data-parallel (the ``model`` ranks repeat it), so per-rank
+FLOPs are the one-card count over the batch shards (/16 at 16×16, not
+/256); activations carry no layout, so ``--seq-shard`` counts equal those
+without.  The default ``--mesh 1`` is one card, as before.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3_2_1b --shape train_4k
+  python -m repro_torch.launch.dryrun --arch llama3_2_1b --shape train_4k \
+      --mesh 16x16 [--no-fsdp | --fsdp-moe-only] [--seq-shard]
   python -m repro_torch.launch.dryrun --all [--out results/dryrun_torch]
   python -m repro_torch.launch.dryrun --list
 """
@@ -43,8 +59,10 @@ from dataclasses import replace
 import torch
 
 from repro_torch import configs, ops
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import ShardingRules, use_rules
 from repro_torch.configs.base import SHAPES, ArchConfig
-from repro_torch.launch.mesh import HW
+from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.quant import tree_bytes
@@ -52,15 +70,27 @@ from repro_torch.roofline.analysis import analyze_step, kernel_adjusted_terms
 from repro_torch.train.step import TrainConfig, make_serve_step, \
     make_train_step
 
-__all__ = ["TRAIN_ACCUM", "opt_config_for", "build_cell", "run_cell",
-           "main"]
+__all__ = ["TRAIN_ACCUM", "MESHES", "MESH_NOTE", "opt_config_for",
+           "mesh_named", "build_cell", "run_cell", "main"]
 
 # grad-accumulation per train cell (the reference's)
 TRAIN_ACCUM = 8
 POLICY = "cuda"     # the impls the card runs
 
-_LATER_MESH = ("comes with training over a mesh (ROADMAP.md queue 1 item "
-               "6b): the port's dry-run runs on one card")
+MESHES = ("1", "16x16", "2x16x16")
+MESH_NOTE = ("rank 0's share on a device-free mesh: dense compute is "
+             "data-parallel (the model ranks repeat it), so per-rank FLOPs "
+             "are the one-card count over the batch shards, not over every "
+             "chip; activations carry no layout, so --seq-shard counts "
+             "equal those without")
+
+
+def mesh_named(name: str):
+    """``--mesh``'s value as a device-free mesh (None for one card)."""
+    if name not in MESHES:
+        raise ValueError(f"--mesh {name!r}: one of {MESHES}")
+    return None if name == "1" else make_production_mesh(
+        multi_pod=name == "2x16x16")
 
 
 def opt_config_for(cfg: ArchConfig) -> OptConfig:
@@ -70,16 +100,25 @@ def opt_config_for(cfg: ArchConfig) -> OptConfig:
                      factored=big)
 
 
+def _fsdp(variant: dict):
+    if variant.get("no_fsdp"):
+        return False
+    return "moe_only" if variant.get("fsdp_moe_only") else True
+
+
 def build_cell(arch: str, shape_name: str, variant: dict | None = None,
-               *, smoke: bool = False, shape=None, device="meta"):
+               *, smoke: bool = False, shape=None, device="meta",
+               mesh=None):
     """(step function, its arguments, cfg, shape) for one cell, every
     argument on ``device`` (``meta``: shapes only).  ``variant``:
     ``moe_impl`` (str), ``accum`` (int), ``no_remat`` (bool),
     ``attn_block_k`` (int: blocked attention, the impl that takes the
     block, with that ``block_k`` through ``ComputePolicy.with_tiles``, as
-    the reference's does).  ``smoke``
-    takes the arch's ``SMOKE_CONFIG``; ``shape`` (a ``Shape``) replaces
-    ``SHAPES[shape_name]`` (the tests' tiny cells)."""
+    the reference's does), and on a mesh ``no_fsdp``, ``fsdp_moe_only``,
+    ``seq_shard`` (bools: the rules' options).  ``smoke`` takes the arch's
+    ``SMOKE_CONFIG``; ``shape`` (a ``Shape``) replaces
+    ``SHAPES[shape_name]`` (the tests' tiny cells).  ``mesh`` (a
+    ``VirtualMesh``): rank 0's share of the step on it."""
     variant = variant or {}
     cfg = configs.get(arch, smoke=smoke)
     if variant.get("moe_impl") and cfg.moe is not None:
@@ -94,40 +133,70 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
         # rematerialization), so this is the only way it runs
         cfg = replace(cfg, remat=False)
     shape = shape or SHAPES[shape_name]
+    rules = None
+    b = shape.global_batch
+    if mesh is not None:
+        rules = ShardingRules.for_mesh(mesh, fsdp=_fsdp(variant),
+                                       seq_shard=bool(variant.get(
+                                           "seq_shard")))
+        b //= spmd.batch_shard(b, rules)[0]
+    local = replace(shape, global_batch=b)
     params = M.param_specs(cfg, device=device)
-    specs = M.input_specs(cfg, shape, device=device)
+    specs = M.input_specs(cfg, local, device=device)
     if shape.kind == "train":
         ocfg = opt_config_for(cfg)
         tcfg = TrainConfig(opt=ocfg,
                            accum_steps=variant.get("accum") or TRAIN_ACCUM)
         opt_state = adamw_init(params, ocfg)
-        return (make_train_step(cfg, tcfg), (params, opt_state, specs), cfg,
-                shape)
+        step = make_train_step(cfg, tcfg, rules=rules)
+        if step.layout is not None:
+            params = step.layout.shard_params(params)
+            opt_state = step.layout.shard_opt_state(opt_state)
+        return step, (params, opt_state, specs), cfg, shape
     prefill, decode = make_serve_step(cfg)
-    b, s = shape.global_batch, shape.seq_len
     if shape.kind == "prefill":
-        state = M.init_state(cfg, b, s, device=device)
-        return prefill, (params, specs["inputs"], state), cfg, shape
-    # decode: one new token against a seq_len cache; the scalar index is
-    # handed over as every slot's position (a host read of a meta scalar
-    # is not possible), which writes and reads the same cache rows
-    index = specs["cache_index"].expand(b)
-    return decode, (params, specs["inputs"], specs["state"], index), cfg, \
-        shape
+        state = M.init_state(cfg, b, shape.seq_len, device=device)
+        fn, args = prefill, (params, specs["inputs"], state)
+    else:
+        # decode: one new token against a seq_len cache; the scalar index
+        # is handed over as every slot's position (a host read of a meta
+        # scalar is not possible), which writes and reads the same cache
+        # rows
+        index = specs["cache_index"].expand(b)
+        fn, args = decode, (params, specs["inputs"], specs["state"], index)
+    if rules is not None:
+        fn = _on_mesh(fn, rules, shape.global_batch)
+    return fn, args, cfg, shape
+
+
+def _on_mesh(fn, rules, n: int):
+    """A serving step run as one rank's share of a batch of ``n``: under
+    the rules, its forward marked as a split of the batch."""
+    def run(*args):
+        with use_rules(rules), spmd.batch_split(rules, n):
+            return fn(*args)
+    return run
 
 
 def run_cell(arch: str, shape_name: str, out_dir: str | None = None,
              verbose: bool = True, variant: dict | None = None,
-             tag: str = "", *, smoke: bool = False, shape=None) -> dict:
+             tag: str = "", *, smoke: bool = False, shape=None,
+             mesh: str = "1") -> dict:
     t0 = time.time()
+    vmesh = mesh_named(mesh)
     fn, args, cfg, shape = build_cell(arch, shape_name, variant,
-                                      smoke=smoke, shape=shape)
+                                      smoke=smoke, shape=shape, mesh=vmesh)
     shape_name = shape.name
     t_build = time.time() - t0
     argument_bytes = tree_bytes(args)
+    mesh_kw = {}
+    if vmesh is not None:
+        rules = ShardingRules.for_mesh(vmesh)
+        mesh_kw = dict(mesh=mesh, chips=vmesh.size(), batch_shards=(
+            spmd.batch_shard(shape.global_batch, rules)[0]))
     t0 = time.time()
     with ops.use_policy(ops.policy_named(POLICY)):
-        report, out = analyze_step(fn, args, cfg, shape)
+        report, out = analyze_step(fn, args, cfg, shape, **mesh_kw)
     t_run = time.time() - t0
     arg_keys = {t.untyped_storage()._cdata for t in _leaves(args)}
     output_bytes = sum(t.untyped_storage().nbytes() for t in
@@ -148,12 +217,17 @@ def run_cell(arch: str, shape_name: str, out_dir: str | None = None,
         fits=bool(total <= HW.HBM_BYTES), ok=True,
     )
     rec["bytes_per_device"] = float(total)
+    if vmesh is not None:
+        v = variant or {}
+        rec.update(mesh_note=MESH_NOTE, fsdp=_fsdp(v),
+                   seq_shard=bool(v.get("seq_shard")))
     if verbose:
         print(f"[dryrun] {arch} × {shape_name} × {rec['mesh']} "
               f"(policy {POLICY}): built {t_build:.1f}s, counted "
               f"{t_run:.1f}s")
         print(f"  roofline: compute {report.t_compute*1e3:.2f}ms  "
               f"memory {report.t_memory*1e3:.2f}ms  "
+              f"collective {report.t_collective*1e3:.2f}ms  "
               f"-> {report.bottleneck}-bound  "
               f"useful={report.useful_ratio:.2f} "
               f"roofline_frac={report.roofline_fraction:.3f}")
@@ -162,6 +236,9 @@ def run_cell(arch: str, shape_name: str, out_dir: str | None = None,
               f"{output_bytes/2**30:.2f} GiB -> "
               f"{'fits' if rec['fits'] else 'does not fit'} in "
               f"{HW.HBM_BYTES/2**30:.1f} GiB")
+        if vmesh is not None:
+            print(f"  collectives: {report.collective_bytes/2**30:.3f} GiB "
+                  f"a rank receives; {MESH_NOTE}")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         suffix = f"__{tag}" if tag else ""
@@ -206,20 +283,30 @@ def main(argv=None) -> int:
     ap.add_argument("--no-remat", action="store_true",
                     help="keep every activation for the backward (the "
                          "port's only mode)")
-    for flag in ("--multi-pod", "--no-fsdp", "--fsdp-moe-only",
-                 "--seq-shard"):
-        ap.add_argument(flag, action="store_true", help=_LATER_MESH)
+    ap.add_argument("--mesh", default="1", choices=MESHES,
+                    help="1: one card; 16x16 / 2x16x16: rank 0's share on "
+                         "the reference's production mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 mesh (--mesh 2x16x16)")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="no weight sharding over data")
+    ap.add_argument("--fsdp-moe-only", action="store_true",
+                    help="shard only the expert stacks over data")
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="the rules' sequence sharding (activations carry "
+                         "no layout in the port: the counts are unchanged)")
     ap.add_argument("--attn-block-k", type=int, default=None,
                     help="blocked attention with this block_k (a policy "
                          "tile override)")
     args = ap.parse_args(argv)
-    for flag in ("multi_pod", "no_fsdp", "fsdp_moe_only", "seq_shard"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {_LATER_MESH}")
-    if args.moe_impl == "ep_local":
-        raise NotImplementedError(f"--moe-impl ep_local {_LATER_MESH}")
-    variant = {}
+    mesh = "2x16x16" if args.multi_pod else args.mesh
+    mesh_flags = [f for f in ("no_fsdp", "fsdp_moe_only", "seq_shard")
+                  if getattr(args, f)]
+    if mesh_flags and mesh == "1":
+        mesh = "16x16"          # the reference's flags imply its mesh
+    variant = {f: True for f in mesh_flags}
+    tag = args.tag or "_".join(mesh_flags + (
+        [args.moe_impl] if args.moe_impl else []))
     if args.moe_impl:
         variant["moe_impl"] = args.moe_impl
     if args.accum:
@@ -242,7 +329,7 @@ def main(argv=None) -> int:
                 continue
             try:
                 run_cell(a, s, out_dir=args.out, variant=variant,
-                         tag=args.tag)
+                         tag=tag, mesh=mesh)
             except Exception as e:
                 traceback.print_exc()
                 failures.append((a, s, repr(e)))
@@ -255,7 +342,7 @@ def main(argv=None) -> int:
     if not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all, or --list")
     run_cell(args.arch, args.shape, out_dir=args.out, variant=variant,
-             tag=args.tag)
+             tag=tag, mesh=mesh)
     return 0
 
 

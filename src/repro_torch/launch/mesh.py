@@ -8,8 +8,11 @@ roofline cannot drift apart.  ``HBM_BYTES`` is what
 80GB HBM3 (``chip_smoke.py`` phase 9 prints both); the dry-run's "fits"
 holds a cell's bytes against it.
 
-``make_production_mesh`` (the 16×16 and 2×16×16 meshes) comes with the
-distribution slice.
+``make_production_mesh`` gives the reference's production meshes as
+device-free ``dist.spmd.VirtualMesh`` objects — (16, 16) ``("data",
+"model")`` and (2, 16, 16) ``("pod", "data", "model")`` — for the
+dry-run, which runs rank 0's share of a step on ``meta`` through them.
+It never starts a process group.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ class HW:
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "production meshes come with training over a mesh (ROADMAP.md "
-        "queue 1 item 6b); the port's roofline and dry-run run on one card")
+    """The single-pod (16, 16) or multi-pod (2, 16, 16) mesh, device-free."""
+    from repro_torch.dist.spmd import VirtualMesh
+
+    if multi_pod:
+        return VirtualMesh((2, 16, 16), ("pod", "data", "model"))
+    return VirtualMesh((16, 16), ("data", "model"))

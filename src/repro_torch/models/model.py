@@ -66,7 +66,16 @@ def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,
     label logit is taken by a mask-reduce over the vocabulary (the
     reference's shard-friendly form; the same value as a gather), and the
     mean runs over the unmasked positions.  Returns
-    (loss + aux_weight·aux, {"ce", "aux"})."""
+    (loss + aux_weight·aux, {"ce", "aux"}).
+
+    On a rank's rows of a split batch (``dist.spmd.batch_split``, as the
+    train step runs it over a mesh) the loss is this rank's share of the
+    whole batch's: its masked sum over the unmasked count summed over the
+    ranks, and the aux loss (the whole batch's) over the number of
+    shards.  The shares add up to the one-device loss, so the ranks'
+    summed gradients are its gradient, whatever each rank's mask."""
+    from repro_torch.dist import spmd
+
     logits, _, aux = T.forward(unflatten(params), batch["inputs"], cfg,
                                task_id=task_id)
     labels = batch["labels"]
@@ -78,8 +87,12 @@ def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,
             == labels.clamp_min(0)[..., None]
         label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
         mask = labels >= 0
+        count = spmd.batch_total(mask.sum(), "loss token count")
         loss = ((lse - label_logit) * mask).sum() \
-            / torch.clamp_min(mask.sum(), 1)
+            / torch.clamp_min(count, 1)
+        shards = spmd.batch_shards()
+        if shards > 1:
+            aux = aux / shards
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 

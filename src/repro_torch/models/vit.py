@@ -27,8 +27,8 @@ from repro_torch.models import transformer as T
 from repro_torch.ops.policy import use_policy
 from repro_torch.tree import flatten, unflatten
 
-__all__ = ["M3ViT", "init_params", "forward", "multitask_loss", "patchify",
-           "embed_patches", "apply_head"]
+__all__ = ["M3ViT", "init_params", "param_specs", "forward",
+           "multitask_loss", "patchify", "embed_patches", "apply_head"]
 
 
 def patchify(images: torch.Tensor) -> torch.Tensor:
@@ -46,8 +46,23 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None,
     scales and dtypes (biases float32), as a flat dotted-name dict on
     ``device``."""
     dev = resolve_device(device)
+    params = _init_tree(np.random.default_rng(seed), cfg, dtype,
+                        num_seg_classes)
+    return {k: v.to(dev) for k, v in flatten(params).items()}
+
+
+def param_specs(cfg: ArchConfig, dtype=None,
+                num_seg_classes=M.NUM_SEG_CLASSES,
+                device="meta") -> dict[str, torch.Tensor]:
+    """The parameters' shapes and dtypes, as :func:`init_params` builds
+    them, on ``meta`` (no values drawn)."""
+    meta = torch.device(device)
+    params = _init_tree(meta, cfg, dtype, num_seg_classes)
+    return {k: v.to(meta) for k, v in flatten(params).items()}
+
+
+def _init_tree(rng, cfg: ArchConfig, dtype, num_seg_classes) -> dict:
     dtype = dtype or cfg.activation_dtype
-    rng = np.random.default_rng(seed)
     d, p = cfg.d_model, M.PATCH
     params = T.init_params(rng, cfg, dtype)
     params["patch"] = {
@@ -63,7 +78,7 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None,
         "depth": {"w": normal(rng, (d, p * p), sh, dtype),
                   "b": torch.zeros((p * p,), dtype=torch.float32)},
     }
-    return {k: v.to(dev) for k, v in flatten(params).items()}
+    return params
 
 
 def embed_patches(params, images, cfg: ArchConfig):
@@ -113,14 +128,31 @@ def multitask_loss(params, images, labels, cfg: ArchConfig, task: str,
     """The reference's loss for one task: semseg cross-entropy over the
     (B, H, W) int class labels, or depth RMSE against (B, H, W) float
     labels (the paper's), plus ``aux_weight`` times the MoE load-balance
-    loss.  Returns (loss, (task loss, aux))."""
+    loss.  Returns (loss, (task loss, aux)).
+
+    On a rank's rows of a split batch (``dist.spmd.batch_split``, as the
+    train step runs it over a mesh) each is this rank's share of the
+    whole batch's: the summed cross-entropy over the whole batch's pixel
+    count, the RMSE of the squared errors summed over the ranks, and the
+    aux loss, divided by the number of shards; the shares add up to the
+    one-device loss."""
+    from repro_torch.dist import spmd
+
     pred, aux = forward(params, images, cfg, task=task)
+    shards = spmd.batch_shards()
     if task == "semseg":
         logp = torch.log_softmax(pred, dim=-1)
         nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-        loss = nll.mean()
-    else:
+        loss = nll.mean() if shards == 1 else \
+            nll.sum() / (nll.numel() * shards)
+    elif shards == 1:
         loss = torch.sqrt(torch.mean((pred - labels) ** 2) + 1e-8)
+    else:
+        sq = spmd.batch_total(((pred - labels) ** 2).sum(),
+                              "depth squared error")
+        loss = torch.sqrt(sq / (pred.numel() * shards) + 1e-8) / shards
+    if shards > 1:
+        aux = aux / shards
     return loss + aux_weight * aux, (loss, aux)
 
 

@@ -18,6 +18,14 @@ the step counter on the parameters' device (no host read), each update
 elementwise — and casts back to the parameter's dtype with round to
 nearest even, as the reference does.  Inputs are never written: the
 update returns new tensors.
+
+Over a mesh (``specs`` and ``mesh`` given, ``train/step.py``) every leaf
+is a rank's block under its spec.  The update is elementwise, so a block
+updates as the whole leaf would; the two statistics over whole leaves
+are all-reduced: each leaf's sum of squares in the global norm over the
+axes it is sharded on (a replicated block counts once), and the
+factored second moment's row and column means where their dim is
+sharded.  The clip scale is then one device's.
 """
 
 from __future__ import annotations
@@ -66,14 +74,62 @@ def _tree_order(names):
     return sorted(names, key=lambda n: n.split("."))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def _live_axes(entry, mesh) -> list:
+    """The axes of a spec entry that split their dim over more than one
+    rank."""
+    from repro_torch.dist.spmd import axis_size
+
+    if entry is None:
+        return []
+    axes = (entry,) if isinstance(entry, str) else entry
+    return [a for a in axes if axis_size(mesh, a) > 1]
+
+
+def _spec_axes(spec) -> list:
+    return [a for e in spec if e is not None
+            for a in ((e,) if isinstance(e, str) else e)]
+
+
+def global_norm(tree: dict, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares, the leaves
-    summed in the reference's tree order."""
+    summed in the reference's tree order.  With ``specs`` each leaf is a
+    block: its sum of squares is summed over the axes of its spec, one
+    all-reduce an axis for all the leaves together."""
+    from repro_torch.dist import spmd
+
+    names = _tree_order(tree)
+    sq = [torch.sum(torch.square(tree[n].float())) for n in names]
+    if specs is not None and names:
+        v = torch.stack(sq)
+        axes = [_spec_axes(specs[n]) for n in names]
+        for a in spmd.axis_names(mesh):
+            flags = [a in ax for ax in axes]
+            if any(flags):
+                member = torch.tensor(flags, device=v.device)
+                v = torch.where(member, spmd.all_reduce(
+                    v * member, mesh, a, "adamw global norm"), v)
+        sq = list(v.unbind())
     total = None
-    for name in _tree_order(tree):
-        sq = torch.sum(torch.square(tree[name].float()))
-        total = sq if total is None else total + sq
+    for x in sq:
+        total = x if total is None else total + x
     return torch.sqrt(total)
+
+
+def _mean(t, dim: int, entry, mesh, keepdim: bool = False):
+    """``t.mean(dim)`` of a block whose ``dim`` is split over ``entry``'s
+    axes: the partial sums over the whole dim's length, all-reduced."""
+    from repro_torch.dist import spmd
+
+    live = [] if mesh is None else _live_axes(entry, mesh)
+    if not live:
+        return t.mean(dim, keepdim=keepdim)
+    n = t.shape[dim]
+    for a in live:
+        n *= spmd.axis_size(mesh, a)
+    part = t.sum(dim, keepdim=keepdim) / n
+    for a in live:
+        part = spmd.all_reduce(part, mesh, a, "adamw factored mean")
+    return part
 
 
 def _is_factored(p, cfg: OptConfig) -> bool:
@@ -112,12 +168,15 @@ def _no_decay(name: str) -> bool:
 
 @torch.no_grad()
 @scope("adamw")
-def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
-    """Returns (new_params, new_state, metrics {"lr", "grad_norm"})."""
+def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig,
+                 specs=None, mesh=None):
+    """Returns (new_params, new_state, metrics {"lr", "grad_norm"}).
+    ``specs`` ({name: spec}) and ``mesh``: the leaves are blocks over the
+    mesh (see the module's docstring)."""
     step = state["step"] + 1
     stepf = step.float()
     lr = cosine_schedule(cfg, stepf)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     bc1 = 1.0 - torch.pow(cfg.b1, stepf)
     bc2 = 1.0 - torch.pow(cfg.b2, stepf)
@@ -131,12 +190,16 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
             denom = torch.sqrt(v / bc2) + cfg.eps
             new_s = {"m": m.to(s["m"].dtype), "v": v}
         else:
+            spec = (None, None) if specs is None else specs[name]
             g2 = torch.square(g) + 1e-30
-            vr = s["vr"] * cfg.b2 + g2.mean(-1) * (1 - cfg.b2)
-            vc = s["vc"] * cfg.b2 + g2.mean(-2) * (1 - cfg.b2)
+            vr = s["vr"] * cfg.b2 + _mean(g2, -1, spec[-1], mesh) \
+                * (1 - cfg.b2)
+            vc = s["vc"] * cfg.b2 + _mean(g2, -2, spec[-2], mesh) \
+                * (1 - cfg.b2)
             # rank-1 reconstruction: v ~= vr vc / mean(vr)
             vhat = (vr[..., None] * vc[..., None, :]
-                    / torch.clamp_min(vr.mean(-1, keepdim=True)[..., None],
+                    / torch.clamp_min(_mean(vr, -1, spec[-2], mesh,
+                                            keepdim=True)[..., None],
                                       1e-30))
             denom = torch.sqrt(vhat / bc2) + cfg.eps
             new_s = {"m": m.to(s["m"].dtype), "vr": vr, "vc": vc}

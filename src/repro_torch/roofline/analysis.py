@@ -5,6 +5,11 @@
     memory term     = counted bytes       / HBM bytes/s
     collective term = collective bytes    / NVLink bytes/s   (0 on one card)
 
+On a mesh (the dry-run's ``--mesh 16x16`` / ``2x16x16``) the step is rank
+0's share: its counts are one rank's, its collective bytes the bytes its
+recorded collectives deliver to it (``op_cost.CostCounter.collective``),
+and the bottleneck is the largest of the three terms.
+
 The counts come from running the step under ``roofline/op_cost.py``'s
 counter (on the card, on the CPU, or on ``meta`` where nothing is
 computed), not from a compiled program: the port has no HLO.  So the
@@ -14,7 +19,7 @@ reference's HLO-only fields have no counterpart here —
 ``unparsed_loops`` (every loop of an eager step runs, and counts, as
 often as it iterates).  The counted FLOPs and bytes keep the reference's
 field names (``hlo_flops``, ``hlo_bytes``) so that records and tables
-read alike; ``chips`` is 1 and ``mesh`` is ``"1xH100"``.
+read alike; on one card ``chips`` is 1 and ``mesh`` is ``"1xH100"``.
 
 ``MODEL_FLOPS = 6·N·D`` (train) or ``2·N·D`` (inference), N the active
 parameters, D the tokens: the useful-compute ratio MODEL_FLOPS / counted
@@ -59,7 +64,8 @@ class RooflineReport:
     hlo_flops: float              # counted FLOPs (op_cost), one card
     hlo_bytes: float              # counted bytes
     collective_bytes: float       # 0 on one card
-    collectives: dict = field(default_factory=dict)
+    collectives: dict = field(default_factory=dict)   # kind -> counts
+    batch_shards: int = 1         # the ranks a batch is split over
     model_flops_total: float = 0.0
     bytes_per_device: float = 0.0  # argument + output + peak live bytes
     transcendentals: float = 0.0
@@ -114,12 +120,14 @@ class RooflineReport:
         return d
 
 
-def flash_kernel_bytes(cfg: ArchConfig, shape: Shape, chips: int) -> float:
+def flash_kernel_bytes(cfg: ArchConfig, shape: Shape,
+                       chips: int) -> float:
     """Analytic HBM traffic of the flash-attention kernel for one step:
     per attention call it reads Q, K, V once and writes O once (scores and
     probabilities stay on chip).  Train steps pay forward (1×) + the
     recompute (1×) + the backward (~2.5×: re-reads Q, K, V, O, dO and
-    writes dQ, dK, dV).  Divided by ``chips``."""
+    writes dQ, dK, dV).  Divided by ``chips``, the ranks that split the
+    attention's batch."""
     n_attn = sum(1 for i in range(cfg.num_layers)
                  if "attn" in cfg.block_kind(i))
     if n_attn == 0:
@@ -143,7 +151,7 @@ def kernel_adjusted_terms(rec: dict, cfg: ArchConfig, shape: Shape) -> dict:
     scopes = rec.get("by_scope", {})
     removed = sum(scopes.get(s, {}).get("bytes", 0.0)
                   for s in ("attn_scores", "attn_pv"))
-    added = flash_kernel_bytes(cfg, shape, rec["chips"])
+    added = flash_kernel_bytes(cfg, shape, rec.get("batch_shards", 1))
     adj_bytes = rec["hlo_bytes"] - removed + added
     t_mem = adj_bytes / HW.HBM_BW
     t_cmp = rec["hlo_flops"] / HW.PEAK_FLOPS_BF16
@@ -163,17 +171,21 @@ def kernel_adjusted_terms(rec: dict, cfg: ArchConfig, shape: Shape) -> dict:
 
 
 def analyze_step(fn, args, cfg: ArchConfig, shape: Shape,
-                 kwargs=None) -> tuple:
+                 kwargs=None, *, mesh: str = MESH, chips: int = 1,
+                 batch_shards: int = 1) -> tuple:
     """Run ``fn(*args, **kwargs)`` under the cost counter (the
     counterpart of the reference's ``analyze_compiled``); returns
-    ``(RooflineReport, fn's result)``."""
+    ``(RooflineReport, fn's result)``.  On a mesh, ``fn`` is one rank's
+    share: ``mesh`` names it, ``chips`` is its size and ``batch_shards``
+    the ranks its batch is split over."""
     with CostCounter() as counter:
         out = fn(*args, **(kwargs or {}))
     c = counter.cost
     return RooflineReport(
-        arch=cfg.name, shape=shape.name, mesh=MESH, chips=1,
+        arch=cfg.name, shape=shape.name, mesh=mesh, chips=chips,
         hlo_flops=c.flops, hlo_bytes=c.bytes_accessed,
-        collective_bytes=c.collective_bytes,
+        collective_bytes=c.collective_bytes, collectives=c.collectives,
+        batch_shards=batch_shards,
         model_flops_total=model_flops(cfg, shape),
         transcendentals=c.transcendentals,
         peak_live_bytes=c.peak_live_bytes,

@@ -42,7 +42,14 @@ kernel keeps its tiles on chip, while its plain version (run on the CPU
 or on ``meta``) would materialize them.  Inside a plain impl everything
 it allocates counts, as it does on the card.
 
-``collective_bytes`` is 0 on one device until the distribution slice.
+**Collectives** (``dist/spmd.py``) are counted where they are recorded:
+each adds the bytes a rank receives (its output: a whole gathered
+tensor, a reduced one, the block a reduce-scatter keeps — the
+reference's ``hlo_cost`` convention) to ``collective_bytes``, to
+``collectives`` by kind (``{"all_gather": {"count", "bytes", "by_axis":
+{axis: bytes}}, ...}``)
+and to the scope's ``collective_bytes``.  One device records none, so
+its ``collective_bytes`` is 0.
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ class OpCost:
     transcendentals: float = 0.0
     bytes_accessed: float = 0.0
     collective_bytes: float = 0.0
+    collectives: dict = field(default_factory=dict)  # kind -> counts
     by_scope: dict = field(default_factory=dict)  # scope -> counts
     by_op: dict = field(default_factory=dict)     # op ("aten": glue) -> counts
     peak_live_bytes: float = 0.0
@@ -316,6 +324,23 @@ class CostCounter:
             if self._live_bytes > self.cost.peak_live_bytes:
                 self.cost.peak_live_bytes = float(self._live_bytes)
             weakref.finalize(st, self._free, key)
+
+    # ----------------------------------------------------- collectives
+
+    def collective(self, kind: str, axis: str, nbytes: int) -> None:
+        """Count one recorded collective moving ``nbytes`` to this rank
+        (scaled inside a shortened loop like everything else)."""
+        nbytes = float(nbytes) * self._scale
+        self.cost.collective_bytes += nbytes
+        entry = self.cost.collectives.setdefault(kind, {
+            "count": 0.0, "bytes": 0.0, "by_axis": {}})
+        entry["count"] += self._scale
+        entry["bytes"] += nbytes
+        entry["by_axis"][axis] = entry["by_axis"].get(axis, 0.0) + nbytes
+        sc = self.cost.by_scope.setdefault(S.current(), {
+            "flops": 0.0, "bytes": 0.0, "transcendentals": 0.0,
+            "collective_bytes": 0.0})
+        sc["collective_bytes"] += nbytes
 
     # ---------------------------------------------------- registry ops
 

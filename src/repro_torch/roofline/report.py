@@ -89,6 +89,22 @@ def roofline_table(recs: list[dict], mesh: str = "1xH100") -> str:
     return "\n".join(lines)
 
 
+def collective_table(recs: list[dict]) -> str:
+    """Each mesh cell's collective bytes a rank receives, by kind."""
+    lines = ["| arch | shape | mesh | variant | collective bytes | by kind |",
+             "|---|---|---|---|---|---|"]
+    for r in recs:
+        kinds = r.get("collectives") or {}
+        if not kinds:
+            continue
+        by_kind = ", ".join(f"{k} ×{v['count']:.0f} {fmt_bytes(v['bytes'])}"
+                            for k, v in sorted(kinds.items()))
+        lines.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} "
+                     f"| {r.get('variant', '')} "
+                     f"| {fmt_bytes(r['collective_bytes'])} | {by_kind} |")
+    return "\n".join(lines)
+
+
 def scope_summary(rec: dict, top: int = 5) -> str:
     rows = sorted(rec.get("by_scope", {}).items(),
                   key=lambda kv: -kv[1]["bytes"])[:top]
@@ -99,13 +115,20 @@ def scope_summary(rec: dict, top: int = 5) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="results/dryrun_torch")
-    ap.add_argument("--mesh", default="1xH100")
+    ap.add_argument("--mesh", default=None,
+                    help="the mesh whose roofline to print (default: "
+                         "every mesh in the records)")
     args = ap.parse_args(argv)
     recs = load(args.dir)
     print(f"## Dry-run ({len(recs)} cells, meta device, not measured)\n")
     print(dryrun_table(recs))
-    print(f"\n## Roofline (one card, {args.mesh})\n")
-    print(roofline_table(recs, args.mesh))
+    meshes = [args.mesh] if args.mesh else sorted({r["mesh"] for r in recs})
+    for mesh in meshes:
+        print(f"\n## Roofline ({mesh}, per rank)\n")
+        print(roofline_table(recs, mesh))
+    if any(r.get("collectives") for r in recs):
+        print("\n## Collectives (bytes a rank receives)\n")
+        print(collective_table(recs))
     print("\n## Bytes by scope (top 5)\n")
     for r in recs:
         print(f"- {r['arch']} × {r['shape']}: {scope_summary(r)}")

@@ -1,8 +1,8 @@
 """Serving (the port of ``repro.serve``): the LM serving engine, the
 continuous-batching scheduler with its LM backend and SLO tiers, the
 M³ViT server and its scheduler backend, expert paging, placement and the
-copy-stream transfer engine.  ``ShardedExpertCache`` (meshes) comes with
-``ROADMAP.md`` queue 1 item 6."""
+copy-stream transfer engine.  Over a mesh the experts page through
+``serve.expert_cache.ShardedExpertCache``."""
 
 from repro_torch.serve.engine import ServeConfig, ServingEngine
 from repro_torch.serve.expert_cache import ExpertCache, ExpertUsage, PagedMoE

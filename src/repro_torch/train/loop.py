@@ -18,6 +18,13 @@ step, async atomic checkpoints, and straggler detection.
 
 The step's wall time runs from the call to the loss read on the host (one
 host sync a step, as the reference's ``float(metrics["loss"])``).
+
+Over a mesh (``layout``, a ``dist.sharding.TrainLayout``; the step from
+``make_train_step(..., rules=)``) every rank runs the loop: checkpoints
+hold the whole tree (gathered, written by rank 0), a restore narrows it
+to the rank's blocks, a step's wall time is the slowest rank's (so the
+straggler counts agree), the NaN skips agree because the step's loss is
+the global one, and only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
+from repro_torch.dist.spmd import rank, world_max
 
 __all__ = ["LoopConfig", "LoopState", "TrainLoop"]
 
@@ -58,17 +66,22 @@ class TrainLoop:
                  opt_state,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  log: Callable[[str], None] = print,
-                 batch_transform: Optional[Callable] = None):
+                 batch_transform: Optional[Callable] = None,
+                 layout=None):
         self.cfg = cfg
         self.train_step = train_step
         self.stream = stream
         self.params = params
         self.opt_state = opt_state
         self.on_straggler = on_straggler
-        self.log = log
         self.batch_transform = batch_transform
+        self.layout = layout
+        self.mesh = None if layout is None else layout.mesh
+        self.log = log if rank() == 0 or layout is None \
+            else (lambda s: None)
         self.state = LoopState()
-        self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep)
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, keep=cfg.ckpt_keep,
+                                       layout=layout)
                      if cfg.ckpt_dir else None)
 
     # -------------------------------------------------------- restart
@@ -80,7 +93,7 @@ class TrainLoop:
         if step is None:
             return False
         tree = {"params": self.params, "opt": self.opt_state}
-        restored = restore(self.cfg.ckpt_dir, step, tree)
+        restored = restore(self.cfg.ckpt_dir, step, tree, self.layout)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         self.state.step = step
@@ -100,6 +113,8 @@ class TrainLoop:
                 self.params, self.opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
+            if self.mesh is not None:
+                dt = world_max(dt, self.mesh, "loop step wall")
 
             # the step already kept the last good params for a non-finite
             # loss; here the skip is only counted and logged

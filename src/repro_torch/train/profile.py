@@ -11,7 +11,10 @@ every operation whose host-side start falls inside a backward window on
 any thread, since the autograd engine runs the backward on a thread of its
 own — and under each kernel Function's backward label
 (``<kernel>.backward``, ``kernels/*.py``), beside each kernel's own
-forward device time (its CUDA functions by name).  It needs a card.
+forward device time (its CUDA functions by name); over a mesh, the
+device time under the collectives' labels (``spmd.all_reduce``,
+``spmd.all_gather``: ``dist/spmd.py``), ``collective_ms``.  It needs a
+card.
 """
 
 from __future__ import annotations
@@ -35,9 +38,11 @@ KERNEL_BACKWARDS = tuple(KERNEL_PREFIXES)
 #: the step's and the Functions' profiler labels; on the device timeline
 #: the profiler also shows each as an annotation spanning its range,
 #: which is not device work
+COLLECTIVE_LABELS = ("spmd.all_reduce", "spmd.all_gather")
 LABELS = ("train_step.forward", "train_step.backward",
           "train_step.optimizer") + tuple(f"{k}.backward"
-                                          for k in KERNEL_PREFIXES)
+                                          for k in KERNEL_PREFIXES) \
+    + COLLECTIVE_LABELS
 
 
 def _device_us(e) -> float:
@@ -94,6 +99,8 @@ def profile_steps(run_step, reps: int, wall_s: float) -> dict:
         "forward_ms": label_us["train_step.forward"] / reps / 1e3,
         "backward_ms": backward_us / reps / 1e3,
         "optimizer_ms": label_us["train_step.optimizer"] / reps / 1e3,
+        "collective_ms": sum(label_us[k] for k in COLLECTIVE_LABELS)
+        / reps / 1e3,
         "kernel_forward_ms": {
             k: sum(us for name, us in by_name.items()
                    if name.startswith(prefix)) / reps / 1e3

@@ -23,8 +23,30 @@ The step never writes its inputs (the reference donates them; eager
 PyTorch has nothing to donate): it returns new parameter and state tensors
 and computes them on tensors of its own.  The loss runs with gradients on
 whatever the caller's grad mode is, on detached copies of the parameters,
-so the caller's tensors need no ``requires_grad``.  Sharding rules come
-with the distribution slice.
+so the caller's tensors need no ``requires_grad``.
+
+With ``rules`` over a mesh the step is explicit SPMD, one call a rank,
+and computes what one device computes on the whole batch:
+
+  * the parameters and AdamW state are this rank's blocks under the
+    rules' specs (:func:`layout_for`; ``TrainLayout.shard_params`` /
+    ``shard_opt_state`` cut them), the batch this rank's rows
+    (``data.shard_for``);
+  * each parameter is gathered whole before the forward
+    (``dist.spmd.gather_param``; an ``ep_local`` expert stack stays
+    local over ``model``), and the loss runs under
+    ``dist.spmd.batch_split``, where each rank's loss is its share of the
+    global loss (``models.model.lm_loss``, ``vit.multitask_loss``);
+  * the microbatch loop sums the gradients of the gathered parameters in
+    float32 on the rank and reduces them to the blocks once a step
+    (``dist.spmd.reduce_param_grad``: a reduce-scatter over the batch
+    axes a parameter is sharded on, an all-reduce over those it is
+    replicated on, this rank's block over ``model``).  The reference
+    instead pins its accumulator to the parameter sharding, which costs a
+    reduce-scatter a microbatch; the sum is the same;
+  * AdamW all-reduces the global norm's and the factored moments'
+    statistics (``optim.adamw``); the loss is all-reduced before the NaN
+    guard, so every rank keeps or skips the same step.
 
 ``make_serve_step`` returns the prefill and decode steps of the serving
 engine; the state's KV caches are written in place, where the reference
@@ -44,7 +66,7 @@ from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.roofline.op_cost import repeat
 
 __all__ = ["TrainConfig", "make_train_step", "loss_and_grads",
-           "make_serve_step"]
+           "layout_for", "make_serve_step"]
 
 
 @dataclass(frozen=True)
@@ -78,48 +100,116 @@ def loss_and_grads(loss_fn: Callable, params: dict, batch):
                            for (k, v), g in zip(params.items(), grads)}
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig,
+def layout_for(cfg: ArchConfig, rules):
+    """The :class:`~repro_torch.dist.sharding.TrainLayout` of ``cfg``'s
+    parameters under ``rules`` (None without a mesh): the specs of their
+    whole shapes, the M³ViT family's from ``vit.param_specs``.  The rule
+    table (the reference's) has no rule for M³ViT's patch embedding and
+    task heads, since the reference never trains its vision model over a
+    mesh; they are replicated here."""
+    if rules is None or rules.mesh is None:
+        return None
+    from repro_torch.dist.sharding import P, TrainLayout
+
+    extra = ()
+    if cfg.family == "vit-moe":
+        from repro_torch.models import vit
+        shapes = vit.param_specs(cfg)
+        extra = ((r"^(patch|heads)/", P()),)
+    else:
+        shapes = M.param_specs(cfg)
+    ep_local = cfg.moe is not None and cfg.moe.impl == "ep_local"
+    return TrainLayout.build(shapes, rules, ep_local=ep_local, extra=extra)
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None,
                     loss_fn: Optional[Callable] = None):
     """The training step.  ``loss_fn(params, micro) -> (loss, aux)``
-    defaults to the LM loss; M³ViT passes its multitask loss instead."""
+    defaults to the LM loss; M³ViT passes its multitask loss instead.
+    ``rules`` (``dist.sharding.ShardingRules``) over a mesh: the step runs
+    on this rank's blocks and rows (see the module's docstring).  The
+    step carries ``layout`` (``layout_for``'s) and ``grads(params,
+    batch) -> (loss, gradients)``, the part before the optimizer."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import use_rules
+
     loss_fn = loss_fn or (lambda p, mb: M.lm_loss(
         p, mb, cfg, aux_weight=tcfg.aux_weight, task_id=tcfg.task_id))
+    layout = layout_for(cfg, rules)
+    mesh = None if layout is None else layout.mesh
+    batch_axes = () if layout is None else rules.batch_axes
+    shards = 1
+    for a in batch_axes:
+        shards *= spmd.axis_size(mesh, a)
+
+    def split_loss(p, mb):
+        rows = next(iter(mb.values())).shape[0]
+        with spmd.batch_split(rules, rows * shards):
+            return loss_fn(p, mb)
+
+    def grads_of(params, batch):
+        f = loss_fn if layout is None else split_loss
+        if tcfg.accum_steps == 1:
+            return loss_and_grads(f, params, batch)
+        gsum = {k: torch.zeros(v.shape, dtype=torch.float32,
+                               device=v.device)
+                for k, v in params.items()}
+        lsum = None
+        micro = _split_microbatches(batch, tcfg.accum_steps)
+        # the dry-run on meta counts one microbatch accum_steps times
+        with repeat(len(micro), next(iter(params.values())).device) as rep:
+            for mb in micro[:rep.steps]:
+                loss, g = loss_and_grads(f, params, mb)
+                for k in gsum:
+                    gsum[k] += g[k]
+                lsum = loss.float() if lsum is None else lsum + loss
+        return lsum / tcfg.accum_steps, {k: v / tcfg.accum_steps
+                                         for k, v in gsum.items()}
+
+    def grads(params, batch):
+        """(the global loss, each parameter's gradient): this rank's
+        blocks' under ``rules``."""
+        with use_rules(rules):
+            if layout is None:
+                return grads_of(params, batch)
+            with torch.no_grad():
+                full = {k: spmd.gather_param(
+                    v, layout.params[k], mesh, layout.keep.get(k, ()))
+                    for k, v in params.items()}
+            loss, g = grads_of(full, batch)
+            del full
+            # once a step: the blocks' gradients, and the global loss
+            g = {k: spmd.reduce_param_grad(
+                v, layout.params[k], mesh, layout.keep.get(k, ()))
+                for k, v in g.items()}
+            for a in batch_axes:
+                loss = spmd.all_reduce(loss, mesh, a, "train loss")
+            return loss, g
 
     def step(params, opt_state, batch):
-        if tcfg.accum_steps > 1:
-            gsum = {k: torch.zeros(v.shape, dtype=torch.float32,
-                                   device=v.device)
-                    for k, v in params.items()}
-            lsum = None
-            micro = _split_microbatches(batch, tcfg.accum_steps)
-            # the dry-run on meta counts one microbatch accum_steps times
-            with repeat(len(micro), next(iter(params.values())).device) \
-                    as rep:
-                for mb in micro[:rep.steps]:
-                    loss, g = loss_and_grads(loss_fn, params, mb)
-                    for k in gsum:
-                        gsum[k] += g[k]
-                    lsum = loss.float() if lsum is None else lsum + loss
-            grads = {k: v / tcfg.accum_steps for k, v in gsum.items()}
-            loss = lsum / tcfg.accum_steps
-        else:
-            loss, grads = loss_and_grads(loss_fn, params, batch)
-        with torch.profiler.record_function("train_step.optimizer"):
-            new_params, new_opt, om = adamw_update(params, grads, opt_state,
-                                                   tcfg.opt)
-            del grads
-            ok = torch.isfinite(loss)
-            for k in new_params:
-                new_params[k] = torch.where(ok, new_params[k], params[k])
-            new_opt["step"] = torch.where(ok, new_opt["step"],
-                                          opt_state["step"])
-            for k, s in new_opt["ema"].items():
-                for leaf in s:
-                    s[leaf] = torch.where(ok, s[leaf],
-                                          opt_state["ema"][k][leaf])
+        loss, grads_ = grads(params, batch)
+        with use_rules(rules):
+            with torch.profiler.record_function("train_step.optimizer"):
+                new_params, new_opt, om = adamw_update(
+                    params, grads_, opt_state, tcfg.opt,
+                    specs=None if layout is None else layout.params,
+                    mesh=mesh)
+                del grads_
+                ok = torch.isfinite(loss)
+                for k in new_params:
+                    new_params[k] = torch.where(ok, new_params[k],
+                                                params[k])
+                new_opt["step"] = torch.where(ok, new_opt["step"],
+                                              opt_state["step"])
+                for k, s in new_opt["ema"].items():
+                    for leaf in s:
+                        s[leaf] = torch.where(ok, s[leaf],
+                                              opt_state["ema"][k][leaf])
         metrics = {"loss": loss, **om, "skipped": (~ok).to(torch.int32)}
         return new_params, new_opt, metrics
 
+    step.layout = layout
+    step.grads = grads
     return step
 
 

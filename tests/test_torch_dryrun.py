@@ -13,10 +13,18 @@
   tensors (the counter sees shapes, not values): the FLOPs exactly, the
   bytes and the peak of live bytes within 0.1 % (a few ops decompose
   differently on meta).
-* The mesh flags raise, naming the distribution slice; ``--list``
-  prints the reference's cells.
+* ``--list`` prints the reference's cells.
+* Mesh cells (rank 0's share on the device-free production meshes):
+  Llama-3.2-1B ``train_4k`` at 16×16 and 2×16×16 holds the argument
+  bytes the sharding factors predict, receives collective bytes (no
+  dense all-gather over ``data`` under ``--no-fsdp``), counts the
+  one-card FLOPs over the batch shards, and ``--seq-shard`` changes no
+  count; Llama-4-Scout under ``ep_local`` records its all-reduce over
+  ``model``; the flags run from the command line; one-card cells record
+  no collective.
 """
 
+import functools
 import json
 
 import jax
@@ -154,11 +162,102 @@ def test_meta_counts_equal_the_cpu_run(arch):
             <= 1e-3 * cpu.peak_live_bytes, kind
 
 
+@functools.lru_cache(maxsize=None)
+def _mesh_cell(arch, mesh, **variant):
+    return dryrun.run_cell(arch, "train_4k", verbose=False, mesh=mesh,
+                           variant=variant)
+
+
 @pytest.mark.parametrize("flag", ["--multi-pod", "--no-fsdp",
                                   "--fsdp-moe-only", "--seq-shard"])
-def test_mesh_flags_name_the_distribution_slice(flag):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k", flag])
+def test_mesh_flags_name_the_distribution_slice(flag, tmp_path):
+    """Each of the reference's mesh flags runs a mesh cell (the
+    reference's flags imply its 16×16 mesh; ``--multi-pod`` is
+    2×16×16), written under the mesh's name with the flag as its tag."""
+    assert dryrun.main(["--arch", "llama3_2_1b", "--shape", "train_4k",
+                        flag, "--out", str(tmp_path)]) == 0
+    (path,) = tmp_path.iterdir()
+    rec = json.loads(path.read_text())
+    mesh = "2x16x16" if flag == "--multi-pod" else "16x16"
+    assert rec["mesh"] == mesh and rec["collective_bytes"] > 0
+    assert rec["chips"] == (512 if flag == "--multi-pod" else 256)
+    assert "data-parallel" in rec["mesh_note"]
+
+
+def _predicted_argument_bytes(mesh_name, fsdp=True):
+    """Parameters, AdamW state and the local input rows of rank 0, from
+    the rule table's specs of the whole shapes and the mesh's sizes."""
+    from repro_torch.dist.sharding import (ShardingRules, _trim_spec,
+                                           axis_sizes, param_sharding_rules)
+
+    mesh = dryrun.mesh_named(mesh_name)
+    rules = ShardingRules.for_mesh(mesh, fsdp=fsdp)
+    sizes = axis_sizes(mesh)
+    params = TM.param_specs(tconfigs.get("llama3_2_1b"))
+    total = 4                                        # the step counter
+    for name, sh in param_sharding_rules(params, rules).items():
+        n = params[name].numel()
+        for entry in sh.spec:
+            for a in (() if entry is None else (entry,) if
+                      isinstance(entry, str) else entry):
+                n //= sizes[a]
+        total += n * (params[name].element_size() + 8)   # p, m, v
+    shape = SHAPES["train_4k"]
+    (entry,) = _trim_spec((shape.global_batch,), (rules.batch_entry,), mesh)
+    shards = 1
+    for a in (entry,) if isinstance(entry, str) else entry:
+        shards *= sizes[a]
+    return total + 2 * 4 * shape.seq_len * shape.global_batch // shards
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_mesh_cell_bytes_and_collectives(mesh):
+    rec = _mesh_cell("llama3_2_1b", mesh)
+    one = _mesh_cell("llama3_2_1b", "1")
+    assert rec["argument_bytes"] == _predicted_argument_bytes(mesh)
+    assert rec["mesh"] == mesh and rec["collective_bytes"] > 0
+    assert rec["t_collective"] > 0
+    kinds = rec["collectives"]
+    assert kinds["all_gather"]["by_axis"]["data"] > 0
+    assert kinds["reduce_scatter"]["by_axis"]["data"] > 0
+    assert rec["collective_bytes"] == sum(v["bytes"] for v in kinds.values())
+    # dense compute is data-parallel: the FLOPs of the batch's shards
+    shards = rec["batch_shards"]
+    assert shards == (16 if mesh == "16x16" else 32)
+    assert abs(rec["hlo_flops"] * shards / one["hlo_flops"] - 1) < 0.01
+    assert rec["bottleneck"] == max(
+        ("compute", "memory", "collective"), key=lambda t: rec[f"t_{t}"])
+    # the one-card cell records no collective
+    assert one["mesh"] == "1xH100" and one["chips"] == 1
+    assert one["collective_bytes"] == 0 and one["collectives"] == {}
+
+
+def test_mesh_cell_without_fsdp_gathers_nothing_over_data():
+    rec = _mesh_cell("llama3_2_1b", "16x16", no_fsdp=True)
+    assert rec["argument_bytes"] == _predicted_argument_bytes("16x16",
+                                                              fsdp=False)
+    kinds = rec["collectives"]
+    assert "data" not in kinds["all_gather"]["by_axis"]
+    assert "reduce_scatter" not in kinds
+    assert kinds["all_reduce"]["by_axis"]["data"] > 0   # the gradients
+    assert rec["argument_bytes"] > _mesh_cell("llama3_2_1b",
+                                              "16x16")["argument_bytes"]
+
+
+def test_seq_shard_changes_no_count():
+    a = _mesh_cell("llama3_2_1b", "16x16", seq_shard=True)
+    b = _mesh_cell("llama3_2_1b", "16x16")
+    for k in ("hlo_flops", "hlo_bytes", "collective_bytes",
+              "argument_bytes"):
+        assert a[k] == b[k], k
+    assert a["seq_shard"] and not b["seq_shard"]
+
+
+def test_ep_local_records_its_model_all_reduce():
+    rec = _mesh_cell("llama4_scout_17b_a16e", "16x16", moe_impl="ep_local")
+    assert rec["collectives"]["all_reduce"]["by_axis"]["model"] > 0
+    # expert stacks stay local over model: gathered over data only
+    assert rec["collectives"]["all_gather"]["by_axis"]["data"] > 0
 
 
 def test_attn_block_k_names_the_schedules(tmp_path):

@@ -703,5 +703,13 @@ def test_launch_train_cpu_resumes(tmp_path, capsys):
     assert launch_train.main(argv + ["--steps", "5"]) == 0
     out = capsys.readouterr().out
     assert "restored checkpoint step=3" in out and "over 5 steps" in out
-    with pytest.raises(NotImplementedError, match="item 6"):
-        launch_train.main(argv + ["--steps", "1", "--mesh", "local"])
+    # --mesh local: over the world's group where one is running (a world
+    # of one here), else one device with no rules, as the reference
+    import torch.distributed as dist
+
+    assert launch_train.main(argv + ["--steps", "5", "--mesh",
+                                     "local"]) == 0
+    out = capsys.readouterr().out
+    assert "restored checkpoint step=5" in out
+    assert ("mesh=data:1" if dist.is_initialized()
+            else "outside torchrun: one process") in out

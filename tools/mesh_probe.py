@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Phase 10 of ``chip_smoke.py`` alone on the card: the kernels' build,
-then mesh serving (a world of one bit for bit against no mesh, the tile
-overrides, two gloo ranks on the one card), beside the card's name and
+"""Phases 10 and 11 of ``chip_smoke.py`` alone on the card: the kernels'
+build, then mesh serving (a world of one bit for bit against no mesh,
+the tile overrides) and training over a mesh at the world of one, then
+both phases' two gloo ranks on the one card, beside the card's name and
 power limit.
 
     python3 tools/mesh_probe.py
@@ -30,4 +31,4 @@ if __name__ == "__main__":
     from repro_torch.kernels import build
 
     print(f"kernels built and loaded in {build.build_seconds():.1f} s")
-    chip_smoke.mesh_path()
+    chip_smoke.mesh_phases()

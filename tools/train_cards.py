@@ -1,0 +1,286 @@
+#!/usr/bin/env python3
+"""Training over a mesh across cards, one process a card under
+``torchrun`` (NCCL): each rank trains over the mesh and the same steps
+with no mesh on its own card, and holds the two against each other.
+
+    python3 -c "from repro_torch.kernels import build; build.build_seconds()"
+    torchrun --standalone --nproc-per-node 4 tools/train_cards.py
+
+(build once before ``torchrun``: the ranks then load the same library
+instead of compiling it side by side).  ``--device cpu`` runs the same
+over gloo with the kernels' plain versions at the models' smoke sizes (a
+rehearsal).  Checks, bf16, weights from seed 0, ``make_train_step`` under
+``ShardingRules.for_mesh`` (``fsdp=True``), AdamW with eps 1 (a step
+proportional to the gradient, so two bf16 sum orders move a parameter by
+less than an ulp, where Adam's sign-like first step would move a
+near-zero gradient's element by 2·lr):
+
+* Llama-3.2-1B at full width and depth, 8 × 128 tokens, 3 steps, at
+  ``1x4`` (the dense weights stored in quarters over ``model``, every
+  rank on the whole batch) and at ``4x1`` (FSDP over ``data``, the batch
+  split in four, the launcher's ``--mesh local`` layout): loss and grad
+  norm within ``compare.TRAIN_LOSS_RTOL`` of one card, the updated
+  parameters within ``compare.py``'s tolerance once a step; peak memory
+  a rank beside one card's; host walls a step (steps 1-2: the first
+  starts the NCCL groups); the collectives' device ms
+  (``train/profile.py``);
+* M³ViT at ``2x2`` with ``moe.impl="ep_local"`` (8 of 16 experts a
+  rank): every expert's gradient against one card's ``grouped``
+  (cosine), and 3 steps against one card as above.
+
+Rank 0 prints the card's name and power limit, each check's result, the
+launches by kernel and the collectives of each mesh run.  Any failed
+check raises.
+"""
+
+import argparse
+import gc
+import json
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import _m3vit_loss as m3vit_loss  # noqa: E402  (the path)
+
+MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1.0,
+                weight_decay=0.0)
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _peak_reset() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 \
+        if torch.cuda.is_available() else 0.0
+
+
+def _counted(run):
+    from repro_torch import ops
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    _sync()
+    dist.barrier()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    out = run()
+    _sync()
+    for op, entry in ops.dispatch_report().items():
+        if entry["fallbacks"]:
+            raise AssertionError(f"{op} fell back: {entry['fallbacks']}")
+    coll = {}
+    for c in ops.collective_report():
+        key = f"{c['kind']}:{c['axis']}"
+        coll[key] = coll.get(key, 0) + c["count"]
+    return out, launch_counts(), coll
+
+
+def _steps(step, p, o, batches, place, walls):
+    """The steps on ``batches``: (last params, last state, each step's
+    (loss, grad norm)); only the newest state is held."""
+    metrics = []
+    for b in batches:
+        _sync()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, place(b))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(time.perf_counter() - t0)
+    return p, o, metrics
+
+
+def against_one(label, cfg, params, batches, mesh_shape, dev, say,
+                loss_fn=None, profile=True):
+    """The steps of ``batches`` over the mesh against the same steps on
+    one card; the walls leave out the first step (its NCCL groups start
+    there)."""
+    from repro_torch.data import device_transform, shard_for
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.kernels import compare
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.profile import profile_steps
+
+    tcfg = TrainConfig(opt=OptConfig(**MESH_OPT))
+    put = device_transform(dev)
+    mesh = spmd.init_mesh(mesh_shape, device_type=dev.type)
+    rules = ShardingRules.for_mesh(mesh)
+
+    single = make_train_step(cfg, tcfg, loss_fn=loss_fn)
+    walls1: list = []
+    opt = adamw_init(params, tcfg.opt)
+    _peak_reset()
+    last, _, want_m = _steps(single, params, opt, batches, put, walls1)
+    del opt
+    want = {k: v.cpu() for k, v in last.items()}
+    peak1 = _peak()
+    del last
+    gc.collect()
+
+    meshed = make_train_step(cfg, tcfg, rules=rules, loss_fn=loss_fn)
+    lay = meshed.layout
+    blocks = (lay.shard_params(params),
+              lay.shard_opt_state(adamw_init(params, tcfg.opt)))
+    gc.collect()
+    _peak_reset()
+    walls2: list = []
+
+    (p, o, got_m), counts, coll = _counted(lambda: _steps(
+        meshed, *blocks, batches, lambda b: shard_for(b, rules, dev),
+        walls2))
+    peak2 = _peak()
+    rel = max(abs(a - b) / abs(b) for g, w in zip(got_m, want_m)
+              for a, b in zip(g, w))
+    with torch.no_grad():
+        whole = {k: spmd.gather_param(v, lay.params[k], mesh)
+                 for k, v in p.items()}
+    steps = len(batches)
+    within = all(bool(((whole[k].float() - want[k].to(dev).float()).abs()
+                       <= steps * compare.kernel_tolerance(
+                           whole[k], want[k].to(dev), want[k].dtype)).all())
+                 for k in want)
+    prof = None
+    if profile and dev.type == "cuda":
+        b = shard_for(batches[0], rules, dev)
+        prof = profile_steps(lambda: float(meshed(p, o, b)[2]["loss"]), 2,
+                             statistics.median(walls2[1:]))
+    ok = rel <= compare.TRAIN_LOSS_RTOL and within
+    say(f"{label} at {'x'.join(map(str, mesh_shape))}, {steps} steps "
+        f"against one card: loss and grad norm relative {rel:.3e} (<= "
+        f"{compare.TRAIN_LOSS_RTOL}); parameters within {steps} steps of "
+        f"compare.py's tolerance: {within}; losses "
+        f"{[round(m[0], 5) for m in got_m]}")
+    say(f"  peak memory a rank {peak2:.2f} GiB over the mesh (the whole "
+        f"weights kept for the comparison included), {peak1:.2f} GiB on "
+        f"one card; host walls a step (median of steps 1-{steps - 1}) "
+        f"{statistics.median(walls2[1:]) * 1e3:.1f} ms over the mesh, "
+        f"{statistics.median(walls1[1:]) * 1e3:.1f} ms on one card")
+    say(f"  launches {json.dumps(counts)}; collectives {json.dumps(coll)}")
+    if prof is not None:
+        say(f"  profile of a mesh step (torch.profiler, 2 steps): busy "
+            f"{prof['busy_ms']:.1f} ms, collectives "
+            f"{prof['collective_ms']:.1f} ms device time, idle share "
+            f"{prof['idle_share']:.3f}")
+    if not ok:
+        raise AssertionError(f"rank {dist.get_rank()}: {label} at "
+                             f"{mesh_shape} disagrees with one card")
+    del p, o, blocks, whole, want
+    gc.collect()
+    return counts
+
+
+def ep_local_grads(cfg, params, batch, dev, say, loss_fn) -> None:
+    """Every expert's gradient under ``ep_local`` at 2×2 against one
+    card's ``grouped``."""
+    from repro_torch.data import device_transform, shard_for
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules, local_slice
+    from repro_torch.kernels import compare
+    from repro_torch.train import TrainConfig, make_train_step
+
+    mesh = spmd.init_mesh((2, 2), device_type=dev.type)
+    rules = ShardingRules.for_mesh(mesh)
+    ecfg = replace(cfg, moe=replace(cfg.moe, impl="ep_local"))
+    _, want = make_train_step(cfg, TrainConfig(),
+                              loss_fn=loss_fn(cfg)).grads(
+        params, device_transform(dev)(batch))
+    step = make_train_step(ecfg, TrainConfig(), rules=rules,
+                           loss_fn=loss_fn(ecfg))
+    lay = step.layout
+    (_, got), counts, coll = _counted(lambda: step.grads(
+        lay.shard_params(params), shard_for(batch, rules, dev)))
+    cos = []
+    for k in sorted(lay.keep):
+        mine = want[k][local_slice(tuple(want[k].shape), lay.params[k],
+                                   mesh)]
+        for e in range(mine.shape[1]):
+            cos.append(compare.cosine(got[k][:, e], mine[:, e]))
+    worst = min(cos)
+    say(f"M3ViT ep_local at 2x2, {len(cos)} expert gradients a rank over "
+        f"{len(lay.keep)} stacks against one card's grouped: worst cosine "
+        f"{worst:.6f} (>= {compare.GRAD_COSINE_LEAF}); launches "
+        f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
+    if worst < compare.GRAD_COSINE_LEAF:
+        raise AssertionError(f"rank {dist.get_rank()}: ep_local gradients")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    smoke = args.device == "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.launch.train import local_mesh
+    from repro_torch.models import model as LM
+    from repro_torch.models import vit
+
+    _, dev = local_mesh(argparse.Namespace(mesh="local"),
+                        torch.device(args.device))
+    rank = dist.get_rank()
+
+    def say(*a):
+        if rank == 0:
+            print(*a, flush=True)
+
+    if not smoke:
+        say(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip())
+    say(f"{dist.get_world_size()} ranks, {dist.get_backend()}; torch "
+        f"{torch.__version__}")
+    cuda = ops.policy_named("cuda")
+    total: dict = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+
+    lcfg = replace(LL.SMOKE_CONFIG if smoke else LL.CONFIG, policy=cuda)
+    lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=not smoke)
+    stream = make_stream(DataConfig(batch=8, seq_len=128,
+                                    vocab_size=lcfg.vocab_size, seed=0))
+    batches = [stream.batch(i) for i in range(3)]
+    for shape in ((1, 4), (4, 1)):
+        add(against_one("Llama-3.2-1B", lcfg, lparams, batches, shape, dev,
+                        say))
+    del lparams
+    gc.collect()
+    _peak_reset()
+
+    mcfg = replace(MV.SMOKE_CONFIG if smoke else MV.CONFIG,
+                   policy=cuda.with_impls(moe_ffn="eager"))
+    mparams = vit.init_params(0, mcfg, device=dev)
+    mstream = make_stream(DataConfig(batch=8, seq_len=0, kind="m3vit",
+                                     seed=0))
+    ep_local_grads(mcfg, mparams, mstream.batch(0), dev, say, m3vit_loss)
+    ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
+    add(against_one("M3ViT ep_local", ecfg, mparams,
+                    [mstream.batch(i) for i in range(3)], (2, 2), dev, say,
+                    loss_fn=m3vit_loss(ecfg), profile=False))
+    say(f"launches over the mesh runs (rank 0): {json.dumps(total)}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
