@@ -8,12 +8,12 @@ Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, Llama-4-Scout,
 M³ViT-many) serving; then training M³ViT and Llama-3.2-1B through the
 kernels; then mesh serving (sharding rules, expert parallelism, the
 sharded expert cache, the tile table's overrides) and training over a
-mesh.
+mesh; last the four examples (``repro_torch.examples``).
 
     python3 chip_smoke.py
 
 Phases, each printing its lines, run in the order 1, 2, 3, 4, 7, 5, 8, 6,
-9, 10 (a), 11 (a), 10 (b) with 11 (b) (phase 5 checks and times the
+9, 10 (a), 11 (a), 10 (b) with 11 (b), 12 (phase 5 checks and times the
 launches of 3, 4 and 7, and of phase 8's Qwen2-VL-72B and Llama-4-Scout
 units while each model lives; phases 10 and 11 share one NCCL world of
 one and then one pair of processes):
@@ -341,6 +341,26 @@ one and then one pair of processes):
    checkpoint, which the parent restores without a mesh and trains on,
    against the same runs with no mesh.  The four kernels of the training
    path must launch (``mesh_train_launches`` in the JSON line).
+12. The examples: each one's ``main`` in-process on the card under its
+   default ``--policy cuda``, counted (launches by kernel and variant,
+   every SIMT launch named with its planner's reason, the dispatch
+   report with every kernel impl on the card and no fallback, the kernels
+   of its path launched, its host wall).  (a) ``quickstart``: ①–③ within
+   ``compare.py``'s float32 rule of the same run on the CPU (integers
+   equal), ⑤'s queue sizes equal, ④'s float32 GEMM (the one SIMT launch
+   allowed) within the float32 tolerance of the CPU's, both M³ViT task
+   outputs finite and at cosine >= 0.999 to the same forward under
+   ``eager`` on the card.  (b) ``multitask_vit --steps 30 --frames 12``
+   at the paper config: every loss finite, the last semseg CE below the
+   first, no SIMT launch, and the per-frame task switch moving no
+   weight (every parameter's ``data_ptr`` and ``memory_allocated``
+   unchanged).  (c) ``serve_lm``: each family's tokens replayed
+   teacher-forced under the kernels and under ``eager`` on the card,
+   held by ``compare.serving_agrees``, and its decode state's bytes equal
+   to the CPU's.  (d) ``train_lm --steps 20`` at 8 × 128 from no
+   checkpoint: finite losses, the last below the first, the parameter
+   count ``lm_100m``'s.  These launches stay out of phase 5 and of
+   ``launches`` (``example_launches`` in the JSON line).
 
 Each main-path run sets every launch count to 0 just before it and reads
 them just after; a kernel's ``launches`` in the JSON line is the sum over
@@ -4784,6 +4804,319 @@ def mesh_train_two(results) -> dict:
         raise AssertionError(f"(b) launcher checkpoint: {got} vs {want}")
     return launches
 
+# ------------------------------------------------------------ phase 12
+
+#: each example's arguments in phase 12 and the kernels it must launch
+EXAMPLES = {
+    "quickstart": ([], ("unified_linear", "flash_attention", "gelu_lut",
+                        "moe_gemm")),
+    "multitask_vit": (["--steps", "30", "--frames", "12"],
+                      ("unified_linear", "flash_attention", "gelu_lut",
+                       "moe_gemm")),
+    "serve_lm": ([], ("unified_linear", "flash_attention", "decode_fused")),
+    "train_lm": (["--steps", "20", "--batch", "8", "--seq-len", "128"],
+                 ("unified_linear", "flash_attention")),
+}
+EXAMPLE_CKPT = ROOT / "build" / "examples_train_lm"
+
+
+@contextlib.contextmanager
+def simt_reasons(out: dict):
+    """Tally into ``out`` (kernel -> {planner's reason: launches}) every
+    GEMM or attention launch inside the block that its planner sends to
+    the SIMT route; the launches run and count as they would."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as MG
+    from repro_torch.kernels import unified_linear as UL
+
+    plans = ((UL, "unified_linear", lambda a: UL.plan_for(a[0], a[1])),
+             (FA, "flash_attention", lambda a: FA.plan_for(a[0])),
+             (MG, "moe_gemm", lambda a: MG.plan_for(a[0], a[1])))
+    saved = []
+    for mod, name, plan_of in plans:
+        def launch(*args, _launch=mod._launch, _name=name, _plan=plan_of):
+            plan = _plan(args)
+            if plan.variant == "simt":
+                by = out.setdefault(_name, {})
+                by[plan.reason] = by.get(plan.reason, 0) + 1
+            return _launch(*args)
+
+        saved.append((mod, mod._launch))
+        mod._launch = launch
+    try:
+        yield out
+    finally:
+        for mod, launch in saved:
+            mod._launch = launch
+
+
+def run_example(name: str, extra=()) -> tuple[dict, dict]:
+    """One example's ``main`` on the card, counted: its launches by kernel
+    and variant, the SIMT launches with their planner's reasons, and its
+    dispatch report (no fallback, every kernel impl on the card).
+    Returns (the example's result, its launch counts)."""
+    import importlib
+    import time
+
+    from repro_torch import ops
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     variant_counts)
+
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    argv, kernels = EXAMPLES[name]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ops.reset_dispatch_report()
+    reasons: dict = {}
+    t0 = time.perf_counter()
+    with simt_reasons(reasons):
+        out = module.main(list(argv) + list(extra))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, variants = launch_counts(), variant_counts()
+    report = ops.dispatch_report()
+    print(f"  {name}: {wall:.2f} s of host wall; launches "
+          f"{json.dumps(counts)}; variants {json.dumps(variants)}")
+    for kernel, by in reasons.items():
+        for why, n in by.items():
+            print(f"  {name}: {n} {kernel} launch(es) on simt: {why}")
+    for kernel, by in variants.items():
+        if by.get("simt", 0) != sum(reasons.get(kernel, {}).values()):
+            raise AssertionError(f"{name}: {kernel}'s simt counter "
+                                 f"{by.get('simt', 0)} against "
+                                 f"{reasons.get(kernel)} planned")
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: {missing} never launched: {counts}")
+    for op, entry in report.items():
+        off_card = {impl: m for impl, m in entry["modes"].items()
+                    if set(m) != {"cuda"}}
+        if entry["fallbacks"] or off_card:
+            raise AssertionError(f"{name}: dispatch report for {op}: "
+                                 f"{entry}")
+    print(f"  {name}: dispatch report, every kernel impl on the card, no "
+          f"fallback: {json.dumps(report)}")
+    out["_wall_s"] = wall
+    out["_simt"] = reasons
+    return out, counts
+
+
+def _close(label, got: float, want: float) -> None:
+    """A scalar against the CPU run's at ``compare.py``'s float32 rule."""
+    from repro_torch.kernels.compare import within_tolerance
+
+    ok = within_tolerance(torch.tensor([got]), torch.tensor([want]),
+                          torch.float32)
+    print(f"  quickstart {label}: card {got:.6e}, CPU {want:.6e} (float32 "
+          f"1e-5+1e-5|ref|: {'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"quickstart {label}: {got} against {want}")
+
+
+def example_quickstart() -> dict:
+    """(a) quickstart at its defaults, against its run on the CPU and the
+    M³ViT forward under ``eager`` on the card."""
+    from dataclasses import replace as _replace
+
+    from repro_torch import ops
+    from repro_torch.configs import get
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.compare import cosine
+    from repro_torch.models import vit
+
+    out, counts = run_example("quickstart")
+    simt = out["_simt"]
+    if set(simt) - {"unified_linear"} or sum(
+            simt.get("unified_linear", {}).values()) != 1:
+        raise AssertionError(f"quickstart: SIMT launches beyond ④'s "
+                             f"float32 GEMM: {simt}")
+    print("  quickstart on the CPU (the same run's plain versions):")
+    cpu = quickstart.main(["--device", "cpu"])
+    for key in ("loads", "lut_entries", "queue_sizes", "empty_queues",
+                "linear_shape", "softmax_matches"):
+        if out[key] != cpu[key]:
+            raise AssertionError(f"quickstart {key}: card {out[key]} CPU "
+                                 f"{cpu[key]}")
+    print(f"  quickstart ⑤ queues {out['queue_sizes']} and ①'s loads "
+          f"{out['loads']}, ③'s {out['lut_entries']} entries: equal to the "
+          f"CPU run's")
+    for key in ("attn_max_diff", "softmax_bias", "softmax_denom",
+                "lut_max_err"):
+        _close(key, out[key], cpu[key])
+    xw, w = (t.cpu().double() for t in cpu["linear_args"])
+    check("unified_linear", "quickstart ④ float32 (simt) vs its CPU run",
+          out["linear_out"].cpu(), cpu["linear_out"], torch.float32,
+          lut_pre=(xw @ w).float())
+    cfg = _replace(get("m3vit"), policy=ops.policy_named("eager"))
+    params = vit.init_params(0, cfg)
+    img = quickstart.m3vit_frame("cuda")
+    with torch.inference_mode():
+        for task, pred in out["m3vit"].items():
+            want = vit.forward(params, img, cfg, task)[0]
+            cos = cosine(pred, want)
+            ok = bool(torch.isfinite(pred).all()) and cos >= 0.999
+            print(f"  quickstart M3ViT[{task}] {tuple(pred.shape)}: finite, "
+                  f"cosine vs eager on the card {cos:.6f} (>= 0.999: "
+                  f"{'ok' if ok else 'FAIL'}); first call "
+                  f"{out['m3vit_wall_s'][task] * 1e3:.2f} ms")
+            if not ok:
+                raise AssertionError(f"quickstart M3ViT[{task}]: cosine "
+                                     f"{cos}")
+    return counts
+
+
+def example_multitask() -> dict:
+    """(b) multitask_vit at the paper config, 30 steps and 12 frames."""
+    out, counts = run_example("multitask_vit")
+    if out["_simt"]:
+        raise AssertionError(f"multitask_vit: SIMT launches in a bf16 "
+                             f"M3ViT run: {out['_simt']}")
+    losses = np.asarray(out["losses"])
+    ok = bool(np.isfinite(losses).all()) and losses[-1, 0] < losses[0, 0]
+    walls = out["step_walls_s"]
+    print(f"  multitask_vit: {len(losses)} steps, semseg CE {losses[0, 0]:.4f}"
+          f" -> {losses[-1, 0]:.4f}, depth RMSE {losses[0, 1]:.4f} -> "
+          f"{losses[-1, 1]:.4f}, every loss finite and the last CE below the "
+          f"first: {'ok' if ok else 'FAIL'}; {statistics.median(walls[1:]) * 1e3:.1f}"
+          f" ms a step (median host wall of steps 1-{len(walls) - 1}), step "
+          f"0 {walls[0] * 1e3:.1f} ms")
+    if not ok:
+        raise AssertionError(f"multitask_vit: losses {losses.tolist()}")
+    frames = {t: statistics.median(ts) * 1e3 for t, ts in
+              out["frame_s"].items()}
+    moved = not (out["same_storage"] and out["same_memory"])
+    print(f"  multitask_vit: task switch on every frame, median "
+          f"{json.dumps({t: round(ms, 3) for t, ms in frames.items()})} ms "
+          f"a frame at batch 1; every parameter's storage and "
+          f"memory_allocated unchanged over the frames: "
+          f"{'FAIL' if moved else 'ok'}; semseg pixel accuracy "
+          f"{out['accuracy']:.4f}")
+    if moved:
+        raise AssertionError("multitask_vit: the task switch moved weights")
+    return counts
+
+
+def _replay_agrees(arch: str, r: dict) -> None:
+    """(c) one family's generated tokens, replayed teacher-forced under the
+    example's kernel policy (its argmax must give the tokens back) and the
+    plain ``eager`` one, held by ``compare.serving_agrees``."""
+    from repro_torch import ops
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_step
+
+    engine = r["engine"]
+    cfg, params = engine.cfg, engine.params
+    prompts = r["prompts"].cuda()
+    toks = torch.from_numpy(r["tokens"]).long().cuda()
+    b, s0 = prompts.shape
+    prefill, decode = engine.steps()
+    plain_prefill, plain_decode = make_serve_step(
+        replace(cfg, policy=ops.policy_named("eager")))
+    kern, plain = [], []
+    with torch.inference_mode():
+        state = M.init_state(cfg, b, serve_lm.MAX_LEN)
+        pstate = M.init_state(cfg, b, serve_lm.MAX_LEN)
+        logits, state = prefill(params, prompts, state)
+        want, pstate = plain_prefill(params, prompts, pstate)
+        for i in range(toks.shape[1]):
+            if not torch.equal(torch.argmax(logits, -1), toks[:, i]):
+                raise AssertionError(f"serve_lm {arch} step {i}: the "
+                                     "replay does not give the tokens back")
+            kern.append(logits)
+            plain.append(want)
+            logits, state = decode(params, toks[:, i:i + 1], state, s0 + i)
+            want, pstate = plain_decode(params, toks[:, i:i + 1], pstate,
+                                        s0 + i)
+        kern.append(logits)
+        plain.append(want)
+    cos = [cosine(k, p) for k, p in zip(kern, plain)]
+    k32 = p32 = None
+    if min(cos) < 0.999:
+        ref = _float32_replay(cfg, params, prompts, toks, serve_lm.MAX_LEN)
+        k32 = [cosine(k, x) for k, x in zip(kern, ref)]
+        p32 = [cosine(p, x) for p, x in zip(plain, ref)]
+    ok = serving_agrees(cos, k32, p32)
+    extra = "" if k32 is None else (
+        f"; below 0.999, against the float32 model: kernels min "
+        f"{min(k32):.6f}, plain {min(p32):.6f}")
+    print(f"  serve_lm {arch}: teacher-forced logits vs eager on the card, "
+          f"min cosine {min(cos):.6f} over the prefill and "
+          f"{len(cos) - 1} decode steps{extra} (compare.serving_agrees: "
+          f"{'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"serve_lm {arch}: kernel logits disagree")
+
+
+def example_serve() -> dict:
+    """(c) serve_lm at its defaults: each family's tokens against eager
+    on the card, its decode state's bytes against the CPU's."""
+    from repro_torch.examples import serve_lm
+
+    out, counts = run_example("serve_lm")
+    for arch in serve_lm.ARCHS:
+        r = out[arch]
+        cpu = serve_lm.state_bytes(r["engine"].cfg, r["prompts"].shape[0],
+                                   "cpu")
+        print(f"  serve_lm {arch}: {r['wall_s'] * 1e3:.1f} ms host wall, "
+              f"{r['tok_per_s']:.1f} tok/s; {r['kind']} "
+              f"{r['state_bytes']} B on the card, {cpu} B on the CPU")
+        if r["state_bytes"] != cpu:
+            raise AssertionError(f"serve_lm {arch}: state bytes differ")
+        _replay_agrees(arch, r)
+    return counts
+
+
+def example_train() -> dict:
+    """(d) train_lm, 20 steps of 8 x 128 tokens, from no checkpoint."""
+    import shutil
+
+    from repro_torch.examples import train_lm
+    from repro_torch.models import model as M
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    try:
+        out, counts = run_example("train_lm",
+                                  ["--ckpt-dir", str(EXAMPLE_CKPT)])
+    finally:
+        shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    n = sum(p.numel() for p in M.param_specs(train_lm.lm_100m()).values())
+    hist = [loss for _, loss in out["history"]]
+    ok = (out["params"] == n and not out["resumed"] and len(hist) == 20
+          and bool(np.isfinite(hist).all()) and hist[-1] < hist[0]
+          and out["nan_skips"] == 0)
+    print(f"  train_lm: {out['params']} parameters (lm_100m's {n}), loss "
+          f"{hist[0]:.4f} -> {hist[-1]:.4f} over {len(hist)} steps, "
+          f"stragglers {out['stragglers']}, nan skips {out['nan_skips']}; "
+          f"step wall EMA {out['ema_step_s'] * 1e3:.1f} ms: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"train_lm: {hist}")
+    return counts
+
+
+def examples_path() -> dict:
+    """Phase 12: the four examples' ``main`` in-process on the card, each
+    counted and checked.  Returns the launches by kernel, summed."""
+    import time
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    for part, run in (("(a)", example_quickstart),
+                      ("(b)", example_multitask), ("(c)", example_serve),
+                      ("(d)", example_train)):
+        print(f"  phase 12 {part}")
+        for name, c in run().items():
+            total[name] = total.get(name, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  phase 12 launches by kernel (kept out of phase 5 and of "
+          f"'launches'): {json.dumps(total)}")
+    print(f"  phase 12 wall time {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -4897,6 +5230,14 @@ def main() -> None:
         rec["mesh_launches"] = meshed.get(rec["name"], 0)
         rec["mesh_train_launches"] = trained.get(rec["name"], 0)
         rec["launches"] += rec["mesh_launches"] + rec["mesh_train_launches"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 12: the examples — quickstart, multitask_vit, serve_lm, "
+          "train_lm")
+    examples = examples_path()
+    for rec in records:
+        rec["example_launches"] = examples.get(rec["name"], 0)
 
     print(smi)
     print(json.dumps({"kernels": records}))

@@ -8,7 +8,7 @@
     print(ops.dispatch_report())
 """
 
-from repro_torch.ops.policy import (ComputePolicy, DEFAULT_POLICY,
+from repro_torch.ops.policy import (ComputePolicy, DEFAULT_POLICY, OPS,
                                     current_policy, policy_named, use_policy)
 from repro_torch.ops.registry import (DispatchError, collective_report,
                                       dispatch, dispatch_report, register,
@@ -24,7 +24,7 @@ def apply_activation(x, kind):
 
 
 __all__ = [
-    "ComputePolicy", "DEFAULT_POLICY",
+    "ComputePolicy", "DEFAULT_POLICY", "OPS",
     "current_policy", "policy_named", "use_policy",
     "DispatchError", "dispatch", "dispatch_report", "register",
     "reset_dispatch_report", "collective_report", "apply_activation",

@@ -34,12 +34,19 @@ from dataclasses import dataclass, replace
 from typing import Mapping, Optional
 
 __all__ = [
+    "OPS",
     "ComputePolicy",
     "use_policy",
     "current_policy",
     "DEFAULT_POLICY",
     "policy_named",
 ]
+
+# The logical ops of the unified compute unit.  Implementations register
+# against these names in ``repro_torch.ops.impls``.
+OPS = ("attention", "attention_decode", "linear", "moe_grouped_gemm",
+       "moe_ffn", "activation")
+
 
 def _freeze_impls(impls) -> tuple:
     if isinstance(impls, Mapping):
@@ -111,6 +118,11 @@ class ComputePolicy:
         merged = {o: dict(b) for o, b in self.tiles}
         merged.setdefault(op, {}).update(blocks)
         return replace(self, tiles=_freeze_tiles(merged))
+
+    def with_options(self, **kw) -> "ComputePolicy":
+        """New policy with numerics fields replaced:
+        ``policy.with_options(lut_step_log2=-7, bias_f32=False)``."""
+        return replace(self, **kw)
 
 
 #: Registry defaults: blocked attention, eager GEMMs, LUT activations.
