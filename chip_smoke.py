@@ -197,17 +197,17 @@ one and then one pair of processes):
    optimizer device ms, the idle share, and each kernel's forward and
    backward device ms a step.
 
-7. The recurrent families at full width and depth (random weights drawn
-   on the card from seed 0: RecurrentGemma-9B's 9.6 B parameters would
-   take minutes of NumPy on the host; the seconds are printed), each under
-   ``cuda`` with ``attention_decode="cuda_fused"``: (a) xLSTM-350M (24
-   layers, 7 mLSTM : 1 sLSTM) and RecurrentGemma-9B (38 layers, RG-LRU,
+7. The recurrent families at full width, cut in depth for the time
+   limit (``RC_LAYERS``; random weights drawn on the card from seed 0;
+   the seconds are printed), each under ``cuda`` with
+   ``attention_decode="cuda_fused"``: (a) xLSTM-350M (8 of 24 layers,
+   7 mLSTM : 1 sLSTM) and RecurrentGemma-9B (14 of 38 layers, RG-LRU,
    RG-LRU, local attention over 2048 tokens, MQA at head_dim 256) each
    generate 32 greedy tokens for 8 prompts of 128 tokens (``max_len``
    512, so every local-attention cache is a 512-slot ring), counted:
    ``unified_linear`` launches, and for RecurrentGemma ``flash_attention``
-   and ``decode_fused`` 12 times a decode step (its 12 local-attention
-   layers), all hits on the card with no fallback; xLSTM's sLSTM
+   and ``decode_fused`` once a local-attention layer and decode step,
+   all hits on the card with no fallback; xLSTM's sLSTM
    projections (rows of 1365 bf16, 2730 bytes) are the SIMT launches
    allowed by name, exactly their count; then the prefill and every
    decode step replayed teacher-forced under the kernel policy (whose
@@ -310,14 +310,26 @@ one and then one pair of processes):
    has no ``cuda`` knob: the planners pick each launch's tile).  (b) Two
    processes on the one card, gloo over CUDA tensors (NCCL refuses two
    ranks on one device).  A probe first: gloo starts and all-reduces a
-   CUDA tensor; where it cannot, (b) is left out with the error printed.
-   After the probe every fault fails the run: ``apply_moe_ep_local`` at
-   M³ViT's width, 8 of 16 experts a rank on ``moe_gemm``, against
-   single-device ``grouped`` at the bf16 tolerance; and a grouped MoE on
-   each rank's half of a data-split batch (``spmd.batch_split``, M³ViT's
-   128-token groups and one group over the whole batch) bit for bit
-   against the layer on the whole batch; each counted and checked for
-   fallbacks as in (a).
+   CUDA tensor.  Every fault, the probe's too, fails the run:
+   ``apply_moe_ep_local`` at M³ViT's width, 8 of 16 experts a rank on
+   ``moe_gemm``, against single-device ``grouped`` at the bf16
+   tolerance; a grouped MoE on each rank's half of a data-split batch
+   (``spmd.batch_split``, M³ViT's 128-token groups and one group over the
+   whole batch) bit for bit against the layer on the whole batch; then
+   tensor parallelism over (1, 2): ``unified_linear``'s column blocks of
+   Llama-3.2-1B's projections (N/2, summed in the whole weight's order)
+   bit-equal to the whole product's columns at 8 and 1024 rows, its row
+   blocks (K/2, float32 out), ``flash_attention`` at 16 q over 4 KV heads
+   and ``decode_fused`` at 4 KV heads each against its plain version;
+   full-width Llama-3.2-1B with each rank's blocks drawn on the card
+   (bit-equal to the narrowed whole draw) serving 8 × 128 prompts and 32
+   greedy tokens, its prefill's and 8 teacher-forced steps' logits at
+   cosine >= SERVE_COSINE of no mesh, the collectives by ``where`` (an
+   ``attn_out`` and an ``mlp_down`` all-reduce a layer, an ``embed``
+   all-reduce and a ``logits`` all-gather a forward), no SIMT launch;
+   and tiered preemption over a 4-lane bucket split over (2, 1) (4 layers
+   of Llama-3.2-1B), every request's tokens bit-equal to no mesh; each
+   counted and checked for fallbacks as in (a).
 11. Training over a mesh (``make_train_step(rules=)``: each rank's
    blocks of the parameters and AdamW state, its rows of the batch, the
    weights gathered whole, the gradients reduced to the blocks once a
@@ -2483,15 +2495,24 @@ def _slstm_simt(cfg, forwards: int) -> dict:
             "TMA cannot address")}
 
 
+#: phase 7's depth: full width, a cut of the layers (the time limit);
+#: xLSTM one period of 7 mLSTM + 1 sLSTM, RecurrentGemma four periods of
+#: (RG-LRU, RG-LRU, local attention) and its two remainder layers
+RC_LAYERS = {"xlstm_350m": 8, "recurrentgemma_9b": 14}
+
+
 def recurrent_model(name):
-    """The full ``CONFIG`` with random weights drawn on the card from seed
-    0 (the same shapes, scales and dtypes as the host draw)."""
+    """The ``CONFIG`` at full width and ``RC_LAYERS`` deep, with random
+    weights drawn on the card from seed 0 (the same shapes, scales and
+    dtypes as the host draw)."""
     import importlib
     import time
 
     from repro_torch.models import model as M
 
-    cfg = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    full = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    cfg = replace(full, num_layers=RC_LAYERS[name])
+    print(f"  {name}: {cfg.num_layers} of its {full.num_layers} layers")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = M.init_params(0, cfg, draw_on_device=True)
@@ -3356,21 +3377,25 @@ def _linear_case(args) -> Case:
     from repro_torch.core.gelu import device_table
     from repro_torch.kernels import unified_linear as kul
 
-    x, w, b, act, use_lut, step, rng = args
+    x, w, b, act, use_lut, step, rng, out_dtype, order_n = args
     m, k = x.shape
     n = w.shape[1]
-    kw = dict(activation=act, use_lut=use_lut, step_log2=step, lut_range=rng)
+    kw = dict(activation=act, use_lut=use_lut, step_log2=step, lut_range=rng,
+              out_dtype=out_dtype)
     lut = bool(use_lut and act in ("gelu", "silu"))
-    moved = (m * k + k * n + m * n) * x.element_size() \
+    out_size = (x if out_dtype is None else torch.empty(
+        (), dtype=out_dtype)).element_size()
+    moved = (m * k + k * n) * x.element_size() + m * n * out_size \
         + (_nbytes(b) if b is not None else 0) \
         + (_nbytes(device_table(act, step, rng, x.device)) if lut else 0)
-    plan = kul.plan_for(x, w)
+    plan = kul.plan_for(x, w, order_n=order_n)
     return Case(
-        key=("linear", m, k, n, x.dtype, act, lut, b is not None),
+        key=("linear", m, k, n, x.dtype, act, lut, b is not None, out_dtype,
+             order_n),
         label=f"M={m} K={k} N={n} {act or 'none'}{'-lut' if lut else ''}"
               f"{' +bias' if b is not None else ''} {_dt(x)} "
               f"[{_plan_label(plan)}]", variant=plan.variant,
-        kernel=lambda: kul.unified_linear(x, w, b, **kw),
+        kernel=lambda: kul.unified_linear(x, w, b, order_n=order_n, **kw),
         plain=lambda: kul.unified_linear_plain(x, w, b, **kw),
         library=lambda: torch.matmul(x, w), nbytes=moved,
         flops=2.0 * m * n * k, peak=x.dtype,
@@ -4217,14 +4242,15 @@ def _mesh_tiles() -> None:
 def _two_ranks(rank: int, store: str, out: str) -> None:
     """One of phase 10 (b)'s and phase 11 (b)'s two ranks on the one
     card (phase 11's work after phase 10's: ``_two_ranks_train``).  First
-    the probe:
-    gloo starts and all-reduces a CUDA tensor (its failure, and only its,
-    leaves (b) out).  Then, counted and checked for fallbacks:
+    the probe: gloo starts and all-reduces a CUDA tensor.  Then, counted
+    and checked for fallbacks:
     ``apply_moe_ep_local`` at M³ViT's width with 8 of its 16 experts a
-    rank against single-device ``grouped`` (the bf16 tolerance); and a
+    rank against single-device ``grouped`` (the bf16 tolerance); a
     grouped MoE on this rank's half of a data-split batch, with M³ViT's
     128-token groups and with one group over the whole batch, against the
-    layer on the whole batch, bit for bit."""
+    layer on the whole batch, bit for bit; Llama-3.2-1B tensor-parallel
+    over (1, 2) (``_two_ranks_tp``); and parking over a bucket split over
+    (2, 1) (``_two_ranks_park``)."""
     import traceback
 
     import torch.distributed as dist
@@ -4297,6 +4323,10 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
         del layer, h, want, got
         gc.collect()
         torch.cuda.empty_cache()
+        result["tp"] = _two_ranks_tp(rank)
+        result["park"] = _two_ranks_park(rank)
+        gc.collect()
+        torch.cuda.empty_cache()
         result["train"] = _two_ranks_train(rank, str(MESH_TRAIN_DIR))
         dist.barrier()
         dist.destroy_process_group()
@@ -4305,12 +4335,205 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
     Path(out).write_text(json.dumps(result))
 
 
-def two_ranks_one_card() -> dict:
+#: phase 10 (b)'s tensor-parallel Llama-3.2-1B: teacher-forced decode
+#: steps held to the serving cosine, and the projections whose column and
+#: row blocks phase 10 (b) holds against the whole product
+TP_FORCED_STEPS = 8
+TP_PROJECTIONS = (("wq", 2048, 2048), ("wk", 2048, 512),
+                  ("wg", 2048, 8192), ("wo", 2048, 2048),
+                  ("wd", 8192, 2048))
+
+
+def _tp_kernels(rank: int) -> dict:
+    """Phase 10 (b), rank 0: the three kernels of the tensor-parallel
+    path on Llama-3.2-1B's shapes at (1, 2), each against its plain
+    version — ``unified_linear``'s column blocks (N/2, summed in the whole
+    weight's order) bit-equal to the whole product's columns and its row
+    blocks (K/2, float32 out) within the float32 tolerance, at a decode
+    step's 8 rows and a prefill's 1024; ``flash_attention`` at 16 of the
+    32 q heads over 4 of the 8 KV heads; ``decode_fused`` at 4 KV heads
+    with per-slot lengths.  Returns the largest error per kernel."""
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import unified_linear as kul
+
+    errs = {"unified_linear": 0.0, "flash_attention": 0.0,
+            "decode_fused": 0.0}
+    for m in (LM_BATCH, TOKENS):
+        for name, k, n in TP_PROJECTIONS:
+            x = randn((m, k), torch.bfloat16, seed=71)
+            w = randn((k, n), torch.bfloat16, scale=k ** -0.5, seed=72)
+            whole = kul.unified_linear(x, w)
+            h = n // 2
+            for r in range(2):
+                cols = kul.unified_linear(
+                    x, w[:, r * h:(r + 1) * h].contiguous(), order_n=n)
+                check_exact("unified_linear", f"(b) rank {rank} {name} "
+                            f"column block {r} M={m} ({k}x{h} of {n})",
+                            cols, whole[:, r * h:(r + 1) * h])
+            kk = k // 2
+            xr, wr = x[:, :kk].contiguous(), w[:kk].contiguous()
+            part = kul.unified_linear(xr, wr, out_dtype=torch.float32)
+            errs["unified_linear"] = max(errs["unified_linear"], check(
+                "unified_linear", f"(b) rank {rank} {name} row block M={m} "
+                f"({kk}x{n}, float32 out)", part,
+                kul.unified_linear_plain(xr, wr, out_dtype=torch.float32),
+                torch.float32))
+    q = randn((LM_BATCH, 16, LM_PROMPT, 64), torch.bfloat16, seed=73)
+    k = randn((LM_BATCH, 4, LM_PROMPT, 64), torch.bfloat16, seed=74)
+    v = randn((LM_BATCH, 4, LM_PROMPT, 64), torch.bfloat16, seed=75)
+    errs["flash_attention"] = check(
+        "flash_attention", f"(b) rank {rank} 16 q heads over 4 KV heads, "
+        f"causal", kfa.flash_attention(q, k, v),
+        kfa.flash_attention_plain(q, k, v), torch.bfloat16)
+    q = randn((LM_BATCH, 16, 1, 64), torch.bfloat16, seed=76)
+    kc = randn((LM_BATCH, 4, LM_MAX_LEN, 64), torch.bfloat16, seed=77)
+    vc = randn((LM_BATCH, 4, LM_MAX_LEN, 64), torch.bfloat16, seed=78)
+    cl = torch.tensor([129, 130, 131, 132, 133, 140, 150, 160],
+                      dtype=torch.int32, device="cuda")
+    errs["decode_fused"] = check(
+        "decode_fused", f"(b) rank {rank} 16 q heads over 4 KV heads, "
+        f"per-slot lengths", kdf.fused_decode_attention(q, kc, vc, cl),
+        kdf.fused_decode_attention_plain(q, kc, vc, cl), torch.bfloat16)
+    return errs
+
+
+def _two_ranks_tp(rank: int) -> dict:
+    """Phase 10 (b): Llama-3.2-1B at full width and depth, its dense
+    blocks split over (1, 2) on the two ranks: each rank draws its own
+    blocks (``init_params(rules=)``, held bit for bit to the narrowed
+    whole draw), serves 8 x 128 prompts and 32 greedy tokens under
+    ``cuda`` (counted: launches, variants, collectives by ``where``, no
+    fallback), and holds the prefill's and 8 teacher-forced decode steps'
+    logits to the engine with no mesh at cosine >= SERVE_COSINE."""
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules, use_rules
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                          local_params)
+
+    out = {"kernel_errs": _tp_kernels(rank)}
+    rules = ShardingRules.for_mesh(spmd.init_mesh((1, 2)), fsdp=False)
+    policy = ops.policy_named("cuda").with_impls(
+        attention_decode="cuda_fused")
+    cfg = LL.CONFIG
+    whole = LM.init_params(0, cfg, draw_on_device=True)
+    mine = LM.init_params(0, cfg, draw_on_device=True, rules=rules)
+    narrowed = local_params(whole, cfg, rules)
+    out["draw_equal"] = mine.keys() == narrowed.keys() and all(
+        torch.equal(mine[k], narrowed[k]) for k in mine)
+    out["held_bytes"] = sum(v.numel() * v.element_size()
+                            for v in mine.values())
+    out["whole_bytes"] = sum(v.numel() * v.element_size()
+                             for v in whole.values())
+    del narrowed
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
+    plain = ServingEngine(cfg, whole, scfg)
+    tp = ServingEngine(cfg, mine, scfg, rules=rules)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    want = plain.generate(prompts, LM_NEW)
+    tp.generate(prompts, 2)                            # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    counted: dict = {}
+    got = _mesh_run(f"(b) rank {rank} Llama-3.2-1B ServingEngine over "
+                    f"(1, 2), tensor-parallel, {LM_BATCH} x {LM_PROMPT} "
+                    f"prompts, {LM_NEW} greedy tokens",
+                    lambda: tp.generate(prompts, LM_NEW), counted)
+    out["launches"] = counted
+    out["variants"] = read_variants(f"(b) rank {rank} tensor-parallel "
+                                    f"generate", tally=False)
+    out["collectives"] = [[c["kind"], c["axis"], c["where"], c["count"],
+                           c["bytes"]] for c in ops.collective_report()]
+    out["tokens_equal"] = float((got == want).mean())
+
+    def forced(engine, r):
+        prefill, decode = engine.steps(0)
+        logits = []
+        with torch.inference_mode(), use_rules(r):
+            state = LM.init_state(cfg, LM_BATCH, LM_MAX_LEN,
+                                  kv_heads=engine.kv_heads)
+            lg, state = prefill(engine.params, prompts, state)
+            logits.append(lg)
+            for i in range(min(TP_FORCED_STEPS, LM_NEW)):
+                tok = torch.from_numpy(want[:, i:i + 1]).long().cuda()
+                lg, state = decode(engine.params, tok, state,
+                                   LM_PROMPT + i)
+                logits.append(lg)
+        return logits
+
+    cos = [cosine(a, b) for a, b in zip(forced(tp, rules),
+                                        forced(plain, None))]
+    out["cosines"] = cos
+    out["agrees"] = serving_agrees(cos)
+    out["heads"] = [int(tp.params["layers.b0.attn.wq"].shape[-1] // cfg.hd),
+                    int(tp.kv_heads)]
+    del plain, tp, whole, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _two_ranks_park(rank: int) -> dict:
+    """Phase 10 (b): tiered preemption over a bucket whose 4 lanes are
+    split over (2, 1), Llama-3.2-1B at 4 layers of its full width: 6
+    batch-tier requests, then 3 interactive arrivals that park them, on a
+    tick clock — every request's tokens bit-equal to the same scheduler
+    with no mesh, and the lanes that come back on the other rank moved
+    over the data axis."""
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import LMBackend, Request, Scheduler
+    from repro_torch.serve.slo import SLOPolicy
+    from repro_torch.serve.slo.trace import TickClock
+
+    rules = ShardingRules.for_mesh(spmd.init_mesh((2, 1)), fsdp=False)
+    cfg = replace(LL.CONFIG, num_layers=MESH_LM_LAYERS)
+    params = LM.init_params(0, cfg, draw_on_device=True)
+    policy = ops.policy_named("cuda").with_impls(
+        attention_decode="cuda_fused")
+
+    def serve(r):
+        rng = np.random.default_rng(4)
+        reqs = [Request(rid=i, task_id=0,
+                        prompt=rng.integers(0, cfg.vocab_size, 16 + 8 * i),
+                        max_new_tokens=24 if i < 6 else 4,
+                        arrival=0.0 if i < 6 else 0.05 * (i - 5),
+                        tier="batch" if i < 6 else "interactive")
+                for i in range(9)]
+        sched = Scheduler(LMBackend(cfg, params, ServeConfig(
+            max_len=LM_MAX_LEN, policy=policy), rules=r), total_slots=4,
+            quantum=2, num_tasks=1, clock=TickClock(),
+            slo=SLOPolicy(preemption=True, chunk_interleave=False))
+        done = sched.run(reqs)
+        return {q.rid: list(q.tokens) for q in done}, sched
+
+    want, _ = serve(None)
+    ops.reset_dispatch_report()
+    got, sched = serve(rules)
+    moved = sum(c["count"] for c in ops.collective_report()
+                if c["where"] == "parked lane move")
+    m = sched.metrics()
+    return {"equal": got == want, "preemptions": m["preemptions"],
+            "restores": m["restores"], "moved": moved}
+
+
+def two_ranks_one_card() -> tuple[dict, dict]:
     """Phases 10 (b) and 11 (b): two processes on the one card over gloo
-    (NCCL refuses two ranks on one device).  Only a failed probe (gloo
-    cannot start or cannot all-reduce a CUDA tensor) leaves (b) out; a
-    fault after it, a rank that hangs or dies, or a missing result fails
-    the run.  Returns phase 11 (b)'s launches, both ranks summed."""
+    (NCCL refuses two ranks on one device).  A failed probe (gloo cannot
+    start or cannot all-reduce a CUDA tensor), a fault after it, a rank
+    that hangs or dies, or a missing result fails the run.  Returns phase
+    11 (b)'s launches and phase 10 (b)'s tensor-parallel ones, both
+    ranks summed."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -4341,9 +4564,9 @@ def two_ranks_one_card() -> dict:
                              f"exit codes {[p.exitcode for p in procs]}")
     probe = [r["probe_error"] for r in results if "probe_error" in r]
     if probe:
-        print(f"  (b) two ranks on the one card over gloo: left out — the "
-              f"probe failed: {probe[0]}")
-        return {}
+        # (b) carries the tensor-parallel checks: it is never left out
+        raise AssertionError(f"(b) two ranks on the one card over gloo: the "
+                             f"probe failed: {probe[0]}")
     for r in results:
         if "error" in r:
             raise AssertionError(f"(b) rank {r['rank']}: {r['error']}")
@@ -4359,10 +4582,67 @@ def two_ranks_one_card() -> dict:
         if not r["within"] or not r["launches"].get("moe_gemm") \
                 or not all(r["split"].values()):
             raise AssertionError(f"(b) rank {r['rank']}: {r}")
+    tp_launches = {}
+    for r in results:
+        tp_launches = _tp_report(r, tp_launches)
     print("phase 11 (b): training over two ranks on the one card")
     launches = mesh_train_two(results)
     shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
-    return launches
+    return launches, tp_launches
+
+
+def _tp_report(r: dict, total: dict) -> dict:
+    """Print and gate one rank's tensor-parallel and parking results of
+    phase 10 (b); returns ``total`` with its counted launches added."""
+    from repro_torch.configs import llama3_2_1b as LL
+
+    rank, tp, park = r["rank"], r["tp"], r["park"]
+    cfg_layers, forwards = LL.CONFIG.num_layers, 1 + LM_NEW
+    print(f"  (b) rank {rank} tensor-parallel Llama-3.2-1B over (1, 2): "
+          f"{tp['heads'][0]} of {LL.CONFIG.num_heads} q heads, "
+          f"{tp['heads'][1]} of {LL.CONFIG.num_kv_heads} KV heads a rank; "
+          f"holds {tp['held_bytes'] / 2**30:.3f} GiB of the "
+          f"{tp['whole_bytes'] / 2**30:.3f} GiB of weights; per-rank draw "
+          f"bit-equal to the narrowed whole draw: {tp['draw_equal']}")
+    print(f"  (b) rank {rank}: kernels on the TP shapes against their plain "
+          f"versions, max abs err {json.dumps(tp['kernel_errs'])}")
+    print(f"  (b) rank {rank}: logits of the prefill and "
+          f"{TP_FORCED_STEPS} teacher-forced steps at cosine "
+          f"{min(tp['cosines']):.6f}..{max(tp['cosines']):.6f} of no mesh "
+          f"(SERVE_COSINE): {tp['agrees']}; greedy tokens equal to no "
+          f"mesh's: {tp['tokens_equal']:.4f} of them")
+    where = {}
+    for kind, axis, at, count, nbytes in tp["collectives"]:
+        where[(kind, axis, at)] = count
+        print(f"    collective {kind} over {axis} at {at!r}: {count} "
+              f"({nbytes} bytes)")
+    expect = {("all_reduce", "model", "attn_out all-reduce"):
+              cfg_layers * forwards,
+              ("all_reduce", "model", "mlp_down all-reduce"):
+              cfg_layers * forwards,
+              ("all_reduce", "model", "embed all-reduce"): forwards,
+              ("all_gather", "model", "logits all-gather"): forwards}
+    bad = {k: (where.get(k), v) for k, v in expect.items()
+           if where.get(k) != v}
+    print(f"  (b) rank {rank}: two all-reduces a layer, one for the "
+          f"embedding and one logits all-gather a forward, over {forwards} "
+          f"forwards: {'ok' if not bad else bad}")
+    print(f"  (b) rank {rank} parking over a bucket split over (2, 1): "
+          f"{park['preemptions']} preemptions, {park['restores']} restores, "
+          f"the parked rows moved between the ranks in {park['moved']} "
+          f"all-gathers; every request's "
+          f"tokens bit-equal to no mesh: {park['equal']}")
+    if bad or not tp["draw_equal"] or not tp["agrees"] \
+            or not all(tp["launches"].get(k) for k in
+                       ("unified_linear", "flash_attention",
+                        "decode_fused")):
+        raise AssertionError(f"(b) rank {rank} tensor parallel: collectives "
+                             f"off {bad}, {tp}")
+    if not park["equal"] or not park["preemptions"] or not park["restores"]:
+        raise AssertionError(f"(b) rank {rank} parking: {park}")
+    for n, c in tp["launches"].items():
+        total[n] = total.get(n, 0) + c
+    return total
 
 
 def mesh_path() -> dict:
@@ -4410,10 +4690,11 @@ def mesh_path() -> dict:
     return total
 
 
-def mesh_phases() -> tuple[dict, dict]:
+def mesh_phases() -> tuple[dict, dict, dict]:
     """Phases 10 and 11 on the card: one NCCL world of one for 10 (a) and
-    11 (a), then two ranks for 10 (b) and 11 (b).  Returns phase 10 (a)'s
-    launches and phase 11's (both parts, the ranks' summed)."""
+    11 (a), then two ranks for 10 (b) and 11 (b).  Returns phase 10's
+    launches ((a) and (b)'s tensor-parallel run), phase 11's (both parts)
+    and phase 10 (b)'s tensor-parallel ones alone, the ranks' summed."""
     import time
 
     import torch.distributed as dist
@@ -4441,15 +4722,20 @@ def mesh_phases() -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    for n, c in two_ranks_one_card().items():
+    two_trained, tp = two_ranks_one_card()
+    for n, c in two_trained.items():
         trained[n] = trained.get(n, 0) + c
     print(f"  phases 10 (b) and 11 (b) wall time "
           f"{time.perf_counter() - t0:.1f} s")
+    print(f"  phase 10 (b) tensor-parallel launches, both ranks: "
+          f"{json.dumps(tp)}")
+    for n, c in tp.items():
+        meshed[n] = meshed.get(n, 0) + c
     print(f"  phase 11 launches (a) + (b): {json.dumps(trained)}")
     if not all(trained.get(k, 0) > 0 for k in CUDA_PATH_KERNELS):
         raise AssertionError(f"a kernel of mesh training never launched: "
                              f"{trained}")
-    return meshed, trained
+    return meshed, trained, tp
 
 
 # ------------------------------------------------------------ phase 11
@@ -4829,7 +5115,8 @@ def simt_reasons(out: dict):
     from repro_torch.kernels import moe_gemm as MG
     from repro_torch.kernels import unified_linear as UL
 
-    plans = ((UL, "unified_linear", lambda a: UL.plan_for(a[0], a[1])),
+    plans = ((UL, "unified_linear",
+              lambda a: UL.plan_for(a[0], a[1], order_n=a[8])),
              (FA, "flash_attention", lambda a: FA.plan_for(a[0])),
              (MG, "moe_gemm", lambda a: MG.plan_for(a[0], a[1])))
     saved = []
@@ -5225,8 +5512,9 @@ def main() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    meshed, trained = mesh_phases()
+    meshed, trained, tp = mesh_phases()
     for rec in records:
+        rec["tp_launches"] = tp.get(rec["name"], 0)
         rec["mesh_launches"] = meshed.get(rec["name"], 0)
         rec["mesh_train_launches"] = trained.get(rec["name"], 0)
         rec["launches"] += rec["mesh_launches"] + rec["mesh_train_launches"]

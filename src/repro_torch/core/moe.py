@@ -351,13 +351,30 @@ def route_split(params, cfg: MoEConfig, x: torch.Tensor, task_id, rules,
                         stat, pieces * capacity, t_loc, aux)
 
 
-def add_shared_experts(params, x: torch.Tensor,
-                       y: torch.Tensor) -> torch.Tensor:
-    """y + the always-on shared SwiGLU expert(s) on x."""
-    gshared = unified_linear(x, params["shared_wg"], activation="silu")
-    ushared = unified_linear(x, params["shared_wu"])
-    return y + unified_linear((gshared * ushared).to(x.dtype),
-                              params["shared_wd"])
+def add_shared_experts(params, x: torch.Tensor, y: torch.Tensor,
+                       cfg: Optional[MoEConfig] = None) -> torch.Tensor:
+    """y + the always-on shared SwiGLU expert(s) on x.  Where a rank holds
+    a block of their hidden columns (``cfg`` gives the whole width;
+    tensor-parallel serving, ``models/layers.py``), the column blocks of
+    ``shared_wg``/``shared_wu`` and the row block of ``shared_wd`` give
+    float32 partials, added over ``model`` before the one rounding."""
+    fs = params["shared_wd"].shape[0]
+    split = cfg is not None and fs != cfg.d_ff * cfg.num_shared_experts
+    order = cfg.d_ff * cfg.num_shared_experts if split else None
+    if split:
+        from repro_torch.dist import spmd
+
+        x = spmd.model_input(x, "moe_shared input")
+    gshared = unified_linear(x, params["shared_wg"], activation="silu",
+                             order_n=order)
+    ushared = unified_linear(x, params["shared_wu"], order_n=order)
+    h = (gshared * ushared).to(x.dtype)
+    if not split:
+        return y + unified_linear(h, params["shared_wd"])
+    from repro_torch.dist import spmd
+
+    part = unified_linear(h, params["shared_wd"], out_dtype=torch.float32)
+    return y + spmd.model_sum(part, "moe_shared all-reduce").to(x.dtype)
 
 
 def replace_impl(cfg: MoEConfig, impl: str) -> MoEConfig:
@@ -415,7 +432,7 @@ def apply_moe(params, cfg: MoEConfig, x: torch.Tensor, task_id=0,
 
     if cfg.num_shared_experts:
         with scope("moe_shared"):
-            y = add_shared_experts(params, x, y)
+            y = add_shared_experts(params, x, y, cfg)
     if return_stats:
         counts = rt.stat.sum(dim=0, dtype=torch.int32)
         if _is_task_vector(task_id):
@@ -502,5 +519,5 @@ def apply_moe_ep_local(params, cfg: MoEConfig, x: torch.Tensor, mesh,
     y = y.to(x.dtype).reshape(-1, d)[:rt.t_total].reshape(x.shape)
     if cfg.num_shared_experts:
         with scope("moe_shared"):
-            y = add_shared_experts(params, x, y)
+            y = add_shared_experts(params, x, y, cfg)
     return y, aux

@@ -24,7 +24,8 @@ def unified_linear(x: torch.Tensor, w: torch.Tensor,
                    token_index: torch.Tensor | None = None,
                    accum_out: torch.Tensor | None = None,
                    accum_weight: torch.Tensor | None = None,
-                   preferred_dtype=None) -> torch.Tensor:
+                   preferred_dtype=None, out_dtype=None,
+                   order_n: int | None = None) -> torch.Tensor:
     """y = act(x @ w + b), with optional sparse gather / weighted accumulate.
 
     x: (..., T, in_dim); w: (in_dim, out_dim); b: (out_dim,) float32.
@@ -32,13 +33,22 @@ def unified_linear(x: torch.Tensor, w: torch.Tensor,
     ``accum_out`` the result, scaled by ``accum_weight`` per row, is added
     onto that buffer (at ``token_index`` when given), out of place.
     ``preferred_dtype`` overrides the policy's accumulation dtype.
+    The tensor-parallel blocks (``models/layers.py``) pass two more:
+    ``out_dtype=torch.float32`` keeps a row shard's partial sums unrounded
+    until they are added over the ranks, and ``order_n`` (the whole
+    weight's width) sums a column shard in the whole product's order.
     """
     from repro_torch.ops.registry import dispatch
 
     if token_index is not None:
         x = torch.index_select(x, -2, token_index)
+    extra = {}
+    if out_dtype is not None:
+        extra["out_dtype"] = out_dtype
+    if order_n is not None:
+        extra["order_n"] = order_n
     y = dispatch("linear", x, w, b, activation=activation,
-                 preferred_dtype=preferred_dtype)
+                 preferred_dtype=preferred_dtype, **extra)
     if accum_out is None:
         return y
     scaled = y if accum_weight is None \

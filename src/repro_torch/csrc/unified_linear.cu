@@ -2,9 +2,11 @@
 // src/repro/kernels/unified_linear.py:unified_linear_kernel.
 //
 // x (M, K) and w (K, N) in bfloat16 or float32, b (N,) float32 or absent,
-// y (M, N) in x's dtype.  Every variant ends in the same fused epilogue:
-// float32 bias ("widened bias type"), then none / relu / erf-GELU / SiLU or
-// the LUT correction, then one round-to-nearest-even store.
+// y (M, N) in x's dtype, or float32 where the caller asks (out_f32: a
+// tensor-parallel row shard's partial sums, added over the ranks before
+// one rounding).  Every variant ends in the same fused epilogue: float32
+// bias ("widened bias type"), then none / relu / erf-GELU / SiLU or the
+// LUT correction, then one round-to-nearest-even store (none to float32).
 //
 // What bounds it on the H100, and what the design does about it:
 // - Decode (M = 8, Llama-3.2-1B, 2048..8192 wide): the weights' bytes, 1.95
@@ -56,8 +58,8 @@ __global__ void __launch_bounds__(kGemmThreads)
     unified_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
                           const float* __restrict__ bias,
                           const float* __restrict__ table, int table_n,
-                          float lut_scale, T* __restrict__ y, int M, int N,
-                          int K, int act, int use_lut) {
+                          float lut_scale, void* __restrict__ y, int M,
+                          int N, int K, int act, int use_lut, int out_f32) {
   __shared__ GemmSmem s;
   extern __shared__ float table_s[];
   const bool lut = use_lut && (act == kGelu || act == kSilu);
@@ -81,7 +83,10 @@ __global__ void __launch_bounds__(kGemmThreads)
       float v = acc[i][j];
       if (bias != nullptr) v += bias[c];
       v = epilogue(v, act, lut, table_s, table_n, lut_scale);
-      y[(size_t)r * N + c] = from_f32<T>(v);
+      if (out_f32)
+        static_cast<float*>(y)[(size_t)r * N + c] = v;
+      else
+        static_cast<T*>(y)[(size_t)r * N + c] = from_f32<T>(v);
     }
   }
 }
@@ -89,29 +94,29 @@ __global__ void __launch_bounds__(kGemmThreads)
 template <typename T>
 static void launch(const void* x, const void* w, const void* bias,
                    const void* table, int table_n, float lut_scale, void* y,
-                   int M, int N, int K, int act, int use_lut,
+                   int M, int N, int K, int act, int use_lut, int out_f32,
                    cudaStream_t stream) {
   dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
   const size_t smem = use_lut ? (size_t)table_n * sizeof(float) : 0;
   unified_linear_kernel<T><<<grid, kGemmThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(table),
-      table_n, lut_scale, static_cast<T*>(y), M, N, K, act, use_lut);
+      table_n, lut_scale, y, M, N, K, act, use_lut, out_f32);
 }
 
 extern "C" int unified_linear_launch(const void* x, const void* w,
                                      const void* bias, const void* table,
                                      int table_n, int step_log2, void* y,
                                      int M, int N, int K, int act, int use_lut,
-                                     int dtype, void* stream) {
+                                     int dtype, int out_f32, void* stream) {
   const float lut_scale = ldexpf(1.0f, -step_log2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     launch<float>(x, w, bias, table, table_n, lut_scale, y, M, N, K, act,
-                  use_lut, st);
+                  use_lut, out_f32, st);
   else
     launch<__nv_bfloat16>(x, w, bias, table, table_n, lut_scale, y, M, N, K,
-                          act, use_lut, st);
+                          act, use_lut, out_f32, st);
   return (int)cudaGetLastError();
 }
 
@@ -141,8 +146,8 @@ __global__ void __launch_bounds__(tc_threads<NWG, FOLD>(), 1)
                              const __grid_constant__ CUtensorMap xmap,
                              const float* __restrict__ bias,
                              const float* __restrict__ table, int table_n,
-                             float lut_scale, __nv_bfloat16* __restrict__ y,
-                             int M, int N, int K, int act, int use_lut,
+                             float lut_scale, void* __restrict__ y, int M,
+                             int N, int K, int act, int use_lut, int out_f32,
                              int stages, int ranges, int promote,
                              float* __restrict__ partials,
                              int* __restrict__ tickets) {
@@ -217,18 +222,24 @@ __global__ void __launch_bounds__(tc_threads<NWG, FOLD>(), 1)
       v0 += bias[n];
       v1 += bias[n + 1];
     }
-    *reinterpret_cast<__nv_bfloat162*>(y + (size_t)t * N + n) =
-        __floats2bfloat162_rn(
-            epilogue(v0, act, lut, table_s, table_n, lut_scale),
-            epilogue(v1, act, lut, table_s, table_n, lut_scale));
+    v0 = epilogue(v0, act, lut, table_s, table_n, lut_scale);
+    v1 = epilogue(v1, act, lut, table_s, table_n, lut_scale);
+    if (out_f32)
+      *reinterpret_cast<float2*>(static_cast<float*>(y) + (size_t)t * N +
+                                 n) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) +
+                                         (size_t)t * N + n) =
+          __floats2bfloat162_rn(v0, v1);
   }
 }
 
 template <int BT, int NWG, bool FOLD>
 static int launch_tc(const void* x, const void* w, const void* bias,
                      const void* table, int table_n, float lut_scale, void* y,
-                     int M, int N, int K, int act, int use_lut, int splits,
-                     int stages, int ranges, int promote, void* partials,
+                     int M, int N, int K, int act, int use_lut, int out_f32,
+                     int splits, int stages, int ranges, int promote,
+                     void* partials,
                      void* tickets, cudaStream_t stream) {
   CUtensorMap wmap, xmap;
   int err = sm90::encode_3d(&wmap, w, N, K, 1, sm90::kTileK);
@@ -245,8 +256,8 @@ static int launch_tc(const void* x, const void* w, const void* bias,
   kernel<<<grid, tc_threads<NWG, FOLD>(), smem, stream>>>(
       wmap, xmap, static_cast<const float*>(bias),
       static_cast<const float*>(table), table_n, lut_scale,
-      static_cast<__nv_bfloat16*>(y), M, N, K, act, use_lut, stages, ranges,
-      promote, static_cast<float*>(partials), static_cast<int*>(tickets));
+      y, M, N, K, act, use_lut, out_f32, stages, ranges, promote,
+      static_cast<float*>(partials), static_cast<int*>(tickets));
   return (int)cudaGetLastError();
 }
 
@@ -262,17 +273,18 @@ extern "C" int unified_linear_tc_launch(const void* x, const void* w,
                                         int M, int N, int K, int act,
                                         int use_lut, int bt, int nwg,
                                         int splits, int stages, int ranges,
-                                        int promote, int fold, void* partials,
-                                        void* tickets, void* stream) {
+                                        int promote, int fold, int out_f32,
+                                        void* partials, void* tickets,
+                                        void* stream) {
   const float lut_scale = ldexpf(1.0f, -step_log2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (splits != 1 && splits != ranges) return -1;
 #define UL_TC(BT, NWG, FOLD)                                                \
   if (bt == BT && nwg == NWG && (fold != 0) == FOLD)                        \
     return launch_tc<BT, NWG, FOLD>(x, w, bias, table, table_n, lut_scale, \
-                                    y, M, N, K, act, use_lut, splits,      \
-                                    stages, ranges, promote, partials,     \
-                                    tickets, st);
+                                    y, M, N, K, act, use_lut, out_f32,     \
+                                    splits, stages, ranges, promote,       \
+                                    partials, tickets, st);
   UL_TC(8, 1, false) UL_TC(16, 1, false) UL_TC(32, 1, false)
   UL_TC(64, 1, false) UL_TC(72, 1, false) UL_TC(128, 1, false)
   UL_TC(8, 2, false) UL_TC(16, 2, false) UL_TC(32, 2, false)

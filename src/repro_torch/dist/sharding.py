@@ -12,17 +12,22 @@ None.  A ``NamedSharding`` is :class:`NamedSharding`, a spec on a mesh.
 Three views of the one table, as in the reference:
 
   * **activations** — model code calls ``constrain(x, "btd")`` at the
-    reference's sites.  The serving paths compute explicit SPMD on plain
-    local shards (``dist/spmd.py``), so no activation carries a layout to
-    move and ``constrain`` is the identity; the sites mark where a
-    sharded activation would be laid out once a path makes one.
+    reference's sites.  The port computes explicit SPMD on plain local
+    shards (``dist/spmd.py``): the layout is carried by the weights'
+    blocks (a rank holding a column block of ``attn/wq`` computes its
+    heads, one holding a row block of ``mlp/wd`` a partial sum), so no
+    activation carries a layout to move and ``constrain`` is the
+    identity; the sites mark the reference's layout.
   * **parameters** — ``param_sharding_rules`` maps every parameter name
     (``"layers.b0.attn.wq"``, matched as ``"layers/b0/attn/wq"``) to a
     :class:`NamedSharding`; stacked layers carry a leading period dim, so
     parameter specs are rank-padded on the LEFT.
   * **derived trees** — ``batch_sharding`` and ``opt_state_shardings``.
 
-Training over a mesh stores every leaf as its block under its spec:
+Serving over a mesh holds a leaf's block over ``model`` only
+(:func:`model_spec`: the trimmed spec with its data entries dropped,
+which serving keeps whole).  Training over a mesh stores every leaf as
+its block under its spec:
 ``local_slice`` gives a leaf's block from its whole shape,
 and :class:`TrainLayout` holds a training state's specs (the parameters'
 from this table, the AdamW state's mirroring them) for the step, the
@@ -46,7 +51,7 @@ __all__ = [
     "constrain", "param_sharding_rules", "batch_sharding",
     "opt_state_shardings", "ep_dispatch_sharding", "axis_names",
     "axis_sizes", "_trim_spec", "_rank_pad", "_pick_spec", "local_slice",
-    "shard_leaf", "opt_state_specs", "TrainLayout",
+    "shard_leaf", "opt_state_specs", "TrainLayout", "model_spec",
 ]
 
 
@@ -280,9 +285,9 @@ def use_rules(rules: Optional[ShardingRules]):
 
 def constrain(x, name: str):
     """Constrain ``x`` to the logical rule ``name``: the identity.  The
-    serving paths compute on plain local shards (a rank's rows, a rank's
-    experts), which carry no layout; the call sites are the reference's,
-    kept for the paths that will shard an activation."""
+    port computes on plain local shards (a rank's rows, its experts, its
+    heads and its columns of a dense weight), whose layout the weights'
+    blocks carry; the call sites are the reference's."""
     return x
 
 
@@ -388,6 +393,13 @@ def local_slice(shape, spec, mesh) -> tuple:
         per = dim // n
         out.append(slice(index * per, (index + 1) * per))
     return tuple(out)
+
+
+def model_spec(spec) -> P:
+    """A trimmed spec with only its ``"model"`` entries: the block a
+    serving rank holds (the data axes stay whole in serving; a dim over
+    ``model`` and another axis keeps ``model`` alone)."""
+    return P(*("model" if "model" in _axes(e) else None for e in spec))
 
 
 def shard_leaf(t, spec, mesh):

@@ -10,8 +10,16 @@ only here: the all-reduce of expert-parallel partial outputs
 rows (``serve/expert_cache.py``), the all-gather of the router's logits
 of a data-split batch (``core/moe.py:route_split``), and the
 all-gather of a batch's sampled tokens.  Every tensor is a plain local
-one: a rank's weights are the full tensors, narrowed to its own experts
-where a layer shards them.
+one: a rank's weights are its blocks of the full tensors (its experts of
+an ``ep_local`` stack, its heads and columns of a dense weight split over
+``model``), the rest whole.
+
+Tensor-parallel serving (``models/layers.py``) moves data over
+``model`` through :func:`model_input` (the replicated input of a column
+block), :func:`model_sum` (the float32 partials of a row block: attention's
+``wo``, the MLP's and the shared experts' down projections, the
+vocab-parallel embedding) and :func:`model_gather` (the head's vocabulary
+blocks of the logits), over the active rules' mesh.
 
 Training (``train/step.py``) stores each parameter as its block under
 the rules' spec, gathers it whole before use (:func:`gather_param`) and
@@ -46,7 +54,8 @@ __all__ = ["init_mesh", "VirtualMesh", "BATCH_AXES", "axis_size",
            "axis_index", "batch_shard", "batch_rows", "all_reduce",
            "all_gather", "reduce_scatter", "copy_to", "gather_param",
            "reduce_param_grad", "rank", "world_max", "gather_batch",
-           "batch_split", "current_split", "batch_shards", "batch_total"]
+           "batch_split", "current_split", "batch_shards", "batch_total",
+           "model_rank", "model_input", "model_sum", "model_gather"]
 
 _SPLIT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_batch_split", default=None)
@@ -469,3 +478,39 @@ def batch_total(t: torch.Tensor, where: str) -> torch.Tensor:
     for a in batch_shard(n, rules)[2]:
         t = all_reduce(t, rules.mesh, a, where)
     return t
+
+
+def _model_mesh():
+    """The active rules' mesh: a block holding a shard of its weights
+    computes under them."""
+    from repro_torch.dist.sharding import current_rules
+
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        raise ValueError("a block holding a shard of its weights runs under "
+                         "the sharding rules of its mesh (use_rules)")
+    return rules.mesh
+
+
+def model_rank() -> int:
+    """This rank's coordinate along ``model`` of the active rules' mesh:
+    the index of its weights' blocks."""
+    return axis_index(_model_mesh(), "model")
+
+
+def model_input(t: torch.Tensor, where: str) -> torch.Tensor:
+    """The replicated input of a column block (:func:`copy_to` over
+    ``model``: the identity, its gradient summed over the ranks)."""
+    return copy_to(t, _model_mesh(), "model", where)
+
+
+def model_sum(t: torch.Tensor, where: str) -> torch.Tensor:
+    """The ranks' partial sums ``t`` added over ``model``
+    (:func:`all_reduce`)."""
+    return all_reduce(t, _model_mesh(), "model", where)
+
+
+def model_gather(t: torch.Tensor, where: str, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks ``t`` concatenated on ``dim`` over ``model``
+    (:func:`all_gather`)."""
+    return all_gather(t, _model_mesh(), "model", where, dim)

@@ -148,16 +148,19 @@ def _simt(reason: str) -> GemmPlan:
 
 @functools.lru_cache(maxsize=4096)
 def plan_linear(m: int, n: int, k: int, dtype: torch.dtype, sms: int,
-                aligned: bool = True) -> GemmPlan:
+                aligned: bool = True, order_n: int | None = None) -> GemmPlan:
     """The plan for ``y (m, n) = x (m, k) @ w (k, n)``; ``aligned``: x, w
-    and y start on 16-byte boundaries."""
+    and y start on 16-byte boundaries.  ``order_n``: w is a column block
+    of a (k, order_n) weight (a tensor-parallel shard), and the K ranges
+    and promotion group are that weight's, so a column's sum runs in the
+    order the whole product gives it."""
     if dtype != torch.bfloat16:
         return _simt(f"{dtype} operands: wgmma takes float32 only as TF32")
     if not (aligned and _aligned(2 * k, 2 * n)):
         return _simt("a bf16 row pitch or base not a multiple of 16 bytes "
                      "(TMA cannot address it)")
     kt = -(-k // TILE_K)
-    ranges, promote = sum_order(n, k, sms)
+    ranges, promote = sum_order(order_n or n, k, sms)
     if m <= SMALL_M:
         bt, nwg = min(t for t in TOKEN_TILES if t >= m), 1
         splits, fold = ranges, False

@@ -80,23 +80,25 @@ def _epilogue(y, activation, use_lut, table, step_log2):
 
 
 def unified_linear_plain(x, w, b=None, *, activation=None, use_lut=False,
-                         step_log2=-8, lut_range=8.0):
+                         step_log2=-8, lut_range=8.0, out_dtype=None):
     """The kernel's arithmetic in plain PyTorch: float32 products and
-    accumulation, float32 bias, the epilogue, one cast to ``x.dtype``."""
+    accumulation, float32 bias, the epilogue, one cast to ``x.dtype`` (or
+    to ``out_dtype``)."""
     y = torch.matmul(widen(x), widen(w))
     if b is not None:
         y = y + widen(b)
     table = None
     if use_lut and activation in ("gelu", "silu"):
         table = device_table(activation, step_log2, lut_range, x.device)
-    return _epilogue(y, activation, use_lut, table, step_log2).to(x.dtype)
+    return _epilogue(y, activation, use_lut, table, step_log2).to(
+        out_dtype or x.dtype)
 
 
 _TC_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p] + [ctypes.c_int] * 12 \
+                                     ctypes.c_void_p] + [ctypes.c_int] * 13 \
     + [ctypes.c_void_p] * 3
 _SIMT_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_void_p] + [ctypes.c_int] * 6 \
+                                      ctypes.c_void_p] + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
 
 
@@ -105,18 +107,20 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(x2, w, y=None) -> gemm_plan.GemmPlan:
-    """The plan the wrapper follows for a CUDA launch on these operands."""
+def plan_for(x2, w, y=None, order_n=None) -> gemm_plan.GemmPlan:
+    """The plan the wrapper follows for a CUDA launch on these operands
+    (``order_n``: see :func:`unified_linear`)."""
     m, k = x2.shape
     n = w.shape[1]
     ptrs = [x2.data_ptr(), w.data_ptr()] + ([y.data_ptr()] if y is not None
                                             else [])
     return gemm_plan.plan_linear(m, n, k, x2.dtype,
                                  _sm_count(x2.device.index),
-                                 all(p % 16 == 0 for p in ptrs))
+                                 all(p % 16 == 0 for p in ptrs), order_n)
 
 
-def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
+def _launch(x2, w, b, activation, use_lut, step_log2, lut_range,
+            out_dtype=None, order_n=None):
     if x2.dtype not in build.DTYPE_CODES or w.dtype != x2.dtype:
         raise TypeError(f"unified_linear kernel takes float32 or bfloat16 "
                         f"x and w of one dtype, got {x2.dtype}/{w.dtype}")
@@ -135,7 +139,10 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
                          "the same device")
     if activation not in ACTIVATIONS:
         raise ValueError(f"kernel epilogue has no {activation!r} fusion")
-    y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    if out_dtype not in (None, x2.dtype, torch.float32):
+        raise TypeError(f"unified_linear kernel writes {x2.dtype} or "
+                        f"float32, not {out_dtype}")
+    y = torch.empty((m, n), dtype=out_dtype or x2.dtype, device=x2.device)
     if m == 0 or n == 0:
         return y
     if k == 0:
@@ -148,11 +155,12 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
               None if table is None else table.data_ptr(),
               0 if table is None else table.shape[0], int(step_log2),
               y.data_ptr(), m, n, k, ACTIVATIONS[activation], int(lut))
+    out_f32 = int(y.dtype == torch.float32)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    plan = plan_for(x2, w, y)
+    plan = plan_for(x2, w, y, order_n)
     if plan.variant == "simt":
         fn = build.function("unified_linear_launch", _SIMT_ARGS)
-        err = fn(*common, build.DTYPE_CODES[x2.dtype], stream)
+        err = fn(*common, build.DTYPE_CODES[x2.dtype], out_f32, stream)
     else:
         partials = tickets = None
         if plan.splits > 1:
@@ -162,7 +170,7 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
             tickets = build.tickets("unified_linear", x2.device, plan.tiles)
         fn = build.function("unified_linear_tc_launch", _TC_ARGS)
         err = fn(*common, plan.bt, plan.nwg, plan.splits, plan.stages,
-                 plan.ranges, plan.promote, int(plan.fold),
+                 plan.ranges, plan.promote, int(plan.fold), out_f32,
                  None if partials is None else partials.data_ptr(),
                  None if tickets is None else tickets.data_ptr(), stream)
     build.check(f"unified_linear ({plan.variant})", err)
@@ -171,14 +179,15 @@ def _launch(x2, w, b, activation, use_lut, step_log2, lut_range):
     return y
 
 
-def _forward(x2, w, b, activation, use_lut, step_log2, lut_range):
+def _forward(x2, w, b, activation, use_lut, step_log2, lut_range,
+             out_dtype=None, order_n=None):
     if x2.device.type in build.PLAIN_DEVICES:
         return unified_linear_plain(x2, w, b, activation=activation,
                                     use_lut=use_lut, step_log2=step_log2,
-                                    lut_range=lut_range)
+                                    lut_range=lut_range, out_dtype=out_dtype)
     if x2.device.type == "cuda":
         return _launch(x2.contiguous(), w.contiguous(), b, activation,
-                       use_lut, step_log2, lut_range)
+                       use_lut, step_log2, lut_range, out_dtype, order_n)
     raise ValueError(f"unified_linear runs on cuda, cpu or meta, "
                      f"not {x2.device}")
 
@@ -189,10 +198,12 @@ class UnifiedLinearFn(torch.autograd.Function):
     operand's dtype."""
 
     @staticmethod
-    def forward(ctx, x2, w, b, activation, use_lut, step_log2, lut_range):
+    def forward(ctx, x2, w, b, activation, use_lut, step_log2, lut_range,
+                out_dtype=None, order_n=None):
         ctx.save_for_backward(x2, w, b)
         ctx.act = (activation, use_lut)
-        return _forward(x2, w, b, activation, use_lut, step_log2, lut_range)
+        return _forward(x2, w, b, activation, use_lut, step_log2, lut_range,
+                        out_dtype, order_n)
 
     @staticmethod
     def backward(ctx, dy):
@@ -217,16 +228,22 @@ class UnifiedLinearFn(torch.autograd.Function):
             dw = torch.matmul(widen(x2).T, g).to(w.dtype)
         if b is not None and ctx.needs_input_grad[2]:
             db = g.sum(0).to(b.dtype)
-        return dx, dw, db, None, None, None, None
+        return dx, dw, db, None, None, None, None, None, None
 
 
 def unified_linear(x, w, b=None, *, activation=None, use_lut=False,
-                   step_log2=-8, lut_range=8.0):
+                   step_log2=-8, lut_range=8.0, out_dtype=None,
+                   order_n=None):
     """x: (..., K); w: (K, N); b: (N,) float32 or None -> (..., N) in
-    ``x.dtype``.  Leading dims are flattened into M."""
+    ``x.dtype`` (or float32 with ``out_dtype=torch.float32``: a row
+    shard's partial sums).  Leading dims are flattened into M.
+    ``order_n``: w is a block of columns of a (K, order_n) weight, and the
+    launch sums over K in that weight's order (``gemm_plan.sum_order``),
+    so each column gets the bits the whole product gives it."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    args = (x2, w, b, activation, use_lut, step_log2, lut_range)
+    args = (x2, w, b, activation, use_lut, step_log2, lut_range, out_dtype,
+            order_n)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x2, w, b)):
         y = UnifiedLinearFn.apply(*args)

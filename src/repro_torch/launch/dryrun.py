@@ -64,9 +64,11 @@ from repro_torch.dist.sharding import ShardingRules, use_rules
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.models.transformer import cache_kv_heads
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.quant import tree_bytes
 from repro_torch.roofline.analysis import analyze_step, kernel_adjusted_terms
+from repro_torch.serve.engine import local_params
 from repro_torch.train.step import TrainConfig, make_serve_step, \
     make_train_step
 
@@ -78,11 +80,16 @@ TRAIN_ACCUM = 8
 POLICY = "cuda"     # the impls the card runs
 
 MESHES = ("1", "16x16", "2x16x16")
-MESH_NOTE = ("rank 0's share on a device-free mesh: dense compute is "
-             "data-parallel (the model ranks repeat it), so per-rank FLOPs "
-             "are the one-card count over the batch shards, not over every "
-             "chip; activations carry no layout, so --seq-shard counts "
-             "equal those without")
+MESH_NOTE = ("rank 0's share on a device-free mesh: a train cell's dense "
+             "compute is data-parallel (the model ranks repeat it), so its "
+             "per-rank FLOPs are the one-card count over the batch shards; "
+             "a serving cell's dense blocks are tensor-parallel over model "
+             "(a rank's heads, hidden columns and vocabulary block, k/v "
+             "whole where the KV heads do not divide the axis), so its "
+             "dense FLOPs and weight bytes drop by the model axis too and "
+             "its model all-reduces and logits all-gather are counted; "
+             "activations carry no layout, so --seq-shard counts equal "
+             "those without")
 
 
 def mesh_named(name: str):
@@ -154,8 +161,13 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
             opt_state = step.layout.shard_opt_state(opt_state)
         return step, (params, opt_state, specs), cfg, shape
     prefill, decode = make_serve_step(cfg)
+    # a serving rank's blocks over model and its KV heads (whole without
+    # a mesh)
+    params = local_params(params, cfg, rules)
+    kv_heads = cache_kv_heads(params, cfg)
+    state = M.init_state(cfg, b, shape.seq_len, device=device,
+                         kv_heads=kv_heads)
     if shape.kind == "prefill":
-        state = M.init_state(cfg, b, shape.seq_len, device=device)
         fn, args = prefill, (params, specs["inputs"], state)
     else:
         # decode: one new token against a seq_len cache; the scalar index
@@ -163,7 +175,7 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
         # scalar is not possible), which writes and reads the same cache
         # rows
         index = specs["cache_index"].expand(b)
-        fn, args = decode, (params, specs["inputs"], specs["state"], index)
+        fn, args = decode, (params, specs["inputs"], state, index)
     if rules is not None:
         fn = _on_mesh(fn, rules, shape.global_batch)
     return fn, args, cfg, shape

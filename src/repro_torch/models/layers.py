@@ -13,6 +13,22 @@ scale per (token, head); decode hands it to ``attention_decode`` as
 (Qwen2-VL) rotates sections of the frequency slots by three position
 streams; a (B, S) position is broadcast to all three, as the reference
 does.
+
+Tensor parallelism (serving over a mesh whose ``model`` axis is larger
+than one): a block computes on whatever blocks of its weights the rank
+holds (``models/transformer.py:serving_blocks``), and reads the split from
+their widths against the config, never from the rules alone (training
+gathers every weight whole and runs the whole path).  Attention takes its
+heads from its column blocks of ``wq``/``wk``/``wv`` (k/v whole on every
+rank where the KV heads do not divide the axis, each rank attending with
+its q heads' one KV head), the MLP and the shared experts their columns
+of ``wg``/``wu``/``w1``; the row blocks of ``wo``, ``wd``/``w2`` give
+float32 partial sums, added over ``model`` before the one rounding (the
+bias after the sum).  The embedding looks up this rank's rows of the
+vocabulary and adds the ranks' rows; the head gives this rank's columns
+of the logits, gathered whole before sampling.  A column block sums over
+K in the whole weight's order (``unified_linear(order_n=)``), so its
+columns get the bits the whole product gives them.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.attention import attention, decode_attention
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import constrain
 from repro_torch.quant.qtensor import (QTensor, dequantize, dtype_name,
                                        quantize_kv)
@@ -43,6 +60,34 @@ _HEAD_ROWS = 16384   # tied-head table rows widened to float32 per product
 # batch of 1 or 8, and a prompt's rows alone or in a batch.
 _NORM_ROWS = 16
 _HEAD_M = 8
+
+# --------------------------------------------------------- tensor parallel
+
+
+def attention_layout(cfg: ArchConfig, tp: int) -> tuple[bool, bool]:
+    """(q heads split, KV heads split) of an attention layer over a
+    ``model`` axis of ``tp``, as the reference's trims resolve it: q heads
+    split where ``num_heads`` divides the axis, KV heads where
+    ``num_kv_heads`` does too (the ``"cache"`` rule's head-sharded
+    alternative), else k/v stay whole on every rank, which then needs each
+    rank's q heads to lie in one GQA group (MQA always does).  Otherwise
+    the layer stays whole (M³ViT's three heads)."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if tp == 1 or hq % tp:
+        return False, False
+    if hkv % tp == 0:
+        return True, True
+    return (hq // hkv) % (hq // tp) == 0, False
+
+
+def _kv_group(t, lo: int):
+    """KV head ``lo`` of a (B, Hkv, S, hd) tensor or a ``QTensor`` over
+    one (the one head a rank's q heads read where k/v stay whole)."""
+    if isinstance(t, QTensor):
+        return QTensor(t.q.narrow(1, lo, 1), t.scale.narrow(1, lo, 1),
+                       dtype=t.dtype)
+    return t.narrow(1, lo, 1)
+
 
 # ---------------------------------------------------------------- norms
 
@@ -170,6 +215,9 @@ def init_mlp(rng: np.random.Generator, cfg: ArchConfig, dtype):
 
 @scope("mlp")
 def apply_mlp(params, x, cfg: ArchConfig):
+    down = params["wd"] if "wd" in params else params["w2"]
+    if down.shape[0] != cfg.d_ff:
+        return _apply_mlp_split(params, x, cfg)
     if cfg.mlp_kind in ("swiglu", "geglu"):
         act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
         g = unified_linear(x, params["wg"], activation=act)
@@ -179,6 +227,28 @@ def apply_mlp(params, x, cfg: ArchConfig):
     h = unified_linear(x, params["w1"], params["b1"], activation="gelu")
     h = constrain(h, "btf")
     return unified_linear(h, params["w2"], params["b2"])
+
+
+def _apply_mlp_split(params, x, cfg: ArchConfig):
+    """The MLP on this rank's columns of the hidden layer: column blocks
+    of ``wg``/``wu``/``w1`` (and ``b1``) with their epilogue per shard, a
+    row block of ``wd``/``w2`` giving float32 partials, one all-reduce,
+    then ``b2`` and the one rounding."""
+    x = spmd.model_input(x, "mlp input")
+    f = cfg.d_ff
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
+        g = unified_linear(x, params["wg"], activation=act, order_n=f)
+        u = unified_linear(x, params["wu"], order_n=f)
+        h = constrain((g * u).to(x.dtype), "btf")
+        y = unified_linear(h, params["wd"], out_dtype=torch.float32)
+        return spmd.model_sum(y, "mlp_down all-reduce").to(x.dtype)
+    h = unified_linear(x, params["w1"], params["b1"], activation="gelu",
+                       order_n=f)
+    h = constrain(h, "btf")
+    y = unified_linear(h, params["w2"], out_dtype=torch.float32)
+    y = spmd.model_sum(y, "mlp_down all-reduce") + params["b2"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------- attention
@@ -271,17 +341,33 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     a cache of at most ``window`` slots keeps a ring (token t at slot
     t % Smax)."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    # this rank's heads: its column blocks of wq / wk / wv (all of them
+    # where the layer is whole)
+    hq, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    split = hq != cfg.num_heads
+    group = None    # the one KV head this rank's q heads read (k/v whole)
+    if split:
+        x = spmd.model_input(x, "attn input")
+        if hkv == cfg.num_kv_heads and hkv > 1:
+            group = spmd.model_rank() * hq // (cfg.num_heads // hkv)
+
+    def read(t):
+        """The KV heads this rank's q heads attend to."""
+        return t if group is None else _kv_group(t, group)
+
+    def project(w, bias, heads, whole):
+        order = whole * hd if heads != whole else None
+        return _split_heads(unified_linear(x, w, bias, order_n=order),
+                            heads, hd)
+
     with scope("attn_qkv"):
-        q = constrain(_split_heads(unified_linear(x, params["wq"],
-                                                  params.get("bq")), hq, hd),
-                      "bhsd")
-        k = constrain(_split_heads(unified_linear(x, params["wk"],
-                                                  params.get("bk")), hkv, hd),
-                      "bkvsd")
-        v = constrain(_split_heads(unified_linear(x, params["wv"],
-                                                  params.get("bv")), hkv, hd),
-                      "bkvsd")
+        q = constrain(project(params["wq"], params.get("bq"), hq,
+                              cfg.num_heads), "bhsd")
+        k = constrain(project(params["wk"], params.get("bk"), hkv,
+                              cfg.num_kv_heads), "bkvsd")
+        v = constrain(project(params["wv"], params.get("bv"), hkv,
+                              cfg.num_kv_heads), "bkvsd")
     with scope("rope"):
         if cfg.rope == "rope":
             q = apply_rope(q, pos, cfg.rope_theta)
@@ -302,7 +388,7 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
         ci = cache_index
         slot = ci % smax if ring else ci
         _kv_write(cache, k, v, slot, kvq)
-        kr, vr = _kv_read(cache, kvq, k.dtype)
+        kr, vr = map(read, _kv_read(cache, kvq, k.dtype))
         cache_len = _cache_len(ci, b, x.device)
         if ring:
             # every live slot lies inside the window by construction
@@ -316,11 +402,11 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
         if isinstance(cache_index, torch.Tensor):
             raise NotImplementedError(_PER_SEQ_PREFILL)
         _kv_write(cache, k, v, cache_index, kvq)
-        kc, vc = _kv_full(cache, kvq, k.dtype)
+        kc, vc = map(read, _kv_full(cache, kvq, k.dtype))
         o = attention(q, kc, vc, causal=causal, window=window,
                       q_offset=cache_index)
     else:
-        o = attention(q, k, v, causal=causal, window=window)
+        o = attention(q, read(k), read(v), causal=causal, window=window)
         if cache is not None:
             if ring and s > smax:
                 # keep the last smax tokens, rotated so token t sits at
@@ -333,14 +419,23 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     o = constrain(o, "bhsd")
     with scope("attn_out"):
         o = o.transpose(1, 2).reshape(b, s, hq * hd)
+        if split:
+            # a row block of wo: float32 partials, added over the ranks,
+            # then the one rounding
+            y = unified_linear(o, params["wo"], out_dtype=torch.float32)
+            y = spmd.model_sum(y, "attn_out all-reduce").to(x.dtype)
+            return constrain(y, "btd"), cache
         return constrain(unified_linear(o, params["wo"]), "btd"), cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                    device=None):
-    shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
+                    device=None, kv_heads: int | None = None):
+    """A zeroed KV cache of ``kv_heads`` heads (default: all of the
+    config's; a rank's block where the ``"cache"`` rule splits them)."""
+    heads = kv_heads or cfg.num_kv_heads
+    shape = (batch, heads, max_len, cfg.hd)
     if cfg.kv_quant == "int8":
-        sshape = (batch, cfg.num_kv_heads, max_len, 1)
+        sshape = (batch, heads, max_len, 1)
         return {"k": constrain(torch.zeros(shape, dtype=torch.int8,
                                            device=device), "cache"),
                 "v": constrain(torch.zeros(shape, dtype=torch.int8,
@@ -378,10 +473,24 @@ def embed_inputs(params, inputs, cfg: ArchConfig):
         # gradients in a fixed order on the card
         ids = inputs.long()
         ids = torch.where(ids < 0, ids + cfg.vocab_size, ids)
-        return constrain(torch.nn.functional.embedding(ids,
-                                                       params["tokens"]),
-                         "btd")
+        table = params["tokens"]
+        if table.shape[0] != cfg.vocab_size:
+            return constrain(_embed_split(ids, table), "btd")
+        return constrain(torch.nn.functional.embedding(ids, table), "btd")
     return constrain(inputs.to(cfg.activation_dtype), "btd")
+
+
+def _embed_split(ids, table):
+    """Vocab-parallel lookup: this rank's rows of the table (its block of
+    the vocabulary), −0.0 for the ids other ranks hold, added over
+    ``model`` in float32.  Exact: each id's row comes from one rank and
+    −0.0 leaves any value (+0.0 too) as it is."""
+    rows = table.shape[0]
+    local = ids - spmd.model_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    got = torch.nn.functional.embedding(local.clamp(0, rows - 1), table)
+    got = torch.where(mine[..., None], got.float(), -0.0)
+    return spmd.model_sum(got, "embed all-reduce").to(table.dtype)
 
 
 def init_lm_head(rng: np.random.Generator, cfg: ArchConfig, dtype):
@@ -401,8 +510,21 @@ def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
     rows of x at a time."""
     if cfg.vocab_size == 0:
         return x  # feature trunk (M3ViT): task heads applied by the caller
+    w = embed_params["tokens"] if cfg.tie_embeddings else head_params["w"]
+    if (w.shape[0] if cfg.tie_embeddings else w.shape[-1]) \
+            != cfg.vocab_size:
+        # this rank's vocabulary block, the whole logits gathered over
+        # model before sampling
+        return constrain(spmd.model_gather(_lm_head(w, x, cfg),
+                                           "logits all-gather"), "btv")
+    return constrain(_lm_head(w, x, cfg), "btv")
+
+
+def _lm_head(w, x, cfg: ArchConfig):
+    """float32 logits of the vocabulary ``w`` holds (all of it, or a
+    rank's block): the tied table ``(V, d)`` or ``head/w`` ``(d, V)``."""
     if cfg.tie_embeddings:
-        table = embed_params["tokens"]
+        table = w
         x2 = x.float().reshape(-1, x.shape[-1])
         m = x2.shape[0]
         blocks = [x2]
@@ -416,7 +538,7 @@ def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
 
         out = torch.cat([product(table[i:i + _HEAD_ROWS].float().T)
                          for i in range(0, table.shape[0], _HEAD_ROWS)], -1)
-        return constrain(out[:m].reshape(*x.shape[:-1], -1), "btv")
-    logits = unified_linear(x, head_params["w"],
-                            preferred_dtype=torch.float32)
-    return constrain(logits.float(), "btv")
+        return out[:m].reshape(*x.shape[:-1], -1)
+    order = cfg.vocab_size if w.shape[-1] != cfg.vocab_size else None
+    return unified_linear(x, w, preferred_dtype=torch.float32,
+                          order_n=order).float()

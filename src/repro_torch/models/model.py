@@ -25,20 +25,36 @@ __all__ = ["init_params", "forward", "init_state", "lm_loss",
 
 
 def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
-                draw_on_device: bool = False):
+                draw_on_device: bool = False, rules=None):
     """Random parameters from ``seed`` with the reference's shapes, scales
     and dtypes (norm scales float32), as a flat dotted-name dict on
     ``device``.  They are drawn by NumPy on the host, or with
     ``draw_on_device`` by a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (other values; RecurrentGemma-9B's 9.6 B parameters would
-    take minutes of NumPy on the host)."""
+    take minutes of NumPy on the host).
+
+    With ``rules`` (serving over a mesh whose ``model`` axis is larger
+    than one) each leaf a serving rank splits
+    (``transformer.serving_blocks``) is cut to this rank's block as it is
+    drawn, a layer at a time, and the rest freed: the whole model never
+    exists (DeepSeek-67B over four cards).  Every value is drawn in the
+    one-device order, so a rank's block equals the same block of the
+    one-device draw from ``seed``, bit for bit."""
     dev = resolve_device(device)
     if draw_on_device:
         rng = torch.Generator(device=dev)
         rng.manual_seed(seed)
     else:
         rng = np.random.default_rng(seed)
-    tree = T.init_params(rng, cfg, dtype)
+    keep = None
+    blocks = T.serving_blocks(cfg, rules)
+    if blocks:
+        def keep(name, leaf):
+            spec = blocks.get(name)
+            if spec is None:
+                return leaf
+            return T.leaf_block(leaf.to(dev), spec, rules.mesh)
+    tree = T.init_params(rng, cfg, dtype, keep=keep)
     return {k: v.to(dev) for k, v in flatten(tree).items()}
 
 
@@ -49,12 +65,13 @@ def forward(params, inputs, cfg: ArchConfig, **kw):
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device="cuda"):
+               device="cuda", kv_heads=None):
     """Zeroed KV caches and initial recurrent states (the reference's
     −1e30 stabilizers) for ``batch`` sequences of up to ``max_len`` tokens
-    on ``device``."""
+    on ``device``; ``kv_heads``: a rank's KV heads under tensor-parallel
+    serving (``transformer.cache_kv_heads``; default all)."""
     return T.init_state(cfg, batch, max_len, dtype,
-                        device=resolve_device(device))
+                        device=resolve_device(device), kv_heads=kv_heads)
 
 
 def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,

@@ -14,18 +14,23 @@ are written in place.
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
-from repro_torch.dist.sharding import constrain
+from repro_torch.dist.sharding import (P, constrain, model_spec,
+                                      param_sharding_rules, shard_leaf)
+from repro_torch.dist.spmd import axis_size
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
 from repro_torch.ops.policy import use_policy
-from repro_torch.tree import index
+from repro_torch.tree import flatten, index
 
-__all__ = ["init_params", "forward", "init_state", "moe_config"]
+__all__ = ["init_params", "forward", "init_state", "moe_config",
+           "serving_blocks", "leaf_block", "cache_kv_heads"]
 
 _ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_local_mlp")
 
@@ -70,7 +75,7 @@ def _init_block(rng, kind: str, cfg: ArchConfig, dtype):
 
 
 def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
-                      dtype, device):
+                      dtype, device, kv_heads=None):
     if kind == "mlstm":
         return XL.init_mlstm_state(cfg, batch, device)
     if kind == "slstm":
@@ -83,35 +88,55 @@ def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
         # ring cache: windowed attention only reads the last `window`
         # positions, so the cache holds `window` slots (token t at t % window)
         max_len = min(max_len, cfg.window or max_len)
-    return L.init_attn_cache(cfg, batch, max_len, dtype, device)
+    return L.init_attn_cache(cfg, batch, max_len, dtype, device, kv_heads)
 
 
-def init_params(rng, cfg: ArchConfig, dtype=None):
+def _kept(tree, prefix: str, keep):
+    """``tree`` with ``keep(dotted name, leaf)`` applied to every leaf."""
+    if keep is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _kept(v, f"{prefix}{k}.", keep) for k, v in tree.items()}
+    return keep(prefix[:-1], tree)
+
+
+def init_params(rng, cfg: ArchConfig, dtype=None, keep=None):
     """Nested parameter tree with the reference's keys and stacked layout
     (values from ``rng``, not the reference's JAX keys): a NumPy generator
-    draws on the CPU, a ``torch.Generator`` on its device."""
+    draws on the CPU, a ``torch.Generator`` on its device.  ``keep(dotted
+    name, leaf)``, where given, takes each leaf as it is drawn (a layer's
+    leaf without its period dim) and returns what the tree holds — a
+    rank's block — so the whole model never exists at once; the draws
+    consume ``rng`` in the same order either way."""
     dtype = dtype or cfg.activation_dtype
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
-    params = {"embed": L.init_embed(rng, cfg, dtype),
+    params = {"embed": _kept(L.init_embed(rng, cfg, dtype), "embed.", keep),
               "final_norm": L.init_norm(cfg),
-              "head": L.init_lm_head(rng, cfg, dtype)}
+              "head": _kept(L.init_lm_head(rng, cfg, dtype), "head.", keep)}
     if n_scan:
-        periods = [{f"b{i}": _init_block(rng, cfg.block_pattern[i], cfg,
-                                         dtype)
-                    for i in range(cfg.period)} for _ in range(n_scan)]
-        params["layers"] = _stack(periods)
+        stacked = None
+        for p in range(n_scan):
+            period = _kept({f"b{i}": _init_block(rng, cfg.block_pattern[i],
+                                                 cfg, dtype)
+                            for i in range(cfg.period)}, "layers.", keep)
+            if stacked is None:
+                stacked = _empty_stack(period, n_scan)
+            _put(stacked, period, p)
+        params["layers"] = stacked
     if n_rest:
-        params["rest"] = {str(i): _init_block(
-            rng, cfg.block_pattern[i % cfg.period], cfg, dtype)
-            for i in range(n_rest)}
+        params["rest"] = {str(i): _kept(_init_block(
+            rng, cfg.block_pattern[i % cfg.period], cfg, dtype),
+            f"rest.{i}.", keep) for i in range(n_rest)}
     return {k: v for k, v in params.items() if v != {}}
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device=None):
+               device=None, kv_heads=None):
     """Decode/prefill state: KV caches and recurrent states stacked over
-    the periods under ``layers``, per layer under ``rest``."""
+    the periods under ``layers``, per layer under ``rest``.  ``kv_heads``:
+    the KV heads a cache holds (default: all; a rank's block under
+    tensor-parallel serving, :func:`cache_kv_heads`)."""
     dtype = dtype or cfg.activation_dtype
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
@@ -119,12 +144,12 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     if n_scan:
         state["layers"] = _stack([
             {f"b{i}": _init_block_state(cfg.block_pattern[i], cfg, batch,
-                                        max_len, dtype, device)
+                                        max_len, dtype, device, kv_heads)
              for i in range(cfg.period)} for _ in range(n_scan)])
     if n_rest:
         state["rest"] = {str(i): _init_block_state(
             cfg.block_pattern[i % cfg.period], cfg, batch, max_len, dtype,
-            device) for i in range(n_rest)}
+            device, kv_heads) for i in range(n_rest)}
     return state
 
 
@@ -132,6 +157,84 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _empty_stack(tree, n: int):
+    """An uninitialised stack of ``n`` trees shaped like ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _put(stacked, tree, p: int) -> None:
+    """Copy ``tree`` into entry ``p`` of ``stacked`` (the entries then
+    equal ``torch.stack``'s)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stacked[k], v, p)
+        return
+    stacked[p].copy_(tree)
+
+
+_MIXERS = re.compile(r"(rglru|mlstm|slstm)/")
+_ATTN_Q = re.compile(r"attn/(wq|bq|wo)$")
+_ATTN_KV = re.compile(r"attn/(wk|wv|bk|bv)$")
+_EXPERTS = re.compile(r"moe/(wg|wu|wd|w1|w2|b1|b2)$")
+
+
+def serving_blocks(cfg: ArchConfig, rules) -> dict:
+    """{dotted name: spec of the whole (stacked) shape} of every leaf a
+    serving rank holds a block of under ``rules``, over ``model`` alone
+    (``dist.sharding.model_spec``; the data axes stay whole in serving).
+    These are the leaves the reference's table splits over ``model``:
+    attention (per :func:`layers.attention_layout`), the dense MLP, the
+    shared experts, ``embed/tokens`` and ``head/w``, and the expert stacks
+    of an ``ep_local`` MoE (this rank's experts).  Left whole on every
+    rank: the recurrent mixers' leaves (``rglru``, ``mlstm``, ``slstm``),
+    an attention layer whose heads do not divide the axis, and the expert
+    stacks of the other MoE impls (every rank routes to every expert).
+    Empty without rules or where ``model`` has one rank."""
+    if rules is None or rules.mesh is None:
+        return {}
+    tp = axis_size(rules.mesh, "model")
+    if tp == 1:
+        return {}
+    q_split, kv_split = L.attention_layout(cfg, tp)
+    ep_local = cfg.moe is not None and cfg.moe.impl == "ep_local"
+    shapes = flatten(init_params(torch.device("meta"), cfg))
+    out = {}
+    for name, sh in param_sharding_rules(shapes, rules).items():
+        spec = model_spec(sh.spec)
+        path = name.replace(".", "/")
+        if "model" not in spec or _MIXERS.search(path):
+            continue
+        if _ATTN_Q.search(path) and not q_split:
+            continue
+        if _ATTN_KV.search(path) and not kv_split:
+            continue
+        if _EXPERTS.search(path) and not ep_local:
+            continue
+        out[name] = spec
+    return out
+
+
+def leaf_block(t, spec, mesh):
+    """This rank's block of ``t`` (a whole leaf, or a layer's leaf without
+    its period dim) under the stacked leaf's ``spec``, a tensor of its
+    own."""
+    return shard_leaf(t, P(*spec[len(spec) - t.dim():]), mesh)
+
+
+def cache_kv_heads(params: dict, cfg: ArchConfig):
+    """The KV heads a cache holds for the flat ``params`` a rank computes
+    with: its block where its attention holds a block of the KV heads
+    (tensor-parallel serving: the ``"cache"`` rule's head-sharded
+    alternative), else None (all of them)."""
+    for name, w in params.items():
+        if name.endswith("attn.wk"):
+            heads = w.shape[-1] // cfg.hd
+            return heads if heads != cfg.num_kv_heads else None
+    return None
 
 
 def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,

@@ -448,22 +448,22 @@ def _accum_dtype(policy, preferred):
 
 
 def _linear_fp_requires(policy, x, w, b=None, *, activation=None,
-                        preferred_dtype=None):
+                        preferred_dtype=None, out_dtype=None, order_n=None):
     return _reject_packed(x, w)
 
 
 def _linear_eager(policy, x, w, b=None, *, activation=None,
-                  preferred_dtype=None):
+                  preferred_dtype=None, out_dtype=None, order_n=None):
     acc = _accum_dtype(policy, preferred_dtype)
     y = torch.matmul(x.to(acc), w.to(acc))
     if b is not None:
         y = y + (b.to(acc) if policy.bias_f32 else b.to(y.dtype))
     y = apply_activation(y, activation)
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
 def _linear_cuda_requires(policy, x, w, b=None, *, activation=None,
-                          preferred_dtype=None):
+                          preferred_dtype=None, out_dtype=None, order_n=None):
     why = _reject_packed(x, w)
     if why:
         return why
@@ -475,22 +475,32 @@ def _linear_cuda_requires(policy, x, w, b=None, *, activation=None,
         return f"contraction mismatch {x.shape[-1]} vs {w.shape[0]}"
     if x.dtype != w.dtype:
         return f"mixed dtypes {x.dtype}/{w.dtype}"
+    if out_dtype not in (None, x.dtype, torch.float32):
+        return f"the kernel writes {x.dtype} or float32, not {out_dtype}"
     return _kernel_dtype(x)
 
 
 def _linear_cuda(policy, x, w, b=None, *, activation=None,
-                 preferred_dtype=None):
+                 preferred_dtype=None, out_dtype=None, order_n=None):
     # like the reference's _linear_pallas: float32 accumulation and bias in
-    # the kernel, preferred_dtype ignored, output in x.dtype
+    # the kernel, preferred_dtype ignored, output in x.dtype (float32 where
+    # out_dtype asks: a row shard's partial sums)
     use_lut = policy.lut_activations and activation in ("gelu", "silu")
     return kul.unified_linear(
         x, w, None if b is None else b.float(), activation=activation,
         use_lut=use_lut, step_log2=policy.lut_step_log2,
-        lut_range=policy.lut_range)
+        lut_range=policy.lut_range, out_dtype=out_dtype, order_n=order_n)
+
+
+def _linear_ref_requires(policy, x, w, b=None, *, activation=None,
+                         preferred_dtype=None, out_dtype=None, order_n=None):
+    if out_dtype not in (None, x.dtype):
+        return f"the oracle rounds to {x.dtype}, not {out_dtype}"
+    return _reject_packed(x, w)
 
 
 def _linear_ref(policy, x, w, b=None, *, activation=None,
-                preferred_dtype=None):
+                preferred_dtype=None, out_dtype=None, order_n=None):
     use_lut = policy.lut_activations and activation in ("gelu", "silu")
     return kref.ref_linear(x, w, b, activation=activation, use_lut=use_lut,
                            step_log2=policy.lut_step_log2,
@@ -511,16 +521,16 @@ def _fixed_rows_matmul(x, w):
     return y[:m].reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _bias_act(policy, y, x, b, activation, acc):
+def _bias_act(policy, y, x, b, activation, acc, out_dtype=None):
     """The fp impls' epilogue: widened bias, policy-dispatched activation,
-    the result in x's dtype."""
+    the result in x's dtype (or ``out_dtype``)."""
     if b is not None:
         y = y + (b.to(acc) if policy.bias_f32 else b.to(y.dtype))
-    return apply_activation(y, activation).to(x.dtype)
+    return apply_activation(y, activation).to(out_dtype or x.dtype)
 
 
 def _linear_int8_requires(policy, x, w, b=None, *, activation=None,
-                          preferred_dtype=None):
+                          preferred_dtype=None, out_dtype=None, order_n=None):
     if is_factored(w):
         return "weight is factored (FactoredTensor) — served by the " \
                "eager_factored impl"
@@ -539,7 +549,7 @@ def _linear_int8_requires(policy, x, w, b=None, *, activation=None,
 
 
 def _linear_int8(policy, x, w, b=None, *, activation=None,
-                 preferred_dtype=None):
+                 preferred_dtype=None, out_dtype=None, order_n=None):
     # int8 per-channel: the scale is constant along K, so (x @ q) * scale
     # is the epilogue form; grouped int4 scales vary along K, so the
     # weight dequantizes before the product
@@ -548,11 +558,12 @@ def _linear_int8(policy, x, w, b=None, *, activation=None,
         y = _fixed_rows_matmul(x.to(acc), w.q.to(acc)) * w.scale.to(acc)
     else:
         y = _fixed_rows_matmul(x.to(acc), dequantize(w, acc))
-    return _bias_act(policy, y, x, b, activation, acc)
+    return _bias_act(policy, y, x, b, activation, acc, out_dtype)
 
 
 def _linear_factored_requires(policy, x, w, b=None, *, activation=None,
-                              preferred_dtype=None):
+                              preferred_dtype=None, out_dtype=None,
+                              order_n=None):
     if not is_factored(w):
         return "weight is not factored (run factor.factorize_tree first)"
     if w.experts is not None:
@@ -571,11 +582,11 @@ def _linear_factored_requires(policy, x, w, b=None, *, activation=None,
 
 
 def _linear_factored(policy, x, w, b=None, *, activation=None,
-                     preferred_dtype=None):
+                     preferred_dtype=None, out_dtype=None, order_n=None):
     # shared basis product + low-rank / butterfly delta correction
     acc = _accum_dtype(policy, preferred_dtype)
     return _bias_act(policy, factored_linear(x, w, acc), x, b, activation,
-                     acc)
+                     acc, out_dtype)
 
 
 register("linear", "eager", _linear_eager, default=True,
@@ -586,7 +597,7 @@ register("linear", "cuda", _linear_cuda, requires=_linear_cuda_requires,
          kernel=True,
          doc="tiled GEMM kernel, fused bias+(LUT) activation epilogue; "
              "f32/bf16, relu/gelu/silu/none epilogues")
-register("linear", "ref", _linear_ref, requires=_linear_fp_requires,
+register("linear", "ref", _linear_ref, requires=_linear_ref_requires,
          doc="oracle (f32 accumulation)")
 register("linear", "eager_int8", _linear_int8,
          requires=_linear_int8_requires,
@@ -598,11 +609,14 @@ register("linear", "eager_factored", _linear_factored,
              "low-rank / butterfly delta correction; fp activations")
 
 
-def _linear_cost(x, w, b=None, *, activation=None, preferred_dtype=None):
+def _linear_cost(x, w, b=None, *, activation=None, preferred_dtype=None,
+                 out_dtype=None, order_n=None):
     kdim, n = w.shape[-2], w.shape[-1]
     m = _numel(x.shape) // kdim
+    out_size = x.element_size() if out_dtype is None \
+        else torch.empty((), dtype=out_dtype).element_size()
     nbytes = (_stored_bytes(x) + _stored_bytes(w) + _stored_bytes(b)
-              + m * n * x.element_size())
+              + m * n * out_size)
     parts = [Part(2.0 * m * n * kdim, nbytes)]
     if b is not None:
         parts.append(Part(m * n, op="linear.bias"))

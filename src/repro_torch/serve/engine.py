@@ -19,17 +19,26 @@ ignores it, as the reference's does.
 Mesh serving (``rules``, a ``dist.sharding.ShardingRules`` over a
 ``DeviceMesh``; one process a rank, every rank calling ``generate`` with
 the same prompts): each rank holds the weights its kernels compute with
-(:func:`local_params`) — every dense weight whole, while an ``ep_local``
-MoE layer keeps only its own experts, as the table shards them over
-``model``.
-The decode state and the prompts are batch-sharded over the data axes
-(:func:`shard_state`, :func:`shard_batch`): each rank prefills and
-decodes its own rows, and one all-gather a step brings every row's token
-back, so the host loop (EOS, the output) sees the whole batch.
-Temperature sampling draws the whole batch's noise from the one generator
-and keeps its rows, so a mesh gives the tokens no mesh gives.  The dense
-blocks run data-parallel, not tensor-parallel: see ``ROADMAP.md`` queue
-1 item 6a.
+(:func:`local_params`): its block over ``model`` of every leaf the
+reference's table splits there — attention's heads, the MLP's and the
+shared experts' hidden columns, its block of the vocabulary in
+``embed/tokens`` and ``head/w``, an ``ep_local`` MoE layer's experts —
+so the dense blocks run tensor-parallel (``models/layers.py``).  Whole on
+every rank: the recurrent mixers' leaves, attention whose heads do not
+divide the axis, the expert stacks of the other MoE impls, and every
+leaf over the data axes (the reference applies FSDP there; ``ROADMAP.md``
+queue 3).  ``models.model.init_params(rules=)`` draws a rank's blocks
+without ever holding the whole model.
+The decode state and the prompts are batch-sharded over the data axes,
+and a KV cache holds this rank's KV heads where the ``"cache"`` rule
+splits them (:func:`shard_state`, :func:`shard_batch`): each rank
+prefills and decodes its own rows, and one all-gather a step brings
+every row's token back, so the host loop (EOS, the output) sees the whole
+batch.  The head's logits are gathered whole over ``model`` before
+sampling, and temperature sampling draws the whole batch's noise from
+the one generator and keeps its rows, so a mesh samples from the logits
+no mesh gives (bit for bit where ``model`` has one rank; a row-parallel
+sum's other order elsewhere).
 
 Embedding-input frontends (``embed_input="embeddings"``: MusicGen's
 EnCodec frames, Qwen2-VL's patches) are stubs, as in the reference: a
@@ -59,8 +68,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import spmd
-from repro_torch.dist.sharding import param_sharding_rules, use_rules
+from repro_torch.dist.sharding import local_slice, use_rules
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.ops.policy import ComputePolicy
 from repro_torch.train.step import make_serve_step
 from repro_torch.tree import flatten
@@ -70,6 +80,7 @@ __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
            "local_params", "shard_state", "shard_batch"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
+_CACHE_LEAVES = ("k", "v", "k_scale", "v_scale")   # a KV cache's leaves
 _STUB_SEED = 0xE0BED
 _STUB_ROWS = 8192      # table rows a generator draws (float32), then cast
 
@@ -146,45 +157,45 @@ def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
     return axes
 
 
-def _ep_local_expert(name: str, cfg: ArchConfig) -> bool:
-    from repro_torch.core.moe import expert_param_names
-    from repro_torch.models.transformer import moe_config
-
-    if cfg.moe is None or cfg.moe.impl != "ep_local":
-        return False
-    path = name.split(".")
-    return path[-2:-1] == ["moe"] and \
-        path[-1] in expert_param_names(moe_config(cfg))
-
-
 def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
-    """The tensors each rank's kernels compute with.  The dense weights
-    are whole on every rank (the dense blocks run data-parallel).  The
-    expert stacks of an ``ep_local`` MoE keep only this rank's experts,
-    narrowed as the table shards them over ``model``
-    (``core/moe.py:apply_moe_ep_local``).  No-op without rules."""
-    if rules is None or rules.mesh is None:
+    """The tensors each rank's kernels compute with: this rank's block
+    over ``model`` of every leaf ``transformer.serving_blocks`` names (a
+    tensor of its own, so the whole one can be freed), the rest as given.
+    A leaf already at its block's shape (``model.init_params(rules=)``)
+    is kept as it is.  No-op without rules or where ``model`` has one
+    rank."""
+    blocks = T.serving_blocks(cfg, rules)
+    if not blocks:
         return params
-    table = param_sharding_rules(params, rules)
+    shapes = M.param_specs(cfg)
+    # a group holding a packed leaf (QTensor: the table replicates it)
+    # stays whole, its biases with it
+    packed = {k.rsplit(".", 1)[0] for k, v in params.items()
+              if not isinstance(v, torch.Tensor)}
     out = dict(params)
-    for k, v in params.items():
-        if not isinstance(v, torch.Tensor) or not _ep_local_expert(k, cfg):
+    for k, spec in blocks.items():
+        v = params.get(k)
+        if not isinstance(v, torch.Tensor) or k.rsplit(".", 1)[0] in packed:
             continue
-        dim = next((d for d, e in enumerate(table[k].spec) if e == "model"),
-                   None)
-        if dim is None:             # the table replicates it here
-            continue
-        per = v.shape[dim] // spmd.axis_size(rules.mesh, "model")
-        out[k] = v.narrow(dim, spmd.axis_index(rules.mesh, "model") * per,
-                          per)
+        whole = tuple(shapes[k].shape)
+        block = tuple(s.stop - s.start
+                      for s in local_slice(whole, spec, rules.mesh))
+        if tuple(v.shape) == whole:
+            out[k] = T.leaf_block(v, spec, rules.mesh)
+        elif tuple(v.shape) != block:
+            raise ValueError(f"{k}: {tuple(v.shape)} is neither the whole "
+                             f"leaf {whole} nor this rank's block {block}")
     return out
 
 
-def shard_state(state, rules, axes: list[int]):
-    """This rank's rows of a decode state (KV caches, recurrent cells):
-    each leaf's batch axis (``axes``, from :func:`state_batch_axes`) cut
-    over the mesh's batch axes, as the trimmed spec cuts it (a batch the
-    axes do not divide stays whole).  No-op without rules."""
+def shard_state(state, rules, axes: list[int], kv_heads=None):
+    """This rank's part of a whole decode state (KV caches, recurrent
+    cells): each leaf's batch axis (``axes``, from
+    :func:`state_batch_axes`) cut over the mesh's batch axes, as the
+    trimmed spec cuts it (a batch the axes do not divide stays whole), and
+    a KV cache's heads (the axis after the batch axis) cut to this rank's
+    ``kv_heads`` over ``model`` where its attention holds a block of them
+    (``transformer.cache_kv_heads``).  No-op without rules."""
     if rules is None or rules.mesh is None:
         return state
     from repro_torch.tree import flatten, unflatten
@@ -193,8 +204,12 @@ def shard_state(state, rules, axes: list[int]):
     out = {}
     for (name, leaf), ax in zip(flat.items(), axes):
         rows = spmd.batch_rows(leaf.shape[ax], rules)
-        out[name] = leaf.narrow(ax, rows.start, rows.stop - rows.start) \
-            .clone()
+        part = leaf.narrow(ax, rows.start, rows.stop - rows.start)
+        if kv_heads is not None \
+                and name.rsplit(".", 1)[-1] in _CACHE_LEAVES:
+            part = part.narrow(ax + 1, spmd.axis_index(rules.mesh, "model")
+                               * kv_heads, kv_heads)
+        out[name] = part.clone()
     return unflatten(out)
 
 
@@ -252,6 +267,7 @@ class ServingEngine:
         self.params = local_params(
             {k: v.to(self.device) for k, v in params.items()}, self.cfg,
             rules)
+        self.kv_heads = T.cache_kv_heads(self.params, self.cfg)
         self._steps: dict[int, tuple] = {}
         # a stub frontend's feedback table, on the device once
         self.fb_table = stub_feedback_table(self.cfg, self.device,
@@ -338,7 +354,7 @@ class ServingEngine:
         with torch.inference_mode(), use_rules(self.rules), \
                 spmd.batch_split(self.rules, b):
             state = M.init_state(cfg, rows.stop - rows.start, scfg.max_len,
-                                 device=self.device)
+                                 device=self.device, kv_heads=self.kv_heads)
             logits, state = self._prefill(shard_batch(prompts, self.rules),
                                           state, task_id)
             _, decode = self.steps(task_id)

@@ -66,8 +66,12 @@ decodes its own lanes, and one all-gather a step brings every lane's token
 back (the MoE layers count the whole bucket's dispatches, ``core/moe.py``),
 so every rank's host loop takes the same decisions.  A batch-1 admission
 is replicated, as the rule table replicates a batch of one; only the
-lane's own rank splices it.  Parking a lane into another rank's lane is
-left out: with lanes split over ranks, preemption raises.
+lane's own rank splices it.  Preemption parks a lane on the rank that
+holds it (every rank keeps the record's books and the lane's shapes) and
+restores it on the rank of the free lane, the rows moved between ranks
+by one all-gather over the data axes where those differ
+(``LMTaskBucket.restore``).  Under tensor parallelism each rank's lane
+holds its own KV heads, so each parks and restores its own block.
 """
 
 from __future__ import annotations
@@ -85,12 +89,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import spmd
 from repro_torch.dist.sharding import use_rules
 from repro_torch.models import model as M
+from repro_torch.models.transformer import cache_kv_heads
 from repro_torch.serve.engine import (ServeConfig, feedback_inputs,
                                       is_recurrent, local_params,
                                       serve_overrides, state_batch_axes,
                                       stub_feedback_table)
 from repro_torch.serve.expert_cache import ExpertUsage
-from repro_torch.serve.slo.preempt import SlotParker
+from repro_torch.serve.slo.preempt import ParkedState, SlotParker
 from repro_torch.serve.slo.prefix import RadixPrefixCache
 from repro_torch.serve.slo.tiers import (SLOPolicy, goodput, is_preemptible,
                                          meets_slo, request_tpot)
@@ -219,6 +224,7 @@ class LMBackend:
         self.device = resolve_device(device)
         self.params = local_params(
             {k: v.to(self.device) for k, v in params.items()}, cfg, rules)
+        self.kv_heads = cache_kv_heads(self.params, cfg)
         self.recurrent = is_recurrent(cfg)
         # padded prefill relies on causal / cache_len masking — attention
         # archs only
@@ -241,7 +247,7 @@ class LMBackend:
 
     def new_state(self, batch: int):
         return M.init_state(self.cfg, batch, self.scfg.max_len,
-                            device=self.device)
+                            device=self.device, kv_heads=self.kv_heads)
 
     def lanes(self, slots: int) -> slice:
         """This rank's lanes of a bucket of ``slots`` (all of them without
@@ -391,11 +397,9 @@ class LMTaskBucket:
         lo, hi = self._lanes.start, self._lanes.stop
         return slot - lo if lo <= slot < hi else None
 
-    def _check_whole(self) -> None:
-        if self._lanes.stop - self._lanes.start != self.slots:
-            raise NotImplementedError(
-                "parking a lane of a bucket whose lanes are split over "
-                "ranks (mesh serving preempts nothing)")
+    def _shard(self, slot: int) -> int:
+        """The index of the rank (over the data axes) holding ``slot``."""
+        return slot // (self._lanes.stop - self._lanes.start)
 
     @property
     def free_slots(self) -> list[int]:
@@ -582,11 +586,14 @@ class LMTaskBucket:
 
     def park(self, slot: int, parker: SlotParker) -> dict:
         """Evict ``slot``: clone its state out bit-exactly and free the
-        lane.  Returns the parked record."""
-        self._check_whole()
+        lane.  Returns the parked record: the rows on the rank holding the
+        lane, a shell of them (shapes, bytes) on the others."""
         req = self.reqs[slot]
+        local = self._local(slot)
         parked = {"req": req,
-                  "state": parker.park(self.state, slot),
+                  "state": parker.park(self.state, local)
+                  if local is not None else parker.shell(self.state),
+                  "shard": self._shard(slot),
                   "cache_pos": int(self.cache_pos[slot]),
                   "last_tok": int(self.last_tok[slot])}
         req.preemptions += 1
@@ -597,16 +604,41 @@ class LMTaskBucket:
 
     def restore(self, parked: dict, parker: SlotParker) -> int:
         """Copy a parked record back into a free slot and resume decode
-        where it left off (same cache position, same feedback token)."""
-        self._check_whole()
+        where it left off (same cache position, same feedback token).  A
+        lane parked on another rank than the free slot's comes over in
+        one all-gather over the data axes (every rank calls it)."""
         slot = self.free_slots[0]
-        self.state = parker.restore(self.state, parked["state"], slot)
+        held = parked["state"]
+        if parked["shard"] != self._shard(slot):
+            held = self._moved(held, parked["shard"], parker)
+        local = self._local(slot)
+        if local is not None:
+            self.state = parker.restore(self.state, held, local)
         req = parked["req"]
         self.cache_pos[slot] = parked["cache_pos"]
         self.last_tok[slot] = parked["last_tok"]
         self.task_slots[slot] = req.task_id
         self.reqs[slot] = req
         return slot
+
+    def _moved(self, held, shard: int, parker: SlotParker):
+        """The parked rows of the lane rank ``shard`` parked, on every
+        rank: each rank's record (rows or zeros of their shape) gathered
+        over the data axes as bytes, ``shard``'s kept."""
+        rules, dev = self.backend.rules, self.backend.device
+
+        def one(t, ax):
+            mine = t if t.device.type != "meta" else torch.zeros(
+                t.shape, dtype=t.dtype, device=dev)
+            raw = mine.contiguous().view(torch.uint8)
+            every = spmd.gather_batch(raw, rules, self.slots,
+                                      "parked lane move", dim=ax)
+            return every.narrow(ax, shard, 1).view(t.dtype)
+
+        leaves = [tuple(one(t, ax) for t in leaf) if isinstance(leaf, tuple)
+                  else one(leaf, ax)
+                  for leaf, ax in zip(held.leaves, parker.axes)]
+        return ParkedState(leaves=leaves, nbytes=held.nbytes)
 
     # ---------------------------------------------------------- decode
 

@@ -11,7 +11,10 @@ uninterrupted run.  Extraction slices each leaf along its batch axis
 (``serve.engine.state_batch_axes``, in ``repro_torch.tree.flatten``
 order) and clones the slice: the bucket keeps decoding its other slots,
 in place, so a view would change under the parked request.  Restore
-copies the parked rows back into the slot in place.
+copies the parked rows back into the slot in place.  Where a bucket's
+lanes are split over ranks, the lane's rank parks it and the others keep
+a shell of it (:meth:`SlotParker.shell`); the bucket moves the rows to the
+rank of the lane it restores into (``serve/scheduler.py``).
 
 With ``kv_quant="int8"`` the slot's leaves are already int8 (+ small
 float32 scales), so a parked request costs about a quarter of the
@@ -24,6 +27,8 @@ that tolerate it; ``"none"`` is always bit-exact.
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.quant.qtensor import QTensor, dequantize, quantize_kv
 from repro_torch.tree import flatten
@@ -76,6 +81,19 @@ class SlotParker:
             row = leaf.narrow(ax, slot, 1)
             leaves.append(quantize_kv(row) if _packs(leaf, self.compress)
                           else row.clone())
+        return ParkedState(leaves=leaves, nbytes=sum(
+            sum(map(_nbytes, p)) if isinstance(p, tuple) else _nbytes(p)
+            for p in leaves))
+
+    def shell(self, state) -> ParkedState:
+        """The record a rank keeps of a lane another rank parks (a bucket
+        whose lanes are split over ranks): every leaf's shape and dtype on
+        ``meta``, no values, and the owner's byte count."""
+        leaves = []
+        for leaf, ax in zip(flatten(state).values(), self.axes):
+            row = torch.empty_like(leaf.narrow(ax, 0, 1), device="meta")
+            leaves.append(quantize_kv(row) if _packs(leaf, self.compress)
+                          else row)
         return ParkedState(leaves=leaves, nbytes=sum(
             sum(map(_nbytes, p)) if isinstance(p, tuple) else _nbytes(p)
             for p in leaves))

@@ -14,10 +14,13 @@ per-expert deltas; paged layers then page the packed tensors and pin the
 basis.
 
 Mesh serving (one process a rank, each calling ``infer`` with the same
-images): ``rules`` runs the dense blocks data-parallel — the images are
-batch-sharded over the data axes, the trunk's weights replicated (as the
-reference's server leaves them), the predictions all-gathered back — and
-every
+images): under ``rules`` the images are batch-sharded over the data axes
+and the predictions all-gathered back; the dense blocks' MLPs run
+tensor-parallel over ``model`` (each rank holds its block of the hidden
+columns, ``serve.engine.local_params``), while attention, whose three
+heads do not divide the axis, the patch embedding and the task heads stay
+whole on every rank (the reference's server replicates the whole trunk);
+and every
 MoE layer pages expert-parallel over the ``model`` axis through a
 ``ShardedExpertCache`` (per-shard slot banks: the same per-device budget
 holds ``shards ×`` more resident experts).  ``ep_mesh`` alone is the
@@ -51,7 +54,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import vit as V
 from repro_torch.ops.policy import use_policy
-from repro_torch.serve.engine import shard_batch
+from repro_torch.serve.engine import local_params, shard_batch
 from repro_torch.serve.expert_cache import PagedMoE
 from repro_torch.serve.scheduler import Request
 from repro_torch.serve.slo.tiers import is_preemptible
@@ -120,11 +123,12 @@ class M3ViTServer:
             path = name.split(".")
             return paging and path[-2:-1] == ["moe"] and path[-1] in experts
 
-        # the dense trunk is replicated on every rank, as the reference's
-        # server leaves it (its patch embed and task heads have no entry
-        # in the rule table): the trunk runs data-parallel
-        self.params = {k: v if on_host(k) else v.to(self.device)
-                       for k, v in params.items()}
+        # the trunk's blocks under rules: a rank's block of every leaf the
+        # table splits over model (the MLPs); the patch embed and the task
+        # heads have no entry in the table and stay whole
+        self.params = local_params(
+            {k: v if on_host(k) else v.to(self.device)
+             for k, v in params.items()}, cfg, rules)
         tree = unflatten(self.params)
         self.tree = tree
         period = cfg.period

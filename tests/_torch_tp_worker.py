@@ -1,0 +1,372 @@
+"""The ranks of ``tests/test_torch_tp.py``: one spawned process a rank of
+a gloo world (``tests/_torch_dist_worker.py``'s pattern), each running
+the tensor-parallel serving checks at the smoke sizes against the same
+work with no mesh, with inputs made from seeds with NumPy.  Imports
+torch, NumPy and the port only."""
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import ops
+from repro_torch.configs import get
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import ShardingRules, use_rules
+from repro_torch.kernels.compare import max_abs_err, within_tolerance
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                      local_params, shard_state,
+                                      state_batch_axes)
+from repro_torch.tree import flatten
+
+#: the LM families the forward check runs: dense with a tied head, a
+#: separate head, an MoE LM with a shared expert (its experts whole), an
+#: MQA hybrid (k/v whole, its RG-LRU mixers whole), embedding inputs
+ARCHS = ("llama3_2_1b", "deepseek_67b", "kimi_k2_1t_a32b",
+         "recurrentgemma_9b", "qwen2_vl_72b")
+
+
+def _inputs(cfg, b=4, s=8, seed=2):
+    rng = np.random.default_rng(seed)
+    if cfg.embed_input == "tokens":
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)))
+    return torch.from_numpy(rng.standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to(cfg.activation_dtype)
+
+
+def _model(arch, dtype, **over):
+    cfg = replace(get(arch, smoke=True), dtype=dtype, **over)
+    return cfg, M.init_params(1, cfg, device="cpu")
+
+
+def _where_counts() -> dict:
+    return {c["where"]: c["count"] for c in ops.collective_report()}
+
+
+def _first_blocks(params, cfg):
+    """The attention and (where the block has one) MLP parameters of the
+    first layer."""
+    from repro_torch.tree import index, unflatten
+
+    layer = index(unflatten(params)["layers"], 0)
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind.startswith("attn"):
+            return layer[f"b{i}"]["attn"], layer[f"b{i}"].get("mlp")
+    raise ValueError(cfg.name)
+
+
+def check_forward(mesh):
+    """Each rank holds its blocks (``local_params``) and runs under the
+    rules.  In bf16, the first layer's attention and MLP on the same input
+    within the bf16 tolerance of ``kernels/compare.py`` of the whole
+    blocks (a row-parallel sum rounds once, like the whole one, from
+    float32 sums in another order: one bf16 ulp), and the model's logits
+    at cosine >= ``SERVE_COSINE`` of no mesh (those roundings compound
+    over the layers); everything bit for bit where ``model`` has one
+    rank.  The collectives by ``where``: two all-reduces a dense layer,
+    one for the embedding, one gather of the logits.  In float32, the
+    engine's greedy tokens equal no mesh's."""
+    from repro_torch.kernels.compare import SERVE_COSINE, cosine
+    from repro_torch.models import layers as L
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    tp = spmd.axis_size(mesh, "model")
+    for arch in ARCHS:
+        cfg, params = _model(arch, "bfloat16")
+        x = _inputs(cfg)
+        want = M.forward(params, x, cfg)[0]
+        mine = local_params(params, cfg, rules)
+        ops.reset_dispatch_report()
+        with torch.inference_mode(), use_rules(rules):
+            got = M.forward(mine, x, cfg)[0]
+        if tp == 1:
+            assert torch.equal(got, want), arch
+            continue
+        assert cosine(got, want) >= SERVE_COSINE, (arch, cosine(got, want))
+        where = _where_counts()
+        layers = cfg.num_layers
+        attn = sum(k.startswith("attn") for k in cfg.block_pattern) \
+            * layers // cfg.period
+        assert where["attn_out all-reduce"] == attn, (arch, where)
+        assert where["logits all-gather"] == 1, (arch, where)
+        assert where.get("embed all-reduce", 0) == \
+            (cfg.embed_input == "tokens"), (arch, where)
+        dense = layers - (layers // cfg.period) * sum(
+            k in ("mlstm", "slstm", "attn_moe") for k in cfg.block_pattern)
+        assert where.get("mlp_down all-reduce", 0) == dense, (arch, where)
+        if cfg.moe is not None and cfg.moe.num_shared_experts:
+            assert where["moe_shared all-reduce"] == layers, (arch, where)
+        h = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (2, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+        pos = torch.arange(8)[None].expand(2, 8)
+        (wa, wm), (ma, mm) = _first_blocks(params, cfg), \
+            _first_blocks(mine, cfg)
+        with torch.inference_mode(), use_rules(rules):
+            pairs = [(L.apply_attention(ma, h, cfg, pos=pos)[0],
+                      L.apply_attention(wa, h, cfg, pos=pos)[0])]
+            if wm is not None:
+                pairs.append((L.apply_mlp(mm, h, cfg),
+                              L.apply_mlp(wm, h, cfg)))
+        for b, (g, w) in enumerate(pairs):
+            assert within_tolerance(g, w, torch.bfloat16), \
+                (arch, b, max_abs_err(g, w))
+    for arch in ARCHS:
+        cfg, params = _model(arch, "float32")
+        x = _inputs(cfg)
+        scfg = ServeConfig(max_len=32)
+        ref = ServingEngine(cfg, params, scfg, device="cpu").generate(x, 6)
+        out = ServingEngine(cfg, params, scfg, rules=rules,
+                            device="cpu").generate(x, 6)
+        np.testing.assert_array_equal(out, ref, err_msg=arch)
+
+
+def check_blocks(mesh):
+    """A rank holds only its block over ``model`` of every leaf the table
+    splits there (data axes whole), and a KV cache only its KV heads:
+    ``shard_state`` of a whole state equals the engine's own rank-local
+    state's shapes and holds the same rows."""
+    rules = ShardingRules.for_mesh(mesh)       # FSDP on: data stays whole
+    tp = spmd.axis_size(mesh, "model")
+    cfg, params = _model("llama3_2_1b", "float32")
+    mine = local_params(params, cfg, rules)
+    cols = ("attn.wq", "mlp.wg", "mlp.wu", "head.w")
+    if cfg.num_kv_heads % tp == 0:      # else k/v whole on every rank
+        cols += ("attn.wk", "attn.wv")
+    for name, v in params.items():
+        got = tuple(mine[name].shape)
+        if name.endswith(cols):
+            assert got == v.shape[:-1] + (v.shape[-1] // tp,), name
+        elif name.endswith(("attn.wo", "mlp.wd", "embed.tokens")):
+            lead = v.shape[:-2]
+            assert got == lead + (v.shape[-2] // tp, v.shape[-1]), name
+        else:
+            assert got == tuple(v.shape), name
+    axes = state_batch_axes(cfg, 32)
+    full = M.init_state(cfg, 4, 32, device="cpu")
+    for v in flatten(full).values():
+        v.copy_(torch.arange(v.numel()).reshape(v.shape))
+    kv_heads = T.cache_kv_heads(mine, cfg)
+    part = flatten(shard_state(full, rules, axes, kv_heads))
+    rows = spmd.batch_rows(4, rules)
+    local = flatten(M.init_state(cfg, rows.stop - rows.start, 32,
+                                 device="cpu", kv_heads=kv_heads))
+    heads = cfg.num_kv_heads // tp if cfg.num_kv_heads % tp == 0 \
+        else cfg.num_kv_heads
+    r = spmd.axis_index(mesh, "model") if heads < cfg.num_kv_heads else 0
+    for (name, v), ax in zip(flatten(full).items(), axes):
+        want = v.narrow(ax, rows.start, rows.stop - rows.start).narrow(
+            ax + 1, r * heads, heads)
+        assert torch.equal(part[name], want), name
+        assert part[name].shape == local[name].shape, name
+
+
+def check_draw(mesh):
+    """``init_params(rules=)`` draws a rank's blocks, a layer at a time,
+    equal bit for bit to the same blocks of the one-device draw from the
+    same seed: NumPy on the host and a ``torch.Generator``."""
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    for arch in ("deepseek_67b", "llama3_2_1b", "kimi_k2_1t_a32b"):
+        cfg = get(arch, smoke=True)
+        for on_device in (False, True):
+            whole = M.init_params(5, cfg, device="cpu",
+                                  draw_on_device=on_device)
+            want = local_params(whole, cfg, rules)
+            got = M.init_params(5, cfg, device="cpu",
+                                draw_on_device=on_device, rules=rules)
+            assert got.keys() == want.keys(), arch
+            for k in got:
+                assert torch.equal(got[k], want[k]), (arch, on_device, k)
+            again = local_params(got, cfg, rules)     # blocks kept as held
+            assert all(again[k] is got[k] for k in got), arch
+
+
+def check_embed(mesh):
+    """The vocab-parallel lookup is the whole table's, bit for bit:
+    negative ids wrap, rows with −0.0 and +0.0 keep their signs."""
+    from repro_torch.models import layers as L
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    if spmd.axis_size(mesh, "model") == 1:
+        return
+    cfg, params = _model("llama3_2_1b", "bfloat16")
+    table = params["embed.tokens"].clone()
+    table[3, :4] = -0.0
+    table[5, :4] = 0.0
+    mine = local_params({"embed.tokens": table}, cfg, rules)
+    ids = torch.tensor([[3, 5, -1, 0, cfg.vocab_size - 1, 77, 3, -128]])
+    want = L.embed_inputs({"tokens": table}, ids, cfg)
+    with use_rules(rules):
+        got = L.embed_inputs({"tokens": mine["embed.tokens"]}, ids, cfg)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+def check_layouts(mesh):
+    """M³ViT's three heads keep attention whole while its MLP splits
+    (the server within the reference's 2e-3 of no mesh, float32); an
+    MQA layer splits its q heads and keeps k/v whole; a GQA layer whose
+    KV heads do not divide the axis reads each rank's one KV head."""
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.models import vit as V
+    from repro_torch.serve.vision import M3ViTServer
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    tp = spmd.axis_size(mesh, "model")
+    imgs = np.random.default_rng(1).normal(
+        size=(2, MV.IMAGE_H, MV.IMAGE_W, 3)).astype(np.float32)
+    # the paper's three heads (whole), and the smoke config's four (split)
+    for heads in (3, MV.SMOKE_CONFIG.num_heads):
+        cfg = replace(MV.SMOKE_CONFIG, dtype="float32", num_heads=heads,
+                      num_kv_heads=heads)
+        params = V.init_params(0, cfg, device="cpu")
+        server = M3ViTServer(cfg, params, rules=rules,
+                             resident_fraction=0.5, device="cpu")
+        p, whole = server.params, params
+        split = heads % tp == 0 and tp > 1
+        assert p["layers.b0.attn.wq"].shape[-1] * (tp if split else 1) \
+            == whole["layers.b0.attn.wq"].shape[-1], heads
+        assert p["layers.b0.mlp.w1"].shape[-1] == cfg.d_ff // tp
+        assert p["layers.b0.mlp.b1"].shape[-1] == cfg.d_ff // tp
+        assert p["layers.b0.mlp.b2"].shape == whole["layers.b0.mlp.b2"].shape
+        ref = M3ViTServer(cfg, params, resident_fraction=0.5, device="cpu")
+        for task in MV.TASKS:
+            np.testing.assert_allclose(server.infer(imgs, task),
+                                       ref.infer(imgs, task), atol=2e-3,
+                                       rtol=2e-3, err_msg=f"{heads} {task}")
+    if tp == 1:
+        return
+    rg, rparams = _model("recurrentgemma_9b", "float32")
+    mine = local_params(rparams, rg, rules)
+    (attn,) = [k for k in mine if k.endswith("attn.wq")]
+    wk = attn[:-2] + "wk"
+    assert mine[attn].shape[-1] * tp == rparams[attn].shape[-1]
+    assert mine[wk].shape == rparams[wk].shape           # MQA: k/v whole
+    # 8 q heads over 2 KV heads: at tp 4 each rank's 2 q heads read one
+    # of the two whole KV heads (at tp 2 one KV head, MQA)
+    gqa, gparams = _model("llama3_2_1b", "bfloat16", num_heads=8,
+                          num_kv_heads=tp // 2, head_dim=16)
+    mine = local_params(gparams, gqa, rules)
+    assert mine["layers.b0.attn.wk"].shape == \
+        gparams["layers.b0.attn.wk"].shape
+    x = _inputs(gqa)
+    want = M.forward(gparams, x, gqa)[0]
+    with torch.inference_mode(), use_rules(rules):
+        got = M.forward(mine, x, gqa)[0]
+    assert within_tolerance(got, want, torch.bfloat16), \
+        max_abs_err(got, want)
+    gqa, gparams = _model("llama3_2_1b", "float32", num_heads=8,
+                          num_kv_heads=tp // 2, head_dim=16)
+    # float32 tokens, and with an int8 cache read through QTensor views
+    for kv, pol in (("none", "eager"), ("int8", "eager_int8")):
+        cfg = replace(gqa, kv_quant=kv)
+        scfg = ServeConfig(max_len=32, policy=ops.policy_named(pol))
+        np.testing.assert_array_equal(
+            ServingEngine(cfg, gparams, scfg, rules=rules,
+                          device="cpu").generate(x, 6),
+            ServingEngine(cfg, gparams, scfg, device="cpu").generate(x, 6),
+            err_msg=kv)
+
+
+def _preempting(cfg, params, rules, preempt: bool):
+    """Eight batch-tier requests in four slots, then interactive arrivals
+    that preempt them (``preempt``), on a tick clock: {rid: tokens} and
+    the scheduler."""
+    from repro_torch.serve.scheduler import LMBackend, Request, Scheduler
+    from repro_torch.serve.slo import SLOPolicy
+    from repro_torch.serve.slo.trace import TickClock
+
+    rng = np.random.default_rng(4)
+    reqs = [Request(rid=i, task_id=0,
+                    prompt=rng.integers(0, cfg.vocab_size, 6 + i % 3),
+                    max_new_tokens=(12 if i < 6 else 3),
+                    arrival=0.0 if i < 6 else 0.05 * (i - 5),
+                    tier="batch" if i < 6 else "interactive")
+            for i in range(9)]
+    sched = Scheduler(LMBackend(cfg, params, ServeConfig(max_len=48),
+                                rules=rules, device="cpu"),
+                      total_slots=4, quantum=2, num_tasks=1,
+                      clock=TickClock(), slo=SLOPolicy(
+                          preemption=preempt, chunk_interleave=False))
+    done = sched.run(reqs)
+    return {r.rid: list(r.tokens) for r in done}, sched
+
+
+def check_park(mesh):
+    """Parking under a bucket split over the data axes: tiered preemption
+    gives the unmeshed scheduler's tokens bit for bit (no ``model``
+    split), with lanes moved between ranks where a lane comes back on
+    another rank; under tensor parallelism each rank parks its own KV
+    heads, and the tokens are those of the same mesh without
+    preemption."""
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    cfg, params = _model("llama3_2_1b", "float32")
+    ops.reset_dispatch_report()
+    got, sched = _preempting(cfg, params, rules, True)
+    assert sched.preemptions >= 1 and sched.metrics()["restores"] >= 1
+    moved = _where_counts().get("parked lane move", 0)
+    if spmd.axis_size(mesh, "model") == 1:
+        want, plain = _preempting(cfg, params, None, True)
+        assert got == want
+        assert sched.metrics()["parked_bytes_peak"] == \
+            plain.metrics()["parked_bytes_peak"]
+        if spmd.axis_size(mesh, "data") > 1:
+            assert moved >= 1
+    else:
+        want, _ = _preempting(cfg, params, rules, False)
+        assert got == want
+
+
+def check_packed(mesh):
+    """int8 weights (``quantize_tree``): the table replicates a packed
+    leaf, so a group holding one stays whole with its biases, while the
+    fp embedding table still splits; the forward under ``eager_int8``
+    within the float32 tolerance of no mesh and its greedy tokens
+    equal."""
+    from repro_torch.quant import quantize_tree
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    cfg, params = _model("llama3_2_1b", "float32")
+    packed = quantize_tree(dict(params))
+    mine = local_params(packed, cfg, rules)
+    groups = {k.rsplit(".", 1)[0] for k, v in packed.items()
+              if not isinstance(v, torch.Tensor)}
+    for k, v in packed.items():
+        if k.rsplit(".", 1)[0] in groups:
+            assert mine[k] is v, k
+    tp = spmd.axis_size(mesh, "model")
+    assert mine["embed.tokens"].shape[0] == cfg.vocab_size // tp
+    assert T.cache_kv_heads(mine, cfg) is None
+    x = _inputs(cfg)
+    with ops.use_policy(ops.policy_named("eager_int8")):
+        want = M.forward(packed, x, cfg)[0]
+        with torch.inference_mode(), use_rules(rules):
+            got = M.forward(mine, x, cfg)[0]
+    assert within_tolerance(got, want, torch.float32), max_abs_err(got, want)
+    scfg = ServeConfig(max_len=32, policy=ops.policy_named("eager_int8"))
+    np.testing.assert_array_equal(
+        ServingEngine(cfg, packed, scfg, rules=rules,
+                      device="cpu").generate(x, 6),
+        ServingEngine(cfg, packed, scfg, device="cpu").generate(x, 6))
+
+
+CHECKS = {"forward": check_forward, "blocks": check_blocks,
+          "draw": check_draw, "embed": check_embed,
+          "layouts": check_layouts, "park": check_park,
+          "packed": check_packed}
+
+
+def run(rank, world, shape, store, checks):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = spmd.init_mesh(shape, device_type="cpu")
+        for name in checks:
+            ops.reset_dispatch_report()
+            CHECKS[name](mesh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()

@@ -21,7 +21,12 @@
   one-card FLOPs over the batch shards, and ``--seq-shard`` changes no
   count; Llama-4-Scout under ``ep_local`` records its all-reduce over
   ``model``; the flags run from the command line; one-card cells record
-  no collective.
+  no collective.  The serving cells on a mesh run the dense blocks
+  tensor-parallel: Llama-3.2-1B's and DeepSeek-67B's prefill and decode
+  at 16×16 count the one-card FLOPs over the batch shards and the model
+  axis (within the k/v projections every rank repeats where the KV heads
+  do not divide it), hold a rank's blocks of the weights, and record the
+  model axis's all-reduces and the logits' all-gather.
 """
 
 import functools
@@ -289,3 +294,51 @@ def test_opt_config_rule_is_the_reference():
         big = tconfigs.get(arch).param_count() > 3e10
         assert got.factored == big
         assert got.momentum_dtype == ("bfloat16" if big else "float32")
+
+
+@functools.lru_cache(maxsize=None)
+def _serve_cell(arch, shape, mesh):
+    return dryrun.run_cell(arch, shape, verbose=False, mesh=mesh)
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "deepseek_67b"])
+def test_mesh_serving_cells_split_the_dense_blocks(arch, shape):
+    """A rank's share of a serving cell at 16×16: its rows of the batch
+    and its block over ``model`` of every dense leaf.  Each dense scope's
+    FLOPs (attention's scores and values, its output projection, the MLP,
+    the head) are the one-card count over the batch shards and the model
+    axis; the q/k/v projections over the shards alone times the share a
+    rank computes, its q heads and every KV head (8 KV heads do not
+    divide 16); the norms are repeated by every model rank.  The model
+    axis carries the blocks' all-reduces and the logits' all-gather, and
+    a rank holds its blocks of the weights."""
+    rec = _serve_cell(arch, shape, "16x16")
+    one = _serve_cell(arch, shape, "1")
+    cfg = tconfigs.get(arch)
+    tp = 16
+    shards = rec["batch_shards"]
+
+    def share(scope):
+        return rec["by_scope"][scope]["flops"] * shards \
+            / one["by_scope"][scope]["flops"]
+
+    attn = ("attn_decode",) if shape.startswith("decode") \
+        else ("attn_scores", "attn_pv")
+    for scope in attn + ("attn_out", "mlp", "lm_head"):
+        assert share(scope) == pytest.approx(1 / tp, rel=1e-6), scope
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    assert share("attn_qkv") == pytest.approx(
+        (hq // tp + 2 * hkv) / (hq + 2 * hkv), rel=1e-6)
+    assert share("norm") == pytest.approx(1.0, rel=1e-6)
+    model = {k: v["by_axis"].get("model", 0)
+             for k, v in rec["collectives"].items()}
+    assert model["all_reduce"] > 0 and model["all_gather"] > 0, model
+    assert "tensor-parallel" in rec["mesh_note"]
+    # the weights a rank holds: its blocks plus the whole k/v, norms
+    weights = TM.param_specs(cfg)
+    whole = sum(t.numel() * t.element_size() for t in weights.values())
+    kv = sum(t.numel() * t.element_size() for k, t in weights.items()
+             if k.endswith(("attn.wk", "attn.wv")))
+    state = one["argument_bytes"] - whole
+    assert rec["argument_bytes"] < (whole - kv) / tp + kv + state

@@ -10,19 +10,34 @@ card, and holds the two against each other.
 (build once before ``torchrun``: the ranks then load the same library
 instead of compiling it side by side).  ``--device cpu`` runs the same
 over gloo with the kernels' plain versions, at the models' smoke sizes
-(a rehearsal).  Checks, at full width, bf16, seeded:
+(a rehearsal).  Under a ``model`` axis larger than one the dense blocks
+run tensor-parallel (``models/layers.py``), whose row-parallel sums run
+in another order than one card's: those checks hold the logits of the
+prefill and of teacher-forced decode steps at cosine >= ``SERVE_COSINE``
+(``kernels/compare.py``) and report the share of greedy tokens equal to
+no mesh's; where ``model`` has one rank they stay bit for bit.  Checks,
+at full width, bf16, seeded:
 
 * M³ViT ``M3ViTServer(rules=)`` paged through ``ShardedExpertCache`` at
   resident fraction 0.5, batch 8, both tasks, against the unmeshed
-  all-resident server: bit for bit (expert-parallel paging is exact);
+  all-resident server (its MLPs split over ``model``, its three heads
+  whole);
 * ``apply_moe_ep_local`` on an M³ViT MoE layer (16 experts over
   ``model``) against ``grouped``: within the bf16 tolerance of
   ``kernels/compare.py``;
 * Llama-3.2-1B ``ServingEngine(rules=)``, 8 × 128 prompts, 32 greedy
-  tokens, against the unmeshed engine: the tokens;
+  tokens, against the unmeshed engine;
 * Llama-4-Scout at full width, 2 of its 48 layers, the same: its
   4096-token routing groups span the data ranks, so every rank routes
-  the whole batch from the gathered router logits.
+  the whole batch from the gathered router logits;
+* DeepSeek-67B at 16 of its 95 layers, each rank's blocks drawn on its
+  card (``init_params(rules=)``), against one card's 16-layer run from
+  the same seed (``serving_agrees``);
+* DeepSeek-67B at all 95 layers, which one card cannot hold (125.6 GiB
+  in bf16): 8 × 128 prompts, 32 greedy tokens, ``max_len`` 512 — the
+  same tokens on every rank, finite logits, prefill ms, ms a decode step,
+  tokens/s, peak GiB a rank, launches by kernel, the collectives' count,
+  bytes and device ms (``train/profile.py:profile_steps``).
 
 Rank 0 prints the card's name and power limit, each check's result, the
 launches by kernel of each mesh run, the collectives, and the host walls
@@ -44,6 +59,8 @@ import torch.distributed as dist
 
 
 SCOUT_LAYERS = 2        # Llama-4-Scout's depth here, at full width
+DEEPSEEK_CUT = 16       # DeepSeek-67B's depth held against one card
+FORCED = 8              # teacher-forced decode steps a logits check reads
 
 
 def _sync() -> None:
@@ -82,6 +99,29 @@ def _counted(run):
     return out, launch_counts(), coll
 
 
+def _forced(engine, rules, prompts, toks, steps: int) -> list:
+    """float32 logits of the prefill and of ``steps`` decode steps fed
+    ``toks`` (teacher-forced: the same inputs with and without a mesh)."""
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.models import model as LM
+
+    prefill, decode = engine.steps(0)
+    out = []
+    with torch.inference_mode(), use_rules(rules):
+        state = LM.init_state(engine.cfg, prompts.shape[0],
+                              engine.scfg.max_len, device=engine.device,
+                              kv_heads=engine.kv_heads)
+        logits, state = prefill(engine.params, prompts, state)
+        out.append(logits.float())
+        for i in range(steps):
+            tok = torch.as_tensor(toks[:, i:i + 1],
+                                  device=engine.device).long()
+            logits, state = decode(engine.params, tok, state,
+                                   prompts.shape[1] + i)
+            out.append(logits.float())
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", required=True, metavar="DxM")
@@ -95,8 +135,11 @@ def main() -> None:
     from repro_torch.configs import llama3_2_1b as LL
     from repro_torch.configs import m3vit as MV
     from repro_torch.core import moe as moe_lib
+    from repro_torch.dist import spmd
     from repro_torch.dist.sharding import use_rules
-    from repro_torch.kernels.compare import max_abs_err, within_tolerance
+    from repro_torch.kernels.compare import (SERVE_COSINE, cosine,
+                                             max_abs_err, serving_agrees,
+                                             within_tolerance)
     from repro_torch.launch.serve import mesh_rules
     from repro_torch.models import model as LM
     from repro_torch.models.vit import init_params
@@ -105,6 +148,7 @@ def main() -> None:
 
     rules, dev, _ = mesh_rules(args.mesh, torch.device(args.device))
     rank = dist.get_rank()
+    tp = spmd.axis_size(rules.mesh, "model")
 
     def say(*a):
         if rank == 0:
@@ -115,8 +159,30 @@ def main() -> None:
                             "--format=csv,noheader"], capture_output=True,
                            text=True, check=True).stdout.strip())
     say(f"mesh {args.mesh} over {dist.get_world_size()} ranks, "
-        f"{dist.get_backend()}; torch {torch.__version__}")
+        f"{dist.get_backend()}; torch {torch.__version__}; the dense blocks "
+        f"{'tensor-parallel over ' + str(tp) if tp > 1 else 'whole'}")
     policy = ops.policy_named("cuda")
+
+    def agree(label, got, want, mesh_engine, plain_logits, prompts):
+        """Tokens bit-equal where model has one rank; else the
+        teacher-forced logits at SERVE_COSINE and the share of equal
+        tokens reported."""
+        if tp == 1:
+            same = np.array_equal(got, want)
+            say(f"  {label}: tokens equal to no mesh {same}")
+            if not same:
+                raise AssertionError(f"rank {rank}: {label} tokens differ")
+            return
+        cos = [cosine(a, b) for a, b in zip(
+            _forced(mesh_engine, rules, prompts, want, FORCED),
+            plain_logits)]
+        ok = serving_agrees(cos)
+        say(f"  {label}: logits of the prefill and {FORCED} teacher-forced "
+            f"steps at cosine {min(cos):.6f}..{max(cos):.6f} of no mesh "
+            f"(>= {SERVE_COSINE}: {ok}); greedy tokens equal to no mesh's: "
+            f"{float((got == want).mean()):.4f} of them")
+        if not ok:
+            raise AssertionError(f"rank {rank}: {label} logits {cos}")
 
     cfg = replace(MV.SMOKE_CONFIG if smoke else MV.CONFIG, policy=policy)
     params = init_params(0, cfg, device=dev)
@@ -129,11 +195,19 @@ def main() -> None:
         want = plain.infer(imgs, task)
         mesh.infer(imgs, task)                          # warm-up
         got, counts, coll = _counted(lambda: mesh.infer(imgs, task))
-        same = np.array_equal(got, want)
-        say(f"M3ViT {task} batch 8, paged 0.5 expert-parallel: bit-equal "
-            f"to no mesh {same}; launches {json.dumps(counts)}; "
-            f"collectives {json.dumps(coll)}")
-        if not same:
+        if tp == 1:
+            ok = np.array_equal(got, want)
+            what = f"bit-equal to no mesh {ok}"
+        else:
+            g, w = torch.from_numpy(got), torch.from_numpy(want)
+            c = cosine(g, w)
+            ok = c >= SERVE_COSINE
+            what = (f"MLPs over {tp} ranks: cosine {c:.6f} of no mesh "
+                    f"(>= {SERVE_COSINE}: {ok}), max abs err "
+                    f"{max_abs_err(g, w):.3e}")
+        say(f"M3ViT {task} batch 8, paged 0.5 expert-parallel: {what}; "
+            f"launches {json.dumps(counts)}; collectives {json.dumps(coll)}")
+        if not ok:
             raise AssertionError(f"rank {rank}: M3ViT {task} differs")
     st = mesh.cache_stats()
     say(f"  walls semseg: {_wall_ms(lambda: mesh.infer(imgs, 'semseg')):.3f}"
@@ -161,28 +235,33 @@ def main() -> None:
     del plain, mesh, params
 
     pol = policy.with_impls(attention_decode="cuda_fused")
+
+    def engines(label, lcfg, scfg, draw):
+        """Serve 8 x 128 prompts, 32 greedy tokens, with and without the
+        mesh (the whole draw for both), and hold them together."""
+        lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=draw)
+        plain = ServingEngine(lcfg, lparams, scfg, device=dev)
+        mesh = ServingEngine(lcfg, lparams, scfg, rules=rules, device=dev)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, lcfg.vocab_size, size=(8, 128))).to(dev)
+        want = plain.generate(prompts, 32)
+        plain_logits = _forced(plain, None, prompts, want, FORCED)
+        mesh.generate(prompts, 2)
+        got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
+        say(f"{label} 8 x 128 prompts, 32 greedy tokens: launches "
+            f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
+        agree(label, got, want, mesh, plain_logits, prompts)
+        say(f"  walls generate: "
+            f"{_wall_ms(lambda: mesh.generate(prompts, 32)):.1f} ms with "
+            f"the mesh, {_wall_ms(lambda: plain.generate(prompts, 32)):.1f}"
+            f" ms without")
+        del plain, mesh, lparams
+        if not smoke:
+            torch.cuda.empty_cache()
+
     lcfg = LL.SMOKE_CONFIG if smoke else LL.CONFIG
-    lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=not smoke)
-    scfg = ServeConfig(max_len=512, policy=pol)
-    plain = ServingEngine(lcfg, lparams, scfg, device=dev)
-    mesh = ServingEngine(lcfg, lparams, scfg, rules=rules, device=dev)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, lcfg.vocab_size, size=(8, 128))).to(dev)
-    want = plain.generate(prompts, 32)
-    mesh.generate(prompts, 2)
-    got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
-    same = np.array_equal(got, want)
-    say(f"Llama-3.2-1B 8 x 128 prompts, 32 greedy tokens: tokens equal to "
-        f"no mesh {same}; launches {json.dumps(counts)}; collectives "
-        f"{json.dumps(coll)}")
-    say(f"  walls generate: {_wall_ms(lambda: mesh.generate(prompts, 32)):.1f}"
-        f" ms with the mesh, "
-        f"{_wall_ms(lambda: plain.generate(prompts, 32)):.1f} ms without")
-    if not same:
-        raise AssertionError(f"rank {rank}: Llama tokens differ")
-    del plain, mesh, lparams
-    if not smoke:
-        torch.cuda.empty_cache()
+    engines("Llama-3.2-1B", lcfg, ServeConfig(max_len=512, policy=pol),
+            not smoke)
 
     # a MoE LM whose routing groups span the data ranks: a prefill's 1024
     # tokens and a decode step's 8 are one 4096-token group each, routed
@@ -192,27 +271,110 @@ def main() -> None:
     scout = get("llama4_scout_17b_a16e", smoke=smoke)
     if not smoke:
         scout = replace(scout, num_layers=SCOUT_LAYERS)
-    sparams = LM.init_params(0, scout, device=dev, draw_on_device=not smoke)
-    scfg = ServeConfig(max_len=512, policy=pol.with_impls(moe_ffn="eager"))
-    plain = ServingEngine(scout, sparams, scfg, device=dev)
-    mesh = ServingEngine(scout, sparams, scfg, rules=rules, device=dev)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, scout.vocab_size, size=(8, 128))).to(dev)
-    want = plain.generate(prompts, 32)
-    mesh.generate(prompts, 2)
-    got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
-    same = np.array_equal(got, want)
-    say(f"Llama-4-Scout ({scout.num_layers} layers) 8 x 128 prompts, 32 "
-        f"greedy tokens: tokens equal to no mesh {same}; launches "
-        f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
-    say(f"  walls generate: {_wall_ms(lambda: mesh.generate(prompts, 32)):.1f}"
-        f" ms with the mesh, "
-        f"{_wall_ms(lambda: plain.generate(prompts, 32)):.1f} ms without")
-    if not same:
-        raise AssertionError(f"rank {rank}: Scout tokens differ")
+    engines(f"Llama-4-Scout ({scout.num_layers} layers)", scout,
+            ServeConfig(max_len=512, policy=pol.with_impls(moe_ffn="eager")),
+            not smoke)
+    deepseek(rules, dev, pol, smoke, say, agree)
     dist.barrier()
     dist.destroy_process_group()
     say("MESH_CARDS_OK")
+
+
+def deepseek(rules, dev, pol, smoke, say, agree) -> None:
+    """DeepSeek-67B: at 16 layers against one card, then at all 95, each
+    rank's blocks drawn on its card."""
+    from repro_torch import ops
+    from repro_torch.configs import get
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    rank = dist.get_rank()
+    full = get("deepseek_67b", smoke=smoke)
+    scfg = ServeConfig(max_len=512, policy=pol)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, full.vocab_size, size=(8, 128))).to(dev)
+
+    cut = full if smoke else replace(full, num_layers=DEEPSEEK_CUT)
+    whole = LM.init_params(0, cut, device=dev, draw_on_device=not smoke)
+    plain = ServingEngine(cut, whole, scfg, device=dev)
+    want = plain.generate(prompts, 32)
+    plain_logits = _forced(plain, None, prompts, want, FORCED)
+    del plain, whole
+    if not smoke:
+        torch.cuda.empty_cache()
+    mine = LM.init_params(0, cut, device=dev, draw_on_device=not smoke,
+                          rules=rules)
+    mesh = ServingEngine(cut, mine, scfg, rules=rules, device=dev)
+    mesh.generate(prompts, 2)
+    got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
+    say(f"DeepSeek-67B ({cut.num_layers} of {get('deepseek_67b').num_layers}"
+        f" layers, each rank's blocks drawn on its card) 8 x 128 prompts, 32 "
+        f"greedy tokens, against one card's run from the same seed: "
+        f"launches {json.dumps(counts)}; collectives {json.dumps(coll)}")
+    agree(f"DeepSeek-67B ({cut.num_layers} layers)", got, want, mesh,
+          plain_logits, prompts)
+    del mesh, mine, plain_logits
+    if not smoke:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    mine = LM.init_params(0, full, device=dev, draw_on_device=not smoke,
+                          rules=rules)
+    _sync()
+    draw_s = time.perf_counter() - t0
+    held = sum(v.numel() * v.element_size() for v in mine.values())
+    engine = ServingEngine(full, mine, scfg, rules=rules, device=dev)
+    engine.generate(prompts, 2)                        # warm-up
+    got, counts, coll = _counted(lambda: engine.generate(prompts, 32))
+    moved = {}
+    for c in ops.collective_report():
+        key = f"{c['kind']}:{c['axis']}:{c['where']}"
+        moved[key] = [c["count"], c["bytes"]]
+    toks = torch.as_tensor(got, device=dev)
+    every = [torch.empty_like(toks) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, toks)
+    same = all(torch.equal(t, toks) for t in every)
+    first = _forced(engine, rules, prompts, got, 0)[0]
+    finite = bool(torch.isfinite(first).all())
+    prefill, _ = engine.steps(0)
+    state = LM.init_state(full, 8, 512, device=dev, kv_heads=engine.kv_heads)
+
+    def run_prefill():
+        from repro_torch.dist.sharding import use_rules
+
+        with torch.inference_mode(), use_rules(rules):
+            prefill(engine.params, prompts, state)
+
+    prefill_ms = _wall_ms(run_prefill)
+    gen_ms = _wall_ms(lambda: engine.generate(prompts, 32))
+    step_ms = (gen_ms - prefill_ms) / 32
+    peak = torch.cuda.max_memory_allocated() / 2**30 if not smoke else 0.0
+    prof = {}
+    if not smoke:
+        from repro_torch.train.profile import profile_steps
+
+        prof = profile_steps(lambda: engine.generate(prompts, 32), 1,
+                             gen_ms / 1e3)
+    say(f"DeepSeek-67B at all {full.num_layers} layers over "
+        f"{dist.get_world_size()} ranks: {held / 2**30:.2f} GiB of weights a "
+        f"rank drawn on its card in {draw_s:.1f} s; 8 x 128 prompts, 32 "
+        f"greedy tokens: the same tokens on every rank {same}, finite "
+        f"logits {finite}")
+    say(f"  prefill {prefill_ms:.3f} ms, {step_ms:.3f} ms a decode step, "
+        f"{8 * 32 / (gen_ms / 1e3):.1f} tokens/s (host walls, median of 3; "
+        f"generate {gen_ms:.1f} ms); peak {peak:.2f} GiB a rank (rank "
+        f"{rank})")
+    say(f"  launches {json.dumps(counts)}")
+    say(f"  collectives (count, bytes a rank) {json.dumps(moved)}")
+    if prof:
+        say(f"  profiled generate: busy {prof['busy_ms']:.1f} ms, "
+            f"collectives' device time {prof['collective_ms']:.1f} ms, idle "
+            f"share {prof['idle_share']:.3f}")
+    print(f"  rank {rank}: peak {peak:.2f} GiB, same tokens {same}",
+          flush=True)
+    if not (same and finite):
+        raise AssertionError(f"rank {rank}: DeepSeek-67B at full depth")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""The three kernels of the tensor-parallel serving path on one card, at
+the shapes one rank of DeepSeek-67B over a (1, 4) mesh gives them: each
+launch held against its plain version (``chip_smoke.check``), then timed
+beside its plain version, one PyTorch library call on the same inputs and
+the card's bound for the same work, next to the card's name and power
+limit.
+
+    python3 tools/tp_shapes.py [--out build/tp_shapes.json]
+
+Shapes (bf16; decode is 8 rows, prefill 8 x 128 = 1024):
+
+* ``unified_linear`` column blocks of ``attn/wq`` (8192 x 2048 of 8192),
+  ``attn/wk`` (8192 x 256 of 1024), ``mlp/wg`` (8192 x 5504 of 22016) and
+  ``head/w`` (8192 x 25600 of 102400), summed in the whole weight's order
+  (``order_n``); row blocks of ``attn/wo`` (2048 x 8192) and ``mlp/wd``
+  (5504 x 8192) writing float32 partials; library: ``torch.matmul``
+  (``torch.mm(out_dtype=float32)`` for the row blocks where this PyTorch
+  has it);
+* ``flash_attention``: a prefill's 16 of 64 q heads over 2 of 8 KV heads,
+  128 tokens, head_dim 128, causal; library:
+  ``scaled_dot_product_attention`` (``enable_gqa``);
+* ``decode_fused``: one step's 16 q heads over a 512-slot cache of 2 KV
+  heads with per-slot lengths 129..160; library: SDPA over the cache with
+  a length mask.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
+
+import chip_smoke as C  # noqa: E402
+
+D, HQ, HKV, HD, FF, VOCAB, TP = 8192, 64, 8, 128, 22016, 102400, 4
+B, S, SMAX = 8, 128, 512
+COLUMNS = (("wq", HQ * HD), ("wk", HKV * HD), ("wg", FF), ("head", VOCAB))
+ROWS = (("wo", HQ * HD), ("wd", FF))
+
+
+def _row(name, shape, ms, plain_ms, lib_ms, nbytes, flops, err, variant):
+    by_bytes, by_ops = C.bound_ms(nbytes, flops, torch.bfloat16)
+    rec = {"kernel": name, "shape": shape, "variant": variant,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    print(f"  {name} {shape} [{variant}]: {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library {lib_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), {rec['bound_ms'] / ms:.2f} of the bound")
+    return rec
+
+
+def _mm_f32(x, w):
+    """bf16 operands, float32 product out: ``torch.mm(out_dtype=)`` where
+    this PyTorch has it, else ``torch.mm`` (its bf16 out, then widened)."""
+    try:
+        return torch.mm(x, w, out_dtype=torch.float32)
+    except TypeError:
+        return torch.mm(x, w).float()
+
+
+def _mm_f32_name() -> str:
+    try:
+        x = torch.zeros((1, 1), dtype=torch.bfloat16, device="cuda")
+        torch.mm(x, x, out_dtype=torch.float32)
+        return "torch.mm(out_dtype=float32)"
+    except TypeError:
+        return "torch.mm(bf16 out).float()"
+
+
+def linear_rows() -> list:
+    from repro_torch.kernels import unified_linear as kul
+
+    out = []
+    for m in (B, B * S):
+        x = C.randn((m, D), torch.bfloat16, seed=1)
+        for name, n in COLUMNS:
+            nb = n // TP
+            w = C.randn((D, nb), torch.bfloat16, scale=D ** -0.5, seed=2)
+            plan = kul.plan_for(x, w, order_n=n)
+            err = C.check("unified_linear", f"{name} column block M={m}",
+                          kul.unified_linear(x, w, order_n=n),
+                          kul.unified_linear_plain(x, w), torch.bfloat16)
+            out.append(_row(
+                "unified_linear", f"{name} M={m} K={D} N={nb} of {n}",
+                C.time_ms(lambda: kul.unified_linear(x, w, order_n=n)),
+                C.time_ms(lambda: kul.unified_linear_plain(x, w)),
+                C.time_ms(lambda: torch.matmul(x, w)),
+                C._nbytes(x, w) + m * nb * 2, 2.0 * m * D * nb, err,
+                C._plan_label(plan)))
+        for name, k in ROWS:
+            kb = k // TP
+            xr = C.randn((m, kb), torch.bfloat16, seed=3)
+            w = C.randn((kb, D), torch.bfloat16, scale=kb ** -0.5, seed=4)
+            plan = kul.plan_for(xr, w)
+            f32 = torch.float32
+            err = C.check("unified_linear", f"{name} row block M={m}",
+                          kul.unified_linear(xr, w, out_dtype=f32),
+                          kul.unified_linear_plain(xr, w, out_dtype=f32),
+                          torch.float32)
+            out.append(_row(
+                "unified_linear", f"{name} M={m} K={kb} of {k} N={D} "
+                f"float32 out",
+                C.time_ms(lambda: kul.unified_linear(xr, w, out_dtype=f32)),
+                C.time_ms(lambda: kul.unified_linear_plain(
+                    xr, w, out_dtype=f32)),
+                C.time_ms(lambda: _mm_f32(xr, w)),
+                C._nbytes(xr, w) + m * D * 4, 2.0 * m * kb * D, err,
+                C._plan_label(plan)))
+    return out
+
+
+def attention_rows() -> list:
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import flash_attention as kfa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv = HQ // TP, HKV // TP
+    q = C.randn((B, hq, S, HD), torch.bfloat16, seed=5)
+    k = C.randn((B, hkv, S, HD), torch.bfloat16, seed=6)
+    v = C.randn((B, hkv, S, HD), torch.bfloat16, seed=7)
+    err = C.check("flash_attention", "16 q heads over 2 KV heads, causal",
+                  kfa.flash_attention(q, k, v),
+                  kfa.flash_attention_plain(q, k, v), torch.bfloat16)
+    rows = [_row(
+        "flash_attention", f"B={B} Hq={hq} Hkv={hkv} S={S} D={HD} causal",
+        C.time_ms(lambda: kfa.flash_attention(q, k, v)),
+        C.time_ms(lambda: kfa.flash_attention_plain(q, k, v)),
+        C.time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+        C._nbytes(q, k, v, q), 4.0 * B * hq * S * S * HD / 2, err,
+        C._attn_label(kfa.plan_for(q)))]
+    q1 = C.randn((B, hq, 1, HD), torch.bfloat16, seed=8)
+    kc = C.randn((B, hkv, SMAX, HD), torch.bfloat16, seed=9)
+    vc = C.randn((B, hkv, SMAX, HD), torch.bfloat16, seed=10)
+    cl = torch.arange(129, 129 + B * 4, 4, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(SMAX, device="cuda")[None, :] < cl[:, None])[
+        :, None, None, :]
+    err = C.check("decode_fused", "16 q heads over 2 KV heads, per-slot "
+                  "lengths", kdf.fused_decode_attention(q1, kc, vc, cl),
+                  kdf.fused_decode_attention_plain(q1, kc, vc, cl),
+                  torch.bfloat16)
+    live = int(cl.sum())
+    rows.append(_row(
+        "decode_fused", f"B={B} Hq={hq} Hkv={hkv} Smax={SMAX} D={HD} "
+        f"lengths {int(cl.min())}..{int(cl.max())}",
+        C.time_ms(lambda: kdf.fused_decode_attention(q1, kc, vc, cl)),
+        C.time_ms(lambda: kdf.fused_decode_attention_plain(q1, kc, vc, cl)),
+        C.time_ms(lambda: sdpa(q1, kc, vc, attn_mask=mask,
+                               enable_gqa=True)),
+        C._nbytes(q1, q1) + 2 * live * hkv * HD * 2,
+        4.0 * live * hq * HD, err, "decode"))
+    return rows
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("tp_shapes: runs on an NVIDIA Hopper card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    from repro_torch.kernels import build
+
+    print(f"kernels built and loaded in {build.build_seconds():.1f} s; "
+          f"DeepSeek-67B one rank of (1, {TP})")
+    print(f"row blocks' library call: {_mm_f32_name()}")
+    rows = linear_rows() + attention_rows()
+    line = {"card": smi, "tp": TP, "row_library": _mm_f32_name(),
+            "rows": rows}
+    print(json.dumps(line))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(line, indent=1))
+    assert math.isfinite(sum(r["ms"] for r in rows))
+
+
+if __name__ == "__main__":
+    main()
