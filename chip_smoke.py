@@ -332,11 +332,13 @@ one and then one pair of processes):
    counted and checked for fallbacks as in (a).
 11. Training over a mesh (``make_train_step(rules=)``: each rank's
    blocks of the parameters and AdamW state, its rows of the batch, the
-   weights gathered whole, the gradients reduced to the blocks once a
-   step).  (a) Phase 10's world of one, rules ``for_mesh((1, 1))`` with
-   ``fsdp=True``, bit for bit against no rules in every loss, parameter
-   and AdamW leaf: M³ViT at the full CONFIG, batch 8, 3 steps (its
-   expert layer staged: ``cuda`` names no ``moe_ffn`` impl) and
+   weights gathered over the batch axes — over ``model`` too for a leaf
+   every rank holds whole — the dense blocks tensor-parallel over
+   ``model`` with a vocab-parallel loss, the gradients reduced to the
+   blocks once a step).  (a) Phase 10's world of one, rules
+   ``for_mesh((1, 1))`` with ``fsdp=True``, bit for bit against no rules
+   in every loss, parameter and AdamW leaf: M³ViT at the full CONFIG,
+   batch 8, 3 steps (its expert layer staged: ``cuda`` names no ``moe_ffn`` impl) and
    Llama-3.2-1B at full width and depth, 4 × 128 tokens, 2 steps, each
    counted as in phase 10; then ``compressed_psum`` of Llama's gradients
    equal to their dequantized payload and its carry to ``gf - deq``.  (b)
@@ -346,7 +348,25 @@ one and then one pair of processes):
    layers, 2 steps each against one process on the whole batch — loss
    and grad norm within ``compare.TRAIN_LOSS_RTOL``, the parameters
    within one step of ``compare.py``'s tolerance a step, the ranks'
-   re-gathered parameters bit-equal; M³ViT at 1×2 under ``ep_local``
+   re-gathered parameters bit-equal; the same two models at 1×2,
+   tensor-parallel (Llama: 16 of 32 q heads, 4 of 8 KV heads, half of
+   the MLP's columns and of the vocabulary a rank; M³ViT: its MLPs'
+   columns, its three-head attention and routed experts whole), held the
+   same way, with the collectives by ``where`` as counted from the
+   config (``_tp_train_expect``: an ``attn_out`` and an ``mlp_down``
+   all-reduce a split layer and forward and their inputs' all-reduces in
+   the backward, the embedding's all-reduce, the head's and the loss's
+   three (B, S) reduces a forward; no logits all-gather; a gather over
+   ``model`` only of the leaves held whole) and no SIMT launch, phase
+   11 (b)'s own wall printed; before them, on rank 0, the kernels at
+   those runs' shapes against their plain versions
+   (``_tp_train_kernels``: ``unified_linear`` on M³ViT's MLP at M = 1024
+   — ``w1``'s column blocks with ``b1`` and the GELU LUT, ``w2``'s
+   float32 row blocks — and on Llama's projections at M = 512, column
+   blocks bit-equal to the whole product's columns, row blocks and the
+   backward of each block within tolerance; ``flash_attention`` at
+   Llama's 16 q heads over 4 KV heads, forward and backward); M³ViT at
+   1×2 under ``ep_local``
    (8 of 16 experts a rank), each expert's gradient against
    single-device ``grouped`` (cosine); ``compressed_psum`` over the
    ranks bit for bit; ``launch/train.py --mesh local`` for 3 steps with a
@@ -380,7 +400,9 @@ those runs, training's, phase 10 (a)'s and phase 11's mesh runs
 included (also given apart as ``training_launches``, with
 ``training_ms``: the kernel's
 forward and backward device ms a training step by model,
-``mesh_launches`` and ``mesh_train_launches``).  The variant counters
+``mesh_launches`` and ``mesh_train_launches``, and the tensor-parallel
+runs of phases 10 (b) and 11 (b) inside them as ``tp_launches`` and
+``tp_train_launches``).  The variant counters
 (the GEMMs', ``flash_attention``'s,
 ``moe_fused``'s) are read with them: no main path may take the SIMT
 route (but for xLSTM's sLSTM projections, whose 2730-byte rows no TMA
@@ -4251,6 +4273,7 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
     layer on the whole batch, bit for bit; Llama-3.2-1B tensor-parallel
     over (1, 2) (``_two_ranks_tp``); and parking over a bucket split over
     (2, 1) (``_two_ranks_park``)."""
+    import time
     import traceback
 
     import torch.distributed as dist
@@ -4327,7 +4350,9 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
         result["park"] = _two_ranks_park(rank)
         gc.collect()
         torch.cuda.empty_cache()
+        t_train = time.perf_counter()
         result["train"] = _two_ranks_train(rank, str(MESH_TRAIN_DIR))
+        result["train_wall_s"] = time.perf_counter() - t_train
         dist.barrier()
         dist.destroy_process_group()
     except Exception:               # a fault: the parent raises with it
@@ -4527,14 +4552,15 @@ def _two_ranks_park(rank: int) -> dict:
             "restores": m["restores"], "moved": moved}
 
 
-def two_ranks_one_card() -> tuple[dict, dict]:
+def two_ranks_one_card() -> tuple[dict, dict, dict]:
     """Phases 10 (b) and 11 (b): two processes on the one card over gloo
     (NCCL refuses two ranks on one device).  A failed probe (gloo cannot
     start or cannot all-reduce a CUDA tensor), a fault after it, a rank
     that hangs or dies, or a missing result fails the run.  Returns phase
-    11 (b)'s launches and phase 10 (b)'s tensor-parallel ones, both
-    ranks summed."""
+    11 (b)'s launches, phase 10 (b)'s tensor-parallel ones and phase 11
+    (b)'s tensor-parallel ones, each with both ranks summed."""
     import shutil
+    import time
 
     import torch.multiprocessing as mp
 
@@ -4586,9 +4612,14 @@ def two_ranks_one_card() -> tuple[dict, dict]:
     for r in results:
         tp_launches = _tp_report(r, tp_launches)
     print("phase 11 (b): training over two ranks on the one card")
-    launches = mesh_train_two(results)
+    t_parent = time.perf_counter()
+    launches, tp_train = mesh_train_two(results)
+    print(f"  phase 11 (b) wall time: "
+          f"{max(r['train_wall_s'] for r in results):.1f} s on the ranks "
+          f"+ {time.perf_counter() - t_parent:.1f} s of the parent's "
+          f"checks and restore")
     shutil.rmtree(MESH_TRAIN_DIR, ignore_errors=True)
-    return launches, tp_launches
+    return launches, tp_launches, tp_train
 
 
 def _tp_report(r: dict, total: dict) -> dict:
@@ -4690,11 +4721,12 @@ def mesh_path() -> dict:
     return total
 
 
-def mesh_phases() -> tuple[dict, dict, dict]:
+def mesh_phases() -> tuple[dict, dict, dict, dict]:
     """Phases 10 and 11 on the card: one NCCL world of one for 10 (a) and
     11 (a), then two ranks for 10 (b) and 11 (b).  Returns phase 10's
     launches ((a) and (b)'s tensor-parallel run), phase 11's (both parts)
-    and phase 10 (b)'s tensor-parallel ones alone, the ranks' summed."""
+    and the tensor-parallel ones alone of phase 10 (b) and of phase 11
+    (b), the ranks' summed."""
     import time
 
     import torch.distributed as dist
@@ -4722,7 +4754,7 @@ def mesh_phases() -> tuple[dict, dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    two_trained, tp = two_ranks_one_card()
+    two_trained, tp, tp_train = two_ranks_one_card()
     for n, c in two_trained.items():
         trained[n] = trained.get(n, 0) + c
     print(f"  phases 10 (b) and 11 (b) wall time "
@@ -4732,10 +4764,15 @@ def mesh_phases() -> tuple[dict, dict, dict]:
     for n, c in tp.items():
         meshed[n] = meshed.get(n, 0) + c
     print(f"  phase 11 launches (a) + (b): {json.dumps(trained)}")
+    print(f"  phase 11 (b) tensor-parallel launches, both ranks: "
+          f"{json.dumps(tp_train)}")
     if not all(trained.get(k, 0) > 0 for k in CUDA_PATH_KERNELS):
         raise AssertionError(f"a kernel of mesh training never launched: "
                              f"{trained}")
-    return meshed, trained, tp
+    if not all(tp_train.get(k, 0) > 0 for k in CUDA_PATH_KERNELS):
+        raise AssertionError(f"a kernel of tensor-parallel training never "
+                             f"launched: {tp_train}")
+    return meshed, trained, tp, tp_train
 
 
 # ------------------------------------------------------------ phase 11
@@ -4875,15 +4912,126 @@ def _rel(a, b) -> float:
     return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
 
 
+#: phase 11 (b)'s tensor-parallel training shapes over (1, 2): (model,
+#: rows, weight, K, N, activation, bias, how a rank holds it) — M³ViT's
+#: MLP at its 8 images of 128 tokens, Llama-3.2-1B's projections at its
+#: 4 x 128 rows (each rank runs the whole batch)
+TP_TRAIN_SHAPES = (
+    ("M3ViT", TOKENS, "w1", 192, 768, "gelu", True, "columns"),
+    ("M3ViT", TOKENS, "w2", 768, 192, None, False, "rows"),
+    ("Llama-3.2-1B", 4 * 128, "wq", 2048, 2048, None, False, "columns"),
+    ("Llama-3.2-1B", 4 * 128, "wk", 2048, 512, None, False, "columns"),
+    ("Llama-3.2-1B", 4 * 128, "wg", 2048, 8192, "silu", False, "columns"),
+    ("Llama-3.2-1B", 4 * 128, "wu", 2048, 8192, None, False, "columns"),
+    ("Llama-3.2-1B", 4 * 128, "wo", 2048, 2048, None, False, "rows"),
+    ("Llama-3.2-1B", 4 * 128, "wd", 8192, 2048, None, False, "rows"))
+
+
+def _tp_train_kernels(policy) -> dict:
+    """Phase 11 (b), rank 0: the kernels of the tensor-parallel training
+    runs at their shapes over (1, 2) (``TP_TRAIN_SHAPES``), each against
+    its plain version.  ``unified_linear``: the whole product with its
+    epilogue (the LUT where ``policy`` takes it) within the bf16 tolerance
+    (+1 table step at LUT index ties); each column block (N/2, its bias
+    and epilogue, summed in the whole weight's K order) bit-equal to the
+    whole product's columns; each row block (K/2, float32 out) within the
+    float32 tolerance; and the backward (``UnifiedLinearFn``'s float32
+    PyTorch) of each row block and of each column block without an
+    activation against autograd through the plain version, at the bf16
+    tolerance of the gradients' dtype.  ``flash_attention``: Llama's 16 of
+    32 q heads over 4 of 8 KV heads at 4 x 128, causal, forward and
+    backward.  M³ViT's attention and routed experts (``gelu_lut``,
+    ``moe_gemm``) run whole on each rank, at the shapes phases 5 and 6
+    hold.  Returns the largest error per kernel."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import unified_linear as kul
+
+    geo = dict(step_log2=policy.lut_step_log2, lut_range=policy.lut_range)
+    errs = {"unified_linear": 0.0, "flash_attention": 0.0}
+
+    def held(name, label, got, want, dtype, **kw):
+        errs[name] = max(errs[name], check(name, f"(b) rank 0 {label}", got,
+                                           want, dtype, **kw))
+
+    def backward(name, label, kernel, plain, names, *inputs):
+        """The gradients of ``kernel`` and of ``plain`` for one made-up
+        output gradient, each input's (``names``) against the plain
+        one's."""
+        dy = None
+        out = []
+        for fn in (kernel, plain):
+            ins = [t.detach().requires_grad_() for t in inputs]
+            y = fn(*ins)
+            if dy is None:
+                dy = randn(tuple(y.shape), y.dtype, seed=94)
+            out.append(torch.autograd.grad(y, ins, dy))
+        for n, g, want in zip(names, *out):
+            held(name, f"{label} backward d{n}", g, want, g.dtype)
+
+    for model, m, name, k, n, act, bias, split in TP_TRAIN_SHAPES:
+        x = randn((m, k), torch.bfloat16, seed=91)
+        w = randn((k, n), torch.bfloat16, scale=k ** -0.5, seed=92)
+        b = randn((n,), torch.float32, scale=0.1, seed=93) if bias else None
+        lut = bool(policy.lut_activations and act in ("gelu", "silu"))
+        kw = dict(activation=act, use_lut=lut, **geo)
+        label = f"{model} {name} M={m}"
+        if split == "columns":
+            whole = kul.unified_linear(x, w, b, **kw)
+            pre = kul.unified_linear_plain(x.float(), w.float(), b) \
+                if lut else None
+            held("unified_linear", f"{label} whole {k}x{n} "
+                 f"{act or 'none'}{'-lut' if lut else ''}", whole,
+                 kul.unified_linear_plain(x, w, b, **kw), torch.bfloat16,
+                 lut_pre=pre, kind=act or "gelu", **geo)
+            h = n // 2
+            for r in range(2):
+                cols = slice(r * h, (r + 1) * h)
+                wr = w[:, cols].contiguous()
+                br = None if b is None else b[cols].contiguous()
+                check_exact("unified_linear", f"(b) rank 0 {label} column "
+                            f"block {r} ({k}x{h} of {n})",
+                            kul.unified_linear(x, wr, br, order_n=n, **kw),
+                            whole[:, cols])
+                if act is None:
+                    backward("unified_linear", f"{label} column block {r}",
+                             lambda a, c: kul.unified_linear(a, c,
+                                                             order_n=n),
+                             kul.unified_linear_plain, "xw", x, wr)
+        else:
+            kk = k // 2
+            f32 = dict(out_dtype=torch.float32)
+            for r in range(2):
+                rows = slice(r * kk, (r + 1) * kk)
+                xr, wr = x[:, rows].contiguous(), w[rows].contiguous()
+                held("unified_linear", f"{label} row block {r} ({kk}x{n}, "
+                     f"float32 out)", kul.unified_linear(xr, wr, **f32),
+                     kul.unified_linear_plain(xr, wr, **f32), torch.float32)
+                backward("unified_linear", f"{label} row block {r}",
+                         lambda a, c: kul.unified_linear(a, c, **f32),
+                         lambda a, c: kul.unified_linear_plain(a, c, **f32),
+                         "xw", xr, wr)
+    q = randn((4, 16, 128, 64), torch.bfloat16, seed=95)
+    kv = [randn((4, 4, 128, 64), torch.bfloat16, seed=s) for s in (96, 97)]
+    label = "Llama-3.2-1B 16 q heads over 4 KV heads, 4 x 128, causal"
+    held("flash_attention", label, kfa.flash_attention(q, *kv),
+         kfa.flash_attention_plain(q, *kv), torch.bfloat16)
+    backward("flash_attention", label, kfa.flash_attention,
+             kfa.flash_attention_plain, "qkv", q, *kv)
+    return errs
+
+
 def _two_ranks_train(rank: int, workdir: str) -> dict:
     """Phase 11 (b) on one of the two ranks (gloo over CUDA tensors),
-    after phase 10 (b)'s work: M³ViT at 2×1 (fsdp, batch 8 split 4 + 4, 2
-    steps) against one process on the whole batch; M³ViT at 1×2 under
+    after phase 10 (b)'s work: on rank 0 the kernels at the
+    tensor-parallel training shapes (:func:`_tp_train_kernels`); M³ViT at
+    2×1 (fsdp, batch 8 split 4 + 4, 2 steps) and at 1×2 (tensor-parallel
+    MLPs) against one process on the whole batch; M³ViT at 1×2 under
     ``ep_local`` (8 of 16 experts a rank), every expert's gradient against
     single-device ``grouped``; Llama-3.2-1B at full width and
-    ``MESH_LM_LAYERS`` layers at 2×1, 2 steps, against one process;
-    ``compressed_psum`` over the ranks; the launcher's ``--mesh local``
-    for 3 steps with a checkpoint.  Returns what the parent prints."""
+    ``MESH_LM_LAYERS`` layers at 2×1 and at 1×2 (tensor-parallel), 2
+    steps, against one process; ``compressed_psum`` over the ranks; the
+    launcher's ``--mesh local`` for 3 steps with a checkpoint.  Returns
+    what the parent prints."""
     import torch.distributed as dist
 
     from repro_torch import ops
@@ -4903,31 +5051,53 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
 
     res: dict = {}
     total: dict = {}
+    tp_total: dict = {}         # the tensor-parallel runs' launches
     cuda = ops.policy_named("cuda")
+    if rank == 0:
+        res["tp_kernel_errs"] = _tp_train_kernels(cuda)
     put = device_transform("cuda")
     tcfg = TrainConfig(opt=OptConfig(**MESH_OPT))
     mesh21 = spmd.init_mesh((2, 1))
     rules21 = ShardingRules.for_mesh(mesh21)
+    mesh12 = spmd.init_mesh((1, 2))
+    rules12 = ShardingRules.for_mesh(mesh12)
 
-    def against_one(label, cfg, params, batches, loss_fn=None):
+    def against_one(label, cfg, params, batches, loss_fn=None,
+                    rules=rules21, forwards=1):
+        """``batches`` over ``rules``' mesh against one process on the
+        whole batch; over (1, 2) tensor-parallel, its collectives by
+        ``where`` gated (``_tp_train_expect``) and no SIMT launch."""
+        mesh = rules.mesh
+        shape = "x".join(map(str, mesh.shape))
         single = make_train_step(cfg, tcfg, loss_fn=loss_fn)
-        meshed = make_train_step(cfg, tcfg, rules=rules21, loss_fn=loss_fn)
+        meshed = make_train_step(cfg, tcfg, rules=rules, loss_fn=loss_fn)
         lay = meshed.layout
         opt = adamw_init(params, tcfg.opt)
         p, o = params, opt
         pm, om = lay.shard_params(params), lay.shard_opt_state(opt)
         del opt
         worst = {"loss": 0.0, "grad_norm": 0.0}
+        where: dict = {}
         for i, b in enumerate(batches):
             p, o, m1 = single(p, o, put(b))
+            counted: dict = {}
             pm, om, m2 = _mesh_run(
-                f"(b) rank {rank} {label} step {i} over 2x1",
-                lambda: meshed(pm, om, shard_for(b, rules21, "cuda")),
-                total)
+                f"(b) rank {rank} {label} step {i} over {shape}",
+                lambda: meshed(pm, om, shard_for(b, rules, "cuda")),
+                counted)
+            for into in (total, tp_total) if mesh is mesh12 else (total,):
+                for n, c in counted.items():
+                    into[n] = into.get(n, 0) + c
+            for c in ops.collective_report():
+                key = f"{c['kind']}:{c['axis']}:{c['where']}"
+                where[key] = where.get(key, 0) + c["count"]
+            if mesh is mesh12:
+                read_variants(f"(b) rank {rank} {label} step {i} over "
+                              f"{shape}", tally=False)
             for k in worst:
                 worst[k] = max(worst[k], _rel(m2[k], m1[k]))
         with torch.no_grad():
-            whole = {k: spmd.gather_param(v, lay.params[k], mesh21)
+            whole = {k: spmd.gather_param(v, lay.params[k], mesh)
                      for k, v in pm.items()}
         # one step of the bf16 tolerance for each step taken
         steps = len(batches)
@@ -4938,8 +5108,9 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
         worst_err = max(compare.max_abs_err(whole[k], p[k]) for k in p)
         # the ranks' re-gathered parameters, bit for bit each other's
         same = True
+        axis = "data" if mesh is mesh21 else "model"
         for k, v in whole.items():
-            both = spmd.all_gather(v[None], mesh21, "data",
+            both = spmd.all_gather(v[None], mesh, axis,
                                    "phase 11 ranks' parameters")
             same &= torch.equal(both[0], both[1])
         ok = (worst["loss"] <= compare.TRAIN_LOSS_RTOL
@@ -4948,7 +5119,16 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
         res[label] = {"loss_rel": worst["loss"],
                       "grad_norm_rel": worst["grad_norm"],
                       "params_within": within, "max_abs_err": worst_err,
-                      "ranks_equal": same, "ok": ok}
+                      "ranks_equal": same, "mesh": shape, "ok": ok}
+        if mesh is mesh12:
+            want = _tp_train_expect(cfg, lay, len(batches) * forwards,
+                                    len(batches))
+            keys = set(want) | {k for k in where if k.startswith(
+                "all_gather:model:") or k.split(":", 2)[2] in TP_WHERE}
+            bad = {k: (where.get(k, 0), want.get(k, 0)) for k in keys
+                   if where.get(k, 0) != want.get(k, 0)}
+            res[label].update(collectives=where, collectives_off=bad,
+                              ok=ok and not bad)
 
     # M³ViT at 2×1
     mcfg = replace(MV.CONFIG, policy=_staged(cuda))
@@ -4958,9 +5138,12 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     against_one("M3ViT", mcfg, mparams, [mstream.batch(i) for i in range(2)],
                 loss_fn=_m3vit_loss(mcfg))
 
+    # M³ViT at 1×2: tensor-parallel MLPs (three heads: attention whole)
+    against_one("M3ViT TP", mcfg, mparams,
+                [mstream.batch(i) for i in range(2)],
+                loss_fn=_m3vit_loss(mcfg), rules=rules12, forwards=2)
+
     # M³ViT at 1×2 under ep_local: every expert's gradient
-    mesh12 = spmd.init_mesh((1, 2))
-    rules12 = ShardingRules.for_mesh(mesh12)
     ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
     b = mstream.batch(0)
     _, want = make_train_step(mcfg, tcfg, loss_fn=_m3vit_loss(mcfg)).grads(
@@ -4971,7 +5154,8 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
         f"(b) rank {rank} M3ViT ep_local gradients over 1x2",
         lambda: ep.grads(ep.layout.shard_params(mparams),
                          shard_for(b, rules12, "cuda")), total)
-    cos, names = [], sorted(ep.layout.keep)
+    # the expert stacks (keep also holds the MLPs' tensor-parallel blocks)
+    cos, names = [], sorted(k for k in ep.layout.keep if ".moe." in k)
     for k in names:
         mine = want[k][local_slice(tuple(want[k].shape), ep.layout.params[k],
                                    mesh12)]
@@ -4994,9 +5178,15 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     lcfg = replace(LL.CONFIG, num_layers=MESH_LM_LAYERS, policy=cuda)
     lstream = make_stream(DataConfig(batch=4, seq_len=128,
                                      vocab_size=lcfg.vocab_size, seed=0))
-    against_one(f"Llama-3.2-1B {MESH_LM_LAYERS} layers", lcfg,
-                LM.init_params(0, lcfg, draw_on_device=True),
-                [lstream.batch(i) for i in range(2)])
+    lparams = LM.init_params(0, lcfg, draw_on_device=True)
+    lbatches = [lstream.batch(i) for i in range(2)]
+    against_one(f"Llama-3.2-1B {MESH_LM_LAYERS} layers", lcfg, lparams,
+                lbatches)
+    # the same at 1×2, tensor-parallel: 16 of 32 q heads, 4 of 8 KV heads,
+    # half of the MLP's columns and of the vocabulary a rank
+    against_one(f"Llama-3.2-1B {MESH_LM_LAYERS} layers TP", lcfg, lparams,
+                lbatches, rules=rules12)
+    del lparams
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5022,31 +5212,102 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
                      "ok": loop.state.step == 3
                      and loop.state.nan_skip_count == 0}
     res["launches"] = total
+    res["tp_launches"] = tp_total
     dist.barrier()
     return res
+
+
+#: the tensor-parallel blocks' collectives (``models/layers.py``,
+#: ``models/model.py:cross_entropy``), each held to its count by
+#: ``_tp_train_expect`` in phase 11 (b)
+TP_WHERE = ("attn_out all-reduce", "attn input (backward)",
+            "mlp_down all-reduce", "mlp input (backward)",
+            "embed all-reduce", "lm_head input (backward)", "loss max",
+            "loss sum-exp", "loss label logit", "logits all-gather",
+            "attn kv (backward)")
+
+
+def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
+    """The collectives over ``model`` a tensor-parallel training run of
+    ``forwards`` forwards and backwards (``steps`` steps) makes, by
+    ``kind:axis:where``: each split attention layer's ``attn_out`` and
+    each MLP's ``mlp_down`` all-reduce in the forward and their inputs'
+    ``f`` in the backward, and where k/v stay whole beside split q heads
+    the ``f`` of ``wk`` and ``wv``; the embedding's all-reduce, the head's
+    ``f`` and the vocab-parallel loss's three reduces a forward where the
+    vocabulary splits; a ``param gather`` over ``model`` a step only for
+    each leaf ``lay`` holds whole (M³ViT's attention and routed experts),
+    none for a split one."""
+    from repro_torch.dist import spmd
+    from repro_torch.models.layers import attention_layout
+
+    tp = spmd.axis_size(lay.mesh, "model")
+    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+    q_split, kv_split = attention_layout(cfg, tp)
+    attn = sum(k.startswith("attn") for k in kinds) if q_split else 0
+    mlp = sum(k in ("attn_mlp", "attn_local_mlp", "rglru_mlp")
+              for k in kinds)
+    out = {}
+    for at, n in (("attn_out all-reduce", attn),
+                  ("attn input (backward)", attn),
+                  ("mlp_down all-reduce", mlp),
+                  ("mlp input (backward)", mlp)):
+        if n:
+            out[f"all_reduce:model:{at}"] = n * forwards
+    if attn and not kv_split:
+        out["all_reduce:model:attn kv (backward)"] = 2 * attn * forwards
+    if cfg.vocab_size:
+        for at in ("embed all-reduce", "lm_head input (backward)",
+                   "loss max", "loss sum-exp", "loss label logit"):
+            out[f"all_reduce:model:{at}"] = forwards
+    whole = [k for k, spec in lay.params.items() if k not in lay.keep
+             and any("model" in ((e,) if isinstance(e, str) else e or ())
+                     for e in spec)]
+    if whole:
+        out["all_gather:model:param gather"] = len(whole) * steps
+    return out
 
 
 def mesh_train_two(results) -> dict:
     """Phase 11 (b)'s results from both ranks, checked and printed; then
     the parent restores the launcher's mesh checkpoint without a mesh
     and trains on, against a run with no mesh from the start.  Returns
-    the ranks' launches, summed."""
+    the ranks' launches and those of their tensor-parallel runs, each
+    summed over the ranks."""
     from repro_torch.kernels import compare
     from repro_torch.launch import train as LT
 
     launches: dict = {}
+    tp_launches: dict = {}
     for r in results:
         t = r["train"]
-        for label in ("M3ViT", f"Llama-3.2-1B {MESH_LM_LAYERS} layers"):
+        for label in ("M3ViT", f"Llama-3.2-1B {MESH_LM_LAYERS} layers",
+                      "M3ViT TP", f"Llama-3.2-1B {MESH_LM_LAYERS} layers "
+                      f"TP"):
             v = t[label]
-            print(f"  (b) rank {r['rank']} {label} at 2x1 (fsdp, the batch "
-                  f"split in two), 2 steps against one process: loss "
+            how = "fsdp, the batch split in two" if v["mesh"] == "2x1" \
+                else "tensor-parallel, the whole batch on each rank"
+            print(f"  (b) rank {r['rank']} {label} at {v['mesh']} ({how}), "
+                  f"2 steps against one process: loss "
                   f"relative {v['loss_rel']:.3e}, grad norm relative "
                   f"{v['grad_norm_rel']:.3e} (<= {compare.TRAIN_LOSS_RTOL}); "
                   f"updated parameters within 2 steps of compare.py's "
                   f"tolerance: {v['params_within']} (max abs err "
                   f"{v['max_abs_err']:.3e}); the ranks' re-gathered "
                   f"parameters bit-equal: {v['ranks_equal']}")
+            if "collectives" in v:
+                print(f"  (b) rank {r['rank']} {label}: collectives "
+                      f"{json.dumps(v['collectives'])}; against the count "
+                      f"from the config (no logits all-gather, no gather "
+                      f"over model of a split leaf): "
+                      f"{v['collectives_off'] or 'ok'}")
+        if "tp_kernel_errs" in t:
+            print(f"  (b) rank {r['rank']} unified_linear and "
+                  f"flash_attention at the tensor-parallel training shapes "
+                  f"(M3ViT's MLP at M={TOKENS}, Llama-3.2-1B at M=512; "
+                  f"column blocks bit-equal, forward and backward against "
+                  f"their plain versions): max abs err "
+                  f"{json.dumps(t['tp_kernel_errs'])}")
         v = t["ep_local"]
         print(f"  (b) rank {r['rank']} M3ViT ep_local at 1x2, 8 of 16 "
               f"experts a rank: {v['experts']} expert gradients over "
@@ -5065,6 +5326,8 @@ def mesh_train_two(results) -> dict:
             raise AssertionError(f"(b) rank {r['rank']}: {bad} failed: {t}")
         for n, c in t["launches"].items():
             launches[n] = launches.get(n, 0) + c
+        for n, c in t["tp_launches"].items():
+            tp_launches[n] = tp_launches.get(n, 0) + c
     # the parent: the mesh checkpoint restored without a mesh, 2 more
     # steps; against the same runs with no mesh (3 steps, then 2 more from
     # their checkpoint: the launcher's schedule follows --steps)
@@ -5088,7 +5351,7 @@ def mesh_train_two(results) -> dict:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"(b) launcher checkpoint: {got} vs {want}")
-    return launches
+    return launches, tp_launches
 
 # ------------------------------------------------------------ phase 12
 
@@ -5512,9 +5775,10 @@ def main() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    meshed, trained, tp = mesh_phases()
+    meshed, trained, tp, tp_train = mesh_phases()
     for rec in records:
         rec["tp_launches"] = tp.get(rec["name"], 0)
+        rec["tp_train_launches"] = tp_train.get(rec["name"], 0)
         rec["mesh_launches"] = meshed.get(rec["name"], 0)
         rec["mesh_train_launches"] = trained.get(rec["name"], 0)
         rec["launches"] += rec["mesh_launches"] + rec["mesh_train_launches"]

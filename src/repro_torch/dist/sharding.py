@@ -26,8 +26,9 @@ Three views of the one table, as in the reference:
 
 Serving over a mesh holds a leaf's block over ``model`` only
 (:func:`model_spec`: the trimmed spec with its data entries dropped,
-which serving keeps whole).  Training over a mesh stores every leaf as
-its block under its spec:
+which serving keeps whole); training computes on the same blocks,
+gathered over the data axes alone.  Training over a mesh stores every
+leaf as its block under its spec:
 ``local_slice`` gives a leaf's block from its whole shape,
 and :class:`TrainLayout` holds a training state's specs (the parameters'
 from this table, the AdamW state's mirroring them) for the step, the
@@ -428,34 +429,33 @@ def opt_state_specs(opt_state, specs: dict) -> dict:
     return {"step": P(), "ema": ema}
 
 
-_EXPERT_STACK = re.compile(r"moe/(wg|wu|wd|w1|w2)$")
-
-
 @dataclass(frozen=True)
 class TrainLayout:
     """Where a training state's leaves live over ``rules.mesh``: each
-    parameter's spec on its whole shape (``params``) and the axes its
-    gather leaves local (``keep``: ``model`` for the expert stacks of an
-    ``ep_local`` layer, which compute on their own experts)."""
+    parameter's spec on its whole shape (``params``), the axes its
+    gather leaves local (``keep``: ``model`` for every leaf a rank
+    computes on its block of — the tensor-parallel dense blocks and the
+    expert stacks of an ``ep_local`` layer)."""
 
     rules: ShardingRules
     params: dict
     keep: dict
 
     @classmethod
-    def build(cls, shapes: dict, rules: ShardingRules,
-              ep_local: bool = False, extra=()) -> "TrainLayout":
+    def build(cls, shapes: dict, rules: ShardingRules, extra=(),
+              blocks=()) -> "TrainLayout":
         """From a parameter tree of whole shapes (tensors on ``meta`` will
         do).  ``extra``: (pattern, spec) pairs for parameters the table
-        has no rule for, tried after it."""
+        has no rule for, tried after it.  ``blocks``: the names computed
+        on their block over ``model`` (``transformer.model_blocks``, an
+        ``ep_local`` layer's expert stacks among them)."""
         table = rules if not extra else ShardingRules(
             rules.mesh, rules.logical, rules.param_patterns + tuple(extra),
             rules.batch_axes, seq_shard=rules.seq_shard, fsdp=rules.fsdp)
         specs = {k: v.spec for k, v in
                  param_sharding_rules(shapes, table).items()}
-        keep = {k: ("model",) for k in specs
-                if ep_local and _EXPERT_STACK.search(_path_str(k))}
-        return cls(rules, specs, keep)
+        return cls(rules, specs,
+                   {k: ("model",) for k in specs if k in blocks})
 
     @property
     def mesh(self):

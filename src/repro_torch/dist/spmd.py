@@ -14,16 +14,20 @@ one: a rank's weights are its blocks of the full tensors (its experts of
 an ``ep_local`` stack, its heads and columns of a dense weight split over
 ``model``), the rest whole.
 
-Tensor-parallel serving (``models/layers.py``) moves data over
-``model`` through :func:`model_input` (the replicated input of a column
-block), :func:`model_sum` (the float32 partials of a row block: attention's
-``wo``, the MLP's and the shared experts' down projections, the
-vocab-parallel embedding) and :func:`model_gather` (the head's vocabulary
-blocks of the logits), over the active rules' mesh.
+The tensor-parallel blocks (``models/layers.py``, serving and training)
+move data over ``model`` through :func:`model_input` (the replicated
+input of a column block), :func:`model_sum` (the float32 partials of a
+row block: attention's ``wo``, the MLP's and the shared experts' down
+projections, the vocab-parallel embedding, the vocab-parallel loss's sum
+of exps and label logit), :func:`model_max` (the loss's shift) and
+:func:`model_gather` (the head's vocabulary blocks of the logits, before
+sampling), over the active rules' mesh.
 
 Training (``train/step.py``) stores each parameter as its block under
-the rules' spec, gathers it whole before use (:func:`gather_param`) and
-reduces its gradient back to the block (:func:`reduce_param_grad`).  The
+the rules' spec, gathers it before use over the axes its layout does not
+keep local (:func:`gather_param`: over the batch axes alone for a leaf
+the ``model`` ranks compute on their blocks of) and reduces its gradient
+back to the block (:func:`reduce_param_grad`).  The
 collectives' gradients follow one rule: a rank's loss is its *share* of
 the global loss over the batch axes (:data:`BATCH_AXES`) and the *same*
 loss on every rank of ``model``.  So a batch-axis all-reduce sums its
@@ -55,7 +59,8 @@ __all__ = ["init_mesh", "VirtualMesh", "BATCH_AXES", "axis_size",
            "all_gather", "reduce_scatter", "copy_to", "gather_param",
            "reduce_param_grad", "rank", "world_max", "gather_batch",
            "batch_split", "current_split", "batch_shards", "batch_total",
-           "model_rank", "model_input", "model_sum", "model_gather"]
+           "model_rank", "model_input", "model_sum", "model_max",
+           "model_gather"]
 
 _SPLIT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_batch_split", default=None)
@@ -194,16 +199,18 @@ def _bytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _raw_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The sum of ``t`` over ``axis``'s ranks, a new tensor."""
+def _raw_sum(t: torch.Tensor, mesh, axis: str,
+             op: str = "sum") -> torch.Tensor:
+    """The sum (or the max) of ``t`` over ``axis``'s ranks, a new
+    tensor."""
     if _virtual(mesh, t):
         return t.clone()
     import torch.distributed as dist
 
     out = t.contiguous().clone()
     with torch.profiler.record_function("spmd.all_reduce"):
-        dist.all_reduce(out, op=dist.ReduceOp.SUM,
-                        group=mesh.get_group(axis))
+        dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return out
 
 
@@ -294,12 +301,15 @@ class _CopyTo(torch.autograd.Function):
 
 def all_reduce(t: torch.Tensor, mesh, axis: str, where: str,
                op: str = "sum") -> torch.Tensor:
-    """Sum (or mean) of ``t`` over the ranks of ``axis``, differentiable
-    where ``t`` needs a gradient (see :class:`_AllReduce`).  Returns a new
-    tensor."""
+    """Sum (or mean, or max) of ``t`` over the ranks of ``axis``, the sum
+    and the mean differentiable where ``t`` needs a gradient (see
+    :class:`_AllReduce`); the max carries none (a constant, as the
+    loss's shift).  Returns a new tensor."""
     _record("all_reduce", axis, _bytes(t), where)
     if axis_size(mesh, axis) == 1:     # one rank: nothing to move
-        return t.clone()
+        return t.detach().clone() if op == "max" else t.clone()
+    if op == "max":
+        return _raw_sum(t.detach(), mesh, axis, "max")
     if torch.is_grad_enabled() and t.requires_grad:
         out = _AllReduce.apply(t, mesh, axis, where)
     else:
@@ -359,8 +369,10 @@ def reduce_param_grad(g: torch.Tensor, spec, mesh, keep=(),
     """The gradient of a parameter's local block from the gradient ``g``
     of its gathered form (:func:`gather_param`'s backward): each gathered
     batch axis reduce-scatters (sum) it, each gathered ``model`` axis takes
-    this rank's block (the ranks computed the same rows), and a batch axis
-    the parameter is replicated over sums it."""
+    this rank's block (the ranks computed the same rows, or summed their
+    parts already: the whole k/v of an attention whose q heads split pass
+    through :func:`model_input`), and a batch axis the parameter is
+    replicated over sums it."""
     for dim, axis in reversed(_gathered_axes(spec, mesh, keep)):
         if _sums_grad(axis):
             g = reduce_scatter(g, mesh, axis, where, dim)
@@ -397,8 +409,9 @@ def gather_param(t: torch.Tensor, spec, mesh, keep=(),
                  where: str = "param gather") -> torch.Tensor:
     """The whole parameter from this rank's block ``t`` stored under
     ``spec`` (a trimmed spec of the whole shape): an all-gather over each
-    sharded dim's axes but those in ``keep`` (``ep_local`` keeps its
-    expert stacks local over ``model``).  Differentiable: the backward is
+    sharded dim's axes but those in ``keep`` (``model`` for a leaf its
+    ranks compute on their blocks of: the tensor-parallel dense blocks,
+    an ``ep_local`` expert stack).  Differentiable: the backward is
     :func:`reduce_param_grad`."""
     return _GatherParam.apply(t, spec, mesh, tuple(keep), where)
 
@@ -508,6 +521,12 @@ def model_sum(t: torch.Tensor, where: str) -> torch.Tensor:
     """The ranks' partial sums ``t`` added over ``model``
     (:func:`all_reduce`)."""
     return all_reduce(t, _model_mesh(), "model", where)
+
+
+def model_max(t: torch.Tensor, where: str) -> torch.Tensor:
+    """The ranks' ``t`` reduced by max over ``model``, no gradient
+    (:func:`all_reduce` with ``op="max"``)."""
+    return all_reduce(t, _model_mesh(), "model", where, op="max")
 
 
 def model_gather(t: torch.Tensor, where: str, dim: int = -1) -> torch.Tensor:

@@ -28,15 +28,18 @@ device-free ``dist.spmd.VirtualMesh`` (``launch/mesh.py``): a train cell
 holds the parameters and AdamW state at their local shapes under
 ``ShardingRules`` (``--no-fsdp``, ``--fsdp-moe-only``, ``--seq-shard``
 as the reference's flags), takes the batch's local rows and gathers its
-weights through the mesh, whose collectives are recorded and counted
-(``collective_bytes``, ``collectives`` by kind: the bytes a rank
-receives).  A serve cell holds whole weights on each rank (the port's
-mesh serving) and its local rows.  What the port runs differs from the
-reference's GSPMD program, and the record says so (``mesh_note``): dense
-compute is data-parallel (the ``model`` ranks repeat it), so per-rank
-FLOPs are the one-card count over the batch shards (/16 at 16×16, not
-/256); activations carry no layout, so ``--seq-shard`` counts equal those
-without.  The default ``--mesh 1`` is one card, as before.
+weights over ``data`` through the mesh, whose collectives are recorded
+and counted (``collective_bytes``, ``collectives`` by kind: the bytes a
+rank receives).  A serve cell holds a rank's blocks over ``model`` and
+its local rows.  In both the dense blocks are tensor-parallel over
+``model`` (a rank's heads, hidden columns and vocabulary block; k/v
+whole where the KV heads do not divide the axis), so per-rank dense
+FLOPs are the one-card count over the batch shards and the model axis,
+with the whole k/v repeated on every model rank; a train cell's loss is
+vocab-parallel.  What the port runs differs from the reference's GSPMD
+program in what the record says (``mesh_note``): activations carry no
+layout, so ``--seq-shard`` counts equal those without.  The default
+``--mesh 1`` is one card, as before.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3_2_1b --shape train_4k
@@ -80,16 +83,19 @@ TRAIN_ACCUM = 8
 POLICY = "cuda"     # the impls the card runs
 
 MESHES = ("1", "16x16", "2x16x16")
-MESH_NOTE = ("rank 0's share on a device-free mesh: a train cell's dense "
-             "compute is data-parallel (the model ranks repeat it), so its "
-             "per-rank FLOPs are the one-card count over the batch shards; "
-             "a serving cell's dense blocks are tensor-parallel over model "
-             "(a rank's heads, hidden columns and vocabulary block, k/v "
-             "whole where the KV heads do not divide the axis), so its "
-             "dense FLOPs and weight bytes drop by the model axis too and "
-             "its model all-reduces and logits all-gather are counted; "
-             "activations carry no layout, so --seq-shard counts equal "
-             "those without")
+MESH_NOTE = ("rank 0's share on a device-free mesh: the dense blocks are "
+             "tensor-parallel over model in training and in serving (a "
+             "rank's heads, hidden columns and vocabulary block, k/v whole "
+             "where the KV heads do not divide the axis), so a cell's dense "
+             "FLOPs and the weights it computes with drop by the model "
+             "axis too and its model all-reduces are counted (each block's "
+             "in the forward, a train cell's backward all-reduces of the "
+             "blocks' inputs and of the whole k/v's weight gradients, and "
+             "its vocab-parallel loss's (B, S) "
+             "reduces, a serving cell's logits all-gather); a train cell "
+             "gathers its split weights over data alone (FSDP), whole "
+             "ones over model too; activations carry no layout, so "
+             "--seq-shard counts equal those without")
 
 
 def mesh_named(name: str):

@@ -14,19 +14,26 @@ scale per (token, head); decode hands it to ``attention_decode`` as
 streams; a (B, S) position is broadcast to all three, as the reference
 does.
 
-Tensor parallelism (serving over a mesh whose ``model`` axis is larger
-than one): a block computes on whatever blocks of its weights the rank
-holds (``models/transformer.py:serving_blocks``), and reads the split from
-their widths against the config, never from the rules alone (training
-gathers every weight whole and runs the whole path).  Attention takes its
+Tensor parallelism (serving and training over a mesh whose ``model``
+axis is larger than one): a block computes on whatever blocks of its
+weights the rank holds (``models/transformer.py:model_blocks``; training
+gathers them over the batch axes alone), and reads the split from their
+widths against the config, never from the rules alone (weights whole on
+every rank run the whole path).  Attention takes its
 heads from its column blocks of ``wq``/``wk``/``wv`` (k/v whole on every
 rank where the KV heads do not divide the axis, each rank attending with
-its q heads' one KV head), the MLP and the shared experts their columns
-of ``wg``/``wu``/``w1``; the row blocks of ``wo``, ``wd``/``w2`` give
-float32 partial sums, added over ``model`` before the one rounding (the
-bias after the sum).  The embedding looks up this rank's rows of the
-vocabulary and adds the ranks' rows; the head gives this rank's columns
-of the logits, gathered whole before sampling.  A column block sums over
+its q heads' one KV head, so its gradient of ``wk``/``wv`` is a part the
+ranks sum: the whole k/v pass through the ``f`` below), the MLP and the
+shared experts their columns of ``wg``/``wu``/``w1``; the row blocks of
+``wo``, ``wd``/``w2`` give float32 partial sums, added over ``model``
+before the one rounding (the bias after the sum).  The embedding looks
+up this rank's rows of the vocabulary and adds the ranks' rows; the
+head gives this rank's columns of the logits, gathered whole before
+sampling (training's loss reads the block, vocab-parallel).  A column block's input passes through the
+Megatron ``f`` (``spmd.model_input``: its gradient summed over the ranks)
+and a row block's partials through the ``g`` (``spmd.model_sum``: its
+gradient passed through), so the backward of every rank ends with the
+one gradient of the replicated activations.  A column block sums over
 K in the whole weight's order (``unified_linear(order_n=)``), so its
 columns get the bits the whole product gives them.
 """
@@ -349,8 +356,16 @@ def apply_attention(params, x, cfg: ArchConfig, *, pos=None, causal=True,
     group = None    # the one KV head this rank's q heads read (k/v whole)
     if split:
         x = spmd.model_input(x, "attn input")
-        if hkv == cfg.num_kv_heads and hkv > 1:
-            group = spmd.model_rank() * hq // (cfg.num_heads // hkv)
+        if hkv == cfg.num_kv_heads:
+            # k/v whole on every rank, each reading them for its q heads
+            # alone: the ranks' gradients of wk/wv are parts of the whole
+            # one, summed over model by the f
+            params = dict(params)
+            for name in ("wk", "wv", "bk", "bv"):
+                if name in params:
+                    params[name] = spmd.model_input(params[name], "attn kv")
+            if hkv > 1:
+                group = spmd.model_rank() * hq // (cfg.num_heads // hkv)
 
     def read(t):
         """The KV heads this rank's q heads attend to."""
@@ -501,13 +516,16 @@ def init_lm_head(rng: np.random.Generator, cfg: ArchConfig, dtype):
 
 
 @scope("lm_head")
-def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
+def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig,
+                  gather: bool = True):
     """float32 logits.  The tied head is ``x @ tokens.T`` with float32
     products and sums and no rounding of the logits to the activation
     dtype (the reference's ``preferred_element_type=f32``): a plain float32
     product, taken over ``_HEAD_ROWS`` table rows at a time so the widened
     copy of the table never exists whole, and on the card over ``_HEAD_M``
-    rows of x at a time."""
+    rows of x at a time.  A rank holding a block of the vocabulary gives
+    its columns, gathered whole over ``model`` unless ``gather`` is False
+    (training's vocab-parallel loss, ``models/model.py:lm_loss``)."""
     if cfg.vocab_size == 0:
         return x  # feature trunk (M3ViT): task heads applied by the caller
     w = embed_params["tokens"] if cfg.tie_embeddings else head_params["w"]
@@ -515,8 +533,11 @@ def apply_lm_head(head_params, embed_params, x, cfg: ArchConfig):
             != cfg.vocab_size:
         # this rank's vocabulary block, the whole logits gathered over
         # model before sampling
-        return constrain(spmd.model_gather(_lm_head(w, x, cfg),
-                                           "logits all-gather"), "btv")
+        block = _lm_head(w, spmd.model_input(x, "lm_head input"), cfg)
+        if not gather:
+            return constrain(block, "btv")
+        return constrain(spmd.model_gather(block, "logits all-gather"),
+                         "btv")
     return constrain(_lm_head(w, x, cfg), "btv")
 
 

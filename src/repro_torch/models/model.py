@@ -21,7 +21,7 @@ from repro_torch.roofline.scope import scope
 from repro_torch.tree import flatten, unflatten
 
 __all__ = ["init_params", "forward", "init_state", "lm_loss",
-           "input_specs", "param_specs"]
+           "cross_entropy", "input_specs", "param_specs"]
 
 
 def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
@@ -34,8 +34,8 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
     take minutes of NumPy on the host).
 
     With ``rules`` (serving over a mesh whose ``model`` axis is larger
-    than one) each leaf a serving rank splits
-    (``transformer.serving_blocks``) is cut to this rank's block as it is
+    than one) each leaf a rank splits
+    (``transformer.model_blocks``) is cut to this rank's block as it is
     drawn, a layer at a time, and the rest freed: the whole model never
     exists (DeepSeek-67B over four cards).  Every value is drawn in the
     one-device order, so a rank's block equals the same block of the
@@ -47,7 +47,7 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
     else:
         rng = np.random.default_rng(seed)
     keep = None
-    blocks = T.serving_blocks(cfg, rules)
+    blocks = T.model_blocks(cfg, rules)
     if blocks:
         def keep(name, leaf):
             spec = blocks.get(name)
@@ -90,27 +90,53 @@ def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,
     whole batch's: its masked sum over the unmasked count summed over the
     ranks, and the aux loss (the whole batch's) over the number of
     shards.  The shares add up to the one-device loss, so the ranks'
-    summed gradients are its gradient, whatever each rank's mask."""
+    summed gradients are its gradient, whatever each rank's mask.
+
+    A rank holding a block of the vocabulary (tensor-parallel training)
+    never gathers the logits: the head gives its columns, the max is an
+    all-reduce-max over ``model`` (no gradient), and the sum of exps and
+    the label logit (the mask-reduce on the rank's columns, offset by its
+    block's first id) are its partial sums added over ``model``
+    (``spmd.model_sum``) — the reference's "tiny (B, S) cross-shard
+    reduce".  Every ``model`` rank then holds the same loss."""
     from repro_torch.dist import spmd
 
     logits, _, aux = T.forward(unflatten(params), batch["inputs"], cfg,
-                               task_id=task_id)
-    labels = batch["labels"]
+                               task_id=task_id, gather_logits=False)
     with scope("loss"):
-        lf = logits.float()
-        shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
-        lse = torch.log(torch.exp(shifted).sum(dim=-1))
-        onehot = torch.arange(lf.shape[-1], device=lf.device) \
-            == labels.clamp_min(0)[..., None]
-        label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
-        mask = labels >= 0
-        count = spmd.batch_total(mask.sum(), "loss token count")
-        loss = ((lse - label_logit) * mask).sum() \
-            / torch.clamp_min(count, 1)
+        loss = cross_entropy(logits, batch["labels"], cfg)
         shards = spmd.batch_shards()
         if shards > 1:
             aux = aux / shards
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def cross_entropy(logits, labels, cfg: ArchConfig):
+    """:func:`lm_loss`'s cross-entropy of ``logits`` (B, S, V), or of a
+    rank's block of the vocabulary (B, S, V / tp) under the rules of its
+    mesh, against ``labels`` (B, S); the mean over the unmasked positions
+    (of the whole batch inside ``dist.spmd.batch_split``)."""
+    from repro_torch.dist import spmd
+
+    lf = logits.float()
+    v = lf.shape[-1]
+    ids = torch.arange(v, device=lf.device)
+    if v == cfg.vocab_size:
+        shifted = lf - lf.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    else:            # this rank's block of the vocabulary
+        shifted = lf - spmd.model_max(lf.amax(dim=-1, keepdim=True),
+                                      "loss max")
+        lse = torch.log(spmd.model_sum(torch.exp(shifted).sum(dim=-1),
+                                       "loss sum-exp"))
+        ids = ids + spmd.model_rank() * v
+    onehot = ids == labels.clamp_min(0)[..., None]
+    label_logit = torch.where(onehot, shifted, 0.0).sum(dim=-1)
+    if v != cfg.vocab_size:
+        label_logit = spmd.model_sum(label_logit, "loss label logit")
+    mask = labels >= 0
+    count = spmd.batch_total(mask.sum(), "loss token count")
+    return ((lse - label_logit) * mask).sum() / torch.clamp_min(count, 1)
 
 
 def param_specs(cfg: ArchConfig, dtype=None, device="meta") -> dict:

@@ -30,7 +30,8 @@ from repro_torch.ops.policy import use_policy
 from repro_torch.tree import flatten, index
 
 __all__ = ["init_params", "forward", "init_state", "moe_config",
-           "serving_blocks", "leaf_block", "cache_kv_heads"]
+           "model_blocks", "leaf_block",
+           "cache_kv_heads"]
 
 _ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_local_mlp")
 
@@ -182,21 +183,24 @@ _ATTN_KV = re.compile(r"attn/(wk|wv|bk|bv)$")
 _EXPERTS = re.compile(r"moe/(wg|wu|wd|w1|w2|b1|b2)$")
 
 
-def serving_blocks(cfg: ArchConfig, rules) -> dict:
+def model_blocks(cfg: ArchConfig, rules) -> dict:
     """{dotted name: spec of the whole (stacked) shape} of every leaf a
-    serving rank holds a block of under ``rules``, over ``model`` alone
-    (``dist.sharding.model_spec``; the data axes stay whole in serving).
-    These are the leaves the reference's table splits over ``model``:
-    attention (per :func:`layers.attention_layout`), the dense MLP, the
-    shared experts, ``embed/tokens`` and ``head/w``, and the expert stacks
-    of an ``ep_local`` MoE (this rank's experts).  Left whole on every
-    rank: the recurrent mixers' leaves (``rglru``, ``mlstm``, ``slstm``),
-    an attention layer whose heads do not divide the axis, and the expert
-    stacks of the other MoE impls (every rank routes to every expert).
-    Empty without rules or where ``model`` has one rank."""
-    if rules is None or rules.mesh is None:
-        return {}
-    tp = axis_size(rules.mesh, "model")
+    rank computes on its block of over ``model`` under ``rules``
+    (``dist.sharding.model_spec``), in serving (``serve/engine.py:
+    local_params`` narrows them; the data axes stay whole there) and in
+    training (``train/step.py:layout_for`` keeps them local over
+    ``model`` and gathers them over the batch axes alone).  These are the
+    leaves the reference's table splits over ``model``: attention (per
+    :func:`layers.attention_layout`), the dense MLP, the shared experts,
+    ``embed/tokens`` and ``head/w``, and the expert stacks of an
+    ``ep_local`` MoE (this rank's experts).  Left whole on every rank: the
+    recurrent mixers' leaves (``rglru``, ``mlstm``, ``slstm``), an
+    attention layer whose heads do not divide the axis, k/v where the KV
+    heads do not (``layers.apply_attention`` sums their gradient over
+    ``model``), and the expert stacks of the
+    other MoE impls (every rank routes to every expert).  Empty without
+    rules or where ``model`` has one rank."""
+    tp = _model_size(rules)
     if tp == 1:
         return {}
     q_split, kv_split = L.attention_layout(cfg, tp)
@@ -216,6 +220,13 @@ def serving_blocks(cfg: ArchConfig, rules) -> dict:
             continue
         out[name] = spec
     return out
+
+
+def _model_size(rules) -> int:
+    """The ranks of ``model`` under ``rules`` (1 without a mesh)."""
+    if rules is None or rules.mesh is None:
+        return 1
+    return axis_size(rules.mesh, "model")
 
 
 def leaf_block(t, spec, mesh):
@@ -282,7 +293,8 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
 
 def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
             cache_index=None, decode=False, task_id=0, return_state=None,
-            logits_mode="all", return_expert_counts: bool = False):
+            logits_mode="all", return_expert_counts: bool = False,
+            gather_logits: bool = True):
     """inputs: tokens (B, S) int or embeddings (B, S, d); params: the
     nested tree.
 
@@ -298,7 +310,9 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     is such a step (and takes the recurrent blocks' one-step path) and
     raises if it is not.  ``return_expert_counts``
     appends the per-expert dispatch counts summed over the MoE layers.
-    ``cfg.policy`` (when set) is scoped around the whole pass.
+    ``gather_logits=False``: a rank holding a block of the vocabulary
+    returns its block of the logits (the vocab-parallel loss), not the
+    whole.  ``cfg.policy`` (when set) is scoped around the whole pass.
     """
     if decode and (state is None or cache_index is None
                    or inputs.shape[1] != 1):
@@ -309,7 +323,8 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
                         cache_index=cache_index, decode=decode,
                         task_id=task_id,
                         return_state=return_state, logits_mode=logits_mode,
-                        return_expert_counts=return_expert_counts)
+                        return_expert_counts=return_expert_counts,
+                        gather_logits=gather_logits)
 
 
 def _positions(b, s, cache_index, device):
@@ -325,7 +340,8 @@ def _positions(b, s, cache_index, device):
 
 def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
              cache_index=None, decode=False, task_id=0, return_state=None,
-             logits_mode="all", return_expert_counts: bool = False):
+             logits_mode="all", return_expert_counts: bool = False,
+             gather_logits: bool = True):
     embed = params.get("embed", {})
     x = L.embed_inputs(embed, inputs, cfg)
     b, s = x.shape[0], x.shape[1]
@@ -367,7 +383,8 @@ def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
         x = x[:, -1:]
     elif not isinstance(logits_mode, str):
         x = x[:, int(logits_mode):int(logits_mode) + 1]
-    logits = L.apply_lm_head(params.get("head", {}), embed, x, cfg)
+    logits = L.apply_lm_head(params.get("head", {}), embed, x, cfg,
+                             gather=gather_logits)
     out_state = (state if state is not None else {}) if want_state else None
     if return_expert_counts:
         return logits, out_state, aux_total, counts_total

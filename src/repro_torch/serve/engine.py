@@ -159,12 +159,12 @@ def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
 
 def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
     """The tensors each rank's kernels compute with: this rank's block
-    over ``model`` of every leaf ``transformer.serving_blocks`` names (a
+    over ``model`` of every leaf ``transformer.model_blocks`` names (a
     tensor of its own, so the whole one can be freed), the rest as given.
     A leaf already at its block's shape (``model.init_params(rules=)``)
     is kept as it is.  No-op without rules or where ``model`` has one
     rank."""
-    blocks = T.serving_blocks(cfg, rules)
+    blocks = T.model_blocks(cfg, rules)
     if not blocks:
         return params
     shapes = M.param_specs(cfg)

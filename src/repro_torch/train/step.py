@@ -32,18 +32,33 @@ and computes what one device computes on the whole batch:
     rules' specs (:func:`layout_for`; ``TrainLayout.shard_params`` /
     ``shard_opt_state`` cut them), the batch this rank's rows
     (``data.shard_for``);
-  * each parameter is gathered whole before the forward
-    (``dist.spmd.gather_param``; an ``ep_local`` expert stack stays
-    local over ``model``), and the loss runs under
+  * each parameter is gathered over the axes of its spec before the
+    forward (``dist.spmd.gather_param``) but ``model`` for the leaves a
+    rank computes on its block of (``TrainLayout.keep``, from
+    ``transformer.model_blocks``: the dense blocks' heads, hidden
+    columns and vocabulary, an ``ep_local`` expert stack's experts), so
+    a split leaf is gathered over the batch axes alone (FSDP) and never
+    whole;
+  * the forward and backward are tensor-parallel over ``model``: the
+    layers read the split from the blocks' widths
+    (``models/layers.py``), each column block's input through the
+    Megatron ``f`` (``spmd.model_input``) and each row block's float32
+    partials through the ``g`` (``spmd.model_sum``); the head gives this
+    rank's block of the vocabulary and the loss is vocab-parallel
+    (``models.model.lm_loss``); the loss runs under
     ``dist.spmd.batch_split``, where each rank's loss is its share of the
-    global loss (``models.model.lm_loss``, ``vit.multitask_loss``);
-  * the microbatch loop sums the gradients of the gathered parameters in
-    float32 on the rank and reduces them to the blocks once a step
-    (``dist.spmd.reduce_param_grad``: a reduce-scatter over the batch
-    axes a parameter is sharded on, an all-reduce over those it is
-    replicated on, this rank's block over ``model``).  The reference
-    instead pins its accumulator to the parameter sharding, which costs a
-    reduce-scatter a microbatch; the sum is the same;
+    global loss (``models.model.lm_loss``, ``vit.multitask_loss``) and
+    the same on every rank of ``model``;
+  * the microbatch loop sums the gradients of the gathered blocks in
+    float32 on the rank and reduces them to the stored blocks once a
+    step (``dist.spmd.reduce_param_grad``: a reduce-scatter over the
+    batch axes a parameter is sharded on, an all-reduce over those it is
+    replicated on; over ``model`` nothing for a split leaf, this rank's
+    block for a whole leaf, whose gradient the ranks computed alike or
+    summed in the backward (the whole k/v of an attention whose q heads
+    split: ``models/layers.py``)).  The reference instead pins its
+    accumulator to the parameter sharding, which costs a reduce-scatter
+    a microbatch; the sum is the same;
   * AdamW all-reduces the global norm's and the factored moments'
     statistics (``optim.adamw``); the loss is all-reduced before the NaN
     guard, so every rank keeps or skips the same step.
@@ -103,13 +118,16 @@ def loss_and_grads(loss_fn: Callable, params: dict, batch):
 def layout_for(cfg: ArchConfig, rules):
     """The :class:`~repro_torch.dist.sharding.TrainLayout` of ``cfg``'s
     parameters under ``rules`` (None without a mesh): the specs of their
-    whole shapes, the M³ViT family's from ``vit.param_specs``.  The rule
-    table (the reference's) has no rule for M³ViT's patch embedding and
-    task heads, since the reference never trains its vision model over a
-    mesh; they are replicated here."""
+    whole shapes, the M³ViT family's from ``vit.param_specs``; the
+    leaves kept local over ``model`` are those a serving rank narrows
+    (``transformer.model_blocks``).  The rule table (the reference's)
+    has no rule for M³ViT's patch embedding and task heads, since the
+    reference never trains its vision model over a mesh; they are
+    replicated here."""
     if rules is None or rules.mesh is None:
         return None
     from repro_torch.dist.sharding import P, TrainLayout
+    from repro_torch.models import transformer as T
 
     extra = ()
     if cfg.family == "vit-moe":
@@ -118,8 +136,8 @@ def layout_for(cfg: ArchConfig, rules):
         extra = ((r"^(patch|heads)/", P()),)
     else:
         shapes = M.param_specs(cfg)
-    ep_local = cfg.moe is not None and cfg.moe.impl == "ep_local"
-    return TrainLayout.build(shapes, rules, ep_local=ep_local, extra=extra)
+    return TrainLayout.build(shapes, rules, extra=extra,
+                             blocks=T.model_blocks(cfg, rules))
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None,
@@ -168,7 +186,9 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None,
 
     def grads(params, batch):
         """(the global loss, each parameter's gradient): this rank's
-        blocks' under ``rules``."""
+        blocks' under ``rules``, whose forward and backward run on the
+        leaves gathered over the batch axes (over ``model`` too for a
+        leaf not in ``layout.keep``)."""
         with use_rules(rules):
             if layout is None:
                 return grads_of(params, batch)

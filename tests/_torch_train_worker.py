@@ -2,8 +2,12 @@
 rank of a gloo world, rendezvous through a ``FileStore``, one torch
 thread.  Every check holds training over the mesh against one process
 on the whole batch: each parameter's gradient, gathered whole, within
-``GRAD_RTOL`` of the one-process gradient at float32.  Inputs are made
-from seeds with NumPy.  Imports torch, NumPy and the port only."""
+``GRAD_RTOL`` of the one-process gradient at float32.  Where ``model``
+has more than one rank the step is tensor-parallel: the leaves a rank
+computes on its block of are gathered over the batch axes alone, which
+every check reads off the collective record.  Inputs are made from seeds
+with NumPy.  Imports torch, NumPy and the port only (the JAX reference's
+gradients come in an ``.npz`` the parent test writes)."""
 
 import os
 from dataclasses import replace
@@ -12,20 +16,32 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import ops
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get
 from repro_torch.data import (DataConfig, device_transform, make_stream,
                               shard_for)
 from repro_torch.dist import compress as C
 from repro_torch.dist import spmd
-from repro_torch.dist.sharding import ShardingRules
+from repro_torch.dist.sharding import ShardingRules, use_rules
 from repro_torch.models import model as LM
+from repro_torch.models import transformer as T
 from repro_torch.models import vit
 from repro_torch.optim import OptConfig, adamw_init
+from repro_torch.optim.adamw import global_norm
+from repro_torch.serve.engine import local_params
+from repro_torch.tree import unflatten
 from repro_torch.train import (LoopConfig, TrainConfig, TrainLoop,
                                make_train_step)
 
 GRAD_RTOL = 1e-5     # mesh against one process, float32, of a leaf's max
+#: the same under the LUT activations where ``model`` splits: a float32
+#: pre-activation on a table-index half-step may take the neighbouring
+#: entry under the split's sum order, so the bound is the LUT's
+#: (``tests/test_torch_m3vit.py:LUT_BOUND``, 2.5x its largest reading)
+LUT_RTOL = 5e-4
+JAX_RTOL = 1e-5      # the 1x2 mesh against jax.value_and_grad, float32
+LOSS_RTOL = 1e-6     # the vocab-parallel loss against the gathered logits
 
 
 def _f32(arch, **moe):
@@ -33,6 +49,26 @@ def _f32(arch, **moe):
     if moe:
         cfg = replace(cfg, moe=replace(cfg.moe, **moe))
     return cfg
+
+
+def _exact(cfg):
+    """``cfg`` under the ``eager`` policy's exact activations: the LUT's
+    index flips at a half-step, so the float32 noise of a column block's
+    product or of the ranks' summed partials (1e-6) can move a LUT output
+    by 2e-4 of its magnitude (the reference's own LUT impls differ by as
+    much, ``ROADMAP.md`` §3 item 4), which would hide what a
+    tensor-parallel check reads."""
+    return replace(cfg, policy=ops.policy_named("eager"))
+
+
+def _policies(cfg, mesh) -> list:
+    """(label, config, rtol) of each run of a check: where ``mesh`` splits
+    ``model`` (its float32 sums then run in another order) ``cfg`` under
+    exact activations (:func:`_exact`) at ``GRAD_RTOL`` and as it is, its
+    LUT activations, at ``LUT_RTOL``; otherwise ``cfg`` at ``GRAD_RTOL``."""
+    if spmd.axis_size(mesh, "model") == 1:
+        return [("", cfg, GRAD_RTOL)]
+    return [(" exact", _exact(cfg), GRAD_RTOL), (" lut", cfg, LUT_RTOL)]
 
 
 def _m3vit_loss(cfg):
@@ -80,35 +116,188 @@ def _close(label, got, want, rtol=GRAD_RTOL):
     assert err <= rtol * max(scale, 1e-30), (label, err, scale)
 
 
+def _collectives() -> dict:
+    return {(c["kind"], c["axis"], c["where"]): c["count"]
+            for c in ops.collective_report()}
+
+
+def _model_gathers(label, lay, record) -> None:
+    """The step gathered over ``model`` only the whole leaves (those
+    outside ``lay.keep``), never a split one."""
+    whole = [k for k, spec in lay.params.items()
+             if k not in lay.keep and any(
+                 "model" in ((e,) if isinstance(e, str) else e or ())
+                 for e in spec)]
+    got = record.get(("all_gather", "model", "param gather"), 0)
+    assert got == len(whole), (label, got, whole)
+
+
 def check_grads(mesh, label, cfg, batch, fsdp=True, accum=1,
-                loss_fn=None):
+                loss_fn=None, params=None, want=None, rtol=GRAD_RTOL):
     """The mesh step's gradients, gathered whole, and its loss against
-    one process's on the whole batch."""
+    one process's on the whole batch (or ``want``: (loss, gradients));
+    returns (layout, the step's collectives, its gradient blocks, the
+    gradients it was held to)."""
     tcfg = TrainConfig(opt=OptConfig(), accum_steps=accum)
-    params = _params(cfg)
-    want_loss, want = make_train_step(cfg, tcfg, loss_fn=loss_fn).grads(
-        params, device_transform("cpu")(batch))
+    params = _params(cfg) if params is None else params
+    if want is None:
+        want = make_train_step(cfg, tcfg, loss_fn=loss_fn).grads(
+            params, device_transform("cpu")(batch))
+    want_loss, want = want
     rules = ShardingRules.for_mesh(mesh, fsdp=fsdp)
     step = make_train_step(cfg, tcfg, rules=rules, loss_fn=loss_fn)
     lay = step.layout
-    loss, got = step.grads(lay.shard_params(params),
-                           shard_for(batch, rules, "cpu",
-                                     accum_steps=accum))
-    got = _whole(got, lay.params, mesh)
-    assert set(got) == set(want)
-    _close(f"{label} loss", loss, want_loss)
+    blocks = lay.shard_params(params)
+    ops.reset_dispatch_report()
+    loss, got = step.grads(blocks, shard_for(batch, rules, "cpu",
+                                             accum_steps=accum))
+    record = _collectives()
+    _model_gathers(label, lay, record)
+    if spmd.axis_size(mesh, "model") > 1:
+        assert set(lay.keep) >= set(T.model_blocks(cfg, rules)), label
+    whole = _whole(got, lay.params, mesh)
+    assert set(whole) == set(want)
+    _close(f"{label} loss", loss, want_loss, rtol)
     for k in want:
-        _close(f"{label} {k}", got[k], want[k])
+        _close(f"{label} {k}", whole[k], want[k], rtol)
+    return lay, record, got, want
 
 
 def check_dense(mesh):
-    cfg = _f32("llama3_2_1b")
-    for fsdp in (True, False, "moe_only"):
-        check_grads(mesh, f"llama fsdp={fsdp}", cfg, _lm_batch(cfg),
-                    fsdp=fsdp)
-    check_grads(mesh, "llama masks", cfg, _lm_batch(cfg, masked=True))
-    check_grads(mesh, "llama accum 2", cfg, _lm_batch(cfg, masked=True),
-                accum=2)
+    """The smoke Llama under ``fsdp`` True, False and ``"moe_only"``,
+    with masks that differ by rank and with 2 microbatches; where
+    ``model`` splits, under exact and LUT activations (:func:`_policies`)."""
+    for how, cfg, rtol in _policies(_f32("llama3_2_1b"), mesh):
+        for fsdp in (True, False, "moe_only"):
+            check_grads(mesh, f"llama{how} fsdp={fsdp}", cfg, _lm_batch(cfg),
+                        fsdp=fsdp, rtol=rtol)
+        check_grads(mesh, f"llama{how} masks", cfg,
+                    _lm_batch(cfg, masked=True), rtol=rtol)
+        check_grads(mesh, f"llama{how} accum 2", cfg,
+                    _lm_batch(cfg, masked=True), accum=2, rtol=rtol)
+
+
+def _tp_collectives(label, cfg, record, tp) -> None:
+    """A tensor-parallel step's collectives over ``model``: each layer's
+    attention and MLP all-reduce in the forward and their inputs' ``f``
+    in the backward, one embedding all-reduce, the head's ``f`` and the
+    loss's three (B, S) reduces; no logits all-gather."""
+    layers = cfg.num_layers
+    expect = {"attn_out all-reduce": layers, "mlp_down all-reduce": layers,
+              "attn input (backward)": layers,
+              "mlp input (backward)": layers, "embed all-reduce": 1,
+              "lm_head input (backward)": 1, "loss max": 1,
+              "loss sum-exp": 1, "loss label logit": 1}
+    got = {w: record.get(("all_reduce", "model", w)) for w in expect}
+    assert got == expect, (label, tp, got)
+    assert not any(w == "logits all-gather" for _, _, w in record), label
+
+
+def check_tp(mesh):
+    """The smoke Llama at float32 tensor-parallel, its masks differing by
+    rank: the gradients against one process; every kept leaf's stored
+    block, gathered over the batch axes alone, is the block serving's
+    ``local_params`` narrows; the collectives as counted; the sharded
+    global norm counts each block and whole leaf once.  In a world of
+    four also over (1, 4), where the KV heads do not divide the axis and
+    each rank reads its q heads' one KV head.  Exact activations
+    (:func:`_exact`)."""
+    cfg = _exact(_f32("llama3_2_1b"))
+    meshes = [mesh]
+    if dist.get_world_size() == 4:
+        meshes.append(spmd.init_mesh((1, 4), device_type="cpu"))
+    for m in meshes:
+        tp = spmd.axis_size(m, "model")
+        label = f"tp over {tuple(m.shape)}"
+        lay, record, got, want = check_grads(m, label, cfg,
+                                             _lm_batch(cfg, masked=True))
+        if tp == 1:
+            continue
+        _tp_collectives(label, cfg, record, tp)
+        whole = _params(cfg)
+        narrowed = local_params(whole, cfg, lay.rules)
+        blocks = lay.shard_params(whole)
+        assert lay.keep, label
+        with torch.no_grad():
+            for k, axes in lay.keep.items():
+                held = spmd.gather_param(blocks[k], lay.params[k], m, axes)
+                assert torch.equal(held, narrowed[k]), (label, k)
+        # the whole k/v (KV heads not dividing the axis) through the f
+        kv = record.get(("all_reduce", "model", "attn kv (backward)"), 0)
+        assert kv == (0 if cfg.num_kv_heads % tp == 0
+                      else 2 * cfg.num_layers), (label, kv)
+        norm = global_norm(got, lay.params, m)
+        _close(f"{label} global norm", norm, global_norm(want))
+
+
+def check_mqa(mesh):
+    """One KV head: k/v whole on every rank, each rank's gradient of
+    ``wk``/``wv`` a part the ``model`` ranks sum (exact activations,
+    :func:`_exact`)."""
+    cfg = replace(_exact(_f32("llama3_2_1b")), num_kv_heads=1)
+    lay, record, *_ = check_grads(mesh, "mqa", cfg,
+                                  _lm_batch(cfg, masked=True))
+    if spmd.axis_size(mesh, "model") > 1:
+        assert "layers.b0.attn.wk" not in lay.keep, lay.keep
+        kv = record.get(("all_reduce", "model", "attn kv (backward)"), 0)
+        assert kv == 2 * cfg.num_layers, kv
+
+
+def check_recurrent(mesh):
+    """The smoke RecurrentGemma (untied head, MQA local attention): its
+    MLPs and head split over ``model``, its RG-LRU mixers whole (exact
+    activations, :func:`_exact`)."""
+    cfg = _exact(_f32("recurrentgemma_9b"))
+    lay, record, *_ = check_grads(mesh, "recurrent", cfg, _lm_batch(cfg))
+    if spmd.axis_size(mesh, "model") > 1:
+        assert any(".mlp." in k for k in lay.keep) and "head.w" in lay.keep
+        assert not any(".rglru." in k for k in lay.keep)
+        assert not any(w == "logits all-gather" for _, _, w in record)
+
+
+def check_vocab_loss(mesh):
+    """Under tensor parallelism ``lm_loss``'s cross-entropy of the head's
+    vocabulary block equals that of the logits gathered whole, within
+    ``LOSS_RTOL`` in value and in each block's gradient."""
+    if spmd.axis_size(mesh, "model") == 1:
+        return
+    for arch in ("llama3_2_1b", "recurrentgemma_9b"):   # tied, untied
+        cfg = _f32(arch)
+        rules = ShardingRules.for_mesh(mesh, fsdp=False)
+        mine = {k: v.requires_grad_() for k, v in
+                local_params(_params(cfg), cfg, rules).items()}
+        batch = device_transform("cpu")(_lm_batch(cfg, masked=True))
+        losses, grads = [], []
+        for gather in (False, True):
+            with use_rules(rules):
+                logits, _, _ = T.forward(unflatten(mine), batch["inputs"],
+                                         cfg, gather_logits=False)
+                if gather:
+                    logits = spmd.model_gather(logits, "logits all-gather")
+                    assert logits.shape[-1] == cfg.vocab_size
+                loss = LM.cross_entropy(logits, batch["labels"], cfg)
+            losses.append(loss)
+            grads.append(torch.autograd.grad(loss, list(mine.values())))
+        _close(f"{arch} vocab-parallel loss", losses[0], losses[1],
+               LOSS_RTOL)
+        for k, a, b in zip(mine, *grads):
+            _close(f"{arch} vocab-parallel loss {k}", a, b, LOSS_RTOL)
+
+
+def check_jax(mesh, workdir):
+    """The smoke Llama's gradients at float32 over the mesh against the
+    JAX reference's ``jax.value_and_grad`` of its ``lm_loss``, on the
+    parameters it drew (``jax_grads.npz``, the parent's), both under
+    exact activations (the reference's ``xla`` preset, :func:`_exact`)."""
+    ref = np.load(os.path.join(workdir, "jax_grads.npz"))
+    cfg = _exact(_f32("llama3_2_1b"))
+    pick = {kind: {k.split(":", 1)[1]: torch.from_numpy(ref[k])
+                   for k in ref.files if k.startswith(kind + ":")}
+            for kind in ("param", "grad")}
+    check_grads(mesh, "jax", cfg, _lm_batch(cfg, masked=True),
+                params=pick["param"],
+                want=(torch.from_numpy(ref["loss"]), pick["grad"]),
+                rtol=JAX_RTOL)
 
 
 def check_factored(mesh):
@@ -117,8 +306,13 @@ def check_factored(mesh):
     norm: the grad norm, the parameters and the moments, gathered whole,
     against one process.  AdamW's eps is 1, so an update is proportional
     to its gradient (at eps 1e-8 the first step is the gradient's sign,
-    which a near-zero element's two sum orders may disagree on)."""
-    cfg = _f32("llama3_2_1b")
+    which a near-zero element's two sum orders may disagree on); where
+    ``model`` splits, under exact and LUT activations (:func:`_policies`)."""
+    for how, cfg, rtol in _policies(_f32("llama3_2_1b"), mesh):
+        _factored_step(mesh, how, cfg, rtol)
+
+
+def _factored_step(mesh, how, cfg, rtol):
     ocfg = OptConfig(factored=True, factored_min_size=8, eps=1.0, lr=1e-2,
                      warmup_steps=1)
     tcfg = TrainConfig(opt=ocfg)
@@ -134,16 +328,18 @@ def check_factored(mesh):
     got_p, got_o, got_m = step(lay.shard_params(params),
                                lay.shard_opt_state(opt),
                                shard_for(batch, rules, "cpu"))
-    _close("grad norm", got_m["grad_norm"], want_m["grad_norm"])
+    _close(f"factored{how} grad norm", got_m["grad_norm"],
+           want_m["grad_norm"], rtol)
     for k, v in _whole(got_p, lay.params, mesh).items():
-        _close(f"factored {k}", v, want_p[k])
+        _close(f"factored{how} {k}", v, want_p[k], rtol)
     specs = lay.tree_specs({"opt": got_o})
     for k, st in got_o["ema"].items():
         for leaf, t in st.items():
             with torch.no_grad():
                 whole = spmd.gather_param(t, specs[f"opt.ema.{k}.{leaf}"],
                                           mesh)
-            _close(f"factored {k}.{leaf}", whole, want_o["ema"][k][leaf])
+            _close(f"factored{how} {k}.{leaf}", whole,
+                   want_o["ema"][k][leaf], rtol)
 
 
 def check_m3vit(mesh):
@@ -157,9 +353,12 @@ def check_m3vit(mesh):
 
 def check_spanning(mesh):
     """A MoE LM whose one routing group spans the data ranks: the gate's
-    gradient comes back through the gathered logits."""
-    cfg = _f32("llama4_scout_17b_a16e", group_size=64)
-    check_grads(mesh, "scout spanning", cfg, _lm_batch(cfg))
+    gradient comes back through the gathered logits; where ``model``
+    splits, under exact and LUT activations (:func:`_policies`)."""
+    for how, cfg, rtol in _policies(
+            _f32("llama4_scout_17b_a16e", group_size=64), mesh):
+        check_grads(mesh, f"scout spanning{how}", cfg, _lm_batch(cfg),
+                    rtol=rtol)
 
 
 def check_nan(mesh):
@@ -218,6 +417,18 @@ def check_checkpoint(mesh, workdir):
     for k, s in loop.opt_state["ema"].items():
         for leaf, t in s.items():
             assert torch.equal(blocks["opt"]["ema"][k][leaf], t), (k, leaf)
+    # two ranks: the mesh checkpoint restores at the other shape (1x2 at
+    # 2x1 and the reverse), its blocks gathered whole the same leaves
+    if dist.get_world_size() == 2:
+        other = spmd.init_mesh(tuple(reversed(tuple(mesh.shape))),
+                               device_type="cpu")
+        lay2 = make_train_step(cfg, TrainConfig(opt=ocfg),
+                               rules=ShardingRules.for_mesh(other)).layout
+        like = {"params": lay2.shard_params(whole),
+                "opt": lay2.shard_opt_state(adamw_init(whole, ocfg))}
+        there = restore(d, 2, like, layout=lay2)
+        back = _whole(there["params"], lay2.params, other)
+        assert all(torch.equal(back[k], mine[k]) for k in mine)
     dist.barrier()
 
 
@@ -272,11 +483,13 @@ def check_compress(mesh):
 
 
 CHECKS = {"dense": check_dense, "factored": check_factored,
-          "m3vit": check_m3vit,
+          "m3vit": check_m3vit, "tp": check_tp, "mqa": check_mqa,
+          "recurrent": check_recurrent, "vocab_loss": check_vocab_loss,
+          "jax": check_jax,
           "spanning": check_spanning, "nan": check_nan,
           "checkpoint": check_checkpoint, "launcher": check_launcher,
           "compress": check_compress}
-NEEDS_DIR = ("checkpoint", "launcher")
+NEEDS_DIR = ("checkpoint", "launcher", "jax")
 
 
 def run(rank, world, shape, store, checks):

@@ -12,9 +12,19 @@ the smoke M³ViT under ``grouped`` (``fsdp`` True and
 ``"moe_only"``) and ``ep_local`` (at 1×2 an overcounting sum over
 ``model`` shows); a MoE LM whose one routing group spans the data ranks
 (the gate's gradient through the gathered logits); a NaN on one rank
-skipped by all; checkpoints across mesh and no mesh both ways;
-``compressed_psum`` and the stacked mean over the ranks; and at 2×1
-``launch/train.py --mesh local --device cpu``.
+skipped by all; checkpoints across mesh and no mesh both ways, and at
+two ranks across 1×2 and 2×1; ``compressed_psum`` and the stacked mean
+over the ranks; and at 2×1 ``launch/train.py --mesh local --device
+cpu``.  Where ``model`` has two ranks (1×2, 2×2) every check runs the
+tensor-parallel step, which never gathers a split leaf over ``model``
+(each check reads the collective record); ``tp`` adds the collectives
+as counted, the stored blocks against serving's ``local_params`` and the
+global norm, and at 2×2 a (1, 4) mesh whose KV heads do not divide the
+axis; ``mqa`` one KV head whose whole ``wk``/``wv`` gradients the model
+ranks sum; ``recurrent`` the smoke RecurrentGemma (MLPs and head split,
+mixers whole); ``vocab_loss`` the vocab-parallel loss against the
+gathered logits within 1e-6; at 1×2 ``jax`` the gradients against the
+reference's ``jax.value_and_grad`` of its ``lm_loss``.
 
 In process: the step under rules at a world of one bit for bit against
 no rules, and against the reference's ``make_train_step`` with rules (on
@@ -37,6 +47,7 @@ import _torch_train_worker as W
 from repro import configs as jconfigs
 from repro.dist.sharding import ShardingRules as JRules
 from repro.models import model as JM
+from repro.ops import policy_named as jpolicy_named
 from repro.optim import OptConfig as JOptConfig
 from repro.optim import adamw_init as jadamw_init
 from repro.train import TrainConfig as JTrainConfig
@@ -55,17 +66,42 @@ from repro_torch.train import TrainConfig, make_train_step
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN = ("dense", "factored", "m3vit", "spanning", "nan", "checkpoint",
-         "compress")
+         "compress", "tp", "mqa", "recurrent", "vocab_loss")
 
 
 @pytest.mark.parametrize("shape,checks", [
-    ((2, 1), TRAIN + ("launcher",)), ((1, 2), TRAIN), ((2, 2), TRAIN)],
-    ids=["2x1", "1x2", "2x2"])
+    ((2, 1), TRAIN + ("launcher",)), ((1, 2), TRAIN + ("jax",)),
+    ((2, 2), TRAIN)], ids=["2x1", "1x2", "2x2"])
 def test_mesh_training_world(shape, checks, tmp_path):
     world = shape[0] * shape[1]
+    if "jax" in checks:
+        _jax_reference(os.path.join(tmp_path, "jax_grads.npz"))
     mp.start_processes(W.run, args=(world, shape,
                                     os.path.join(tmp_path, "store"), checks),
                        nprocs=world, start_method="spawn")
+
+
+def _jax_reference(path):
+    """The reference's ``jax.value_and_grad`` of its ``lm_loss`` on the
+    smoke Llama at float32 under its exact activations (``xla``) and the
+    worker's masked batch, with the
+    parameters it drew carried into the port by the bridge: the ranks'
+    ``jax`` check reads them (``param:``/``grad:`` + the port's names,
+    ``loss``) and holds the tensor-parallel step at 1×2 to them within
+    ``_torch_train_worker.JAX_RTOL``, the loss bound of
+    ``test_step_under_rules_matches_the_reference``."""
+    jcfg = replace(jconfigs.get("llama3_2_1b", smoke=True), dtype="float32",
+                   policy=jpolicy_named("xla"))
+    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    batch = W._lm_batch(W._f32("llama3_2_1b"), masked=True)
+    loss, grads = jax.value_and_grad(lambda p: JM.lm_loss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)[0])(jp)
+    out = {"loss": np.asarray(loss)}
+    for kind, tree in (("param", jp), ("grad", grads)):
+        for k, v in params_from_jax(jax.device_get(tree),
+                                    device="cpu").items():
+            out[f"{kind}:{k}"] = v.numpy()
+    np.savez(path, **out)
 
 
 def _lm_setup(accum=1, factored=False):
@@ -225,3 +261,104 @@ def test_launcher_outside_torchrun_is_one_device(tmp_path, capsys,
                    "--mesh", "local"])
     assert loop.layout is None and loop.state.step == 2
     assert "outside torchrun: one process" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,tp,whole_kv", [
+    ("llama3_2_1b", 16, ("wk", "wv")), ("llama3_2_1b", 8, ()),
+    ("recurrentgemma_9b", 2, ("wk", "wv")), ("m3vit", 2, ()),
+    ("deepseek_67b", 4, ()), ("llama4_scout_17b_a16e", 16, ())],
+    ids=["llama-16", "llama-8", "rgemma-2", "m3vit-2", "deepseek-4",
+         "scout-16"])
+def test_layout_keeps_the_model_blocks(arch, tp, whole_kv):
+    """The train layout at full size on a device-free (256 / tp, tp)
+    mesh: ``keep`` holds every leaf ``transformer.model_blocks`` names
+    (what a serving rank narrows), each gathered over ``data`` alone to
+    its block over ``model``, and every other leaf is gathered whole;
+    beside split q heads, k/v are whole where the KV heads do not divide
+    the axis (Llama's 8 at 16, RecurrentGemma's one); an attention whose
+    heads do not divide it (M³ViT's 3 at 2, Scout's 40 at 16) is whole."""
+    from repro_torch.dist.sharding import local_slice, model_spec
+    from repro_torch.models import vit
+    from repro_torch.models.transformer import model_blocks
+    from repro_torch.train.step import layout_for
+
+    cfg = get(arch)
+    mesh = spmd.VirtualMesh((256 // tp, tp), ("data", "model"))
+    rules = ShardingRules.for_mesh(mesh)
+    lay = layout_for(cfg, rules)
+    blocks = model_blocks(cfg, rules)
+    assert blocks and set(blocks) <= set(lay.keep)
+    attn = {k.rsplit(".", 1)[1] for k in lay.params if ".attn." in k}
+    kept = {k.rsplit(".", 1)[1] for k in lay.keep if ".attn." in k}
+    assert sorted(attn - kept if kept else ()) == sorted(whole_kv)
+    if arch == "m3vit":       # attention whole, the MLPs split
+        assert not any(".attn." in k for k in lay.keep)
+        assert any(".mlp.w1" in k for k in lay.keep)
+    shapes = vit.param_specs(cfg) if arch == "m3vit" else TM.param_specs(cfg)
+    stored = lay.shard_params(shapes)
+    for k, t in stored.items():
+        got = spmd.gather_param(t, lay.params[k], mesh, lay.keep.get(k, ()))
+        want = tuple(shapes[k].shape)
+        if k in lay.keep:
+            want = tuple(s.stop - s.start for s in local_slice(
+                want, model_spec(lay.params[k]), mesh))
+        assert tuple(got.shape) == want, k
+
+
+def test_max_all_reduce_carries_no_gradient():
+    """``all_reduce(op="max")`` (the vocab-parallel loss's shift): no
+    gradient at a world of one, a ``meta`` result recorded on the
+    device-free mesh, the value as it is over one rank."""
+    from _torch_mesh import mesh_of_one
+
+    t = torch.randn(3, 4, requires_grad=True)
+    out = spmd.all_reduce(t, mesh_of_one(), "model", "x", op="max")
+    assert not out.requires_grad and torch.equal(out, t.detach())
+    ops.reset_dispatch_report()
+    mesh = make_production_mesh()
+    got = spmd.all_reduce(torch.empty(5, device="meta", requires_grad=True),
+                          mesh, "model", "loss max", op="max")
+    assert got.shape == (5,) and not got.requires_grad
+    (rec,) = ops.collective_report()
+    assert (rec["kind"], rec["axis"], rec["where"]) == ("all_reduce",
+                                                        "model", "loss max")
+
+
+@pytest.mark.parametrize("tp,summed", [(4, 2), (2, 0)],
+                         ids=["kv-whole", "kv-split"])
+def test_whole_kv_gradient_sums_over_model(tp, summed):
+    """Where the q heads split over ``model`` and the KV heads do not (the
+    smoke Llama's 2 KV heads at 4), every rank holds ``wk``/``wv`` whole
+    and its gradient covers only its q heads' KV head:
+    ``apply_attention`` passes them through the Megatron ``f``, one
+    all-reduce over ``model`` each in the backward, so the gathered
+    leaf's backward (``reduce_param_grad``) takes the summed gradient as
+    it is.  Where the KV heads split, none.  On the device-free mesh."""
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.models import layers as L
+
+    cfg = get("llama3_2_1b", smoke=True)
+    rules = ShardingRules.for_mesh(spmd.VirtualMesh((1, tp),
+                                                    ("data", "model")))
+    q_split, kv_split = L.attention_layout(cfg, tp)
+    assert q_split and kv_split == (not summed)
+    d, hd = cfg.d_model, cfg.hd
+    hq = cfg.num_heads // tp
+    hkv = cfg.num_kv_heads // tp if kv_split else cfg.num_kv_heads
+    meta = dict(device="meta", requires_grad=True)
+    params = {"wq": torch.empty(d, hq * hd, **meta),
+              "wk": torch.empty(d, hkv * hd, **meta),
+              "wv": torch.empty(d, hkv * hd, **meta),
+              "wo": torch.empty(hq * hd, d, **meta)}
+    x = torch.empty(2, 8, d, **meta)
+    pos = torch.zeros(2, 8, dtype=torch.long, device="meta")
+    ops.reset_dispatch_report()
+    with use_rules(rules):
+        y, _ = L.apply_attention(params, x, cfg, pos=pos)
+        grads = torch.autograd.grad(y.sum(), [x, *params.values()])
+    assert [tuple(g.shape) for g in grads[1:]] == [
+        tuple(p.shape) for p in params.values()]
+    got = sum(c["count"] for c in ops.collective_report()
+              if (c["kind"], c["axis"], c["where"])
+              == ("all_reduce", "model", "attn kv (backward)"))
+    assert got == summed

@@ -17,8 +17,11 @@
 * Mesh cells (rank 0's share on the device-free production meshes):
   Llama-3.2-1B ``train_4k`` at 16×16 and 2×16×16 holds the argument
   bytes the sharding factors predict, receives collective bytes (no
-  dense all-gather over ``data`` under ``--no-fsdp``), counts the
-  one-card FLOPs over the batch shards, and ``--seq-shard`` changes no
+  dense all-gather over ``data`` under ``--no-fsdp``), runs the dense
+  blocks tensor-parallel (its FLOPs the one-card count over the batch
+  shards and the model axis but the whole k/v's, derived from the leaves
+  ``model`` splits; the model all-reduces counted; no gather over
+  ``model`` but of the whole k/v), and ``--seq-shard`` changes no
   count; Llama-4-Scout under ``ep_local`` records its all-reduce over
   ``model``; the flags run from the command line; one-card cells record
   no collective.  The serving cells on a mesh run the dense blocks
@@ -186,7 +189,7 @@ def test_mesh_flags_name_the_distribution_slice(flag, tmp_path):
     mesh = "2x16x16" if flag == "--multi-pod" else "16x16"
     assert rec["mesh"] == mesh and rec["collective_bytes"] > 0
     assert rec["chips"] == (512 if flag == "--multi-pod" else 256)
-    assert "data-parallel" in rec["mesh_note"]
+    assert "tensor-parallel over model in training" in rec["mesh_note"]
 
 
 def _predicted_argument_bytes(mesh_name, fsdp=True):
@@ -215,6 +218,24 @@ def _predicted_argument_bytes(mesh_name, fsdp=True):
     return total + 2 * 4 * shape.seq_len * shape.global_batch // shards
 
 
+def _whole_over_model(mesh_name):
+    """(the leaves ``model`` splits, the leaves whose spec names ``model``
+    but which a rank holds whole: k/v where the KV heads do not divide the
+    axis) of Llama-3.2-1B's train cell on the mesh."""
+    from repro_torch.dist.sharding import ShardingRules, param_sharding_rules
+    from repro_torch.models.transformer import model_blocks
+
+    cfg = tconfigs.get("llama3_2_1b")
+    rules = ShardingRules.for_mesh(dryrun.mesh_named(mesh_name))
+    params = TM.param_specs(cfg)
+    split = model_blocks(cfg, rules)
+    whole = [k for k, sh in param_sharding_rules(params, rules).items()
+             if k not in split and any(
+                 "model" in ((e,) if isinstance(e, str) else e or ())
+                 for e in sh.spec)]
+    return params, split, whole
+
+
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 def test_mesh_cell_bytes_and_collectives(mesh):
     rec = _mesh_cell("llama3_2_1b", mesh)
@@ -226,10 +247,27 @@ def test_mesh_cell_bytes_and_collectives(mesh):
     assert kinds["all_gather"]["by_axis"]["data"] > 0
     assert kinds["reduce_scatter"]["by_axis"]["data"] > 0
     assert rec["collective_bytes"] == sum(v["bytes"] for v in kinds.values())
-    # dense compute is data-parallel: the FLOPs of the batch's shards
+    # the dense blocks are tensor-parallel: the blocks' all-reduces over
+    # model are counted, and the only gathers over model are of the
+    # leaves a rank holds whole (k/v: 8 KV heads do not divide 16) — no
+    # split leaf, no logits
+    params, split, whole = _whole_over_model(mesh)
+    tp = 16
+    assert split and sorted(k.rsplit(".", 1)[1] for k in whole) == ["wk",
+                                                                    "wv"]
+    assert kinds["all_reduce"]["by_axis"]["model"] > 0
+    assert kinds["all_gather"]["by_axis"]["model"] == sum(
+        params[k].numel() * params[k].element_size() for k in whole)
+    # a rank's FLOPs: the one-card count over the model axis, but the
+    # whole leaves' products (forward, input and weight gradients: 6 a
+    # weight a token) on every model rank, over the batch's shards
     shards = rec["batch_shards"]
     assert shards == (16 if mesh == "16x16" else 32)
-    assert abs(rec["hlo_flops"] * shards / one["hlo_flops"] - 1) < 0.01
+    shape = SHAPES["train_4k"]
+    tokens = shape.global_batch * shape.seq_len
+    repeated = sum(6 * tokens * params[k].numel() for k in whole)
+    want = (one["hlo_flops"] / tp + (1 - 1 / tp) * repeated) / shards
+    assert abs(rec["hlo_flops"] / want - 1) < 0.01
     assert rec["bottleneck"] == max(
         ("compute", "memory", "collective"), key=lambda t: rec[f"t_{t}"])
     # the one-card cell records no collective

@@ -16,17 +16,22 @@ less than an ulp, where Adam's sign-like first step would move a
 near-zero gradient's element by 2·lr):
 
 * Llama-3.2-1B at full width and depth, 8 × 128 tokens, 3 steps, at
-  ``1x4`` (the dense weights stored in quarters over ``model``, every
-  rank on the whole batch) and at ``4x1`` (FSDP over ``data``, the batch
-  split in four, the launcher's ``--mesh local`` layout): loss and grad
-  norm within ``compare.TRAIN_LOSS_RTOL`` of one card, the updated
-  parameters within ``compare.py``'s tolerance once a step; peak memory
-  a rank beside one card's; host walls a step (steps 1-2: the first
-  starts the NCCL groups); the collectives' device ms
-  (``train/profile.py``);
+  ``1x4`` (tensor-parallel: a quarter of the heads, the MLP's columns
+  and the vocabulary a rank, every rank on the whole batch), ``2x2``
+  (tensor-parallel over two, FSDP over two, the batch split in two) and
+  ``4x1`` (FSDP over ``data``, the batch split in four, the launcher's
+  ``--mesh local`` layout): loss and grad norm within
+  ``compare.TRAIN_LOSS_RTOL`` of one card, the updated parameters within
+  ``compare.py``'s tolerance once a step; where ``model`` splits, the
+  collectives over it as counted from the config
+  (``chip_smoke._tp_train_expect``: no logits all-gather, no gather over
+  ``model`` of a split leaf); peak memory a rank beside one card's; host
+  walls a step (steps 1-2: the first starts the NCCL groups); the
+  collectives' device ms (``train/profile.py``);
 * M³ViT at ``2x2`` with ``moe.impl="ep_local"`` (8 of 16 experts a
-  rank): every expert's gradient against one card's ``grouped``
-  (cosine), and 3 steps against one card as above.
+  rank; its MLPs tensor-parallel, its three-head attention whole): every
+  expert's gradient against one card's ``grouped`` (cosine), and 3 steps
+  against one card as above.
 
 Rank 0 prints the card's name and power limit, each check's result, the
 launches by kernel and the collectives of each mesh run.  Any failed
@@ -49,6 +54,7 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import _m3vit_loss as m3vit_loss  # noqa: E402  (the path)
+from chip_smoke import TP_WHERE, _tp_train_expect  # noqa: E402
 
 MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1.0,
                 weight_decay=0.0)
@@ -85,9 +91,28 @@ def _counted(run):
             raise AssertionError(f"{op} fell back: {entry['fallbacks']}")
     coll = {}
     for c in ops.collective_report():
-        key = f"{c['kind']}:{c['axis']}"
+        key = f"{c['kind']}:{c['axis']}:{c['where']}"
         coll[key] = coll.get(key, 0) + c["count"]
     return out, launch_counts(), coll
+
+
+def _by_axis(coll: dict) -> dict:
+    """``kind:axis:where`` counts summed by ``kind:axis``."""
+    out: dict = {}
+    for k, n in coll.items():
+        key = k.rsplit(":", 1)[0]
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def _tp_off(cfg, lay, coll: dict, steps: int, forwards: int) -> dict:
+    """The tensor-parallel collectives that differ from the count from
+    the config: {``kind:axis:where``: (got, expected)}."""
+    want = _tp_train_expect(cfg, lay, forwards, steps)
+    keys = set(want) | {k for k in coll if k.startswith("all_gather:model:")
+                        or k.split(":", 2)[2] in TP_WHERE}
+    return {k: (coll.get(k, 0), want.get(k, 0)) for k in keys
+            if coll.get(k, 0) != want.get(k, 0)}
 
 
 def _steps(step, p, o, batches, place, walls):
@@ -104,7 +129,7 @@ def _steps(step, p, o, batches, place, walls):
 
 
 def against_one(label, cfg, params, batches, mesh_shape, dev, say,
-                loss_fn=None, profile=True):
+                loss_fn=None, profile=True, forwards=1):
     """The steps of ``batches`` over the mesh against the same steps on
     one card; the walls leave out the first step (its NCCL groups start
     there)."""
@@ -125,8 +150,8 @@ def against_one(label, cfg, params, batches, mesh_shape, dev, say,
     walls1: list = []
     opt = adamw_init(params, tcfg.opt)
     _peak_reset()
-    last, _, want_m = _steps(single, params, opt, batches, put, walls1)
-    del opt
+    last, opt, want_m = _steps(single, params, opt, batches, put, walls1)
+    del opt         # the one-card AdamW state: not held over the mesh run
     want = {k: v.cpu() for k, v in last.items()}
     peak1 = _peak()
     del last
@@ -159,7 +184,10 @@ def against_one(label, cfg, params, batches, mesh_shape, dev, say,
         b = shard_for(batches[0], rules, dev)
         prof = profile_steps(lambda: float(meshed(p, o, b)[2]["loss"]), 2,
                              statistics.median(walls2[1:]))
-    ok = rel <= compare.TRAIN_LOSS_RTOL and within
+    off = {}
+    if spmd.axis_size(mesh, "model") > 1:
+        off = _tp_off(cfg, lay, coll, steps, steps * forwards)
+    ok = rel <= compare.TRAIN_LOSS_RTOL and within and not off
     say(f"{label} at {'x'.join(map(str, mesh_shape))}, {steps} steps "
         f"against one card: loss and grad norm relative {rel:.3e} (<= "
         f"{compare.TRAIN_LOSS_RTOL}); parameters within {steps} steps of "
@@ -170,7 +198,14 @@ def against_one(label, cfg, params, batches, mesh_shape, dev, say,
         f"one card; host walls a step (median of steps 1-{steps - 1}) "
         f"{statistics.median(walls2[1:]) * 1e3:.1f} ms over the mesh, "
         f"{statistics.median(walls1[1:]) * 1e3:.1f} ms on one card")
-    say(f"  launches {json.dumps(counts)}; collectives {json.dumps(coll)}")
+    say(f"  launches {json.dumps(counts)}; collectives "
+        f"{json.dumps(_by_axis(coll))}")
+    if spmd.axis_size(mesh, "model") > 1:
+        say(f"  tensor-parallel collectives over model by where: "
+            f"{json.dumps({k: n for k, n in coll.items() if ':model:' in k})}"
+            f"; against the count from the config (no logits all-gather, "
+            f"no gather over model of a split leaf): "
+            f"{'ok' if not off else off}")
     if prof is not None:
         say(f"  profile of a mesh step (torch.profiler, 2 steps): busy "
             f"{prof['busy_ms']:.1f} ms, collectives "
@@ -205,16 +240,17 @@ def ep_local_grads(cfg, params, batch, dev, say, loss_fn) -> None:
     (_, got), counts, coll = _counted(lambda: step.grads(
         lay.shard_params(params), shard_for(batch, rules, dev)))
     cos = []
-    for k in sorted(lay.keep):
+    stacks = sorted(k for k in lay.keep if ".moe." in k)   # not the MLPs
+    for k in stacks:
         mine = want[k][local_slice(tuple(want[k].shape), lay.params[k],
                                    mesh)]
         for e in range(mine.shape[1]):
             cos.append(compare.cosine(got[k][:, e], mine[:, e]))
     worst = min(cos)
     say(f"M3ViT ep_local at 2x2, {len(cos)} expert gradients a rank over "
-        f"{len(lay.keep)} stacks against one card's grouped: worst cosine "
+        f"{len(stacks)} stacks against one card's grouped: worst cosine "
         f"{worst:.6f} (>= {compare.GRAD_COSINE_LEAF}); launches "
-        f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
+        f"{json.dumps(counts)}; collectives {json.dumps(_by_axis(coll))}")
     if worst < compare.GRAD_COSINE_LEAF:
         raise AssertionError(f"rank {dist.get_rank()}: ep_local gradients")
 
@@ -260,7 +296,7 @@ def main() -> None:
     stream = make_stream(DataConfig(batch=8, seq_len=128,
                                     vocab_size=lcfg.vocab_size, seed=0))
     batches = [stream.batch(i) for i in range(3)]
-    for shape in ((1, 4), (4, 1)):
+    for shape in ((1, 4), (2, 2), (4, 1)):
         add(against_one("Llama-3.2-1B", lcfg, lparams, batches, shape, dev,
                         say))
     del lparams
@@ -276,7 +312,7 @@ def main() -> None:
     ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
     add(against_one("M3ViT ep_local", ecfg, mparams,
                     [mstream.batch(i) for i in range(3)], (2, 2), dev, say,
-                    loss_fn=m3vit_loss(ecfg), profile=False))
+                    loss_fn=m3vit_loss(ecfg), profile=False, forwards=2))
     say(f"launches over the mesh runs (rank 0): {json.dumps(total)}")
     dist.barrier()
     dist.destroy_process_group()
