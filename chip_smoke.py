@@ -327,9 +327,21 @@ one and then one pair of processes):
    cosine >= SERVE_COSINE of no mesh, the collectives by ``where`` (an
    ``attn_out`` and an ``mlp_down`` all-reduce a layer, an ``embed``
    all-reduce and a ``logits`` all-gather a forward), no SIMT launch;
-   and tiered preemption over a 4-lane bucket split over (2, 1) (4 layers
-   of Llama-3.2-1B), every request's tokens bit-equal to no mesh; each
-   counted and checked for fallbacks as in (a).
+   then RecurrentGemma-9B at full width and ``TP_RG_LAYERS`` (3) layers
+   over (1, 2), its RG-LRU mixers split too (2048 of 4096 channels, 8 of
+   16 gate heads a rank; ``_two_ranks_tp_rg``): on rank 0 the kernels at
+   its shapes against their plain versions (``_tp_rg_kernels``: the
+   column blocks of ``w_up``, ``w_up2`` + GELU, ``wg`` + GELU, ``wu``,
+   ``wq`` bit-equal to the whole product's columns, the float32 row
+   blocks of ``w_down``, ``wd``, ``wo``, ``flash_attention`` at 8 q heads
+   over one KV head at head_dim 256, ``decode_fused`` over its ring), the
+   per-rank draw bit-equal, the RG-LRU weight bytes a rank half the
+   whole, the state bytes a rank, 8 × 128 prompts and 32 greedy tokens,
+   the logits at cosine >= SERVE_COSINE, the collectives by ``where``
+   (an ``rglru_down`` all-reduce an RG-LRU layer besides the above), no
+   SIMT launch; and tiered preemption over a 4-lane bucket split over
+   (2, 1) (4 layers of Llama-3.2-1B), every request's tokens bit-equal
+   to no mesh; each counted and checked for fallbacks as in (a).
 11. Training over a mesh (``make_train_step(rules=)``: each rank's
    blocks of the parameters and AdamW state, its rows of the batch, the
    weights gathered over the batch axes — over ``model`` too for a leaf
@@ -345,7 +357,8 @@ one and then one pair of processes):
    On phase 10 (b)'s two ranks after its work (any fault fails the run),
    AdamW with eps 1 (a step proportional to the gradient): M³ViT at 2×1
    (batch 8 split 4 + 4) and Llama-3.2-1B at full width and 4 of its 16
-   layers, 2 steps each against one process on the whole batch — loss
+   layers, 2 steps each against one process on the whole batch (its
+   steps on rank 0 alone, rank 1 waiting; rank 0 sends its numbers) — loss
    and grad norm within ``compare.TRAIN_LOSS_RTOL``, the parameters
    within one step of ``compare.py``'s tolerance a step, the ranks'
    re-gathered parameters bit-equal; the same two models at 1×2,
@@ -368,10 +381,17 @@ one and then one pair of processes):
    Llama's 16 q heads over 4 KV heads, forward and backward); M³ViT at
    1×2 under ``ep_local``
    (8 of 16 experts a rank), each expert's gradient against
-   single-device ``grouped`` (cosine); ``compressed_psum`` over the
-   ranks bit for bit; ``launch/train.py --mesh local`` for 3 steps with a
-   checkpoint, which the parent restores without a mesh and trains on,
-   against the same runs with no mesh.  The four kernels of the training
+   single-device ``grouped`` (cosine); RecurrentGemma-9B at full width
+   and 3 layers at 1×2, batch 2 × 128, 2 steps, its RG-LRU mixers split
+   (every ``rglru`` leaf kept local, never gathered over ``model``; an
+   ``rglru_down`` all-reduce and its input's in the backward a mixer),
+   AdamW with bf16 momentum and the factored second moment, held as
+   Llama (on rank 0 its
+   projections at M = 256 and ``flash_attention`` at 8 q heads over one
+   KV head, head_dim 256, in ``_tp_train_kernels``); ``compressed_psum``
+   over the ranks bit for bit; ``launch/train.py --mesh local`` for 3
+   steps with a checkpoint, which the parent restores without a mesh and
+   trains on, against the same runs with no mesh.  The four kernels of the training
    path must launch (``mesh_train_launches`` in the JSON line).
 12. The examples: each one's ``main`` in-process on the card under its
    default ``--policy cuda``, counted (launches by kernel and variant,
@@ -415,8 +435,9 @@ a kernel's times and bound in the JSON line cover exactly those launches
 breakdown (``units``) per recorded twin.
 
 The plain versions run in full float32: TF32 is switched off for matmuls
-and for cuDNN before anything runs.  Any failed check raises; the last two
-lines are the kernels' JSON record and the result line.
+and for cuDNN before anything runs.  Each phase's host wall is printed
+before the card's line.  Any failed check raises; the last two lines are
+the kernels' JSON record and the result line.
 """
 
 from __future__ import annotations
@@ -4271,8 +4292,9 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
     grouped MoE on this rank's half of a data-split batch, with M³ViT's
     128-token groups and with one group over the whole batch, against the
     layer on the whole batch, bit for bit; Llama-3.2-1B tensor-parallel
-    over (1, 2) (``_two_ranks_tp``); and parking over a bucket split over
-    (2, 1) (``_two_ranks_park``)."""
+    over (1, 2) (``_two_ranks_tp``); RecurrentGemma-9B tensor-parallel
+    over (1, 2), its RG-LRU mixers split (``_two_ranks_tp_rg``); and
+    parking over a bucket split over (2, 1) (``_two_ranks_park``)."""
     import time
     import traceback
 
@@ -4347,6 +4369,11 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         result["tp"] = _two_ranks_tp(rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_rg = time.perf_counter()
+        result["tp_rg"] = _two_ranks_tp_rg(rank)
+        result["tp_rg_wall_s"] = time.perf_counter() - t_rg
         result["park"] = _two_ranks_park(rank)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4481,8 +4508,7 @@ def _two_ranks_tp(rank: int) -> dict:
         prefill, decode = engine.steps(0)
         logits = []
         with torch.inference_mode(), use_rules(r):
-            state = LM.init_state(cfg, LM_BATCH, LM_MAX_LEN,
-                                  kv_heads=engine.kv_heads)
+            state = engine.new_state(LM_BATCH)
             lg, state = prefill(engine.params, prompts, state)
             logits.append(lg)
             for i in range(min(TP_FORCED_STEPS, LM_NEW)):
@@ -4496,8 +4522,198 @@ def _two_ranks_tp(rank: int) -> dict:
                                         forced(plain, None))]
     out["cosines"] = cos
     out["agrees"] = serving_agrees(cos)
-    out["heads"] = [int(tp.params["layers.b0.attn.wq"].shape[-1] // cfg.hd),
-                    int(tp.kv_heads)]
+    out["heads"] = [int(tp.params[f"layers.b0.attn.{w}"].shape[-1] // cfg.hd)
+                    for w in ("wq", "wk")]
+    del plain, tp, whole, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 10 (b)'s and 11 (b)'s tensor-parallel RecurrentGemma-9B: full
+#: width, one Griffin period deep (two RG-LRU blocks and one
+#: local-attention block)
+TP_RG_LAYERS = 3
+
+
+def _rg_config(**over):
+    """RecurrentGemma-9B at full width and ``TP_RG_LAYERS`` deep."""
+    from repro_torch.configs import recurrentgemma_9b as RG
+
+    return replace(RG.CONFIG, num_layers=TP_RG_LAYERS, **over)
+
+
+def _tp_rg_kernels(rank: int, policy) -> dict:
+    """Phase 10 (b), rank 0: the kernels of RecurrentGemma-9B's
+    tensor-parallel serving at one rank's shapes over (1, 2), each against
+    its plain version — ``unified_linear``'s column blocks of the RG-LRU's
+    ``w_up`` and ``w_up2`` (with its GELU epilogue, the LUT where
+    ``policy`` takes it), of the MLP's ``wg`` (GELU) and ``wu`` and of
+    ``wq`` (N/2, summed in the whole weight's order) bit-equal to the
+    whole product's columns, and their whole products against the plain
+    version; the row blocks of ``w_down``, ``wd`` and ``wo`` (K/2, float32
+    out) within the float32 tolerance; at a decode step's 8 rows and a
+    prefill's 1024; ``flash_attention`` at 8 of the 16 q heads over the
+    one KV head (MQA), head_dim 256, causal; ``decode_fused`` at those
+    heads over the local attention's ring with per-slot lengths.  Returns
+    the largest error per kernel."""
+    from repro_torch.kernels import decode_fused as kdf
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import unified_linear as kul
+
+    cfg = _rg_config()
+    d, w, f = cfg.d_model, cfg.lru_width, cfg.d_ff
+    geo = dict(step_log2=policy.lut_step_log2, lut_range=policy.lut_range)
+    errs = {"unified_linear": 0.0, "flash_attention": 0.0,
+            "decode_fused": 0.0}
+
+    def held(name, label, got, want, dtype, **kw):
+        errs[name] = max(errs[name], check(
+            name, f"(b) rank {rank} RecurrentGemma-9B {label}", got, want,
+            dtype, **kw))
+
+    columns = (("rglru w_up", d, w, None), ("rglru w_up2", d, w, "gelu"),
+               ("mlp wg", d, f, "gelu"), ("mlp wu", d, f, None),
+               ("attn wq", d, cfg.num_heads * cfg.hd, None))
+    rows = (("rglru w_down", w, d), ("mlp wd", f, d),
+            ("attn wo", cfg.num_heads * cfg.hd, d))
+    for m in (LM_BATCH, TOKENS):
+        x = randn((m, d), torch.bfloat16, seed=81)
+        for name, k, n, act in columns:
+            wt = randn((k, n), torch.bfloat16, scale=k ** -0.5, seed=82)
+            lut = bool(policy.lut_activations and act is not None)
+            kw = dict(activation=act, use_lut=lut, **geo)
+            whole = kul.unified_linear(x, wt, **kw)
+            pre = kul.unified_linear_plain(x.float(), wt.float()) \
+                if lut else None
+            held("unified_linear", f"{name} whole M={m} ({k}x{n}, "
+                 f"{act or 'none'}{'-lut' if lut else ''})", whole,
+                 kul.unified_linear_plain(x, wt, **kw), torch.bfloat16,
+                 lut_pre=pre, kind=act or "gelu", **geo)
+            h = n // 2
+            for r in range(2):
+                cols = slice(r * h, (r + 1) * h)
+                check_exact("unified_linear", f"(b) rank {rank} "
+                            f"RecurrentGemma-9B {name} column block {r} "
+                            f"M={m} ({k}x{h} of {n})",
+                            kul.unified_linear(x, wt[:, cols].contiguous(),
+                                               order_n=n, **kw),
+                            whole[:, cols])
+        for name, k, n in rows:
+            kk = k // 2
+            xr = randn((m, kk), torch.bfloat16, seed=83)
+            wr = randn((kk, n), torch.bfloat16, scale=k ** -0.5, seed=84)
+            f32 = dict(out_dtype=torch.float32)
+            held("unified_linear", f"{name} row block M={m} ({kk}x{n}, "
+                 f"float32 out)", kul.unified_linear(xr, wr, **f32),
+                 kul.unified_linear_plain(xr, wr, **f32), torch.float32)
+    hq, hd = cfg.num_heads // 2, cfg.hd
+    q = randn((LM_BATCH, hq, LM_PROMPT, hd), torch.bfloat16, seed=85)
+    k = randn((LM_BATCH, 1, LM_PROMPT, hd), torch.bfloat16, seed=86)
+    v = randn((LM_BATCH, 1, LM_PROMPT, hd), torch.bfloat16, seed=87)
+    held("flash_attention", f"{hq} q heads over 1 KV head, D={hd}, "
+         f"causal", kfa.flash_attention(q, k, v),
+         kfa.flash_attention_plain(q, k, v), torch.bfloat16)
+    q = randn((LM_BATCH, hq, 1, hd), torch.bfloat16, seed=88)
+    kc = randn((LM_BATCH, 1, LM_MAX_LEN, hd), torch.bfloat16, seed=89)
+    vc = randn((LM_BATCH, 1, LM_MAX_LEN, hd), torch.bfloat16, seed=90)
+    cl = torch.tensor([129, 130, 131, 132, 133, 140, 150, 160],
+                      dtype=torch.int32, device="cuda")
+    held("decode_fused", f"{hq} q heads over 1 KV head, D={hd}, per-slot "
+         f"lengths", kdf.fused_decode_attention(q, kc, vc, cl),
+         kdf.fused_decode_attention_plain(q, kc, vc, cl), torch.bfloat16)
+    return errs
+
+
+def _leaf_bytes(tree: dict, part: str = "") -> int:
+    return sum(v.numel() * v.element_size() for k, v in tree.items()
+               if part in k)
+
+
+def _two_ranks_tp_rg(rank: int) -> dict:
+    """Phase 10 (b): RecurrentGemma-9B at full width and ``TP_RG_LAYERS``
+    deep over (1, 2) on the two ranks — its RG-LRU mixers split (a rank's
+    2048 of the 4096 channels, 8 of the 16 gate heads), its MLPs, q heads
+    and vocabulary too, k/v whole (MQA): each rank draws its own blocks
+    (held bit for bit to the narrowed whole draw), serves 8 x 128 prompts
+    and 32 greedy tokens under ``cuda`` with ``attention_decode=
+    "cuda_fused"`` (counted: launches, variants, collectives by
+    ``where``, no fallback), and holds the prefill's and 8 teacher-forced
+    decode steps' logits to the engine with no mesh at cosine >=
+    SERVE_COSINE; the RG-LRU weight bytes and the state bytes a rank
+    against the whole.  First, on rank 0, the kernels at these shapes
+    (:func:`_tp_rg_kernels`)."""
+    from repro_torch import ops
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ShardingRules, use_rules
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                          local_params)
+    from repro_torch.tree import flatten
+
+    policy = ops.policy_named("cuda").with_impls(
+        attention_decode="cuda_fused")
+    out = {"kernel_errs": _tp_rg_kernels(rank, policy) if rank == 0
+           else {}}
+    rules = ShardingRules.for_mesh(spmd.init_mesh((1, 2)), fsdp=False)
+    cfg = _rg_config()
+    whole = LM.init_params(0, cfg, draw_on_device=True)
+    mine = LM.init_params(0, cfg, draw_on_device=True, rules=rules)
+    narrowed = local_params(whole, cfg, rules)
+    out["draw_equal"] = mine.keys() == narrowed.keys() and all(
+        torch.equal(mine[k], narrowed[k]) for k in mine)
+    del narrowed
+    out["rglru_bytes"] = [_leaf_bytes(mine, ".rglru."),
+                          _leaf_bytes(whole, ".rglru.")]
+    out["weight_bytes"] = [_leaf_bytes(mine), _leaf_bytes(whole)]
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
+    plain = ServingEngine(cfg, whole, scfg)
+    tp = ServingEngine(cfg, mine, scfg, rules=rules)
+    state = flatten(tp.new_state(LM_BATCH))
+    out["state_bytes"] = [_leaf_bytes(state),
+                          _leaf_bytes(flatten(plain.new_state(LM_BATCH)))]
+    # the rank's RG-LRU channels, as its state holds them
+    out["width"] = [int(state["layers.b0.h"].shape[-1]), cfg.lru_width]
+    del state
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+    want = plain.generate(prompts, LM_NEW)
+    tp.generate(prompts, 2)                            # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    counted: dict = {}
+    got = _mesh_run(f"(b) rank {rank} RecurrentGemma-9B "
+                    f"({TP_RG_LAYERS} layers) ServingEngine over (1, 2), "
+                    f"tensor-parallel, {LM_BATCH} x {LM_PROMPT} prompts, "
+                    f"{LM_NEW} greedy tokens",
+                    lambda: tp.generate(prompts, LM_NEW), counted)
+    out["launches"] = counted
+    out["variants"] = read_variants(f"(b) rank {rank} RecurrentGemma-9B "
+                                    f"tensor-parallel generate", tally=False)
+    out["collectives"] = [[c["kind"], c["axis"], c["where"], c["count"],
+                           c["bytes"]] for c in ops.collective_report()]
+    out["tokens_equal"] = float((got == want).mean())
+
+    def forced(engine, r):
+        prefill, decode = engine.steps(0)
+        logits = []
+        with torch.inference_mode(), use_rules(r):
+            state = engine.new_state(LM_BATCH)
+            lg, state = prefill(engine.params, prompts, state)
+            logits.append(lg)
+            for i in range(min(TP_FORCED_STEPS, LM_NEW)):
+                tok = torch.from_numpy(want[:, i:i + 1]).long().cuda()
+                lg, state = decode(engine.params, tok, state,
+                                   LM_PROMPT + i)
+                logits.append(lg)
+        return logits
+
+    cos = [cosine(a, b) for a, b in zip(forced(tp, rules),
+                                        forced(plain, None))]
+    out["cosines"] = cos
+    out["agrees"] = serving_agrees(cos)
     del plain, tp, whole, mine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4573,8 +4789,24 @@ def two_ranks_one_card() -> tuple[dict, dict, dict]:
     procs = [ctx.Process(target=_two_ranks,
                          args=(r, str(MESH_STORE / "store"), str(outs[r])))
              for r in range(2)]
-    for p in procs:
-        p.start()
+    print(f"  (b) before the ranks start: "
+          f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB of the card "
+          f"free, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved "
+          f"by this process")
+    # the ranks' allocators grow segments in place: RecurrentGemma-9B's
+    # one-process training step (56 GiB at its peak) otherwise leaves GiBs
+    # reserved between its 4 GiB temporaries, with two more processes on
+    # the card
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     hung = []
     for r, p in enumerate(procs):
         p.join(timeout=600)
@@ -4593,9 +4825,11 @@ def two_ranks_one_card() -> tuple[dict, dict, dict]:
         # (b) carries the tensor-parallel checks: it is never left out
         raise AssertionError(f"(b) two ranks on the one card over gloo: the "
                              f"probe failed: {probe[0]}")
+    faults = [f"(b) rank {r['rank']}: {r['error']}" for r in results
+              if "error" in r]
+    if faults:
+        raise AssertionError("\n".join(faults))
     for r in results:
-        if "error" in r:
-            raise AssertionError(f"(b) rank {r['rank']}: {r['error']}")
         print(f"  (b) rank {r['rank']}: gloo all-reduces CUDA tensors; "
               f"apply_moe_ep_local at M3ViT width, 8 of 16 experts a rank, "
               f"against single-device grouped: max abs err "
@@ -4672,6 +4906,64 @@ def _tp_report(r: dict, total: dict) -> dict:
     if not park["equal"] or not park["preemptions"] or not park["restores"]:
         raise AssertionError(f"(b) rank {rank} parking: {park}")
     for n, c in tp["launches"].items():
+        total[n] = total.get(n, 0) + c
+    return _tp_rg_report(r, total)
+
+
+def _tp_rg_report(r: dict, total: dict) -> dict:
+    """Print and gate one rank's tensor-parallel RecurrentGemma-9B results
+    of phase 10 (b); returns ``total`` with its counted launches added."""
+    rank, rg = r["rank"], r["tp_rg"]
+    cfg, forwards = _rg_config(), 1 + LM_NEW
+    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+    g = 2**30
+    print(f"  (b) rank {rank} tensor-parallel RecurrentGemma-9B "
+          f"({TP_RG_LAYERS} layers) over (1, 2): {rg['width'][0]} of "
+          f"{rg['width'][1]} RG-LRU channels a rank; RG-LRU weights "
+          f"{rg['rglru_bytes'][0] / g:.3f} of {rg['rglru_bytes'][1] / g:.3f}"
+          f" GiB, all weights {rg['weight_bytes'][0] / g:.3f} of "
+          f"{rg['weight_bytes'][1] / g:.3f} GiB, decode state at batch "
+          f"{LM_BATCH} {rg['state_bytes'][0] / 2**20:.3f} of "
+          f"{rg['state_bytes'][1] / 2**20:.3f} MiB; per-rank draw bit-equal "
+          f"to the narrowed whole draw: {rg['draw_equal']}; "
+          f"{r['tp_rg_wall_s']:.1f} s on the rank")
+    if rg["kernel_errs"]:
+        print(f"  (b) rank {rank}: kernels at RecurrentGemma-9B's TP shapes "
+              f"against their plain versions, max abs err "
+              f"{json.dumps(rg['kernel_errs'])}")
+    print(f"  (b) rank {rank}: RecurrentGemma-9B logits of the prefill and "
+          f"{TP_FORCED_STEPS} teacher-forced steps at cosine "
+          f"{min(rg['cosines']):.6f}..{max(rg['cosines']):.6f} of no mesh "
+          f"(SERVE_COSINE): {rg['agrees']}; greedy tokens equal to no "
+          f"mesh's: {rg['tokens_equal']:.4f} of them")
+    where = {}
+    for kind, axis, at, count, nbytes in rg["collectives"]:
+        where[(kind, axis, at)] = count
+        print(f"    collective {kind} over {axis} at {at!r}: {count} "
+              f"({nbytes} bytes)")
+    model = ("all_reduce", "model")
+    expect = {model + ("attn_out all-reduce",):
+              sum(k.startswith("attn") for k in kinds) * forwards,
+              model + ("mlp_down all-reduce",): len(kinds) * forwards,
+              model + ("rglru_down all-reduce",):
+              kinds.count("rglru_mlp") * forwards,
+              model + ("embed all-reduce",): forwards,
+              ("all_gather", "model", "logits all-gather"): forwards}
+    bad = {k: (where.get(k), v) for k, v in expect.items()
+           if where.get(k) != v}
+    print(f"  (b) rank {rank}: an attn_out, an mlp_down and an rglru_down "
+          f"all-reduce a layer of that kind, one embed all-reduce and one "
+          f"logits all-gather a forward, over {forwards} forwards: "
+          f"{'ok' if not bad else bad}")
+    halves = rg["rglru_bytes"][0] * 2 == rg["rglru_bytes"][1] \
+        and rg["width"][0] * 2 == rg["width"][1]
+    if bad or not rg["draw_equal"] or not rg["agrees"] or not halves \
+            or not all(rg["launches"].get(k) for k in
+                       ("unified_linear", "flash_attention",
+                        "decode_fused")):
+        raise AssertionError(f"(b) rank {rank} RecurrentGemma-9B tensor "
+                             f"parallel: collectives off {bad}, {rg}")
+    for n, c in rg["launches"].items():
         total[n] = total.get(n, 0) + c
     return total
 
@@ -4915,7 +5207,8 @@ def _rel(a, b) -> float:
 #: phase 11 (b)'s tensor-parallel training shapes over (1, 2): (model,
 #: rows, weight, K, N, activation, bias, how a rank holds it) — M³ViT's
 #: MLP at its 8 images of 128 tokens, Llama-3.2-1B's projections at its
-#: 4 x 128 rows (each rank runs the whole batch)
+#: 4 x 128 rows, RecurrentGemma-9B's RG-LRU, MLP and attention
+#: projections at its 2 x 128 (each rank runs the whole batch)
 TP_TRAIN_SHAPES = (
     ("M3ViT", TOKENS, "w1", 192, 768, "gelu", True, "columns"),
     ("M3ViT", TOKENS, "w2", 768, 192, None, False, "rows"),
@@ -4924,7 +5217,23 @@ TP_TRAIN_SHAPES = (
     ("Llama-3.2-1B", 4 * 128, "wg", 2048, 8192, "silu", False, "columns"),
     ("Llama-3.2-1B", 4 * 128, "wu", 2048, 8192, None, False, "columns"),
     ("Llama-3.2-1B", 4 * 128, "wo", 2048, 2048, None, False, "rows"),
-    ("Llama-3.2-1B", 4 * 128, "wd", 8192, 2048, None, False, "rows"))
+    ("Llama-3.2-1B", 4 * 128, "wd", 8192, 2048, None, False, "rows"),
+    ("RecurrentGemma-9B", 2 * 128, "rglru w_up", 4096, 4096, None, False,
+     "columns"),
+    ("RecurrentGemma-9B", 2 * 128, "rglru w_up2", 4096, 4096, "gelu", False,
+     "columns"),
+    ("RecurrentGemma-9B", 2 * 128, "rglru w_down", 4096, 4096, None, False,
+     "rows"),
+    ("RecurrentGemma-9B", 2 * 128, "mlp wg", 4096, 12288, "gelu", False,
+     "columns"),
+    ("RecurrentGemma-9B", 2 * 128, "mlp wu", 4096, 12288, None, False,
+     "columns"),
+    ("RecurrentGemma-9B", 2 * 128, "mlp wd", 12288, 4096, None, False,
+     "rows"),
+    ("RecurrentGemma-9B", 2 * 128, "attn wq", 4096, 4096, None, False,
+     "columns"),
+    ("RecurrentGemma-9B", 2 * 128, "attn wo", 4096, 4096, None, False,
+     "rows"))
 
 
 def _tp_train_kernels(policy) -> dict:
@@ -4939,8 +5248,9 @@ def _tp_train_kernels(policy) -> dict:
     PyTorch) of each row block and of each column block without an
     activation against autograd through the plain version, at the bf16
     tolerance of the gradients' dtype.  ``flash_attention``: Llama's 16 of
-    32 q heads over 4 of 8 KV heads at 4 x 128, causal, forward and
-    backward.  M³ViT's attention and routed experts (``gelu_lut``,
+    32 q heads over 4 of 8 KV heads at 4 x 128, and RecurrentGemma-9B's 8
+    of 16 q heads over its one KV head at head_dim 256, 2 x 128, causal,
+    forward and backward.  M³ViT's attention and routed experts (``gelu_lut``,
     ``moe_gemm``) run whole on each rank, at the shapes phases 5 and 6
     hold.  Returns the largest error per kernel."""
     from repro_torch.kernels import flash_attention as kfa
@@ -5017,6 +5327,14 @@ def _tp_train_kernels(policy) -> dict:
          kfa.flash_attention_plain(q, *kv), torch.bfloat16)
     backward("flash_attention", label, kfa.flash_attention,
              kfa.flash_attention_plain, "qkv", q, *kv)
+    q = randn((2, 8, 128, 256), torch.bfloat16, seed=98)
+    kv = [randn((2, 1, 128, 256), torch.bfloat16, seed=s) for s in (99, 100)]
+    label = ("RecurrentGemma-9B 8 q heads over 1 KV head, D=256, 2 x 128, "
+             "causal")
+    held("flash_attention", label, kfa.flash_attention(q, *kv),
+         kfa.flash_attention_plain(q, *kv), torch.bfloat16)
+    backward("flash_attention", label, kfa.flash_attention,
+             kfa.flash_attention_plain, "qkv", q, *kv)
     return errs
 
 
@@ -5029,9 +5347,14 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     ``ep_local`` (8 of 16 experts a rank), every expert's gradient against
     single-device ``grouped``; Llama-3.2-1B at full width and
     ``MESH_LM_LAYERS`` layers at 2×1 and at 1×2 (tensor-parallel), 2
-    steps, against one process; ``compressed_psum`` over the ranks; the
+    steps, against one process; RecurrentGemma-9B at full width and
+    ``TP_RG_LAYERS`` layers at 1×2 (its RG-LRU mixers split, never
+    gathered over ``model``), batch 2 x 128, 2 steps, against one process;
+    ``compressed_psum`` over the ranks; the
     launcher's ``--mesh local`` for 3 steps with a checkpoint.  Returns
     what the parent prints."""
+    import time
+
     import torch.distributed as dist
 
     from repro_torch import ops
@@ -5063,28 +5386,75 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     rules12 = ShardingRules.for_mesh(mesh12)
 
     def against_one(label, cfg, params, batches, loss_fn=None,
-                    rules=rules21, forwards=1):
+                    rules=rules21, forwards=1, train=tcfg):
         """``batches`` over ``rules``' mesh against one process on the
         whole batch; over (1, 2) tensor-parallel, its collectives by
-        ``where`` gated (``_tp_train_expect``) and no SIMT launch."""
+        ``where`` gated (``_tp_train_expect``) and no SIMT launch.  Each
+        rank first takes its blocks of ``params``; the one-process steps
+        then run on rank 0 alone (two of RecurrentGemma-9B's do not fit
+        the card side by side) while rank 1 waits, and rank 0 sends its
+        losses and grad norms, and later its verdict on the updated
+        parameters, which the ranks' bit-equal re-gathered parameters
+        make rank 1's too.  Returns the mesh step's layout."""
+        t0 = time.perf_counter()
         mesh = rules.mesh
         shape = "x".join(map(str, mesh.shape))
-        single = make_train_step(cfg, tcfg, loss_fn=loss_fn)
-        meshed = make_train_step(cfg, tcfg, rules=rules, loss_fn=loss_fn)
+        single = make_train_step(cfg, train, loss_fn=loss_fn)
+        meshed = make_train_step(cfg, train, rules=rules, loss_fn=loss_fn)
         lay = meshed.layout
-        opt = adamw_init(params, tcfg.opt)
-        p, o = params, opt
-        pm, om = lay.shard_params(params), lay.shard_opt_state(opt)
-        del opt
+        # this rank's blocks, and the whole shapes for AdamW's state; the
+        # whole weights kept on rank 0 alone (freed on rank 1 where the
+        # caller keeps no other reference)
+        pm = lay.shard_params(params)
+        shapes = {k: v.to("meta") for k, v in params.items()}
+        p = params if rank == 0 else None
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        one = {"metrics": [], "walls": []}
+        if rank == 0:
+            torch.cuda.reset_peak_memory_stats()
+            free = torch.cuda.mem_get_info()[0]
+            held = torch.cuda.memory_allocated()
+            o = adamw_init(p, train.opt)
+            for b in batches:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p, o, m1 = single(p, o, put(b))
+                torch.cuda.synchronize()
+                one["walls"].append((time.perf_counter() - t1) * 1e3)
+                one["metrics"].append({k: float(m1[k])
+                                       for k in ("loss", "grad_norm")})
+            del o
+            print(f"  (b) rank 0 {label}: the one-process steps' peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                  f"{held / 2**30:.2f} of it held before them, beside the "
+                  f"{free / 2**30:.2f} GiB then free", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        box = [one]
+        dist.broadcast_object_list(box, src=0)
+        one = box[0]
+        walls = {"one": one["walls"], "mesh": [],
+                 "call_s": {"one": time.perf_counter() - t0}}
+        # AdamW's zeroed state at this rank's blocks, shaped on meta
+        dev = next(iter(pm.values())).device
+        om = lay.shard_opt_state(adamw_init(shapes, train.opt))
+        om = {"step": torch.zeros_like(om["step"], device=dev), "ema": {
+            k: {n: torch.zeros_like(t, device=dev) for n, t in st.items()}
+            for k, st in om["ema"].items()}}
+        del shapes
         worst = {"loss": 0.0, "grad_norm": 0.0}
         where: dict = {}
         for i, b in enumerate(batches):
-            p, o, m1 = single(p, o, put(b))
+            m1 = one["metrics"][i]
             counted: dict = {}
+            t1 = time.perf_counter()
             pm, om, m2 = _mesh_run(
                 f"(b) rank {rank} {label} step {i} over {shape}",
                 lambda: meshed(pm, om, shard_for(b, rules, "cuda")),
                 counted)
+            walls["mesh"].append((time.perf_counter() - t1) * 1e3)
             for into in (total, tp_total) if mesh is mesh12 else (total,):
                 for n, c in counted.items():
                     into[n] = into.get(n, 0) + c
@@ -5096,16 +5466,11 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
                               f"{shape}", tally=False)
             for k in worst:
                 worst[k] = max(worst[k], _rel(m2[k], m1[k]))
+        walls["call_s"]["mesh"] = time.perf_counter() - t0 \
+            - walls["call_s"]["one"]
         with torch.no_grad():
             whole = {k: spmd.gather_param(v, lay.params[k], mesh)
                      for k, v in pm.items()}
-        # one step of the bf16 tolerance for each step taken
-        steps = len(batches)
-        within = all(bool(((whole[k].float() - p[k].float()).abs()
-                           <= steps * compare.kernel_tolerance(
-                               whole[k], p[k], p[k].dtype)).all())
-                     for k in p)
-        worst_err = max(compare.max_abs_err(whole[k], p[k]) for k in p)
         # the ranks' re-gathered parameters, bit for bit each other's
         same = True
         axis = "data" if mesh is mesh21 else "model"
@@ -5113,13 +5478,31 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
             both = spmd.all_gather(v[None], mesh, axis,
                                    "phase 11 ranks' parameters")
             same &= torch.equal(both[0], both[1])
+        # on rank 0, one step of the bf16 tolerance for each step taken, a
+        # leaf's elements taken 2^24 at a time (RecurrentGemma's 1
+        # G-element embedding widened whole would take GBs a temporary)
+        steps = len(batches)
+        within, worst_err = True, 0.0
+        for k in p or {}:
+            for g, w in zip(whole[k].reshape(-1).split(1 << 24),
+                            p[k].reshape(-1).split(1 << 24)):
+                within &= bool(((g.float() - w.float()).abs()
+                                <= steps * compare.kernel_tolerance(
+                                    g, w, w.dtype)).all())
+                worst_err = max(worst_err, compare.max_abs_err(g, w))
+        box = [(within, worst_err)]
+        dist.broadcast_object_list(box, src=0)
+        within, worst_err = box[0]
+        walls["call_s"]["checks"] = time.perf_counter() - t0 \
+            - walls["call_s"]["one"] - walls["call_s"]["mesh"]
         ok = (worst["loss"] <= compare.TRAIN_LOSS_RTOL
               and worst["grad_norm"] <= compare.TRAIN_LOSS_RTOL
               and within and same)
         res[label] = {"loss_rel": worst["loss"],
                       "grad_norm_rel": worst["grad_norm"],
                       "params_within": within, "max_abs_err": worst_err,
-                      "ranks_equal": same, "mesh": shape, "ok": ok}
+                      "ranks_equal": same, "mesh": shape, "ok": ok,
+                      "walls_ms": walls}
         if mesh is mesh12:
             want = _tp_train_expect(cfg, lay, len(batches) * forwards,
                                     len(batches))
@@ -5129,6 +5512,7 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
                    if where.get(k, 0) != want.get(k, 0)}
             res[label].update(collectives=where, collectives_off=bad,
                               ok=ok and not bad)
+        return lay
 
     # M³ViT at 2×1
     mcfg = replace(MV.CONFIG, policy=_staged(cuda))
@@ -5190,6 +5574,28 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # RecurrentGemma-9B at full width, TP_RG_LAYERS layers, 1×2: its
+    # RG-LRU mixers, MLPs, q heads and vocabulary split, k/v whole (MQA);
+    # AdamW with the reference's large-model state (bf16 momentum, a
+    # factored second moment: the split gates factored per head)
+    gcfg = _rg_config(policy=cuda)
+    gtrain = TrainConfig(opt=OptConfig(**MESH_OPT, momentum_dtype="bfloat16",
+                                       factored=True))
+    gstream = make_stream(DataConfig(batch=2, seq_len=128,
+                                     vocab_size=gcfg.vocab_size, seed=0))
+    label = f"RecurrentGemma-9B {TP_RG_LAYERS} layers TP"
+    lay = against_one(label, gcfg,
+                      LM.init_params(0, gcfg, draw_on_device=True),
+                      [gstream.batch(i) for i in range(2)], rules=rules12,
+                      train=gtrain)
+    mixers = [k for k in lay.params if ".rglru." in k]
+    kept = bool(mixers) and all(lay.keep.get(k) == ("model",)
+                                for k in mixers)
+    res[label].update(rglru_kept=kept, ok=res[label]["ok"] and kept)
+    del lay
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # compressed_psum over the two ranks: each rank knows both payloads
     rows = [randn((2048, 2048), torch.float32, seed=r) for r in range(2)]
     deqs = [C.dequantize_int8(*C.quantize_int8(r), r.shape) for r in rows]
@@ -5222,6 +5628,7 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
 #: ``_tp_train_expect`` in phase 11 (b)
 TP_WHERE = ("attn_out all-reduce", "attn input (backward)",
             "mlp_down all-reduce", "mlp input (backward)",
+            "rglru_down all-reduce", "rglru input (backward)",
             "embed all-reduce", "lm_head input (backward)", "loss max",
             "loss sum-exp", "loss label logit", "logits all-gather",
             "attn kv (backward)")
@@ -5230,9 +5637,10 @@ TP_WHERE = ("attn_out all-reduce", "attn input (backward)",
 def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
     """The collectives over ``model`` a tensor-parallel training run of
     ``forwards`` forwards and backwards (``steps`` steps) makes, by
-    ``kind:axis:where``: each split attention layer's ``attn_out`` and
-    each MLP's ``mlp_down`` all-reduce in the forward and their inputs'
-    ``f`` in the backward, and where k/v stay whole beside split q heads
+    ``kind:axis:where``: each split attention layer's ``attn_out``, each
+    MLP's ``mlp_down`` and each split RG-LRU mixer's ``rglru_down``
+    all-reduce in the forward and their inputs' ``f`` in the backward,
+    and where k/v stay whole beside split q heads
     the ``f`` of ``wk`` and ``wv``; the embedding's all-reduce, the head's
     ``f`` and the vocab-parallel loss's three reduces a forward where the
     vocabulary splits; a ``param gather`` over ``model`` a step only for
@@ -5240,6 +5648,7 @@ def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
     none for a split one."""
     from repro_torch.dist import spmd
     from repro_torch.models.layers import attention_layout
+    from repro_torch.models.rglru import split_over
 
     tp = spmd.axis_size(lay.mesh, "model")
     kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
@@ -5247,11 +5656,14 @@ def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
     attn = sum(k.startswith("attn") for k in kinds) if q_split else 0
     mlp = sum(k in ("attn_mlp", "attn_local_mlp", "rglru_mlp")
               for k in kinds)
+    mixers = kinds.count("rglru_mlp") if split_over(cfg, tp) else 0
     out = {}
     for at, n in (("attn_out all-reduce", attn),
                   ("attn input (backward)", attn),
                   ("mlp_down all-reduce", mlp),
-                  ("mlp input (backward)", mlp)):
+                  ("mlp input (backward)", mlp),
+                  ("rglru_down all-reduce", mixers),
+                  ("rglru input (backward)", mixers)):
         if n:
             out[f"all_reduce:model:{at}"] = n * forwards
     if attn and not kv_split:
@@ -5283,7 +5695,7 @@ def mesh_train_two(results) -> dict:
         t = r["train"]
         for label in ("M3ViT", f"Llama-3.2-1B {MESH_LM_LAYERS} layers",
                       "M3ViT TP", f"Llama-3.2-1B {MESH_LM_LAYERS} layers "
-                      f"TP"):
+                      f"TP", f"RecurrentGemma-9B {TP_RG_LAYERS} layers TP"):
             v = t[label]
             how = "fsdp, the batch split in two" if v["mesh"] == "2x1" \
                 else "tensor-parallel, the whole batch on each rank"
@@ -5301,10 +5713,24 @@ def mesh_train_two(results) -> dict:
                       f"from the config (no logits all-gather, no gather "
                       f"over model of a split leaf): "
                       f"{v['collectives_off'] or 'ok'}")
+            call = v["walls_ms"]["call_s"]
+            print(f"  (b) rank {r['rank']} {label}: host walls a step "
+                  f"(synchronized), one process (rank 0 alone) "
+                  f"{', '.join(f'{w:.1f}' for w in v['walls_ms']['one'])} "
+                  f"ms, over the mesh "
+                  f"{', '.join(f'{w:.1f}' for w in v['walls_ms']['mesh'])} "
+                  f"ms; the call {sum(call.values()):.1f} s ("
+                  + ", ".join(f"{k} {w:.1f}" for k, w in call.items())
+                  + " s)")
+            if "rglru_kept" in v:
+                print(f"  (b) rank {r['rank']} {label}: every RG-LRU leaf "
+                      f"kept local over model, never gathered over it: "
+                      f"{v['rglru_kept']}")
         if "tp_kernel_errs" in t:
             print(f"  (b) rank {r['rank']} unified_linear and "
                   f"flash_attention at the tensor-parallel training shapes "
-                  f"(M3ViT's MLP at M={TOKENS}, Llama-3.2-1B at M=512; "
+                  f"(M3ViT's MLP at M={TOKENS}, Llama-3.2-1B at M=512, "
+                  f"RecurrentGemma-9B at M=256; "
                   f"column blocks bit-equal, forward and backward against "
                   f"their plain versions): max abs err "
                   f"{json.dumps(t['tp_kernel_errs'])}")
@@ -5667,6 +6093,34 @@ def examples_path() -> dict:
     return total
 
 
+class PhaseWalls:
+    """Each phase's host wall time, from its header to the next one's."""
+
+    def __init__(self):
+        import time
+
+        self.clock = time.perf_counter
+        self.t0 = self.clock()
+        self.walls: dict = {}
+        self.name, self.since = None, self.t0
+
+    def start(self, title: str, show: bool = True) -> None:
+        """Stop the running phase's clock and start ``title``'s (its name
+        is what precedes the colon), printing it unless ``show`` is
+        false."""
+        now = self.clock()
+        if self.name is not None:
+            self.walls[self.name] = round(now - self.since, 1)
+        self.name, self.since = title.split(":", 1)[0], now
+        if show:
+            print(title)
+
+    def report(self) -> None:
+        self.start("end", show=False)
+        print(f"  phase walls (s): {json.dumps(self.walls)}; the script "
+              f"{self.clock() - self.t0:.1f} s since main started")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script "
@@ -5675,7 +6129,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
 
-    print("phase 1: card, versions, build")
+    walls = PhaseWalls()
+    walls.start("phase 1: card, versions, build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5714,7 +6169,8 @@ def main() -> None:
         print(f"  {kernel}: HGMMA in the SASS of all {n} instances "
               f"({min(found.values())}..{max(found.values())} each)")
 
-    print("phase 2: kernels against their plain versions, made-up inputs")
+    walls.start("phase 2: kernels against their plain versions, made-up "
+                "inputs")
     for run_checks in (check_unified_linear, check_unified_linear_rows,
                        check_flash_attention,
                        check_gelu_lut, check_moe_gemm, check_moe_fused,
@@ -5722,14 +6178,14 @@ def main() -> None:
         run_checks()
 
     units: list[Unit] = []
-    print("phase 3: main path, M3ViT serving")
+    walls.start("phase 3: main path, M3ViT serving")
     counts, ctx = main_path(units)
     fused_counts = fused_path(ctx, units)
     paged_path(ctx)
     vision_counts = scheduler_vision(ctx, units)
     packed_path(ctx)
 
-    print("phase 4: LM path, Llama-3.2-1B serving")
+    walls.start("phase 4: LM path, Llama-3.2-1B serving")
     lm_counts, lm_ctx = lm_path(units)
     sched_counts = scheduler_lm(lm_ctx, units)
     packed_lm(lm_ctx)
@@ -5737,24 +6193,24 @@ def main() -> None:
                + vision_counts.get(n, 0) + sched_counts.get(n, 0)
                for n in counts}
 
-    print("phase 7: the recurrent families, xLSTM-350M and "
-          "RecurrentGemma-9B serving")
+    walls.start("phase 7: the recurrent families, xLSTM-350M and "
+                "RecurrentGemma-9B serving")
     rc_counts, rc_models = recurrent_path(units)
     for n, c in rc_counts.items():
         counted[n] += c
 
-    print("phase 5: the kernels at the main paths' own inputs")
+    walls.start("phase 5: the kernels at the main paths' own inputs")
     records = path_records(units, counted)
     del units, ctx, lm_ctx, rc_models
     gc.collect()                # RecurrentGemma's 19 GB before phase 8
     torch.cuda.empty_cache()
 
-    print("phase 8: the remaining configurations — MusicGen-Large, "
-          "Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, "
-          "Llama-4-Scout, M3ViT-many")
+    walls.start("phase 8: the remaining configurations — MusicGen-Large, "
+                "Phi-4-mini, Qwen1.5-4B, Qwen2-VL-72B, DeepSeek-67B, "
+                "Llama-4-Scout, M3ViT-many")
     add_records(records, frontier_path())
 
-    print("phase 6: training, M3ViT and Llama-3.2-1B")
+    walls.start("phase 6: training, M3ViT and Llama-3.2-1B")
     m3vit_train = train_m3vit()
     torch.cuda.empty_cache()
     lm_train = train_lm()
@@ -5769,12 +6225,13 @@ def main() -> None:
           + json.dumps({r["name"]: r["training_launches"] for r in records}))
 
     torch.cuda.empty_cache()
-    print("phase 9: the roofline of the main paths")
+    walls.start("phase 9: the roofline of the main paths")
     roofline = roofline_path(smi)
     print(f"  roofline per unit: {json.dumps(roofline)}")
 
     gc.collect()
     torch.cuda.empty_cache()
+    walls.start("phases 10-11", show=False)      # mesh_phases prints them
     meshed, trained, tp, tp_train = mesh_phases()
     for rec in records:
         rec["tp_launches"] = tp.get(rec["name"], 0)
@@ -5785,12 +6242,13 @@ def main() -> None:
 
     gc.collect()
     torch.cuda.empty_cache()
-    print("phase 12: the examples — quickstart, multitask_vit, serve_lm, "
-          "train_lm")
+    walls.start("phase 12: the examples — quickstart, multitask_vit, "
+                "serve_lm, train_lm")
     examples = examples_path()
     for rec in records:
         rec["example_launches"] = examples.get(rec["name"], 0)
 
+    walls.report()
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

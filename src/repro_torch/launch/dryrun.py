@@ -67,7 +67,6 @@ from repro_torch.dist.sharding import ShardingRules, use_rules
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.models import model as M
-from repro_torch.models.transformer import cache_kv_heads
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.quant import tree_bytes
 from repro_torch.roofline.analysis import analyze_step, kernel_adjusted_terms
@@ -83,10 +82,13 @@ TRAIN_ACCUM = 8
 POLICY = "cuda"     # the impls the card runs
 
 MESHES = ("1", "16x16", "2x16x16")
-MESH_NOTE = ("rank 0's share on a device-free mesh: the dense blocks are "
+MESH_NOTE = ("rank 0's share on a device-free mesh: the dense blocks and "
+             "the RG-LRU mixers are "
              "tensor-parallel over model in training and in serving (a "
-             "rank's heads, hidden columns and vocabulary block, k/v whole "
-             "where the KV heads do not divide the axis), so a cell's dense "
+             "rank's heads, hidden columns and vocabulary block, its block "
+             "of an RG-LRU mixer's width and its state's, k/v whole "
+             "where the KV heads do not divide the axis, the xLSTM mixers "
+             "whole), so a cell's dense "
              "FLOPs and the weights it computes with drop by the model "
              "axis too and its model all-reduces are counted (each block's "
              "in the forward, a train cell's backward all-reduces of the "
@@ -167,12 +169,11 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
             opt_state = step.layout.shard_opt_state(opt_state)
         return step, (params, opt_state, specs), cfg, shape
     prefill, decode = make_serve_step(cfg)
-    # a serving rank's blocks over model and its KV heads (whole without
-    # a mesh)
+    # a serving rank's blocks over model, its KV heads and its RG-LRU
+    # channels (whole without a mesh)
     params = local_params(params, cfg, rules)
-    kv_heads = cache_kv_heads(params, cfg)
     state = M.init_state(cfg, b, shape.seq_len, device=device,
-                         kv_heads=kv_heads)
+                         params=params)
     if shape.kind == "prefill":
         fn, args = prefill, (params, specs["inputs"], state)
     else:

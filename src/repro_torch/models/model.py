@@ -39,7 +39,8 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
     drawn, a layer at a time, and the rest freed: the whole model never
     exists (DeepSeek-67B over four cards).  Every value is drawn in the
     one-device order, so a rank's block equals the same block of the
-    one-device draw from ``seed``, bit for bit."""
+    one-device draw from ``seed``, bit for bit (an RG-LRU layer's
+    ``lam`` too: its whole width's uniform draw, then the block)."""
     dev = resolve_device(device)
     if draw_on_device:
         rng = torch.Generator(device=dev)
@@ -65,13 +66,14 @@ def forward(params, inputs, cfg: ArchConfig, **kw):
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device="cuda", kv_heads=None):
+               device="cuda", params=None):
     """Zeroed KV caches and initial recurrent states (the reference's
     −1e30 stabilizers) for ``batch`` sequences of up to ``max_len`` tokens
-    on ``device``; ``kv_heads``: a rank's KV heads under tensor-parallel
-    serving (``transformer.cache_kv_heads``; default all)."""
+    on ``device``; ``params``: the flat leaves a rank computes with under
+    tensor parallelism, whose KV heads and RG-LRU channels the state
+    holds (``transformer.state_blocks``; default all)."""
     return T.init_state(cfg, batch, max_len, dtype,
-                        device=resolve_device(device), kv_heads=kv_heads)
+                        device=resolve_device(device), params=params)
 
 
 def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,

@@ -18,6 +18,18 @@ block's one float32 product and run through ``xlstm.seq_groups``.
 Block structure (the Griffin "recurrent block"):
     x -> W_x -> causal conv1d(4) -> RG-LRU ┐
     x -> W_y -> GeLU ──────────────────────┴─ elementwise * -> W_down
+
+Tensor parallelism (a ``model`` axis larger than one, :func:`split_over`):
+past its projections the block works per channel (the depthwise conv,
+``lam``, the scan and the decode step) or per head block (the gates), so
+a rank holding a block of the width ``W`` — its columns of ``w_up``,
+``w_up2``, ``conv`` and ``lam``, its heads of ``gates``, its rows of
+``w_down`` — runs the whole recurrence on its own channels, with a
+recurrent state of its own width.  As the split MLP in
+``models/layers.py``: the input through the Megatron ``f``
+(``spmd.model_input``), the column blocks summed in the whole weight's
+order (``order_n``), the row block's float32 partials added over
+``model`` (``spmd.model_sum``) before the one rounding.
 """
 
 from __future__ import annotations
@@ -31,12 +43,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import constrain
 from repro_torch.models.xlstm import _write, causal_conv1d, seq_groups
 from repro_torch.roofline.scope import scope
 
 __all__ = ["init_rglru", "apply_rglru", "init_rglru_state", "rglru_step",
-           "C_SCALE"]
+           "split_over", "C_SCALE"]
 
 C_SCALE = 8.0
 
@@ -112,12 +125,29 @@ def _gates(xc32, gates):
     return r.reshape(b, s, w), i.reshape(b, s, w)
 
 
+def split_over(cfg: ArchConfig, tp: int) -> bool:
+    """Whether the block splits its width over a ``model`` axis of
+    ``tp``: where ``tp`` divides both the width and the gates' head count
+    (the reference's table splits both; a split width beside whole gates
+    has no consistent block).  Otherwise every leaf stays whole."""
+    w = cfg.lru_width or cfg.d_model
+    return tp > 1 and w % tp == 0 and cfg.num_heads % tp == 0
+
+
 @scope("rglru")
 def apply_rglru(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d) -> (y, state).  state: {"h": (B, W), "conv": (B,
-    cw-1, W)} or None, updated in place."""
-    xb = constrain(unified_linear(x, params["w_up"]), "btw")
-    yb = unified_linear(x, params["w_up2"], activation="gelu")
+    cw-1, W)} or None, updated in place; a rank's block of the width
+    where ``params`` hold a block of it (``W / tp``: see the module's
+    docstring)."""
+    w = cfg.lru_width or cfg.d_model
+    split = params["w_up"].shape[-1] != w
+    order = w if split else None
+    xin = spmd.model_input(x, "rglru input") if split else x
+    xb = constrain(unified_linear(xin, params["w_up"], order_n=order),
+                   "btw")
+    yb = unified_linear(xin, params["w_up2"], activation="gelu",
+                        order_n=order)
     conv_state = state["conv"] if state is not None else None
     xc, conv_state = causal_conv1d(xb, params["conv"], conv_state)
     xc32 = xc.float()
@@ -130,13 +160,23 @@ def apply_rglru(params, x, cfg: ArchConfig, state=None, decode=False):
                           h_prev)[:, None]
     else:
         hseq = _rglru_scan(xc32, r, i, params["lam"], h_prev)
-    y = unified_linear(hseq.to(x.dtype) * yb, params["w_down"])
+    out = hseq.to(x.dtype) * yb
+    if split:
+        # a row block of w_down: float32 partials, added over the ranks,
+        # then the one rounding
+        y = unified_linear(out, params["w_down"], out_dtype=torch.float32)
+        y = spmd.model_sum(y, "rglru_down all-reduce").to(x.dtype)
+    else:
+        y = unified_linear(out, params["w_down"])
     return constrain(y, "btd"), _write(state, {"h": hseq[:, -1],
                                                "conv": conv_state})
 
 
-def init_rglru_state(cfg: ArchConfig, batch: int, device=None):
-    w = cfg.lru_width or cfg.d_model
+def init_rglru_state(cfg: ArchConfig, batch: int, device=None,
+                     width: int | None = None):
+    """A zeroed state of ``width`` channels (default: the whole width; a
+    rank's block under tensor parallelism)."""
+    w = width or cfg.lru_width or cfg.d_model
     return {
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.conv_width - 1, w),

@@ -31,7 +31,7 @@ from repro_torch.tree import flatten, index
 
 __all__ = ["init_params", "forward", "init_state", "moe_config",
            "model_blocks", "leaf_block",
-           "cache_kv_heads"]
+           "cache_kv_heads", "state_blocks"]
 
 _ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_local_mlp")
 
@@ -76,13 +76,13 @@ def _init_block(rng, kind: str, cfg: ArchConfig, dtype):
 
 
 def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
-                      dtype, device, kv_heads=None):
+                      dtype, device, kv_heads=None, lru_width=None):
     if kind == "mlstm":
         return XL.init_mlstm_state(cfg, batch, device)
     if kind == "slstm":
         return XL.init_slstm_state(cfg, batch, device)
     if kind == "rglru_mlp":
-        return RG.init_rglru_state(cfg, batch, device)
+        return RG.init_rglru_state(cfg, batch, device, lru_width)
     if kind not in _ATTN_KINDS:
         raise ValueError(kind)
     if kind == "attn_local_mlp":
@@ -133,24 +133,25 @@ def init_params(rng, cfg: ArchConfig, dtype=None, keep=None):
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device=None, kv_heads=None):
+               device=None, params=None):
     """Decode/prefill state: KV caches and recurrent states stacked over
-    the periods under ``layers``, per layer under ``rest``.  ``kv_heads``:
-    the KV heads a cache holds (default: all; a rank's block under
-    tensor-parallel serving, :func:`cache_kv_heads`)."""
+    the periods under ``layers``, per layer under ``rest``.  ``params``:
+    the flat leaves a rank computes with, whose blocks the state follows
+    (:func:`state_blocks`; default: the whole model's)."""
     dtype = dtype or cfg.activation_dtype
+    blocks = state_blocks(params, cfg) if params is not None else {}
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
     state = {}
     if n_scan:
         state["layers"] = _stack([
             {f"b{i}": _init_block_state(cfg.block_pattern[i], cfg, batch,
-                                        max_len, dtype, device, kv_heads)
+                                        max_len, dtype, device, **blocks)
              for i in range(cfg.period)} for _ in range(n_scan)])
     if n_rest:
         state["rest"] = {str(i): _init_block_state(
             cfg.block_pattern[i % cfg.period], cfg, batch, max_len, dtype,
-            device, kv_heads) for i in range(n_rest)}
+            device, **blocks) for i in range(n_rest)}
     return state
 
 
@@ -177,7 +178,8 @@ def _put(stacked, tree, p: int) -> None:
     stacked[p].copy_(tree)
 
 
-_MIXERS = re.compile(r"(rglru|mlstm|slstm)/")
+_MIXERS = re.compile(r"(mlstm|slstm)/")
+_RGLRU = re.compile(r"rglru/")
 _ATTN_Q = re.compile(r"attn/(wq|bq|wo)$")
 _ATTN_KV = re.compile(r"attn/(wk|wv|bk|bv)$")
 _EXPERTS = re.compile(r"moe/(wg|wu|wd|w1|w2|b1|b2)$")
@@ -192,18 +194,21 @@ def model_blocks(cfg: ArchConfig, rules) -> dict:
     ``model`` and gathers them over the batch axes alone).  These are the
     leaves the reference's table splits over ``model``: attention (per
     :func:`layers.attention_layout`), the dense MLP, the shared experts,
-    ``embed/tokens`` and ``head/w``, and the expert stacks of an
-    ``ep_local`` MoE (this rank's experts).  Left whole on every rank: the
-    recurrent mixers' leaves (``rglru``, ``mlstm``, ``slstm``), an
-    attention layer whose heads do not divide the axis, k/v where the KV
-    heads do not (``layers.apply_attention`` sums their gradient over
-    ``model``), and the expert stacks of the
-    other MoE impls (every rank routes to every expert).  Empty without
-    rules or where ``model`` has one rank."""
+    ``embed/tokens`` and ``head/w``, the RG-LRU mixers' leaves (per
+    :func:`rglru.split_over`: ``w_up``/``w_up2``/``conv`` by columns,
+    ``gates`` by heads, ``lam`` by channels, ``w_down`` by rows) and the
+    expert stacks of an ``ep_local`` MoE (this rank's experts).  Left
+    whole on every rank: the xLSTM mixers' leaves (``mlstm``, ``slstm``),
+    an RG-LRU mixer whose width or gate heads do not divide the axis, an
+    attention layer whose heads do not, k/v where the KV heads do not
+    (``layers.apply_attention`` sums their gradient over ``model``), and
+    the expert stacks of the other MoE impls (every rank routes to every
+    expert).  Empty without rules or where ``model`` has one rank."""
     tp = _model_size(rules)
     if tp == 1:
         return {}
     q_split, kv_split = L.attention_layout(cfg, tp)
+    lru_split = RG.split_over(cfg, tp)
     ep_local = cfg.moe is not None and cfg.moe.impl == "ep_local"
     shapes = flatten(init_params(torch.device("meta"), cfg))
     out = {}
@@ -211,6 +216,8 @@ def model_blocks(cfg: ArchConfig, rules) -> dict:
         spec = model_spec(sh.spec)
         path = name.replace(".", "/")
         if "model" not in spec or _MIXERS.search(path):
+            continue
+        if _RGLRU.search(path) and not lru_split:
             continue
         if _ATTN_Q.search(path) and not q_split:
             continue
@@ -246,6 +253,21 @@ def cache_kv_heads(params: dict, cfg: ArchConfig):
             heads = w.shape[-1] // cfg.hd
             return heads if heads != cfg.num_kv_heads else None
     return None
+
+
+def state_blocks(params: dict, cfg: ArchConfig) -> dict:
+    """The blocks of a decode state for the flat ``params`` a rank
+    computes with: ``kv_heads``, its KV heads (:func:`cache_kv_heads`),
+    and ``lru_width``, its RG-LRU channels where its mixers hold a block
+    of ``rglru.w_up``'s columns (tensor parallelism); each None where the
+    rank holds them all."""
+    width = None
+    for name, w in params.items():
+        if name.endswith("rglru.w_up"):
+            if w.shape[-1] != (cfg.lru_width or cfg.d_model):
+                width = w.shape[-1]
+            break
+    return {"kv_heads": cache_kv_heads(params, cfg), "lru_width": width}
 
 
 def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,

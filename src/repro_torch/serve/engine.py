@@ -22,16 +22,18 @@ the same prompts): each rank holds the weights its kernels compute with
 (:func:`local_params`): its block over ``model`` of every leaf the
 reference's table splits there — attention's heads, the MLP's and the
 shared experts' hidden columns, its block of the vocabulary in
-``embed/tokens`` and ``head/w``, an ``ep_local`` MoE layer's experts —
-so the dense blocks run tensor-parallel (``models/layers.py``).  Whole on
-every rank: the recurrent mixers' leaves, attention whose heads do not
-divide the axis, the expert stacks of the other MoE impls, and every
+``embed/tokens`` and ``head/w``, an RG-LRU mixer's block of its width,
+an ``ep_local`` MoE layer's experts — so the dense blocks and the RG-LRU
+mixers run tensor-parallel (``models/layers.py``, ``models/rglru.py``).
+Whole on every rank: the xLSTM mixers' leaves, attention whose heads do
+not divide the axis, the expert stacks of the other MoE impls, and every
 leaf over the data axes (the reference applies FSDP there; ``ROADMAP.md``
 queue 3).  ``models.model.init_params(rules=)`` draws a rank's blocks
 without ever holding the whole model.
 The decode state and the prompts are batch-sharded over the data axes,
-and a KV cache holds this rank's KV heads where the ``"cache"`` rule
-splits them (:func:`shard_state`, :func:`shard_batch`): each rank
+a KV cache holds this rank's KV heads where the ``"cache"`` rule splits
+them, and an RG-LRU state this rank's channels where its mixers split
+(:func:`shard_state`, :func:`shard_batch`): each rank
 prefills and decodes its own rows, and one all-gather a step brings
 every row's token back, so the host loop (EOS, the output) sees the whole
 batch.  The head's logits are gathered whole over ``model`` before
@@ -81,6 +83,7 @@ __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 _CACHE_LEAVES = ("k", "v", "k_scale", "v_scale")   # a KV cache's leaves
+_LRU_LEAVES = ("h", "conv")                          # an RG-LRU state's
 _STUB_SEED = 0xE0BED
 _STUB_ROWS = 8192      # table rows a generator draws (float32), then cast
 
@@ -188,27 +191,34 @@ def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
     return out
 
 
-def shard_state(state, rules, axes: list[int], kv_heads=None):
+def shard_state(state, rules, axes: list[int], blocks=None):
     """This rank's part of a whole decode state (KV caches, recurrent
     cells): each leaf's batch axis (``axes``, from
     :func:`state_batch_axes`) cut over the mesh's batch axes, as the
     trimmed spec cuts it (a batch the axes do not divide stays whole), and
-    a KV cache's heads (the axis after the batch axis) cut to this rank's
-    ``kv_heads`` over ``model`` where its attention holds a block of them
-    (``transformer.cache_kv_heads``).  No-op without rules."""
+    over ``model`` to the blocks of ``blocks``
+    (``transformer.state_blocks`` of this rank's parameters): a KV
+    cache's heads (the axis after the batch axis) to its ``kv_heads``, an
+    RG-LRU state's channels (its last axis) to its ``lru_width`` (the
+    RG-LRU's are then the only ``h``/``conv`` leaves: the xLSTM mixers
+    never split).  No-op without rules."""
     if rules is None or rules.mesh is None:
         return state
     from repro_torch.tree import flatten, unflatten
 
+    kv_heads, width = (blocks or {}).get("kv_heads"), \
+        (blocks or {}).get("lru_width")
+    rank = spmd.axis_index(rules.mesh, "model")
     flat = flatten(state)
     out = {}
     for (name, leaf), ax in zip(flat.items(), axes):
         rows = spmd.batch_rows(leaf.shape[ax], rules)
         part = leaf.narrow(ax, rows.start, rows.stop - rows.start)
-        if kv_heads is not None \
-                and name.rsplit(".", 1)[-1] in _CACHE_LEAVES:
-            part = part.narrow(ax + 1, spmd.axis_index(rules.mesh, "model")
-                               * kv_heads, kv_heads)
+        leaf_name = name.rsplit(".", 1)[-1]
+        if kv_heads is not None and leaf_name in _CACHE_LEAVES:
+            part = part.narrow(ax + 1, rank * kv_heads, kv_heads)
+        if width is not None and leaf_name in _LRU_LEAVES:
+            part = part.narrow(-1, rank * width, width)
         out[name] = part.clone()
     return unflatten(out)
 
@@ -267,7 +277,6 @@ class ServingEngine:
         self.params = local_params(
             {k: v.to(self.device) for k, v in params.items()}, self.cfg,
             rules)
-        self.kv_heads = T.cache_kv_heads(self.params, self.cfg)
         self._steps: dict[int, tuple] = {}
         # a stub frontend's feedback table, on the device once
         self.fb_table = stub_feedback_table(self.cfg, self.device,
@@ -276,6 +285,12 @@ class ServingEngine:
     def feedback(self, tok):
         """``feedback_inputs`` over the engine's device table."""
         return feedback_inputs(self.cfg, tok, table=self.fb_table)
+
+    def new_state(self, batch: int):
+        """A zeroed decode state of ``batch`` rows at ``max_len``: this
+        rank's KV heads and RG-LRU channels under tensor parallelism."""
+        return M.init_state(self.cfg, batch, self.scfg.max_len,
+                            device=self.device, params=self.params)
 
     def steps(self, task_id: int = 0):
         """(prefill, decode) of ``train.step.make_serve_step``, per task."""
@@ -353,8 +368,7 @@ class ServingEngine:
             else slice(0, b)
         with torch.inference_mode(), use_rules(self.rules), \
                 spmd.batch_split(self.rules, b):
-            state = M.init_state(cfg, rows.stop - rows.start, scfg.max_len,
-                                 device=self.device, kv_heads=self.kv_heads)
+            state = self.new_state(rows.stop - rows.start)
             logits, state = self._prefill(shard_batch(prompts, self.rules),
                                           state, task_id)
             _, decode = self.steps(task_id)

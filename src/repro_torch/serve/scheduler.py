@@ -71,7 +71,8 @@ holds it (every rank keeps the record's books and the lane's shapes) and
 restores it on the rank of the free lane, the rows moved between ranks
 by one all-gather over the data axes where those differ
 (``LMTaskBucket.restore``).  Under tensor parallelism each rank's lane
-holds its own KV heads, so each parks and restores its own block.
+holds its own KV heads and RG-LRU channels, so each parks and restores
+its own block.
 """
 
 from __future__ import annotations
@@ -89,8 +90,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import spmd
 from repro_torch.dist.sharding import use_rules
 from repro_torch.models import model as M
-from repro_torch.models.transformer import cache_kv_heads
-from repro_torch.serve.engine import (ServeConfig, feedback_inputs,
+from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                      feedback_inputs,
                                       is_recurrent, local_params,
                                       serve_overrides, state_batch_axes,
                                       stub_feedback_table)
@@ -224,7 +225,6 @@ class LMBackend:
         self.device = resolve_device(device)
         self.params = local_params(
             {k: v.to(self.device) for k, v in params.items()}, cfg, rules)
-        self.kv_heads = cache_kv_heads(self.params, cfg)
         self.recurrent = is_recurrent(cfg)
         # padded prefill relies on causal / cache_len masking — attention
         # archs only
@@ -245,9 +245,8 @@ class LMBackend:
         # a stub frontend's feedback table, on the device once
         self.fb_table = stub_feedback_table(cfg, self.device, stub_table)
 
-    def new_state(self, batch: int):
-        return M.init_state(self.cfg, batch, self.scfg.max_len,
-                            device=self.device, kv_heads=self.kv_heads)
+    # the engine's: a zeroed state at this rank's KV heads and channels
+    new_state = ServingEngine.new_state
 
     def lanes(self, slots: int) -> slice:
         """This rank's lanes of a bucket of ``slots`` (all of them without

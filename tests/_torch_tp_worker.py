@@ -24,7 +24,7 @@ from repro_torch.tree import flatten
 
 #: the LM families the forward check runs: dense with a tied head, a
 #: separate head, an MoE LM with a shared expert (its experts whole), an
-#: MQA hybrid (k/v whole, its RG-LRU mixers whole), embedding inputs
+#: MQA hybrid (k/v whole, its RG-LRU mixers split), embedding inputs
 ARCHS = ("llama3_2_1b", "deepseek_67b", "kimi_k2_1t_a32b",
          "recurrentgemma_9b", "qwen2_vl_72b")
 
@@ -66,11 +66,13 @@ def check_forward(mesh):
     float32 sums in another order: one bf16 ulp), and the model's logits
     at cosine >= ``SERVE_COSINE`` of no mesh (those roundings compound
     over the layers); everything bit for bit where ``model`` has one
-    rank.  The collectives by ``where``: two all-reduces a dense layer,
-    one for the embedding, one gather of the logits.  In float32, the
-    engine's greedy tokens equal no mesh's."""
+    rank.  The collectives by ``where``: two all-reduces a dense layer
+    (and one more for an RG-LRU layer's mixer), one for the embedding,
+    one gather of the logits.  In float32, the engine's greedy tokens
+    equal no mesh's."""
     from repro_torch.kernels.compare import SERVE_COSINE, cosine
     from repro_torch.models import layers as L
+    from repro_torch.models import rglru as RG
 
     rules = ShardingRules.for_mesh(mesh, fsdp=False)
     tp = spmd.axis_size(mesh, "model")
@@ -99,6 +101,10 @@ def check_forward(mesh):
         assert where.get("mlp_down all-reduce", 0) == dense, (arch, where)
         if cfg.moe is not None and cfg.moe.num_shared_experts:
             assert where["moe_shared all-reduce"] == layers, (arch, where)
+        mixers = sum(cfg.block_kind(i) == "rglru_mlp" for i in range(
+            layers)) if RG.split_over(cfg, tp) else 0
+        assert where.get("rglru_down all-reduce", 0) == mixers, \
+            (arch, where)
         h = torch.from_numpy(np.random.default_rng(3).standard_normal(
             (2, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
         pos = torch.arange(8)[None].expand(2, 8)
@@ -148,11 +154,10 @@ def check_blocks(mesh):
     full = M.init_state(cfg, 4, 32, device="cpu")
     for v in flatten(full).values():
         v.copy_(torch.arange(v.numel()).reshape(v.shape))
-    kv_heads = T.cache_kv_heads(mine, cfg)
-    part = flatten(shard_state(full, rules, axes, kv_heads))
+    part = flatten(shard_state(full, rules, axes, T.state_blocks(mine, cfg)))
     rows = spmd.batch_rows(4, rules)
     local = flatten(M.init_state(cfg, rows.stop - rows.start, 32,
-                                 device="cpu", kv_heads=kv_heads))
+                                 device="cpu", params=mine))
     heads = cfg.num_kv_heads // tp if cfg.num_kv_heads % tp == 0 \
         else cfg.num_kv_heads
     r = spmd.axis_index(mesh, "model") if heads < cfg.num_kv_heads else 0
@@ -352,10 +357,103 @@ def check_packed(mesh):
         ServingEngine(cfg, packed, scfg, device="cpu").generate(x, 6))
 
 
+def check_recurrent(mesh):
+    """The smoke RecurrentGemma at float32 (64 channels, 4 gate heads:
+    its RG-LRU mixers split at 2 and 4): a rank holds its block of every
+    ``rglru`` leaf and its state ``W / tp`` channels (the engine's own, and
+    ``shard_state`` of a whole state); the forward within the float32
+    tolerance of no mesh, and the prefill's state the narrowed whole
+    state's; the engine's greedy tokens equal; the per-rank draw bit for
+    bit the narrowed whole draw; tiered preemption parking recurrent
+    lanes bit for bit with the unmeshed scheduler where ``model`` has one
+    rank, and under tensor parallelism the same mesh's tokens without
+    preemption."""
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    tp = spmd.axis_size(mesh, "model")
+    cfg, params = _model("recurrentgemma_9b", "float32")
+    w = cfg.lru_width
+    mine = local_params(params, cfg, rules)
+    for name, v in params.items():
+        if ".rglru." not in name:
+            continue
+        if tp == 1:
+            assert mine[name] is v, name
+            continue
+        leaf = name.rsplit(".", 1)[-1]
+        dim = {"w_down": -2, "gates": -3}.get(leaf, -1)
+        want = list(v.shape)
+        want[dim] //= tp
+        assert list(mine[name].shape) == want, (name, mine[name].shape)
+    blocks = T.state_blocks(mine, cfg)
+    width = blocks["lru_width"]
+    assert width == (w // tp if tp > 1 else None), width
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=32),
+                           rules=rules, device="cpu")
+    for name, v in flatten(engine.new_state(2)).items():
+        if name.endswith((".h", ".conv")):
+            assert v.shape[-1] == w // tp, (name, v.shape)
+    # shard_state of a whole state, against the rank's own
+    axes = state_batch_axes(cfg, 32)
+    full = M.init_state(cfg, 4, 32, device="cpu")
+    for v in flatten(full).values():
+        v.copy_(torch.arange(v.numel()).reshape(v.shape))
+    part = flatten(shard_state(full, rules, axes, blocks))
+    rows = spmd.batch_rows(4, rules)
+    local = flatten(engine.new_state(rows.stop - rows.start))
+    r = spmd.axis_index(mesh, "model")
+    for (name, v), ax in zip(flatten(full).items(), axes):
+        want = v.narrow(ax, rows.start, rows.stop - rows.start)
+        if width is not None and name.endswith((".h", ".conv")):
+            want = want.narrow(-1, r * width, width)
+        assert torch.equal(part[name], want), name
+        assert part[name].shape == local[name].shape, name
+    # the forward and the prefill's state against no mesh, under exact
+    # activations: the float32 noise of the split's sums (1e-6) can move
+    # a LUT activation a table step
+    x = _inputs(cfg)
+    exact = replace(cfg, policy=ops.policy_named("eager"))
+    whole_state = M.init_state(cfg, 4, 32, device="cpu")
+    want, _, _ = M.forward(params, x, exact, state=whole_state,
+                           cache_index=0)
+    state = M.init_state(cfg, 4, 32, device="cpu", params=mine)
+    with torch.inference_mode(), use_rules(rules):
+        got, _, _ = M.forward(mine, x, exact, state=state, cache_index=0)
+    assert within_tolerance(got, want, torch.float32), max_abs_err(got, want)
+    ours = flatten(state)
+    for name, v in flatten(whole_state).items():
+        if width is not None and name.endswith((".h", ".conv")):
+            v = v.narrow(-1, r * width, width)
+        assert within_tolerance(ours[name], v, torch.float32), \
+            (name, max_abs_err(ours[name], v))
+    scfg = ServeConfig(max_len=32)
+    np.testing.assert_array_equal(
+        engine.generate(x, 6),
+        ServingEngine(cfg, params, scfg, device="cpu").generate(x, 6))
+    # the per-rank draw
+    got = M.init_params(5, cfg, device="cpu", rules=rules)
+    want = local_params(M.init_params(5, cfg, device="cpu"), cfg, rules)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    # parking recurrent lanes
+    ops.reset_dispatch_report()
+    got, sched = _preempting(cfg, params, rules, True)
+    assert sched.preemptions >= 1 and sched.metrics()["restores"] >= 1
+    if tp == 1:
+        want, plain = _preempting(cfg, params, None, True)
+        assert got == want
+        assert sched.metrics()["parked_bytes_peak"] == \
+            plain.metrics()["parked_bytes_peak"]
+        if spmd.axis_size(mesh, "data") > 1:
+            assert _where_counts().get("parked lane move", 0) >= 1
+    else:
+        want, _ = _preempting(cfg, params, rules, False)
+        assert got == want
+
+
 CHECKS = {"forward": check_forward, "blocks": check_blocks,
           "draw": check_draw, "embed": check_embed,
           "layouts": check_layouts, "park": check_park,
-          "packed": check_packed}
+          "packed": check_packed, "recurrent": check_recurrent}
 
 
 def run(rank, world, shape, store, checks):

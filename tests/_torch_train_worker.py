@@ -244,15 +244,37 @@ def check_mqa(mesh):
 
 
 def check_recurrent(mesh):
-    """The smoke RecurrentGemma (untied head, MQA local attention): its
-    MLPs and head split over ``model``, its RG-LRU mixers whole (exact
-    activations, :func:`_exact`)."""
+    """The smoke RecurrentGemma (untied head, MQA local attention, 64
+    RG-LRU channels over 4 gate heads): its MLPs, head and RG-LRU mixers
+    split over ``model`` — every ``rglru`` leaf kept local, never gathered
+    over ``model`` (:func:`check_grads`), its gradients against one
+    process, each mixer's ``rglru_down`` all-reduce in the forward and its
+    input's ``f`` in the backward — then a whole step with the factored
+    second moment (the 3-D ``gates`` factored per head) and the sharded
+    global norm against one process (exact activations, :func:`_exact`).
+    In a world of four also over (1, 4)."""
     cfg = _exact(_f32("recurrentgemma_9b"))
-    lay, record, *_ = check_grads(mesh, "recurrent", cfg, _lm_batch(cfg))
-    if spmd.axis_size(mesh, "model") > 1:
-        assert any(".mlp." in k for k in lay.keep) and "head.w" in lay.keep
-        assert not any(".rglru." in k for k in lay.keep)
-        assert not any(w == "logits all-gather" for _, _, w in record)
+    meshes = [mesh]
+    if dist.get_world_size() == 4:
+        meshes.append(spmd.init_mesh((1, 4), device_type="cpu"))
+    for m in meshes:
+        label = f"recurrent over {tuple(m.shape)}"
+        lay, record, got, want = check_grads(m, label, cfg, _lm_batch(cfg))
+        if spmd.axis_size(m, "model") > 1:
+            assert any(".mlp." in k for k in lay.keep) \
+                and "head.w" in lay.keep
+            mixers = [k for k in lay.params if ".rglru." in k]
+            assert mixers and all(lay.keep.get(k) == ("model",)
+                                  for k in mixers), (label, lay.keep)
+            assert not any(w == "logits all-gather" for _, _, w in record)
+            n = sum(cfg.block_kind(i) == "rglru_mlp"
+                    for i in range(cfg.num_layers))
+            for at in ("rglru_down all-reduce", "rglru input (backward)"):
+                assert record.get(("all_reduce", "model", at)) == n, \
+                    (label, at, record)
+            _close(f"{label} global norm",
+                   global_norm(got, lay.params, m), global_norm(want))
+        _factored_step(m, f" {label}", cfg, GRAD_RTOL)
 
 
 def check_vocab_loss(mesh):
@@ -319,6 +341,8 @@ def _factored_step(mesh, how, cfg, rtol):
     params = _params(cfg)
     opt = adamw_init(params, ocfg)
     assert any("vr" in s for s in opt["ema"].values())
+    if cfg.lru_width:
+        assert "vr" in opt["ema"]["layers.b0.rglru.gates"]
     batch = _lm_batch(cfg)
     want_p, want_o, want_m = make_train_step(cfg, tcfg)(
         params, opt, device_transform("cpu")(batch))

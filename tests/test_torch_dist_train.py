@@ -21,8 +21,10 @@ tensor-parallel step, which never gathers a split leaf over ``model``
 as counted, the stored blocks against serving's ``local_params`` and the
 global norm, and at 2×2 a (1, 4) mesh whose KV heads do not divide the
 axis; ``mqa`` one KV head whose whole ``wk``/``wv`` gradients the model
-ranks sum; ``recurrent`` the smoke RecurrentGemma (MLPs and head split,
-mixers whole); ``vocab_loss`` the vocab-parallel loss against the
+ranks sum; ``recurrent`` the smoke RecurrentGemma (MLPs, head and RG-LRU
+mixers split, each mixer's leaves kept local over ``model`` and its
+collectives counted; a factored step with its 3-D gates and the sharded
+global norm); ``vocab_loss`` the vocab-parallel loss against the
 gathered logits within 1e-6; at 1×2 ``jax`` the gradients against the
 reference's ``jax.value_and_grad`` of its ``lm_loss``.
 

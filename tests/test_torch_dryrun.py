@@ -29,7 +29,12 @@
   at 16×16 count the one-card FLOPs over the batch shards and the model
   axis (within the k/v projections every rank repeats where the KV heads
   do not divide it), hold a rank's blocks of the weights, and record the
-  model axis's all-reduces and the logits' all-gather.
+  model axis's all-reduces and the logits' all-gather; RecurrentGemma-9B's
+  split its RG-LRU mixers too (the ``rglru`` scope's FLOPs over the model
+  axis, one float32 all-reduce of a rank's rows a mixer, the argument
+  bytes of its blocks and of its state's channels exactly), and so does
+  its ``train_4k`` cell (the backward's ``f`` on each mixer's input
+  counted besides).
 """
 
 import functools
@@ -380,3 +385,72 @@ def test_mesh_serving_cells_split_the_dense_blocks(arch, shape):
              if k.endswith(("attn.wk", "attn.wv")))
     state = one["argument_bytes"] - whole
     assert rec["argument_bytes"] < (whole - kv) / tp + kv + state
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_mesh_serving_cells_split_the_rglru_mixers(shape):
+    """RecurrentGemma-9B's serving cells at 16×16 (4096 channels over 16
+    gate heads split 16 ways): the ``rglru`` scope's FLOPs are the
+    one-card count over the batch shards and the model axis, its one
+    ``rglru_down`` all-reduce a mixer moves the rank's (B, S, d) float32
+    rows, and the rank's argument bytes are its blocks of the weights, its
+    state at 256 channels a mixer and its inputs, exactly."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.serve.engine import local_params
+    from repro_torch.tree import flatten
+
+    rec = _serve_cell("recurrentgemma_9b", shape, "16x16")
+    one = _serve_cell("recurrentgemma_9b", shape, "1")
+    cfg = tconfigs.get("recurrentgemma_9b")
+    tp, shards = 16, rec["batch_shards"]
+    scope = rec["by_scope"]["rglru"]
+    # within the work on ``lam`` alone (per channel, not per row), which
+    # every batch shard repeats
+    assert scope["flops"] * shards / one["by_scope"]["rglru"]["flops"] \
+        == pytest.approx(1 / tp, rel=1e-4)
+    s = SHAPES[shape]
+    b = s.global_batch // shards
+    rows = b * (s.seq_len if s.kind == "prefill" else 1)
+    mixers = sum(cfg.block_kind(i) == "rglru_mlp"
+                 for i in range(cfg.num_layers))
+    assert mixers == 26
+    assert scope["collective_bytes"] == mixers * rows * cfg.d_model * 4
+    rules = ShardingRules.for_mesh(dryrun.mesh_named("16x16"))
+    held = local_params(TM.param_specs(cfg), cfg, rules)
+    state = flatten(TM.init_state(cfg, b, s.seq_len, device="meta",
+                                  params=held))
+    inputs = rows * 4 + (b * 4 if s.kind == "decode" else 0)
+    assert rec["argument_bytes"] == sum(
+        t.numel() * t.element_size()
+        for t in list(held.values()) + list(state.values())) + inputs
+
+
+def test_mesh_train_cell_splits_the_rglru_mixers():
+    """RecurrentGemma-9B's ``train_4k`` cell at 16×16: the ``rglru``
+    scope's FLOPs (forward and backward) are the one-card count over the
+    batch shards and the model axis; each microbatch records a mixer's
+    ``rglru_down`` all-reduce of the rank's float32 rows in the forward
+    and its input's bf16 gradient all-reduce (the ``f``) in the backward,
+    and the scope's collective bytes are the forward's over the
+    ``accum`` microbatches."""
+    cfg = tconfigs.get("recurrentgemma_9b")
+    ops.reset_dispatch_report()
+    rec = dryrun.run_cell("recurrentgemma_9b", "train_4k", verbose=False,
+                          mesh="16x16")
+    where = {c["where"]: (c["count"], c["bytes"])
+             for c in ops.collective_report()}
+    one = _mesh_cell("recurrentgemma_9b", "1")
+    tp, shards = 16, rec["batch_shards"]
+    assert rec["by_scope"]["rglru"]["flops"] * shards \
+        / one["by_scope"]["rglru"]["flops"] == pytest.approx(1 / tp,
+                                                             rel=1e-6)
+    s = SHAPES["train_4k"]
+    rows = s.global_batch // shards // dryrun.TRAIN_ACCUM * s.seq_len
+    mixers = sum(cfg.block_kind(i) == "rglru_mlp"
+                 for i in range(cfg.num_layers))
+    assert where["rglru_down all-reduce"] == (
+        mixers, mixers * rows * cfg.d_model * 4)
+    assert where["rglru input (backward)"] == (
+        mixers, mixers * rows * cfg.d_model * 2)
+    assert rec["by_scope"]["rglru"]["collective_bytes"] == \
+        dryrun.TRAIN_ACCUM * mixers * rows * cfg.d_model * 4

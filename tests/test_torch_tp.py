@@ -1,19 +1,25 @@
 """Tensor-parallel serving of the port on the CPU (gloo, smoke sizes):
-the dense blocks split over ``model`` as the reference's table lays them
-out (``src/repro/dist/sharding.py``), and parking a lane of a bucket split
-over the data axes.
+the dense blocks and the RG-LRU mixers split over ``model`` as the
+reference's table lays them out (``src/repro/dist/sharding.py``), and
+parking a lane of a bucket split over the data axes.
 
 In process, on a device-free mesh and ``meta`` tensors at full size: a
-serving rank's block of every leaf of Llama-3.2-1B, DeepSeek-67B, M³ViT
-and Llama-4-Scout (grouped and ``ep_local``) equals the block of the
-reference's trimmed spec over ``model`` (the data axes stay whole in
-serving), but for the documented whole leaves: the recurrent mixers, the
-attention of a layer whose heads do not divide the axis (k/v alone where
-only the KV heads do not), and the expert stacks of an impl that routes
-to every expert on every rank.  A column block of ``unified_linear``,
-summed in the whole weight's order (``order_n``), gives the whole
-product's columns bit for bit, and a row block's float32 partials add up
-to the whole product within the float32 tolerance.
+serving rank's block of every leaf of Llama-3.2-1B, DeepSeek-67B, M³ViT,
+RecurrentGemma-9B, xLSTM-350M and Llama-4-Scout (grouped and
+``ep_local``) equals the
+block of the reference's trimmed spec over ``model`` (the data axes stay
+whole in serving), but for the documented whole leaves: the xLSTM mixers
+(``mlstm``, ``slstm``), an RG-LRU mixer whose width or gate heads do not
+divide the axis, the attention of a layer whose heads do not divide the
+axis (k/v alone where only the KV heads do not), and the expert stacks
+of an impl that routes to every expert on every rank.  A column block of
+``unified_linear``, summed in the whole weight's order (``order_n``),
+gives the whole product's columns bit for bit, and a row block's float32
+partials add up to the whole product within the float32 tolerance.  The
+port's RG-LRU block on each rank's block of the reference's parameters
+(its row partials added by hand) against ``repro.models.rglru.
+apply_rglru`` on the whole block, a prefill then three decode steps with
+state, at float32 within ``RGLRU_RTOL`` of each one's magnitude.
 
 Spawned gloo worlds at (1, 2), (1, 4), (2, 2) and (2, 1), one process a
 rank (``tests/_torch_tp_worker.py``): the forward against no mesh (each
@@ -24,7 +30,9 @@ KV heads, the per-rank draw against the narrowed whole draw, the
 vocab-parallel embedding bit for bit, M³ViT's and MQA's layouts, and
 tiered preemption over a split bucket (bit for bit with the unmeshed
 scheduler at (2, 1); under tensor parallelism the same mesh's tokens
-with no preemption)."""
+with no preemption); the smoke RecurrentGemma's ``recurrent`` check: a
+rank's RG-LRU blocks and state channels, its forward and prefill state
+against no mesh, tokens, draw and parked recurrent lanes."""
 
 import functools
 import os
@@ -32,27 +40,42 @@ import re
 from dataclasses import replace
 from types import SimpleNamespace
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
 
 import _torch_tp_worker as W
+from _torch_mesh import rules_of_one
+from repro import configs as jconfigs
 from repro.dist import sharding as JS
+from repro.models import model as jmodel
+from repro.models import rglru as JR
 from repro_torch import configs as tconfigs
 from repro_torch import ops
+from repro_torch.bridge import params_from_jax
 from repro_torch.core.unified_linear import unified_linear
 from repro_torch.dist.sharding import ShardingRules, _path_str
 from repro_torch.dist.spmd import VirtualMesh
 from repro_torch.kernels.compare import within_tolerance
+from repro_torch.dist.sharding import use_rules
 from repro_torch.models import layers as L
 from repro_torch.models import model as TM
+from repro_torch.models import rglru as TR
 from repro_torch.serve.engine import local_params
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {"1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
-ARCHS = ("llama3_2_1b", "deepseek_67b", "m3vit", "llama4_scout_17b_a16e")
-MIXERS = re.compile(r"(rglru|mlstm|slstm)/")
+ARCHS = ("llama3_2_1b", "deepseek_67b", "m3vit", "recurrentgemma_9b",
+         "xlstm_350m", "llama4_scout_17b_a16e")
+MIXERS = re.compile(r"(mlstm|slstm)/")
+#: the port's RG-LRU on rank blocks against the reference's whole block,
+#: float32, of each output's magnitude: w_down's row partials add up in
+#: another order than the whole product's sum (1e-7), which the
+#: recurrence carries into the next steps
+RGLRU_RTOL = 1e-5
 EXPERTS = re.compile(r"moe/(wg|wu|wd|w1|w2|b1|b2)$")
 
 
@@ -79,6 +102,9 @@ def _whole_here(path, cfg, tp) -> bool:
                                 == 0)
     if MIXERS.search(path):
         return True
+    if path.startswith(("layers/", "rest/")) and "/rglru/" in path:
+        w = cfg.lru_width or cfg.d_model
+        return not (w % tp == 0 and cfg.num_heads % tp == 0)
     if re.search(r"attn/(wq|bq|wo)$", path):
         return not q_split
     if re.search(r"attn/(wk|wv|bk|bv)$", path):
@@ -115,6 +141,11 @@ def test_block_shapes_are_the_reference_spec_blocks(arch, ep_local, mesh):
         assert kept == 2 * 4 + 4
     if arch == "deepseek_67b":
         assert kept == 0                     # every dense leaf splits
+    if arch == "recurrentgemma_9b":          # wk, wv beside split q heads
+        assert kept == 2
+    if arch == "xlstm_350m":                 # the mixers' leaves
+        assert kept == sum(bool(MIXERS.search(_path_str(k)))
+                           for k in shapes)
 
 
 def test_attention_layouts_of_the_named_configs():
@@ -164,6 +195,74 @@ def test_column_shards_are_the_whole_products_columns(dtype, policy):
                      for r in range(tp)]
             assert all(p.dtype == torch.float32 for p in parts)
             assert within_tolerance(sum(parts), exact, torch.float32), tp
+
+
+class _RankMesh(VirtualMesh):
+    """A device-free (1, tp) mesh seen from ``model`` rank ``rank``."""
+
+    def __init__(self, tp: int, rank: int):
+        super().__init__((1, tp), ("data", "model"))
+        self.rank = rank
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.rank if axis == "model" else 0
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rglru_rank_blocks_match_the_reference(tp):
+    """The smoke RecurrentGemma's first RG-LRU block (64 channels, 4
+    gate heads), its parameters drawn by the reference and carried
+    across (``bridge.params_from_jax``): each of ``tp`` ranks runs the
+    port's ``apply_rglru`` on its blocks (``local_params`` over a (1, tp)
+    mesh seen from that rank) with its channels of the state, in a world
+    of one (the all-reduce then returns the rank's float32 partial); the
+    partials added up and the state blocks joined equal the reference's
+    ``apply_rglru`` on the whole block within ``RGLRU_RTOL``, a 13-token
+    prefill from a random state, then three decode steps."""
+    jcfg = replace(jconfigs.get("recurrentgemma_9b", smoke=True),
+                   dtype="float32")
+    cfg = replace(tconfigs.get("recurrentgemma_9b", smoke=True),
+                  dtype="float32")
+    jparams = jax.device_get(jmodel.init_params(jax.random.PRNGKey(3),
+                                                jcfg))
+    whole = params_from_jax(jparams, device="cpu")
+    jblock = {k: v[0] for k, v in jparams["layers"]["b0"]["rglru"].items()}
+    prefix = "layers.b0.rglru."
+    ranks = []
+    for r in range(tp):
+        rules = ShardingRules.for_mesh(_RankMesh(tp, r), fsdp=False)
+        held = local_params(whole, cfg, rules)
+        ranks.append({k[len(prefix):]: v[0] for k, v in held.items()
+                      if k.startswith(prefix)})
+    w = cfg.lru_width
+    assert all(b["w_up"].shape[-1] == w // tp for b in ranks)
+    rng = np.random.default_rng(6)
+    state = TR.init_rglru_state(cfg, 2)
+    jstate = {k: (rng.standard_normal(v.shape) * 0.5).astype(np.float32)
+              for k, v in state.items()}
+    cols = [slice(r * w // tp, (r + 1) * w // tp) for r in range(tp)]
+    tstates = [{k: torch.from_numpy(v[..., c].copy())
+                for k, v in jstate.items()} for c in cols]
+    japply = jax.jit(JR.apply_rglru, static_argnums=(2, 4))
+    for s, decode in ((13, False), (1, True), (1, True), (1, True)):
+        x = rng.standard_normal((2, s, cfg.d_model)).astype(np.float32)
+        jy, jstate = japply(jblock, jnp.asarray(x), jcfg, jstate, decode)
+        parts = []
+        with use_rules(rules_of_one()):
+            for block, st in zip(ranks, tstates):
+                y, same = TR.apply_rglru(block, torch.from_numpy(x), cfg,
+                                         st, decode)
+                assert same is st
+                parts.append(y)
+        assert _rel(sum(parts), jy) <= RGLRU_RTOL, (s, _rel(sum(parts), jy))
+        for k in jstate:
+            joined = torch.cat([st[k] for st in tstates], -1)
+            assert _rel(joined, jstate[k]) <= RGLRU_RTOL, (s, k)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2), (2, 1)],

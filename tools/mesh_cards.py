@@ -6,6 +6,7 @@ card, and holds the two against each other.
     python3 -c "from repro_torch.kernels import build; build.build_seconds()"
     torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py --mesh 1x4
     torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py --mesh 2x2
+    torchrun ... tools/mesh_cards.py --mesh 1x4 --only recurrentgemma
 
 (build once before ``torchrun``: the ranks then load the same library
 instead of compiling it side by side).  ``--device cpu`` runs the same
@@ -30,6 +31,10 @@ at full width, bf16, seeded:
 * Llama-4-Scout at full width, 2 of its 48 layers, the same: its
   4096-token routing groups span the data ranks, so every rank routes
   the whole batch from the gathered router logits;
+* RecurrentGemma-9B at full width and depth, the same: its RG-LRU
+  mixers split over ``model`` with the MLPs, q heads and vocabulary (its
+  one KV head whole), the weight bytes, RG-LRU bytes and decode-state
+  bytes a rank beside the whole;
 * DeepSeek-67B at 16 of its 95 layers, each rank's blocks drawn on its
   card (``init_params(rules=)``), against one card's 16-layer run from
   the same seed (``serving_agrees``);
@@ -61,6 +66,8 @@ import torch.distributed as dist
 SCOUT_LAYERS = 2        # Llama-4-Scout's depth here, at full width
 DEEPSEEK_CUT = 16       # DeepSeek-67B's depth held against one card
 FORCED = 8              # teacher-forced decode steps a logits check reads
+#: the checks, in the order they run (``--only`` picks some)
+CHECKS = ("m3vit", "llama", "scout", "recurrentgemma", "deepseek")
 
 
 def _sync() -> None:
@@ -103,14 +110,11 @@ def _forced(engine, rules, prompts, toks, steps: int) -> list:
     """float32 logits of the prefill and of ``steps`` decode steps fed
     ``toks`` (teacher-forced: the same inputs with and without a mesh)."""
     from repro_torch.dist.sharding import use_rules
-    from repro_torch.models import model as LM
 
     prefill, decode = engine.steps(0)
     out = []
     with torch.inference_mode(), use_rules(rules):
-        state = LM.init_state(engine.cfg, prompts.shape[0],
-                              engine.scfg.max_len, device=engine.device,
-                              kv_heads=engine.kv_heads)
+        state = engine.new_state(prompts.shape[0])
         logits, state = prefill(engine.params, prompts, state)
         out.append(logits.float())
         for i in range(steps):
@@ -126,25 +130,30 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", required=True, metavar="DxM")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--only", default=None, metavar="NAME[,NAME]",
+                    help=f"run only these checks, of {', '.join(CHECKS)} "
+                         f"(default: all)")
     args = ap.parse_args()
     smoke = args.device == "cpu"
+    only = set(args.only.split(",")) if args.only else set(CHECKS)
+    if only - set(CHECKS):
+        raise SystemExit(f"--only: unknown {sorted(only - set(CHECKS))}")
+
+    def on(name):
+        return name in only
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import ops
     from repro_torch.configs import get
     from repro_torch.configs import llama3_2_1b as LL
-    from repro_torch.configs import m3vit as MV
-    from repro_torch.core import moe as moe_lib
     from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import use_rules
     from repro_torch.kernels.compare import (SERVE_COSINE, cosine,
-                                             max_abs_err, serving_agrees,
-                                             within_tolerance)
+                                             serving_agrees)
     from repro_torch.launch.serve import mesh_rules
     from repro_torch.models import model as LM
-    from repro_torch.models.vit import init_params
     from repro_torch.serve.engine import ServeConfig, ServingEngine
-    from repro_torch.serve.vision import M3ViTServer
+    from repro_torch.tree import flatten
 
     rules, dev, _ = mesh_rules(args.mesh, torch.device(args.device))
     rank = dist.get_rank()
@@ -184,6 +193,93 @@ def main() -> None:
         if not ok:
             raise AssertionError(f"rank {rank}: {label} logits {cos}")
 
+    if on("m3vit"):
+        m3vit(rules, dev, policy, smoke, say, tp)
+
+    pol = policy.with_impls(attention_decode="cuda_fused")
+
+    def engines(label, lcfg, scfg, draw):
+        """Serve 8 x 128 prompts, 32 greedy tokens, with and without the
+        mesh (the whole draw for both), and hold them together; the
+        weight bytes a rank (its RG-LRU mixers' where it has them) and its
+        decode state's at batch 8 beside the whole."""
+        lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=draw)
+        plain = ServingEngine(lcfg, lparams, scfg, device=dev)
+        mesh = ServingEngine(lcfg, lparams, scfg, rules=rules, device=dev)
+
+        def nbytes(tree, part=""):
+            return sum(v.numel() * v.element_size() for k, v in tree.items()
+                       if part in k)
+
+        mixers = (f", RG-LRU mixers "
+                  f"{nbytes(mesh.params, '.rglru.') / 2**30:.3f} of "
+                  f"{nbytes(lparams, '.rglru.') / 2**30:.3f} GiB"
+                  if nbytes(lparams, ".rglru.") else "")
+        say(f"{label} a rank: weights {nbytes(mesh.params) / 2**30:.3f} of "
+            f"{nbytes(lparams) / 2**30:.3f} GiB{mixers}, decode state at "
+            f"batch 8 {nbytes(flatten(mesh.new_state(8))) / 2**20:.3f} of "
+            f"{nbytes(flatten(plain.new_state(8))) / 2**20:.3f} MiB")
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, lcfg.vocab_size, size=(8, 128))).to(dev)
+        want = plain.generate(prompts, 32)
+        plain_logits = _forced(plain, None, prompts, want, FORCED)
+        mesh.generate(prompts, 2)
+        got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
+        say(f"{label} 8 x 128 prompts, 32 greedy tokens: launches "
+            f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
+        agree(label, got, want, mesh, plain_logits, prompts)
+        say(f"  walls generate: "
+            f"{_wall_ms(lambda: mesh.generate(prompts, 32)):.1f} ms with "
+            f"the mesh, {_wall_ms(lambda: plain.generate(prompts, 32)):.1f}"
+            f" ms without")
+        del plain, mesh, lparams
+        if not smoke:
+            torch.cuda.empty_cache()
+
+    if on("llama"):
+        lcfg = LL.SMOKE_CONFIG if smoke else LL.CONFIG
+        engines("Llama-3.2-1B", lcfg, ServeConfig(max_len=512, policy=pol),
+                not smoke)
+
+    # a MoE LM whose routing groups span the data ranks: a prefill's 1024
+    # tokens and a decode step's 8 are one 4096-token group each, routed
+    # whole on every rank from the gathered router logits
+    # (core/moe.py:route_split); the staged expert layer by name, as
+    # ``cuda`` names no moe_ffn impl
+    if on("scout"):
+        scout = get("llama4_scout_17b_a16e", smoke=smoke)
+        if not smoke:
+            scout = replace(scout, num_layers=SCOUT_LAYERS)
+        engines(f"Llama-4-Scout ({scout.num_layers} layers)", scout,
+                ServeConfig(max_len=512,
+                            policy=pol.with_impls(moe_ffn="eager")),
+                not smoke)
+    # the hybrid at full depth: its RG-LRU mixers, MLPs, q heads and
+    # vocabulary split over model, its one KV head whole
+    if on("recurrentgemma"):
+        engines("RecurrentGemma-9B",
+                get("recurrentgemma_9b", smoke=smoke),
+                ServeConfig(max_len=512, policy=pol), not smoke)
+    if on("deepseek"):
+        deepseek(rules, dev, pol, smoke, say, agree)
+    dist.barrier()
+    dist.destroy_process_group()
+    say("MESH_CARDS_OK")
+
+
+def m3vit(rules, dev, policy, smoke, say, tp) -> None:
+    """M³ViT paged and expert-parallel against no mesh, and
+    ``apply_moe_ep_local`` against ``grouped``."""
+    from repro_torch import ops
+    from repro_torch.configs import m3vit as MV
+    from repro_torch.core import moe as moe_lib
+    from repro_torch.dist.sharding import use_rules
+    from repro_torch.kernels.compare import (SERVE_COSINE, cosine,
+                                             max_abs_err, within_tolerance)
+    from repro_torch.models.vit import init_params
+    from repro_torch.serve.vision import M3ViTServer
+
+    rank = dist.get_rank()
     cfg = replace(MV.SMOKE_CONFIG if smoke else MV.CONFIG, policy=policy)
     params = init_params(0, cfg, device=dev)
     imgs = np.random.default_rng(0).normal(
@@ -233,51 +329,6 @@ def main() -> None:
     if not ok:
         raise AssertionError(f"rank {rank}: ep_local outside tolerance")
     del plain, mesh, params
-
-    pol = policy.with_impls(attention_decode="cuda_fused")
-
-    def engines(label, lcfg, scfg, draw):
-        """Serve 8 x 128 prompts, 32 greedy tokens, with and without the
-        mesh (the whole draw for both), and hold them together."""
-        lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=draw)
-        plain = ServingEngine(lcfg, lparams, scfg, device=dev)
-        mesh = ServingEngine(lcfg, lparams, scfg, rules=rules, device=dev)
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
-            0, lcfg.vocab_size, size=(8, 128))).to(dev)
-        want = plain.generate(prompts, 32)
-        plain_logits = _forced(plain, None, prompts, want, FORCED)
-        mesh.generate(prompts, 2)
-        got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
-        say(f"{label} 8 x 128 prompts, 32 greedy tokens: launches "
-            f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
-        agree(label, got, want, mesh, plain_logits, prompts)
-        say(f"  walls generate: "
-            f"{_wall_ms(lambda: mesh.generate(prompts, 32)):.1f} ms with "
-            f"the mesh, {_wall_ms(lambda: plain.generate(prompts, 32)):.1f}"
-            f" ms without")
-        del plain, mesh, lparams
-        if not smoke:
-            torch.cuda.empty_cache()
-
-    lcfg = LL.SMOKE_CONFIG if smoke else LL.CONFIG
-    engines("Llama-3.2-1B", lcfg, ServeConfig(max_len=512, policy=pol),
-            not smoke)
-
-    # a MoE LM whose routing groups span the data ranks: a prefill's 1024
-    # tokens and a decode step's 8 are one 4096-token group each, routed
-    # whole on every rank from the gathered router logits
-    # (core/moe.py:route_split); the staged expert layer by name, as
-    # ``cuda`` names no moe_ffn impl
-    scout = get("llama4_scout_17b_a16e", smoke=smoke)
-    if not smoke:
-        scout = replace(scout, num_layers=SCOUT_LAYERS)
-    engines(f"Llama-4-Scout ({scout.num_layers} layers)", scout,
-            ServeConfig(max_len=512, policy=pol.with_impls(moe_ffn="eager")),
-            not smoke)
-    deepseek(rules, dev, pol, smoke, say, agree)
-    dist.barrier()
-    dist.destroy_process_group()
-    say("MESH_CARDS_OK")
 
 
 def deepseek(rules, dev, pol, smoke, say, agree) -> None:
@@ -338,7 +389,7 @@ def deepseek(rules, dev, pol, smoke, say, agree) -> None:
     first = _forced(engine, rules, prompts, got, 0)[0]
     finite = bool(torch.isfinite(first).all())
     prefill, _ = engine.steps(0)
-    state = LM.init_state(full, 8, 512, device=dev, kv_heads=engine.kv_heads)
+    state = engine.new_state(8)
 
     def run_prefill():
         from repro_torch.dist.sharding import use_rules

@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """The three kernels of the tensor-parallel serving path on one card, at
-the shapes one rank of DeepSeek-67B over a (1, 4) mesh gives them: each
-launch held against its plain version (``chip_smoke.check``), then timed
-beside its plain version, one PyTorch library call on the same inputs and
-the card's bound for the same work, next to the card's name and power
-limit.
+the shapes one rank of DeepSeek-67B and of RecurrentGemma-9B over a
+(1, 4) mesh gives them: each launch held against its plain version
+(``chip_smoke.check``), then timed beside its plain version, one PyTorch
+library call on the same inputs and the card's bound for the same work,
+next to the card's name and power limit.
 
     python3 tools/tp_shapes.py [--out build/tp_shapes.json]
+    python3 tools/tp_shapes.py --bytes     # no card: weight bytes a rank
+
+``--bytes`` prints, from the shapes on ``meta`` (``serve.engine.
+local_params`` over a device-free mesh), the bf16 weight bytes a rank of
+RecurrentGemma-9B holds at full depth over (1, 2) and (1, 4), with its
+RG-LRU mixers split and as if they stayed whole on every rank.
 
 Shapes (bf16; decode is 8 rows, prefill 8 x 128 = 1024):
 
@@ -22,7 +28,12 @@ Shapes (bf16; decode is 8 rows, prefill 8 x 128 = 1024):
   ``scaled_dot_product_attention`` (``enable_gqa``);
 * ``decode_fused``: one step's 16 q heads over a 512-slot cache of 2 KV
   heads with per-slot lengths 129..160; library: SDPA over the cache with
-  a length mask.
+  a length mask;
+* RecurrentGemma-9B's RG-LRU: ``unified_linear`` column blocks of
+  ``rglru/w_up`` (4096 x 1024 of 4096) and ``rglru/w_up2`` with its GELU
+  epilogue (the ``cuda`` policy's; library: ``gelu(torch.matmul)``), and
+  the float32 row block of ``rglru/w_down`` (1024 x 4096),
+  at the same 8 and 1024 rows.
 """
 
 import argparse
@@ -42,6 +53,7 @@ D, HQ, HKV, HD, FF, VOCAB, TP = 8192, 64, 8, 128, 22016, 102400, 4
 B, S, SMAX = 8, 128, 512
 COLUMNS = (("wq", HQ * HD), ("wk", HKV * HD), ("wg", FF), ("head", VOCAB))
 ROWS = (("wo", HQ * HD), ("wd", FF))
+RG_D = RG_W = 4096        # RecurrentGemma-9B's d_model and RG-LRU width
 
 
 def _row(name, shape, ms, plain_ms, lib_ms, nbytes, flops, err, variant):
@@ -116,6 +128,91 @@ def linear_rows() -> list:
     return out
 
 
+def rglru_rows() -> list:
+    """RecurrentGemma-9B's RG-LRU projections at one rank's (1, 4)
+    blocks."""
+    from repro_torch import ops
+    from repro_torch.kernels import unified_linear as kul
+
+    pol = ops.policy_named("cuda")
+    geo = dict(step_log2=pol.lut_step_log2, lut_range=pol.lut_range)
+    out = []
+    wb = RG_W // TP
+    for m in (B, B * S):
+        x = C.randn((m, RG_D), torch.bfloat16, seed=11)
+        w = C.randn((RG_D, wb), torch.bfloat16, scale=RG_D ** -0.5, seed=12)
+        for name, act in (("rglru w_up", None), ("rglru w_up2", "gelu")):
+            lut = bool(act and pol.lut_activations)
+            kw = dict(activation=act, use_lut=lut, **geo)
+            pre = kul.unified_linear_plain(x.float(), w.float()) \
+                if lut else None
+            plan = kul.plan_for(x, w, order_n=RG_W)
+            err = C.check("unified_linear", f"{name} column block M={m}",
+                          kul.unified_linear(x, w, order_n=RG_W, **kw),
+                          kul.unified_linear_plain(x, w, **kw),
+                          torch.bfloat16, lut_pre=pre, kind=act or "gelu",
+                          **geo)
+            lib = (lambda: torch.matmul(x, w)) if act is None else (
+                lambda: torch.nn.functional.gelu(torch.matmul(x, w)))
+            out.append(_row(
+                "unified_linear", f"{name} M={m} K={RG_D} N={wb} of {RG_W}"
+                f"{' gelu' if act else ''}",
+                C.time_ms(lambda: kul.unified_linear(x, w, order_n=RG_W,
+                                                     **kw)),
+                C.time_ms(lambda: kul.unified_linear_plain(x, w, **kw)),
+                C.time_ms(lib), C._nbytes(x, w) + m * wb * 2,
+                2.0 * m * RG_D * wb, err, C._plan_label(plan)))
+        xr = C.randn((m, wb), torch.bfloat16, seed=13)
+        wr = C.randn((wb, RG_D), torch.bfloat16, scale=RG_W ** -0.5, seed=14)
+        f32 = torch.float32
+        plan = kul.plan_for(xr, wr)
+        err = C.check("unified_linear", f"rglru w_down row block M={m}",
+                      kul.unified_linear(xr, wr, out_dtype=f32),
+                      kul.unified_linear_plain(xr, wr, out_dtype=f32), f32)
+        out.append(_row(
+            "unified_linear", f"rglru w_down M={m} K={wb} of {RG_W} "
+            f"N={RG_D} float32 out",
+            C.time_ms(lambda: kul.unified_linear(xr, wr, out_dtype=f32)),
+            C.time_ms(lambda: kul.unified_linear_plain(xr, wr,
+                                                       out_dtype=f32)),
+            C.time_ms(lambda: _mm_f32(xr, wr)),
+            C._nbytes(xr, wr) + m * RG_D * 4, 2.0 * m * wb * RG_D, err,
+            C._plan_label(plan)))
+    return out
+
+
+def weight_bytes() -> dict:
+    """bf16 weight bytes a rank of RecurrentGemma-9B at full depth over
+    (1, 2) and (1, 4), from the shapes: its RG-LRU mixers split (this
+    layout) and whole on every rank (the layout before it)."""
+    from repro_torch.configs import get
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.dist.spmd import VirtualMesh
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import local_params
+
+    cfg = get("recurrentgemma_9b")
+    shapes = LM.param_specs(cfg)
+
+    def nbytes(tree, part=""):
+        return sum(t.numel() * t.element_size() for k, t in tree.items()
+                   if part in k)
+
+    out = {"whole": nbytes(shapes)}
+    for tp in (2, 4):
+        held = local_params(shapes, cfg, ShardingRules.for_mesh(
+            VirtualMesh((1, tp), ("data", "model")), fsdp=False))
+        split = nbytes(held)
+        out[f"1x{tp}"] = {"split": split, "mixers_whole": split - nbytes(
+            held, ".rglru.") + nbytes(shapes, ".rglru.")}
+    print(f"RecurrentGemma-9B weights, bf16, {cfg.num_layers} layers: "
+          f"whole {out['whole'] / 1e9:.3f} GB; a rank over "
+          + "; ".join(f"{k} {v['mixers_whole'] / 1e9:.3f} GB with the "
+                      f"RG-LRU mixers whole, {v['split'] / 1e9:.3f} GB "
+                      f"split" for k, v in out.items() if k != "whole"))
+    return out
+
+
 def attention_rows() -> list:
     from repro_torch.kernels import decode_fused as kdf
     from repro_torch.kernels import flash_attention as kfa
@@ -161,7 +258,12 @@ def attention_rows() -> list:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--bytes", action="store_true",
+                    help="only the weight bytes a rank, from the shapes")
     args = ap.parse_args()
+    if args.bytes:
+        weight_bytes()
+        return
     if not torch.cuda.is_available():
         raise SystemExit("tp_shapes: runs on an NVIDIA Hopper card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,11 +275,11 @@ def main() -> None:
     from repro_torch.kernels import build
 
     print(f"kernels built and loaded in {build.build_seconds():.1f} s; "
-          f"DeepSeek-67B one rank of (1, {TP})")
+          f"DeepSeek-67B and RecurrentGemma-9B one rank of (1, {TP})")
     print(f"row blocks' library call: {_mm_f32_name()}")
-    rows = linear_rows() + attention_rows()
+    rows = linear_rows() + attention_rows() + rglru_rows()
     line = {"card": smi, "tp": TP, "row_library": _mm_f32_name(),
-            "rows": rows}
+            "rows": rows, "weight_bytes": weight_bytes()}
     print(json.dumps(line))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -31,7 +31,19 @@ near-zero gradient's element by 2·lr):
 * M³ViT at ``2x2`` with ``moe.impl="ep_local"`` (8 of 16 experts a
   rank; its MLPs tensor-parallel, its three-head attention whole): every
   expert's gradient against one card's ``grouped`` (cosine), and 3 steps
-  against one card as above.
+  against one card as above;
+* RecurrentGemma-9B at full width and ``RG_LAYERS`` of its 38 layers
+  (one Griffin period), 8 × 128 tokens, 3 steps at ``1x4`` (its RG-LRU
+  mixers, MLPs, q heads and vocabulary a quarter a rank, its one KV head
+  whole), with the reference's large-model AdamW state (bf16 momentum, a
+  factored second moment: one card's whole state would not fit beside
+  the weights and gradients), against one card as above.
+
+``--only NAME[,NAME]`` runs some of ``llama``, ``m3vit`` and
+``recurrentgemma``.  The caching allocator runs with expandable
+segments (``PYTORCH_CUDA_ALLOC_CONF``, set here unless the environment
+sets it): RecurrentGemma's one-card step's 4 GiB temporaries otherwise
+leave GiBs reserved between them.
 
 Rank 0 prints the card's name and power limit, each check's result, the
 launches by kernel and the collectives of each mesh run.  Any failed
@@ -41,6 +53,7 @@ check raises.
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -48,8 +61,10 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
-import torch
-import torch.distributed as dist
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402  (after the allocator's setting)
+import torch.distributed as dist  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
@@ -58,6 +73,11 @@ from chip_smoke import TP_WHERE, _tp_train_expect  # noqa: E402
 
 MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1.0,
                 weight_decay=0.0)
+#: RecurrentGemma-9B's depth here, at full width: one Griffin period (its
+#: one-card step peaks at 56 GiB, 2.1 G of its parameters in the
+#: vocabulary; at 6 layers it outgrows the card)
+RG_LAYERS = 3
+CHECKS = ("llama", "m3vit", "recurrentgemma")
 
 
 def _sync() -> None:
@@ -129,10 +149,10 @@ def _steps(step, p, o, batches, place, walls):
 
 
 def against_one(label, cfg, params, batches, mesh_shape, dev, say,
-                loss_fn=None, profile=True, forwards=1):
+                loss_fn=None, profile=True, forwards=1, opt=None):
     """The steps of ``batches`` over the mesh against the same steps on
     one card; the walls leave out the first step (its NCCL groups start
-    there)."""
+    there).  ``opt``: ``OptConfig`` fields over ``MESH_OPT``."""
     from repro_torch.data import device_transform, shard_for
     from repro_torch.dist import spmd
     from repro_torch.dist.sharding import ShardingRules
@@ -141,7 +161,7 @@ def against_one(label, cfg, params, batches, mesh_shape, dev, say,
     from repro_torch.train import TrainConfig, make_train_step
     from repro_torch.train.profile import profile_steps
 
-    tcfg = TrainConfig(opt=OptConfig(**MESH_OPT))
+    tcfg = TrainConfig(opt=OptConfig(**{**MESH_OPT, **(opt or {})}))
     put = device_transform(dev)
     mesh = spmd.init_mesh(mesh_shape, device_type=dev.type)
     rules = ShardingRules.for_mesh(mesh)
@@ -258,8 +278,13 @@ def ep_local_grads(cfg, params, batch, dev, say, loss_fn) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--only", default=None, metavar="NAME[,NAME]",
+                    help=f"run only these checks, of {', '.join(CHECKS)}")
     args = ap.parse_args()
     smoke = args.device == "cpu"
+    only = set(args.only.split(",")) if args.only else set(CHECKS)
+    if only - set(CHECKS):
+        raise SystemExit(f"--only: unknown {sorted(only - set(CHECKS))}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import ops
@@ -291,28 +316,57 @@ def main() -> None:
         for n, c in counts.items():
             total[n] = total.get(n, 0) + c
 
-    lcfg = replace(LL.SMOKE_CONFIG if smoke else LL.CONFIG, policy=cuda)
-    lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=not smoke)
-    stream = make_stream(DataConfig(batch=8, seq_len=128,
-                                    vocab_size=lcfg.vocab_size, seed=0))
-    batches = [stream.batch(i) for i in range(3)]
-    for shape in ((1, 4), (2, 2), (4, 1)):
-        add(against_one("Llama-3.2-1B", lcfg, lparams, batches, shape, dev,
-                        say))
-    del lparams
-    gc.collect()
-    _peak_reset()
+    if "llama" in only:
+        lcfg = replace(LL.SMOKE_CONFIG if smoke else LL.CONFIG, policy=cuda)
+        lparams = LM.init_params(0, lcfg, device=dev,
+                                 draw_on_device=not smoke)
+        stream = make_stream(DataConfig(batch=8, seq_len=128,
+                                        vocab_size=lcfg.vocab_size, seed=0))
+        batches = [stream.batch(i) for i in range(3)]
+        for shape in ((1, 4), (2, 2), (4, 1)):
+            add(against_one("Llama-3.2-1B", lcfg, lparams, batches, shape,
+                            dev, say))
+        del lparams
+        gc.collect()
+        _peak_reset()
 
-    mcfg = replace(MV.SMOKE_CONFIG if smoke else MV.CONFIG,
-                   policy=cuda.with_impls(moe_ffn="eager"))
-    mparams = vit.init_params(0, mcfg, device=dev)
-    mstream = make_stream(DataConfig(batch=8, seq_len=0, kind="m3vit",
-                                     seed=0))
-    ep_local_grads(mcfg, mparams, mstream.batch(0), dev, say, m3vit_loss)
-    ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
-    add(against_one("M3ViT ep_local", ecfg, mparams,
-                    [mstream.batch(i) for i in range(3)], (2, 2), dev, say,
-                    loss_fn=m3vit_loss(ecfg), profile=False, forwards=2))
+    if "m3vit" in only:
+        mcfg = replace(MV.SMOKE_CONFIG if smoke else MV.CONFIG,
+                       policy=cuda.with_impls(moe_ffn="eager"))
+        mparams = vit.init_params(0, mcfg, device=dev)
+        mstream = make_stream(DataConfig(batch=8, seq_len=0, kind="m3vit",
+                                         seed=0))
+        ep_local_grads(mcfg, mparams, mstream.batch(0), dev, say,
+                       m3vit_loss)
+        ecfg = replace(mcfg, moe=replace(mcfg.moe, impl="ep_local"))
+        add(against_one("M3ViT ep_local", ecfg, mparams,
+                        [mstream.batch(i) for i in range(3)], (2, 2), dev,
+                        say, loss_fn=m3vit_loss(ecfg), profile=False,
+                        forwards=2))
+        del mparams
+        gc.collect()
+        _peak_reset()
+
+    if "recurrentgemma" in only:
+        from repro_torch.configs import get
+
+        # the CPU rehearsal at the smoke size runs exact activations: there
+        # the LUT GELU's bf16 noise alone takes the loss past the gate,
+        # with no model split too (4x1)
+        gcfg = replace(get("recurrentgemma_9b", smoke=smoke),
+                       policy=ops.policy_named("eager") if smoke else cuda)
+        if not smoke:
+            gcfg = replace(gcfg, num_layers=RG_LAYERS)
+        gparams = LM.init_params(0, gcfg, device=dev,
+                                 draw_on_device=not smoke)
+        gstream = make_stream(DataConfig(batch=8, seq_len=128,
+                                         vocab_size=gcfg.vocab_size, seed=0))
+        add(against_one(f"RecurrentGemma-9B ({gcfg.num_layers} layers)",
+                        gcfg, gparams, [gstream.batch(i) for i in range(3)],
+                        (1, 4), dev, say,
+                        opt=dict(momentum_dtype="bfloat16", factored=True)))
+        del gparams
+        gc.collect()
     say(f"launches over the mesh runs (rank 0): {json.dumps(total)}")
     dist.barrier()
     dist.destroy_process_group()
