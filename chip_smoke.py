@@ -329,17 +329,26 @@ one and then one pair of processes):
    all-reduce and a ``logits`` all-gather a forward), no SIMT launch;
    then RecurrentGemma-9B at full width and ``TP_RG_LAYERS`` (3) layers
    over (1, 2), its RG-LRU mixers split too (2048 of 4096 channels, 8 of
-   16 gate heads a rank; ``_two_ranks_tp_rg``): on rank 0 the kernels at
-   its shapes against their plain versions (``_tp_rg_kernels``: the
-   column blocks of ``w_up``, ``w_up2`` + GELU, ``wg`` + GELU, ``wu``,
-   ``wq`` bit-equal to the whole product's columns, the float32 row
-   blocks of ``w_down``, ``wd``, ``wo``, ``flash_attention`` at 8 q heads
-   over one KV head at head_dim 256, ``decode_fused`` over its ring), the
-   per-rank draw bit-equal, the RG-LRU weight bytes a rank half the
-   whole, the state bytes a rank, 8 × 128 prompts and 32 greedy tokens,
-   the logits at cosine >= SERVE_COSINE, the collectives by ``where``
-   (an ``rglru_down`` all-reduce an RG-LRU layer besides the above), no
-   SIMT launch; and tiered preemption over a 4-lane bucket split over
+   16 gate heads a rank): on rank 0 the kernels at its shapes against
+   their plain versions (``_tp_rg_kernels``: the column blocks of
+   ``w_up``, ``w_up2`` + GELU, ``wg`` + GELU, ``wu``, ``wq`` bit-equal to
+   the whole product's columns, the float32 row blocks of ``w_down``,
+   ``wd``, ``wo``, ``flash_attention`` at 8 q heads over one KV head at
+   head_dim 256, ``decode_fused`` over its ring), 8 × 128 prompts and 32
+   greedy tokens held as Llama, an ``rglru_down`` all-reduce an RG-LRU
+   layer besides; then xLSTM-350M at full width and ``TP_XL_LAYERS`` (8)
+   layers, its mLSTM and sLSTM heads split (2 of 4 a rank): on rank 0
+   ``unified_linear`` at its rank's shapes (``_tp_xl_kernels``: column
+   blocks of ``w_up``, ``w_gates``, ``w_qkv`` bit-equal, ``w_down``'s
+   float32 row block, at the decode step's 4 rows and the prefill's
+   256), 4 × 64 prompts and 16 greedy tokens, the logits at
+   SERVE_COSINE or the float32 yardstick, a uc and a qkv all-gather and
+   a ``mlstm_down`` all-reduce an mLSTM block and an hn all-gather an
+   sLSTM block, SIMT only for the sLSTM's 1365-wide projections — each
+   model one ``_tp_serve`` run (``_tp_serving``), its weight, part and
+   state bytes a rank every narrowed leaf exactly half, its collectives
+   over ``model`` as counted from the config (``_tp_serve_expect``) and
+   nothing else; and tiered preemption over a 4-lane bucket split over
    (2, 1) (4 layers of Llama-3.2-1B), every request's tokens bit-equal
    to no mesh; each counted and checked for fallbacks as in (a).
 11. Training over a mesh (``make_train_step(rules=)``: each rank's
@@ -388,7 +397,12 @@ one and then one pair of processes):
    AdamW with bf16 momentum and the factored second moment, held as
    Llama (on rank 0 its
    projections at M = 256 and ``flash_attention`` at 8 q heads over one
-   KV head, head_dim 256, in ``_tp_train_kernels``); ``compressed_psum``
+   KV head, head_dim 256, in ``_tp_train_kernels``); xLSTM-350M at full
+   width and 8 layers at 1×2, 2 × 64 tokens, its mLSTM and sLSTM heads
+   split, held as Llama (on rank 0 the mLSTM's projections at M = 128 in
+   ``_tp_train_kernels``), and the gradients of the whole leaves a rank
+   reads for its heads alone against one process (``_xl_partly_read``:
+   float32 at GRAD_COSINE_LEAF, bf16 beside its noise); ``compressed_psum``
    over the ranks bit for bit; ``launch/train.py --mesh local`` for 3
    steps with a checkpoint, which the parent restores without a mesh and
    trains on, against the same runs with no mesh.  The four kernels of the training
@@ -4291,10 +4305,11 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
     rank against single-device ``grouped`` (the bf16 tolerance); a
     grouped MoE on this rank's half of a data-split batch, with M³ViT's
     128-token groups and with one group over the whole batch, against the
-    layer on the whole batch, bit for bit; Llama-3.2-1B tensor-parallel
-    over (1, 2) (``_two_ranks_tp``); RecurrentGemma-9B tensor-parallel
-    over (1, 2), its RG-LRU mixers split (``_two_ranks_tp_rg``); and
-    parking over a bucket split over (2, 1) (``_two_ranks_park``)."""
+    layer on the whole batch, bit for bit; Llama-3.2-1B,
+    RecurrentGemma-9B (its RG-LRU mixers split) and xLSTM-350M (its mLSTM
+    and sLSTM heads split) tensor-parallel over (1, 2) (``_tp_serve``
+    for each of ``_tp_serving``'s runs); and parking over a bucket split
+    over (2, 1) (``_two_ranks_park``)."""
     import time
     import traceback
 
@@ -4368,12 +4383,7 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
         del layer, h, want, got
         gc.collect()
         torch.cuda.empty_cache()
-        result["tp"] = _two_ranks_tp(rank)
-        gc.collect()
-        torch.cuda.empty_cache()
-        t_rg = time.perf_counter()
-        result["tp_rg"] = _two_ranks_tp_rg(rank)
-        result["tp_rg_wall_s"] = time.perf_counter() - t_rg
+        result["tp"] = [_tp_serve(rank, run) for run in _tp_serving()]
         result["park"] = _two_ranks_park(rank)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4448,86 +4458,6 @@ def _tp_kernels(rank: int) -> dict:
         f"per-slot lengths", kdf.fused_decode_attention(q, kc, vc, cl),
         kdf.fused_decode_attention_plain(q, kc, vc, cl), torch.bfloat16)
     return errs
-
-
-def _two_ranks_tp(rank: int) -> dict:
-    """Phase 10 (b): Llama-3.2-1B at full width and depth, its dense
-    blocks split over (1, 2) on the two ranks: each rank draws its own
-    blocks (``init_params(rules=)``, held bit for bit to the narrowed
-    whole draw), serves 8 x 128 prompts and 32 greedy tokens under
-    ``cuda`` (counted: launches, variants, collectives by ``where``, no
-    fallback), and holds the prefill's and 8 teacher-forced decode steps'
-    logits to the engine with no mesh at cosine >= SERVE_COSINE."""
-    from repro_torch import ops
-    from repro_torch.configs import llama3_2_1b as LL
-    from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import ShardingRules, use_rules
-    from repro_torch.kernels import reset_launch_counts
-    from repro_torch.kernels.compare import cosine, serving_agrees
-    from repro_torch.models import model as LM
-    from repro_torch.serve.engine import (ServeConfig, ServingEngine,
-                                          local_params)
-
-    out = {"kernel_errs": _tp_kernels(rank)}
-    rules = ShardingRules.for_mesh(spmd.init_mesh((1, 2)), fsdp=False)
-    policy = ops.policy_named("cuda").with_impls(
-        attention_decode="cuda_fused")
-    cfg = LL.CONFIG
-    whole = LM.init_params(0, cfg, draw_on_device=True)
-    mine = LM.init_params(0, cfg, draw_on_device=True, rules=rules)
-    narrowed = local_params(whole, cfg, rules)
-    out["draw_equal"] = mine.keys() == narrowed.keys() and all(
-        torch.equal(mine[k], narrowed[k]) for k in mine)
-    out["held_bytes"] = sum(v.numel() * v.element_size()
-                            for v in mine.values())
-    out["whole_bytes"] = sum(v.numel() * v.element_size()
-                             for v in whole.values())
-    del narrowed
-    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
-    plain = ServingEngine(cfg, whole, scfg)
-    tp = ServingEngine(cfg, mine, scfg, rules=rules)
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
-    want = plain.generate(prompts, LM_NEW)
-    tp.generate(prompts, 2)                            # warm-up
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    counted: dict = {}
-    got = _mesh_run(f"(b) rank {rank} Llama-3.2-1B ServingEngine over "
-                    f"(1, 2), tensor-parallel, {LM_BATCH} x {LM_PROMPT} "
-                    f"prompts, {LM_NEW} greedy tokens",
-                    lambda: tp.generate(prompts, LM_NEW), counted)
-    out["launches"] = counted
-    out["variants"] = read_variants(f"(b) rank {rank} tensor-parallel "
-                                    f"generate", tally=False)
-    out["collectives"] = [[c["kind"], c["axis"], c["where"], c["count"],
-                           c["bytes"]] for c in ops.collective_report()]
-    out["tokens_equal"] = float((got == want).mean())
-
-    def forced(engine, r):
-        prefill, decode = engine.steps(0)
-        logits = []
-        with torch.inference_mode(), use_rules(r):
-            state = engine.new_state(LM_BATCH)
-            lg, state = prefill(engine.params, prompts, state)
-            logits.append(lg)
-            for i in range(min(TP_FORCED_STEPS, LM_NEW)):
-                tok = torch.from_numpy(want[:, i:i + 1]).long().cuda()
-                lg, state = decode(engine.params, tok, state,
-                                   LM_PROMPT + i)
-                logits.append(lg)
-        return logits
-
-    cos = [cosine(a, b) for a, b in zip(forced(tp, rules),
-                                        forced(plain, None))]
-    out["cosines"] = cos
-    out["agrees"] = serving_agrees(cos)
-    out["heads"] = [int(tp.params[f"layers.b0.attn.{w}"].shape[-1] // cfg.hd)
-                    for w in ("wq", "wk")]
-    del plain, tp, whole, mine
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
 
 
 #: phase 10 (b)'s and 11 (b)'s tensor-parallel RecurrentGemma-9B: full
@@ -4625,96 +4555,219 @@ def _tp_rg_kernels(rank: int, policy) -> dict:
     return errs
 
 
-def _leaf_bytes(tree: dict, part: str = "") -> int:
-    return sum(v.numel() * v.element_size() for k, v in tree.items()
-               if part in k)
+#: phase 10 (b)'s and 11 (b)'s tensor-parallel xLSTM-350M: full width,
+#: one period deep (7 mLSTM blocks and 1 sLSTM); phase 10 (b) serves
+#: XL_BATCH prompts of XL_PROMPT tokens and XL_NEW greedy tokens, phase
+#: 11 (b) trains on XL_TRAIN_BATCH rows of XL_PROMPT tokens
+TP_XL_LAYERS = 8
+XL_BATCH, XL_PROMPT, XL_NEW, XL_TRAIN_BATCH = 4, 64, 16, 2
 
 
-def _two_ranks_tp_rg(rank: int) -> dict:
-    """Phase 10 (b): RecurrentGemma-9B at full width and ``TP_RG_LAYERS``
-    deep over (1, 2) on the two ranks — its RG-LRU mixers split (a rank's
-    2048 of the 4096 channels, 8 of the 16 gate heads), its MLPs, q heads
-    and vocabulary too, k/v whole (MQA): each rank draws its own blocks
-    (held bit for bit to the narrowed whole draw), serves 8 x 128 prompts
-    and 32 greedy tokens under ``cuda`` with ``attention_decode=
-    "cuda_fused"`` (counted: launches, variants, collectives by
-    ``where``, no fallback), and holds the prefill's and 8 teacher-forced
-    decode steps' logits to the engine with no mesh at cosine >=
-    SERVE_COSINE; the RG-LRU weight bytes and the state bytes a rank
-    against the whole.  First, on rank 0, the kernels at these shapes
-    (:func:`_tp_rg_kernels`)."""
+def _xl_config(**over):
+    """xLSTM-350M at full width and ``TP_XL_LAYERS`` deep."""
+    from repro_torch.configs import xlstm_350m as XL
+
+    return replace(XL.CONFIG, num_layers=TP_XL_LAYERS, **over)
+
+
+def _tp_xl_kernels(rank: int) -> dict:
+    """Phase 10 (b), rank 0: ``unified_linear`` at xLSTM-350M's rank
+    shapes over (1, 2), against its plain version: the column blocks of
+    the mLSTM's ``w_up``, ``w_gates`` (1024 of 2048 columns) and
+    ``w_qkv`` (3072 of 6144: the table's contiguous block), summed in the
+    whole weight's order, bit-equal to the whole product's columns, and
+    the whole products within the bf16 tolerance; the row block of
+    ``w_down`` (1024 of 2048 rows, float32 out) within the float32
+    tolerance; at phase 10 (b)'s decode step (``XL_BATCH`` rows: a ragged
+    tile) and prefill (``XL_BATCH`` x ``XL_PROMPT``).  Phase 11 (b)'s
+    training shapes are ``TP_TRAIN_SHAPES``'.  Returns the largest
+    error."""
+    from repro_torch.kernels import unified_linear as kul
+
+    cfg = _xl_config()
+    d = cfg.d_model
+    di = 2 * d
+    err = 0.0
+    label = f"(b) rank {rank} xLSTM-350M"
+    for m in (XL_BATCH, XL_BATCH * XL_PROMPT):
+        x = randn((m, d), torch.bfloat16, seed=101)
+        xu = randn((m, di), torch.bfloat16, seed=102)
+        for name, xin, k, n in (("mlstm w_up", x, d, di),
+                                ("mlstm w_gates", x, d, di),
+                                ("mlstm w_qkv", xu, di, 3 * di)):
+            wt = randn((k, n), torch.bfloat16, scale=k ** -0.5, seed=103)
+            whole = kul.unified_linear(xin, wt)
+            err = max(err, check("unified_linear", f"{label} {name} whole "
+                                 f"M={m} ({k}x{n})", whole,
+                                 kul.unified_linear_plain(xin, wt),
+                                 torch.bfloat16))
+            h = n // 2
+            for r in range(2):
+                cols = slice(r * h, (r + 1) * h)
+                check_exact("unified_linear", f"{label} {name} column block "
+                            f"{r} M={m} ({k}x{h} of {n})",
+                            kul.unified_linear(xin, wt[:, cols].contiguous(),
+                                               order_n=n), whole[:, cols])
+        xr = randn((m, di // 2), torch.bfloat16, seed=104)
+        wr = randn((di // 2, d), torch.bfloat16, scale=di ** -0.5, seed=105)
+        f32 = dict(out_dtype=torch.float32)
+        err = max(err, check("unified_linear", f"{label} mlstm w_down row "
+                             f"block M={m} ({di // 2}x{d}, float32 out)",
+                             kul.unified_linear(xr, wr, **f32),
+                             kul.unified_linear_plain(xr, wr, **f32),
+                             torch.float32))
+    return {"unified_linear": err}
+
+
+def _forced(engine, rules, prompts, toks, steps: int) -> list:
+    """The logits of ``engine``'s prefill of ``prompts`` and of ``steps``
+    decode steps teacher-forced on ``toks`` (numpy, a column a step),
+    under ``rules`` (None: no mesh)."""
+    from repro_torch.dist.sharding import use_rules
+
+    prefill, decode = engine.steps(0)
+    logits = []
+    with torch.inference_mode(), use_rules(rules):
+        state = engine.new_state(prompts.shape[0])
+        lg, state = prefill(engine.params, prompts, state)
+        logits.append(lg)
+        for i in range(steps):
+            tok = torch.from_numpy(toks[:, i:i + 1]).long().cuda()
+            lg, state = decode(engine.params, tok, state,
+                               prompts.shape[1] + i)
+            logits.append(lg)
+    return logits
+
+
+def _held_bytes(mine: dict, whole: dict, parts=("",)) -> list:
+    """Of the leaves whose names hold one of ``parts``: the bytes this
+    rank holds, the whole model's, and those of the leaves it holds
+    whole.  Every other leaf is cut in half over (1, 2) exactly where
+    2 × held == whole + kept."""
+    def nbytes(keys, tree):
+        return sum(tree[k].numel() * tree[k].element_size() for k in keys)
+
+    keys = [k for k in whole if any(p in k for p in parts)]
+    return [nbytes(keys, mine), nbytes(keys, whole),
+            nbytes([k for k in keys if mine[k].shape == whole[k].shape],
+                   mine)]
+
+
+def _tp_serving() -> list:
+    """Phase 10 (b)'s tensor-parallel serving runs over (1, 2), each a
+    model at full width: its label, config, prompts (batch, length),
+    greedy tokens and ``max_len``, policy, the kernels rank 0 first holds
+    at its shapes, the kernels its path must launch, the parts whose
+    bytes a rank are reported (each with whether every leaf of it
+    splits), and the
+    float32 yardstick its logits fall back on where bf16 noise alone
+    exceeds SERVE_COSINE (None: SERVE_COSINE holds)."""
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+
+    cuda = ops.policy_named("cuda")
+    fused = cuda.with_impls(attention_decode="cuda_fused")
+    attention = ("unified_linear", "flash_attention", "decode_fused")
+    lm = dict(batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW,
+              max_len=LM_MAX_LEN, policy=fused, launched=attention,
+              yardstick=None)
+    return [
+        dict(lm, label="Llama-3.2-1B", cfg=LL.CONFIG, kernels=_tp_kernels,
+             parts={}),
+        dict(lm, label=f"RecurrentGemma-9B ({TP_RG_LAYERS} layers)",
+             cfg=_rg_config(),
+             kernels=lambda rank: _tp_rg_kernels(rank, fused),
+             parts={"RG-LRU": ((".rglru.",), True)}),
+        dict(label=f"xLSTM-350M ({TP_XL_LAYERS} layers)", cfg=_xl_config(),
+             batch=XL_BATCH, prompt=XL_PROMPT, new=XL_NEW,
+             max_len=XL_PROMPT + XL_NEW, policy=cuda,
+             launched=("unified_linear",), kernels=_tp_xl_kernels,
+             parts={"mixer": ((".mlstm.", ".slstm."), False)},
+             yardstick=_float32_replay)]
+
+
+def _tp_serve(rank: int, run: dict) -> dict:
+    """Phase 10 (b), one of ``_tp_serving``'s runs on this rank: first, on
+    rank 0, its kernels at the rank's shapes against their plain versions;
+    each rank draws its own blocks (held bit for bit to the narrowed whole
+    draw), serves the run's prompts and greedy tokens under its policy
+    (counted: launches, variants — SIMT only for xLSTM's 1365-wide sLSTM
+    projections, exactly their count — collectives by ``where``, no
+    fallback), and holds the prefill's and ``TP_FORCED_STEPS``
+    teacher-forced steps' logits to the engine with no mesh at
+    SERVE_COSINE, or, where the run has a float32 yardstick and its bf16
+    noise alone exceeds that, against the same model in float32
+    (``compare.serving_agrees``); the bytes a rank of its weights, of the
+    run's parts and of its decode state (a sequence) against the whole.
+    Returns what ``_tp_serve_report`` gates, with each step's wall."""
+    import time
+
     from repro_torch import ops
     from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import ShardingRules, use_rules
-    from repro_torch.kernels import reset_launch_counts
-    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.kernels.compare import (SERVE_COSINE, cosine,
+                                             serving_agrees)
     from repro_torch.models import model as LM
     from repro_torch.serve.engine import (ServeConfig, ServingEngine,
                                           local_params)
     from repro_torch.tree import flatten
 
-    policy = ops.policy_named("cuda").with_impls(
-        attention_decode="cuda_fused")
-    out = {"kernel_errs": _tp_rg_kernels(rank, policy) if rank == 0
-           else {}}
+    cfg, new = run["cfg"], run["new"]
+    walls = {}
+    t0 = time.perf_counter()
+    out = {"kernel_errs": run["kernels"](rank) if rank == 0 else {}}
+    walls["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     rules = ShardingRules.for_mesh(spmd.init_mesh((1, 2)), fsdp=False)
-    cfg = _rg_config()
     whole = LM.init_params(0, cfg, draw_on_device=True)
     mine = LM.init_params(0, cfg, draw_on_device=True, rules=rules)
     narrowed = local_params(whole, cfg, rules)
     out["draw_equal"] = mine.keys() == narrowed.keys() and all(
         torch.equal(mine[k], narrowed[k]) for k in mine)
     del narrowed
-    out["rglru_bytes"] = [_leaf_bytes(mine, ".rglru."),
-                          _leaf_bytes(whole, ".rglru.")]
-    out["weight_bytes"] = [_leaf_bytes(mine), _leaf_bytes(whole)]
-    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
+    out["bytes"] = {"weights": _held_bytes(mine, whole)}
+    for name, (parts, _) in run["parts"].items():
+        out["bytes"][name] = _held_bytes(mine, whole, parts)
+    scfg = ServeConfig(max_len=run["max_len"], policy=run["policy"])
     plain = ServingEngine(cfg, whole, scfg)
     tp = ServingEngine(cfg, mine, scfg, rules=rules)
-    state = flatten(tp.new_state(LM_BATCH))
-    out["state_bytes"] = [_leaf_bytes(state),
-                          _leaf_bytes(flatten(plain.new_state(LM_BATCH)))]
-    # the rank's RG-LRU channels, as its state holds them
-    out["width"] = [int(state["layers.b0.h"].shape[-1]), cfg.lru_width]
-    del state
+    out["bytes"]["decode state a sequence"] = _held_bytes(
+        flatten(tp.new_state(1)), flatten(plain.new_state(1)))
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
-    want = plain.generate(prompts, LM_NEW)
+        0, cfg.vocab_size, size=(run["batch"], run["prompt"]))).cuda()
+    want = plain.generate(prompts, new)
+    walls["draw and no mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tp.generate(prompts, 2)                            # warm-up
-    torch.cuda.synchronize()
-    reset_launch_counts()
     counted: dict = {}
-    got = _mesh_run(f"(b) rank {rank} RecurrentGemma-9B "
-                    f"({TP_RG_LAYERS} layers) ServingEngine over (1, 2), "
-                    f"tensor-parallel, {LM_BATCH} x {LM_PROMPT} prompts, "
-                    f"{LM_NEW} greedy tokens",
-                    lambda: tp.generate(prompts, LM_NEW), counted)
+    label = (f"(b) rank {rank} {run['label']} ServingEngine over (1, 2), "
+             f"tensor-parallel, {run['batch']} x {run['prompt']} prompts, "
+             f"{new} greedy tokens")
+    got = _mesh_run(label, lambda: tp.generate(prompts, new), counted)
     out["launches"] = counted
-    out["variants"] = read_variants(f"(b) rank {rank} RecurrentGemma-9B "
-                                    f"tensor-parallel generate", tally=False)
+    out["variants"] = read_variants(label, _slstm_simt(cfg, 1 + new),
+                                    tally=False)
     out["collectives"] = [[c["kind"], c["axis"], c["where"], c["count"],
                            c["bytes"]] for c in ops.collective_report()]
     out["tokens_equal"] = float((got == want).mean())
-
-    def forced(engine, r):
-        prefill, decode = engine.steps(0)
-        logits = []
-        with torch.inference_mode(), use_rules(r):
-            state = engine.new_state(LM_BATCH)
-            lg, state = prefill(engine.params, prompts, state)
-            logits.append(lg)
-            for i in range(min(TP_FORCED_STEPS, LM_NEW)):
-                tok = torch.from_numpy(want[:, i:i + 1]).long().cuda()
-                lg, state = decode(engine.params, tok, state,
-                                   LM_PROMPT + i)
-                logits.append(lg)
-        return logits
-
-    cos = [cosine(a, b) for a, b in zip(forced(tp, rules),
-                                        forced(plain, None))]
-    out["cosines"] = cos
-    out["agrees"] = serving_agrees(cos)
-    del plain, tp, whole, mine
+    walls["mesh generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = min(TP_FORCED_STEPS, new)
+    kern = _forced(tp, rules, prompts, want, steps)
+    ref = _forced(plain, None, prompts, want, steps)
+    cos = [cosine(a, b) for a, b in zip(kern, ref)]
+    k32 = p32 = None
+    if min(cos) < SERVE_COSINE and run["yardstick"] is not None:
+        f32 = run["yardstick"](cfg, whole, prompts, torch.from_numpy(
+            want[:, :steps]).long().cuda(), run["max_len"])
+        k32 = [cosine(a, b) for a, b in zip(kern, f32)]
+        p32 = [cosine(a, b) for a, b in zip(ref, f32)]
+        del f32
+    out["cosines"], out["cosines_f32"] = cos, [k32, p32]
+    out["agrees"] = serving_agrees(cos, k32, p32)
+    walls["teacher-forced"] = time.perf_counter() - t0
+    out["walls_s"] = walls
+    del plain, tp, whole, mine, kern, ref
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4844,7 +4897,9 @@ def two_ranks_one_card() -> tuple[dict, dict, dict]:
             raise AssertionError(f"(b) rank {r['rank']}: {r}")
     tp_launches = {}
     for r in results:
-        tp_launches = _tp_report(r, tp_launches)
+        for run, got in zip(_tp_serving(), r["tp"]):
+            tp_launches = _tp_serve_report(r["rank"], run, got, tp_launches)
+        _park_report(r["rank"], r["park"])
     print("phase 11 (b): training over two ranks on the one card")
     t_parent = time.perf_counter()
     launches, tp_train = mesh_train_two(results)
@@ -4856,116 +4911,76 @@ def two_ranks_one_card() -> tuple[dict, dict, dict]:
     return launches, tp_launches, tp_train
 
 
-def _tp_report(r: dict, total: dict) -> dict:
-    """Print and gate one rank's tensor-parallel and parking results of
-    phase 10 (b); returns ``total`` with its counted launches added."""
-    from repro_torch.configs import llama3_2_1b as LL
-
-    rank, tp, park = r["rank"], r["tp"], r["park"]
-    cfg_layers, forwards = LL.CONFIG.num_layers, 1 + LM_NEW
-    print(f"  (b) rank {rank} tensor-parallel Llama-3.2-1B over (1, 2): "
-          f"{tp['heads'][0]} of {LL.CONFIG.num_heads} q heads, "
-          f"{tp['heads'][1]} of {LL.CONFIG.num_kv_heads} KV heads a rank; "
-          f"holds {tp['held_bytes'] / 2**30:.3f} GiB of the "
-          f"{tp['whole_bytes'] / 2**30:.3f} GiB of weights; per-rank draw "
-          f"bit-equal to the narrowed whole draw: {tp['draw_equal']}")
-    print(f"  (b) rank {rank}: kernels on the TP shapes against their plain "
-          f"versions, max abs err {json.dumps(tp['kernel_errs'])}")
-    print(f"  (b) rank {rank}: logits of the prefill and "
-          f"{TP_FORCED_STEPS} teacher-forced steps at cosine "
-          f"{min(tp['cosines']):.6f}..{max(tp['cosines']):.6f} of no mesh "
-          f"(SERVE_COSINE): {tp['agrees']}; greedy tokens equal to no "
-          f"mesh's: {tp['tokens_equal']:.4f} of them")
+def _tp_serve_report(rank: int, run: dict, r: dict, total: dict) -> dict:
+    """Print and gate one rank's result of one of ``_tp_serving``'s runs
+    (phase 10 (b)): the draw, each part's bytes a rank (every narrowed
+    leaf exactly half), the logits, the collectives over ``model`` as
+    counted from the config (``_tp_serve_expect``) and nothing else over
+    ``model``, and the path's kernels launched; returns ``total`` with its
+    counted launches added."""
+    cfg, forwards, name = run["cfg"], 1 + run["new"], run["label"]
+    whole_split = {"weights": False, "decode state a sequence": False} | {
+        part: every for part, (_, every) in run["parts"].items()}
+    mib = 2**20
+    sizes, halves = [], True
+    for part, (held, whole, kept) in r["bytes"].items():
+        sizes.append(f"{part} {held / mib:.2f} of {whole / mib:.2f} MiB "
+                     f"(half of the split {(whole - kept) / mib:.2f} plus "
+                     f"the whole {kept / mib:.2f})")
+        halves &= 2 * held == whole + kept and kept < whole and not (
+            whole_split[part] and kept)
+    walls = r["walls_s"]
+    print(f"  (b) rank {rank} tensor-parallel {name} over (1, 2): "
+          + "; ".join(sizes) + f"; per-rank draw bit-equal to the narrowed "
+          f"whole draw: {r['draw_equal']}; {sum(walls.values()):.1f} s on "
+          f"the rank (" + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + " s)")
+    if r["kernel_errs"]:
+        print(f"  (b) rank {rank}: kernels at {name}'s TP shapes against "
+              f"their plain versions (column blocks bit-equal), max abs err "
+              f"{json.dumps(r['kernel_errs'])}")
+    cos, (k32, p32) = r["cosines"], r["cosines_f32"]
+    print(f"  (b) rank {rank}: {name} logits of the prefill and "
+          f"{min(TP_FORCED_STEPS, run['new'])} teacher-forced steps at "
+          f"cosine {min(cos):.6f}..{max(cos):.6f} of no mesh"
+          + (f"; against float32: the mesh {min(k32):.6f}, no mesh "
+             f"{min(p32):.6f} at their worst" if k32 else "")
+          + f" (SERVE_COSINE"
+          + (", or serving_agrees against float32" if run["yardstick"]
+             else "")
+          + f"): {r['agrees']}; greedy tokens equal to no mesh's: "
+          f"{r['tokens_equal']:.4f} of them")
     where = {}
-    for kind, axis, at, count, nbytes in tp["collectives"]:
-        where[(kind, axis, at)] = count
+    for kind, axis, at, count, nbytes in r["collectives"]:
+        where[f"{kind}:{axis}:{at}"] = count
         print(f"    collective {kind} over {axis} at {at!r}: {count} "
               f"({nbytes} bytes)")
-    expect = {("all_reduce", "model", "attn_out all-reduce"):
-              cfg_layers * forwards,
-              ("all_reduce", "model", "mlp_down all-reduce"):
-              cfg_layers * forwards,
-              ("all_reduce", "model", "embed all-reduce"): forwards,
-              ("all_gather", "model", "logits all-gather"): forwards}
-    bad = {k: (where.get(k), v) for k, v in expect.items()
-           if where.get(k) != v}
-    print(f"  (b) rank {rank}: two all-reduces a layer, one for the "
-          f"embedding and one logits all-gather a forward, over {forwards} "
-          f"forwards: {'ok' if not bad else bad}")
+    expect = _tp_serve_expect(cfg, forwards)
+    keys = set(expect) | {k for k in where if k.split(":")[1] == "model"}
+    bad = {k: (where.get(k, 0), expect.get(k, 0)) for k in keys
+           if where.get(k, 0) != expect.get(k, 0)}
+    counted = ", ".join(f"{k.split(':')[2]} {v}" for k, v in expect.items())
+    print(f"  (b) rank {rank}: the collectives over model as counted from "
+          f"the config over {forwards} forwards ({counted}), nothing else "
+          f"over model: {'ok' if not bad else bad}")
+    if bad or not r["draw_equal"] or not r["agrees"] or not halves \
+            or not all(r["launches"].get(k) for k in run["launched"]):
+        raise AssertionError(f"(b) rank {rank} {name} tensor parallel: "
+                             f"collectives off {bad}, halves {halves}, {r}")
+    for n, c in r["launches"].items():
+        total[n] = total.get(n, 0) + c
+    return total
+
+
+def _park_report(rank: int, park: dict) -> None:
+    """Print and gate one rank's parking result of phase 10 (b)."""
     print(f"  (b) rank {rank} parking over a bucket split over (2, 1): "
           f"{park['preemptions']} preemptions, {park['restores']} restores, "
           f"the parked rows moved between the ranks in {park['moved']} "
           f"all-gathers; every request's "
           f"tokens bit-equal to no mesh: {park['equal']}")
-    if bad or not tp["draw_equal"] or not tp["agrees"] \
-            or not all(tp["launches"].get(k) for k in
-                       ("unified_linear", "flash_attention",
-                        "decode_fused")):
-        raise AssertionError(f"(b) rank {rank} tensor parallel: collectives "
-                             f"off {bad}, {tp}")
     if not park["equal"] or not park["preemptions"] or not park["restores"]:
         raise AssertionError(f"(b) rank {rank} parking: {park}")
-    for n, c in tp["launches"].items():
-        total[n] = total.get(n, 0) + c
-    return _tp_rg_report(r, total)
-
-
-def _tp_rg_report(r: dict, total: dict) -> dict:
-    """Print and gate one rank's tensor-parallel RecurrentGemma-9B results
-    of phase 10 (b); returns ``total`` with its counted launches added."""
-    rank, rg = r["rank"], r["tp_rg"]
-    cfg, forwards = _rg_config(), 1 + LM_NEW
-    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
-    g = 2**30
-    print(f"  (b) rank {rank} tensor-parallel RecurrentGemma-9B "
-          f"({TP_RG_LAYERS} layers) over (1, 2): {rg['width'][0]} of "
-          f"{rg['width'][1]} RG-LRU channels a rank; RG-LRU weights "
-          f"{rg['rglru_bytes'][0] / g:.3f} of {rg['rglru_bytes'][1] / g:.3f}"
-          f" GiB, all weights {rg['weight_bytes'][0] / g:.3f} of "
-          f"{rg['weight_bytes'][1] / g:.3f} GiB, decode state at batch "
-          f"{LM_BATCH} {rg['state_bytes'][0] / 2**20:.3f} of "
-          f"{rg['state_bytes'][1] / 2**20:.3f} MiB; per-rank draw bit-equal "
-          f"to the narrowed whole draw: {rg['draw_equal']}; "
-          f"{r['tp_rg_wall_s']:.1f} s on the rank")
-    if rg["kernel_errs"]:
-        print(f"  (b) rank {rank}: kernels at RecurrentGemma-9B's TP shapes "
-              f"against their plain versions, max abs err "
-              f"{json.dumps(rg['kernel_errs'])}")
-    print(f"  (b) rank {rank}: RecurrentGemma-9B logits of the prefill and "
-          f"{TP_FORCED_STEPS} teacher-forced steps at cosine "
-          f"{min(rg['cosines']):.6f}..{max(rg['cosines']):.6f} of no mesh "
-          f"(SERVE_COSINE): {rg['agrees']}; greedy tokens equal to no "
-          f"mesh's: {rg['tokens_equal']:.4f} of them")
-    where = {}
-    for kind, axis, at, count, nbytes in rg["collectives"]:
-        where[(kind, axis, at)] = count
-        print(f"    collective {kind} over {axis} at {at!r}: {count} "
-              f"({nbytes} bytes)")
-    model = ("all_reduce", "model")
-    expect = {model + ("attn_out all-reduce",):
-              sum(k.startswith("attn") for k in kinds) * forwards,
-              model + ("mlp_down all-reduce",): len(kinds) * forwards,
-              model + ("rglru_down all-reduce",):
-              kinds.count("rglru_mlp") * forwards,
-              model + ("embed all-reduce",): forwards,
-              ("all_gather", "model", "logits all-gather"): forwards}
-    bad = {k: (where.get(k), v) for k, v in expect.items()
-           if where.get(k) != v}
-    print(f"  (b) rank {rank}: an attn_out, an mlp_down and an rglru_down "
-          f"all-reduce a layer of that kind, one embed all-reduce and one "
-          f"logits all-gather a forward, over {forwards} forwards: "
-          f"{'ok' if not bad else bad}")
-    halves = rg["rglru_bytes"][0] * 2 == rg["rglru_bytes"][1] \
-        and rg["width"][0] * 2 == rg["width"][1]
-    if bad or not rg["draw_equal"] or not rg["agrees"] or not halves \
-            or not all(rg["launches"].get(k) for k in
-                       ("unified_linear", "flash_attention",
-                        "decode_fused")):
-        raise AssertionError(f"(b) rank {rank} RecurrentGemma-9B tensor "
-                             f"parallel: collectives off {bad}, {rg}")
-    for n, c in rg["launches"].items():
-        total[n] = total.get(n, 0) + c
-    return total
 
 
 def mesh_path() -> dict:
@@ -5208,7 +5223,9 @@ def _rel(a, b) -> float:
 #: rows, weight, K, N, activation, bias, how a rank holds it) — M³ViT's
 #: MLP at its 8 images of 128 tokens, Llama-3.2-1B's projections at its
 #: 4 x 128 rows, RecurrentGemma-9B's RG-LRU, MLP and attention
-#: projections at its 2 x 128 (each rank runs the whole batch)
+#: projections at its 2 x 128, xLSTM-350M's mLSTM projections at its
+#: XL_TRAIN_BATCH x XL_PROMPT (``w_qkv``: the table's contiguous block of
+#: 3072 columns; each rank runs the whole batch)
 TP_TRAIN_SHAPES = (
     ("M3ViT", TOKENS, "w1", 192, 768, "gelu", True, "columns"),
     ("M3ViT", TOKENS, "w2", 768, 192, None, False, "rows"),
@@ -5233,7 +5250,15 @@ TP_TRAIN_SHAPES = (
     ("RecurrentGemma-9B", 2 * 128, "attn wq", 4096, 4096, None, False,
      "columns"),
     ("RecurrentGemma-9B", 2 * 128, "attn wo", 4096, 4096, None, False,
-     "rows"))
+     "rows"),
+    ("xLSTM-350M", XL_TRAIN_BATCH * XL_PROMPT, "mlstm w_up", 1024, 2048,
+     None, False, "columns"),
+    ("xLSTM-350M", XL_TRAIN_BATCH * XL_PROMPT, "mlstm w_gates", 1024, 2048,
+     None, False, "columns"),
+    ("xLSTM-350M", XL_TRAIN_BATCH * XL_PROMPT, "mlstm w_qkv", 2048, 6144,
+     None, False, "columns"),
+    ("xLSTM-350M", XL_TRAIN_BATCH * XL_PROMPT, "mlstm w_down", 2048, 1024,
+     None, False, "rows"))
 
 
 def _tp_train_kernels(policy) -> dict:
@@ -5338,6 +5363,108 @@ def _tp_train_kernels(policy) -> dict:
     return errs
 
 
+#: the whole leaves an xLSTM rank reads in part, for its heads alone: over
+#: ``model`` their gradients are the ranks' partial sums (the ``f`` on the
+#: weight: ``mlstm`` / ``slstm whole leaves (backward)``)
+XL_PARTLY_READ = ("w_if", "b_if", "gn_scale", "b_gates")
+#: the floor of their bf16 cosines, mesh against one process, at their
+#: worst leaf: ``tools/xlstm_grad_probe.py`` on the H100 at 8 layers, seeds
+#: 0-2, reads 0.9915-0.9966 there; one process against itself under the
+#: plain ``eager`` kernels' other sums (bf16 noise alone) 0.914-0.973; the
+#: weights' ``f`` left out 0.43 (float32) and 0.49 (bf16)
+XL_GRAD_BF16_FLOOR = 0.85
+
+
+def _partly_read_grads(cfg, tcfg, params, batch, rules=None,
+                       label=None) -> dict:
+    """The gradients of ``params``' ``XL_PARTLY_READ`` leaves for
+    ``batch``: of one process on the whole batch, or over ``rules``' mesh
+    (each rank its blocks of ``params``, the gradients gathered whole;
+    counted through ``_mesh_run`` as ``label`` where one is given)."""
+    from repro_torch.data import device_transform, shard_for
+    from repro_torch.dist import spmd
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(cfg, tcfg, rules=rules)
+    if rules is None:
+        _, g = step.grads(params, device_transform("cuda")(batch))
+    else:
+        def run():
+            return step.grads(step.layout.shard_params(params),
+                              shard_for(batch, rules, "cuda"))
+
+        _, g = _mesh_run(label, run, {}) if label else run()
+    names = [k for k in g if k.rsplit(".", 1)[-1] in XL_PARTLY_READ]
+    if rules is None:
+        return {k: g[k] for k in names}
+    with torch.no_grad():
+        return {k: spmd.gather_param(g[k], step.layout.params[k],
+                                     rules.mesh) for k in names}
+
+
+def _xl_partly_read(rank: int, cfg, tcfg, params, batch, rules) -> dict:
+    """Phase 11 (b): the gradients of the whole leaves each xLSTM rank
+    reads for its heads alone (``XL_PARTLY_READ``) over ``rules``' (1, 2)
+    mesh against one process on the whole batch (rank 0), by each leaf's
+    cosine.  In float32 under ``eager`` (the weights widened) only the
+    order of the sums differs, so the mesh sits within ~1e-9 of one
+    process; a missing ``f`` leaves a rank its own heads' part of the
+    gradient alone (every leaf below GRAD_COSINE_LEAF): float32 is held at
+    GRAD_COSINE_LEAF.  In bf16 under ``cfg``'s policy the mesh and one
+    process are two roundings of one gradient, as far apart as the
+    model's bf16 noise: held at ``XL_GRAD_BF16_FLOOR``, and printed beside
+    each one's cosine to the float32 one-process gradients.  Returns the
+    readings and the verdict on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch import ops
+    from repro_torch.kernels import compare
+
+    cfg32 = replace(cfg, dtype="float32", policy=ops.policy_named("eager"))
+    p32 = {k: v.float() for k, v in params.items()}
+    label = (f"(b) rank {rank} xLSTM-350M {cfg.num_layers} layers "
+             f"partly-read leaves' gradients over 1x2")
+    mesh = {"bf16": _partly_read_grads(cfg, tcfg, params, batch, rules,
+                                       label),
+            "f32": _partly_read_grads(cfg32, tcfg, p32, batch, rules)}
+    out = {}
+    if rank == 0:
+        one = {"bf16": _partly_read_grads(cfg, tcfg, params, batch),
+               "f32": _partly_read_grads(cfg32, tcfg, p32, batch)}
+
+        def cos(a, b):
+            return {k: compare.cosine(a[k], b[k]) for k in sorted(b)}
+
+        out = {"f32": cos(mesh["f32"], one["f32"]),
+               "bf16": cos(mesh["bf16"], one["bf16"]),
+               "bf16 mesh to f32": cos(mesh["bf16"], one["f32"]),
+               "bf16 one to f32": cos(one["bf16"], one["f32"])}
+        del one
+    del mesh, p32
+    box = [out]
+    dist.broadcast_object_list(box, src=0)
+    out = box[0]
+    kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+    leaves = 3 * kinds.count("mlstm") + 2 * kinds.count("slstm")
+    out["ok"] = (len(out["f32"]) == leaves
+                 and min(out["f32"].values()) >= compare.GRAD_COSINE_LEAF
+                 and min(out["bf16"].values()) >= XL_GRAD_BF16_FLOOR)
+    return out
+
+
+def _partly_read_line(g: dict) -> str:
+    """``_xl_partly_read``'s readings, each at its worst leaf."""
+    from repro_torch.kernels import compare
+
+    worst = ", ".join(f"{name} {min(v.values()):.10f} ({min(v, key=v.get)})"
+                      for name, v in g.items() if name != "ok")
+    return (f"the gradients of the {len(g['f32'])} whole leaves each rank "
+            f"reads for its heads ({', '.join(XL_PARTLY_READ)}) against one "
+            f"process, worst cosine: {worst} (f32 >= "
+            f"{compare.GRAD_COSINE_LEAF}, bf16 >= {XL_GRAD_BF16_FLOOR}): "
+            f"{g['ok']}")
+
+
 def _two_ranks_train(rank: int, workdir: str) -> dict:
     """Phase 11 (b) on one of the two ranks (gloo over CUDA tensors),
     after phase 10 (b)'s work: on rank 0 the kernels at the
@@ -5350,6 +5477,10 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     steps, against one process; RecurrentGemma-9B at full width and
     ``TP_RG_LAYERS`` layers at 1×2 (its RG-LRU mixers split, never
     gathered over ``model``), batch 2 x 128, 2 steps, against one process;
+    xLSTM-350M at full width and ``TP_XL_LAYERS`` layers at 1×2 (its
+    mLSTM and sLSTM heads split), ``XL_TRAIN_BATCH`` x ``XL_PROMPT``, 2
+    steps, against one process, and the gradients of the whole leaves
+    each rank reads for its heads alone against one process's;
     ``compressed_psum`` over the ranks; the
     launcher's ``--mesh local`` for 3 steps with a checkpoint.  Returns
     what the parent prints."""
@@ -5389,7 +5520,8 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
                     rules=rules21, forwards=1, train=tcfg):
         """``batches`` over ``rules``' mesh against one process on the
         whole batch; over (1, 2) tensor-parallel, its collectives by
-        ``where`` gated (``_tp_train_expect``) and no SIMT launch.  Each
+        ``where`` gated (``_tp_train_expect``) and no SIMT launch but
+        the sLSTM's 1365-wide projections (``_slstm_simt``).  Each
         rank first takes its blocks of ``params``; the one-process steps
         then run on rank 0 alone (two of RecurrentGemma-9B's do not fit
         the card side by side) while rank 1 waits, and rank 0 sends its
@@ -5463,7 +5595,8 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
                 where[key] = where.get(key, 0) + c["count"]
             if mesh is mesh12:
                 read_variants(f"(b) rank {rank} {label} step {i} over "
-                              f"{shape}", tally=False)
+                              f"{shape}", _slstm_simt(cfg, forwards),
+                              tally=False)
             for k in worst:
                 worst[k] = max(worst[k], _rel(m2[k], m1[k]))
         walls["call_s"]["mesh"] = time.perf_counter() - t0 \
@@ -5596,6 +5729,37 @@ def _two_ranks_train(rank: int, workdir: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # xLSTM-350M at full width, TP_XL_LAYERS layers, 1×2: its mLSTM and
+    # sLSTM heads and its vocabulary split, the sLSTM's 1365-wide
+    # up-projection whole; first the gradients of the whole leaves each
+    # rank reads for its heads alone, against one process on rank 0
+    t_xl = time.perf_counter()
+    xcfg = _xl_config(policy=cuda)
+    xstream = make_stream(DataConfig(batch=XL_TRAIN_BATCH, seq_len=XL_PROMPT,
+                                     vocab_size=xcfg.vocab_size, seed=0))
+    xbatches = [xstream.batch(i) for i in range(2)]
+    xparams = LM.init_params(0, xcfg, draw_on_device=True)
+    label = f"xLSTM-350M {TP_XL_LAYERS} layers TP"
+    xl_grads = _xl_partly_read(rank, xcfg, tcfg, xparams, xbatches[0],
+                               rules12)
+    lay = against_one(label, xcfg, xparams, xbatches, rules=rules12)
+    del xparams
+    split = {"mlstm": ("w_up", "w_gates", "w_qkv", "conv", "w_down"),
+             "slstm": ("w_gates", "r_gates")}       # 1365 columns: whole
+    mixers = {k: k.split(".")[-2:] for k in lay.params
+              if k.split(".")[-2] in split}
+    kept = len(mixers) == 7 * 8 + 7 and all(
+        (lay.keep.get(k) == ("model",)) == (leaf in split[kind])
+        for k, (kind, leaf) in mixers.items())
+    res[label].update(xlstm_kept=kept, partly_read_grads=xl_grads,
+                      ok=res[label]["ok"] and kept and xl_grads["ok"])
+    res[label]["walls_ms"]["call_s"]["gradients"] = \
+        time.perf_counter() - t_xl - sum(
+            res[label]["walls_ms"]["call_s"].values())
+    del lay
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # compressed_psum over the two ranks: each rank knows both payloads
     rows = [randn((2048, 2048), torch.float32, seed=r) for r in range(2)]
     deqs = [C.dequantize_int8(*C.quantize_int8(r), r.shape) for r in rows]
@@ -5631,47 +5795,88 @@ TP_WHERE = ("attn_out all-reduce", "attn input (backward)",
             "rglru_down all-reduce", "rglru input (backward)",
             "embed all-reduce", "lm_head input (backward)", "loss max",
             "loss sum-exp", "loss label logit", "logits all-gather",
-            "attn kv (backward)")
+            "attn kv (backward)", "mlstm_down all-reduce",
+            "mlstm input (backward)", "mlstm_uc input (backward)",
+            "mlstm_qkv input (backward)", "mlstm whole leaves (backward)",
+            "slstm_down all-reduce", "slstm input (backward)",
+            "slstm_up input (backward)", "slstm whole leaves (backward)")
 
 
-def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
-    """The collectives over ``model`` a tensor-parallel training run of
-    ``forwards`` forwards and backwards (``steps`` steps) makes, by
-    ``kind:axis:where``: each split attention layer's ``attn_out``, each
-    MLP's ``mlp_down`` and each split RG-LRU mixer's ``rglru_down``
-    all-reduce in the forward and their inputs' ``f`` in the backward,
-    and where k/v stay whole beside split q heads
-    the ``f`` of ``wk`` and ``wv``; the embedding's all-reduce, the head's
-    ``f`` and the vocab-parallel loss's three reduces a forward where the
-    vocabulary splits; a ``param gather`` over ``model`` a step only for
-    each leaf ``lay`` holds whole (M³ViT's attention and routed experts),
-    none for a split one."""
-    from repro_torch.dist import spmd
+def _tp_counts(cfg, tp: int) -> dict:
+    """The collectives over ``model`` one forward of ``cfg`` and its
+    backward make over ``tp`` ranks, by ``kind:axis:where``: each split
+    attention layer's ``attn_out``, each MLP's ``mlp_down`` and each split
+    RG-LRU mixer's ``rglru_down`` all-reduce in the forward and their
+    inputs' ``f`` in the backward, and where k/v stay whole beside split q
+    heads the ``f`` of ``wk`` and ``wv``; each split mLSTM's uc and qkv
+    all-gathers and ``mlstm_down`` all-reduce in the forward and, in the
+    backward, the ``f`` of its input, of uc, of qkv and of its three
+    partly-read whole leaves (``w_if``, ``b_if``, ``gn_scale``); each
+    split sLSTM's hn all-gather and the ``f`` of its input and of its two
+    whole leaves (``b_gates``, ``gn_scale``), and where its up-projection
+    splits its ``slstm_down`` all-reduce and that input's ``f``; the
+    embedding's all-reduce, the head's ``f`` and the vocab-parallel
+    loss's three reduces where the vocabulary splits."""
+    from repro_torch.models import rglru, xlstm
     from repro_torch.models.layers import attention_layout
-    from repro_torch.models.rglru import split_over
 
-    tp = spmd.axis_size(lay.mesh, "model")
     kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
     q_split, kv_split = attention_layout(cfg, tp)
     attn = sum(k.startswith("attn") for k in kinds) if q_split else 0
     mlp = sum(k in ("attn_mlp", "attn_local_mlp", "rglru_mlp")
               for k in kinds)
-    mixers = kinds.count("rglru_mlp") if split_over(cfg, tp) else 0
-    out = {}
-    for at, n in (("attn_out all-reduce", attn),
-                  ("attn input (backward)", attn),
-                  ("mlp_down all-reduce", mlp),
-                  ("mlp input (backward)", mlp),
-                  ("rglru_down all-reduce", mixers),
-                  ("rglru input (backward)", mixers)):
-        if n:
-            out[f"all_reduce:model:{at}"] = n * forwards
-    if attn and not kv_split:
-        out["all_reduce:model:attn kv (backward)"] = 2 * attn * forwards
+    mixers = kinds.count("rglru_mlp") if rglru.split_over(cfg, tp) else 0
+    xl = xlstm.split_over(cfg, tp)
+    nm = kinds.count("mlstm") if xl else 0
+    ns = kinds.count("slstm") if xl else 0
+    nu = ns if (4 * cfg.d_model // 3) % tp == 0 else 0
+    reduces = (("attn_out all-reduce", attn),
+               ("attn input (backward)", attn),
+               ("attn kv (backward)", 0 if kv_split else 2 * attn),
+               ("mlp_down all-reduce", mlp),
+               ("mlp input (backward)", mlp),
+               ("rglru_down all-reduce", mixers),
+               ("rglru input (backward)", mixers),
+               ("mlstm_down all-reduce", nm),
+               ("mlstm input (backward)", nm),
+               ("mlstm_uc input (backward)", nm),
+               ("mlstm_qkv input (backward)", nm),
+               ("mlstm whole leaves (backward)", 3 * nm),
+               ("slstm input (backward)", ns),
+               ("slstm whole leaves (backward)", 2 * ns),
+               ("slstm_down all-reduce", nu),
+               ("slstm_up input (backward)", nu))
     if cfg.vocab_size:
-        for at in ("embed all-reduce", "lm_head input (backward)",
-                   "loss max", "loss sum-exp", "loss label logit"):
-            out[f"all_reduce:model:{at}"] = forwards
+        reduces += tuple((at, 1) for at in (
+            "embed all-reduce", "lm_head input (backward)", "loss max",
+            "loss sum-exp", "loss label logit"))
+    gathers = (("mlstm_uc all-gather", nm), ("mlstm_qkv all-gather", nm),
+               ("slstm_hn all-gather", ns))
+    return {f"{kind}:model:{at}": n for kind, pairs in (
+        ("all_reduce", reduces), ("all_gather", gathers))
+        for at, n in pairs if n}
+
+
+def _tp_serve_expect(cfg, forwards: int) -> dict:
+    """The collectives over ``model`` a tensor-parallel serving run of
+    ``forwards`` forwards over (1, 2) makes: ``_tp_counts``' forward ones
+    but the loss's, and the logits all-gather a forward."""
+    out = {k: n * forwards for k, n in _tp_counts(cfg, 2).items()
+           if "(backward)" not in k and ":loss " not in k}
+    out["all_gather:model:logits all-gather"] = forwards
+    return out
+
+
+def _tp_train_expect(cfg, lay, forwards: int, steps: int) -> dict:
+    """The collectives over ``model`` a tensor-parallel training run of
+    ``forwards`` forwards and backwards (``steps`` steps) makes, by
+    ``kind:axis:where``: ``_tp_counts`` a forward, and a ``param gather``
+    over ``model`` a step only for each leaf ``lay`` holds whole (M³ViT's
+    attention and routed experts), none for a split one."""
+    from repro_torch.dist import spmd
+
+    out = {k: n * forwards for k, n in _tp_counts(
+        cfg, spmd.axis_size(lay.mesh, "model")).items()}
     whole = [k for k, spec in lay.params.items() if k not in lay.keep
              and any("model" in ((e,) if isinstance(e, str) else e or ())
                      for e in spec)]
@@ -5695,7 +5900,8 @@ def mesh_train_two(results) -> dict:
         t = r["train"]
         for label in ("M3ViT", f"Llama-3.2-1B {MESH_LM_LAYERS} layers",
                       "M3ViT TP", f"Llama-3.2-1B {MESH_LM_LAYERS} layers "
-                      f"TP", f"RecurrentGemma-9B {TP_RG_LAYERS} layers TP"):
+                      f"TP", f"RecurrentGemma-9B {TP_RG_LAYERS} layers TP",
+                      f"xLSTM-350M {TP_XL_LAYERS} layers TP"):
             v = t[label]
             how = "fsdp, the batch split in two" if v["mesh"] == "2x1" \
                 else "tensor-parallel, the whole batch on each rank"
@@ -5726,11 +5932,17 @@ def mesh_train_two(results) -> dict:
                 print(f"  (b) rank {r['rank']} {label}: every RG-LRU leaf "
                       f"kept local over model, never gathered over it: "
                       f"{v['rglru_kept']}")
+            if "xlstm_kept" in v:
+                g = v["partly_read_grads"]
+                print(f"  (b) rank {r['rank']} {label}: every split mixer "
+                      f"leaf kept local over model, the whole ones not: "
+                      f"{v['xlstm_kept']}; " + _partly_read_line(g))
         if "tp_kernel_errs" in t:
             print(f"  (b) rank {r['rank']} unified_linear and "
                   f"flash_attention at the tensor-parallel training shapes "
                   f"(M3ViT's MLP at M={TOKENS}, Llama-3.2-1B at M=512, "
-                  f"RecurrentGemma-9B at M=256; "
+                  f"RecurrentGemma-9B at M=256, xLSTM-350M at "
+                  f"M={XL_TRAIN_BATCH * XL_PROMPT}; "
                   f"column blocks bit-equal, forward and backward against "
                   f"their plain versions): max abs err "
                   f"{json.dumps(t['tp_kernel_errs'])}")

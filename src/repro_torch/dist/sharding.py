@@ -434,8 +434,9 @@ class TrainLayout:
     """Where a training state's leaves live over ``rules.mesh``: each
     parameter's spec on its whole shape (``params``), the axes its
     gather leaves local (``keep``: ``model`` for every leaf a rank
-    computes on its block of — the tensor-parallel dense blocks and
-    RG-LRU mixers, and the expert stacks of an ``ep_local`` layer)."""
+    computes on its block of — the tensor-parallel dense blocks, RG-LRU
+    mixers and xLSTM mixers (where ``model`` divides their heads), and
+    the expert stacks of an ``ep_local`` layer)."""
 
     rules: ShardingRules
     params: dict

@@ -83,12 +83,13 @@ POLICY = "cuda"     # the impls the card runs
 
 MESHES = ("1", "16x16", "2x16x16")
 MESH_NOTE = ("rank 0's share on a device-free mesh: the dense blocks and "
-             "the RG-LRU mixers are "
+             "the recurrent mixers are "
              "tensor-parallel over model in training and in serving (a "
              "rank's heads, hidden columns and vocabulary block, its block "
              "of an RG-LRU mixer's width and its state's, k/v whole "
              "where the KV heads do not divide the axis, the xLSTM mixers "
-             "whole), so a cell's dense "
+             "whole where model does not divide their heads), so a cell's "
+             "dense "
              "FLOPs and the weights it computes with drop by the model "
              "axis too and its model all-reduces are counted (each block's "
              "in the forward, a train cell's backward all-reduces of the "

@@ -70,8 +70,8 @@ def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     """Zeroed KV caches and initial recurrent states (the reference's
     −1e30 stabilizers) for ``batch`` sequences of up to ``max_len`` tokens
     on ``device``; ``params``: the flat leaves a rank computes with under
-    tensor parallelism, whose KV heads and RG-LRU channels the state
-    holds (``transformer.state_blocks``; default all)."""
+    tensor parallelism, whose KV heads, RG-LRU channels and xLSTM heads
+    the state holds (``transformer.state_blocks``; default all)."""
     return T.init_state(cfg, batch, max_len, dtype,
                         device=resolve_device(device), params=params)
 

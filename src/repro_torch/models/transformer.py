@@ -76,11 +76,12 @@ def _init_block(rng, kind: str, cfg: ArchConfig, dtype):
 
 
 def _init_block_state(kind: str, cfg: ArchConfig, batch: int, max_len: int,
-                      dtype, device, kv_heads=None, lru_width=None):
+                      dtype, device, kv_heads=None, lru_width=None,
+                      xlstm_heads=None):
     if kind == "mlstm":
-        return XL.init_mlstm_state(cfg, batch, device)
+        return XL.init_mlstm_state(cfg, batch, device, xlstm_heads)
     if kind == "slstm":
-        return XL.init_slstm_state(cfg, batch, device)
+        return XL.init_slstm_state(cfg, batch, device, xlstm_heads)
     if kind == "rglru_mlp":
         return RG.init_rglru_state(cfg, batch, device, lru_width)
     if kind not in _ATTN_KINDS:
@@ -178,7 +179,7 @@ def _put(stacked, tree, p: int) -> None:
     stacked[p].copy_(tree)
 
 
-_MIXERS = re.compile(r"(mlstm|slstm)/")
+_XLSTM = re.compile(r"(mlstm|slstm)/")
 _RGLRU = re.compile(r"rglru/")
 _ATTN_Q = re.compile(r"attn/(wq|bq|wo)$")
 _ATTN_KV = re.compile(r"attn/(wk|wv|bk|bv)$")
@@ -196,10 +197,18 @@ def model_blocks(cfg: ArchConfig, rules) -> dict:
     :func:`layers.attention_layout`), the dense MLP, the shared experts,
     ``embed/tokens`` and ``head/w``, the RG-LRU mixers' leaves (per
     :func:`rglru.split_over`: ``w_up``/``w_up2``/``conv`` by columns,
-    ``gates`` by heads, ``lam`` by channels, ``w_down`` by rows) and the
-    expert stacks of an ``ep_local`` MoE (this rank's experts).  Left
-    whole on every rank: the xLSTM mixers' leaves (``mlstm``, ``slstm``),
-    an RG-LRU mixer whose width or gate heads do not divide the axis, an
+    ``gates`` by heads, ``lam`` by channels, ``w_down`` by rows), the
+    xLSTM mixers' leaves (per :func:`xlstm.split_over`: the mLSTM's
+    ``w_up``/``w_gates``/``w_qkv``/``conv`` by columns — ``w_qkv`` in the
+    table's contiguous block, gathered after the product — and ``w_down``
+    by rows; the sLSTM's ``w_gates`` by columns and ``r_gates`` by heads,
+    its ``w_up``/``w_up2``/``w_down`` only where the axis divides their
+    ``4d/3``, as the trimmed table has it) and the expert stacks of an
+    ``ep_local`` MoE (this rank's experts).  Left whole on every rank: an
+    xLSTM mixer whose heads do not divide the axis, its ``w_if``,
+    ``b_if``, ``b_gates`` and ``gn_scale`` (read by each rank for its
+    heads: ``models/xlstm.py`` sums their gradients over ``model``), an
+    RG-LRU mixer whose width or gate heads do not divide the axis, an
     attention layer whose heads do not, k/v where the KV heads do not
     (``layers.apply_attention`` sums their gradient over ``model``), and
     the expert stacks of the other MoE impls (every rank routes to every
@@ -209,13 +218,16 @@ def model_blocks(cfg: ArchConfig, rules) -> dict:
         return {}
     q_split, kv_split = L.attention_layout(cfg, tp)
     lru_split = RG.split_over(cfg, tp)
+    xlstm_split = XL.split_over(cfg, tp)
     ep_local = cfg.moe is not None and cfg.moe.impl == "ep_local"
     shapes = flatten(init_params(torch.device("meta"), cfg))
     out = {}
     for name, sh in param_sharding_rules(shapes, rules).items():
         spec = model_spec(sh.spec)
         path = name.replace(".", "/")
-        if "model" not in spec or _MIXERS.search(path):
+        if "model" not in spec:
+            continue
+        if _XLSTM.search(path) and not xlstm_split:
             continue
         if _RGLRU.search(path) and not lru_split:
             continue
@@ -258,16 +270,24 @@ def cache_kv_heads(params: dict, cfg: ArchConfig):
 def state_blocks(params: dict, cfg: ArchConfig) -> dict:
     """The blocks of a decode state for the flat ``params`` a rank
     computes with: ``kv_heads``, its KV heads (:func:`cache_kv_heads`),
-    and ``lru_width``, its RG-LRU channels where its mixers hold a block
-    of ``rglru.w_up``'s columns (tensor parallelism); each None where the
-    rank holds them all."""
-    width = None
+    ``lru_width``, its RG-LRU channels where its mixers hold a block of
+    ``rglru.w_up``'s columns, and ``xlstm_heads``, its mLSTM and sLSTM
+    heads where its mixers hold a block of them (``slstm.r_gates``'
+    heads, ``mlstm.w_down``'s rows over the head width) under tensor
+    parallelism; each None where the rank holds them all."""
+    width = heads = None
     for name, w in params.items():
-        if name.endswith("rglru.w_up"):
+        if name.endswith("rglru.w_up") and width is None:
             if w.shape[-1] != (cfg.lru_width or cfg.d_model):
                 width = w.shape[-1]
-            break
-    return {"kv_heads": cache_kv_heads(params, cfg), "lru_width": width}
+        elif name.endswith("slstm.r_gates"):
+            heads = w.shape[-3]
+        elif name.endswith("mlstm.w_down"):
+            heads = w.shape[-2] * cfg.num_heads // (2 * cfg.d_model)
+    if heads == cfg.num_heads:
+        heads = None
+    return {"kv_heads": cache_kv_heads(params, cfg), "lru_width": width,
+            "xlstm_heads": heads}
 
 
 def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,

@@ -21,6 +21,27 @@ does for KV caches.  Every projection goes through ``unified_linear``; the
 float32 products and reductions of the recurrences run through
 :func:`seq_groups`, so on the card a sequence's bits do not depend on how
 many sequences share the call.
+
+Tensor parallelism (a ``model`` axis of ``tp`` > 1 that divides the
+heads, :func:`split_over`): past its projections each block works per
+head, so a rank runs the recurrences on its ``H / tp`` heads, with a
+state of those heads, as the reference's table splits the widths.  The
+mLSTM: the input through the Megatron ``f`` (``spmd.model_input``), its
+columns of ``w_up``, ``w_gates`` (its heads' channels: ``hn`` is
+head-major) and ``conv``, summed in the whole weight's order
+(``order_n``); the conv output gathered whole over ``model``, the
+table's contiguous block of ``w_qkv``'s columns, the product gathered
+whole and the rank's heads of q, k and v taken from it; the whole
+``w_if``/``b_if``/``gn_scale`` read for its heads alone; its rows of
+``w_down`` giving float32 partials added over ``model`` before the one
+rounding.  The sLSTM: its heads' columns of ``w_gates`` (the reshape to
+(H, dh, 4) is head-major) and of ``r_gates``, the group-normed output
+gathered whole, then the up-projection whole on every rank, or split as
+the dense MLP is where ``tp`` divides its ``4d/3`` columns.  A whole leaf
+a rank reads only in part passes through the ``f`` itself, so its
+gradient is the ranks' sum; a gathered tensor that feeds split work
+passes through it after the gather (the gather's backward takes the
+rank's block of a gradient every rank holds whole).
 """
 
 from __future__ import annotations
@@ -34,13 +55,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.moe import normal
 from repro_torch.core.unified_linear import unified_linear
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import constrain
 from repro_torch.roofline.op_cost import repeat
 from repro_torch.roofline.scope import scope
 
 __all__ = ["group_norm", "causal_conv1d", "seq_groups", "init_mlstm",
            "apply_mlstm", "init_mlstm_state", "mlstm_recurrent_step",
-           "init_slstm", "apply_slstm", "init_slstm_state", "SEQ_GROUP"]
+           "init_slstm", "apply_slstm", "init_slstm_state", "split_over",
+           "SEQ_GROUP"]
 
 NEG = -1e30
 # On the card a float32 product or reduction picks its algorithm (and so
@@ -136,6 +159,20 @@ def _write(state: dict, new: dict) -> dict:
     for k, v in new.items():
         state[k].copy_(v)
     return state
+
+
+def split_over(cfg: ArchConfig, tp: int) -> bool:
+    """Whether the mLSTM and sLSTM blocks split over a ``model`` axis of
+    ``tp``: where ``tp`` divides the heads (then it also divides the
+    widths ``2d``, ``3 * 2d`` and ``4d`` the reference's table splits).
+    Otherwise every mixer leaf stays whole."""
+    return tp > 1 and cfg.num_heads % tp == 0
+
+
+def _rank_heads(nh: int, h: int) -> int:
+    """The first of this rank's ``nh`` heads of ``h`` (0 where it holds
+    them all)."""
+    return 0 if nh == h else spmd.model_rank() * nh
 
 
 # ------------------------------------------------------------ mLSTM
@@ -242,21 +279,26 @@ def mlstm_recurrent_step(q, k, v, logi, logf, state):
     return h, (C, n, m_new)
 
 
-def _mlstm_core(params, cfg: ArchConfig, decode: bool, uc, qkv, z, C, n, m):
+def _mlstm_core(params, cfg: ArchConfig, decode: bool, lo: int, uc, qkv,
+                z, C, n, m):
     """The float32 part of an mLSTM block, per sequence: the scalar gates,
-    the recurrence, the group norm and the z gate.  Returns (gated in uc's
-    dtype, (C, n, m))."""
+    the recurrence, the group norm and the z gate, on the heads ``lo`` ..
+    ``lo + nh`` that ``z``'s ``nh * dh`` channels hold (all of them on one
+    device; a rank's under tensor parallelism, ``uc`` and ``qkv`` whole).
+    Returns (gated in uc's dtype, (C, n, m))."""
     b, s, di = uc.shape
     h = cfg.num_heads
     dh = di // h
+    nh = z.shape[-1] // dh
+    heads = slice(lo, lo + nh)
     gates = torch.matmul(uc.float(), params["w_if"]) + params["b_if"]
     logi, logf_raw = torch.chunk(gates, 2, dim=-1)          # (B, S, H)
-    logf = F.logsigmoid(logf_raw)
+    logi, logf = logi[..., heads], F.logsigmoid(logf_raw[..., heads])
 
-    def heads(t):  # (B, S, di) -> (B, H, S, dh)
-        return t.reshape(b, s, h, dh).transpose(1, 2)
+    def split(t):  # (B, S, di) -> the heads' (B, nh, S, dh)
+        return t.reshape(b, s, h, dh)[:, :, heads].transpose(1, 2)
 
-    q, k, v = (heads(t) for t in torch.chunk(qkv, 3, dim=-1))
+    q, k, v = (split(t) for t in torch.chunk(qkv, 3, dim=-1))
     logi_t, logf_t = logi.transpose(1, 2), logf.transpose(1, 2)
     inner = None if C is None else (C, n, m)
     if decode and s == 1:   # a decode step always carries a state
@@ -267,8 +309,8 @@ def _mlstm_core(params, cfg: ArchConfig, decode: bool, uc, qkv, z, C, n, m):
     else:
         hout, inner = _mlstm_chunk_scan(q, k, v, logi_t, logf_t, inner,
                                         cfg.mlstm_chunk)
-    hn = group_norm(hout.transpose(1, 2), params["gn_scale"])  # (B,S,H,dh)
-    hn = hn.reshape(b, s, di)
+    hn = group_norm(hout.transpose(1, 2), params["gn_scale"][heads])
+    hn = hn.reshape(b, s, nh * dh)                          # (B, S, nh dh)
     gated = hn * F.silu(z.float()).to(hn.dtype)
     return gated.to(uc.dtype), inner
 
@@ -276,32 +318,68 @@ def _mlstm_core(params, cfg: ArchConfig, decode: bool, uc, qkv, z, C, n, m):
 @scope("mlstm")
 def apply_mlstm(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d).  state: {"C", "n", "m", "conv"} or None, updated in
-    place.  Returns (y, state)."""
-    u = constrain(unified_linear(x, params["w_up"]), "btw")
-    z = unified_linear(x, params["w_gates"])
+    place: a rank's heads and conv channels where ``params`` hold its
+    blocks (``w_gates`` narrower than ``2d``: see the module's
+    docstring).  Returns (y, state)."""
+    di = 2 * cfg.d_model
+    split = params["w_gates"].shape[-1] != di
+    if split:
+        x_in = spmd.model_input(x, "mlstm input")
+        params = dict(params)
+        for name in ("w_if", "b_if", "gn_scale"):
+            params[name] = spmd.model_input(params[name],
+                                            "mlstm whole leaves")
+    else:
+        x_in = x
+    order = di if split else None
+    u = constrain(unified_linear(x_in, params["w_up"], order_n=order),
+                  "btw")
+    z = unified_linear(x_in, params["w_gates"], order_n=order)
     conv_state = state["conv"] if state is not None else None
     uc, conv_state = causal_conv1d(u, params["conv"], conv_state)
     uc = F.silu(uc.float()).to(u.dtype)
-    qkv = unified_linear(uc, params["w_qkv"])
+    if split:
+        # the conv and SiLU work per channel: the rank's channels gathered
+        # are the whole uc; its block of w_qkv's columns, the product
+        # gathered whole
+        uc = spmd.model_input(spmd.model_gather(uc, "mlstm_uc all-gather"),
+                              "mlstm_uc input")
+        qkv = unified_linear(uc, params["w_qkv"], order_n=3 * di)
+        qkv = spmd.model_input(spmd.model_gather(qkv,
+                                                 "mlstm_qkv all-gather"),
+                               "mlstm_qkv input")
+    else:
+        qkv = unified_linear(uc, params["w_qkv"])
+    lo = _rank_heads(z.shape[-1] * cfg.num_heads // di, cfg.num_heads)
     cnm = (None,) * 3 if state is None else (state["C"], state["n"],
                                              state["m"])
     gated, (C, n, m) = seq_groups(
-        lambda *a: _mlstm_core(params, cfg, decode, *a), uc, qkv, z, *cnm)
-    y = unified_linear(gated.to(x.dtype), params["w_down"])
+        lambda *a: _mlstm_core(params, cfg, decode, lo, *a), uc, qkv, z,
+        *cnm)
+    if split:
+        # a row block of w_down: float32 partials, added over the ranks,
+        # then the one rounding
+        y = unified_linear(gated.to(x.dtype), params["w_down"],
+                           out_dtype=torch.float32)
+        y = spmd.model_sum(y, "mlstm_down all-reduce").to(x.dtype)
+    else:
+        y = unified_linear(gated.to(x.dtype), params["w_down"])
     return constrain(y, "btd"), _write(state, {"C": C, "n": n, "m": m,
                                                "conv": conv_state})
 
 
-def init_mlstm_state(cfg: ArchConfig, batch: int, device=None):
-    h = cfg.num_heads
-    di = 2 * cfg.d_model
-    dh = di // h
+def init_mlstm_state(cfg: ArchConfig, batch: int, device=None,
+                     heads: int | None = None):
+    """A zeroed state of ``heads`` heads and their conv channels (default:
+    all of them; a rank's under tensor parallelism)."""
+    h = heads or cfg.num_heads
+    dh = 2 * cfg.d_model // cfg.num_heads
     f32 = torch.float32
     return {
         "C": torch.zeros((batch, h, dh, dh), dtype=f32, device=device),
         "n": torch.zeros((batch, h, dh), dtype=f32, device=device),
         "m": torch.full((batch, h), NEG, dtype=f32, device=device),
-        "conv": torch.zeros((batch, cfg.conv_width - 1, di),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, h * dh),
                             dtype=cfg.activation_dtype, device=device),
     }
 
@@ -348,11 +426,12 @@ def _slstm_cell(wx, r_gates, state):
 
 def _slstm_core(params, cfg: ArchConfig, x, c, n, hp, m):
     """The float32 part of an sLSTM block, per sequence: the gate product,
-    the sequential scan and the group norm.  Returns (hn in x's dtype,
-    (c, n, h, m))."""
+    the sequential scan and the group norm, on the heads whose recurrent
+    weights ``params["r_gates"]`` holds (all of them on one device; a
+    rank's under tensor parallelism, with its columns of ``w_gates`` and
+    ``b_gates``).  Returns (hn in x's dtype, (c, n, h, m))."""
     b, s, d = x.shape
-    h = cfg.num_heads
-    dh = d // h
+    h, dh = params["r_gates"].shape[0], d // cfg.num_heads
     wx = torch.matmul(x.float(), params["w_gates"].float()) \
         + params["b_gates"]
     wx = wx.reshape(b, s, h, dh, 4)
@@ -371,28 +450,67 @@ def _slstm_core(params, cfg: ArchConfig, x, c, n, hp, m):
             inner, ht = _slstm_cell(wx[:, t], r_gates, inner)
             hs.append(ht)
     hseq, *inner = rep.end(rep.stack(hs, dim=1), *inner)     # (B,S,H,dh)
-    hn = group_norm(hseq, params["gn_scale"]).reshape(b, s, d)
+    hn = group_norm(hseq, params["gn_scale"]).reshape(b, s, h * dh)
     return hn.to(x.dtype), tuple(inner)
 
 
 @scope("slstm")
 def apply_slstm(params, x, cfg: ArchConfig, state=None, decode=False):
     """x: (B, S, d).  Strictly sequential scan (the recurrent h feeds the
-    gates).  state: {"c", "n", "h", "m"} or None, updated in place."""
+    gates).  state: {"c", "n", "h", "m"} or None, updated in place: a
+    rank's heads where ``params`` hold its blocks (``r_gates`` of fewer
+    heads than the config's: see the module's docstring)."""
+    d = cfg.d_model
+    nh = params["r_gates"].shape[0]
+    split = nh != cfg.num_heads
+    core = params
+    if split:
+        # the rank's heads: its columns of w_gates, those of the whole
+        # b_gates and its rows of the whole gn_scale
+        lo = _rank_heads(nh, cfg.num_heads)
+        cols = slice(lo * 4 * d // cfg.num_heads,
+                     (lo + nh) * 4 * d // cfg.num_heads)
+        core = dict(params,
+                    b_gates=spmd.model_input(params["b_gates"],
+                                             "slstm whole leaves")[cols],
+                    gn_scale=spmd.model_input(params["gn_scale"],
+                                              "slstm whole leaves")[
+                        lo:lo + nh])
+        x_in = spmd.model_input(x, "slstm input")
+    else:
+        x_in = x
     cnhm = (None,) * 4 if state is None else tuple(
         state[k] for k in ("c", "n", "h", "m"))
     hn, (c, n, hp, m) = seq_groups(
-        lambda *a: _slstm_core(params, cfg, *a), x, *cnhm)
-    up = unified_linear(hn, params["w_up"], activation="gelu")
-    up2 = unified_linear(hn, params["w_up2"])
-    y = unified_linear((up * up2).to(x.dtype), params["w_down"])
+        lambda *a: _slstm_core(core, cfg, *a), x_in, *cnhm)
+    if split:
+        hn = spmd.model_gather(hn, "slstm_hn all-gather")
+    dup = (4 * d) // 3
+    if params["w_up"].shape[-1] != dup:
+        # the up-projection's columns on this rank (the dense MLP's split)
+        hn = spmd.model_input(hn, "slstm_up input")
+        up = unified_linear(hn, params["w_up"], activation="gelu",
+                            order_n=dup)
+        up2 = unified_linear(hn, params["w_up2"], order_n=dup)
+        y = unified_linear((up * up2).to(x.dtype), params["w_down"],
+                           out_dtype=torch.float32)
+        y = spmd.model_sum(y, "slstm_down all-reduce").to(x.dtype)
+    else:
+        # whole on every rank, from the whole hn: its gradient is each
+        # rank's whole one, of which the gather's backward takes the block
+        up = unified_linear(hn, params["w_up"], activation="gelu")
+        up2 = unified_linear(hn, params["w_up2"])
+        y = unified_linear((up * up2).to(x.dtype), params["w_down"])
     return constrain(y, "btd"), _write(state, {"c": c, "n": n, "h": hp,
                                                "m": m})
 
 
-def init_slstm_state(cfg: ArchConfig, batch: int, device=None):
-    h = cfg.num_heads
-    dh = cfg.d_model // h
+def init_slstm_state(cfg: ArchConfig, batch: int, device=None,
+                     heads: int | None = None):
+    """A zeroed state of ``heads`` heads (default: all of them; a rank's
+    under tensor parallelism)."""
+    h = heads or cfg.num_heads
+    dh = cfg.d_model // cfg.num_heads
 
     def zero():
         return torch.zeros((batch, h, dh), dtype=torch.float32,

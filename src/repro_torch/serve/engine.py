@@ -23,17 +23,19 @@ the same prompts): each rank holds the weights its kernels compute with
 reference's table splits there — attention's heads, the MLP's and the
 shared experts' hidden columns, its block of the vocabulary in
 ``embed/tokens`` and ``head/w``, an RG-LRU mixer's block of its width,
-an ``ep_local`` MoE layer's experts — so the dense blocks and the RG-LRU
-mixers run tensor-parallel (``models/layers.py``, ``models/rglru.py``).
-Whole on every rank: the xLSTM mixers' leaves, attention whose heads do
-not divide the axis, the expert stacks of the other MoE impls, and every
+an xLSTM mixer's heads, an ``ep_local`` MoE layer's experts — so the
+dense blocks and the recurrent mixers run tensor-parallel
+(``models/layers.py``, ``models/rglru.py``, ``models/xlstm.py``).
+Whole on every rank: an xLSTM mixer whose heads do not divide the axis,
+attention whose heads do not divide the axis, the expert stacks of the other MoE impls, and every
 leaf over the data axes (the reference applies FSDP there; ``ROADMAP.md``
 queue 3).  ``models.model.init_params(rules=)`` draws a rank's blocks
 without ever holding the whole model.
 The decode state and the prompts are batch-sharded over the data axes,
 a KV cache holds this rank's KV heads where the ``"cache"`` rule splits
-them, and an RG-LRU state this rank's channels where its mixers split
-(:func:`shard_state`, :func:`shard_batch`): each rank
+them, an RG-LRU state this rank's channels and an mLSTM or sLSTM state
+this rank's heads where its mixers split (:func:`shard_state`,
+:func:`shard_batch`): each rank
 prefills and decodes its own rows, and one all-gather a step brings
 every row's token back, so the host loop (EOS, the output) sees the whole
 batch.  The head's logits are gathered whole over ``model`` before
@@ -82,8 +84,6 @@ __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
            "local_params", "shard_state", "shard_batch"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
-_CACHE_LEAVES = ("k", "v", "k_scale", "v_scale")   # a KV cache's leaves
-_LRU_LEAVES = ("h", "conv")                          # an RG-LRU state's
 _STUB_SEED = 0xE0BED
 _STUB_ROWS = 8192      # table rows a generator draws (float32), then cast
 
@@ -191,34 +191,46 @@ def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
     return out
 
 
-def shard_state(state, rules, axes: list[int], blocks=None):
+def shard_state(state, cfg: ArchConfig, rules, axes: list[int],
+                blocks=None):
     """This rank's part of a whole decode state (KV caches, recurrent
     cells): each leaf's batch axis (``axes``, from
     :func:`state_batch_axes`) cut over the mesh's batch axes, as the
     trimmed spec cuts it (a batch the axes do not divide stays whole), and
     over ``model`` to the blocks of ``blocks``
-    (``transformer.state_blocks`` of this rank's parameters): a KV
-    cache's heads (the axis after the batch axis) to its ``kv_heads``, an
-    RG-LRU state's channels (its last axis) to its ``lru_width`` (the
-    RG-LRU's are then the only ``h``/``conv`` leaves: the xLSTM mixers
-    never split).  No-op without rules."""
+    (``transformer.state_blocks`` of this rank's parameters), each leaf
+    by its block's kind in ``cfg.block_pattern``: an attention block's KV
+    cache to its ``kv_heads`` (the axis after the batch axis), an RG-LRU
+    state's ``h`` and ``conv`` to its ``lru_width`` channels (the last
+    axis), an mLSTM state's ``C``, ``n`` and ``m`` and an sLSTM state's
+    ``c``, ``n``, ``h`` and ``m`` to its ``xlstm_heads`` (the axis after
+    the batch axis) and the mLSTM's ``conv`` to those heads' channels (the
+    last axis).  No-op without rules."""
     if rules is None or rules.mesh is None:
         return state
     from repro_torch.tree import flatten, unflatten
 
-    kv_heads, width = (blocks or {}).get("kv_heads"), \
-        (blocks or {}).get("lru_width")
+    blocks = blocks or {}
+    kv_heads, width, heads = (blocks.get(k) for k in (
+        "kv_heads", "lru_width", "xlstm_heads"))
     rank = spmd.axis_index(rules.mesh, "model")
-    flat = flatten(state)
     out = {}
-    for (name, leaf), ax in zip(flat.items(), axes):
+    for (name, leaf), ax in zip(flatten(state).items(), axes):
         rows = spmd.batch_rows(leaf.shape[ax], rules)
         part = leaf.narrow(ax, rows.start, rows.stop - rows.start)
-        leaf_name = name.rsplit(".", 1)[-1]
-        if kv_heads is not None and leaf_name in _CACHE_LEAVES:
+        group, block, leaf_name = name.split(".")
+        kind = cfg.block_pattern[int(block.lstrip("b")) % cfg.period]
+        if kind == "rglru_mlp":
+            if width is not None:
+                part = part.narrow(-1, rank * width, width)
+        elif kind in ("mlstm", "slstm"):
+            if heads is not None and leaf_name == "conv":
+                ch = part.shape[-1] // cfg.num_heads * heads
+                part = part.narrow(-1, rank * ch, ch)
+            elif heads is not None:
+                part = part.narrow(ax + 1, rank * heads, heads)
+        elif kv_heads is not None:                  # a KV cache
             part = part.narrow(ax + 1, rank * kv_heads, kv_heads)
-        if width is not None and leaf_name in _LRU_LEAVES:
-            part = part.narrow(-1, rank * width, width)
         out[name] = part.clone()
     return unflatten(out)
 
@@ -288,7 +300,8 @@ class ServingEngine:
 
     def new_state(self, batch: int):
         """A zeroed decode state of ``batch`` rows at ``max_len``: this
-        rank's KV heads and RG-LRU channels under tensor parallelism."""
+        rank's KV heads, RG-LRU channels and xLSTM heads under tensor
+        parallelism."""
         return M.init_state(self.cfg, batch, self.scfg.max_len,
                             device=self.device, params=self.params)
 

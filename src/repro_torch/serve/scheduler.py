@@ -71,8 +71,8 @@ holds it (every rank keeps the record's books and the lane's shapes) and
 restores it on the rank of the free lane, the rows moved between ranks
 by one all-gather over the data axes where those differ
 (``LMTaskBucket.restore``).  Under tensor parallelism each rank's lane
-holds its own KV heads and RG-LRU channels, so each parks and restores
-its own block.
+holds its own KV heads, RG-LRU channels and xLSTM heads, so each parks
+and restores its own block.
 """
 
 from __future__ import annotations

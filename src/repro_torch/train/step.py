@@ -36,14 +36,14 @@ and computes what one device computes on the whole batch:
     forward (``dist.spmd.gather_param``) but ``model`` for the leaves a
     rank computes on its block of (``TrainLayout.keep``, from
     ``transformer.model_blocks``: the dense blocks' heads, hidden
-    columns and vocabulary, an RG-LRU mixer's channels, an ``ep_local``
-    expert stack's experts), so
+    columns and vocabulary, an RG-LRU mixer's channels, an xLSTM mixer's
+    heads, an ``ep_local`` expert stack's experts), so
     a split leaf is gathered over the batch axes alone (FSDP) and never
     whole;
   * the forward and backward are tensor-parallel over ``model``: the
     layers read the split from the blocks' widths
-    (``models/layers.py``, ``models/rglru.py``), each column block's
-    input through the
+    (``models/layers.py``, ``models/rglru.py``, ``models/xlstm.py``),
+    each column block's input through the
     Megatron ``f`` (``spmd.model_input``) and each row block's float32
     partials through the ``g`` (``spmd.model_sum``); the head gives this
     rank's block of the vocabulary and the loss is vocab-parallel

@@ -263,7 +263,7 @@ def check_engine(mesh):
     full = TM.init_state(cfg, 4, 32, device="cpu")
     for v in flatten(full).values():
         v.copy_(torch.arange(v.numel()).reshape(v.shape))
-    mine = flatten(shard_state(full, rules, axes))
+    mine = flatten(shard_state(full, cfg, rules, axes))
     rows = spmd.batch_rows(4, rules)
     for (name, v), ax in zip(flatten(full).items(), axes):
         assert torch.equal(mine[name], v.narrow(

@@ -4,6 +4,7 @@ the tensor-parallel serving checks at the smoke sizes against the same
 work with no mesh, with inputs made from seeds with NumPy.  Imports
 torch, NumPy and the port only."""
 
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -154,7 +155,8 @@ def check_blocks(mesh):
     full = M.init_state(cfg, 4, 32, device="cpu")
     for v in flatten(full).values():
         v.copy_(torch.arange(v.numel()).reshape(v.shape))
-    part = flatten(shard_state(full, rules, axes, T.state_blocks(mine, cfg)))
+    part = flatten(shard_state(full, cfg, rules, axes,
+                               T.state_blocks(mine, cfg)))
     rows = spmd.batch_rows(4, rules)
     local = flatten(M.init_state(cfg, rows.stop - rows.start, 32,
                                  device="cpu", params=mine))
@@ -367,7 +369,7 @@ def check_recurrent(mesh):
     bit the narrowed whole draw; tiered preemption parking recurrent
     lanes bit for bit with the unmeshed scheduler where ``model`` has one
     rank, and under tensor parallelism the same mesh's tokens without
-    preemption."""
+    preemption; then the smoke xLSTM's (:func:`_check_xlstm`)."""
     rules = ShardingRules.for_mesh(mesh, fsdp=False)
     tp = spmd.axis_size(mesh, "model")
     cfg, params = _model("recurrentgemma_9b", "float32")
@@ -397,7 +399,7 @@ def check_recurrent(mesh):
     full = M.init_state(cfg, 4, 32, device="cpu")
     for v in flatten(full).values():
         v.copy_(torch.arange(v.numel()).reshape(v.shape))
-    part = flatten(shard_state(full, rules, axes, blocks))
+    part = flatten(shard_state(full, cfg, rules, axes, blocks))
     rows = spmd.batch_rows(4, rules)
     local = flatten(engine.new_state(rows.stop - rows.start))
     r = spmd.axis_index(mesh, "model")
@@ -448,23 +450,225 @@ def check_recurrent(mesh):
     else:
         want, _ = _preempting(cfg, params, rules, False)
         assert got == want
+    _check_xlstm(mesh)
 
 
-CHECKS = {"forward": check_forward, "blocks": check_blocks,
-          "draw": check_draw, "embed": check_embed,
-          "layouts": check_layouts, "park": check_park,
-          "packed": check_packed, "recurrent": check_recurrent}
+#: the smoke xLSTM's prefill over a mesh splitting its heads against no
+#: mesh, float32, of each tensor's largest magnitude: the split's other
+#: sum orders (1e-7) grow through eight exp-stabilised recurrences to at
+#: most 9.3e-6 (the logits 6.4e-6, ``m`` of an mLSTM state 9.3e-6 at
+#: 1x4), past the elementwise float32 tolerance where a logit is small
+XLSTM_RTOL = 5e-5
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+#: the heads-split leaves of the xLSTM mixers and the dim each splits on
+#: (``w_down`` by rows, ``r_gates`` by heads, the rest by columns)
+XLSTM_SPLIT = {"mlstm": ("w_up", "w_gates", "w_qkv", "conv", "w_down"),
+               "slstm": ("w_gates", "r_gates")}
+
+
+def _check_xlstm(mesh):
+    """The smoke xLSTM at float32 (4 heads: its mLSTM and sLSTM split at
+    2 and 4; the sLSTM's 85-wide up-projection whole): a rank holds its
+    block of every split mixer leaf and the rest whole, its state its
+    ``H / tp`` heads (the mLSTM's conv their channels) — exactly
+    ``1 / tp`` of the whole state's bytes — as the engine builds it and as
+    ``shard_state`` cuts a whole state; the prefill's logits and state
+    within ``XLSTM_RTOL`` of no mesh (exact activations), with a uc and a qkv
+    all-gather and a down all-reduce a mLSTM block and an hn all-gather
+    an sLSTM block; the engine's greedy tokens equal; the per-rank draw
+    the narrowed whole draw; and tiered preemption parking xLSTM lanes,
+    each request's tokens those of the same mesh without preemption."""
+    from repro_torch.models import xlstm as XL
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    tp = spmd.axis_size(mesh, "model")
+    cfg, params = _model("xlstm_350m", "float32")
+    mine = local_params(params, cfg, rules)
+    split = XL.split_over(cfg, tp)
+    assert split == (tp > 1)
+    for name, v in params.items():
+        kind, leaf = name.split(".")[-2:]
+        if not split or leaf not in XLSTM_SPLIT.get(kind, ()):
+            if kind in XLSTM_SPLIT:
+                assert mine[name] is v, name
+            continue
+        dim = {"w_down": -2, "r_gates": -3}.get(leaf, -1)
+        want = list(v.shape)
+        want[dim] //= tp
+        assert list(mine[name].shape) == want, (name, mine[name].shape)
+    blocks = T.state_blocks(mine, cfg)
+    heads = blocks["xlstm_heads"]
+    assert heads == (cfg.num_heads // tp if split else None), heads
+    engine = ServingEngine(cfg, params, ServeConfig(max_len=32),
+                           rules=rules, device="cpu")
+    whole = flatten(M.init_state(cfg, 2, 32, device="cpu"))
+    local = flatten(engine.new_state(2))
+    nbytes = [sum(t.numel() * t.element_size() for t in s.values())
+              for s in (local, whole)]
+    assert nbytes[0] * tp == nbytes[1], nbytes
+    # shard_state of a whole state, against the rank's own
+    axes = state_batch_axes(cfg, 32)
+    full = M.init_state(cfg, 4, 32, device="cpu")
+    for v in flatten(full).values():
+        v.copy_(torch.arange(v.numel()).reshape(v.shape))
+    part = flatten(shard_state(full, cfg, rules, axes, blocks))
+    rows = spmd.batch_rows(4, rules)
+    own = flatten(engine.new_state(rows.stop - rows.start))
+    r = spmd.axis_index(mesh, "model")
+
+    def narrowed(name, v, ax):
+        if heads is None:
+            return v
+        if name.endswith(".conv"):
+            ch = v.shape[-1] // tp
+            return v.narrow(-1, r * ch, ch)
+        return v.narrow(ax + 1, r * heads, heads)
+
+    for (name, v), ax in zip(flatten(full).items(), axes):
+        want = narrowed(name, v.narrow(ax, rows.start,
+                                       rows.stop - rows.start), ax)
+        assert torch.equal(part[name], want), name
+        assert part[name].shape == own[name].shape, name
+    # the prefill's logits and state against no mesh, under exact
+    # activations (the sLSTM's GELU: a LUT index may flip at a half-step)
+    x = _inputs(cfg, s=13)
+    exact = replace(cfg, policy=ops.policy_named("eager"))
+    whole_state = M.init_state(cfg, 4, 32, device="cpu")
+    want, _, _ = M.forward(params, x, exact, state=whole_state,
+                           cache_index=0)
+    state = M.init_state(cfg, 4, 32, device="cpu", params=mine)
+    ops.reset_dispatch_report()
+    with torch.inference_mode(), use_rules(rules):
+        got, _, _ = M.forward(mine, x, exact, state=state, cache_index=0)
+    assert _rel(got, want) <= XLSTM_RTOL, _rel(got, want)
+    ours = flatten(state)
+    for (name, v), ax in zip(flatten(whole_state).items(), axes):
+        v = narrowed(name, v, ax)
+        assert _rel(ours[name], v) <= XLSTM_RTOL, (name, _rel(ours[name], v))
+    if split:
+        where = _where_counts()
+        kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+        nm, ns = kinds.count("mlstm"), kinds.count("slstm")
+        expect = {"mlstm_uc all-gather": nm, "mlstm_qkv all-gather": nm,
+                  "mlstm_down all-reduce": nm, "slstm_hn all-gather": ns,
+                  "embed all-reduce": 1, "logits all-gather": 1}
+        assert where == expect, where
+    scfg = ServeConfig(max_len=32)
+    np.testing.assert_array_equal(
+        engine.generate(x, 6),
+        ServingEngine(cfg, params, scfg, device="cpu").generate(x, 6))
+    # the per-rank draw
+    got = M.init_params(5, cfg, device="cpu", rules=rules)
+    want = local_params(M.init_params(5, cfg, device="cpu"), cfg, rules)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in got)
+    # parking xLSTM lanes, against the same mesh without preemption
+    got, sched = _preempting(cfg, params, rules, True)
+    assert sched.preemptions >= 1 and sched.metrics()["restores"] >= 1
+    want, _ = _preempting(cfg, params, rules, False)
+    assert got == want
+
+
+#: the port's xLSTM blocks on rank blocks against the reference's on the
+#: whole block, float32, of each tensor's largest magnitude: XLA's sums
+#: beside the port's and the split's other order (the largest reading at
+#: tp 2 and 4 is 1.2e-6, where the unsplit port's is too)
+XLSTM_REF_RTOL = 1e-5
+
+
+def check_xlstm_reference(mesh, workdir):
+    """``tests/test_torch_tp.py::test_xlstm_rank_blocks_match_the_reference``
+    on this rank: the reference's runs (``xlstm_ref_<d>.npz``, the
+    parent's) replayed by the port's ``apply_mlstm`` / ``apply_slstm`` on
+    this rank's blocks and its heads' state, under the rules of the
+    (1, tp) world and exact activations; each output (whole on every rank after the block's
+    all-reduce) and the rank's block of each state within
+    ``XLSTM_REF_RTOL``."""
+    from repro_torch.models import xlstm as XL
+
+    rules = ShardingRules.for_mesh(mesh, fsdp=False)
+    tp = spmd.axis_size(mesh, "model")
+    r = spmd.axis_index(mesh, "model")
+    for d in (64, 96):
+        ref = np.load(os.path.join(workdir, f"xlstm_ref_{d}.npz"))
+        cfg = replace(get("xlstm_350m", smoke=True), dtype="float32",
+                      d_model=d)
+        whole = {k.split(":", 1)[1]: torch.from_numpy(ref[k])
+                 for k in ref.files if k.startswith("param:")}
+        held = local_params(whole, cfg, rules)
+        heads = cfg.num_heads // tp
+        split_up = (4 * d // 3) % tp == 0
+        for kind, block, apply in (("mlstm", "b0", XL.apply_mlstm),
+                                   ("slstm", "b7", XL.apply_slstm)):
+            prefix = f"layers.{block}.{kind}."
+            mine = {k[len(prefix):]: v[0] for k, v in held.items()
+                    if k.startswith(prefix)}
+            assert mine["r_gates" if kind == "slstm" else "w_down"].shape[
+                -3 if kind == "slstm" else -2] * tp == (
+                cfg.num_heads if kind == "slstm" else 2 * d)
+            if kind == "slstm":
+                assert (mine["w_up"].shape[-1] * tp == 4 * d // 3) \
+                    == split_up, mine["w_up"].shape
+
+            def block_of(k, v):
+                """This rank's heads (the conv: their channels)."""
+                if k == "conv":
+                    ch = v.shape[-1] // tp
+                    return v[..., r * ch:(r + 1) * ch]
+                return v[:, r * heads:(r + 1) * heads]
+
+            state = {k[len(f"{kind}:state0:"):]: torch.from_numpy(
+                np.ascontiguousarray(block_of(k.rsplit(":", 1)[1],
+                                              ref[k])))
+                for k in ref.files if k.startswith(f"{kind}:state0:")}
+            for i, decode in enumerate((False, True, True, True)):
+                ops.reset_dispatch_report()
+                with use_rules(rules), ops.use_policy(
+                        ops.policy_named("eager")):
+                    y, same = apply(mine, torch.from_numpy(
+                        ref[f"{kind}:x{i}"]), cfg, state, decode)
+                assert same is state
+                want = torch.from_numpy(ref[f"{kind}:y{i}"])
+                assert _rel(y, want) <= XLSTM_REF_RTOL, \
+                    (d, kind, i, _rel(y, want))
+                for k, v in state.items():
+                    want = torch.from_numpy(np.ascontiguousarray(block_of(
+                        k, ref[f"{kind}:state{i + 1}:{k}"])))
+                    assert _rel(v, want) <= XLSTM_REF_RTOL, \
+                        (d, kind, i, k, _rel(v, want))
+                where = _where_counts()
+                if kind == "mlstm":
+                    assert where == {"mlstm_uc all-gather": 1,
+                                     "mlstm_qkv all-gather": 1,
+                                     "mlstm_down all-reduce": 1}, where
+                else:
+                    assert where == {"slstm_hn all-gather": 1} | (
+                        {"slstm_down all-reduce": 1} if split_up
+                        else {}), where
+
+
+#: the checks ``test_tensor_parallel_world`` runs in every world
+CHECKS = (check_forward, check_blocks, check_draw, check_embed,
+          check_layouts, check_park, check_packed, check_recurrent)
 
 
 def run(rank, world, shape, store, checks):
+    """One rank of a gloo world of ``shape``: each of ``checks`` (callables
+    of the mesh, e.g. ``CHECKS``) in turn."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank)
     try:
         mesh = spmd.init_mesh(shape, device_type="cpu")
-        for name in checks:
+        for check in checks:
             ops.reset_dispatch_report()
-            CHECKS[name](mesh)
+            check(mesh)
         dist.barrier()
     finally:
         dist.destroy_process_group()

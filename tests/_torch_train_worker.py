@@ -40,6 +40,14 @@ GRAD_RTOL = 1e-5     # mesh against one process, float32, of a leaf's max
 #: entry under the split's sum order, so the bound is the LUT's
 #: (``tests/test_torch_m3vit.py:LUT_BOUND``, 2.5x its largest reading)
 LUT_RTOL = 5e-4
+#: the xLSTM's gradients over a mesh that splits its heads, float32, of
+#: a leaf's max: its exp-stabilised recurrences carry the split's other
+#: sum orders (1e-7) further than the dense blocks do — the largest
+#: reading at 1x2 and 2x2 is 3.2e-5 (``b_if``: 8 values, each a sum over
+#: every token), while a gradient missing the ranks' sum or counted
+#: ``tp`` times is off by O(1); one process's two microbatch orders
+#: already differ by 2.7e-6
+XLSTM_RTOL = 1e-4
 JAX_RTOL = 1e-5      # the 1x2 mesh against jax.value_and_grad, float32
 LOSS_RTOL = 1e-6     # the vocab-parallel loss against the gathered logits
 
@@ -277,6 +285,67 @@ def check_recurrent(mesh):
         _factored_step(m, f" {label}", cfg, GRAD_RTOL)
 
 
+def check_xlstm(mesh):
+    """The smoke xLSTM (7 mLSTM blocks and 1 sLSTM, 4 heads; at d_model 96
+    also its sLSTM's 128-wide up-projection, which ``model`` divides):
+    where ``model`` divides the heads every split mixer leaf is kept
+    local, never gathered over ``model`` (:func:`check_grads`), and its
+    gradients — those of the whole ``w_if``, ``b_if``, ``b_gates`` and
+    ``gn_scale`` each rank reads for its heads alone among them — match
+    one process within ``XLSTM_RTOL``; the collectives as counted: per
+    mLSTM the uc and qkv all-gathers, the down all-reduce and the ``f``
+    of its input, of uc and qkv and of its three partly-read whole leaves
+    in the backward, per sLSTM the hn all-gather, its input's and its two
+    whole leaves' ``f`` (and the split up-projection's down all-reduce
+    and input ``f``); then a whole step with the factored second moment
+    (``r_gates`` factored per head) against one process.  Exact
+    activations (:func:`_exact`)."""
+    from repro_torch.models import xlstm as XL
+
+    tp = spmd.axis_size(mesh, "model")
+    for d in (64, 96):
+        cfg = replace(_exact(_f32("xlstm_350m")), d_model=d)
+        label = f"xlstm d={d} over {tuple(mesh.shape)}"
+        lay, record, got, want = check_grads(mesh, label, cfg,
+                                             _lm_batch(cfg),
+                                             rtol=XLSTM_RTOL)
+        if tp == 1:
+            continue
+        assert XL.split_over(cfg, tp), label
+        split_up = (4 * d // 3) % tp == 0
+        split = {".mlstm.": ("w_up", "w_gates", "w_qkv", "conv", "w_down"),
+                 ".slstm.": ("w_gates", "r_gates") + (
+                     ("w_up", "w_up2", "w_down") if split_up else ())}
+        for k in lay.params:
+            for kind, leaves in split.items():
+                if kind in k:
+                    kept = lay.keep.get(k) == ("model",)
+                    assert kept == (k.rsplit(".", 1)[-1] in leaves), \
+                        (label, k, lay.keep.get(k))
+        kinds = [cfg.block_kind(i) for i in range(cfg.num_layers)]
+        nm, ns = kinds.count("mlstm"), kinds.count("slstm")
+        expect = {("all_gather", "mlstm_uc all-gather"): nm,
+                  ("all_gather", "mlstm_qkv all-gather"): nm,
+                  ("all_reduce", "mlstm_down all-reduce"): nm,
+                  ("all_reduce", "mlstm input (backward)"): nm,
+                  ("all_reduce", "mlstm_uc input (backward)"): nm,
+                  ("all_reduce", "mlstm_qkv input (backward)"): nm,
+                  ("all_reduce", "mlstm whole leaves (backward)"): 3 * nm,
+                  ("all_gather", "slstm_hn all-gather"): ns,
+                  ("all_reduce", "slstm input (backward)"): ns,
+                  ("all_reduce", "slstm whole leaves (backward)"): 2 * ns,
+                  ("all_reduce", "slstm_down all-reduce"):
+                  ns if split_up else None,
+                  ("all_reduce", "slstm_up input (backward)"):
+                  ns if split_up else None}
+        seen = {(kind, w): record.get((kind, "model", w))
+                for kind, w in expect}
+        assert seen == expect, (label, seen)
+        _close(f"{label} global norm", global_norm(got, lay.params, mesh),
+               global_norm(want), XLSTM_RTOL)
+    _factored_step(mesh, " xlstm", _exact(_f32("xlstm_350m")), XLSTM_RTOL)
+
+
 def check_vocab_loss(mesh):
     """Under tensor parallelism ``lm_loss``'s cross-entropy of the head's
     vocabulary block equals that of the logits gathered whole, within
@@ -343,6 +412,8 @@ def _factored_step(mesh, how, cfg, rtol):
     assert any("vr" in s for s in opt["ema"].values())
     if cfg.lru_width:
         assert "vr" in opt["ema"]["layers.b0.rglru.gates"]
+    if "slstm" in cfg.block_pattern:
+        assert "vr" in opt["ema"]["layers.b7.slstm.r_gates"]
     batch = _lm_batch(cfg)
     want_p, want_o, want_m = make_train_step(cfg, tcfg)(
         params, opt, device_transform("cpu")(batch))
@@ -508,7 +579,8 @@ def check_compress(mesh):
 
 CHECKS = {"dense": check_dense, "factored": check_factored,
           "m3vit": check_m3vit, "tp": check_tp, "mqa": check_mqa,
-          "recurrent": check_recurrent, "vocab_loss": check_vocab_loss,
+          "recurrent": check_recurrent, "xlstm": check_xlstm,
+          "vocab_loss": check_vocab_loss,
           "jax": check_jax,
           "spanning": check_spanning, "nan": check_nan,
           "checkpoint": check_checkpoint, "launcher": check_launcher,

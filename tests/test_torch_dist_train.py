@@ -24,8 +24,13 @@ axis; ``mqa`` one KV head whose whole ``wk``/``wv`` gradients the model
 ranks sum; ``recurrent`` the smoke RecurrentGemma (MLPs, head and RG-LRU
 mixers split, each mixer's leaves kept local over ``model`` and its
 collectives counted; a factored step with its 3-D gates and the sharded
-global norm); ``vocab_loss`` the vocab-parallel loss against the
-gathered logits within 1e-6; at 1×2 ``jax`` the gradients against the
+global norm); at 1×2 and 2×2 ``xlstm`` the smoke xLSTM with its mLSTM
+and sLSTM heads split (at d_model 96 its sLSTM up-projection too), the
+gradients of every leaf — the whole ``w_if``, ``b_if``, ``b_gates`` and
+``gn_scale`` each rank reads in part among them — within
+``_torch_train_worker.XLSTM_RTOL``, the split leaves kept local, the
+collectives counted, a factored step; ``vocab_loss`` the vocab-parallel
+loss against the gathered logits within 1e-6; at 1×2 ``jax`` the gradients against the
 reference's ``jax.value_and_grad`` of its ``lm_loss``.
 
 In process: the step under rules at a world of one bit for bit against
@@ -72,8 +77,8 @@ TRAIN = ("dense", "factored", "m3vit", "spanning", "nan", "checkpoint",
 
 
 @pytest.mark.parametrize("shape,checks", [
-    ((2, 1), TRAIN + ("launcher",)), ((1, 2), TRAIN + ("jax",)),
-    ((2, 2), TRAIN)], ids=["2x1", "1x2", "2x2"])
+    ((2, 1), TRAIN + ("launcher",)), ((1, 2), TRAIN + ("jax", "xlstm")),
+    ((2, 2), TRAIN + ("xlstm",))], ids=["2x1", "1x2", "2x2"])
 def test_mesh_training_world(shape, checks, tmp_path):
     world = shape[0] * shape[1]
     if "jax" in checks:

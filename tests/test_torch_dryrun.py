@@ -34,7 +34,10 @@
   axis, one float32 all-reduce of a rank's rows a mixer, the argument
   bytes of its blocks and of its state's channels exactly), and so does
   its ``train_4k`` cell (the backward's ``f`` on each mixer's input
-  counted besides).
+  counted besides).  xLSTM-350M's 4 heads do not divide 16, so its mesh
+  cells keep every mixer leaf whole: the ``mlstm``/``slstm`` scopes'
+  FLOPs are the one-card count over the batch shards alone, with no
+  collective of theirs.
 """
 
 import functools
@@ -454,3 +457,31 @@ def test_mesh_train_cell_splits_the_rglru_mixers():
         mixers, mixers * rows * cfg.d_model * 2)
     assert rec["by_scope"]["rglru"]["collective_bytes"] == \
         dryrun.TRAIN_ACCUM * mixers * rows * cfg.d_model * 4
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_mesh_cells_keep_the_xlstm_mixers_whole(shape):
+    """xLSTM-350M at 16×16: ``model`` (16) does not divide its 4 heads
+    (``xlstm.split_over``), so every mixer leaf stays whole on a rank —
+    none is among ``model_blocks`` — and the ``mlstm`` and ``slstm``
+    scopes keep their counts: the one-card FLOPs over the batch shards
+    alone, no collective recorded inside a mixer."""
+    from repro_torch.dist.sharding import ShardingRules
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as XL
+
+    cfg = tconfigs.get("xlstm_350m")
+    rules = ShardingRules.for_mesh(dryrun.mesh_named("16x16"))
+    assert not XL.split_over(cfg, 16)
+    assert not any(".mlstm." in k or ".slstm." in k
+                   for k in T.model_blocks(cfg, rules))
+    ops.reset_dispatch_report()
+    rec = dryrun.run_cell("xlstm_350m", shape, verbose=False, mesh="16x16")
+    where = {c["where"] for c in ops.collective_report()}
+    one = dryrun.run_cell("xlstm_350m", shape, verbose=False, mesh="1")
+    shards = rec["batch_shards"]
+    for scope in ("mlstm", "slstm"):
+        assert rec["by_scope"][scope]["flops"] * shards == pytest.approx(
+            one["by_scope"][scope]["flops"], rel=1e-6), scope
+        assert not rec["by_scope"][scope].get("collective_bytes"), scope
+    assert not any(w.startswith(("mlstm", "slstm")) for w in where), where

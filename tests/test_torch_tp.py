@@ -1,16 +1,18 @@
 """Tensor-parallel serving of the port on the CPU (gloo, smoke sizes):
-the dense blocks and the RG-LRU mixers split over ``model`` as the
-reference's table lays them out (``src/repro/dist/sharding.py``), and
-parking a lane of a bucket split over the data axes.
+the dense blocks and the recurrent mixers (RG-LRU, mLSTM, sLSTM) split
+over ``model`` as the reference's table lays them out
+(``src/repro/dist/sharding.py``), and parking a lane of a bucket split
+over the data axes.
 
 In process, on a device-free mesh and ``meta`` tensors at full size: a
 serving rank's block of every leaf of Llama-3.2-1B, DeepSeek-67B, M³ViT,
 RecurrentGemma-9B, xLSTM-350M and Llama-4-Scout (grouped and
 ``ep_local``) equals the
 block of the reference's trimmed spec over ``model`` (the data axes stay
-whole in serving), but for the documented whole leaves: the xLSTM mixers
-(``mlstm``, ``slstm``), an RG-LRU mixer whose width or gate heads do not
-divide the axis, the attention of a layer whose heads do not divide the
+whole in serving), but for the documented whole leaves: an xLSTM mixer
+whose heads do not divide the axis (xLSTM-350M's 4 heads split at 2 and
+4, its mixers' whole leaves then those the table replicates), an RG-LRU
+mixer whose width or gate heads do not divide the axis, the attention of a layer whose heads do not divide the
 axis (k/v alone where only the KV heads do not), and the expert stacks
 of an impl that routes to every expert on every rank.  A column block of
 ``unified_linear``, summed in the whole weight's order (``order_n``),
@@ -19,7 +21,10 @@ partials add up to the whole product within the float32 tolerance.  The
 port's RG-LRU block on each rank's block of the reference's parameters
 (its row partials added by hand) against ``repro.models.rglru.
 apply_rglru`` on the whole block, a prefill then three decode steps with
-state, at float32 within ``RGLRU_RTOL`` of each one's magnitude.
+state, at float32 within ``RGLRU_RTOL`` of each one's magnitude; the
+port's mLSTM and sLSTM blocks the same way over (1, 2) and (1, 4) gloo
+worlds, their gathers and all-reduces real, against
+``repro.models.xlstm`` (``_torch_tp_worker.check_xlstm_reference``).
 
 Spawned gloo worlds at (1, 2), (1, 4), (2, 2) and (2, 1), one process a
 rank (``tests/_torch_tp_worker.py``): the forward against no mesh (each
@@ -32,7 +37,9 @@ tiered preemption over a split bucket (bit for bit with the unmeshed
 scheduler at (2, 1); under tensor parallelism the same mesh's tokens
 with no preemption); the smoke RecurrentGemma's ``recurrent`` check: a
 rank's RG-LRU blocks and state channels, its forward and prefill state
-against no mesh, tokens, draw and parked recurrent lanes."""
+against no mesh, tokens, draw and parked recurrent lanes; then the same
+for the smoke xLSTM (its heads' blocks and state, the state bytes a rank,
+the collectives by ``where``)."""
 
 import functools
 import os
@@ -53,6 +60,9 @@ from repro import configs as jconfigs
 from repro.dist import sharding as JS
 from repro.models import model as jmodel
 from repro.models import rglru as JR
+from repro.models import xlstm as JX
+from repro.ops import policy_named as jpolicy_named
+from repro.ops import use_policy as juse_policy
 from repro_torch import configs as tconfigs
 from repro_torch import ops
 from repro_torch.bridge import params_from_jax
@@ -96,12 +106,13 @@ def _reference_block(path, shape, ref_rules, sizes):
 
 
 def _whole_here(path, cfg, tp) -> bool:
-    """The documented leaves a serving rank keeps whole."""
+    """The documented leaves a serving rank keeps whole beyond those the
+    trimmed table replicates."""
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     q_split = hq % tp == 0 and (hkv % tp == 0 or (hq // hkv) % (hq // tp)
                                 == 0)
     if MIXERS.search(path):
-        return True
+        return hq % tp != 0
     if path.startswith(("layers/", "rest/")) and "/rglru/" in path:
         w = cfg.lru_width or cfg.d_model
         return not (w % tp == 0 and cfg.num_heads % tp == 0)
@@ -124,11 +135,12 @@ def test_block_shapes_are_the_reference_spec_blocks(arch, ep_local, mesh):
     ref_rules = JS.ShardingRules.for_mesh(stub)
     tp = MESHES[mesh][1]
     held = local_params(shapes, cfg, ShardingRules.for_mesh(vmesh))
-    kept = 0
+    kept = whole_mixers = 0
     for name, t in shapes.items():
         path = _path_str(name)
         whole = tuple(t.shape)
         got = tuple(held[name].shape)
+        whole_mixers += bool(MIXERS.search(path)) and got == whole
         if _whole_here(path, cfg, tp):
             assert got == whole, (arch, path, got)
             kept += 1
@@ -143,9 +155,13 @@ def test_block_shapes_are_the_reference_spec_blocks(arch, ep_local, mesh):
         assert kept == 0                     # every dense leaf splits
     if arch == "recurrentgemma_9b":          # wk, wv beside split q heads
         assert kept == 2
-    if arch == "xlstm_350m":                 # the mixers' leaves
-        assert kept == sum(bool(MIXERS.search(_path_str(k)))
-                           for k in shapes)
+    if arch == "xlstm_350m":
+        # the 4 heads split at 2 and 4; whole are the leaves the table
+        # replicates: each mLSTM's w_if, b_if and gn_scale, the sLSTM's
+        # b_gates and gn_scale, and its up-projection, whose 1365 columns
+        # the axis does not divide (the 7 + 1 block positions, stacked)
+        assert kept == 0
+        assert whole_mixers == 7 * 3 + 5
 
 
 def test_attention_layouts_of_the_named_configs():
@@ -265,11 +281,75 @@ def test_rglru_rank_blocks_match_the_reference(tp):
             assert _rel(joined, jstate[k]) <= RGLRU_RTOL, (s, k)
 
 
+def _xlstm_reference(path, d):
+    """The reference's smoke xLSTM at float32 and ``d_model`` ``d``, its
+    parameters carried into the port by the bridge, and the reference's
+    ``apply_mlstm`` (block b0) and ``apply_slstm`` (block b7) on the whole
+    block from a random state: a 13-token prefill (13 is not a multiple
+    of ``mlstm_chunk`` 8), then three decode steps, under its exact
+    activations (``xla``: the sLSTM's GELU LUT may take another entry at
+    a half-step); written to ``path`` for
+    ``_torch_tp_worker.check_xlstm_reference``."""
+    jcfg = replace(jconfigs.get("xlstm_350m", smoke=True), dtype="float32",
+                   d_model=d)
+    jparams = jax.device_get(jmodel.init_params(jax.random.PRNGKey(4),
+                                                jcfg))
+    out = {f"param:{k}": v.numpy()
+           for k, v in params_from_jax(jparams, device="cpu").items()}
+    rng = np.random.default_rng(7)
+    b, h = 2, jcfg.num_heads
+    for kind, block, apply, init in (
+            ("mlstm", "b0", JX.apply_mlstm, JX.init_mlstm_state),
+            ("slstm", "b7", JX.apply_slstm, JX.init_slstm_state)):
+        jblock = {k: v[0] for k, v in jparams["layers"][block][kind].items()}
+        state = {}
+        for k, v in init(jcfg, b).items():
+            x = rng.standard_normal(v.shape).astype(np.float32) * 0.5
+            state[k] = np.abs(x) + 0.5 if kind == "slstm" and k == "n" \
+                else x
+        for k, v in state.items():
+            out[f"{kind}:state0:{k}"] = v
+        japply = jax.jit(apply, static_argnums=(2, 4))
+        for i, (s, decode) in enumerate(((13, False), (1, True), (1, True),
+                                         (1, True))):
+            x = rng.standard_normal((b, s, d)).astype(np.float32)
+            with juse_policy(jpolicy_named("xla")):
+                y, state = japply(jblock, jnp.asarray(x), jcfg, state,
+                                  decode)
+            out[f"{kind}:x{i}"] = x
+            out[f"{kind}:y{i}"] = np.asarray(y)
+            for k, v in state.items():
+                out[f"{kind}:state{i + 1}:{k}"] = np.asarray(v)
+    assert h % 4 == 0
+    np.savez(path, **out)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_xlstm_rank_blocks_match_the_reference(tp, tmp_path):
+    """The port's ``apply_mlstm`` and ``apply_slstm`` on each rank's
+    blocks (``local_params`` over a (1, tp) gloo world, one process a
+    rank) against ``repro.models.xlstm``'s on the whole block, the
+    parameters drawn by the reference and carried across: a 13-token
+    prefill from a random state, then three decode steps under exact
+    activations (``xla`` there, ``eager`` here), each output and each
+    rank's block of the state within ``_torch_tp_worker.XLSTM_REF_RTOL``
+    of the reference's, with the block's collectives counted; at the smoke
+    ``d_model`` 64 (the sLSTM's 85-wide up-projection whole) and at 96
+    (its 128 columns split, the dense MLP's way)."""
+    for d in (64, 96):
+        _xlstm_reference(os.path.join(tmp_path, f"xlstm_ref_{d}.npz"), d)
+    check = functools.partial(W.check_xlstm_reference, workdir=tmp_path)
+    mp.start_processes(W.run, args=(tp, (1, tp),
+                                    os.path.join(tmp_path, "store"),
+                                    [check]),
+                       nprocs=tp, start_method="spawn")
+
+
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2), (2, 1)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_tensor_parallel_world(shape, tmp_path):
     world = shape[0] * shape[1]
     mp.start_processes(W.run, args=(world, shape,
                                     os.path.join(tmp_path, "store"),
-                                    list(W.CHECKS)),
+                                    W.CHECKS),
                        nprocs=world, start_method="spawn")

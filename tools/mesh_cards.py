@@ -7,6 +7,7 @@ card, and holds the two against each other.
     torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py --mesh 1x4
     torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py --mesh 2x2
     torchrun ... tools/mesh_cards.py --mesh 1x4 --only recurrentgemma
+    torchrun ... tools/mesh_cards.py --mesh 1x4 --only xlstm
 
 (build once before ``torchrun``: the ranks then load the same library
 instead of compiling it side by side).  ``--device cpu`` runs the same
@@ -35,6 +36,13 @@ at full width, bf16, seeded:
   mixers split over ``model`` with the MLPs, q heads and vocabulary (its
   one KV head whole), the weight bytes, RG-LRU bytes and decode-state
   bytes a rank beside the whole;
+* xLSTM-350M at full width and depth, the same: its mLSTM and sLSTM
+  heads split over ``model`` (one of 4 a rank at 1x4) with the
+  vocabulary, the mixer weight bytes and decode-state bytes a rank
+  beside the whole; where bf16 noise alone puts the logits below
+  ``SERVE_COSINE`` (xLSTM's stack amplifies roundings), the mesh and no
+  mesh are held against the same model in float32
+  (``serving_agrees``);
 * DeepSeek-67B at 16 of its 95 layers, each rank's blocks drawn on its
   card (``init_params(rules=)``), against one card's 16-layer run from
   the same seed (``serving_agrees``);
@@ -67,7 +75,8 @@ SCOUT_LAYERS = 2        # Llama-4-Scout's depth here, at full width
 DEEPSEEK_CUT = 16       # DeepSeek-67B's depth held against one card
 FORCED = 8              # teacher-forced decode steps a logits check reads
 #: the checks, in the order they run (``--only`` picks some)
-CHECKS = ("m3vit", "llama", "scout", "recurrentgemma", "deepseek")
+CHECKS = ("m3vit", "llama", "scout", "recurrentgemma", "xlstm",
+          "deepseek")
 
 
 def _sync() -> None:
@@ -126,6 +135,18 @@ def _forced(engine, rules, prompts, toks, steps: int) -> list:
     return out
 
 
+def _float32_logits(cfg, params, scfg, prompts, toks, device) -> list:
+    """The same model in float32 (weights widened, the plain ``eager``
+    policy), teacher-forced on ``toks``: ``_forced``'s logits."""
+    from repro_torch import ops
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg32 = replace(cfg, dtype="float32", policy=ops.policy_named("eager"))
+    engine = ServingEngine(cfg32, {k: v.float() for k, v in params.items()},
+                           replace(scfg, policy=cfg32.policy), device=device)
+    return _forced(engine, None, prompts, toks, FORCED)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", required=True, metavar="DxM")
@@ -172,23 +193,34 @@ def main() -> None:
         f"{'tensor-parallel over ' + str(tp) if tp > 1 else 'whole'}")
     policy = ops.policy_named("cuda")
 
-    def agree(label, got, want, mesh_engine, plain_logits, prompts):
+    def agree(label, got, want, mesh_engine, plain_logits, prompts,
+              f32_logits=None):
         """Tokens bit-equal where model has one rank; else the
-        teacher-forced logits at SERVE_COSINE and the share of equal
-        tokens reported."""
+        teacher-forced logits at SERVE_COSINE — or, where ``f32_logits``
+        (the same model's float32 logits, a callable) is given and they
+        fall below it, no further from float32 than no mesh's
+        (``serving_agrees``) — and the share of equal tokens reported."""
         if tp == 1:
             same = np.array_equal(got, want)
             say(f"  {label}: tokens equal to no mesh {same}")
             if not same:
                 raise AssertionError(f"rank {rank}: {label} tokens differ")
             return
-        cos = [cosine(a, b) for a, b in zip(
-            _forced(mesh_engine, rules, prompts, want, FORCED),
-            plain_logits)]
-        ok = serving_agrees(cos)
+        kern = _forced(mesh_engine, rules, prompts, want, FORCED)
+        cos = [cosine(a, b) for a, b in zip(kern, plain_logits)]
+        k32 = p32 = None
+        if min(cos) < SERVE_COSINE and f32_logits is not None:
+            ref = f32_logits()
+            k32 = [cosine(a, b) for a, b in zip(kern, ref)]
+            p32 = [cosine(a, b) for a, b in zip(plain_logits, ref)]
+            say(f"  {label}: against the same model in float32, the mesh "
+                f"at cosine {min(k32):.6f}, no mesh {min(p32):.6f} at "
+                f"their worst")
+        ok = serving_agrees(cos, k32, p32)
         say(f"  {label}: logits of the prefill and {FORCED} teacher-forced "
             f"steps at cosine {min(cos):.6f}..{max(cos):.6f} of no mesh "
-            f"(>= {SERVE_COSINE}: {ok}); greedy tokens equal to no mesh's: "
+            f"(>= {SERVE_COSINE}, or serving_agrees against float32: "
+            f"{ok}); greedy tokens equal to no mesh's: "
             f"{float((got == want).mean()):.4f} of them")
         if not ok:
             raise AssertionError(f"rank {rank}: {label} logits {cos}")
@@ -198,11 +230,13 @@ def main() -> None:
 
     pol = policy.with_impls(attention_decode="cuda_fused")
 
-    def engines(label, lcfg, scfg, draw):
+    def engines(label, lcfg, scfg, draw, yardstick=None):
         """Serve 8 x 128 prompts, 32 greedy tokens, with and without the
-        mesh (the whole draw for both), and hold them together; the
-        weight bytes a rank (its RG-LRU mixers' where it has them) and its
-        decode state's at batch 8 beside the whole."""
+        mesh (the whole draw for both), and hold them together (with
+        ``yardstick``, e.g. ``_float32_logits``: against float32 where bf16
+        noise alone exceeds SERVE_COSINE); the weight bytes a rank (its
+        recurrent mixers' where it has them) and its decode state's at
+        batch 8 beside the whole, and the collectives by ``where``."""
         lparams = LM.init_params(0, lcfg, device=dev, draw_on_device=draw)
         plain = ServingEngine(lcfg, lparams, scfg, device=dev)
         mesh = ServingEngine(lcfg, lparams, scfg, rules=rules, device=dev)
@@ -211,10 +245,13 @@ def main() -> None:
             return sum(v.numel() * v.element_size() for k, v in tree.items()
                        if part in k)
 
-        mixers = (f", RG-LRU mixers "
-                  f"{nbytes(mesh.params, '.rglru.') / 2**30:.3f} of "
-                  f"{nbytes(lparams, '.rglru.') / 2**30:.3f} GiB"
-                  if nbytes(lparams, ".rglru.") else "")
+        def mixer(tree):
+            return sum(nbytes(tree, m) for m in (".rglru.", ".mlstm.",
+                                                 ".slstm."))
+
+        mixers = (f", recurrent mixers {mixer(mesh.params) / 2**20:.2f} "
+                  f"of {mixer(lparams) / 2**20:.2f} MiB"
+                  if mixer(lparams) else "")
         say(f"{label} a rank: weights {nbytes(mesh.params) / 2**30:.3f} of "
             f"{nbytes(lparams) / 2**30:.3f} GiB{mixers}, decode state at "
             f"batch 8 {nbytes(flatten(mesh.new_state(8))) / 2**20:.3f} of "
@@ -227,7 +264,11 @@ def main() -> None:
         got, counts, coll = _counted(lambda: mesh.generate(prompts, 32))
         say(f"{label} 8 x 128 prompts, 32 greedy tokens: launches "
             f"{json.dumps(counts)}; collectives {json.dumps(coll)}")
-        agree(label, got, want, mesh, plain_logits, prompts)
+        say("  collectives by where: " + json.dumps(
+            {c["where"]: c["count"] for c in ops.collective_report()}))
+        agree(label, got, want, mesh, plain_logits, prompts,
+              None if yardstick is None else
+              lambda: yardstick(lcfg, lparams, scfg, prompts, want, dev))
         say(f"  walls generate: "
             f"{_wall_ms(lambda: mesh.generate(prompts, 32)):.1f} ms with "
             f"the mesh, {_wall_ms(lambda: plain.generate(prompts, 32)):.1f}"
@@ -260,6 +301,12 @@ def main() -> None:
         engines("RecurrentGemma-9B",
                 get("recurrentgemma_9b", smoke=smoke),
                 ServeConfig(max_len=512, policy=pol), not smoke)
+    # the attention-free recurrent LM at full depth: its mLSTM and sLSTM
+    # heads (where model divides its 4) and vocabulary split
+    if on("xlstm"):
+        engines("xLSTM-350M", get("xlstm_350m", smoke=smoke),
+                ServeConfig(max_len=512, policy=policy), not smoke,
+                yardstick=_float32_logits)
     if on("deepseek"):
         deepseek(rules, dev, pol, smoke, say, agree)
     dist.barrier()

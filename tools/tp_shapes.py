@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The three kernels of the tensor-parallel serving path on one card, at
-the shapes one rank of DeepSeek-67B and of RecurrentGemma-9B over a
-(1, 4) mesh gives them: each launch held against its plain version
+the shapes one rank of DeepSeek-67B, of RecurrentGemma-9B and of
+xLSTM-350M over a (1, 4) mesh gives them: each launch held against its plain version
 (``chip_smoke.check``), then timed beside its plain version, one PyTorch
 library call on the same inputs and the card's bound for the same work,
 next to the card's name and power limit.
@@ -12,7 +12,10 @@ next to the card's name and power limit.
 ``--bytes`` prints, from the shapes on ``meta`` (``serve.engine.
 local_params`` over a device-free mesh), the bf16 weight bytes a rank of
 RecurrentGemma-9B holds at full depth over (1, 2) and (1, 4), with its
-RG-LRU mixers split and as if they stayed whole on every rank.
+RG-LRU mixers split and as if they stayed whole on every rank, and the
+mixer weight bytes (the ``mlstm`` and ``slstm`` leaves) a rank of
+xLSTM-350M holds at full depth over (1, 2) and (1, 4) against the
+whole.
 
 Shapes (bf16; decode is 8 rows, prefill 8 x 128 = 1024):
 
@@ -33,7 +36,12 @@ Shapes (bf16; decode is 8 rows, prefill 8 x 128 = 1024):
   ``rglru/w_up`` (4096 x 1024 of 4096) and ``rglru/w_up2`` with its GELU
   epilogue (the ``cuda`` policy's; library: ``gelu(torch.matmul)``), and
   the float32 row block of ``rglru/w_down`` (1024 x 4096),
-  at the same 8 and 1024 rows.
+  at the same 8 and 1024 rows;
+* xLSTM-350M's mLSTM: ``unified_linear`` column blocks of ``mlstm/w_up``
+  and ``mlstm/w_gates`` (1024 x 512 of 2048) and of ``mlstm/w_qkv``
+  (2048 x 1536 of 6144, the table's contiguous block), and the float32
+  row block of ``mlstm/w_down`` (512 x 1024), at the same 8 and 1024
+  rows.
 """
 
 import argparse
@@ -54,6 +62,7 @@ B, S, SMAX = 8, 128, 512
 COLUMNS = (("wq", HQ * HD), ("wk", HKV * HD), ("wg", FF), ("head", VOCAB))
 ROWS = (("wo", HQ * HD), ("wd", FF))
 RG_D = RG_W = 4096        # RecurrentGemma-9B's d_model and RG-LRU width
+XL_D = 1024               # xLSTM-350M's d_model (the mLSTM's width 2d)
 
 
 def _row(name, shape, ms, plain_ms, lib_ms, nbytes, flops, err, variant):
@@ -181,6 +190,51 @@ def rglru_rows() -> list:
     return out
 
 
+def xlstm_rows() -> list:
+    """xLSTM-350M's mLSTM projections at one rank's (1, 4) blocks."""
+    from repro_torch.kernels import unified_linear as kul
+
+    di = 2 * XL_D
+    out = []
+    for m in (B, B * S):
+        x = C.randn((m, XL_D), torch.bfloat16, seed=21)
+        xu = C.randn((m, di), torch.bfloat16, seed=22)
+        for name, xin, k, n in (("mlstm w_up", x, XL_D, di),
+                                ("mlstm w_gates", x, XL_D, di),
+                                ("mlstm w_qkv", xu, di, 3 * di)):
+            nb = n // TP
+            w = C.randn((k, nb), torch.bfloat16, scale=k ** -0.5, seed=23)
+            plan = kul.plan_for(xin, w, order_n=n)
+            err = C.check("unified_linear", f"{name} column block M={m}",
+                          kul.unified_linear(xin, w, order_n=n),
+                          kul.unified_linear_plain(xin, w), torch.bfloat16)
+            out.append(_row(
+                "unified_linear", f"{name} M={m} K={k} N={nb} of {n}",
+                C.time_ms(lambda: kul.unified_linear(xin, w, order_n=n)),
+                C.time_ms(lambda: kul.unified_linear_plain(xin, w)),
+                C.time_ms(lambda: torch.matmul(xin, w)),
+                C._nbytes(xin, w) + m * nb * 2, 2.0 * m * k * nb, err,
+                C._plan_label(plan)))
+        kb = di // TP
+        xr = C.randn((m, kb), torch.bfloat16, seed=24)
+        wr = C.randn((kb, XL_D), torch.bfloat16, scale=di ** -0.5, seed=25)
+        f32 = torch.float32
+        plan = kul.plan_for(xr, wr)
+        err = C.check("unified_linear", f"mlstm w_down row block M={m}",
+                      kul.unified_linear(xr, wr, out_dtype=f32),
+                      kul.unified_linear_plain(xr, wr, out_dtype=f32), f32)
+        out.append(_row(
+            "unified_linear", f"mlstm w_down M={m} K={kb} of {di} "
+            f"N={XL_D} float32 out",
+            C.time_ms(lambda: kul.unified_linear(xr, wr, out_dtype=f32)),
+            C.time_ms(lambda: kul.unified_linear_plain(xr, wr,
+                                                       out_dtype=f32)),
+            C.time_ms(lambda: _mm_f32(xr, wr)),
+            C._nbytes(xr, wr) + m * XL_D * 4, 2.0 * m * kb * XL_D, err,
+            C._plan_label(plan)))
+    return out
+
+
 def weight_bytes() -> dict:
     """bf16 weight bytes a rank of RecurrentGemma-9B at full depth over
     (1, 2) and (1, 4), from the shapes: its RG-LRU mixers split (this
@@ -210,6 +264,21 @@ def weight_bytes() -> dict:
           + "; ".join(f"{k} {v['mixers_whole'] / 1e9:.3f} GB with the "
                       f"RG-LRU mixers whole, {v['split'] / 1e9:.3f} GB "
                       f"split" for k, v in out.items() if k != "whole"))
+    xl = get("xlstm_350m")
+    shapes = LM.param_specs(xl)
+
+    def mixers(tree):
+        return nbytes(tree, ".mlstm.") + nbytes(tree, ".slstm.")
+
+    out["xlstm_350m"] = {"whole": mixers(shapes)}
+    for tp in (2, 4):
+        held = local_params(shapes, xl, ShardingRules.for_mesh(
+            VirtualMesh((1, tp), ("data", "model")), fsdp=False))
+        out["xlstm_350m"][f"1x{tp}"] = mixers(held)
+    x = out["xlstm_350m"]
+    print(f"xLSTM-350M mixer weights (mlstm, slstm), {xl.num_layers} "
+          f"layers: whole {x['whole'] / 2**20:.2f} MiB; a rank over 1x2 "
+          f"{x['1x2'] / 2**20:.2f} MiB, over 1x4 {x['1x4'] / 2**20:.2f} MiB")
     return out
 
 
@@ -275,9 +344,10 @@ def main() -> None:
     from repro_torch.kernels import build
 
     print(f"kernels built and loaded in {build.build_seconds():.1f} s; "
-          f"DeepSeek-67B and RecurrentGemma-9B one rank of (1, {TP})")
+          f"DeepSeek-67B, RecurrentGemma-9B and xLSTM-350M one rank of "
+          f"(1, {TP})")
     print(f"row blocks' library call: {_mm_f32_name()}")
-    rows = linear_rows() + attention_rows() + rglru_rows()
+    rows = linear_rows() + attention_rows() + rglru_rows() + xlstm_rows()
     line = {"card": smi, "tp": TP, "row_library": _mm_f32_name(),
             "rows": rows, "weight_bytes": weight_bytes()}
     print(json.dumps(line))

@@ -37,10 +37,15 @@ near-zero gradient's element by 2·lr):
   mixers, MLPs, q heads and vocabulary a quarter a rank, its one KV head
   whole), with the reference's large-model AdamW state (bf16 momentum, a
   factored second moment: one card's whole state would not fit beside
-  the weights and gradients), against one card as above.
+  the weights and gradients), against one card as above;
+* xLSTM-350M at full width and ``XL_LAYERS`` of its 24 layers (one
+  period: 7 mLSTM blocks and 1 sLSTM), 8 × 128 tokens, 3 steps at
+  ``1x4`` (one of its 4 heads a rank in every mixer, the vocabulary a
+  quarter, the sLSTM's 1365-wide up-projection whole), against one card
+  as above, the peak a rank beside one card's.
 
-``--only NAME[,NAME]`` runs some of ``llama``, ``m3vit`` and
-``recurrentgemma``.  The caching allocator runs with expandable
+``--only NAME[,NAME]`` runs some of ``llama``, ``m3vit``,
+``recurrentgemma`` and ``xlstm``.  The caching allocator runs with expandable
 segments (``PYTORCH_CUDA_ALLOC_CONF``, set here unless the environment
 sets it): RecurrentGemma's one-card step's 4 GiB temporaries otherwise
 leave GiBs reserved between them.
@@ -77,7 +82,8 @@ MESH_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1.0,
 #: one-card step peaks at 56 GiB, 2.1 G of its parameters in the
 #: vocabulary; at 6 layers it outgrows the card)
 RG_LAYERS = 3
-CHECKS = ("llama", "m3vit", "recurrentgemma")
+XL_LAYERS = 8           # xLSTM-350M's depth here: one period, full width
+CHECKS = ("llama", "m3vit", "recurrentgemma", "xlstm")
 
 
 def _sync() -> None:
@@ -366,6 +372,24 @@ def main() -> None:
                         (1, 4), dev, say,
                         opt=dict(momentum_dtype="bfloat16", factored=True)))
         del gparams
+        gc.collect()
+
+    if "xlstm" in only:
+        from repro_torch.configs import get
+
+        # exact activations in the CPU rehearsal, as RecurrentGemma's
+        xcfg = replace(get("xlstm_350m", smoke=smoke),
+                       policy=ops.policy_named("eager") if smoke else cuda)
+        if not smoke:
+            xcfg = replace(xcfg, num_layers=XL_LAYERS)
+        xparams = LM.init_params(0, xcfg, device=dev,
+                                 draw_on_device=not smoke)
+        xstream = make_stream(DataConfig(batch=8, seq_len=128,
+                                         vocab_size=xcfg.vocab_size, seed=0))
+        add(against_one(f"xLSTM-350M ({xcfg.num_layers} layers)", xcfg,
+                        xparams, [xstream.batch(i) for i in range(3)],
+                        (1, 4), dev, say))
+        del xparams
         gc.collect()
     say(f"launches over the mesh runs (rank 0): {json.dumps(total)}")
     dist.barrier()
