@@ -348,9 +348,21 @@ one and then one pair of processes):
    model one ``_tp_serve`` run (``_tp_serving``), its weight, part and
    state bytes a rank every narrowed leaf exactly half, its collectives
    over ``model`` as counted from the config (``_tp_serve_expect``) and
-   nothing else; and tiered preemption over a 4-lane bucket split over
-   (2, 1) (4 layers of Llama-3.2-1B), every request's tokens bit-equal
-   to no mesh; each counted and checked for fallbacks as in (a).
+   nothing else; then FSDP of serving's weights over (2, 1)
+   (``_fsdp_serve``: Llama-3.2-1B at full width and ``MESH_LM_LAYERS``
+   (4) layers under the default rules, ``place_params`` holding every
+   matrix's half over data and each layer's leaves gathered just before
+   it runs), each rank drawing its blocks (bit-equal to the narrowed
+   whole draw), its weight bytes at rest the table's blocks exactly and
+   at most ``FSDP_HELD_SHARE`` of ``fsdp=False``'s, 8 × 128 prompts and
+   ``TP_FORCED_STEPS`` greedy tokens under ``cuda`` + ``cuda_fused``
+   decode, the prefill's logits and the tokens bit for bit against the
+   same mesh under ``fsdp=False``, the ``fsdp gather`` all-gathers over
+   data as counted from the config and every other collective as
+   ``fsdp=False``'s, its peak memory and wall beside ``fsdp=False``'s;
+   and tiered preemption over a 4-lane bucket split over (2, 1) (4
+   layers of Llama-3.2-1B), every request's tokens bit-equal to no mesh;
+   each counted and checked for fallbacks as in (a).
 11. Training over a mesh (``make_train_step(rules=)``: each rank's
    blocks of the parameters and AdamW state, its rows of the batch, the
    weights gathered over the batch axes — over ``model`` too for a leaf
@@ -4384,6 +4396,7 @@ def _two_ranks(rank: int, store: str, out: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         result["tp"] = [_tp_serve(rank, run) for run in _tp_serving()]
+        result["fsdp"] = _fsdp_serve(rank)
         result["park"] = _two_ranks_park(rank)
         gc.collect()
         torch.cuda.empty_cache()
@@ -4773,6 +4786,168 @@ def _tp_serve(rank: int, run: dict) -> dict:
     return out
 
 
+#: phase 10 (b)'s FSDP run: a rank's weight bytes at rest over (2, 1)
+#: against ``fsdp=False``'s (every matrix halved; the norms stay whole)
+FSDP_HELD_SHARE = 0.51
+
+
+def _fsdp_serve(rank: int) -> dict:
+    """Phase 10 (b), FSDP of serving's weights on this rank: Llama-3.2-1B
+    at full width and ``MESH_LM_LAYERS`` layers over (2, 1) under the
+    default rules (``fsdp=True``: ``place_params`` holds each matrix's
+    half over data, and the forward gathers a layer's leaves just before
+    it runs) against the same mesh under ``fsdp=False``.  The rank draws
+    its blocks (``init_params(rules=)``, held bit for bit to
+    ``place_params`` of the whole draw); then, after a warm-up, 8 × 128
+    prompts and ``TP_FORCED_STEPS`` greedy tokens under ``cuda`` with
+    ``cuda_fused`` decode, counted (launches, variants, no fallback),
+    with the peak of allocated memory and the wall of each; the prefill's
+    logits of this rank's rows and the tokens bit for bit.  Returns what
+    ``_fsdp_serve_report`` gates."""
+    import time
+
+    from repro_torch import ops
+    from repro_torch.configs import llama3_2_1b as LL
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import (ShardingRules, _axes,
+                                           param_sharding_rules, use_rules)
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import (ServeConfig, ServingEngine,
+                                          place_params, shard_batch)
+
+    cfg = replace(LL.CONFIG, num_layers=MESH_LM_LAYERS)
+    mesh = spmd.init_mesh((2, 1))
+    rules = ShardingRules.for_mesh(mesh)
+    off = ShardingRules.for_mesh(mesh, fsdp=False)
+    whole = LM.init_params(0, cfg, draw_on_device=True)
+    mine = LM.init_params(0, cfg, draw_on_device=True, rules=rules)
+    placed = place_params(whole, cfg, rules)
+    out = {"draw_equal": mine.keys() == placed.keys() and all(
+        torch.equal(mine[k], placed[k]) for k in mine)}
+    del placed
+
+    def nbytes(params):
+        return sum(v.numel() * v.element_size() for v in params.values())
+
+    table = 0
+    for name, sh in param_sharding_rules(LM.param_specs(cfg),
+                                         rules).items():
+        split = 1
+        for a in (a for e in sh.spec for a in _axes(e)):
+            split *= spmd.axis_size(mesh, a)
+        table += nbytes({name: whole[name]}) // split
+    policy = ops.policy_named("cuda").with_impls(
+        attention_decode="cuda_fused")
+    scfg = ServeConfig(max_len=LM_MAX_LEN, policy=policy)
+    plain = ServingEngine(cfg, whole, scfg, rules=off)
+    fsdp = ServingEngine(cfg, mine, scfg, rules=rules)
+    out["bytes"] = {"fsdp": nbytes(fsdp.params),
+                    "no_fsdp": nbytes(plain.params), "table": table}
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_PROMPT))).cuda()
+
+    def prefill_logits(engine, r):
+        prefill, _ = engine.steps(0)
+        with torch.inference_mode(), use_rules(r), \
+                spmd.batch_split(r, LM_BATCH):
+            rows = shard_batch(prompts, r)
+            state = engine.new_state(rows.shape[0])
+            return prefill(engine.params, rows, state)[0]
+
+    out["logits_equal"] = bool(torch.equal(prefill_logits(fsdp, rules),
+                                           prefill_logits(plain, off)))
+    runs = {}
+    for name, engine in (("no_fsdp", plain), ("fsdp", fsdp)):
+        engine.generate(prompts, 1)                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counted: dict = {}
+        label = (f"(b) rank {rank} Llama-3.2-1B ({MESH_LM_LAYERS} layers) "
+                 f"ServingEngine over (2, 1), "
+                 f"{'fsdp=True' if name == 'fsdp' else 'fsdp=False'}, "
+                 f"{LM_BATCH} x {LM_PROMPT} prompts, {TP_FORCED_STEPS} "
+                 f"greedy tokens")
+        t0 = time.perf_counter()
+        toks = _mesh_run(label, lambda: engine.generate(
+            prompts, TP_FORCED_STEPS), counted)
+        runs[name] = {
+            "wall_s": time.perf_counter() - t0, "tokens": toks,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counted,
+            "variants": read_variants(label, tally=False),
+            "collectives": [[c["kind"], c["axis"], c["where"], c["count"],
+                             c["bytes"]] for c in ops.collective_report()]}
+    out["tokens_equal"] = bool(np.array_equal(runs["fsdp"].pop("tokens"),
+                                              runs["no_fsdp"].pop("tokens")))
+    out["runs"] = runs
+    out["forwards"] = 1 + TP_FORCED_STEPS
+    del plain, fsdp, whole, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_gathers_expect(cfg, forwards: int) -> int:
+    """The ``fsdp gather`` all-gathers over data that ``forwards``
+    forwards of Llama-3.2-1B make over (2, 1) under ``fsdp=True``, from
+    the config: each layer's seven matrices (q, k, v, o; gate, up,
+    down), and the tied table twice (the lookup, then the head)."""
+    assert cfg.tie_embeddings and cfg.period == 1 and cfg.moe is None
+    return forwards * (7 * cfg.num_layers + 2)
+
+
+def _fsdp_serve_report(rank: int, r: dict, total: dict) -> dict:
+    """Print and gate one rank's ``_fsdp_serve`` result (phase 10 (b)):
+    the draw, the bytes at rest (the table's blocks exactly, at most
+    ``FSDP_HELD_SHARE`` of ``fsdp=False``'s), the logits and tokens bit
+    for bit, the ``fsdp gather`` all-gathers over data as counted from
+    the config and every other collective as ``fsdp=False``'s, the
+    path's kernels launched; returns ``total`` with its counted launches
+    added."""
+    from repro_torch.configs import llama3_2_1b as LL
+
+    cfg = replace(LL.CONFIG, num_layers=MESH_LM_LAYERS)
+    b, gib = r["bytes"], 2**30
+    share = b["fsdp"] / b["no_fsdp"]
+    runs = r["runs"]
+    print(f"  (b) rank {rank} FSDP Llama-3.2-1B ({MESH_LM_LAYERS} layers) "
+          f"over (2, 1): weights at rest {b['fsdp'] / gib:.4f} GiB "
+          f"(the table's blocks {b['table'] / gib:.4f}) against "
+          f"{b['no_fsdp'] / gib:.4f} GiB under fsdp=False, {share:.4f} of "
+          f"it; per-rank draw bit-equal to place_params of the whole "
+          f"draw: {r['draw_equal']}; prefill logits bit-equal to "
+          f"fsdp=False: {r['logits_equal']}; {TP_FORCED_STEPS} greedy "
+          f"tokens bit-equal: {r['tokens_equal']}")
+    for name, run in runs.items():
+        print(f"  (b) rank {rank} {name}: wall {run['wall_s'] * 1e3:.1f} ms "
+              f"for {r['forwards']} forwards, max_memory_allocated "
+              f"{run['peak_bytes'] / gib:.3f} GiB, launches "
+              f"{json.dumps(run['launches'])}, variants "
+              f"{json.dumps(run['variants'])}")
+    coll = {name: {(k, a, w): (n, nb) for k, a, w, n, nb in run["collectives"]}
+            for name, run in runs.items()}
+    gathers = {k: v for k, v in coll["fsdp"].items() if k[2] == "fsdp gather"}
+    rest = {k: v for k, v in coll["fsdp"].items() if k[2] != "fsdp gather"}
+    want = _fsdp_gathers_expect(cfg, r["forwards"])
+    for (kind, axis, where), (n, nb) in gathers.items():
+        print(f"    collective {kind} over {axis} at {where!r}: {n} "
+              f"({nb} bytes; {want} counted from the config)")
+    ok_gathers = list(gathers) == [("all_gather", "data", "fsdp gather")] \
+        and gathers[("all_gather", "data", "fsdp gather")][0] == want
+    ok = (r["draw_equal"] and r["logits_equal"] and r["tokens_equal"]
+          and b["fsdp"] == b["table"] and share <= FSDP_HELD_SHARE
+          and ok_gathers and rest == coll["no_fsdp"]
+          and all(runs["fsdp"]["launches"].get(k) for k in (
+              "unified_linear", "flash_attention", "decode_fused")))
+    if not ok:
+        raise AssertionError(f"(b) rank {rank} FSDP serving: gathers "
+                             f"{gathers} (want {want} over data), other "
+                             f"collectives {rest} vs {coll['no_fsdp']}, {r}")
+    for n, c in runs["fsdp"]["launches"].items():
+        total[n] = total.get(n, 0) + c
+    return total
+
+
 def _two_ranks_park(rank: int) -> dict:
     """Phase 10 (b): tiered preemption over a bucket whose 4 lanes are
     split over (2, 1), Llama-3.2-1B at 4 layers of its full width: 6
@@ -4899,6 +5074,7 @@ def two_ranks_one_card() -> tuple[dict, dict, dict]:
     for r in results:
         for run, got in zip(_tp_serving(), r["tp"]):
             tp_launches = _tp_serve_report(r["rank"], run, got, tp_launches)
+        tp_launches = _fsdp_serve_report(r["rank"], r["fsdp"], tp_launches)
         _park_report(r["rank"], r["park"])
     print("phase 11 (b): training over two ranks on the one card")
     t_parent = time.perf_counter()

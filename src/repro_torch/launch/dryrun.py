@@ -70,7 +70,7 @@ from repro_torch.models import model as M
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.quant import tree_bytes
 from repro_torch.roofline.analysis import analyze_step, kernel_adjusted_terms
-from repro_torch.serve.engine import local_params
+from repro_torch.serve.engine import fsdp_gathers, place_params
 from repro_torch.train.step import TrainConfig, make_serve_step, \
     make_train_step
 
@@ -97,7 +97,14 @@ MESH_NOTE = ("rank 0's share on a device-free mesh: the dense blocks and "
              "its vocab-parallel loss's (B, S) "
              "reduces, a serving cell's logits all-gather); a train cell "
              "gathers its split weights over data alone (FSDP), whole "
-             "ones over model too; activations carry no layout, so "
+             "ones over model too; a serving cell holds its weights where "
+             "the rules place them (place_params: under FSDP every leaf at "
+             "its block over data and model, so its argument bytes are "
+             "those blocks, and each layer's leaves are gathered just "
+             "before the layer runs, over data and, for a leaf computed "
+             "whole, over model: the all-gathers counted under the "
+             "fsdp_gather scope; under --no-fsdp the blocks over model "
+             "alone, nothing gathered); activations carry no layout, so "
              "--seq-shard counts equal those without")
 
 
@@ -169,12 +176,15 @@ def build_cell(arch: str, shape_name: str, variant: dict | None = None,
             params = step.layout.shard_params(params)
             opt_state = step.layout.shard_opt_state(opt_state)
         return step, (params, opt_state, specs), cfg, shape
-    prefill, decode = make_serve_step(cfg)
-    # a serving rank's blocks over model, its KV heads and its RG-LRU
-    # channels (whole without a mesh)
-    params = local_params(params, cfg, rules)
+    # a serving rank's weights where the rules place them (its blocks
+    # over model, and over data too under FSDP, each layer's gathered
+    # before it runs), its KV heads and its RG-LRU channels (whole
+    # without a mesh)
+    params = place_params(params, cfg, rules)
+    gathers = fsdp_gathers(params, cfg, rules)
+    prefill, decode = make_serve_step(cfg, gather=gathers)
     state = M.init_state(cfg, b, shape.seq_len, device=device,
-                         params=params)
+                         params=params, gather=gathers)
     if shape.kind == "prefill":
         fn, args = prefill, (params, specs["inputs"], state)
     else:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig, Shape
+from repro_torch.dist.sharding import param_sharding_rules
 from repro_torch.models import transformer as T
 from repro_torch.roofline.scope import scope
 from repro_torch.tree import flatten, unflatten
@@ -33,14 +34,18 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
     ``device`` (other values; RecurrentGemma-9B's 9.6 B parameters would
     take minutes of NumPy on the host).
 
-    With ``rules`` (serving over a mesh whose ``model`` axis is larger
-    than one) each leaf a rank splits
-    (``transformer.model_blocks``) is cut to this rank's block as it is
-    drawn, a layer at a time, and the rest freed: the whole model never
-    exists (DeepSeek-67B over four cards).  Every value is drawn in the
-    one-device order, so a rank's block equals the same block of the
-    one-device draw from ``seed``, bit for bit (an RG-LRU layer's
-    ``lam`` too: its whole width's uniform draw, then the block)."""
+    With ``rules`` over a mesh, each leaf is cut to the block a serving
+    rank holds as it is drawn, a layer at a time, and the rest freed: the
+    whole model never exists (DeepSeek-67B over four cards).  Under
+    ``fsdp=False`` that is ``serve.engine.local_params``' layout (this
+    rank's block over ``model`` of each leaf ``transformer.model_blocks``
+    names, where the axis is larger than one); under FSDP rules
+    (``fsdp=True`` or ``"moe_only"``) ``serve.engine.place_params``' (every
+    leaf at this rank's block of the table's spec, over the data axes and
+    ``model``).  Every value is drawn in the one-device order, so a
+    rank's block equals the same block of the one-device draw from
+    ``seed``, bit for bit (an RG-LRU layer's ``lam`` too: its whole
+    width's uniform draw, then the block)."""
     dev = resolve_device(device)
     if draw_on_device:
         rng = torch.Generator(device=dev)
@@ -48,7 +53,11 @@ def init_params(seed: int, cfg: ArchConfig, dtype=None, device="cuda",
     else:
         rng = np.random.default_rng(seed)
     keep = None
-    blocks = T.model_blocks(cfg, rules)
+    if rules is not None and rules.mesh is not None and rules.fsdp:
+        blocks = {k: v.spec for k, v in param_sharding_rules(
+            param_specs(cfg, dtype), rules).items()}
+    else:
+        blocks = T.model_blocks(cfg, rules)
     if blocks:
         def keep(name, leaf):
             spec = blocks.get(name)
@@ -66,14 +75,16 @@ def forward(params, inputs, cfg: ArchConfig, **kw):
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device="cuda", params=None):
+               device="cuda", params=None, gather=None):
     """Zeroed KV caches and initial recurrent states (the reference's
     −1e30 stabilizers) for ``batch`` sequences of up to ``max_len`` tokens
-    on ``device``; ``params``: the flat leaves a rank computes with under
-    tensor parallelism, whose KV heads, RG-LRU channels and xLSTM heads
-    the state holds (``transformer.state_blocks``; default all)."""
+    on ``device``; ``params``: the flat leaves a rank holds under tensor
+    parallelism (computed at their gathered shapes under ``gather``, the
+    FSDP layout), whose KV heads, RG-LRU channels and xLSTM heads the
+    state holds (``transformer.state_blocks``; default all)."""
     return T.init_state(cfg, batch, max_len, dtype,
-                        device=resolve_device(device), params=params)
+                        device=resolve_device(device), params=params,
+                        gather=gather)
 
 
 def lm_loss(params, batch, cfg: ArchConfig, aux_weight: float = 0.01,

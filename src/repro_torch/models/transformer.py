@@ -20,17 +20,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import moe as moe_lib
-from repro_torch.dist.sharding import (P, constrain, model_spec,
-                                      param_sharding_rules, shard_leaf)
-from repro_torch.dist.spmd import axis_size
+from repro_torch.dist.sharding import (P, _axes, axis_sizes, constrain,
+                                      model_spec, param_sharding_rules,
+                                      shard_leaf)
+from repro_torch.dist.spmd import axis_size, gather_param
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as RG
 from repro_torch.models import xlstm as XL
 from repro_torch.ops.policy import use_policy
+from repro_torch.roofline.scope import scope
 from repro_torch.tree import flatten, index
 
 __all__ = ["init_params", "forward", "init_state", "moe_config",
-           "model_blocks", "leaf_block",
+           "model_blocks", "leaf_block", "computed_shape",
            "cache_kv_heads", "state_blocks"]
 
 _ATTN_KINDS = ("attn_mlp", "attn_moe", "attn_local_mlp")
@@ -134,13 +136,15 @@ def init_params(rng, cfg: ArchConfig, dtype=None, keep=None):
 
 
 def init_state(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
-               device=None, params=None):
+               device=None, params=None, gather=None):
     """Decode/prefill state: KV caches and recurrent states stacked over
     the periods under ``layers``, per layer under ``rest``.  ``params``:
-    the flat leaves a rank computes with, whose blocks the state follows
-    (:func:`state_blocks`; default: the whole model's)."""
+    the flat leaves a rank holds, whose blocks the state follows
+    (:func:`state_blocks`, through ``gather`` where the forward gathers
+    them; default: the whole model's)."""
     dtype = dtype or cfg.activation_dtype
-    blocks = state_blocks(params, cfg) if params is not None else {}
+    blocks = state_blocks(params, cfg, gather) if params is not None \
+        else {}
     n_scan = cfg.num_layers // cfg.period
     n_rest = cfg.num_layers % cfg.period
     state = {}
@@ -255,39 +259,78 @@ def leaf_block(t, spec, mesh):
     return shard_leaf(t, P(*spec[len(spec) - t.dim():]), mesh)
 
 
-def cache_kv_heads(params: dict, cfg: ArchConfig):
-    """The KV heads a cache holds for the flat ``params`` a rank computes
-    with: its block where its attention holds a block of the KV heads
+def computed_shape(name: str, t, gather=None) -> tuple:
+    """The shape a forward computes leaf ``name`` at: ``t``'s as held,
+    times the axes ``gather`` (an FSDP layout: ``serve.engine.
+    fsdp_gathers``) gathers it over, read from the leaf's spec, never
+    from a dimension the data axes have also cut."""
+    shape = list(t.shape)
+    if gather is not None and name in gather.params:
+        sizes, keep = axis_sizes(gather.mesh), gather.keep[name]
+        for dim, entry in enumerate(gather.params[name]):
+            for a in _axes(entry):
+                if a not in keep:
+                    shape[dim] *= sizes[a]
+    return tuple(shape)
+
+
+def cache_kv_heads(params: dict, cfg: ArchConfig, gather=None):
+    """The KV heads a cache holds for the flat ``params`` a rank holds
+    (computed at :func:`computed_shape` under ``gather``): its block
+    where its attention computes on a block of the KV heads
     (tensor-parallel serving: the ``"cache"`` rule's head-sharded
     alternative), else None (all of them)."""
     for name, w in params.items():
         if name.endswith("attn.wk"):
-            heads = w.shape[-1] // cfg.hd
+            heads = computed_shape(name, w, gather)[-1] // cfg.hd
             return heads if heads != cfg.num_kv_heads else None
     return None
 
 
-def state_blocks(params: dict, cfg: ArchConfig) -> dict:
-    """The blocks of a decode state for the flat ``params`` a rank
-    computes with: ``kv_heads``, its KV heads (:func:`cache_kv_heads`),
-    ``lru_width``, its RG-LRU channels where its mixers hold a block of
-    ``rglru.w_up``'s columns, and ``xlstm_heads``, its mLSTM and sLSTM
-    heads where its mixers hold a block of them (``slstm.r_gates``'
-    heads, ``mlstm.w_down``'s rows over the head width) under tensor
-    parallelism; each None where the rank holds them all."""
+def state_blocks(params: dict, cfg: ArchConfig, gather=None) -> dict:
+    """The blocks of a decode state for the flat ``params`` a rank holds
+    (computed at :func:`computed_shape` under ``gather``): ``kv_heads``,
+    its KV heads (:func:`cache_kv_heads`), ``lru_width``, its RG-LRU
+    channels where its mixers compute on a block of ``rglru.w_up``'s
+    columns, and ``xlstm_heads``, its mLSTM and sLSTM heads where its
+    mixers compute on a block of them (``slstm.r_gates``' heads,
+    ``mlstm.w_down``'s rows over the head width) under tensor
+    parallelism; each None where the rank computes on them all."""
     width = heads = None
     for name, w in params.items():
+        shape = computed_shape(name, w, gather)
         if name.endswith("rglru.w_up") and width is None:
-            if w.shape[-1] != (cfg.lru_width or cfg.d_model):
-                width = w.shape[-1]
+            if shape[-1] != (cfg.lru_width or cfg.d_model):
+                width = shape[-1]
         elif name.endswith("slstm.r_gates"):
-            heads = w.shape[-3]
+            heads = shape[-3]
         elif name.endswith("mlstm.w_down"):
-            heads = w.shape[-2] * cfg.num_heads // (2 * cfg.d_model)
+            heads = shape[-2] * cfg.num_heads // (2 * cfg.d_model)
     if heads == cfg.num_heads:
         heads = None
-    return {"kv_heads": cache_kv_heads(params, cfg), "lru_width": width,
-            "xlstm_heads": heads}
+    return {"kv_heads": cache_kv_heads(params, cfg, gather),
+            "lru_width": width, "xlstm_heads": heads}
+
+
+def _gathered(tree, prefix: str, gather, lead: int):
+    """``tree`` (the nested leaves under dotted ``prefix``) with each leaf
+    ``gather`` holds as a block gathered to the shape the forward computes
+    with (``dist.spmd.gather_param`` over the axes its layout does not
+    keep; ``lead``: the stacked period dims indexed off the leaf), as
+    tensors of their own, recorded as ``"fsdp gather"`` under the
+    ``fsdp_gather`` scope.  ``tree`` as it is without ``gather``."""
+    if gather is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _gathered(v, f"{prefix}{k}.", gather, lead)
+                for k, v in tree.items()}
+    name = prefix[:-1]
+    spec = gather.params.get(name)
+    if spec is None:
+        return tree
+    with torch.no_grad(), scope("fsdp_gather"):
+        return gather_param(tree, P(*spec[lead:]), gather.mesh,
+                            gather.keep[name], "fsdp gather")
 
 
 def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
@@ -336,7 +379,7 @@ def _apply_block(kind: str, params, x, cfg: ArchConfig, *, pos, state,
 def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
             cache_index=None, decode=False, task_id=0, return_state=None,
             logits_mode="all", return_expert_counts: bool = False,
-            gather_logits: bool = True):
+            gather_logits: bool = True, gather=None):
     """inputs: tokens (B, S) int or embeddings (B, S, d); params: the
     nested tree.
 
@@ -354,7 +397,13 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     appends the per-expert dispatch counts summed over the MoE layers.
     ``gather_logits=False``: a rank holding a block of the vocabulary
     returns its block of the logits (the vocab-parallel loss), not the
-    whole.  ``cfg.policy`` (when set) is scoped around the whole pass.
+    whole.  ``gather`` (serving under FSDP rules: ``serve.engine.
+    fsdp_gathers``' layout of the leaves a rank holds as blocks of the
+    table's layout) gathers one layer's leaves just before the layer runs
+    and drops them when it returns, ``embed`` before the lookup and the
+    head (or the tied table, again) before the logits: at most one
+    layer's gathered leaves exist at a time.  ``cfg.policy`` (when set)
+    is scoped around the whole pass.
     """
     if decode and (state is None or cache_index is None
                    or inputs.shape[1] != 1):
@@ -366,7 +415,7 @@ def forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
                         task_id=task_id,
                         return_state=return_state, logits_mode=logits_mode,
                         return_expert_counts=return_expert_counts,
-                        gather_logits=gather_logits)
+                        gather_logits=gather_logits, gather=gather)
 
 
 def _positions(b, s, cache_index, device):
@@ -383,9 +432,9 @@ def _positions(b, s, cache_index, device):
 def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
              cache_index=None, decode=False, task_id=0, return_state=None,
              logits_mode="all", return_expert_counts: bool = False,
-             gather_logits: bool = True):
+             gather_logits: bool = True, gather=None):
     embed = params.get("embed", {})
-    x = L.embed_inputs(embed, inputs, cfg)
+    x = L.embed_inputs(_gathered(embed, "embed.", gather, 0), inputs, cfg)
     b, s = x.shape[0], x.shape[1]
     if pos is None and cfg.rope in ("rope", "mrope"):
         pos = _positions(b, s, cache_index, x.device)
@@ -402,22 +451,26 @@ def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
     aux_total = torch.zeros((), device=x.device)
     counts_total = torch.zeros(counts_shape, dtype=torch.int32,
                                device=x.device)
-    blocks = []   # (kind, params, cache or None)
+    blocks = []   # (kind, params, cache or None, dotted prefix, lead dims)
     for p in range(n_scan):
         pparams = index(params["layers"], p)
         pstate = index(state["layers"], p) if state is not None else None
         blocks += [(cfg.block_pattern[i], pparams[f"b{i}"],
-                    pstate[f"b{i}"] if pstate is not None else None)
+                    pstate[f"b{i}"] if pstate is not None else None,
+                    f"layers.b{i}.", 1)
                    for i in range(cfg.period)]
     rest = params.get("rest", {})
     for i in range(len(rest)):
         st = state["rest"][str(i)] if state is not None else None
-        blocks.append((cfg.block_pattern[i % cfg.period], rest[str(i)], st))
-    for kind, bparams, bstate in blocks:
+        blocks.append((cfg.block_pattern[i % cfg.period], rest[str(i)], st,
+                       f"rest.{i}.", 0))
+    for kind, held, bstate, prefix, lead in blocks:
+        bparams = _gathered(held, prefix, gather, lead)
         x, aux, cnt = _apply_block(kind, bparams, x, cfg, pos=pos,
                                    state=bstate, cache_index=cache_index,
                                    decode=decode, task_id=task_id,
                                    counts_shape=counts_shape)
+        del bparams     # before the next layer's gather: one at a time
         aux_total = aux_total + aux
         counts_total = counts_total + cnt
     x = L.apply_norm(params["final_norm"], x, cfg)
@@ -425,8 +478,10 @@ def _forward(params, inputs, cfg: ArchConfig, *, pos=None, state=None,
         x = x[:, -1:]
     elif not isinstance(logits_mode, str):
         x = x[:, int(logits_mode):int(logits_mode) + 1]
-    logits = L.apply_lm_head(params.get("head", {}), embed, x, cfg,
-                             gather=gather_logits)
+    head = _gathered(params.get("head", {}), "head.", gather, 0)
+    if cfg.tie_embeddings:
+        embed = _gathered(embed, "embed.", gather, 0)
+    logits = L.apply_lm_head(head, embed, x, cfg, gather=gather_logits)
     out_state = (state if state is not None else {}) if want_state else None
     if return_expert_counts:
         return logits, out_state, aux_total, counts_total

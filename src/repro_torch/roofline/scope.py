@@ -23,13 +23,16 @@ import torch
 
 __all__ = ["SCOPE_MARKERS", "scope", "current", "activate", "deactivate"]
 
-#: the reference's markers, in its order; the innermost one on the stack
-#: wins, anything outside every marker counts as ``"other"``
+#: the reference's markers, in its order, then the port's own
+#: ``fsdp_gather`` (serving's per-layer gathers of the weights under FSDP
+#: rules, ``models/transformer.py``; the reference's are XLA's, without a
+#: name); the innermost one on the stack wins, anything outside every
+#: marker counts as ``"other"``
 SCOPE_MARKERS = (
     "attn_scores", "attn_pv", "attn_decode", "attn_qkv", "attn_out",
     "moe_gate", "moe_dispatch", "moe_ffn", "moe_combine", "moe_shared",
     "mlp", "lm_head", "loss", "adamw", "embed", "norm", "rope",
-    "rglru", "mlstm", "slstm",
+    "rglru", "mlstm", "slstm", "fsdp_gather",
 )
 _MARKERS = frozenset(SCOPE_MARKERS)
 

@@ -18,18 +18,26 @@ ignores it, as the reference's does.
 
 Mesh serving (``rules``, a ``dist.sharding.ShardingRules`` over a
 ``DeviceMesh``; one process a rank, every rank calling ``generate`` with
-the same prompts): each rank holds the weights its kernels compute with
-(:func:`local_params`): its block over ``model`` of every leaf the
-reference's table splits there — attention's heads, the MLP's and the
-shared experts' hidden columns, its block of the vocabulary in
-``embed/tokens`` and ``head/w``, an RG-LRU mixer's block of its width,
-an xLSTM mixer's heads, an ``ep_local`` MoE layer's experts — so the
-dense blocks and the recurrent mixers run tensor-parallel
-(``models/layers.py``, ``models/rglru.py``, ``models/xlstm.py``).
-Whole on every rank: an xLSTM mixer whose heads do not divide the axis,
-attention whose heads do not divide the axis, the expert stacks of the other MoE impls, and every
-leaf over the data axes (the reference applies FSDP there; ``ROADMAP.md``
-queue 3).  ``models.model.init_params(rules=)`` draws a rank's blocks
+the same prompts): each rank holds its weights where the rules place
+them (:func:`place_params`, the reference's namesake).  Every rank
+computes on its block over ``model`` of each leaf the reference's table
+splits there — attention's heads, the MLP's and the shared experts'
+hidden columns, its block of the vocabulary in ``embed/tokens`` and
+``head/w``, an RG-LRU mixer's block of its width, an xLSTM mixer's heads,
+an ``ep_local`` MoE layer's experts — so the dense blocks and the
+recurrent mixers run tensor-parallel (``models/layers.py``,
+``models/rglru.py``, ``models/xlstm.py``); on the rest whole: an xLSTM
+mixer whose heads do not divide the axis, attention whose heads do not
+divide the axis, k/v where the KV heads do not, the expert stacks of the
+other MoE impls.  Under ``fsdp=False`` a rank holds exactly those
+tensors (:func:`local_params`).  Under FSDP rules (``fsdp=True``, the
+default, or ``"moe_only"``) it holds every leaf at its block of the
+table's layout, over the data axes too (the reference's placement), and
+the forward gathers each layer's leaves just before the layer runs
+(:func:`fsdp_gathers`, ``models.transformer.forward(gather=)``: over the
+data axes, and over ``model`` for a leaf computed whole), so at rest a
+rank holds only its blocks; packed (QTensor) groups stay whole under
+either.  ``models.model.init_params(rules=)`` draws a rank's blocks
 without ever holding the whole model.
 The decode state and the prompts are batch-sharded over the data axes,
 a KV cache holds this rank's KV heads where the ``"cache"`` rule splits
@@ -72,16 +80,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import spmd
-from repro_torch.dist.sharding import local_slice, use_rules
+from repro_torch.dist.sharding import (TrainLayout, _axes, axis_sizes,
+                                      local_slice, shard_leaf, use_rules)
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.ops.policy import ComputePolicy
-from repro_torch.train.step import make_serve_step
+from repro_torch.train.step import layout_for, make_serve_step
 from repro_torch.tree import flatten
 
 __all__ = ["ServeConfig", "ServingEngine", "is_recurrent", "feedback_inputs",
            "state_batch_axes", "serve_overrides", "stub_feedback_table",
-           "local_params", "shard_state", "shard_batch"]
+           "local_params", "place_params", "fsdp_gathers", "shard_state",
+           "shard_batch"]
 
 _RECURRENT = ("mlstm", "slstm", "rglru_mlp")
 _STUB_SEED = 0xE0BED
@@ -160,35 +170,90 @@ def state_batch_axes(cfg: ArchConfig, max_len: int) -> list[int]:
     return axes
 
 
-def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
-    """The tensors each rank's kernels compute with: this rank's block
-    over ``model`` of every leaf ``transformer.model_blocks`` names (a
-    tensor of its own, so the whole one can be freed), the rest as given.
-    A leaf already at its block's shape (``model.init_params(rules=)``)
-    is kept as it is.  No-op without rules or where ``model`` has one
-    rank."""
-    blocks = T.model_blocks(cfg, rules)
-    if not blocks:
+def _packed_groups(params: dict) -> set:
+    """The groups holding a packed leaf (QTensor: the table replicates
+    it), which stay whole, their biases with them."""
+    return {k.rsplit(".", 1)[0] for k, v in params.items()
+            if not isinstance(v, torch.Tensor)}
+
+
+def _blocks_of(params: dict, cfg: ArchConfig, rules, specs: dict) -> dict:
+    """``params`` with each leaf ``specs`` names (its spec on the whole
+    shape) cut to this rank's block, a tensor of its own (so the whole
+    one can be freed), the rest as given.  A leaf already at its block
+    (``model.init_params(rules=)``) is kept as it is; packed groups stay
+    whole; a leaf at any other shape raises."""
+    if not specs:
         return params
     shapes = M.param_specs(cfg)
-    # a group holding a packed leaf (QTensor: the table replicates it)
-    # stays whole, its biases with it
-    packed = {k.rsplit(".", 1)[0] for k, v in params.items()
-              if not isinstance(v, torch.Tensor)}
+    packed = _packed_groups(params)
     out = dict(params)
-    for k, spec in blocks.items():
+    for k, spec in specs.items():
         v = params.get(k)
         if not isinstance(v, torch.Tensor) or k.rsplit(".", 1)[0] in packed:
             continue
         whole = tuple(shapes[k].shape)
         block = tuple(s.stop - s.start
                       for s in local_slice(whole, spec, rules.mesh))
-        if tuple(v.shape) == whole:
-            out[k] = T.leaf_block(v, spec, rules.mesh)
-        elif tuple(v.shape) != block:
+        if tuple(v.shape) == block:
+            continue
+        if tuple(v.shape) != whole:
             raise ValueError(f"{k}: {tuple(v.shape)} is neither the whole "
                              f"leaf {whole} nor this rank's block {block}")
+        out[k] = shard_leaf(v, spec, rules.mesh)
     return out
+
+
+def local_params(params: dict, cfg: ArchConfig, rules) -> dict:
+    """The tensors each rank's kernels compute with: this rank's block
+    over ``model`` of every leaf ``transformer.model_blocks`` names, the
+    rest as given (:func:`_blocks_of`).  No-op without rules or where
+    ``model`` has one rank."""
+    return _blocks_of(params, cfg, rules, T.model_blocks(cfg, rules))
+
+
+def _fsdp(rules) -> bool:
+    """Whether ``rules`` place serving's weights by FSDP (over a mesh,
+    ``fsdp=True`` or ``"moe_only"``)."""
+    return rules is not None and rules.mesh is not None \
+        and rules.fsdp is not False
+
+
+def place_params(params: dict, cfg: ArchConfig, rules) -> dict:
+    """Serving's weights where ``rules`` place them, the reference's
+    namesake.  No rules, or ``fsdp=False``: :func:`local_params`' tensors.
+    Under FSDP rules: every leaf at this rank's block of the table's spec
+    (``train.step.layout_for``, training's layout), over the data axes
+    and ``model`` — a leaf a rank computes whole over ``model`` too, as
+    the reference places it; the forward gathers them
+    (:func:`fsdp_gathers`).  As :func:`_blocks_of`: blocks kept, packed
+    groups whole, any other shape raises."""
+    if not _fsdp(rules):
+        return local_params(params, cfg, rules)
+    return _blocks_of(params, cfg, rules, layout_for(cfg, rules).params)
+
+
+def fsdp_gathers(params: dict, cfg: ArchConfig, rules):
+    """The layout the forward gathers :func:`place_params`' leaves by
+    (``models.transformer.forward(gather=)``): each leaf held as a block
+    it computes whole over some axis of more than one rank, with its
+    spec and the axes it stays local over (``keep``: ``model`` for a
+    leaf ``transformer.model_blocks`` names, and every axis of one
+    rank).  None without FSDP rules or where nothing is gathered (a mesh
+    of one): the forward then runs on the leaves as held."""
+    if not _fsdp(rules):
+        return None
+    layout = layout_for(cfg, rules)
+    ones = tuple(a for a, n in axis_sizes(rules.mesh).items() if n == 1)
+    packed = _packed_groups(params)
+    specs, keep = {}, {}
+    for k, v in params.items():
+        if not isinstance(v, torch.Tensor) or k.rsplit(".", 1)[0] in packed:
+            continue
+        kept = layout.keep.get(k, ()) + ones
+        if any(a not in kept for e in layout.params[k] for a in _axes(e)):
+            specs[k], keep[k] = layout.params[k], kept
+    return TrainLayout(rules, specs, keep) if specs else None
 
 
 def shard_state(state, cfg: ArchConfig, rules, axes: list[int],
@@ -286,9 +351,10 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg, self.scfg = serve_overrides(cfg, scfg), scfg
         self.rules = rules
-        self.params = local_params(
+        self.params = place_params(
             {k: v.to(self.device) for k, v in params.items()}, self.cfg,
             rules)
+        self.gathers = fsdp_gathers(self.params, self.cfg, rules)
         self._steps: dict[int, tuple] = {}
         # a stub frontend's feedback table, on the device once
         self.fb_table = stub_feedback_table(self.cfg, self.device,
@@ -303,12 +369,14 @@ class ServingEngine:
         rank's KV heads, RG-LRU channels and xLSTM heads under tensor
         parallelism."""
         return M.init_state(self.cfg, batch, self.scfg.max_len,
-                            device=self.device, params=self.params)
+                            device=self.device, params=self.params,
+                            gather=self.gathers)
 
     def steps(self, task_id: int = 0):
         """(prefill, decode) of ``train.step.make_serve_step``, per task."""
         if task_id not in self._steps:
-            self._steps[task_id] = make_serve_step(self.cfg, task_id=task_id)
+            self._steps[task_id] = make_serve_step(
+                self.cfg, task_id=task_id, gather=self.gathers)
         return self._steps[task_id]
 
     def _sample(self, logits, generator):
@@ -351,11 +419,12 @@ class ServingEngine:
         for i in range(n_mid):
             M.forward(self.params, prompts[:, i * chunk:(i + 1) * chunk],
                       cfg, state=state, cache_index=i * chunk,
-                      task_id=task_id, return_state=True, logits_mode="last")
+                      task_id=task_id, return_state=True, logits_mode="last",
+                      gather=self.gathers)
         logits, state, _ = M.forward(self.params, final, cfg, state=state,
                                      cache_index=n_mid * chunk,
                                      task_id=task_id, return_state=True,
-                                     logits_mode=last)
+                                     logits_mode=last, gather=self.gathers)
         return logits[:, 0], state
 
     def generate(self, prompts, max_new_tokens: int, task_id: int = 0,

@@ -60,7 +60,9 @@ prefix cache serves token prompts only, as in the reference.
 
 Mesh serving (``LMBackend(rules=...)``, one process a rank, each running
 the same scheduler on the same requests): the weights are held as the
-static engine holds them (``serve.engine.local_params``), and a bucket's
+static engine holds them (``serve.engine.place_params``; under FSDP rules
+every forward — admissions, chunks, decode steps — gathers each layer's
+leaves just before it runs, ``serve.engine.fsdp_gathers``), and a bucket's
 decode lanes are batch-sharded over the data axes — each rank holds and
 decodes its own lanes, and one all-gather a step brings every lane's token
 back (the MoE layers count the whole bucket's dispatches, ``core/moe.py``),
@@ -92,8 +94,9 @@ from repro_torch.dist.sharding import use_rules
 from repro_torch.models import model as M
 from repro_torch.serve.engine import (ServeConfig, ServingEngine,
                                       feedback_inputs,
-                                      is_recurrent, local_params,
-                                      serve_overrides, state_batch_axes,
+                                      fsdp_gathers, is_recurrent,
+                                      place_params, serve_overrides,
+                                      state_batch_axes,
                                       stub_feedback_table)
 from repro_torch.serve.expert_cache import ExpertUsage
 from repro_torch.serve.slo.preempt import ParkedState, SlotParker
@@ -223,8 +226,9 @@ class LMBackend:
         self.scfg = scfg
         self.rules = rules
         self.device = resolve_device(device)
-        self.params = local_params(
+        self.params = place_params(
             {k: v.to(self.device) for k, v in params.items()}, cfg, rules)
+        self.gathers = fsdp_gathers(self.params, cfg, rules)
         self.recurrent = is_recurrent(cfg)
         # padded prefill relies on causal / cache_len masking — attention
         # archs only
@@ -269,7 +273,7 @@ class LMBackend:
                 logits, small, _ = M.forward(
                     params, inputs, cfg, state=small, cache_index=0,
                     task_id=task_id, return_state=True,
-                    logits_mode=last_idx)
+                    logits_mode=last_idx, gather=self.gathers)
             tok = torch.argmax(logits[0, 0], dim=-1)
             return tok, self._slots_io.splice(big, small, slot)
 
@@ -291,7 +295,7 @@ class LMBackend:
             with use_rules(self.rules):
                 M.forward(params, toks, cfg, state=small, cache_index=idx,
                           task_id=task_id, return_state=True,
-                          logits_mode="last")
+                          logits_mode="last", gather=self.gathers)
             return small
 
         def finish(params, toks, small, idx, last_rel, big, slot):
@@ -299,7 +303,7 @@ class LMBackend:
                 logits, small, _ = M.forward(
                     params, toks, cfg, state=small, cache_index=idx,
                     task_id=task_id, return_state=True,
-                    logits_mode=last_rel)
+                    logits_mode=last_rel, gather=self.gathers)
             tok = torch.argmax(logits[0, 0], dim=-1)
             return tok, small, self._slots_io.splice(big, small, slot)
 
@@ -322,7 +326,7 @@ class LMBackend:
                     cfg, toks[rows], self.fb_table), cfg, state=state,
                     cache_index=cache_pos[rows], decode=True,
                     task_id=task_ids[rows], return_state=True,
-                    return_expert_counts=want_counts)
+                    return_expert_counts=want_counts, gather=self.gathers)
             logits, state = out[0], out[1]
             counts = out[3] if want_counts else None
             tok = torch.argmax(logits[:, -1], dim=-1)

@@ -235,25 +235,29 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, rules=None,
     return step
 
 
-def make_serve_step(cfg: ArchConfig, task_id: int = 0):
+def make_serve_step(cfg: ArchConfig, task_id: int = 0, gather=None):
     """Returns (prefill, decode):
 
     prefill(params, tokens, state)        -> (logits_last, state)
     decode(params, token, state, index)   -> (logits, state)
 
     logits are float32 (B, vocab); ``index`` is an int or a (B,) tensor.
+    ``gather``: the FSDP layout of the leaves ``params`` holds as blocks
+    (``serve.engine.fsdp_gathers``), each layer's gathered just before it
+    runs (``models.transformer.forward``).
     """
 
     def prefill(params, inputs, state):
         logits, state, _ = M.forward(
             params, inputs, cfg, state=state, cache_index=0,
-            task_id=task_id, return_state=True, logits_mode="last")
+            task_id=task_id, return_state=True, logits_mode="last",
+            gather=gather)
         return logits[:, -1], state
 
     def decode(params, inputs, state, cache_index):
         logits, state, _ = M.forward(
             params, inputs, cfg, state=state, cache_index=cache_index,
-            decode=True, task_id=task_id, return_state=True)
+            decode=True, task_id=task_id, return_state=True, gather=gather)
         return logits[:, -1], state
 
     return prefill, decode

@@ -672,3 +672,177 @@ def run(rank, world, shape, store, checks):
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------ FSDP serving
+
+#: the families ``tests/test_torch_fsdp_serve.py``'s worlds serve: dense
+#: with a tied head, an MoE LM with a shared expert (its expert stacks
+#: split over data under ``True`` and ``"moe_only"``), the RG-LRU hybrid
+#: and the xLSTM stack
+FSDP_ARCHS = ("llama3_2_1b", "kimi_k2_1t_a32b", "recurrentgemma_9b",
+              "xlstm_350m")
+FSDP_NEW = 4            # greedy tokens a generate: 1 + FSDP_NEW forwards
+
+
+def fsdp_gather_counts(cfg, rules, forwards: int) -> dict:
+    """{axis: count} of the ``"fsdp gather"`` all-gathers ``forwards``
+    forwards make, counted from the config and the rule table: a gather
+    a forward over each axis of more than one rank that splits a leaf
+    the rank computes whole over it (the data axes always; ``model``
+    but for the leaves ``transformer.model_blocks`` names), once for
+    each of its layers, and the tied table twice (the lookup, then the
+    head)."""
+    from repro_torch.dist.sharding import (_axes, axis_sizes,
+                                          param_sharding_rules)
+
+    sizes = axis_sizes(rules.mesh)
+    blocks = T.model_blocks(cfg, rules)
+    n_periods = cfg.num_layers // cfg.period
+    out = {}
+    for name, sh in param_sharding_rules(M.param_specs(cfg),
+                                         rules).items():
+        times = n_periods if name.startswith("layers.") else 1
+        if name == "embed.tokens" and cfg.tie_embeddings:
+            times = 2
+        for entry in sh.spec:
+            for a in _axes(entry):
+                if sizes[a] > 1 and not (a == "model" and name in blocks):
+                    out[a] = out.get(a, 0) + times * forwards
+    return out
+
+
+def table_bytes(cfg, rules) -> int:
+    """A rank's bytes of the whole model at the table's blocks: each
+    leaf's over the product of its spec's axes."""
+    from repro_torch.dist.sharding import (_axes, axis_sizes,
+                                          param_sharding_rules)
+
+    sizes = axis_sizes(rules.mesh)
+    shapes = M.param_specs(cfg)
+    total = 0
+    for name, sh in param_sharding_rules(shapes, rules).items():
+        n = 1
+        for entry in sh.spec:
+            for a in _axes(entry):
+                n *= sizes[a]
+        t = shapes[name]
+        total += t.numel() * t.element_size() // n
+    return total
+
+
+def _collectives() -> dict:
+    return {(c["kind"], c["axis"], c["where"]): (c["count"], c["bytes"])
+            for c in ops.collective_report()}
+
+
+def _nbytes(params) -> int:
+    return sum(v.numel() * v.element_size() for v in params.values())
+
+
+def _prefill_logits(engine, rules, x):
+    """This rank's rows of the prefill's last logits."""
+    prefill, _ = engine.steps(0)
+    rows = spmd.batch_rows(x.shape[0], rules)
+    with torch.inference_mode(), use_rules(rules), \
+            spmd.batch_split(rules, x.shape[0]):
+        state = engine.new_state(rows.stop - rows.start)
+        return prefill(engine.params, x[rows], state)[0]
+
+
+def _scheduled(cfg, params, rules):
+    """Every request's greedy tokens of a mixed-task scheduler: 6 prompts
+    of 6..16 tokens in 4 slots (the lanes split over data), 3..5 new
+    tokens each."""
+    from repro_torch.serve.scheduler import LMBackend, Request, Scheduler
+
+    rng = np.random.default_rng(6)
+    backend = LMBackend(cfg, params, ServeConfig(max_len=48), rules=rules,
+                        device="cpu")
+    sched = Scheduler(backend, total_slots=4, quantum=3, num_tasks=1)
+    done = sched.run([Request(rid=i, task_id=0, prompt=rng.integers(
+        0, cfg.vocab_size, 6 + 2 * i), max_new_tokens=3 + i % 3)
+        for i in range(6)])
+    return {r.rid: list(r.tokens) for r in done}
+
+
+def check_fsdp(mesh):
+    """``tests/test_torch_fsdp_serve.py::test_fsdp_serving_world`` on this
+    rank, for each of ``FSDP_ARCHS`` at its smoke config (bf16): the
+    ``ServingEngine`` under ``for_mesh(mesh)`` (and, for the MoE LM,
+    ``fsdp="moe_only"``) against the same mesh under ``fsdp=False`` —
+    the prefill's logits and ``FSDP_NEW`` greedy tokens bit for bit, the
+    ``"fsdp gather"`` all-gathers by axis as counted from the config
+    (:func:`fsdp_gather_counts`) and every other collective as under
+    ``fsdp=False``; the rank's held bytes exactly the table's blocks
+    (:func:`table_bytes`) and at most ``fsdp=False``'s; a scheduler's
+    tokens bit for bit too; ``init_params(rules=)`` bit-equal to
+    ``place_params`` of the whole draw, and ``place_params`` of
+    ``fsdp=False`` rules ``local_params``' tensors."""
+    from repro_torch.serve.engine import place_params
+
+    off = ShardingRules.for_mesh(mesh, fsdp=False)
+    scfg = ServeConfig(max_len=32)
+    for arch in FSDP_ARCHS:
+        cfg, params = _model(arch, "bfloat16")
+        x = _inputs(cfg)
+        base = ServingEngine(cfg, params, scfg, rules=off, device="cpu")
+        want_logits = _prefill_logits(base, off, x)
+        ops.reset_dispatch_report()
+        want = base.generate(x, FSDP_NEW)
+        want_coll = _collectives()
+        want_sched = _scheduled(cfg, params, off)
+        again = place_params(params, cfg, off)
+        local = local_params(params, cfg, off)
+        assert all(torch.equal(again[k], local[k]) for k in params), arch
+        for fsdp in (True, "moe_only") if cfg.moe else (True,):
+            rules = ShardingRules.for_mesh(mesh, fsdp=fsdp)
+            eng = ServingEngine(cfg, params, scfg, rules=rules,
+                                device="cpu")
+            held = _nbytes(eng.params)
+            assert held == table_bytes(cfg, rules), (arch, fsdp, held)
+            assert held <= _nbytes(base.params), (arch, fsdp)
+            got_logits = _prefill_logits(eng, rules, x)
+            assert torch.equal(got_logits, want_logits), (arch, fsdp)
+            ops.reset_dispatch_report()
+            got = eng.generate(x, FSDP_NEW)
+            np.testing.assert_array_equal(got, want, err_msg=f"{arch}")
+            coll = _collectives()
+            gathers = {k[1]: v[0] for k, v in coll.items()
+                       if k[2] == "fsdp gather"}
+            assert all(k[0] == "all_gather" for k in coll
+                       if k[2] == "fsdp gather"), coll
+            assert gathers == fsdp_gather_counts(cfg, rules, 1 + FSDP_NEW), \
+                (arch, fsdp, gathers)
+            assert {k: v for k, v in coll.items()
+                    if k[2] != "fsdp gather"} == want_coll, (arch, fsdp)
+            assert _scheduled(cfg, params, rules) == want_sched, \
+                (arch, fsdp)
+            drawn = M.init_params(5, cfg, device="cpu", rules=rules)
+            whole = place_params(M.init_params(5, cfg, device="cpu"), cfg,
+                                 rules)
+            assert drawn.keys() == whole.keys(), arch
+            assert all(torch.equal(drawn[k], whole[k]) for k in drawn), \
+                (arch, fsdp)
+            del eng
+
+
+def check_fsdp_reference(mesh, workdir):
+    """The second check of ``tests/test_torch_fsdp_serve.py::
+    test_fsdp_serving_world`` on this rank: the reference's float32
+    greedy tokens with no mesh
+    (``fsdp_ref_<arch>.npz``, the parent's, with the reference's weights
+    carried across by the bridge and its prompts) against the port's
+    ``ServingEngine`` under ``for_mesh(mesh)`` (FSDP) and exact
+    activations (``eager``; the reference's ``xla``)."""
+    scfg = ServeConfig(max_len=32, policy=ops.policy_named("eager"))
+    rules = ShardingRules.for_mesh(mesh)
+    for arch in FSDP_ARCHS:
+        ref = np.load(os.path.join(workdir, f"fsdp_ref_{arch}.npz"))
+        cfg = replace(get(arch, smoke=True), dtype="float32")
+        params = {k.split(":", 1)[1]: torch.from_numpy(ref[k])
+                  for k in ref.files if k.startswith("param:")}
+        eng = ServingEngine(cfg, params, scfg, rules=rules, device="cpu")
+        assert eng.gathers is not None, arch
+        got = eng.generate(ref["prompts"], ref["tokens"].shape[1])
+        np.testing.assert_array_equal(got, ref["tokens"], err_msg=arch)

@@ -37,7 +37,11 @@
   counted besides).  xLSTM-350M's 4 heads do not divide 16, so its mesh
   cells keep every mixer leaf whole: the ``mlstm``/``slstm`` scopes'
   FLOPs are the one-card count over the batch shards alone, with no
-  collective of theirs.
+  collective of theirs.  A serving cell holds its weights where
+  ``serve.engine.place_params`` puts them: under the default FSDP rules
+  DeepSeek-67B's 16×16 decode cell gathers the table's data-split leaves
+  once each over data, under the ``fsdp_gather`` scope (``--no-fsdp``:
+  nothing over data).
 """
 
 import functools
@@ -399,7 +403,7 @@ def test_mesh_serving_cells_split_the_rglru_mixers(shape):
     rows, and the rank's argument bytes are its blocks of the weights, its
     state at 256 channels a mixer and its inputs, exactly."""
     from repro_torch.dist.sharding import ShardingRules
-    from repro_torch.serve.engine import local_params
+    from repro_torch.serve.engine import fsdp_gathers, place_params
     from repro_torch.tree import flatten
 
     rec = _serve_cell("recurrentgemma_9b", shape, "16x16")
@@ -419,13 +423,55 @@ def test_mesh_serving_cells_split_the_rglru_mixers(shape):
     assert mixers == 26
     assert scope["collective_bytes"] == mixers * rows * cfg.d_model * 4
     rules = ShardingRules.for_mesh(dryrun.mesh_named("16x16"))
-    held = local_params(TM.param_specs(cfg), cfg, rules)
+    held = place_params(TM.param_specs(cfg), cfg, rules)
     state = flatten(TM.init_state(cfg, b, s.seq_len, device="meta",
-                                  params=held))
+                                  params=held, gather=fsdp_gathers(
+                                      held, cfg, rules)))
     inputs = rows * 4 + (b * 4 if s.kind == "decode" else 0)
     assert rec["argument_bytes"] == sum(
         t.numel() * t.element_size()
         for t in list(held.values()) + list(state.values())) + inputs
+
+
+def test_mesh_decode_cell_gathers_the_fsdp_leaves_once():
+    """DeepSeek-67B's ``decode_32k`` cell at 16×16 under the default FSDP
+    rules: its all-gathers over data move exactly the table's
+    data-split leaves once each (a decode cell is one forward), each at
+    its block over model — the shape the rank computes on, whole over
+    model where it computes a leaf whole (k/v: 8 KV heads over 16) — all
+    under the ``fsdp_gather`` scope with the model gathers of those whole
+    leaves; ``--no-fsdp`` gathers nothing over data and holds more."""
+    from repro_torch.dist.sharding import (ShardingRules, _axes,
+                                           param_sharding_rules)
+    from repro_torch.models import transformer as T
+
+    cfg = tconfigs.get("deepseek_67b")
+    rec = _serve_cell("deepseek_67b", "decode_32k", "16x16")
+    rules = ShardingRules.for_mesh(dryrun.mesh_named("16x16"))
+    blocks = T.model_blocks(cfg, rules)
+    shapes = TM.param_specs(cfg)
+    data = model = 0
+    for name, sh in param_sharding_rules(shapes, rules).items():
+        axes = [a for e in sh.spec for a in _axes(e)]
+        if "data" not in axes:
+            continue
+        nbytes = shapes[name].numel() * shapes[name].element_size()
+        if "model" in axes and name in blocks:
+            data += nbytes // 16
+        else:
+            data += nbytes // 16 if "model" in axes else nbytes
+            model += nbytes * ("model" in axes)
+    by_axis = rec["collectives"]["all_gather"]["by_axis"]
+    assert by_axis["data"] == data
+    rows = SHAPES["decode_32k"].global_batch // rec["batch_shards"]
+    logits = rows * cfg.vocab_size * 4          # the rank's float32 rows
+    assert by_axis["model"] == model + logits
+    assert rec["by_scope"]["fsdp_gather"]["collective_bytes"] == data + model
+    off = dryrun.run_cell("deepseek_67b", "decode_32k", verbose=False,
+                          mesh="16x16", variant={"no_fsdp": True})
+    assert "data" not in off["collectives"]["all_gather"]["by_axis"]
+    assert "fsdp_gather" not in off["by_scope"]
+    assert off["argument_bytes"] > rec["argument_bytes"]
 
 
 def test_mesh_train_cell_splits_the_rglru_mixers():

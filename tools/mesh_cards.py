@@ -8,6 +8,8 @@ card, and holds the two against each other.
     torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py --mesh 2x2
     torchrun ... tools/mesh_cards.py --mesh 1x4 --only recurrentgemma
     torchrun ... tools/mesh_cards.py --mesh 1x4 --only xlstm
+    torchrun --standalone --nproc-per-node 4 tools/mesh_cards.py \
+        --mesh 2x2 --fsdp
 
 (build once before ``torchrun``: the ranks then load the same library
 instead of compiling it side by side).  ``--device cpu`` runs the same
@@ -51,6 +53,21 @@ at full width, bf16, seeded:
   same tokens on every rank, finite logits, prefill ms, ms a decode step,
   tokens/s, peak GiB a rank, launches by kernel, the collectives' count,
   bytes and device ms (``train/profile.py:profile_steps``).
+
+``--fsdp`` runs instead FSDP of serving's weights
+(``serve.engine.place_params``: every leaf at its block over data and
+model, each layer's leaves gathered just before the layer runs) on
+DeepSeek-67B at all 95 layers, each rank drawing its blocks on its card,
+8 × 128 prompts and 32 greedy tokens: over ``--mesh`` under the default
+``fsdp=True`` against the same mesh under ``fsdp=False``, tokens bit for
+bit (at 2x2 ``fsdp=False``'s 62.8 GiB a rank fit an 80 GB card); then
+over (world, 1) under
+``fsdp=True`` — the same tokens on every rank — held against the
+tensor-parallel (1, world) run under ``fsdp=False`` by
+``compare.serving_agrees`` on the prefill's and ``FORCED`` teacher-forced
+steps' logits.  Each run reports its weights GiB and peak GiB a rank
+against the table's blocks, prefill ms, ms a decode step, tokens/s, and
+the collectives' count, bytes and device ms.
 
 Rank 0 prints the card's name and power limit, each check's result, the
 launches by kernel of each mesh run, the collectives, and the host walls
@@ -154,6 +171,9 @@ def main() -> None:
     ap.add_argument("--only", default=None, metavar="NAME[,NAME]",
                     help=f"run only these checks, of {', '.join(CHECKS)} "
                          f"(default: all)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="run DeepSeek-67B with serving's weights FSDP "
+                         "instead of the checks")
     args = ap.parse_args()
     smoke = args.device == "cpu"
     only = set(args.only.split(",")) if args.only else set(CHECKS)
@@ -225,10 +245,15 @@ def main() -> None:
         if not ok:
             raise AssertionError(f"rank {rank}: {label} logits {cos}")
 
+    pol = policy.with_impls(attention_decode="cuda_fused")
+    if args.fsdp:
+        fsdp_deepseek(rules, dev, pol, smoke, say)
+        dist.barrier()
+        dist.destroy_process_group()
+        say("MESH_CARDS_OK")
+        return
     if on("m3vit"):
         m3vit(rules, dev, policy, smoke, say, tp)
-
-    pol = policy.with_impls(attention_decode="cuda_fused")
 
     def engines(label, lcfg, scfg, draw, yardstick=None):
         """Serve 8 x 128 prompts, 32 greedy tokens, with and without the
@@ -473,6 +498,133 @@ def deepseek(rules, dev, pol, smoke, say, agree) -> None:
           flush=True)
     if not (same and finite):
         raise AssertionError(f"rank {rank}: DeepSeek-67B at full depth")
+
+
+
+def fsdp_deepseek(rules, dev, pol, smoke, say) -> None:
+    """``--fsdp``: DeepSeek-67B with serving's weights FSDP (see the
+    module's docstring)."""
+    from repro_torch import ops
+    from repro_torch.configs import get
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import (ShardingRules, _axes,
+                                           param_sharding_rules)
+    from repro_torch.kernels.compare import cosine, serving_agrees
+    from repro_torch.models import model as LM
+    from repro_torch.serve.engine import ServeConfig, ServingEngine
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    full = get("deepseek_67b", smoke=smoke)
+    scfg = ServeConfig(max_len=512, policy=pol)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, full.vocab_size, size=(8, 128))).to(dev)
+    gib = 2**30
+
+    def table_bytes(cfg, r) -> int:
+        """A rank's bytes of the model at the table's blocks."""
+        shapes, total = LM.param_specs(cfg), 0
+        for name, sh in param_sharding_rules(shapes, r).items():
+            split = 1
+            for a in (a for e in sh.spec for a in _axes(e)):
+                split *= spmd.axis_size(r.mesh, a)
+            total += shapes[name].numel() * shapes[name].element_size() \
+                // split
+        return total
+
+    def serve(label, cfg, r, forced_on=None):
+        """Draw this rank's blocks under ``r``, serve, report; returns the
+        tokens and, with ``forced_on`` (tokens, or ``"own"``: this run's),
+        the logits teacher-forced on them."""
+        if not smoke:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mine = LM.init_params(0, cfg, device=dev, draw_on_device=not smoke,
+                              rules=r)
+        _sync()
+        draw_s = time.perf_counter() - t0
+        held = sum(v.numel() * v.element_size() for v in mine.values())
+        engine = ServingEngine(cfg, mine, scfg, rules=r, device=dev)
+        engine.generate(prompts, 2)                    # warm-up
+        got, counts, coll = _counted(lambda: engine.generate(prompts, 32))
+        moved = {f"{c['kind']}:{c['axis']}:{c['where']}":
+                 [c["count"], c["bytes"]] for c in ops.collective_report()}
+        toks = torch.as_tensor(got, device=dev)
+        every = [torch.empty_like(toks) for _ in range(world)]
+        dist.all_gather(every, toks)
+        same = all(torch.equal(t, toks) for t in every)
+        prefill, _ = engine.steps(0)
+        state = engine.new_state(8)
+
+        def run_prefill():
+            from repro_torch.dist.sharding import use_rules
+
+            with torch.inference_mode(), use_rules(r):
+                prefill(engine.params, prompts, state)
+
+        prefill_ms = _wall_ms(run_prefill)
+        gen_ms = _wall_ms(lambda: engine.generate(prompts, 32))
+        peak = torch.cuda.max_memory_allocated() / gib if not smoke else 0.0
+        prof = {}
+        if not smoke:
+            from repro_torch.train.profile import profile_steps
+
+            prof = profile_steps(lambda: engine.generate(prompts, 32), 1,
+                                 gen_ms / 1e3)
+        table = table_bytes(cfg, r) if r.fsdp else held
+        say(f"{label}: weights {held / gib:.3f} GiB a rank (the table's "
+            f"blocks {table / gib:.3f}), drawn on its card in "
+            f"{draw_s:.1f} s; the same tokens on every rank {same}")
+        say(f"  prefill {prefill_ms:.3f} ms, "
+            f"{(gen_ms - prefill_ms) / 32:.3f} ms a decode step, "
+            f"{8 * 32 / (gen_ms / 1e3):.1f} tokens/s (host walls, median "
+            f"of 3; generate {gen_ms:.1f} ms); peak {peak:.2f} GiB a rank "
+            f"(rank {rank})")
+        say(f"  launches {json.dumps(counts)}; collectives {json.dumps(coll)}")
+        say(f"  collectives (count, bytes a rank) {json.dumps(moved)}")
+        if prof:
+            say(f"  profiled generate: busy {prof['busy_ms']:.1f} ms, "
+                f"collectives' device time {prof['collective_ms']:.1f} ms, "
+                f"idle share {prof['idle_share']:.3f}")
+        if not same or (r.fsdp and abs(held / table - 1) > 0.01):
+            raise AssertionError(f"rank {rank}: {label}: same tokens "
+                                 f"{same}, held {held} of {table}")
+        logits = None if forced_on is None else _forced(
+            engine, r, prompts,
+            got if isinstance(forced_on, str) else forced_on,
+            FORCED)
+        del engine, mine
+        return got, logits
+
+    def mesh_rules_of(shape, fsdp):
+        return ShardingRules.for_mesh(spmd.init_mesh(
+            shape, device_type=dev.type), fsdp=fsdp)
+
+    shape = tuple(spmd.axis_size(rules.mesh, a) for a in ("data", "model"))
+    name = "x".join(map(str, shape))
+    depth = f"all {full.num_layers} layers"
+    want, _ = serve(f"DeepSeek-67B ({depth}) over {name}, fsdp=False",
+                    full, mesh_rules_of(shape, False))
+    got, _ = serve(f"DeepSeek-67B ({depth}) over {name}, fsdp=True", full,
+                   mesh_rules_of(shape, True))
+    same = np.array_equal(got, want)
+    say(f"  {name} fsdp=True tokens bit-equal to fsdp=False: {same}")
+    if not same:
+        raise AssertionError(f"rank {rank}: FSDP tokens differ over {name}")
+    data, fsdp_logits = serve(
+        f"DeepSeek-67B (all {full.num_layers} layers) over {world}x1, "
+        f"fsdp=True", full, mesh_rules_of((world, 1), True), forced_on="own")
+    _, tp_logits = serve(f"DeepSeek-67B (all {full.num_layers} layers) over "
+                         f"1x{world}, fsdp=False (tensor-parallel)", full,
+                         mesh_rules_of((1, world), False), forced_on=data)
+    cos = [cosine(a, b) for a, b in zip(fsdp_logits, tp_logits)]
+    ok = serving_agrees(cos)
+    say(f"  {world}x1 FSDP against 1x{world} tensor-parallel: logits of the "
+        f"prefill and {FORCED} teacher-forced steps at cosine "
+        f"{min(cos):.6f}..{max(cos):.6f} (serving_agrees: {ok})")
+    if not ok:
+        raise AssertionError(f"rank {rank}: {world}x1 FSDP against "
+                             f"1x{world}: {cos}")
 
 
 if __name__ == "__main__":
